@@ -16,8 +16,18 @@ then:
    sample and of the long sequence against an independent numpy oracle;
 3. holds kernels 1-3 against their plain PyTorch versions on the main
    path's own inputs, exactly, and times both;
-4. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs and holds it
-   against its plain version and, on a sample, the numpy oracle.
+4. drives the same query path on a primary graph (the references' forward
+   k-mers, queried through CanonicalDBG: canon 2) in the labels and counts
+   modes and on a canonical graph (both strands, about 16 M k-mers: canon
+   1) in the labels mode, with a batch of reads from both strands and a
+   long sequence of more than 2^24 windows that hits only through the
+   reverse-complement probe; payloads against the oracle, and the canon
+   modes of kernels 1 and 2 against their plain versions;
+5. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs and holds it
+   against its plain version and, on a sample, the numpy oracle;
+6. runs the gather micro-benchmark's sweep
+   (``metagraph_tpu_torch.scripts.exp_gather``) and holds its kernels 5 and
+   6 against their plain version on the full output.
 
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
@@ -34,6 +44,7 @@ of the control flow.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -49,10 +60,12 @@ CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
 
 FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             read_len=200, long_windows=1 << 24, sample=2000,
-            sw=(4096, 150, 300), sw_oracle=12, plain_chunks=(1024, 256))
+            sw=(4096, 150, 300), sw_oracle=12, plain_chunks=(1024, 256),
+            gather=(22, (16, 17), 1024))
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
-            sw=(40, 37, 60), sw_oracle=4, plain_chunks=(16, 8))
+            sw=(40, 37, 60), sw_oracle=4, plain_chunks=(16, 8),
+            gather=(12, (6, 7), 64))
 
 
 def log(msg: str):
@@ -110,6 +123,39 @@ def window_keys(codes: np.ndarray, k: int):
     return key, (bad[k:] - bad[:-k]) == 0
 
 
+def rc_window_keys(codes: np.ndarray, k: int) -> np.ndarray:
+    """Window i's reverse-complement key, from the reversed complemented
+    codes (N stays N)."""
+    comp = np.where(codes < 4, 3 - codes.astype(np.int16), 4).astype(np.uint8)
+    return window_keys(comp[::-1], k)[0][::-1]
+
+
+def boss_rot(keys: np.ndarray, k: int) -> np.ndarray:
+    """An integer whose order is BOSS priority order (chars k-2 .. 0, then
+    k-1): the 2-bit rotate left of the 2k-bit key."""
+    mask = np.uint64((1 << (2 * k)) - 1)
+    return ((keys << np.uint64(2)) & mask) | (keys >> np.uint64(2 * k - 2))
+
+
+def make_oracle(keys: np.ndarray, labs: np.ndarray, L: int):
+    """(key, label) occurrences -> sorted distinct keys with a CSR of their
+    (label, multiplicity) pairs."""
+    pairs, mult = np.unique(np.stack([keys, labs.astype(np.uint64)], 1),
+                            axis=0, return_counts=True)
+    ukeys, row_of_pair = np.unique(pairs[:, 0], return_inverse=True)
+    return dict(keys=ukeys, row_of_pair=row_of_pair,
+                pair_label=pairs[:, 1].astype(np.int64), mult=mult,
+                csr_start=np.searchsorted(row_of_pair,
+                                          np.arange(len(ukeys) + 1)), L=L)
+
+
+def key_chars(keys: np.ndarray) -> np.ndarray:
+    chars = np.empty((len(keys), K), np.uint8)
+    for i in range(K):
+        chars[:, i] = ((keys >> np.uint64(2 * i)) & np.uint64(3)) + 1
+    return chars
+
+
 def make_index(cfg, rng):
     """Random references, one label each; each carries a repeat of part of
     itself, so some k-mers occur twice (annotation value 2)."""
@@ -127,17 +173,11 @@ def make_index(cfg, rng):
         kk, _ = window_keys(r, K)
         keys.append(kk)
         labs.append(np.full(len(kk), i, np.int64))
-    keys, labs = np.concatenate(keys), np.concatenate(labs)
-    pairs, mult = np.unique(np.stack([keys, labs.astype(np.uint64)], 1),
-                            axis=0, return_counts=True)
-    ukeys, row_of_pair = np.unique(pairs[:, 0], return_inverse=True)
-    pair_label = pairs[:, 1].astype(np.int64)
-    R, L = len(ukeys), len(refs)
+    L = len(refs)
+    oracle = make_oracle(np.concatenate(keys), np.concatenate(labs), L)
+    ukeys, row_of_pair = oracle["keys"], oracle["row_of_pair"]
+    pair_label, mult, R = oracle["pair_label"], oracle["mult"], len(ukeys)
     # rows -> (label, value) pairs, sorted by row (pairs are key-sorted)
-    csr_start = np.searchsorted(row_of_pair, np.arange(R + 1))
-    chars = np.empty((R, K), np.uint8)
-    for i in range(K):
-        chars[:, i] = ((ukeys >> np.uint64(2 * i)) & np.uint64(3)) + 1
     order = np.lexsort((row_of_pair, pair_label))
     col_start = np.searchsorted(pair_label[order], np.arange(L + 1))
     cols = [row_of_pair[order[col_start[c]:col_start[c + 1]]]
@@ -146,20 +186,45 @@ def make_index(cfg, rng):
     labels = [f"ref{i}" for i in range(L)]
     anno = ColumnMajorAnnotation(R, labels, cols, values=vals,
                                  has_values=True)
-    index = convert.from_kmers(pack_kmers32(chars),
+    index = convert.from_kmers(pack_kmers32(key_chars(ukeys)),
                                np.arange(1, R + 1, dtype=np.uint32),
                                pack_annotation_bitmap(anno, R), labels, K,
                                anno)
-    oracle = dict(keys=ukeys, row_of_pair=row_of_pair, pair_label=pair_label,
-                  mult=mult, csr_start=csr_start, L=L)
     return refs, index, oracle
 
 
-def make_batch(cfg, rng, refs):
-    """Reads drawn from the references (10% reverse-complemented, 1%
-    substitutions, 3% with an N run) and one long sequence: reference 0
+def make_canonical_index(refs, labels):
+    """The canonical graph of the references: both strands of every k-mer,
+    ids 1..R in key order; each (k-mer, rc) pair's labels sit on its
+    canonical strand, the one first in BOSS order.  The oracle keys each
+    pair by min(fwd, rc) as integers, which identifies it as well."""
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.succinct.ops import pack_kmers32
+    fwd = [window_keys(r, K)[0] for r in refs]
+    labs = np.concatenate([np.full(len(f), i, np.int64)
+                           for i, f in enumerate(fwd)])
+    fwd = np.concatenate(fwd)
+    rc = np.concatenate([rc_window_keys(r, K) for r in refs])
+    ukeys = np.unique(np.concatenate([fwd, rc]))
+    rows = np.searchsorted(ukeys, np.where(
+        boss_rot(fwd, K) <= boss_rot(rc, K), fwd, rc))
+    L = len(refs)
+    bitmap = np.zeros((len(ukeys), max((L + 31) // 32, 1)), np.uint32)
+    np.bitwise_or.at(bitmap, (rows, labs // 32),
+                     (np.uint32(1) << (labs % 32).astype(np.uint32)))
+    index = convert.from_kmers(pack_kmers32(key_chars(ukeys)),
+                               np.arange(1, len(ukeys) + 1, dtype=np.uint32),
+                               bitmap, labels, K, canon=1)
+    return index, make_oracle(np.minimum(fwd, rc), labs, L)
+
+
+def make_batch(cfg, rng, refs, rc_share=0.1, long_rc=False):
+    """Reads drawn from the references (``rc_share`` of them reverse-
+    complemented, 1% substitutions, 3% with an N run) and one long
+    sequence: reference 0 (its reverse complement with ``long_rc``)
     repeated an odd number of times until its label's count passes
-    ``long_windows`` (2^24 at full size) and is odd."""
+    ``long_windows`` (2^24 at full size) and is odd.  Returns the
+    sequences, their codes and the long sequence's period."""
     n, m = cfg["n_reads"], cfg["read_len"]
     which = rng.integers(0, len(refs), n)
     start = rng.integers(0, len(refs[0]) - m, n)
@@ -168,7 +233,7 @@ def make_batch(cfg, rng, refs):
     codes = cat[(offs[which] + start)[:, None] + np.arange(m)]
     sub = rng.random((n, m)) < 0.01
     codes = np.where(sub, (codes + rng.integers(1, 4, (n, m))) % 4, codes)
-    rc = rng.random(n) < 0.1
+    rc = rng.random(n) < rc_share
     codes[rc] = 3 - codes[rc, ::-1]
     nrun = np.flatnonzero(rng.random(n) < 0.03)
     for i in nrun:
@@ -178,23 +243,52 @@ def make_batch(cfg, rng, refs):
     per_copy = len(refs[0]) - K + 1
     reps = cfg["long_windows"] // per_copy + 1
     reps += 1 - reps % 2
-    long_codes = np.tile(refs[0], reps)
+    long_codes = np.tile(3 - refs[0][::-1] if long_rc else refs[0], reps)
     letters = np.frombuffer(b"ACGTN", np.uint8)
     seqs = [letters[row].tobytes() for row in codes]
     seqs.append(letters[long_codes].tobytes())
-    return seqs, list(codes) + [long_codes], reps * per_copy
+    return seqs, list(codes) + [long_codes], len(refs[0])
 
 
-def oracle_payload(codes, mode, o, df=0.7, pf=0.0, top=2 ** 63):
-    """Independent numpy oracle: sorted uint64 keys + searchsorted, exact
-    bincounts, get_min_count."""
-    import math
+def oracle_lookup(codes, o, canon):
+    """Per window: the oracle row and whether the window hits.  canon 1
+    looks up min(fwd, rc) in an oracle keyed so; canon 2 the forward key,
+    then the reverse complement."""
     keys, valid = window_keys(codes, K)
-    nk = len(keys)
-    if nk == 0:
+    if canon:
+        rc = rc_window_keys(codes, K)
+
+    def find(q):
+        pos = np.minimum(np.searchsorted(o["keys"], q), len(o["keys"]) - 1)
+        return pos, valid & (o["keys"][pos] == q)
+    pos, hit = find(np.minimum(keys, rc) if canon == 1 else keys)
+    if canon == 2:
+        pos_r, hit_r = find(rc)
+        pos = np.where(hit, pos, pos_r)
+        hit = hit | hit_r
+    return pos, hit
+
+
+def oracle_payload(codes, mode, o, canon=0, period=0, df=0.7, pf=0.0,
+                   top=2 ** 63):
+    """Independent numpy oracle: sorted uint64 keys + searchsorted, exact
+    bincounts, get_min_count.  With a ``period`` (``codes`` is one block
+    repeated, as the long sequence is), window i + period is window i, so
+    the lookup runs on one block and the windows across a join and is
+    tiled."""
+    import math
+    nk = len(codes) - K + 1
+    if nk <= 0:
         return []
-    pos = np.minimum(np.searchsorted(o["keys"], keys), len(o["keys"]) - 1)
-    hit = valid & (o["keys"][pos] == keys)
+    if period:
+        if nk < period or not np.array_equal(codes[period:],
+                                             codes[:-period]):
+            raise AssertionError(f"codes do not repeat with period {period}")
+        pos, hit = oracle_lookup(codes[:period + K - 1], o, canon)
+        reps = -(-nk // period)
+        pos, hit = np.tile(pos, reps)[:nk], np.tile(hit, reps)[:nk]
+    else:
+        pos, hit = oracle_lookup(codes, o, canon)
     rows = pos[hit]
     present = len(rows)
     lo, hi = o["csr_start"][rows], o["csr_start"][rows + 1]
@@ -264,9 +358,11 @@ def card_and_build(rehearse: bool, out_dir: str):
 def counters():
     from metagraph_tpu_torch.align.sw import sw_scores
     from metagraph_tpu_torch.query.device import label_counts, selection_mask
+    from metagraph_tpu_torch.scripts.exp_gather import gather_loop, gather_take
     from metagraph_tpu_torch.succinct.ops import wire_lookup
     return {"wire_lookup": wire_lookup, "label_counts": label_counts,
-            "selection_mask": selection_mask, "sw_scores": sw_scores}
+            "selection_mask": selection_mask, "sw_scores": sw_scores,
+            "gather_loop": gather_loop, "gather_take": gather_take}
 
 
 def run_path(fn):
@@ -278,15 +374,19 @@ def run_path(fn):
     return out, {name: f.launches for name, f in fns.items()}
 
 
-def main_path(engine, seqs, codes, oracle, cfg, rng, torch, dev):
+def main_path(engine, seqs, codes, period, oracle, cfg, rng, torch, dev,
+              tag="main path", modes=("labels", "counts")):
+    """Query the batch through ``query_records`` in each mode; hold a sample
+    and the long sequence (last, of that ``period``) against the oracle."""
     from metagraph_tpu_torch.seq_io.fasta import FastaRecord
+    canon = engine.index.canon
     records = [FastaRecord(f"r{i}", s) for i, s in enumerate(seqs)]
     windows = sum(max(len(s) - K + 1, 0) for s in seqs)
     total_bp = sum(len(s) for s in seqs)
     sample = np.sort(rng.choice(len(seqs) - 1, cfg["sample"], replace=False))
     sample = np.append(sample, len(seqs) - 1)          # the long sequence
-    launches, report = {}, {}
-    for mode in ("labels", "counts"):
+    launches, long_count = {}, None
+    for mode in modes:
         def drive():
             t0 = time.perf_counter()
             res = list(engine.query_records(records, mode))
@@ -295,7 +395,7 @@ def main_path(engine, seqs, codes, oracle, cfg, rng, torch, dev):
             return res, time.perf_counter() - t0
         (results, secs), launches[mode] = run_path(drive)
         st = engine.last_batch_seconds
-        log(f"main path [{mode}]: {len(seqs)} sequences, {total_bp} bp, "
+        log(f"{tag} [{mode}]: {len(seqs)} sequences, {total_bp} bp, "
             f"{windows} k-mers in {secs:.3f} s = {windows / secs:.4g} "
             f"k-mers/s (host packing {st['pack']:.3f} s, device incl. "
             f"upload and mask download {st['device']:.3f} s, payloads "
@@ -303,39 +403,46 @@ def main_path(engine, seqs, codes, oracle, cfg, rng, torch, dev):
         if len(results) != len(seqs):
             raise AssertionError(f"{len(results)} results for {len(seqs)} "
                                  "sequences")
+        t0 = time.perf_counter()
         bad = [i for i in sample if not same_payload(
-            results[i].payload, oracle_payload(codes[i], mode, oracle))]
+            results[i].payload, oracle_payload(
+                codes[i], mode, oracle, canon,
+                period if i == len(seqs) - 1 else 0))]
         if bad:
-            raise AssertionError(f"{mode}: payloads differ from the oracle "
-                                 f"for sequences {bad[:10]}")
+            raise AssertionError(f"{tag} {mode}: payloads differ from the "
+                                 f"oracle for sequences {bad[:10]}")
         hits = sum(bool(results[i].payload) for i in sample)
-        log(f"  oracle: {len(sample)} sequences equal ({hits} with hits)")
+        log(f"  oracle: {len(sample)} sequences equal ({hits} with hits) "
+            f"in {time.perf_counter() - t0:.1f} s")
         if mode == "counts":
             long_res = results[-1].payload
-            report["long_count"] = long_res[0][1] if long_res else 0
-        report[f"{mode}_seconds"] = secs
-    n = report["long_count"]
-    log(f"long sequence: {len(seqs[-1]) - K + 1} windows, label count {n} "
-        f"(> 2^24: {n > 1 << 24}; float32 would hold {int(np.float32(n))})")
-    if cfg is FULL and not (n > 1 << 24 and int(np.float32(n)) != n):
-        raise AssertionError("the long sequence does not test the 2^24 bound")
+            long_count = long_res[0][1] if long_res else 0
+    if long_count is not None:
+        n = long_count
+        log(f"  long sequence: {len(seqs[-1]) - K + 1} windows, label count "
+            f"{n} (> 2^24: {n > 1 << 24}; float32 would hold "
+            f"{int(np.float32(n))})")
+        if cfg is FULL and not (n > 1 << 24 and int(np.float32(n)) != n):
+            raise AssertionError("the long sequence does not test the 2^24 "
+                                 "bound")
     for mode, got in launches.items():
         for name in ("wire_lookup", "label_counts", "selection_mask"):
             if dev.type == "cuda" and got[name] < 1:
                 raise AssertionError(f"{name} never launched in the {mode} "
-                                     "run of the main path")
-    report["windows"] = windows
-    return launches["labels"], report
+                                     f"run of the {tag}")
+    return launches[modes[0]]
 
 
-def kernel_checks(engine, seqs, cfg, torch, dev):
-    """Kernels 1-3 against their plain versions on the main path's inputs
-    (the same batch, packed as query_batch_fused packs it)."""
+def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
+    """Kernels 1-3 against their plain versions on the path's inputs (the
+    same batch, packed as query_batch_fused packs it), with the engine's
+    canon mode and offset."""
     from metagraph_tpu_torch._u32 import np_words, to_u64
     from metagraph_tpu_torch.query import device as qd
     from metagraph_tpu_torch.query.tile_pack import tile_pack2
     from metagraph_tpu_torch.succinct import ops
     S, L = len(seqs), len(engine.labels)
+    canon, offset = engine.index.canon, engine.index.offset
     tiles2, validb, tile_seq, nwins = tile_pack2(seqs, K, qd.TILE)
     N = len(tiles2)
     words, vwords = qd.wire_words_layout(tiles2, validb, K, qd.TILE, N)
@@ -352,41 +459,67 @@ def kernel_checks(engine, seqs, cfg, torch, dev):
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by="bytes")
-        log(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
-            f"{bound:.4f} ms from {nbytes} bytes), max_abs_err {err}")
+        log(f"kernel {name}{tag}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+            f"bound {bound:.4f} ms from {nbytes} bytes), max_abs_err {err}")
         if err:
-            raise AssertionError(f"{name} disagrees with its plain version")
+            raise AssertionError(f"{name}{tag} disagrees with its plain "
+                                 "version")
 
     def plain_ms(fn):
         return device_ms(torch, dev, fn, 1)
 
-    nodes = qd.wire_lookup(words, vwords, table, K, qd.TILE)
-    nodes_p = ops.wire_lookup_plain(words, vwords, table, K, qd.TILE, c1)
+    nodes = qd.wire_lookup(words, vwords, table, K, qd.TILE, canon, offset)
+    nodes_p = ops.wire_lookup_plain(words, vwords, table, K, qd.TILE, c1,
+                                    canon, offset)
     # bytes the data needs: the tile words, the bucket rows probed (each
-    # once) and the node ids written
+    # once: the chosen strand's for canon 1, and for canon 2 the forward
+    # key's and, where it missed, the reverse complement's) and the ids
     nb, W = table.shape[0], table.shape[1] // ops.BUCKET - 1
     touched = torch.zeros(nb, dtype=torch.bool, device=dev)
     for lo in range(0, N, c1):
         wd, vw = to_u64(words[lo: lo + c1]), to_u64(vwords[lo: lo + c1])
-        keys = ops.keys2_to_keys4(ops.extract_windows2(wd, K, qd.TILE), K)
+        keys = ops.extract_windows2(wd, K, qd.TILE)
         valid = ops.window_valid2(vw, K, qd.TILE)
-        touched[ops._hash_words(keys[valid], nb, 1)] = True
+        probed = [keys[valid]]
+        if canon:
+            rc = ops.rc_keys2(keys, K)
+            if canon == 1:
+                take = ops.keys2_greater(keys, rc, K)[..., None]
+                probed = [torch.where(take, rc, keys)[valid]]
+            else:
+                nd = nodes[lo: lo + c1]
+                probed.append(rc[valid & ~((nd > 0) & (nd <= offset))])
+        for q in probed:
+            touched[ops._hash_words(ops.keys2_to_keys4(q, K), nb, 1)] = True
     entry("wire_lookup", [nodes], [nodes_p],
           device_ms(torch, dev, lambda: qd.wire_lookup(
-              words, vwords, table, K, qd.TILE), 10),
+              words, vwords, table, K, qd.TILE, canon, offset), 10),
           plain_ms(lambda: ops.wire_lookup_plain(words, vwords, table, K,
-                                                 qd.TILE, c1)),
+                                                 qd.TILE, c1, canon, offset)),
           words.nbytes + vwords.nbytes + nodes.nbytes
           + int(touched.sum()) * 64 * (W + 1))
 
-    counts, present = qd.label_counts(nodes, bitmap, tile_seq, S, L)
-    want = qd.label_counts_plain(nodes, bitmap, tile_seq, S, L, c2)
-    rows = int(torch.unique(nodes[nodes > 0]).numel())
+    if canon == 2:
+        last = nodes[tile_seq == S - 1]            # the long sequence
+        fwd = int(((last > 0) & (last <= offset)).sum())
+        rc = int((last > offset).sum())
+        log(f"  long sequence{tag}: {fwd} forward hits, {rc} reverse-"
+            "complement hits")
+        if fwd or not rc:
+            raise AssertionError("the long sequence must hit through the "
+                                 "reverse-complement probe only")
+
+    # the index's offset is 0 unless canon 2
+    counts, present = qd.label_counts(nodes, bitmap, tile_seq, S, L, offset)
+    want = qd.label_counts_plain(nodes, bitmap, tile_seq, S, L, c2, offset)
+    base = torch.where(nodes > offset, nodes - offset, nodes) if offset \
+        else nodes
+    rows = int(torch.unique(base[base > 0]).numel())
     entry("label_counts", [counts, present], want,
           device_ms(torch, dev, lambda: qd.label_counts(
-              nodes, bitmap, tile_seq, S, L), 10),
+              nodes, bitmap, tile_seq, S, L, offset), 10),
           plain_ms(lambda: qd.label_counts_plain(nodes, bitmap, tile_seq, S,
-                                                 L, c2)),
+                                                 L, c2, offset)),
           nodes.nbytes + tile_seq.nbytes + rows * bitmap.shape[1] * 4
           + counts.nbytes + present.nbytes)
 
@@ -451,6 +584,51 @@ def sw_phase(cfg, rng, torch, dev):
                                        bound_by=bound_by)
 
 
+def gather_phase(cfg, torch, dev):
+    """The gather micro-benchmark's sweep through the port's script, then
+    kernels 5 and 6 against the plain version on the sweep's inputs."""
+    from metagraph_tpu_torch._u32 import np_words
+    from metagraph_tpu_torch.scripts import exp_gather as eg
+    q_log, rows_logs, QB = cfg["gather"]
+    argv = ["--device", dev.type, "--q-log", str(q_log), "--rows-log",
+            *map(str, rows_logs), "--qb", str(QB)]
+    _, launches = run_path(lambda: eg.main(argv))
+    for name in ("gather_loop", "gather_take"):
+        if dev.type == "cuda" and launches[name] < 1:
+            raise AssertionError(f"{name} never launched in the sweep")
+    rng = np.random.default_rng(eg.SEED)     # the sweep's inputs again
+    Q, entries = 1 << q_log, {}
+    for rows_log in rows_logs:
+        tab, idx = eg.make_inputs(rng, rows_log, Q)
+        tab_d, idx_d = np_words(tab).to(dev), torch.from_numpy(idx).to(dev)
+        want = eg.gather_rows_sum_plain(tab_d, idx_d, QB)
+        plain = device_ms(torch, dev, lambda: eg.gather_rows_sum_plain(
+            tab_d, idx_d, QB), 3)
+        yard = device_ms(torch, dev, lambda: tab_d[idx_d].sum(0), 3)
+        n = Q // QB * QB
+        nbytes = n * 4 + tab.nbytes + want.nbytes
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"gather rows=2^{rows_log} ({tab.nbytes} B table, {n} indices "
+            f"of {QB}): plain {plain:.3f} ms; yardstick tab[idx].sum(0) "
+            f"{yard:.3f} ms (two calls, int64 sums: information only)")
+        for name in ("gather_loop", "gather_take"):
+            fn = getattr(eg, name)
+            err = max_abs_err(torch, fn(tab_d, idx_d, QB), want)
+            ms = device_ms(torch, dev, lambda: fn(tab_d, idx_d, QB), 20)
+            log(f"kernel {name} rows=2^{rows_log}: {ms:.4f} ms = "
+                f"{n / ms / 1e3:.1f} Mgather/s (bound {bound:.4f} ms from "
+                f"{nbytes} bytes at 3.35 TB/s; gathered {n * tab.shape[1] * 4}"
+                f" B = {n * tab.shape[1] * 4 / ms / 1e9:.3f} TB/s from L2), "
+                f"max_abs_err {err}")
+            if err:
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     "version")
+            # the kernels line keeps the last (largest) table's numbers
+            entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                 bound_ms=bound, bound_by="bytes")
+    return launches, entries
+
+
 SOURCES = {
     "wire_lookup": ("metagraph_tpu_torch/csrc/wire_lookup.cu",
                     "metagraph_tpu/succinct/ops.py:439"),
@@ -460,6 +638,10 @@ SOURCES = {
                        "metagraph_tpu/query/device.py:168"),
     "sw_scores": ("metagraph_tpu_torch/csrc/sw_scores.cu",
                   "metagraph_tpu/align/pallas_sw.py:35"),
+    "gather_loop": ("metagraph_tpu_torch/csrc/gather_rows.cu",
+                    "scripts/exp_pallas_gather.py:54"),
+    "gather_take": ("metagraph_tpu_torch/csrc/gather_rows.cu",
+                    "scripts/exp_pallas_gather.py:82"),
 }
 
 
@@ -482,22 +664,62 @@ def main(argv=None) -> int:
     dev = torch.device("cpu" if args.rehearse else "cuda")
     os.makedirs(args.out, exist_ok=True)
     t_start = time.perf_counter()
-    card, _ = card_and_build(args.rehearse, args.out)
+    phases = {}
 
+    def timed(name, fn, *a, **kw):
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        phases[name] = phases.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    card, _ = timed("card and build", card_and_build, args.rehearse,
+                    args.out)
     rng = np.random.default_rng(args.seed)
-    t0 = time.perf_counter()
-    refs, index, oracle = make_index(cfg, rng)
+    refs, index, oracle = timed("basic index", make_index, cfg, rng)
     log(f"index: {index.num_rows} k-mers (k = {K}), {len(index.labels)} "
         f"labels; hash table {index.table.shape} = {index.table.nbytes} B, "
         f"bitmap {index.bitmap.shape} = {index.bitmap.nbytes} B; made in "
-        f"{time.perf_counter() - t0:.1f} s")
-    engine = QueryEngine(index, device=dev)
-    seqs, codes, long_windows = make_batch(cfg, rng, refs)
-    launches, _ = main_path(engine, seqs, codes, oracle, cfg, rng, torch,
-                            dev)
-    entries = kernel_checks(engine, seqs, cfg, torch, dev)
-    launches["sw_scores"], entries["sw_scores"] = sw_phase(cfg, rng, torch,
-                                                           dev)
+        f"{phases['basic index']:.1f} s")
+    engine = timed("uploads", QueryEngine, index, device=dev)
+    seqs, codes, period = timed("batches", make_batch, cfg, rng, refs)
+    launches = timed("query paths and oracle", main_path, engine, seqs,
+                     codes, period, oracle, cfg, rng, torch, dev)
+    entries = timed("kernel checks", kernel_checks, engine, seqs, cfg, torch,
+                    dev)
+    del engine
+
+    # the primary graph (the basic index's k-mers queried through
+    # CanonicalDBG: canon 2) and the canonical graph (both strands: canon
+    # 1), with traffic from both strands, from a second stream of the seed
+    rng2 = np.random.default_rng([args.seed, 2])
+    seqs2, codes2, period2 = timed("batches", make_batch, cfg, rng2, refs,
+                                   rc_share=0.5, long_rc=True)
+    engine = timed("uploads", QueryEngine, dataclasses.replace(
+        index, canon=2), device=dev)
+    timed("query paths and oracle", main_path, engine, seqs2, codes2,
+          period2, oracle, cfg, rng2, torch, dev, "primary graph (canon 2)")
+    timed("kernel checks", kernel_checks, engine, seqs2, cfg, torch, dev,
+          " [canon 2]")
+    del engine
+    index_c, oracle_c = timed("canonical index", make_canonical_index, refs,
+                              index.labels)
+    log(f"canonical index: {index_c.num_rows} k-mers (both strands), hash "
+        f"table {index_c.table.shape} = {index_c.table.nbytes} B, bitmap "
+        f"{index_c.bitmap.shape} = {index_c.bitmap.nbytes} B; made in "
+        f"{phases['canonical index']:.1f} s")
+    engine = timed("uploads", QueryEngine, index_c, device=dev)
+    timed("query paths and oracle", main_path, engine, seqs2, codes2,
+          period2, oracle_c, cfg, rng2, torch, dev,
+          "canonical graph (canon 1)", modes=("labels",))
+    timed("kernel checks", kernel_checks, engine, seqs2, cfg, torch, dev,
+          " [canon 1]")
+    del engine
+
+    launches["sw_scores"], entries["sw_scores"] = timed(
+        "SW phase", sw_phase, cfg, rng, torch, dev)
+    gl, ge = timed("gather phase", gather_phase, cfg, torch, dev)
+    for name in ("gather_loop", "gather_take"):
+        launches[name], entries[name] = gl[name], ge[name]
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         e = entries[name]
@@ -510,6 +732,8 @@ def main(argv=None) -> int:
         f"{k['name']} launches={k['launches']} "
         f"match={'exact' if k['max_abs_err'] == 0 else 'NO'}"
         for k in kernels))
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in phases.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if args.rehearse:
         print("rehearsal finished: no result on the CPU", file=sys.stderr)

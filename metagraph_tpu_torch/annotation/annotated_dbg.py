@@ -1,8 +1,10 @@
 """Query semantics of the annotated graph.
 
-Own copy of metagraph_tpu/annotation/annotated_dbg.py:26-63 for basic-mode
-graphs: annotation row = node - 1, the min-count rule of the reference, and
-the top-label order (count descending, label code ascending).
+Own copy of metagraph_tpu/annotation/annotated_dbg.py:26-63: annotation
+row = base node - 1 (reverse-complement ids of a primary graph seen through
+``CanonicalDBG`` fold back to their base node), the min-count rule of the
+reference, and the top-label order (count descending, label code
+ascending).
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import math
 from typing import List, Tuple
 
-import numpy as np
+from ..graph.canonical import base_node
 
 
 def get_min_count(discovery_fraction: float, presence_fraction: float,
@@ -25,6 +27,8 @@ def _top_n_sorted(code_counts: List[Tuple[int, int]], n: int):
     del code_counts[n:]
 
 
-def graph_to_anno_index(node):
-    """Basic-mode graphs: annotation row = node - 1."""
-    return np.asarray(node) - 1
+def graph_to_anno_index(node, offset: int = 0):
+    """row = base node - 1; with an ``offset`` (CanonicalDBG over a primary
+    graph) ids above it fold to ``node - offset`` first (ref
+    annotated_dbg.hpp:50-56, canonical_dbg.hpp:38-41)."""
+    return base_node(node, offset) - 1

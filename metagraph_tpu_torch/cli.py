@@ -2,8 +2,9 @@
 
 ``python -m metagraph_tpu_torch query -i G.dbg -a A.column.annodbg
 [--device cuda|cpu] reads.fa`` mirrors ``metagraph_tpu.cli query --device``
-(metagraph_tpu/cli/main.py:792-853) for basic DNA graphs and column
-annotations, and prints the same bytes.
+(metagraph_tpu/cli/main.py:792-853) for basic, canonical and primary DNA
+graphs (a primary graph is queried through ``CanonicalDBG``, main.py:800-802)
+and column annotations, and prints the same bytes.
 """
 
 from __future__ import annotations

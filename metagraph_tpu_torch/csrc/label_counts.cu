@@ -4,7 +4,10 @@
 // Replaces metagraph_tpu/annotation/ops.py::gather_anno_rows (:66) and
 // query/device.py::_tile_label_counts/_csa_add (:89-149) and _fold_tiles
 // (:152).  The JAX fold is an f32 matmul, exact only below 2^24; here every
-// sum is an int32 atomic add, so counts stay exact up to 2^31 - 1.
+// sum is an int32 atomic add, so counts stay exact up to 2^31 - 1.  With an
+// offset (a primary graph seen through CanonicalDBG, canon 2) node ids above
+// it are reverse-complement hits and fold back to their base node before the
+// row gather, as rows_ct does in _wire_epoch_core (:374-378).
 //
 // What bounds it on an H100: bytes.  Each hit window reads its annotation
 // row of Lw words (128 B at 1,000 labels) at a random place in a bitmap far
@@ -32,7 +35,7 @@ __global__ void label_counts_kernel(const int32_t *__restrict__ nodes,
                                     int32_t *__restrict__ counts,
                                     int32_t *__restrict__ present, int T,
                                     int64_t R, int Lw, int L,
-                                    int chunk_words) {
+                                    int chunk_words, int32_t offset) {
     extern __shared__ int32_t sm[];             // chunk_words * 32 + 1
     const int64_t tile = blockIdx.x;
     const int w_lo = blockIdx.y * chunk_words;
@@ -47,8 +50,10 @@ __global__ void label_counts_kernel(const int32_t *__restrict__ nodes,
     const int lane = threadIdx.x & 31;
     // blockDim.x and T are multiples of 32: whole warps run each iteration
     for (int j = threadIdx.x; j < T; j += blockDim.x) {
-        const int32_t node = nodes[tile * T + j];
+        int32_t node = nodes[tile * T + j];
         const bool hit = node > 0;
+        if (offset > 0 && node > offset)
+            node -= offset;                     // rc hit -> its base node
         // node ids come from the hash index, whose ids are rows 1..R
         const bool have_row = hit && node <= R;
         const uint32_t *row = bitmap + (int64_t)(node - 1) * Lw;
@@ -89,12 +94,13 @@ __global__ void label_counts_kernel(const int32_t *__restrict__ nodes,
 
 // nodes (n_tiles, T) int32, bitmap (R, Lw) uint32, tile_seq (n_tiles,) int32
 // -> counts (S, L) int32 and present (S,) int32, which the caller zeroes.
-// The wrapper checks T % 32 == 0 and Lw == ceil(L / 32).
+// offset 0 means no fold.  The wrapper checks T % 32 == 0 and
+// Lw == ceil(L / 32).
 extern "C" int mg_label_counts(const void *nodes, const void *bitmap,
                                const void *tile_seq, void *counts,
                                void *present, int64_t n_tiles, int32_t T,
                                int64_t R, int32_t Lw, int32_t L,
-                               void *stream) {
+                               int32_t offset, void *stream) {
     const int chunk_words = Lw < 256 ? Lw : 256;
     const dim3 grid((unsigned)n_tiles, (unsigned)((Lw + 255) / 256));
     const dim3 block(T < 256 ? T : 256);
@@ -102,6 +108,6 @@ extern "C" int mg_label_counts(const void *nodes, const void *bitmap,
     label_counts_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
         (const int32_t *)nodes, (const uint32_t *)bitmap,
         (const int32_t *)tile_seq, (int32_t *)counts, (int32_t *)present, T,
-        R, Lw, L, chunk_words);
+        R, Lw, L, chunk_words, offset);
     return (int)cudaGetLastError();
 }

@@ -13,9 +13,10 @@ wrappers of the hand-written kernels that replace them:
 * ``selection_mask`` (``csrc/selection_mask.cu``): the packed label mask.
 
 ``wire_epoch`` chains kernels 1 to 3 with the return contract of
-``query_epoch_wire_buf``.  The TPU's fused upload buffer, chunk scan and
-geometric tile padding served its host link and its recompiles and are not
-copied.
+``query_epoch_wire_buf``, for basic, canonical and primary graphs (canon 0,
+1 and 2 of ``_wire_epoch_core``).  The TPU's fused upload buffer, chunk
+scan and geometric tile padding served its host link and its recompiles
+and are not copied.
 """
 
 from __future__ import annotations
@@ -111,8 +112,12 @@ def _fold_tiles(tc: torch.Tensor, th: torch.Tensor, tile_seq: torch.Tensor,
 
 def label_counts_plain(nodes: torch.Tensor, bitmap: torch.Tensor,
                        tile_seq: torch.Tensor, num_seqs: int,
-                       num_labels: int, chunk: int = 64):
-    """Plain version of kernel 2, ``chunk`` tiles at a time."""
+                       num_labels: int, chunk: int = 64, offset: int = 0):
+    """Plain version of kernel 2, ``chunk`` tiles at a time.  With an
+    ``offset`` (canon 2), ids above it fold back to their base node before
+    the row gather."""
+    if offset:
+        nodes = torch.where(nodes > offset, nodes - offset, nodes)
     counts = torch.zeros((num_seqs, num_labels), dtype=torch.int64,
                          device=nodes.device)
     present = torch.zeros(num_seqs, dtype=torch.int64, device=nodes.device)
@@ -154,10 +159,13 @@ def _require(device: torch.device, **tensors):
 
 
 def label_counts(nodes: torch.Tensor, bitmap: torch.Tensor,
-                 tile_seq: torch.Tensor, num_seqs: int, num_labels: int):
+                 tile_seq: torch.Tensor, num_seqs: int, num_labels: int,
+                 offset: int = 0):
     """(N, T) node ids, (R, Lw) bitmap, (N,) tile_seq -> ((S, L) int32
-    counts, (S,) int32 present).  CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/label_counts.cu`` or raise."""
+    counts, (S,) int32 present).  ``offset`` > 0 folds ids above it to
+    ``node - offset`` before the row gather (0 means no fold).  CPU tensors
+    take the plain version; CUDA tensors launch ``csrc/label_counts.cu`` or
+    raise."""
     dev = nodes.device
     _require(dev, nodes=nodes, bitmap=bitmap, tile_seq=tile_seq)
     N, T = nodes.shape
@@ -166,9 +174,11 @@ def label_counts(nodes: torch.Tensor, bitmap: torch.Tensor,
             or tile_seq.shape != (N,):
         raise ValueError(f"bad shapes: nodes {tuple(nodes.shape)} bitmap "
                          f"{tuple(bitmap.shape)} for {num_labels} labels")
+    if not 0 <= offset < 2 ** 31:
+        raise ValueError(f"offset {offset} out of range")
     if dev.type == "cpu":
         return label_counts_plain(nodes, bitmap, tile_seq, num_seqs,
-                                  num_labels)
+                                  num_labels, offset=offset)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     counts = torch.zeros((num_seqs, num_labels), dtype=torch.int32,
@@ -177,10 +187,11 @@ def label_counts(nodes: torch.Tensor, bitmap: torch.Tensor,
     if N == 0:
         return counts, present
     fn = _build.function("label_counts", "mg_label_counts",
-                         [_P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P])
+                         [_P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P])
     _build.check(fn(nodes.data_ptr(), bitmap.data_ptr(), tile_seq.data_ptr(),
                     counts.data_ptr(), present.data_ptr(), N, T, R, Lw,
-                    num_labels, torch.cuda.current_stream(dev).cuda_stream),
+                    num_labels, offset,
+                    torch.cuda.current_stream(dev).cuda_stream),
                  "label_counts")
     label_counts.launches += 1
     return counts, present
@@ -224,13 +235,16 @@ def wire_epoch(table: torch.Tensor, bitmap: torch.Tensor,
                words: torch.Tensor, vwords: torch.Tensor,
                tile_seq: torch.Tensor, dsel: torch.Tensor,
                selmin: torch.Tensor, num_seqs: int, num_labels: int, K: int,
-               T: int = TILE):
-    """The basic-graph wire epoch: (N, NW) wire words, (N, NV) valid words,
-    (N,) tile_seq and (S,) thresholds -> (mask (S, Lw), counts (S, L),
-    present (S,), nodes (N, T)), the contract of query_epoch_wire_buf
-    without its padding."""
-    nodes = wire_lookup(words, vwords, table, K, T)
+               T: int = TILE, canon: int = 0, offset: int = 0):
+    """The wire epoch: (N, NW) wire words, (N, NV) valid words, (N,)
+    tile_seq and (S,) thresholds -> (mask (S, Lw), counts (S, L), present
+    (S,), nodes (N, T)), the contract of query_epoch_wire_buf without its
+    padding.  canon 0 = basic graph, 1 = canonical graph, 2 = primary graph
+    through CanonicalDBG: ``nodes`` then carries reverse-complement hits as
+    base id + ``offset``, and the label counts use the base rows."""
+    nodes = wire_lookup(words, vwords, table, K, T, canon, offset)
+    # wire_lookup takes an offset with canon 2 only
     counts, present = label_counts(nodes, bitmap, tile_seq, num_seqs,
-                                   num_labels)
+                                   num_labels, offset)
     mask = selection_mask(counts, present, dsel, selmin)
     return mask, counts, present, nodes

@@ -8,8 +8,9 @@ query/device.py) and downloads the selection mask, and ``_hits_from_mask``
 on the host.  Per-window node ids are downloaded only for the counts and
 signature modes.
 
-Scope: basic-mode DNA graphs with 2 <= k <= 31 and a dense annotation, in
-the labels, matches, counts and signature modes.  Everything else raises
+Scope: basic, canonical and primary DNA graphs (a primary graph is queried
+through ``CanonicalDBG``, as the JAX CLI does) with 2 <= k <= 31 and a
+dense annotation, in the labels, matches, counts and signature modes.  Everything else raises
 NotImplementedError and names the ROADMAP item that will port it.
 """
 
@@ -76,7 +77,8 @@ class QueryEngine:
         mask, counts, present, nodes_t = wire_epoch(
             self.hash_index.table, self.annotation.bitmap,
             np_words(words).to(dev), np_words(vwords).to(dev), up(tile_seq),
-            up(dsel), up(selmin), S, L, k, TILE)
+            up(dsel), up(selmin), S, L, k, TILE, self.index.canon,
+            self.index.offset)
         mask = words_np(mask)
         t2 = time.perf_counter()
         rows, cols, vals = self._hits_from_mask(mask, counts, L,
@@ -143,7 +145,7 @@ class QueryEngine:
                 continue
             nodes = nodes_of(i)
             pos = np.flatnonzero(nodes > 0)
-            rows = graph_to_anno_index(nodes[pos])
+            rows = graph_to_anno_index(nodes[pos], self.index.offset)
             result = []
             for c, n in selected:
                 has = self._label_rows(rows, c)

@@ -5,12 +5,15 @@ Own copies of metagraph_tpu/succinct/ops.py: the host packers
 (:345-360, numpy and torch), the ``DeviceHashIndex`` builder (:389-431,
 byte-identical tables) and plain PyTorch versions of ``_funnel_shift``,
 ``extract_windows2``, ``window_valid2``, ``keys2_to_keys4`` and
-``_hash_lookup_flat`` (:98-268, :438-455).
+``_hash_lookup_flat`` (:98-268, :438-455), and of the canonical key ops
+``_rev2_word``, ``rc_keys2``, ``boss_rot2`` and ``keys2_greater``
+(:112-177).
 
-``wire_lookup`` is the hand-written kernel that replaces those five XLA
-programs as ``query/device.py::_wire_epoch_core`` composes them; its source
-is ``csrc/wire_lookup.cu``.  The plain versions carry uint32 words as int64
-masked to 32 bits (see ``_u32``).
+``wire_lookup`` is the hand-written kernel that replaces those XLA programs
+as ``query/device.py::_wire_epoch_core`` composes them, for basic (canon 0),
+canonical (canon 1) and primary graphs seen through ``CanonicalDBG``
+(canon 2); its source is ``csrc/wire_lookup.cu``.  The plain versions carry
+uint32 words as int64 masked to 32 bits (see ``_u32``).
 """
 
 from __future__ import annotations
@@ -245,6 +248,52 @@ def keys2_to_keys4(keys2: torch.Tensor, K: int) -> torch.Tensor:
     return torch.stack(words, dim=-1)
 
 
+def _rev2_word(w: torch.Tensor) -> torch.Tensor:
+    """Reverse the order of the 16 2-bit groups within each uint32."""
+    w = ((w & 0xFFFF0000) >> 16) | ((w & 0x0000FFFF) << 16)
+    w = ((w & 0xFF00FF00) >> 8) | ((w & 0x00FF00FF) << 8)
+    w = ((w & 0xF0F0F0F0) >> 4) | ((w & 0x0F0F0F0F) << 4)
+    return ((w & 0xCCCCCCCC) >> 2) | ((w & 0x33333333) << 2)
+
+
+def rc_keys2(keys: torch.Tensor, K: int) -> torch.Tensor:
+    """Reverse complement of (..., 2) 2-bit wire keys: complement (NOT, as
+    A/T and C/G pair across the 2-bit code), reverse the 32 groups of the
+    64-bit key (word-wise reversal plus a word swap), realign by 64 - 2K
+    bits.  2 <= K <= 31."""
+    lo = ~keys[..., 0] & MASK32
+    hi = ~keys[..., 1] & MASK32
+    rlo, rhi = _rev2_word(hi), _rev2_word(lo)
+    s = 64 - 2 * K
+    if s >= 32:
+        out_lo, out_hi = rhi >> (s - 32), torch.zeros_like(rhi)
+    else:
+        out_lo = ((rlo >> s) | (rhi << (32 - s))) & MASK32
+        out_hi = rhi >> s
+    mask_lo, mask_hi = _key_masks(K)
+    return torch.stack([out_lo & mask_lo, out_hi & mask_hi], dim=-1)
+
+
+def boss_rot2(keys: torch.Tensor, K: int):
+    """(..., 2) wire keys -> (lo, hi) surrogates whose integer order is BOSS
+    priority order (chars K-2 .. 0, then K-1): a 2-bit rotate left within
+    the 2K-bit key."""
+    lo, hi = keys[..., 0], keys[..., 1]
+    top2 = (hi >> (2 * K - 34)) & 3 if 2 * K - 2 >= 32 \
+        else (lo >> (2 * K - 2)) & 3
+    mask_lo, mask_hi = _key_masks(K)
+    rlo = ((lo << 2) | top2) & mask_lo
+    rhi = ((hi << 2) | (lo >> 30)) & mask_hi
+    return rlo, rhi
+
+
+def keys2_greater(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
+    """a > b in BOSS priority order, for (..., 2) wire keys."""
+    alo, ahi = boss_rot2(a, K)
+    blo, bhi = boss_rot2(b, K)
+    return (ahi > bhi) | ((ahi == bhi) & (alo > blo))
+
+
 def _hash_lookup_flat(table: torch.Tensor, queries: torch.Tensor,
                       W: int) -> torch.Tensor:
     """(n_buckets, BUCKET*(W+1)) int32 table, (Q, W) keys -> (Q,) int32 ids
@@ -259,8 +308,14 @@ def _hash_lookup_flat(table: torch.Tensor, queries: torch.Tensor,
 
 def wire_lookup_plain(words: torch.Tensor, vwords: torch.Tensor,
                       table: torch.Tensor, K: int, T: int,
-                      chunk: int = 1024) -> torch.Tensor:
-    """Plain version of kernel 1, ``chunk`` tiles at a time."""
+                      chunk: int = 1024, canon: int = 0,
+                      offset: int = 0) -> torch.Tensor:
+    """Plain version of kernel 1, ``chunk`` tiles at a time.
+
+    canon 0 probes each valid window's key; canon 1 (canonical graph)
+    probes the smaller of the key and its reverse complement in BOSS order;
+    canon 2 (primary graph) probes the key and, where that misses, its
+    reverse complement, whose hit is emitted as id + ``offset``."""
     W = table.shape[1] // BUCKET - 1
     out = []
     for lo in range(0, words.shape[0], chunk):
@@ -268,7 +323,16 @@ def wire_lookup_plain(words: torch.Tensor, vwords: torch.Tensor,
         vw = to_u64(vwords[lo: lo + chunk])
         C = wd.shape[0]
         keys = extract_windows2(wd, K, T).reshape(C * T, 2)
+        if canon == 1:
+            rck = rc_keys2(keys, K)
+            keys = torch.where(keys2_greater(keys, rck, K)[:, None], rck,
+                               keys)
         nodes = _hash_lookup_flat(table, keys2_to_keys4(keys, K), W)
+        if canon == 2:
+            rc = _hash_lookup_flat(
+                table, keys2_to_keys4(rc_keys2(keys, K), K), W)
+            nodes = torch.where(nodes > 0, nodes,
+                                torch.where(rc > 0, rc + offset, 0))
         valid = window_valid2(vw, K, T)
         out.append(torch.where(valid, nodes.reshape(C, T), 0))
     if not out:
@@ -291,9 +355,12 @@ def _check_words(name: str, t: torch.Tensor, device: torch.device):
 
 
 def wire_lookup(words: torch.Tensor, vwords: torch.Tensor,
-                table: torch.Tensor, K: int, T: int) -> torch.Tensor:
+                table: torch.Tensor, K: int, T: int, canon: int = 0,
+                offset: int = 0) -> torch.Tensor:
     """(N, NW) 2-bit wire words, (N, NV) valid words, hash table ->
     (N, T) int32 node ids (0 = miss).  All int32 bit patterns of uint32.
+    ``canon`` and ``offset`` as in ``wire_lookup_plain``; ``offset`` plus
+    the largest id in the table must stay below 2^31.
 
     A CPU tensor takes the plain version; a CUDA tensor launches
     ``csrc/wire_lookup.cu`` or raises."""
@@ -309,8 +376,13 @@ def wire_lookup(words: torch.Tensor, vwords: torch.Tensor,
             or vwords.shape[0] != N or vwords.shape[1] * 32 < T:
         raise ValueError(f"bad tile layout: T={T} words {tuple(words.shape)} "
                          f"vwords {tuple(vwords.shape)}")
+    if canon not in (0, 1, 2) or not 0 <= offset < 2 ** 31 \
+            or (offset and canon != 2):
+        raise ValueError(f"bad canon {canon} / offset {offset}: an offset "
+                         "belongs to canon 2 only")
     if dev.type == "cpu":
-        return wire_lookup_plain(words, vwords, table, K, T)
+        return wire_lookup_plain(words, vwords, table, K, T, canon=canon,
+                                 offset=offset)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     nodes = torch.empty((N, T), dtype=torch.int32, device=dev)
@@ -319,10 +391,12 @@ def wire_lookup(words: torch.Tensor, vwords: torch.Tensor,
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned")
     fn = _build.function("wire_lookup", "mg_wire_lookup",
-                         [_P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _P])
+                         [_P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _I,
+                          _P])
     _build.check(fn(words.data_ptr(), vwords.data_ptr(), table.data_ptr(),
                     nodes.data_ptr(), N, NW, vwords.shape[1], table.shape[0],
-                    K, T, torch.cuda.current_stream(dev).cuda_stream),
+                    K, T, canon, offset,
+                    torch.cuda.current_stream(dev).cuda_stream),
                  "wire_lookup")
     wire_lookup.launches += 1
     return nodes

@@ -10,6 +10,8 @@ PyTorch; tests/conftest.py imports jax, so run it there without conftest:
 Inputs come from numpy seeds; every comparison is exact.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from metagraph_tpu_torch.annotation.ops import pack_annotation_bitmap
 from metagraph_tpu_torch.query import device as qd
 from metagraph_tpu_torch.query.pipeline import QueryEngine
 from metagraph_tpu_torch.query.tile_pack import tile_pack2
+from metagraph_tpu_torch.scripts import exp_gather as eg
 from metagraph_tpu_torch.succinct import ops
 
 pytestmark = pytest.mark.gpu
@@ -34,9 +37,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _index(K, seed, n_refs=6, ref_len=700):
+def _index(K, seed, n_refs=6, ref_len=700, rc_share=0.0):
     """A port-built index over random references (one label each, every
-    other reference also labelled 'all') and reads cut from them."""
+    other reference also labelled 'all') and reads cut from them, a
+    ``rc_share`` of them reverse-complemented."""
     rng = np.random.default_rng(seed)
     refs = rng.integers(0, 4, (n_refs, ref_len)).astype(np.uint8)
     win = np.lib.stride_tricks.sliding_window_view(refs, K, axis=1)
@@ -58,6 +62,8 @@ def _index(K, seed, n_refs=6, ref_len=700):
         r = refs[i % n_refs]
         a = int(rng.integers(0, ref_len - 150))
         read = r[a: a + int(rng.integers(K - 3, 150))].copy()
+        if rng.random() < rc_share:
+            read = 3 - read[::-1]
         read[rng.random(len(read)) < 0.02] = 4
         seqs.append(letters[read].tobytes())
     seqs.append(letters[np.tile(refs[0], 3)].tobytes())
@@ -87,6 +93,79 @@ def test_wire_epoch_kernels_match_plain(cuda, K):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
     assert (want[3] > 0).sum() > 100
+
+
+@pytest.mark.parametrize("canon", (1, 2))
+@pytest.mark.parametrize("K", (2, 15, 16, 17, 31))
+def test_canonical_wire_epoch_kernels_match_plain(cuda, K, canon):
+    """canon 1 (one probe of the BOSS-order canonical strand) and canon 2
+    (rc probe where the forward probe missed, ids + offset, folded for the
+    label counts) against the plain versions."""
+    index, seqs = _index(K, 100 + K, rc_share=0.5)
+    args = _wire_inputs(index, seqs, "cpu")
+    L, R = len(index.labels), index.num_rows
+    offset = R if canon == 2 else 0
+    want = qd.wire_epoch(*args, len(seqs), L, K, canon=canon, offset=offset)
+    got = qd.wire_epoch(*[a.to(cuda) for a in args], len(seqs), L, K,
+                        canon=canon, offset=offset)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert (want[3] > 0).sum() > 100
+    if canon == 2 and K > 2:    # at K = 2 every 2-mer is a forward hit
+        assert (want[3] > offset).sum() > 100
+
+
+@pytest.mark.parametrize("L", (1, 100, 9000))
+def test_label_counts_offset_fold_matches_plain(cuda, L):
+    """Ids above the offset fold to their base row; with the offset at R
+    every id lies in 1..2R."""
+    rng = np.random.default_rng(3000 + L)
+    R, T, N, S = 500, 256, 40, 7
+    Lw = (L + 31) // 32
+    bits = np.zeros((R, Lw * 32), bool)
+    bits[:, :L] = rng.random((R, L)) < 0.05
+    bitmap = np_words(np.packbits(bits, axis=1, bitorder="little")
+                      .view(np.uint32))
+    nodes = rng.integers(1, 2 * R + 1, (N, T)).astype(np.int32)
+    nodes = torch.from_numpy(np.where(rng.random((N, T)) < 0.6, nodes, 0)
+                             .astype(np.int32))
+    tile_seq = torch.from_numpy(np.sort(rng.integers(0, S, N))
+                                .astype(np.int32))
+    want = qd.label_counts(nodes, bitmap, tile_seq, S, L, offset=R)
+    got = qd.label_counts(nodes.to(cuda), bitmap.to(cuda), tile_seq.to(cuda),
+                          S, L, offset=R)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert want[0].sum() > 0
+
+
+@pytest.mark.parametrize("form", ("loop", "take"))
+@pytest.mark.parametrize("shape", [(1 << 16, 32, 1024, 1 << 18),
+                                   (1 << 17, 32, 1024, (1 << 16) + 700),
+                                   (1000, 4, 1000, 9999),
+                                   (4096, 64, 33, 5000),
+                                   (300, 256, 7, 100),
+                                   (64, 8, 100, 99)],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_gather_kernels_match_plain(cuda, form, shape):
+    """X1 and X2 on the full (8, W) output, with a ragged tail of indices
+    (left out) and chunks that are not a multiple of the warp or stage."""
+    n_rows, W, QB, Q = shape
+    rng = np.random.default_rng(sum(shape))
+    tab = np_words(rng.integers(0, 2 ** 32, (n_rows, W), dtype=np.uint32))
+    idx = torch.from_numpy(rng.integers(0, n_rows, Q).astype(np.int32))
+    want = eg.gather_rows_sum_plain(tab, idx, QB)
+    kernel = eg.gather_loop if form == "loop" else eg.gather_take
+    before = kernel.launches
+    got = kernel(tab.to(cuda), idx.to(cuda), QB)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert kernel.launches == before + (Q >= QB)
+    run = (eg.make_loop_kernel if form == "loop" else eg.make_take_kernel)(
+        n_rows, W, QB)
+    assert int(run(tab.to(cuda), idx.to(cuda))) == int(want[0, 0])
 
 
 @pytest.mark.parametrize("L", (1, 100, 9000))
@@ -143,3 +222,18 @@ def test_query_engine_cuda_matches_cpu(cuda, mode):
         seqs, mode, 3, 0.6, 0.1)
     assert str(got) == str(want)
     assert any(want)
+
+
+@pytest.mark.parametrize("canon", (1, 2))
+@pytest.mark.parametrize("mode", ("labels", "counts"))
+def test_canonical_query_engine_cuda_matches_cpu(cuda, mode, canon):
+    # the index holds forward k-mers only: with canon 1 about half of the
+    # windows (those whose forward strand comes first) hit
+    index, seqs = _index(31, 7, rc_share=0.5)
+    index = dataclasses.replace(index, canon=canon)
+    want = QueryEngine(index, device="cpu").query_batch_fused(
+        seqs, mode, 3, 0.3, 0.1)
+    got = QueryEngine(index, device=cuda).query_batch_fused(
+        seqs, mode, 3, 0.3, 0.1)
+    assert str(got) == str(want)
+    assert sum(bool(p) for p in want) > 10

@@ -16,6 +16,8 @@ import importlib, pkgutil, sys
 import metagraph_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
+assert {"metagraph_tpu_torch.graph.canonical",
+        "metagraph_tpu_torch.scripts.exp_gather"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
