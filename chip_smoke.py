@@ -15,7 +15,9 @@ then:
    windows, in the labels and counts modes, and holds the payloads of a
    sample and of the long sequence against an independent numpy oracle;
 3. holds kernels 1-3 against their plain PyTorch versions on the main
-   path's own inputs, exactly, and times both;
+   path's own inputs, exactly, and times both; times kernels 1 and 2 again
+   on L2-resident controls (a 2^15-bucket table, ids remapped to 4,096
+   rows), also held against their plain versions;
 4. drives the same query path on a primary graph (the references' forward
    k-mers, queried through CanonicalDBG: canon 2) in the labels and counts
    modes and on a canonical graph (both strands, about 16 M k-mers: canon
@@ -31,7 +33,9 @@ then:
 
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
-stdout is a JSON object with every kernel's numbers, the last is
+stdout is a JSON object with every kernel's numbers (kernels 1-3 once more
+for each of the primary and canonical deployments, named
+``<kernel>/<deployment>``), the last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without CUDA the script exits 1 before printing a result.  Long compiler
 reports go to ``--out``.
@@ -61,11 +65,11 @@ CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
 FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             read_len=200, long_windows=1 << 24, sample=2000,
             sw=(4096, 150, 300), sw_oracle=12, plain_chunks=(1024, 256),
-            gather=(22, (16, 17), 1024))
+            gather=(22, (16, 17), 1024), ctrl_log=15, ctrl_rows=4096)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_oracle=4, plain_chunks=(16, 8),
-            gather=(12, (6, 7), 64))
+            gather=(12, (6, 7), 64), ctrl_log=6, ctrl_rows=64)
 
 
 def log(msg: str):
@@ -471,11 +475,13 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
     nodes = qd.wire_lookup(words, vwords, table, K, qd.TILE, canon, offset)
     nodes_p = ops.wire_lookup_plain(words, vwords, table, K, qd.TILE, c1,
                                     canon, offset)
-    # bytes the data needs: the tile words, the bucket rows probed (each
-    # once: the chosen strand's for canon 1, and for canon 2 the forward
-    # key's and, where it missed, the reverse complement's) and the ids
+    # bytes the data needs: the tile words, the ids and, of each bucket
+    # probed (the chosen strand's for canon 1; for canon 2 the forward
+    # key's and, where it missed, the reverse complement's), the slot
+    # groups that the stop rule reads for the probes touching it: the
+    # furthest group any of them reaches, once (ops.probe_groups)
     nb, W = table.shape[0], table.shape[1] // ops.BUCKET - 1
-    touched = torch.zeros(nb, dtype=torch.bool, device=dev)
+    reach = torch.zeros(nb, dtype=torch.int64, device=dev)
     for lo in range(0, N, c1):
         wd, vw = to_u64(words[lo: lo + c1]), to_u64(vwords[lo: lo + c1])
         keys = ops.extract_windows2(wd, K, qd.TILE)
@@ -490,14 +496,21 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
                 nd = nodes[lo: lo + c1]
                 probed.append(rc[valid & ~((nd > 0) & (nd <= offset))])
         for q in probed:
-            touched[ops._hash_words(ops.keys2_to_keys4(q, K), nb, 1)] = True
+            b, g = ops.probe_groups(table, ops.keys2_to_keys4(q, K), W)
+            reach.scatter_reduce_(0, b, g, reduce="amax")
+    io = words.nbytes + vwords.nbytes + nodes.nbytes
+    rows_bytes = int((reach > 0).sum()) * 64 * (W + 1)
+    groups_bytes = int(reach.sum()) * 16 * (W + 1)
+    log(f"  wire_lookup{tag} bound counts {groups_bytes} B of slot groups; "
+        f"whole rows (the former yardstick) would be {rows_bytes} B = "
+        f"{(io + rows_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms")
     entry("wire_lookup", [nodes], [nodes_p],
           device_ms(torch, dev, lambda: qd.wire_lookup(
               words, vwords, table, K, qd.TILE, canon, offset), 10),
           plain_ms(lambda: ops.wire_lookup_plain(words, vwords, table, K,
                                                  qd.TILE, c1, canon, offset)),
-          words.nbytes + vwords.nbytes + nodes.nbytes
-          + int(touched.sum()) * 64 * (W + 1))
+          io + groups_bytes)
+    l2_control_wire(engine, words, vwords, cfg, torch, dev, tag)
 
     if canon == 2:
         last = nodes[tile_seq == S - 1]            # the long sequence
@@ -522,6 +535,8 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
                                                  L, c2, offset)),
           nodes.nbytes + tile_seq.nbytes + rows * bitmap.shape[1] * 4
           + counts.nbytes + present.nbytes)
+    l2_control_counts(nodes, bitmap, tile_seq, S, L, offset, cfg, torch, dev,
+                      tag)
 
     mask = qd.selection_mask(counts, present, dsel, selmin)
     entry("selection_mask", [mask],
@@ -532,6 +547,64 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
                                                    selmin)),
           counts.nbytes + 3 * present.nbytes + mask.nbytes)
     return entries
+
+
+def l2_control_wire(engine, words, vwords, cfg, torch, dev, tag):
+    """Kernel 1 on the path's batch against a table small enough for L2:
+    2^ctrl_log buckets at the index's load, built from a prefix of its
+    keys.  A time close to the real table's says the kernel is not bound
+    by device-memory bytes.  Checked against the plain version too."""
+    from metagraph_tpu_torch._u32 import np_words
+    from metagraph_tpu_torch.query import device as qd
+    from metagraph_tpu_torch.succinct import ops
+    host, canon, offset = engine.index.table, engine.index.canon, \
+        engine.index.offset
+    nb, W = host.shape[0], host.shape[1] // ops.BUCKET - 1
+    slots = host.reshape(nb, ops.BUCKET, W + 1)
+    slots = slots[slots[:, :, 0] != ops.EMPTY_WORD]
+    nbc = 1 << cfg["ctrl_log"]
+    keep = slots[: round(len(slots) * nbc / nb)]
+    ctab = ops.DeviceHashIndex._build(keep[:, :W], keep[:, W], nbc)
+    if ctab is None:
+        raise AssertionError("the control table overflowed a bucket")
+    ctab = np_words(ctab.reshape(nbc, -1)).to(dev)
+    got = qd.wire_lookup(words, vwords, ctab, K, qd.TILE, canon, offset)
+    want = ops.wire_lookup_plain(words, vwords, ctab, K, qd.TILE,
+                                 cfg["plain_chunks"][0], canon, offset)
+    err = max_abs_err(torch, got, want)
+    ms = device_ms(torch, dev, lambda: qd.wire_lookup(
+        words, vwords, ctab, K, qd.TILE, canon, offset), 10)
+    log(f"kernel wire_lookup{tag} L2 control: {ms:.4f} ms on {len(keep)} "
+        f"keys in {nbc} buckets ({ctab.nbytes} B), "
+        f"{int((got > 0).sum())} hits, max_abs_err {err}")
+    if err:
+        raise AssertionError(f"wire_lookup{tag} disagrees with its plain "
+                             "version on the control table")
+
+
+def l2_control_counts(nodes, bitmap, tile_seq, S, L, offset, cfg, torch, dev,
+                      tag):
+    """Kernel 2 on the path's node ids remapped to rows 1..ctrl_rows (an
+    offset fold kept), so that every row it reads stays in L2."""
+    from metagraph_tpu_torch.query import device as qd
+    base = torch.where(nodes > offset, nodes - offset, nodes) if offset \
+        else nodes
+    ctrl = torch.where(base > 0, (base - 1) % cfg["ctrl_rows"] + 1, 0)
+    if offset:
+        ctrl = torch.where(nodes > offset, ctrl + offset, ctrl)
+    ctrl = ctrl.to(torch.int32)
+    got = qd.label_counts(ctrl, bitmap, tile_seq, S, L, offset)
+    want = qd.label_counts_plain(ctrl, bitmap, tile_seq, S, L,
+                                 cfg["plain_chunks"][1], offset)
+    err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    ms = device_ms(torch, dev, lambda: qd.label_counts(
+        ctrl, bitmap, tile_seq, S, L, offset), 10)
+    log(f"kernel label_counts{tag} L2 control: {ms:.4f} ms with rows "
+        f"1..{cfg['ctrl_rows']} ({cfg['ctrl_rows'] * bitmap.shape[1] * 4} B "
+        f"of bitmap), max_abs_err {err}")
+    if err:
+        raise AssertionError(f"label_counts{tag} disagrees with its plain "
+                             "version on the control ids")
 
 
 def sw_phase(cfg, rng, torch, dev):
@@ -696,10 +769,14 @@ def main(argv=None) -> int:
                                    rc_share=0.5, long_rc=True)
     engine = timed("uploads", QueryEngine, dataclasses.replace(
         index, canon=2), device=dev)
-    timed("query paths and oracle", main_path, engine, seqs2, codes2,
-          period2, oracle, cfg, rng2, torch, dev, "primary graph (canon 2)")
-    timed("kernel checks", kernel_checks, engine, seqs2, cfg, torch, dev,
-          " [canon 2]")
+    # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
+    more = {}
+    more["primary"] = (
+        timed("query paths and oracle", main_path, engine, seqs2, codes2,
+              period2, oracle, cfg, rng2, torch, dev,
+              "primary graph (canon 2)"),
+        timed("kernel checks", kernel_checks, engine, seqs2, cfg, torch, dev,
+              " [canon 2]"))
     del engine
     index_c, oracle_c = timed("canonical index", make_canonical_index, refs,
                               index.labels)
@@ -708,11 +785,12 @@ def main(argv=None) -> int:
         f"{index_c.bitmap.shape} = {index_c.bitmap.nbytes} B; made in "
         f"{phases['canonical index']:.1f} s")
     engine = timed("uploads", QueryEngine, index_c, device=dev)
-    timed("query paths and oracle", main_path, engine, seqs2, codes2,
-          period2, oracle_c, cfg, rng2, torch, dev,
-          "canonical graph (canon 1)", modes=("labels",))
-    timed("kernel checks", kernel_checks, engine, seqs2, cfg, torch, dev,
-          " [canon 1]")
+    more["canonical"] = (
+        timed("query paths and oracle", main_path, engine, seqs2, codes2,
+              period2, oracle_c, cfg, rng2, torch, dev,
+              "canonical graph (canon 1)", modes=("labels",)),
+        timed("kernel checks", kernel_checks, engine, seqs2, cfg, torch, dev,
+              " [canon 1]"))
     del engine
 
     launches["sw_scores"], entries["sw_scores"] = timed(
@@ -720,11 +798,14 @@ def main(argv=None) -> int:
     gl, ge = timed("gather phase", gather_phase, cfg, torch, dev)
     for name in ("gather_loop", "gather_take"):
         launches[name], entries[name] = gl[name], ge[name]
+    rows = [(name, launches[name], entries[name]) for name in SOURCES]
+    for dep, (dl, de) in more.items():
+        rows += [(f"{name}/{dep}", dl[name], e) for name, e in de.items()]
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
-        e = entries[name]
+    for name, n, e in rows:
+        source, replaces = SOURCES[name.split("/")[0]]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": n,
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                         "bound_by": e["bound_by"], "library_ms": None})

@@ -29,13 +29,19 @@ def pack_annotation_bitmap(anno, num_rows: int | None = None) -> np.ndarray:
 
 @dataclass
 class DeviceAnnotation:
-    bitmap: torch.Tensor     # (R, Lw) int32 bit patterns of the uint32 words
+    # (R, Lw) int32 bit patterns of the uint32 words: a view of rows padded
+    # to a multiple of 4 words, so that each row starts 16-byte aligned
+    bitmap: torch.Tensor
     num_labels: int
 
     @classmethod
     def from_bitmap(cls, bitmap: np.ndarray, num_labels: int,
                     device) -> "DeviceAnnotation":
-        return cls(np_words(bitmap).to(device), num_labels)
+        Lw = bitmap.shape[1]
+        pad = -Lw % 4
+        if pad:
+            bitmap = np.pad(bitmap, ((0, 0), (0, pad)))
+        return cls(np_words(bitmap).to(device)[:, :Lw], num_labels)
 
 
 def gather_anno_rows(bitmap: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,8 @@ import numpy as np
 from .annotation.column import ColumnMajorAnnotation
 from .annotation.ops import pack_annotation_bitmap
 from .graph.dbg_succinct import DBGSuccinct
-from .succinct.ops import BUCKET, DeviceHashIndex, pack_kmers32
+from .succinct.ops import (BUCKET, DeviceHashIndex, check_slot_fill,
+                           pack_kmers32)
 
 
 @dataclass
@@ -57,6 +58,7 @@ class QueryIndex:
                 or self.table.shape[1:] != (BUCKET * (W + 1),):
             raise ValueError(f"hash table {self.table.shape} "
                              f"{self.table.dtype} does not fit k={self.k}")
+        check_slot_fill(self.table)
         Lw = max((len(self.labels) + 31) // 32, 1)
         if self.bitmap.dtype != np.uint32 or self.bitmap.ndim != 2 \
                 or self.bitmap.shape[1] != Lw:

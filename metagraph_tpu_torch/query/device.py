@@ -161,15 +161,20 @@ def _require(device: torch.device, **tensors):
 def label_counts(nodes: torch.Tensor, bitmap: torch.Tensor,
                  tile_seq: torch.Tensor, num_seqs: int, num_labels: int,
                  offset: int = 0):
-    """(N, T) node ids, (R, Lw) bitmap, (N,) tile_seq -> ((S, L) int32
-    counts, (S,) int32 present).  ``offset`` > 0 folds ids above it to
+    """(N, T) node ids, (R, Lw) bitmap (rows may be padded: its row stride
+    is passed on), (N,) tile_seq -> ((S, L) int32 counts, (S,) int32
+    present).  ``offset`` > 0 folds ids above it to
     ``node - offset`` before the row gather (0 means no fold).  CPU tensors
     take the plain version; CUDA tensors launch ``csrc/label_counts.cu`` or
     raise."""
     dev = nodes.device
-    _require(dev, nodes=nodes, bitmap=bitmap, tile_seq=tile_seq)
+    _require(dev, nodes=nodes, tile_seq=tile_seq)
     N, T = nodes.shape
     R, Lw = bitmap.shape
+    if bitmap.dtype != torch.int32 or bitmap.device != dev \
+            or bitmap.stride(1) != 1 or bitmap.stride(0) < Lw:
+        raise ValueError("bitmap must be an int32 tensor on the nodes' "
+                         "device with rows of contiguous words")
     if Lw != max((num_labels + 31) // 32, 1) or T % 32 \
             or tile_seq.shape != (N,):
         raise ValueError(f"bad shapes: nodes {tuple(nodes.shape)} bitmap "
@@ -186,11 +191,18 @@ def label_counts(nodes: torch.Tensor, bitmap: torch.Tensor,
     present = torch.zeros(num_seqs, dtype=torch.int32, device=dev)
     if N == 0:
         return counts, present
+    stride = bitmap.stride(0)
+    # 16-byte row copies need aligned rows, readable up to a multiple of 4
+    # words (DeviceAnnotation pads its rows so)
+    end = (bitmap.storage_offset() + (R - 1) * stride + (Lw + 3) // 4 * 4) * 4
+    vec16 = stride % 4 == 0 and bitmap.data_ptr() % 16 == 0 \
+        and end <= bitmap.untyped_storage().nbytes()
     fn = _build.function("label_counts", "mg_label_counts",
-                         [_P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _I, _P])
+                         [_P, _P, _P, _P, _P, _L, _I, _L, _L, _I, _I, _I, _I,
+                          _P])
     _build.check(fn(nodes.data_ptr(), bitmap.data_ptr(), tile_seq.data_ptr(),
-                    counts.data_ptr(), present.data_ptr(), N, T, R, Lw,
-                    num_labels, offset,
+                    counts.data_ptr(), present.data_ptr(), N, T, R, stride,
+                    Lw, num_labels, offset, int(vec16),
                     torch.cuda.current_stream(dev).cuda_stream),
                  "label_counts")
     label_counts.launches += 1

@@ -306,6 +306,40 @@ def _hash_lookup_flat(table: torch.Tensor, queries: torch.Tensor,
     return torch.where(eq.any(dim=-1), ids, 0).to(torch.int32)
 
 
+def check_slot_fill(table: np.ndarray, chunk: int = 1 << 20):
+    """Raise ValueError unless every bucket row of the (n_buckets,
+    BUCKET*(W+1)) uint32 ``table`` fills its slots from slot 0 with no gap
+    (no occupied slot after an empty one), as ``_build`` places them.
+    Kernel 1 stops each probe at the first slot group holding its key or
+    an empty slot, which is exact only on such tables.  A slot is empty iff
+    its first key word is EMPTY_WORD (a real key's nibbles are 1-4)."""
+    n_buckets, row = table.shape
+    for lo in range(0, n_buckets, chunk):
+        empty = table[lo: lo + chunk].reshape(-1, BUCKET, row // BUCKET)[
+            :, :, 0] == EMPTY_WORD
+        gap = empty[:, :-1] & ~empty[:, 1:]
+        if gap.any():
+            b = lo + int(np.flatnonzero(gap.any(axis=1))[0])
+            raise ValueError(f"hash table bucket {b} has an occupied slot "
+                             "after an empty one: slots must fill from 0")
+
+
+def probe_groups(table: torch.Tensor, queries: torch.Tensor, W: int):
+    """(n_buckets, BUCKET*(W+1)) int32 table, (Q, W) keys -> ((Q,) bucket
+    ids, (Q,) groups read): how many 4-slot groups of its bucket row a probe
+    reads when it stops after the group that holds its key or an empty
+    slot (1 to BUCKET // 4), the rule of kernel 1."""
+    Q = queries.shape[0]
+    b = _hash_words(queries, table.shape[0], 1)
+    rows = to_u64(table[b]).reshape(Q, BUCKET, W + 1)
+    stop = torch.all(rows[:, :, :W] == queries[:, None, :], dim=-1) \
+        | (rows[:, :, 0] == int(EMPTY_WORD))
+    # argmax returns the first maximum; a row with no stop reads every group
+    slot = torch.where(stop.any(dim=-1), stop.to(torch.int8).argmax(dim=-1),
+                       BUCKET - 1)
+    return b, slot // 4 + 1
+
+
 def wire_lookup_plain(words: torch.Tensor, vwords: torch.Tensor,
                       table: torch.Tensor, K: int, T: int,
                       chunk: int = 1024, canon: int = 0,
@@ -363,7 +397,9 @@ def wire_lookup(words: torch.Tensor, vwords: torch.Tensor,
     the largest id in the table must stay below 2^31.
 
     A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/wire_lookup.cu`` or raises."""
+    ``csrc/wire_lookup.cu`` or raises.  The kernel stops each probe at the
+    first 4-slot group holding the key or an empty slot, so ``table`` must
+    fill its slots from slot 0 (``check_slot_fill``), as the builders do."""
     dev = words.device
     for name, t in (("words", words), ("vwords", vwords), ("table", table)):
         _check_words(name, t, dev)
@@ -388,17 +424,27 @@ def wire_lookup(words: torch.Tensor, vwords: torch.Tensor,
     nodes = torch.empty((N, T), dtype=torch.int32, device=dev)
     if N == 0:
         return nodes
-    if table.data_ptr() % 16:
-        raise ValueError("table must be 16-byte aligned")
+    if table.data_ptr() % 16 or table.shape[0] >= 2 ** 31 \
+            or N * T + 256 >= 2 ** 31:
+        raise ValueError("the kernel needs a 16-byte aligned table of fewer "
+                         "than 2^31 buckets and fewer than 2^31 - 256 "
+                         "windows")
+    # canon 2 scratch: the list of forward misses and its length
+    scratch = [None, None]
+    if canon == 2:
+        scratch = [torch.empty(N * T, dtype=torch.int32, device=dev),
+                   torch.zeros(1, dtype=torch.int32, device=dev)]
     fn = _build.function("wire_lookup", "mg_wire_lookup",
                          [_P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _I, _I,
-                          _P])
+                          _P, _P, _P])
     _build.check(fn(words.data_ptr(), vwords.data_ptr(), table.data_ptr(),
                     nodes.data_ptr(), N, NW, vwords.shape[1], table.shape[0],
                     K, T, canon, offset,
+                    *[t if t is None else t.data_ptr() for t in scratch],
                     torch.cuda.current_stream(dev).cuda_stream),
                  "wire_lookup")
-    wire_lookup.launches += 1
+    # canon 2 runs two kernels: forward probes, then the misses' rc probes
+    wire_lookup.launches += 2 if canon == 2 else 1
     return nodes
 
 

@@ -20,7 +20,8 @@ from metagraph_tpu_torch import convert
 from metagraph_tpu_torch._u32 import np_words
 from metagraph_tpu_torch.align.sw import sw_scores
 from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
-from metagraph_tpu_torch.annotation.ops import pack_annotation_bitmap
+from metagraph_tpu_torch.annotation.ops import (DeviceAnnotation,
+                                               pack_annotation_bitmap)
 from metagraph_tpu_torch.query import device as qd
 from metagraph_tpu_torch.query.pipeline import QueryEngine
 from metagraph_tpu_torch.query.tile_pack import tile_pack2
@@ -114,6 +115,104 @@ def test_canonical_wire_epoch_kernels_match_plain(cuda, K, canon):
     assert (want[3] > 0).sum() > 100
     if canon == 2 and K > 2:    # at K = 2 every 2-mer is a forward hit
         assert (want[3] > offset).sum() > 100
+
+
+FILLS = (0, 1, 3, 4, 5, 15, 16, 16)     # keys per bucket
+
+
+def table_with_fills(K, seed, fills=FILLS):
+    """A hash table whose bucket b holds fills[b] keys, chosen by their
+    hash, in random order: -> (table, key chars, ids, chars of absent
+    k-mers hashing to every bucket).  Full buckets hold a key in slot 15."""
+    rng = np.random.default_rng(seed)
+    nb = len(fills)
+    pool = np.unique(rng.integers(1, 5, (64 * nb, K)).astype(np.uint8),
+                     axis=0)
+    b = ops._hash_words(ops.pack_kmers32(pool), nb, 1)
+    take, absent = [], []
+    for bucket, n in enumerate(fills):
+        mine = np.flatnonzero(b == bucket)
+        take.append(mine[:n])
+        absent.append(mine[n: n + 3])
+    chars = pool[rng.permutation(np.concatenate(take))]
+    ids = rng.permutation(len(chars)).astype(np.uint32) + 1
+    table = ops.DeviceHashIndex._build(ops.pack_kmers32(chars), ids, nb)
+    return (table.reshape(nb, -1), chars, ids,
+            pool[np.concatenate(absent)])
+
+
+@pytest.mark.parametrize("traffic", ("keys", "rc", "mixed"))
+@pytest.mark.parametrize("canon", (0, 1, 2))
+@pytest.mark.parametrize("K", (15, 16, 17, 31))
+def test_wire_lookup_stop_rule_matches_plain(cuda, K, canon, traffic):
+    """Hits and misses in buckets of 0, 1, 3, 4, 5, 15 and 16 keys (a key
+    in slot 15 included); one window per sequence.  With canon 2, "keys"
+    hits every window forward (pass 2 gets an empty list) and "rc" misses
+    every window forward (pass 2 gets them all)."""
+    table, chars, ids, absent = table_with_fills(K, 7000 + K)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    rc = 5 - chars[:, ::-1]
+    kmers = {"keys": chars, "rc": rc,
+             "mixed": np.concatenate([chars, rc, absent])}[traffic]
+    seqs = [letters[c - 1].tobytes() for c in kmers]
+    tiles2, validb, _, _ = tile_pack2(seqs, K, qd.TILE)
+    words, vwords = qd.wire_words_layout(tiles2, validb, K, qd.TILE,
+                                         len(tiles2))
+    args = [np_words(a) for a in (words, vwords, table)]
+    offset = 1000 if canon == 2 else 0
+    want = ops.wire_lookup(*args, K, qd.TILE, canon, offset)
+    before = ops.wire_lookup.launches
+    got = ops.wire_lookup(*[a.to(cuda) for a in args], K, qd.TILE, canon,
+                          offset)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert ops.wire_lookup.launches == before + (2 if canon == 2 else 1)
+    first = want[:, 0].numpy()
+    if canon == 0 and traffic == "keys":
+        np.testing.assert_array_equal(first, ids)   # slot 15 included
+    if canon == 2 and traffic != "mixed":
+        fwd = traffic == "keys"
+        assert ((first > 0) & (first <= offset)).all() == fwd
+        assert (first > offset).all() != fwd
+
+
+def _bitmap(rng, R, L):
+    """Rows of every density: empty, one bit per word, every bit, 5%."""
+    Lw = (L + 31) // 32
+    bits = np.zeros((R, Lw * 32), bool)
+    kind = np.arange(R) % 4
+    one = np.flatnonzero(kind == 1)[:, None]
+    bits[one, rng.integers(0, 32, (len(one), Lw)) + 32 * np.arange(Lw)] = True
+    bits[kind == 2] = True
+    bits[kind == 3] = rng.random(((kind == 3).sum(), Lw * 32)) < 0.05
+    bits[:, L:] = False
+    return np.packbits(bits, axis=1, bitorder="little").view(np.uint32)
+
+
+@pytest.mark.parametrize("layout", ("contiguous", "padded"))
+@pytest.mark.parametrize("L", (1, 100, 1000, 9000))
+def test_label_counts_row_kinds_match_plain(cuda, L, layout):
+    """Rows with 0, 1 and 32 bits per word and random ones; half of the
+    tiles have all 256 windows on one row; a contiguous bitmap (4-byte row
+    copies when Lw % 4 != 0) and DeviceAnnotation's padded rows."""
+    rng = np.random.default_rng(4000 + L)
+    R, T, N, S = 400, qd.TILE, 40, 6
+    bitmap = _bitmap(rng, R, L)
+    nodes = np.where(rng.random((N, T)) < 0.9,
+                     rng.integers(1, R + 1, (N, T)), 0)
+    nodes[::2] = rng.integers(1, R + 1, (N // 2, 1))    # one row per tile
+    nodes = torch.from_numpy(nodes.astype(np.int32))
+    tile_seq = torch.from_numpy(np.sort(rng.integers(0, S, N))
+                                .astype(np.int32))
+    want = qd.label_counts(nodes, np_words(bitmap), tile_seq, S, L)
+    dev_bitmap = np_words(bitmap).to(cuda) if layout == "contiguous" else \
+        DeviceAnnotation.from_bitmap(bitmap, L, cuda).bitmap
+    got = qd.label_counts(nodes.to(cuda), dev_bitmap, tile_seq.to(cuda), S,
+                          L)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert want[0].sum() > 0
 
 
 @pytest.mark.parametrize("L", (1, 100, 9000))
