@@ -29,7 +29,11 @@ then:
    against its plain version and, on a sample, the numpy oracle;
 6. runs the gather micro-benchmark's sweep
    (``metagraph_tpu_torch.scripts.exp_gather``) and holds its kernels 5 and
-   6 against their plain version on the full output.
+   6 against their plain version on the full output; then times both on
+   two controls, also held against the plain version: sequential indices
+   on the sweep's 2^17-row table (L2's rate without randomness) and random
+   indices into a 2^21-row table (268 MB, random rows from device
+   memory).
 
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
@@ -65,11 +69,13 @@ CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
 FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             read_len=200, long_windows=1 << 24, sample=2000,
             sw=(4096, 150, 300), sw_oracle=12, plain_chunks=(1024, 256),
-            gather=(22, (16, 17), 1024), ctrl_log=15, ctrl_rows=4096)
+            gather=(22, (16, 17), 1024), gather_big=21, ctrl_log=15,
+            ctrl_rows=4096)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_oracle=4, plain_chunks=(16, 8),
-            gather=(12, (6, 7), 64), ctrl_log=6, ctrl_rows=64)
+            gather=(12, (6, 7), 64), gather_big=9, ctrl_log=6,
+            ctrl_rows=64)
 
 
 def log(msg: str):
@@ -659,7 +665,8 @@ def sw_phase(cfg, rng, torch, dev):
 
 def gather_phase(cfg, torch, dev):
     """The gather micro-benchmark's sweep through the port's script, then
-    kernels 5 and 6 against the plain version on the sweep's inputs."""
+    kernels 5 and 6 against the plain version on the sweep's inputs and on
+    the two controls."""
     from metagraph_tpu_torch._u32 import np_words
     from metagraph_tpu_torch.scripts import exp_gather as eg
     q_log, rows_logs, QB = cfg["gather"]
@@ -671,6 +678,12 @@ def gather_phase(cfg, torch, dev):
             raise AssertionError(f"{name} never launched in the sweep")
     rng = np.random.default_rng(eg.SEED)     # the sweep's inputs again
     Q, entries = 1 << q_log, {}
+    n = Q // QB * QB
+    if dev.type == "cuda":
+        for form in ("loop", "take"):
+            grid, _, smem, bps = eg.launch_plan(form, n, 32, dev)
+            log(f"gather_{form} plan at W = 32: {bps} blocks an SM, grid "
+                f"{grid}, {smem} B of dynamic shared memory")
     for rows_log in rows_logs:
         tab, idx = eg.make_inputs(rng, rows_log, Q)
         tab_d, idx_d = np_words(tab).to(dev), torch.from_numpy(idx).to(dev)
@@ -678,28 +691,60 @@ def gather_phase(cfg, torch, dev):
         plain = device_ms(torch, dev, lambda: eg.gather_rows_sum_plain(
             tab_d, idx_d, QB), 3)
         yard = device_ms(torch, dev, lambda: tab_d[idx_d].sum(0), 3)
-        n = Q // QB * QB
         nbytes = n * 4 + tab.nbytes + want.nbytes
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         log(f"gather rows=2^{rows_log} ({tab.nbytes} B table, {n} indices "
             f"of {QB}): plain {plain:.3f} ms; yardstick tab[idx].sum(0) "
             f"{yard:.3f} ms (two calls, int64 sums: information only)")
         for name in ("gather_loop", "gather_take"):
-            fn = getattr(eg, name)
-            err = max_abs_err(torch, fn(tab_d, idx_d, QB), want)
-            ms = device_ms(torch, dev, lambda: fn(tab_d, idx_d, QB), 20)
-            log(f"kernel {name} rows=2^{rows_log}: {ms:.4f} ms = "
-                f"{n / ms / 1e3:.1f} Mgather/s (bound {bound:.4f} ms from "
-                f"{nbytes} bytes at 3.35 TB/s; gathered {n * tab.shape[1] * 4}"
-                f" B = {n * tab.shape[1] * 4 / ms / 1e9:.3f} TB/s from L2), "
-                f"max_abs_err {err}")
-            if err:
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     "version")
+            ms, err = gather_line(torch, dev, eg, name, tab_d, idx_d, QB,
+                                  want, f"rows=2^{rows_log}", bound, nbytes)
             # the kernels line keeps the last (largest) table's numbers
             entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                  bound_ms=bound, bound_by="bytes")
+    gather_controls(cfg, torch, dev, eg, tab_d, Q, QB)
     return launches, entries
+
+
+def gather_line(torch, dev, eg, name, tab, idx, QB, want, what, bound,
+                nbytes):
+    """Time kernel ``name`` and hold it exactly against ``want``."""
+    fn = getattr(eg, name)
+    err = max_abs_err(torch, fn(tab, idx, QB), want)
+    ms = device_ms(torch, dev, lambda: fn(tab, idx, QB), 20)
+    n, row_bytes = idx.shape[0] // QB * QB, tab.shape[1] * 4
+    log(f"kernel {name} {what}: {ms:.4f} ms = {n / ms / 1e3:.1f} Mgather/s "
+        f"(bound {bound:.4f} ms from {nbytes} bytes at 3.35 TB/s; gathered "
+        f"{n * row_bytes} B = {n * row_bytes / ms / 1e9:.3f} TB/s), "
+        f"max_abs_err {err}")
+    if err:
+        raise AssertionError(f"{name} {what} disagrees with its plain "
+                             "version")
+    return ms, err
+
+
+def gather_controls(cfg, torch, dev, eg, tab_d, Q, QB):
+    """Kernels 5 and 6 on two controls, each held exactly against the plain
+    version: sequential indices i mod n_rows on the sweep's last table (the
+    L2's rate for the same rows without randomness) and random indices into
+    a table of 2^gather_big rows, larger than L2 (random 128 B rows from
+    device memory)."""
+    from metagraph_tpu_torch._u32 import np_words
+    seq = (torch.arange(Q, device=dev) % tab_d.shape[0]).to(torch.int32)
+    big_log = cfg["gather_big"]
+    tab_b, idx_b = eg.make_inputs(np.random.default_rng(eg.SEED), big_log, Q)
+    n = Q // QB * QB
+    for what, tab, idx in (
+            (f"sequential rows=2^{tab_d.shape[0].bit_length() - 1}", tab_d,
+             seq),
+            (f"out of L2 rows=2^{big_log}", np_words(tab_b).to(dev),
+             torch.from_numpy(idx_b).to(dev))):
+        want = eg.gather_rows_sum_plain(tab, idx, QB)
+        nbytes = n * 4 + tab.nbytes + want.nbytes
+        for name in ("gather_loop", "gather_take"):
+            gather_line(torch, dev, eg, name, tab, idx, QB, want,
+                        f"control {what}", nbytes / HBM_BYTES_PER_S * 1e3,
+                        nbytes)
 
 
 SOURCES = {

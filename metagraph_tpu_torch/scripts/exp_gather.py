@@ -11,15 +11,21 @@ indices (``nblocks = len(idx) // QB``; a ragged tail is left out), with rows
 as a 0-d int32 tensor:
 
 * ``make_loop_kernel`` -> ``gather_loop`` (``csrc/gather_rows.cu``), which
-  replaces the Pallas ``fori_loop`` kernel (``make_loop_kernel.run``);
+  replaces the Pallas ``fori_loop`` kernel (``make_loop_kernel.run``): rows
+  summed in registers, 16-byte loads of 8 rows in flight a lane, indices
+  fetched a step ahead;
 * ``make_take_kernel`` -> ``gather_take`` (same file), which replaces the
-  Pallas ``jnp.take`` kernel (``make_take_kernel.run``);
+  Pallas ``jnp.take`` kernel (``make_take_kernel.run``): rows staged by a
+  ring of 16-byte ``cp.async`` copies in shared memory, each stage reduced
+  as it lands, indices copied into shared memory stages ahead;
 * ``make_plain`` -> ``gather_rows_sum_plain``: ``index_select``, an int64
   sum, masking to 32 bits.
 
 ``tab`` holds uint32 words as int32 bit patterns (or is a numpy uint32
 array); indices outside [0, n_rows) are clamped.  CPU tensors take the
-plain version; CUDA tensors launch the kernel or raise.  ``main`` runs the
+plain version; CUDA tensors launch the kernel or raise.  Both kernels run
+on a persistent grid (``gather_plan``): a few blocks an SM, each summing an
+even share of the indices whatever QB is.  ``main`` runs the
 JAX script's sweep (tables of 2^16 and 2^17 rows of 32 words, 2^22 random
 indices in chunks of 1,024, seed 0) and prints ms and Mgather/s for each
 form, "FAILED" for a form that raised.
@@ -29,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import time
 
 import numpy as np
@@ -70,7 +77,79 @@ def gather_rows_sum_plain(tab: torch.Tensor, idx: torch.Tensor, QB: int,
     return out
 
 
-def _gather(kernel, symbol: str, tab: torch.Tensor, idx: torch.Tensor,
+# Launch shapes, as in csrc/gather_rows.cu
+WIDTHS = (4, 8, 16, 32, 64, 128, 256)   # W, a template parameter there
+FORM_IDS = {"loop": 0, "take": 1}
+WARPS = 8                               # of 32 threads a block
+LOOP_ROWS_IN_FLIGHT = 8                 # per lane
+STAGES, STAGE_WORDS = 4, 4096           # take: a ring of 16 KB stages
+MAX_SMEM = 232_448                      # dynamic shared memory of a block
+
+
+def _block_rows(form: str, W: int) -> int:
+    """Rows one block takes at a time: a step of every warp (loop), a
+    stage (take)."""
+    if form == "loop":
+        lanes_a_row = min(W // 4, 32)
+        return WARPS * LOOP_ROWS_IN_FLIGHT * (32 // lanes_a_row)
+    return STAGE_WORDS // W
+
+
+def _shared_bytes(form: str, W: int) -> int:
+    if form == "loop":
+        return WARPS * W * 4                # the warps' sums
+    # the ring, then 2 STAGES slots of a stage's indices
+    return STAGES * STAGE_WORDS * 4 + 2 * STAGES * (STAGE_WORDS // W) * 4
+
+
+@functools.lru_cache(maxsize=256)
+def gather_plan(form: str, n: int, W: int, n_sms: int, blocks_per_sm: int):
+    """Launch plan of a gather kernel over n indices: (grid, bounds, dynamic
+    shared bytes), block b summing indices [bounds[b], bounds[b + 1]).
+
+    The grid is persistent: at most ``blocks_per_sm`` blocks on each of
+    ``n_sms`` SMs, and no more blocks than ``n`` has rows for one block
+    step, so every share is non-empty; the shares are even, n b // grid,
+    as the kernel computes them.  n = 0 plans no block."""
+    if form not in FORM_IDS:
+        raise ValueError(f"unknown gather form {form!r}")
+    if W not in WIDTHS:
+        raise ValueError(f"the gather kernels take W in {WIDTHS}, not {W}")
+    if n < 0 or n_sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"bad plan: n {n}, {n_sms} SMs, {blocks_per_sm} "
+                         "blocks an SM")
+    unit = _block_rows(form, W)
+    grid = min(n_sms * blocks_per_sm, -(-n // unit))
+    bounds = tuple(n * b // grid for b in range(grid + 1)) if grid else (0,)
+    return grid, bounds, _shared_bytes(form, W)
+
+
+@functools.lru_cache(maxsize=64)
+def _blocks_per_sm(form: str, W: int, smem: int, device_index: int) -> int:
+    fn = _build.function("gather_rows", "mg_gather_occupancy",
+                         [_I, _I, _I, ctypes.POINTER(ctypes.c_int32)])
+    blocks = ctypes.c_int32(0)
+    with torch.cuda.device(device_index):
+        _build.check(fn(FORM_IDS[form], W, smem, ctypes.byref(blocks)),
+                     "mg_gather_occupancy")
+    if blocks.value < 1:
+        raise RuntimeError(f"gather {form} at W = {W} fits no block on an SM")
+    return blocks.value
+
+
+def launch_plan(form: str, n: int, W: int, dev: torch.device):
+    """gather_plan on card ``dev``: its SM count and the occupancy API's
+    resident blocks -> (grid, bounds, dynamic shared bytes, blocks an
+    SM)."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    n_sms = torch.cuda.get_device_properties(index).multi_processor_count
+    smem = _shared_bytes(form, W)
+    bps = _blocks_per_sm(form, W, smem, index)
+    return (*gather_plan(form, n, W, n_sms, bps), bps)
+
+
+def _gather(kernel, form: str, tab: torch.Tensor, idx: torch.Tensor,
             QB: int) -> torch.Tensor:
     _check(tab, idx, QB)
     dev = tab.device
@@ -79,34 +158,36 @@ def _gather(kernel, symbol: str, tab: torch.Tensor, idx: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     n_rows, W = tab.shape
-    if W < 4 or W > 256 or W & (W - 1) or n_rows >= 2 ** 31 \
-            or tab.data_ptr() % 16:
+    if W not in WIDTHS or n_rows >= 2 ** 31 or tab.data_ptr() % 16:
         raise ValueError(f"the gather kernels take a 16-byte aligned table of "
                          f"< 2^31 rows of W = 4, 8, .., 256 words, not "
                          f"{tuple(tab.shape)}")
     out = torch.zeros((OUT_ROWS, W), dtype=torch.int32, device=dev)
-    nblocks = idx.shape[0] // QB
-    if nblocks == 0:
+    n = idx.shape[0] // QB * QB
+    if n == 0:
         return out
-    fn = _build.function("gather_rows", symbol,
-                         [_P, _P, _P, _L, _I, _I, _I, _P])
-    _build.check(fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), nblocks,
-                    n_rows, W, QB, torch.cuda.current_stream(dev).cuda_stream),
-                 symbol)
+    grid, _, smem, _ = launch_plan(form, n, W, dev)
+    fn = _build.function("gather_rows", "mg_gather",
+                         [_I, _P, _P, _P, _L, _I, _I, _I, _I, _P])
+    _build.check(fn(FORM_IDS[form], tab.data_ptr(), idx.data_ptr(),
+                    out.data_ptr(), n, n_rows, W, grid, smem,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 f"gather_{form}")
     kernel.launches += 1
     return out
 
 
 def gather_loop(tab: torch.Tensor, idx: torch.Tensor, QB: int
                 ) -> torch.Tensor:
-    """X1: one block per chunk, warps loop over rows with register sums."""
-    return _gather(gather_loop, "mg_gather_loop", tab, idx, QB)
+    """X1: rows summed in registers, 16-byte loads, a persistent grid."""
+    return _gather(gather_loop, "loop", tab, idx, QB)
 
 
 def gather_take(tab: torch.Tensor, idx: torch.Tensor, QB: int
                 ) -> torch.Tensor:
-    """X2: one block per chunk, rows staged in shared memory by cp.async."""
-    return _gather(gather_take, "mg_gather_take", tab, idx, QB)
+    """X2: rows staged in shared memory by a cp.async ring, a persistent
+    grid."""
+    return _gather(gather_take, "take", tab, idx, QB)
 
 
 gather_loop.launches = 0

@@ -121,3 +121,52 @@ def test_makers_need_cuda(monkeypatch):
     for maker, _ in FORMS.values():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             maker(64, 32, 16)
+
+
+PLAN_CASES = [(0, 132, 4), (1, 132, 4), (255, 132, 2), (3000, 132, 4),
+              (99_999, 132, 3), (1 << 22, 132, 4), (1 << 22, 1, 1),
+              (12_347, 7, 5)]
+
+
+@pytest.mark.parametrize("W", eg.WIDTHS)
+@pytest.mark.parametrize("form", ("loop", "take"))
+@pytest.mark.parametrize("case", PLAN_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_gather_plan_covers_every_index_once(form, W, case):
+    """The persistent grid's even shares cover [0, n) exactly once, every
+    block gets work, and the grid stays within the card and the work."""
+    n, n_sms, bps = case
+    grid, bounds, smem = eg.gather_plan(form, n, W, n_sms, bps)
+    assert 0 <= grid <= n_sms * bps
+    assert len(bounds) == grid + 1 and bounds[0] == 0 and bounds[-1] == n
+    sizes = np.diff(bounds)
+    assert (sizes >= 1).all() and sizes.sum() == n
+    if grid:
+        assert sizes.max() - sizes.min() <= 1          # even shares
+        unit = eg._block_rows(form, W)
+        assert grid <= -(-n // unit)                    # no more than work
+        assert grid == n_sms * bps or grid == -(-n // unit)
+    # the kernel's split, n b / grid in int64
+    assert bounds == tuple(n * b // max(grid, 1) for b in range(grid + 1))
+    assert 0 < smem <= eg.MAX_SMEM
+
+
+@pytest.mark.parametrize("form", ("loop", "take"))
+def test_gather_plan_shared_memory(form):
+    """Dynamic shared memory: within a block's 232,448 B at every W; the
+    staged ring leaves room for two blocks an SM."""
+    for W in eg.WIDTHS:
+        smem = eg.gather_plan(form, 1 << 20, W, 132, 4)[2]
+        assert smem <= eg.MAX_SMEM
+        if form == "take":
+            assert 2 * smem <= eg.MAX_SMEM
+            assert smem >= eg.STAGES * eg.STAGE_WORDS * 4
+
+
+@pytest.mark.parametrize("W", (0, 2, 3, 12, 48, 512, 1024))
+def test_gather_plan_refuses_other_widths(W):
+    for form in ("loop", "take"):
+        with pytest.raises(ValueError, match="W in"):
+            eg.gather_plan(form, 1000, W, 132, 4)
+    with pytest.raises(ValueError, match="unknown gather form"):
+        eg.gather_plan("scan", 1000, 32, 132, 4)

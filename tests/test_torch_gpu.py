@@ -240,21 +240,36 @@ def test_label_counts_offset_fold_matches_plain(cuda, L):
     assert want[0].sum() > 0
 
 
+# (n_rows, W, QB, Q, indices outside [0, n_rows) too)
+GATHER_SHAPES = [(1 << 16, 32, 1024, 1 << 18, False),
+                 (1 << 17, 32, 1024, (1 << 16) + 700, False),
+                 (1000, 4, 1000, 9999, False),
+                 (4096, 64, 33, 5000, False),
+                 (300, 256, 7, 100, False),
+                 (64, 8, 100, 99, False)]
+GATHER_SHAPES += [(2048, W, 512, 100_003, False) for W in eg.WIDTHS]
+GATHER_SHAPES += [(5000, 32, 3000, 3000, False),     # one chunk: a small grid
+                  (100, 32, 1000, 999, False),       # nblocks == 0: no launch
+                  (1, 16, 64, 1000, False),          # n_rows == 1
+                  (3001, 128, 1, 12_347, False),     # shares of odd lengths
+                  (777, 8, 100, 54_321, True),
+                  (777, 256, 37, 54_321, True)]
+
+
 @pytest.mark.parametrize("form", ("loop", "take"))
-@pytest.mark.parametrize("shape", [(1 << 16, 32, 1024, 1 << 18),
-                                   (1 << 17, 32, 1024, (1 << 16) + 700),
-                                   (1000, 4, 1000, 9999),
-                                   (4096, 64, 33, 5000),
-                                   (300, 256, 7, 100),
-                                   (64, 8, 100, 99)],
-                         ids=lambda s: "-".join(map(str, s)))
+@pytest.mark.parametrize("shape", GATHER_SHAPES,
+                         ids=lambda s: "-".join(map(str, s[:4]))
+                         + ("-clamped" if s[4] else ""))
 def test_gather_kernels_match_plain(cuda, form, shape):
-    """X1 and X2 on the full (8, W) output, with a ragged tail of indices
-    (left out) and chunks that are not a multiple of the warp or stage."""
-    n_rows, W, QB, Q = shape
+    """X1 and X2 on the full (8, W) output, at every template width W, with
+    a ragged tail of indices (left out), chunks that are not a multiple of
+    the warp or stage, grids smaller than the card holds, no chunk at all,
+    one row, and indices clamped from below and above."""
+    n_rows, W, QB, Q, outside = shape
     rng = np.random.default_rng(sum(shape))
     tab = np_words(rng.integers(0, 2 ** 32, (n_rows, W), dtype=np.uint32))
-    idx = torch.from_numpy(rng.integers(0, n_rows, Q).astype(np.int32))
+    lo, hi = (-50, n_rows + 50) if outside else (0, n_rows)
+    idx = torch.from_numpy(rng.integers(lo, hi, Q).astype(np.int32))
     want = eg.gather_rows_sum_plain(tab, idx, QB)
     kernel = eg.gather_loop if form == "loop" else eg.gather_take
     before = kernel.launches
@@ -262,6 +277,8 @@ def test_gather_kernels_match_plain(cuda, form, shape):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     assert kernel.launches == before + (Q >= QB)
+    if Q < QB:
+        assert not want.any()
     run = (eg.make_loop_kernel if form == "loop" else eg.make_take_kernel)(
         n_rows, W, QB)
     assert int(run(tab.to(cuda), idx.to(cuda))) == int(want[0, 0])
