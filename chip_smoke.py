@@ -17,7 +17,9 @@ then:
 3. holds kernels 1-3 against their plain PyTorch versions on the main
    path's own inputs, exactly, and times both; times kernels 1 and 2 again
    on L2-resident controls (a 2^15-bucket table, ids remapped to 4,096
-   rows), also held against their plain versions;
+   rows), also held against their plain versions; runs kernel 3 on a
+   control with selmin = 0 for every row (all counts read), exact and
+   timed beside ``torch.amax`` over the same counts;
 4. drives the same query path on a primary graph (the references' forward
    k-mers, queried through CanonicalDBG: canon 2) in the labels and counts
    modes and on a canonical graph (both strands, about 16 M k-mers: canon
@@ -25,8 +27,9 @@ then:
    long sequence of more than 2^24 windows that hits only through the
    reverse-complement probe; payloads against the oracle, and the canon
    modes of kernels 1 and 2 against their plain versions;
-5. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs and holds it
-   against its plain version and, on a sample, the numpy oracle;
+5. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
+   300 and holds it against its plain version and, on a sample, the numpy
+   oracle; then on 1,024 pairs of 1,000 x 1,000 against the plain version;
 6. runs the gather micro-benchmark's sweep
    (``metagraph_tpu_torch.scripts.exp_gather``) and holds its kernels 5 and
    6 against their plain version on the full output; then times both on
@@ -39,7 +42,8 @@ Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (kernels 1-3 once more
 for each of the primary and canonical deployments, named
-``<kernel>/<deployment>``), the last is
+``<kernel>/<deployment>``, and ``sw_scores/large`` for the second SW
+shape), the last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without CUDA the script exits 1 before printing a result.  Long compiler
 reports go to ``--out``.
@@ -68,12 +72,14 @@ CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
 
 FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             read_len=200, long_windows=1 << 24, sample=2000,
-            sw=(4096, 150, 300), sw_oracle=12, plain_chunks=(1024, 256),
+            sw=(4096, 150, 300), sw_big=(1024, 1000, 1000), sw_oracle=12,
+            plain_chunks=(1024, 256),
             gather=(22, (16, 17), 1024), gather_big=21, ctrl_log=15,
             ctrl_rows=4096)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
-            sw=(40, 37, 60), sw_oracle=4, plain_chunks=(16, 8),
+            sw=(40, 37, 60), sw_big=(8, 70, 90), sw_oracle=4,
+            plain_chunks=(16, 8),
             gather=(12, (6, 7), 64), gather_big=9, ctrl_log=6,
             ctrl_rows=64)
 
@@ -545,14 +551,52 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
                       tag)
 
     mask = qd.selection_mask(counts, present, dsel, selmin)
+    # bytes the data needs: the counts of the rows whose presence passes
+    # (the kernel reads no other row's), the thresholds and the mask
+    passing = int((present >= selmin).sum())
+    small = 3 * present.nbytes + mask.nbytes
+    log(f"  selection_mask{tag}: {passing} of {S} rows pass presence, bound "
+        f"counts their {passing * L * 4} B of counts; every row's (the "
+        f"former yardstick) would be {counts.nbytes + small} B = "
+        f"{(counts.nbytes + small) / HBM_BYTES_PER_S * 1e3:.4f} ms")
     entry("selection_mask", [mask],
           [qd.selection_mask_plain(counts, present, dsel, selmin)],
           device_ms(torch, dev, lambda: qd.selection_mask(
               counts, present, dsel, selmin), 20),
           plain_ms(lambda: qd.selection_mask_plain(counts, present, dsel,
                                                    selmin)),
-          counts.nbytes + 3 * present.nbytes + mask.nbytes)
+          passing * L * 4 + small)
+    select_control(counts, present, dsel, torch, dev, tag)
     return entries
+
+
+def select_control(counts, present, dsel, torch, dev, tag):
+    """Kernel 3 with selmin = 0 for every row, so that it reads every
+    row's counts: held exactly against the plain version and timed beside
+    its bound and beside torch.amax(counts), one PyTorch call that streams
+    the same bytes (information only)."""
+    from metagraph_tpu_torch.query import device as qd
+    S, L = counts.shape
+    zero = torch.zeros_like(present)
+    got = qd.selection_mask(counts, present, dsel, zero)
+    err = max_abs_err(torch, got, qd.selection_mask_plain(counts, present,
+                                                          dsel, zero))
+    ms = device_ms(torch, dev, lambda: qd.selection_mask(
+        counts, present, dsel, zero), 20)
+    amax = device_ms(torch, dev, lambda: torch.amax(counts), 20)
+    nbytes = counts.nbytes + 3 * present.nbytes + got.nbytes
+    plan = ""
+    if dev.type == "cuda":
+        vec, grid, bps = qd.selection_launch_plan(S, L, counts)
+        plan = f"; V = {vec}, {bps} blocks an SM, grid {grid}"
+    log(f"kernel selection_mask{tag} control selmin = 0: {ms:.4f} ms = "
+        f"{counts.nbytes / ms / 1e9:.3f} TB/s of counts (bound "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms from {nbytes} bytes; "
+        f"torch.amax(counts) {amax:.4f} ms = "
+        f"{counts.nbytes / amax / 1e9:.3f} TB/s){plan}, max_abs_err {err}")
+    if err:
+        raise AssertionError(f"selection_mask{tag} disagrees with its plain "
+                             "version on the selmin = 0 control")
 
 
 def l2_control_wire(engine, words, vwords, cfg, torch, dev, tag):
@@ -613,54 +657,75 @@ def l2_control_counts(nodes, bitmap, tile_seq, S, L, offset, cfg, torch, dev,
                              "version on the control ids")
 
 
+def max_sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
 def sw_phase(cfg, rng, torch, dev):
+    """Kernel 4 through batch_local_align_scores at two shapes: the
+    phase's 150 x 300 pairs (also held against the numpy oracle on a
+    sample) and 1,000 x 1,000 pairs, the kernel's largest P; each held
+    exactly against the plain version.  -> {shape name: (launches,
+    entry)}."""
     from metagraph_tpu_torch.align.sw import (batch_local_align_scores,
+                                              positions_per_lane,
                                               reference_local_align_score,
                                               sw_scores, sw_scores_plain)
-    B, LQ, LR = cfg["sw"]
-    qs = rng.integers(0, 4, (B, LQ)).astype(np.int32)
-    rs = rng.integers(0, 4, (B, LR)).astype(np.int32)
-    for b in range(B):
-        n = int(rng.integers(LQ // 3, LQ))
-        at = int(rng.integers(0, LR - n))
-        seg = qs[b, :n].copy()
-        mut = rng.random(n) < 0.05
-        seg[mut] = rng.integers(0, 4, int(mut.sum()))
-        rs[b, at: at + n] = seg
-        qs[b, int(rng.integers(LQ - LQ // 5, LQ + 1)):] = -1
-        rs[b, int(rng.integers(LR - LR // 5, LR + 1)):] = -1
+    from metagraph_tpu_torch.scripts.kernel_times import sw_pairs
+    # the INT32 pipe: 64 lanes an SM (half the float32 rate); not measured
+    # in a rehearsal
+    int32_ops_per_s = None
+    if dev.type == "cuda":
+        int32_ops_per_s = torch.cuda.get_device_properties(
+            dev).multi_processor_count * 64 * max_sm_clock_hz()
+    out = {}
+    for name, (B, LQ, LR), oracle in (("", cfg["sw"], cfg["sw_oracle"]),
+                                      ("/large", cfg["sw_big"], 0)):
+        qs, rs = sw_pairs(rng, B, LQ, LR)
 
-    def drive():
-        t0 = time.perf_counter()
-        out = batch_local_align_scores(qs, rs, device=dev)
-        return out, time.perf_counter() - t0
-    (scores, secs), launches = run_path(drive)
-    q, r = torch.from_numpy(qs).to(dev), torch.from_numpy(rs).to(dev)
-    want = sw_scores_plain(q, r, 2, -3, -6, -2)
-    err = max_abs_err(torch, torch.from_numpy(scores).to(dev), want)
-    pick = rng.choice(B, cfg["sw_oracle"], replace=False)
-    oracle = [reference_local_align_score(qs[b], rs[b]) for b in pick]
-    if err or not np.array_equal(scores[pick], oracle):
-        raise AssertionError("sw_scores disagrees with its plain version or "
-                             "the oracle")
-    ms = device_ms(torch, dev, lambda: sw_scores(q, r), 10)
-    plain = device_ms(torch, dev, lambda: sw_scores_plain(q, r, 2, -3, -6,
-                                                          -2), 1)
-    nbytes = (qs.nbytes + rs.nbytes + 4 * B)
-    ops_ = 12 * B * LQ * LR       # int32 operations of the recurrence
-    bound = max(nbytes / HBM_BYTES_PER_S, ops_ / CUDA_CORE_OPS_PER_S) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S \
-        > ops_ / CUDA_CORE_OPS_PER_S else "operations"
-    if dev.type == "cuda" and launches["sw_scores"] < 1:
-        raise AssertionError("sw_scores never launched in the SW phase")
-    log(f"SW phase: {B} pairs of {LQ} x {LR} in {secs:.3f} s through "
-        f"batch_local_align_scores; kernel {ms:.4f} ms = {B / ms * 1e3:.4g} "
-        f"pairs/s (plain {plain:.2f} ms, bound {bound:.4f} ms by "
-        f"{bound_by}); {len(pick)} pairs equal to the oracle; launches "
-        f"{launches['sw_scores']}")
-    return launches["sw_scores"], dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain, bound_ms=bound,
-                                       bound_by=bound_by)
+        def drive():
+            t0 = time.perf_counter()
+            res = batch_local_align_scores(qs, rs, device=dev)
+            return res, time.perf_counter() - t0
+        (scores, secs), launches = run_path(drive)
+        q, r = torch.from_numpy(qs).to(dev), torch.from_numpy(rs).to(dev)
+        want = sw_scores_plain(q, r, 2, -3, -6, -2)
+        err = max_abs_err(torch, torch.from_numpy(scores).to(dev), want)
+        pick = rng.choice(B, oracle, replace=False)
+        if err or not np.array_equal(scores[pick], [
+                reference_local_align_score(qs[b], rs[b]) for b in pick]):
+            raise AssertionError(f"sw_scores{name} disagrees with its plain "
+                                 "version or the oracle")
+        ms = device_ms(torch, dev, lambda: sw_scores(q, r), 10)
+        plain = device_ms(torch, dev, lambda: sw_scores_plain(
+            q, r, 2, -3, -6, -2), 1)
+        nbytes = (qs.nbytes + rs.nbytes + 4 * B)
+        ops_ = 12 * B * LQ * LR       # int32 operations of the recurrence
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    ops_ / CUDA_CORE_OPS_PER_S) * 1e3
+        bound_by = "bytes" if nbytes / HBM_BYTES_PER_S \
+            > ops_ / CUDA_CORE_OPS_PER_S else "operations"
+        int32 = "not measured" if int32_ops_per_s is None else \
+            f"{ops_ / int32_ops_per_s * 1e3:.4f} ms"
+        if dev.type == "cuda" and launches["sw_scores"] < 1:
+            raise AssertionError(f"sw_scores{name} never launched in the SW "
+                                 "phase")
+        log(f"SW phase{name}: {B} pairs of {LQ} x {LR} (P = "
+            f"{positions_per_lane(LQ)}) in {secs:.3f} s through "
+            f"batch_local_align_scores; kernel {ms:.4f} ms = "
+            f"{B / ms * 1e3:.4g} pairs/s = {B * LQ * LR / ms / 1e9:.4g} "
+            f"Gcells/s (plain {plain:.2f} ms, bound {bound:.4f} ms by "
+            f"{bound_by}; the same operations at the INT32 pipe's rate "
+            f"{int32}); {len(pick)} pairs equal to the oracle; launches "
+            f"{launches['sw_scores']}")
+        out[name] = launches["sw_scores"], dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=bound_by)
+    return out
 
 
 def gather_phase(cfg, torch, dev):
@@ -838,14 +903,15 @@ def main(argv=None) -> int:
               " [canon 1]"))
     del engine
 
-    launches["sw_scores"], entries["sw_scores"] = timed(
-        "SW phase", sw_phase, cfg, rng, torch, dev)
+    sw = timed("SW phase", sw_phase, cfg, rng, torch, dev)
+    launches["sw_scores"], entries["sw_scores"] = sw.pop("")
     gl, ge = timed("gather phase", gather_phase, cfg, torch, dev)
     for name in ("gather_loop", "gather_take"):
         launches[name], entries[name] = gl[name], ge[name]
     rows = [(name, launches[name], entries[name]) for name in SOURCES]
     for dep, (dl, de) in more.items():
         rows += [(f"{name}/{dep}", dl[name], e) for name, e in de.items()]
+    rows += [(f"sw_scores{shape}", n, e) for shape, (n, e) in sw.items()]
     kernels = []
     for name, n, e in rows:
         source, replaces = SOURCES[name.split("/")[0]]

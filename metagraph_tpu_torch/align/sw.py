@@ -8,6 +8,11 @@ plain PyTorch, a line-by-line translation of the Pallas kernel: int32 DP
 rows, the query along the last axis, and E as a log-step max-plus prefix
 scan of max(M, F) (valid because gap_open <= gap_ext).
 ``reference_local_align_score`` is the numpy oracle (pallas_sw.py:135-153).
+
+The kernel walks E sequentially, E[j] = max(E[j-1] + ext, SF[j-1] + open),
+which is the scan's prefix max unrolled by one term and holds for any
+scores; its wavefront gives each lane ``positions_per_lane(LQ)`` query
+positions (the template parameter it launches with).
 """
 
 from __future__ import annotations
@@ -58,6 +63,11 @@ def sw_scores_plain(queries: torch.Tensor, refs: torch.Tensor, match: int,
         s = torch.clamp(torch.maximum(sf, e), min=0)
         best = torch.maximum(best, s.amax(dim=1) if LQ else best)
     return best
+
+
+def positions_per_lane(LQ: int) -> int:
+    """Query positions a lane of kernel 4 owns: ceil(LQ / 32), exactly."""
+    return -(-LQ // 32)
 
 
 def sw_scores(queries: torch.Tensor, refs: torch.Tensor, match: int = 2,

@@ -3,42 +3,64 @@
 //
 // Replaces the Pallas TPU kernel metagraph_tpu/align/pallas_sw.py::_sw_kernel
 // (:35, launched by batch_local_align_scores :100).  It computes the same
-// int32 recurrence, so the scores are bit-identical:
-//   M[j] = S_prev[j-1] + sub(q[j], r_i)      (S_prev[-1] = 0; a negative
-//                                             code makes sub = NEG)
-//   F[j] = max(S_prev[j] + open, F_prev[j] + ext)
-//   E[j] = max_{m<j} (max(M, F)[m] + open + (j-m-1) ext)   (valid for
-//                                             open <= ext, as in the TPU)
-//   S[j] = max(M[j], F[j], E[j], 0);  best = max(best, S)
+// int32 recurrence, so the scores are bit-identical.  Row i of the
+// reference, column j of the query:
+//   M[j]  = S_prev[j-1] + sub(q[j], r_i)   (S_prev[-1] = 0; a negative code
+//                                          on either side makes sub = NEG)
+//   F[j]  = max(S_prev[j] + open, F_prev[j] + ext)
+//   SF[j] = max(M[j], F[j])
+//   E[j]  = max_{m<j} (SF[m] + open + (j-m-1) ext)          (the TPU's form)
+//   S[j]  = max(SF[j], E[j], 0);  best = max(best, S)
 //
-// What bounds it on an H100: operations (LQ * LR cells of a dozen int32
-// operations each against a few bytes of input per cell row).  Design: one
-// warp per pair.  Query positions lie across the lanes, P = LQ/32 rounded up
-// to a power of two consecutive positions per lane, and the rows of the
-// reference run in a loop.  The S, F and query values stay in registers;
-// the shift of S_prev by one position is one __shfl_up_sync, and E's
-// max-plus prefix scan is a sequential scan inside the lane plus a 5-step
-// __shfl_up_sync scan across lanes.  Where the TPU kernel keeps the batch in
-// VMEM and rotates the reference through lanes, nothing here leaves
-// registers but the final score.
+// The TPU evaluates E as a log-step max-plus prefix scan along the query,
+// because its lanes cannot carry a dependency from one position to the
+// next.  Unrolling the max by its last term gives, for every open and ext,
+//   E[j] = max(E[j-1] + ext, SF[j-1] + open),  E[0] = "no gap",
+// and this kernel walks that sequentially.  The sentinel is harmless: E[0]
+// only has to be <= 0 (S is clamped at 0) and <= SF[0] + open - ext (so
+// that E[1] = SF[0] + open).  F >= open after the first row and F starts at
+// NEG, so SF >= open, and NEG = -2^30 satisfies both for any scores far
+// below 2^29 in size; nothing overflows int32 (the most negative value
+// formed is S + 2 NEG >= -2^31, below).
+//
+// What bounds it on an H100: operations, about ten int32 operations a cell
+// against a few bytes a cell row.  Design: one warp per pair, a wavefront.
+// Lane p owns the P = ceil(LQ / 32) consecutive query positions p P ..
+// p P + P - 1 (P exactly, a template parameter from 1 to 32), and at step t
+// it works on reference row t - p.  At the end of each step
+// __shfl_up_sync hands lane p + 1 the E entering its first position and
+// the S of this lane's last position (lane p + 1's diagonal one step
+// later), and the reference code moves one lane up the same way; lane 0
+// takes its code from 32 codes the warp loads with one coalesced load a
+// chunk ahead.  LR + (active lanes - 1) steps, no scan.  The
+// add-then-max pairs of F, E and S are Hopper's DPX instructions
+// (__viaddmax_s32, __vimax_s32_relu).  The negative-code checks are
+// hoisted: a padded query position gets a code no reference code equals
+// and NEG as its mismatch score; a padded reference row adds NEG once more
+// (so M >= S + 2 NEG >= -2^31, and SF = F, as in the TPU).  Positions
+// past LQ in the last active lane compute like padded ones and are left out
+// of the best score through one best a position, masked at the end.
 //
 // Built with nvcc for sm_90a into a plain C library (see _build.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <utility>
+
 namespace {
 
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int32_t NEG = -(1 << 30);
+constexpr int THREADS = 128;            // 4 pairs per block
 
 template <int P>
-__global__ void sw_kernel(const int32_t *__restrict__ queries,
-                          const int32_t *__restrict__ refs,
-                          int32_t *__restrict__ out, int B, int LQ, int LR,
-                          int match, int mismatch, int gap_open,
-                          int gap_ext) {
-    const int pair = (int)(((int64_t)blockIdx.x * blockDim.x + threadIdx.x)
+__global__ void __launch_bounds__(THREADS)
+sw_kernel(const int32_t *__restrict__ queries,
+          const int32_t *__restrict__ refs, int32_t *__restrict__ out, int B,
+          int LQ, int LR, int match, int mismatch, int gap_open,
+          int gap_ext) {
+    const int pair = (int)(((int64_t)blockIdx.x * THREADS + threadIdx.x)
                            >> 5);
     const int lane = threadIdx.x & 31;
     if (pair >= B)
@@ -46,55 +68,68 @@ __global__ void sw_kernel(const int32_t *__restrict__ queries,
     const int32_t *q = queries + (int64_t)pair * LQ;
     const int32_t *r = refs + (int64_t)pair * LR;
     const int j0 = lane * P;                    // first query position
+    const int last_lane = (LQ - 1) / P;         // lanes past it are idle
+    const int nvalid = min(max(LQ - j0, 0), P); // positions < LQ
 
-    int32_t qv[P], s[P], f[P];
+    // query codes: a padded or missing position gets -2, which no
+    // reference code (>= 0, or -1 for a padded row) equals, and NEG as its
+    // mismatch score
+    int32_t qv[P], qx[P], s[P], f[P], bk[P];
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-        qv[k] = j0 + k < LQ ? q[j0 + k] : 0;
+        const int32_t c = k < nvalid ? q[j0 + k] : -1;
+        qv[k] = c < 0 ? -2 : c;
+        qx[k] = c < 0 ? NEG : mismatch;
         s[k] = 0;
         f[k] = NEG;
+        bk[k] = 0;
+    }
+    int32_t rcode = 0, sleft = 0, s_out = 0, e_out = NEG;
+    // codes 32 c .. 32 c + 31 for the steps of chunk c, and the next chunk
+    int32_t rbuf = lane < LR ? __ldg(r + lane) : 0;
+    int32_t rnext = 32 + lane < LR ? __ldg(r + 32 + lane) : 0;
+    const int steps = LR + last_lane;
+    for (int t = 0; t < steps; ++t) {
+        // the previous step's outputs of lane p - 1: the E entering this
+        // lane's first position and S[j0 - 1] of its row, and its code
+        const int32_t e_in = __shfl_up_sync(FULL, e_out, 1);
+        const int32_t s_in = __shfl_up_sync(FULL, s_out, 1);
+        const int32_t r_up = __shfl_up_sync(FULL, rcode, 1);
+        const int32_t r_new = __shfl_sync(FULL, rbuf, t & 31);
+        if ((t & 31) == 31) {
+            const int n = t + 33 + lane;
+            rbuf = rnext;
+            rnext = n < LR ? __ldg(r + n) : 0;
+        }
+        const int32_t diag0 = lane == 0 ? 0 : sleft;    // S[i-1][j0-1]
+        sleft = lane == 0 ? 0 : s_in;                   // S[i][j0-1]
+        rcode = lane == 0 ? r_new : r_up;
+        const int i = t - lane;
+        if (i < 0 || i >= LR)
+            continue;
+        const int32_t ri = rcode < 0 ? -1 : rcode;
+        const int32_t rb = rcode < 0 ? NEG : 0;
+        int32_t e = lane == 0 ? NEG : e_in;
+        int32_t diag = diag0;
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+            const int32_t sub = qv[k] == ri ? match : qx[k];
+            const int32_t m = diag + sub + rb;
+            diag = s[k];
+            f[k] = __viaddmax_s32(s[k], gap_open, f[k] + gap_ext);
+            const int32_t sf = max(m, f[k]);
+            s[k] = __vimax_s32_relu(sf, e);
+            e = __viaddmax_s32(sf, gap_open, e + gap_ext);
+            bk[k] = max(bk[k], s[k]);
+        }
+        s_out = s[P - 1];
+        e_out = e;
     }
     int32_t best = 0;
-    for (int i = 0; i < LR; ++i) {
-        const int32_t ri = __ldg(r + i);
-        int32_t left = __shfl_up_sync(FULL, s[P - 1], 1);
-        if (lane == 0)
-            left = 0;                           // local alignment: M[0] from 0
-        int32_t sf[P], pm[P];
 #pragma unroll
-        for (int k = 0; k < P; ++k) {
-            int32_t sub = qv[k] == ri ? match : mismatch;
-            if (qv[k] < 0 || ri < 0)
-                sub = NEG;
-            const int32_t m = (k == 0 ? left : s[k > 0 ? k - 1 : 0]) + sub;
-            f[k] = max(s[k] + gap_open, f[k] + gap_ext);
-            sf[k] = max(m, f[k]);
-            const int32_t c = sf[k] - (j0 + k) * gap_ext;
-            pm[k] = k == 0 ? c : max(pm[k > 0 ? k - 1 : 0], c);  // prefix max
-        }
-        // inclusive scan of the lane totals across the warp
-        int32_t tot = pm[P - 1];
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-            const int32_t t = __shfl_up_sync(FULL, tot, d);
-            if (lane >= d)
-                tot = max(tot, t);
-        }
-        int32_t before = __shfl_up_sync(FULL, tot, 1);
-        if (lane == 0)
-            before = NEG;                       // max over no position
-        int32_t rowbest = 0;
-#pragma unroll
-        for (int k = 0; k < P; ++k) {
-            const int32_t excl =
-                k == 0 ? before : max(before, pm[k > 0 ? k - 1 : 0]);
-            const int32_t e = excl + gap_open + (j0 + k - 1) * gap_ext;
-            s[k] = max(max(sf[k], e), 0);
-            if (j0 + k < LQ)
-                rowbest = max(rowbest, s[k]);
-        }
-        best = max(best, rowbest);
-    }
+    for (int k = 0; k < P; ++k)
+        if (k < nvalid)
+            best = max(best, bk[k]);
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1)
         best = max(best, __shfl_down_sync(FULL, best, d));
@@ -103,41 +138,32 @@ __global__ void sw_kernel(const int32_t *__restrict__ queries,
 }
 
 template <int P>
-void launch(const int32_t *q, const int32_t *r, int32_t *o, int B, int LQ,
-            int LR, int match, int mismatch, int gap_open, int gap_ext,
-            cudaStream_t st) {
-    const int block = 128;                      // 4 pairs per block
-    const dim3 grid((unsigned)(((int64_t)B * 32 + block - 1) / block));
-    sw_kernel<P><<<grid, block, 0, st>>>(q, r, o, B, LQ, LR, match, mismatch,
-                                         gap_open, gap_ext);
+const void *kernel() {
+    return (const void *)sw_kernel<P>;
+}
+
+template <int... Ps>
+const void *kernel_for(int p, std::integer_sequence<int, Ps...>) {
+    const void *fns[] = {kernel<Ps + 1>()...};
+    return fns[p - 1];
 }
 
 }  // namespace
 
 // queries (B, LQ), refs (B, LR) int32 codes (negative = padding) -> out
-// (B,) int32.  The wrapper checks 1 <= LQ <= 1024.
+// (B,) int32.  The wrapper checks 1 <= LQ <= 1024 and B >= 1.
 extern "C" int mg_sw_scores(const void *queries, const void *refs, void *out,
                             int32_t B, int32_t LQ, int32_t LR, int32_t match,
                             int32_t mismatch, int32_t gap_open,
                             int32_t gap_ext, void *stream) {
-    const int32_t *q = (const int32_t *)queries;
-    const int32_t *r = (const int32_t *)refs;
-    int32_t *o = (int32_t *)out;
-    cudaStream_t st = (cudaStream_t)stream;
-    const int need = (LQ + 31) / 32;
-    if (need <= 1)
-        launch<1>(q, r, o, B, LQ, LR, match, mismatch, gap_open, gap_ext, st);
-    else if (need <= 2)
-        launch<2>(q, r, o, B, LQ, LR, match, mismatch, gap_open, gap_ext, st);
-    else if (need <= 4)
-        launch<4>(q, r, o, B, LQ, LR, match, mismatch, gap_open, gap_ext, st);
-    else if (need <= 8)
-        launch<8>(q, r, o, B, LQ, LR, match, mismatch, gap_open, gap_ext, st);
-    else if (need <= 16)
-        launch<16>(q, r, o, B, LQ, LR, match, mismatch, gap_open, gap_ext, st);
-    else if (need <= 32)
-        launch<32>(q, r, o, B, LQ, LR, match, mismatch, gap_open, gap_ext, st);
-    else
+    if (LQ < 1 || LQ > 1024)
         return (int)cudaErrorInvalidValue;
-    return (int)cudaGetLastError();
+    const int P = (LQ + 31) / 32;
+    const void *fn = kernel_for(P, std::make_integer_sequence<int, 32>{});
+    void *args[] = {&queries, &refs, &out, &B, &LQ, &LR, &match, &mismatch,
+                    &gap_open, &gap_ext};
+    const dim3 grid((unsigned)(((int64_t)B * 32 + THREADS - 1) / THREADS));
+    cudaError_t err = cudaLaunchKernel(fn, grid, dim3(THREADS), args, 0,
+                                       (cudaStream_t)stream);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

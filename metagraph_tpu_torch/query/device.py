@@ -22,6 +22,7 @@ and are not copied.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -212,6 +213,53 @@ def label_counts(nodes: torch.Tensor, bitmap: torch.Tensor,
 label_counts.launches = 0
 
 
+SELECT_WARPS = 8      # warps a block of csrc/selection_mask.cu
+
+
+def selection_plan(S: int, L: int, counts_ptr: int, n_sms: int,
+                   blocks_per_sm: int):
+    """Launch plan of kernel 3 over S rows of L counts at address
+    ``counts_ptr``: (V, grid).  V = 4 (16-byte loads) when every row starts
+    16-byte aligned (L % 4 == 0 and an aligned base), else V = 1 (4-byte
+    loads).  The grid is persistent: at most ``blocks_per_sm`` blocks on
+    each of ``n_sms`` SMs, and no more blocks than S rows fill (a warp a
+    row, SELECT_WARPS warps a block)."""
+    if S < 1 or L < 0 or n_sms < 1 or blocks_per_sm < 1:
+        raise ValueError(f"bad plan: S {S}, L {L}, {n_sms} SMs, "
+                         f"{blocks_per_sm} blocks an SM")
+    return (_select_variant(L, counts_ptr),
+            min(n_sms * blocks_per_sm, -(-S // SELECT_WARPS)))
+
+
+def _select_variant(L: int, counts_ptr: int) -> int:
+    return 4 if L % 4 == 0 and counts_ptr % 16 == 0 else 1
+
+
+@functools.lru_cache(maxsize=8)
+def _select_blocks_per_sm(vec: int, device_index: int) -> int:
+    fn = _build.function("selection_mask", "mg_selection_mask_occupancy",
+                         [_I, ctypes.POINTER(ctypes.c_int32)])
+    blocks = ctypes.c_int32(0)
+    with torch.cuda.device(device_index):
+        _build.check(fn(vec, ctypes.byref(blocks)),
+                     "mg_selection_mask_occupancy")
+    if blocks.value < 1:
+        raise RuntimeError(f"selection_mask V = {vec} fits no block on an SM")
+    return blocks.value
+
+
+def selection_launch_plan(S: int, L: int, counts: torch.Tensor):
+    """selection_plan on the card that holds ``counts``: -> (V, grid,
+    blocks an SM)."""
+    dev = counts.device
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    n_sms = torch.cuda.get_device_properties(index).multi_processor_count
+    bps = _select_blocks_per_sm(_select_variant(L, counts.data_ptr()),
+                                index)
+    return (*selection_plan(S, L, counts.data_ptr(), n_sms, bps), bps)
+
+
 def selection_mask(counts: torch.Tensor, present: torch.Tensor,
                    dsel: torch.Tensor, selmin: torch.Tensor) -> torch.Tensor:
     """(S, L) counts, (S,) present/dsel/selmin -> (S, ceil(L/32)) int32
@@ -226,14 +274,17 @@ def selection_mask(counts: torch.Tensor, present: torch.Tensor,
         return selection_mask_plain(counts, present, dsel, selmin)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if L >= 2 ** 31 - 1024:
+        raise ValueError(f"selection_mask takes L < 2^31 - 1024, got {L}")
     Lw = max((L + 31) // 32, 1)
     mask = torch.empty((S, Lw), dtype=torch.int32, device=dev)
     if S == 0:
         return mask
+    vec, grid, _ = selection_launch_plan(S, L, counts)
     fn = _build.function("selection_mask", "mg_selection_mask",
-                         [_P, _P, _P, _P, _P, _L, _I, _I, _P])
+                         [_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P])
     _build.check(fn(counts.data_ptr(), present.data_ptr(), dsel.data_ptr(),
-                    selmin.data_ptr(), mask.data_ptr(), S, L, Lw,
+                    selmin.data_ptr(), mask.data_ptr(), S, L, Lw, vec, grid,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "selection_mask")
     selection_mask.launches += 1

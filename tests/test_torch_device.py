@@ -108,16 +108,23 @@ def test_label_counts_plain_matches_jax(L):
     np.testing.assert_array_equal(present.numpy(), np.asarray(want_p))
 
 
-@pytest.mark.parametrize("L", (1, 31, 32, 70))
+@pytest.mark.parametrize("L", (1, 3, 4, 31, 32, 33, 70, 100, 1000, 1001))
 def test_selection_mask_plain_matches_jax(L):
+    """With rows whose presence just fails and just passes, a row without
+    k-mers (selmin INT32_MAX), and counts and dsel at 0 and INT32_MAX."""
     from metagraph_tpu.query.device import _pack_selection_mask
     rng = np.random.default_rng(1000 + L)
-    S = 9
+    S, top = 9, np.iinfo(np.int32).max
     counts = rng.integers(0, 20, (S, L)).astype(np.int32)
+    counts[rng.random((S, L)) < 0.1] = 0
+    counts[rng.random((S, L)) < 0.1] = top
     present = rng.integers(0, 30, S).astype(np.int32)
     dsel = rng.integers(1, 15, S).astype(np.int32)
     selmin = rng.integers(1, 25, S).astype(np.int32)
-    selmin[0] = np.iinfo(np.int32).max
+    selmin[0] = top
+    present[1], selmin[1] = 5, 6
+    present[2], selmin[2] = 6, 6
+    present[3], selmin[3], dsel[3] = top, 1, top
     want = _pack_selection_mask(jnp.asarray(counts), jnp.asarray(present),
                                 jnp.asarray(dsel), jnp.asarray(selmin))
     got = tdev.selection_mask(*(torch.from_numpy(a) for a in

@@ -18,7 +18,7 @@ import torch
 
 from metagraph_tpu_torch import convert
 from metagraph_tpu_torch._u32 import np_words
-from metagraph_tpu_torch.align.sw import sw_scores
+from metagraph_tpu_torch.align.sw import positions_per_lane, sw_scores
 from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
 from metagraph_tpu_torch.annotation.ops import (DeviceAnnotation,
                                                pack_annotation_bitmap)
@@ -311,21 +311,84 @@ def test_count_and_select_kernels_match_plain(cuda, L):
     np.testing.assert_array_equal(got_m.cpu().numpy(), want_m.numpy())
 
 
-@pytest.mark.parametrize("LQ", (5, 48, 150, 333, 1024))
-def test_sw_kernel_matches_plain(cuda, LQ):
+SW_SCORES = {"default": (2, -3, -6, -2), "open_gt_ext": (2, -3, -1, -3),
+             "gap_scores": (2, -3, 1, 0)}
+
+
+@pytest.mark.parametrize("scores", sorted(SW_SCORES))
+@pytest.mark.parametrize("LQ", (1, 5, 31, 32, 33, 48, 150, 333, 1000, 1024),
+                         ids=lambda LQ: f"LQ{LQ}-P{positions_per_lane(LQ)}")
+def test_sw_kernel_matches_plain(cuda, LQ, scores):
+    """Every kind of lane block (P = 1, 2, 5, 11, 32; a last lane partly
+    filled), 67 pairs (no multiple of the 4 a block holds), padding on both
+    sides and inside, gap_open above gap_ext and gaps that score."""
     rng = np.random.default_rng(LQ)
-    B, LR = 64, 2 * LQ
+    B, LR = 67, LQ + 37
     qs = rng.integers(0, 4, (B, LQ)).astype(np.int32)
     rs = rng.integers(0, 4, (B, LR)).astype(np.int32)
     for b in range(B):
         n = int(rng.integers(1, LQ + 1))
         rs[b, :n] = qs[b, :n]
         qs[b, int(rng.integers(LQ // 2, LQ + 1)):] = -1
+        rs[b, int(rng.integers(LR // 2, LR + 1)):] = -1
+    qs[rng.random(qs.shape) < 0.01] = -1
     q, r = torch.from_numpy(qs), torch.from_numpy(rs)
-    want = sw_scores(q, r)
-    got = sw_scores(q.to(cuda), r.to(cuda))
+    want = sw_scores(q, r, *SW_SCORES[scores])
+    before = sw_scores.launches
+    got = sw_scores(q.to(cuda), r.to(cuda), *SW_SCORES[scores])
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert sw_scores.launches == before + 1
+
+
+def _select_inputs(rng, S, L, dev, offset):
+    """Counts around the thresholds, a third of the rows failing presence,
+    one row without k-mers; ``offset`` places the counts one int32 past a
+    16-byte boundary, so the 4-byte variant runs."""
+    buf = torch.from_numpy(rng.integers(0, 12, S * L + 1).astype(np.int32))
+    buf = buf.to(dev)
+    counts = buf[1:] if offset else buf[:-1]
+    counts = counts.view(S, L)
+    present = rng.integers(0, 30, S).astype(np.int32)
+    selmin = np.where(rng.random(S) < 0.33, present + 1, present)
+    selmin[0] = np.iinfo(np.int32).max
+    dsel = rng.integers(1, 12, S).astype(np.int32)
+    return [counts] + [torch.from_numpy(a.astype(np.int32)).to(dev)
+                       for a in (present, dsel, selmin)]
+
+
+@pytest.mark.parametrize("layout", ("aligned", "offset"))
+@pytest.mark.parametrize("L", (1, 3, 4, 31, 32, 33, 100, 1000, 1001, 9000))
+def test_selection_mask_kernel_matches_plain(cuda, L, layout):
+    rng = np.random.default_rng(6000 + L)
+    args = _select_inputs(rng, 300, L, cuda, layout == "offset")
+    vec, _, _ = qd.selection_launch_plan(300, L, args[0])
+    assert vec == (4 if L % 4 == 0 and layout == "aligned" else 1)
+    want = qd.selection_mask_plain(*args)
+    before = qd.selection_mask.launches
+    got = qd.selection_mask(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert qd.selection_mask.launches == before + 1
+    assert want.any()
+
+
+@pytest.mark.parametrize("layout", ("aligned", "offset"))
+@pytest.mark.parametrize("rows", ("one", "grid", "more"))
+def test_selection_mask_kernel_row_counts(cuda, rows, layout):
+    """One row, exactly as many rows as the persistent grid has warps, and
+    more rows than that (warps stride over rows), in both variants."""
+    L = 100
+    probe = torch.zeros(4, dtype=torch.int32, device=cuda)
+    _, grid, _ = qd.selection_launch_plan(1 << 30, L, probe)
+    S = {"one": 1, "grid": grid * qd.SELECT_WARPS,
+         "more": 3 * grid * qd.SELECT_WARPS + 5}[rows]
+    rng = np.random.default_rng(S)
+    args = _select_inputs(rng, S, L, cuda, layout == "offset")
+    want = qd.selection_mask_plain(*args)
+    got = qd.selection_mask(*args)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
 @pytest.mark.parametrize("mode", ("labels", "matches", "counts",

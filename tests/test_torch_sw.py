@@ -67,3 +67,116 @@ def test_scoring_parameters_pass_through():
         got, pallas_scores(qs, rs, interpret=True, **kw))
     np.testing.assert_array_equal(
         got, [reference_local_align_score(q, r, **kw) for q, r in zip(qs, rs)])
+
+
+# --------------------------------------------------------------------------
+# kernel 4's schedule (csrc/sw_scores.cu), modelled in numpy
+# --------------------------------------------------------------------------
+
+NEG = -(2 ** 30)
+SCORES = {"default": dict(match=2, mismatch=-3, gap_open=-6, gap_ext=-2),
+          "open_gt_ext": dict(match=2, mismatch=-3, gap_open=-1, gap_ext=-3),
+          # a gap that scores: positions past LQ could beat the best, so
+          # the kernel's per-position mask matters
+          "gap_scores": dict(match=2, mismatch=-3, gap_open=1, gap_ext=0)}
+
+
+def _i32(x, act):
+    """The kernel's int32 arithmetic: every value a working lane forms
+    fits."""
+    live = x[:, act]
+    assert live.min(initial=0) >= -2 ** 31 and live.max(initial=0) < 2 ** 31
+    return x
+
+
+def wavefront_scores(qs, rs, match, mismatch, gap_open, gap_ext):
+    """The kernel's wavefront, step by step: lane p owns query positions
+    p P .. p P + P - 1 (P = ceil(LQ / 32)) and works on reference row t - p
+    at step t; E entering a lane's first position, the S of its last
+    position and the reference code come from lane p - 1's previous step;
+    E runs E[j] = max(E[j-1] + ext, SF[j-1] + open) inside the lane.  Padded
+    query positions and positions past LQ get code -2 and mismatch NEG, a
+    padded row adds NEG, and one best a position is masked to positions <
+    LQ at the end.  -> (B,) scores."""
+    B, LQ = qs.shape
+    LR = rs.shape[1]
+    P = -(-LQ // 32)
+    lanes = np.arange(32)
+    pos = lanes[:, None] * P + np.arange(P)
+    valid = pos < LQ
+    q = np.where(valid, qs[:, np.minimum(pos, LQ - 1)], -1).astype(np.int64)
+    qv, qx = np.where(q < 0, -2, q), np.where(q < 0, NEG, mismatch)
+    s = np.zeros((B, 32, P), np.int64)
+    f = np.full((B, 32, P), NEG, np.int64)
+    bk = np.zeros((B, 32, P), np.int64)
+    s_out, sleft, rcode = (np.zeros((B, 32), np.int64) for _ in range(3))
+    e_out = np.full((B, 32), NEG, np.int64)
+    first = lanes == 0
+
+    def up(x):                  # __shfl_up_sync by 1: lane 0 keeps its own
+        return np.concatenate([x[:, :1], x[:, :-1]], axis=1)
+
+    for t in range(LR + (LQ - 1) // P):
+        e_in, s_in, r_up = up(e_out), up(s_out), up(rcode)
+        r_new = rs[:, t] if t < LR else np.zeros(B, np.int64)
+        diag = np.where(first, 0, sleft)
+        sleft = np.where(first, 0, s_in)
+        rcode = np.where(first, r_new[:, None], r_up)
+        act = (t - lanes >= 0) & (t - lanes < LR)
+        ri = np.where(rcode < 0, -1, rcode)
+        rb = np.where(rcode < 0, NEG, 0)
+        e = np.where(first, NEG, e_in)
+        for k in range(P):
+            sub = np.where(qv[..., k] == ri, match, qx[..., k])
+            m = _i32(diag + sub + rb, act)
+            diag = s[..., k].copy()
+            fk = np.maximum(s[..., k] + gap_open,
+                            _i32(f[..., k] + gap_ext, act))
+            sf = np.maximum(m, fk)
+            sk = np.maximum(np.maximum(sf, e), 0)
+            e = np.maximum(sf + gap_open, _i32(e + gap_ext, act))
+            f[..., k] = np.where(act, fk, f[..., k])
+            s[..., k] = np.where(act, sk, s[..., k])
+            bk[..., k] = np.where(act, np.maximum(bk[..., k], sk),
+                                  bk[..., k])
+        s_out = np.where(act, s[..., P - 1], s_out)
+        e_out = np.where(act, e, e_out)
+    return np.where(valid, bk, 0).max(axis=(1, 2))
+
+
+def _padded(seed, B, LQ, LR):
+    """Pairs sharing a mutated segment where both are long enough, padding
+    (-1) at the end of queries and references of random length, and a few
+    padded positions inside both."""
+    rng = np.random.default_rng(seed)
+    qs = rng.integers(0, 4, size=(B, LQ)).astype(np.int32)
+    rs = rng.integers(0, 4, size=(B, LR)).astype(np.int32)
+    for b in range(B):
+        n = int(rng.integers(1, min(LQ, LR) + 1))
+        at = int(rng.integers(0, LR - n + 1))
+        rs[b, at: at + n] = qs[b, :n]
+        qs[b, int(rng.integers(LQ // 2, LQ + 1)):] = -1
+        rs[b, int(rng.integers(LR // 2, LR + 1)):] = -1
+    qs[rng.random(qs.shape) < 0.02] = -1
+    rs[rng.random(rs.shape) < 0.02] = -1
+    return qs, rs
+
+
+@pytest.mark.parametrize("scores", sorted(SCORES))
+@pytest.mark.parametrize("lr", ("1", "LQ", "2LQ"))
+@pytest.mark.parametrize("LQ", (1, 31, 32, 33, 150, 160))
+def test_wavefront_model_matches_pallas_and_plain(LQ, lr, scores):
+    """Kernel 4's schedule against the Pallas kernel (interpret mode) and the
+    port's plain version, with a query of every P-boundary kind (one lane,
+    32 lanes of one, 17 lanes of two, partly filled last lanes), with
+    gap_open above gap_ext, where the identity still holds, and with gaps
+    that score."""
+    LR = {"1": 1, "LQ": LQ, "2LQ": 2 * LQ}[lr]
+    qs, rs = _padded(LQ * 7 + LR, 4, LQ, LR)
+    kw = SCORES[scores]
+    want = pallas_scores(qs, rs, interpret=True, **kw)
+    np.testing.assert_array_equal(
+        batch_local_align_scores(qs, rs, device="cpu", **kw), want)
+    np.testing.assert_array_equal(wavefront_scores(qs, rs, **kw), want)
+    if LQ >= 31 and LR >= LQ:
+        assert want.max() > 0
