@@ -27,10 +27,20 @@ then:
    long sequence of more than 2^24 windows that hits only through the
    reverse-complement probe; payloads against the oracle, and the canon
    modes of kernels 1 and 2 against their plain versions;
-5. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
+5. drives a k = 41 graph of the same references (keys of 6 words: the
+   codes route, kernels B, 2, 3) with values and coordinates, on the basic
+   batch's reads and a long sequence of more than 2^24 windows, in the
+   labels, counts-sum and coords modes (coords on a prefix of the reads),
+   and a Protein graph at k = 20 (8-bit keys, 5 words: the map route,
+   kernel A, then kernels 2, 3) of 1,000 random protein references, with
+   150,000 reads of 200 residues, in the labels and matches modes;
+   payloads against the oracle, kernels A, B, 2 and 3 against their plain
+   versions on each path's own inputs;
+6. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
    300 and holds it against its plain version and, on a sample, the numpy
-   oracle; then on 1,024 pairs of 1,000 x 1,000 against the plain version;
-6. runs the gather micro-benchmark's sweep
+   oracle; then on 1,024 pairs of 1,000 x 1,000 and 256 pairs of 2,000 x
+   2,000 (two query blocks) against the plain version;
+7. runs the gather micro-benchmark's sweep
    (``metagraph_tpu_torch.scripts.exp_gather``) and holds its kernels 5 and
    6 against their plain version on the full output; then times both on
    two controls, also held against the plain version: sequential indices
@@ -41,9 +51,10 @@ then:
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (kernels 1-3 once more
-for each of the primary and canonical deployments, named
-``<kernel>/<deployment>``, and ``sw_scores/large`` for the second SW
-shape), the last is
+for each of the primary and canonical deployments, kernels B, 2, 3 for
+k41 and A, 2, 3 for protein, named ``<kernel>/<deployment>``, and
+``sw_scores/large`` and ``sw_scores/long`` for the other SW shapes), the
+last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without CUDA the script exits 1 before printing a result.  Long compiler
 reports go to ``--out``.
@@ -70,16 +81,23 @@ K = 31
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
 
+K41 = 41                       # the k41 deployment (codes route)
+KP = 20                        # the protein deployment (map route)
+AMINO = "ACDEFGHIKLMNPQRSTVWY"  # protein references; code 20 = outside
+
 FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             read_len=200, long_windows=1 << 24, sample=2000,
-            sw=(4096, 150, 300), sw_big=(1024, 1000, 1000), sw_oracle=12,
-            plain_chunks=(1024, 256),
+            sw=(4096, 150, 300), sw_big=(1024, 1000, 1000),
+            sw_long=(256, 2000, 2000), sw_oracle=12,
+            plain_chunks=(1024, 256), coords_prefix=20_000,
+            protein_len=8120, protein_repeat=(1000, 1300),
             gather=(22, (16, 17), 1024), gather_big=21, ctrl_log=15,
             ctrl_rows=4096)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
-            sw=(40, 37, 60), sw_big=(8, 70, 90), sw_oracle=4,
-            plain_chunks=(16, 8),
+            sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
+            sw_oracle=4, plain_chunks=(16, 8), coords_prefix=100,
+            protein_len=480, protein_repeat=(100, 160),
             gather=(12, (6, 7), 64), gather_big=9, ctrl_log=6,
             ctrl_rows=64)
 
@@ -94,13 +112,12 @@ def log(msg: str):
 
 def device_ms(torch, dev, fn, reps: int) -> float:
     """Mean ms of ``fn`` over ``reps`` runs after one warm-up run, by CUDA
-    events (a host clock on the CPU, rehearsals only)."""
+    events (one run on a host clock on the CPU, rehearsals only)."""
     fn()
     if dev.type != "cuda":
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
+        fn()
+        return (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -153,16 +170,59 @@ def boss_rot(keys: np.ndarray, k: int) -> np.ndarray:
     return ((keys << np.uint64(2)) & mask) | (keys >> np.uint64(2 * k - 2))
 
 
-def make_oracle(keys: np.ndarray, labs: np.ndarray, L: int):
+def wide_window_keys(codes: np.ndarray, k: int, bits: int, invalid: int):
+    """(n,) codes -> ((n-k+1,) opaque sortable keys of ``bits`` bits a
+    char, the windows' validity (no code >= ``invalid``)); for keys too
+    wide for one uint64."""
+    n = len(codes) - k + 1
+    per = 64 // bits
+    words = np.zeros((max(n, 0), -(-k // per)), np.uint64)
+    if n <= 0:
+        return as_void(words), np.zeros(0, bool)
+    c = codes.astype(np.uint64)
+    for i in range(k):
+        words[:, i // per] |= c[i: i + n] << np.uint64(bits * (i % per))
+    bad = np.concatenate([[0], np.cumsum(codes >= invalid)])
+    return as_void(words), (bad[k:] - bad[:-k]) == 0
+
+
+def as_void(words: np.ndarray) -> np.ndarray:
+    """(n, w) uint64 -> (n,) keys that sort and compare as byte strings."""
+    be = np.ascontiguousarray(words.astype(">u8"))
+    return be.view(f"V{8 * words.shape[1]}").ravel()
+
+
+def void_chars(keys: np.ndarray, k: int, bits: int) -> np.ndarray:
+    """wide_window_keys' keys -> (n, k) codes."""
+    per = 64 // bits
+    words = np.frombuffer(keys.tobytes(), ">u8").reshape(len(keys), -1)
+    chars = np.empty((len(keys), k), np.uint8)
+    for i in range(k):
+        chars[:, i] = (words[:, i // per] >> np.uint64(bits * (i % per))) \
+            & np.uint64((1 << bits) - 1)
+    return chars
+
+
+def make_oracle(keys: np.ndarray, labs: np.ndarray, L: int, k: int = K,
+                keys_of=None, pos: np.ndarray | None = None):
     """(key, label) occurrences -> sorted distinct keys with a CSR of their
-    (label, multiplicity) pairs."""
-    pairs, mult = np.unique(np.stack([keys, labs.astype(np.uint64)], 1),
-                            axis=0, return_counts=True)
-    ukeys, row_of_pair = np.unique(pairs[:, 0], return_inverse=True)
-    return dict(keys=ukeys, row_of_pair=row_of_pair,
-                pair_label=pairs[:, 1].astype(np.int64), mult=mult,
-                csr_start=np.searchsorted(row_of_pair,
-                                          np.arange(len(ukeys) + 1)), L=L)
+    (label, multiplicity) pairs; with ``pos``, each pair's sorted
+    positions too.  ``keys_of(codes)`` gives a sequence's window keys and
+    validity (by default window_keys at K)."""
+    ukeys, inv = np.unique(keys, return_inverse=True)
+    pair = inv.reshape(-1).astype(np.int64) * L + labs
+    upair, pair_of, mult = np.unique(pair, return_inverse=True,
+                                     return_counts=True)
+    row_of_pair = upair // L
+    o = dict(keys=ukeys, row_of_pair=row_of_pair, pair_label=upair % L,
+             mult=mult, L=L, k=k,
+             keys_of=keys_of or (lambda codes: window_keys(codes, K)),
+             csr_start=np.searchsorted(row_of_pair,
+                                       np.arange(len(ukeys) + 1)))
+    if pos is not None:
+        o["coord_pos"] = pos[np.lexsort((pos, pair_of.reshape(-1)))]
+        o["coord_start"] = np.concatenate([[0], np.cumsum(mult)])
+    return o
 
 
 def key_chars(keys: np.ndarray) -> np.ndarray:
@@ -176,7 +236,6 @@ def make_index(cfg, rng):
     """Random references, one label each; each carries a repeat of part of
     itself, so some k-mers occur twice (annotation value 2)."""
     from metagraph_tpu_torch import convert
-    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
     from metagraph_tpu_torch.annotation.ops import pack_annotation_bitmap
     from metagraph_tpu_torch.succinct.ops import pack_kmers32
     a, b = cfg["repeat"]
@@ -191,17 +250,9 @@ def make_index(cfg, rng):
         labs.append(np.full(len(kk), i, np.int64))
     L = len(refs)
     oracle = make_oracle(np.concatenate(keys), np.concatenate(labs), L)
-    ukeys, row_of_pair = oracle["keys"], oracle["row_of_pair"]
-    pair_label, mult, R = oracle["pair_label"], oracle["mult"], len(ukeys)
-    # rows -> (label, value) pairs, sorted by row (pairs are key-sorted)
-    order = np.lexsort((row_of_pair, pair_label))
-    col_start = np.searchsorted(pair_label[order], np.arange(L + 1))
-    cols = [row_of_pair[order[col_start[c]:col_start[c + 1]]]
-            for c in range(L)]
-    vals = [mult[order[col_start[c]:col_start[c + 1]]] for c in range(L)]
+    ukeys, R = oracle["keys"], len(oracle["keys"])
     labels = [f"ref{i}" for i in range(L)]
-    anno = ColumnMajorAnnotation(R, labels, cols, values=vals,
-                                 has_values=True)
+    anno = annotation_of(oracle, labels)
     index = convert.from_kmers(pack_kmers32(key_chars(ukeys)),
                                np.arange(1, R + 1, dtype=np.uint32),
                                pack_annotation_bitmap(anno, R), labels, K,
@@ -256,21 +307,121 @@ def make_batch(cfg, rng, refs, rc_share=0.1, long_rc=False):
         at = int(rng.integers(0, m - 20))
         codes[i, at: at + int(rng.integers(1, 20))] = 4
     codes = codes.astype(np.uint8)
-    per_copy = len(refs[0]) - K + 1
-    reps = cfg["long_windows"] // per_copy + 1
-    reps += 1 - reps % 2
-    long_codes = np.tile(3 - refs[0][::-1] if long_rc else refs[0], reps)
+    long_codes = long_sequence(cfg, refs[0], K, long_rc)
     letters = np.frombuffer(b"ACGTN", np.uint8)
     seqs = [letters[row].tobytes() for row in codes]
     seqs.append(letters[long_codes].tobytes())
     return seqs, list(codes) + [long_codes], len(refs[0])
 
 
+def long_sequence(cfg, ref, k, rc=False):
+    """``ref`` (its reverse complement with ``rc``) repeated an odd number
+    of times, until its k-mers inside the copies pass ``long_windows``."""
+    reps = cfg["long_windows"] // (len(ref) - k + 1) + 1
+    reps += 1 - reps % 2
+    return np.tile(3 - ref[::-1] if rc else ref, reps)
+
+
+def make_wide_index(refs, labels):
+    """The references at k = 41 (keys of 6 words): the values of the basic
+    index (each k-mer's occurrences in its reference) and its coordinates
+    (the positions in the reference where it occurs)."""
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.annotation.ops import pack_annotation_bitmap
+    from metagraph_tpu_torch.succinct.ops import pack_kmers32
+    keys_of = lambda codes: wide_window_keys(codes, K41, 2, 4)   # noqa
+    keys = [keys_of(r)[0] for r in refs]
+    labs = np.concatenate([np.full(len(kk), i, np.int64)
+                           for i, kk in enumerate(keys)])
+    pos = np.concatenate([np.arange(len(kk)) for kk in keys])
+    oracle = make_oracle(np.concatenate(keys), labs, len(refs), K41,
+                         keys_of, pos)
+    anno = annotation_of(oracle, labels, coords=True)
+    R = len(oracle["keys"])
+    index = convert.from_kmers(
+        pack_kmers32(void_chars(oracle["keys"], K41, 2) + 1),
+        np.arange(1, R + 1, dtype=np.uint32), pack_annotation_bitmap(anno, R),
+        labels, K41, anno)
+    return index, oracle
+
+
+def annotation_of(o, labels, coords=False):
+    """The oracle's pairs as a column annotation: rows, values (the pair's
+    multiplicity) and, with ``coords``, (row, position) pairs."""
+    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+    L, rows, lab = o["L"], o["row_of_pair"], o["pair_label"]
+    order = np.lexsort((rows, lab))
+    start = np.searchsorted(lab[order], np.arange(L + 1))
+    cols = [rows[order[start[c]:start[c + 1]]] for c in range(L)]
+    vals = [o["mult"][order[start[c]:start[c + 1]]] for c in range(L)]
+    crd = None
+    if coords:
+        cs, cp = o["coord_start"], o["coord_pos"]
+        crd = []
+        for c in range(L):
+            pairs = order[start[c]:start[c + 1]]
+            n = o["mult"][pairs]
+            at = np.repeat(cs[pairs], n) + np.arange(n.sum()) - np.repeat(
+                np.cumsum(n) - n, n)
+            crd.append(np.stack([np.repeat(rows[pairs], n), cp[at]], 1))
+    return ColumnMajorAnnotation(len(o["keys"]), labels, cols, values=vals,
+                                 coords=crd, has_values=True,
+                                 has_coords=coords)
+
+
+def make_protein_index(cfg, rng, labels):
+    """Random protein references over the 20 amino acids, each with a
+    repeat of part of itself, k = 20 on 8-bit keys (5 words)."""
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.annotation.ops import pack_annotation_bitmap
+    from metagraph_tpu_torch.kmer.alphabets import PROTEIN
+    from metagraph_tpu_torch.succinct.ops import pack_kmers32
+    a, b = cfg["protein_repeat"]
+    refs = []
+    for _ in range(cfg["n_refs"]):
+        base = rng.integers(0, 20, cfg["protein_len"]).astype(np.uint8)
+        refs.append(np.concatenate([base, base[a:b]]))
+    keys_of = lambda codes: wide_window_keys(codes, KP, 5, 21)   # noqa
+    keys = [keys_of(r)[0] for r in refs]
+    labs = np.concatenate([np.full(len(kk), i, np.int64)
+                           for i, kk in enumerate(keys)])
+    oracle = make_oracle(np.concatenate(keys), labs, len(refs), KP, keys_of)
+    anno = annotation_of(oracle, labels)
+    R = len(oracle["keys"])
+    boss = np.array([PROTEIN.letters.index(ch) for ch in AMINO + "X"],
+                    np.uint8)
+    index = convert.from_kmers(
+        pack_kmers32(boss[void_chars(oracle["keys"], KP, 5)], 8),
+        np.arange(1, R + 1, dtype=np.uint32), pack_annotation_bitmap(anno, R),
+        labels, KP, anno, alphabet="Protein")
+    return refs, index, oracle
+
+
+def make_protein_batch(cfg, rng, refs):
+    """Reads of the protein references: 1% substitutions, 3% with a run of
+    '*' (outside the alphabet: it encodes as X, which no reference holds;
+    code 20 here)."""
+    n, m = cfg["n_reads"], cfg["read_len"]
+    which = rng.integers(0, len(refs), n)
+    start = rng.integers(0, len(refs[0]) - m, n)
+    cat = np.concatenate(refs)
+    offs = np.concatenate([[0], np.cumsum([len(r) for r in refs])])
+    codes = cat[(offs[which] + start)[:, None] + np.arange(m)]
+    sub = rng.random((n, m)) < 0.01
+    codes = np.where(sub, (codes + rng.integers(1, 20, (n, m))) % 20, codes)
+    for i in np.flatnonzero(rng.random(n) < 0.03):
+        at = int(rng.integers(0, m - 20))
+        codes[i, at: at + int(rng.integers(1, 20))] = 20
+    codes = codes.astype(np.uint8)
+    letters = np.frombuffer((AMINO + "*").encode(), np.uint8)
+    return [letters[row].tobytes() for row in codes], list(codes)
+
+
 def oracle_lookup(codes, o, canon):
     """Per window: the oracle row and whether the window hits.  canon 1
     looks up min(fwd, rc) in an oracle keyed so; canon 2 the forward key,
     then the reverse complement."""
-    keys, valid = window_keys(codes, K)
+    keys, valid = o["keys_of"](codes)
     if canon:
         rc = rc_window_keys(codes, K)
 
@@ -287,20 +438,21 @@ def oracle_lookup(codes, o, canon):
 
 def oracle_payload(codes, mode, o, canon=0, period=0, df=0.7, pf=0.0,
                    top=2 ** 63):
-    """Independent numpy oracle: sorted uint64 keys + searchsorted, exact
+    """Independent numpy oracle: sorted keys + searchsorted, exact
     bincounts, get_min_count.  With a ``period`` (``codes`` is one block
     repeated, as the long sequence is), window i + period is window i, so
     the lookup runs on one block and the windows across a join and is
     tiled."""
     import math
-    nk = len(codes) - K + 1
+    k = o["k"]
+    nk = len(codes) - k + 1
     if nk <= 0:
         return []
     if period:
         if nk < period or not np.array_equal(codes[period:],
                                              codes[:-period]):
             raise AssertionError(f"codes do not repeat with period {period}")
-        pos, hit = oracle_lookup(codes[:period + K - 1], o, canon)
+        pos, hit = oracle_lookup(codes[:period + k - 1], o, canon)
         reps = -(-nk // period)
         pos, hit = np.tile(pos, reps)[:nk], np.tile(hit, reps)[:nk]
     else:
@@ -311,7 +463,8 @@ def oracle_payload(codes, mode, o, canon=0, period=0, df=0.7, pf=0.0,
     span = hi - lo
     pidx = np.repeat(lo - np.cumsum(np.concatenate([[0], span[:-1]])),
                      span) + np.arange(span.sum())
-    counts = np.bincount(o["pair_label"][pidx], minlength=o["L"])
+    labs = o["pair_label"][pidx]
+    counts = np.bincount(labs, minlength=o["L"])
     if present < max(1.0, math.ceil(pf * nk)):
         return []
     min_count = int(max(1.0, math.ceil(df * nk)))
@@ -320,14 +473,28 @@ def oracle_payload(codes, mode, o, canon=0, period=0, df=0.7, pf=0.0,
     sel = [c for c in range(o["L"]) if counts[c] >= min_count]
     if mode == "labels":
         return [f"ref{c}" for c in sel]
+    if mode == "counts-sum":
+        # every window's occurrences of the label, summed
+        sums = np.zeros(o["L"], np.int64)
+        np.add.at(sums, labs, o["mult"][pidx])
+        sel = sorted(sel, key=lambda c: (-sums[c], c))[:top]
+        return [(f"ref{c}", int(sums[c])) for c in sel]
     sel = sorted(sel, key=lambda c: (-counts[c], c))[:top]
+    if mode == "matches":
+        return [(f"ref{c}", int(counts[c])) for c in sel]
     out = []
     win = np.flatnonzero(hit)
+    owner = np.repeat(np.arange(len(rows)), span)
     for c in sel:
+        mine = labs == c
+        if mode == "coords":
+            cs, co = o["coord_start"], [[] for _ in range(nk)]
+            for w, p in zip(win[owner[mine]], pidx[mine]):
+                co[w] = o["coord_pos"][cs[p]: cs[p + 1]].tolist()
+            out.append((f"ref{c}", int(counts[c]), co))
+            continue
         ab = np.zeros(nk, dtype=np.int64)
-        mine = o["pair_label"][pidx] == c
-        owner = np.repeat(np.arange(len(rows)), span)[mine]
-        ab[win[owner]] = o["mult"][pidx[mine]]
+        ab[win[owner[mine]]] = o["mult"][pidx[mine]]
         out.append((f"ref{c}", int(counts[c]), ab))
     return out
 
@@ -336,8 +503,10 @@ def same_payload(got, want) -> bool:
     if len(got) != len(want):
         return False
     for g, w in zip(got, want):
-        if isinstance(w, tuple):
-            if g[:2] != w[:2] or not np.array_equal(g[2], w[2]):
+        if isinstance(w, tuple) and len(w) == 3:
+            third = np.array_equal(g[2], w[2]) if isinstance(
+                w[2], np.ndarray) else list(g[2]) == w[2]
+            if g[:2] != w[:2] or not third:
                 return False
         elif g != w:
             return False
@@ -375,10 +544,12 @@ def counters():
     from metagraph_tpu_torch.align.sw import sw_scores
     from metagraph_tpu_torch.query.device import label_counts, selection_mask
     from metagraph_tpu_torch.scripts.exp_gather import gather_loop, gather_take
-    from metagraph_tpu_torch.succinct.ops import wire_lookup
+    from metagraph_tpu_torch.succinct.ops import (codes_lookup, key_lookup,
+                                                  wire_lookup)
     return {"wire_lookup": wire_lookup, "label_counts": label_counts,
             "selection_mask": selection_mask, "sw_scores": sw_scores,
-            "gather_loop": gather_loop, "gather_take": gather_take}
+            "gather_loop": gather_loop, "gather_take": gather_take,
+            "key_lookup": key_lookup, "codes_lookup": codes_lookup}
 
 
 def run_path(fn):
@@ -391,18 +562,27 @@ def run_path(fn):
 
 
 def main_path(engine, seqs, codes, period, oracle, cfg, rng, torch, dev,
-              tag="main path", modes=("labels", "counts")):
+              tag="main path", modes=("labels", "counts"),
+              kernels=("wire_lookup", "label_counts", "selection_mask")):
     """Query the batch through ``query_records`` in each mode; hold a sample
-    and the long sequence (last, of that ``period``) against the oracle."""
+    and the long sequence (last, of that ``period``; none without one)
+    against the oracle, and check that each of ``kernels`` launched.  The
+    coords mode runs on the first ``coords_prefix`` reads, to bound the
+    host time of its per-position lists."""
     from metagraph_tpu_torch.seq_io.fasta import FastaRecord
-    canon = engine.index.canon
-    records = [FastaRecord(f"r{i}", s) for i, s in enumerate(seqs)]
-    windows = sum(max(len(s) - K + 1, 0) for s in seqs)
-    total_bp = sum(len(s) for s in seqs)
-    sample = np.sort(rng.choice(len(seqs) - 1, cfg["sample"], replace=False))
-    sample = np.append(sample, len(seqs) - 1)          # the long sequence
+    canon, k = engine.index.canon, engine.k
+    n_reads = len(seqs) - (1 if period else 0)
+    sample = np.sort(rng.choice(n_reads, cfg["sample"], replace=False))
+    if period:
+        sample = np.append(sample, len(seqs) - 1)      # the long sequence
     launches, long_count = {}, None
     for mode in modes:
+        n = min(cfg["coords_prefix"], n_reads) if mode == "coords" \
+            else len(seqs)
+        records = [FastaRecord(f"r{i}", s) for i, s in enumerate(seqs[:n])]
+        windows = sum(max(len(s) - k + 1, 0) for s in seqs[:n])
+        total_bp = sum(len(s) for s in seqs[:n])
+
         def drive():
             t0 = time.perf_counter()
             res = list(engine.query_records(records, mode))
@@ -411,42 +591,70 @@ def main_path(engine, seqs, codes, period, oracle, cfg, rng, torch, dev,
             return res, time.perf_counter() - t0
         (results, secs), launches[mode] = run_path(drive)
         st = engine.last_batch_seconds
-        log(f"{tag} [{mode}]: {len(seqs)} sequences, {total_bp} bp, "
+        log(f"{tag} [{mode}]: {n} sequences, {total_bp} bp, "
             f"{windows} k-mers in {secs:.3f} s = {windows / secs:.4g} "
             f"k-mers/s (host packing {st['pack']:.3f} s, device incl. "
-            f"upload and mask download {st['device']:.3f} s, payloads "
+            f"uploads and downloads {st['device']:.3f} s, payloads "
             f"{st['collect']:.3f} s); launches {launches[mode]}")
-        if len(results) != len(seqs):
-            raise AssertionError(f"{len(results)} results for {len(seqs)} "
-                                 "sequences")
+        if len(results) != n:
+            raise AssertionError(f"{len(results)} results for {n} sequences")
         t0 = time.perf_counter()
-        bad = [i for i in sample if not same_payload(
+        mine = [i for i in sample if i < n]
+        bad = [i for i in mine if not same_payload(
             results[i].payload, oracle_payload(
                 codes[i], mode, oracle, canon,
-                period if i == len(seqs) - 1 else 0))]
+                period if period and i == len(seqs) - 1 else 0))]
         if bad:
             raise AssertionError(f"{tag} {mode}: payloads differ from the "
                                  f"oracle for sequences {bad[:10]}")
-        hits = sum(bool(results[i].payload) for i in sample)
-        log(f"  oracle: {len(sample)} sequences equal ({hits} with hits) "
+        hits = sum(bool(results[i].payload) for i in mine)
+        log(f"  oracle: {len(mine)} sequences equal ({hits} with hits) "
             f"in {time.perf_counter() - t0:.1f} s")
-        if mode == "counts":
+        if mode == "counts" and period:
             long_res = results[-1].payload
             long_count = long_res[0][1] if long_res else 0
     if long_count is not None:
         n = long_count
-        log(f"  long sequence: {len(seqs[-1]) - K + 1} windows, label count "
+        log(f"  long sequence: {len(seqs[-1]) - k + 1} windows, label count "
             f"{n} (> 2^24: {n > 1 << 24}; float32 would hold "
             f"{int(np.float32(n))})")
         if cfg is FULL and not (n > 1 << 24 and int(np.float32(n)) != n):
             raise AssertionError("the long sequence does not test the 2^24 "
                                  "bound")
     for mode, got in launches.items():
-        for name in ("wire_lookup", "label_counts", "selection_mask"):
+        for name in kernels:
             if dev.type == "cuda" and got[name] < 1:
                 raise AssertionError(f"{name} never launched in the {mode} "
                                      f"run of the {tag}")
     return launches[modes[0]]
+
+
+def add_entry(entries, torch, tag, name, got, want, ms, plain_ms, nbytes):
+    """Hold a kernel's outputs exactly against its plain version's and
+    keep its row of the kernels line (bound by bytes)."""
+    err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by="bytes")
+    log(f"kernel {name}{tag}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
+        f"bound {bound:.4f} ms from {nbytes} bytes), max_abs_err {err}")
+    if err:
+        raise AssertionError(f"{name}{tag} disagrees with its plain version")
+
+
+def probe_bytes(table, key_chunks, torch, dev):
+    """Bytes of slot groups that the stop rule reads for these probes:
+    of each bucket probed, the furthest group any of its probes reaches,
+    once (ops.probe_groups); and, for comparison, the probed buckets'
+    whole rows."""
+    from metagraph_tpu_torch.succinct import ops
+    nb, W = table.shape[0], table.shape[1] // ops.BUCKET - 1
+    reach = torch.zeros(nb, dtype=torch.int64, device=dev)
+    for q in key_chunks:
+        b, g = ops.probe_groups(table, q, W)
+        reach.scatter_reduce_(0, b, g, reduce="amax")
+    return (int(reach.sum()) * 16 * (W + 1),
+            int((reach > 0).sum()) * 64 * (W + 1))
 
 
 def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
@@ -457,7 +665,7 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
     from metagraph_tpu_torch.query import device as qd
     from metagraph_tpu_torch.query.tile_pack import tile_pack2
     from metagraph_tpu_torch.succinct import ops
-    S, L = len(seqs), len(engine.labels)
+    S = len(seqs)
     canon, offset = engine.index.canon, engine.index.offset
     tiles2, validb, tile_seq, nwins = tile_pack2(seqs, K, qd.TILE)
     N = len(tiles2)
@@ -466,62 +674,44 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
     words, vwords = np_words(words).to(dev), np_words(vwords).to(dev)
     tile_seq, dsel, selmin = (torch.from_numpy(a).to(dev)
                               for a in (tile_seq, dsel, selmin))
-    table, bitmap = engine.hash_index.table, engine.annotation.bitmap
-    c1, c2 = cfg["plain_chunks"]
+    table = engine.hash_index.table
+    c1, _ = cfg["plain_chunks"]
     entries = {}
-
-    def entry(name, got, want, ms, plain_ms, nbytes):
-        err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
-        entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound, bound_by="bytes")
-        log(f"kernel {name}{tag}: {ms:.4f} ms (plain {plain_ms:.2f} ms, "
-            f"bound {bound:.4f} ms from {nbytes} bytes), max_abs_err {err}")
-        if err:
-            raise AssertionError(f"{name}{tag} disagrees with its plain "
-                                 "version")
-
-    def plain_ms(fn):
-        return device_ms(torch, dev, fn, 1)
 
     nodes = qd.wire_lookup(words, vwords, table, K, qd.TILE, canon, offset)
     nodes_p = ops.wire_lookup_plain(words, vwords, table, K, qd.TILE, c1,
                                     canon, offset)
-    # bytes the data needs: the tile words, the ids and, of each bucket
-    # probed (the chosen strand's for canon 1; for canon 2 the forward
-    # key's and, where it missed, the reverse complement's), the slot
-    # groups that the stop rule reads for the probes touching it: the
-    # furthest group any of them reaches, once (ops.probe_groups)
-    nb, W = table.shape[0], table.shape[1] // ops.BUCKET - 1
-    reach = torch.zeros(nb, dtype=torch.int64, device=dev)
-    for lo in range(0, N, c1):
-        wd, vw = to_u64(words[lo: lo + c1]), to_u64(vwords[lo: lo + c1])
-        keys = ops.extract_windows2(wd, K, qd.TILE)
-        valid = ops.window_valid2(vw, K, qd.TILE)
-        probed = [keys[valid]]
-        if canon:
-            rc = ops.rc_keys2(keys, K)
-            if canon == 1:
-                take = ops.keys2_greater(keys, rc, K)[..., None]
-                probed = [torch.where(take, rc, keys)[valid]]
-            else:
-                nd = nodes[lo: lo + c1]
-                probed.append(rc[valid & ~((nd > 0) & (nd <= offset))])
-        for q in probed:
-            b, g = ops.probe_groups(table, ops.keys2_to_keys4(q, K), W)
-            reach.scatter_reduce_(0, b, g, reduce="amax")
+
+    # bytes the data needs: the tile words, the ids and the slot groups of
+    # the buckets probed (the chosen strand's for canon 1; for canon 2 the
+    # forward key's and, where it missed, the reverse complement's)
+    def probed():
+        for lo in range(0, N, c1):
+            wd, vw = to_u64(words[lo: lo + c1]), to_u64(vwords[lo: lo + c1])
+            keys = ops.extract_windows2(wd, K, qd.TILE)
+            valid = ops.window_valid2(vw, K, qd.TILE)
+            qs = [keys[valid]]
+            if canon:
+                rc = ops.rc_keys2(keys, K)
+                if canon == 1:
+                    take = ops.keys2_greater(keys, rc, K)[..., None]
+                    qs = [torch.where(take, rc, keys)[valid]]
+                else:
+                    nd = nodes[lo: lo + c1]
+                    qs.append(rc[valid & ~((nd > 0) & (nd <= offset))])
+            for q in qs:
+                yield ops.keys2_to_keys4(q, K)
+    groups_bytes, rows_bytes = probe_bytes(table, probed(), torch, dev)
     io = words.nbytes + vwords.nbytes + nodes.nbytes
-    rows_bytes = int((reach > 0).sum()) * 64 * (W + 1)
-    groups_bytes = int(reach.sum()) * 16 * (W + 1)
     log(f"  wire_lookup{tag} bound counts {groups_bytes} B of slot groups; "
         f"whole rows (the former yardstick) would be {rows_bytes} B = "
         f"{(io + rows_bytes) / HBM_BYTES_PER_S * 1e3:.4f} ms")
-    entry("wire_lookup", [nodes], [nodes_p],
-          device_ms(torch, dev, lambda: qd.wire_lookup(
-              words, vwords, table, K, qd.TILE, canon, offset), 10),
-          plain_ms(lambda: ops.wire_lookup_plain(words, vwords, table, K,
-                                                 qd.TILE, c1, canon, offset)),
-          io + groups_bytes)
+    add_entry(entries, torch, tag, "wire_lookup", [nodes], [nodes_p],
+              device_ms(torch, dev, lambda: qd.wire_lookup(
+                  words, vwords, table, K, qd.TILE, canon, offset), 10),
+              device_ms(torch, dev, lambda: ops.wire_lookup_plain(
+                  words, vwords, table, K, qd.TILE, c1, canon, offset), 1),
+              io + groups_bytes)
     l2_control_wire(engine, words, vwords, cfg, torch, dev, tag)
 
     if canon == 2:
@@ -533,22 +723,35 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
         if fwd or not rc:
             raise AssertionError("the long sequence must hit through the "
                                  "reverse-complement probe only")
+    count_select_checks(entries, engine, nodes, tile_seq, dsel, selmin,
+                        offset, cfg, torch, dev, tag)
+    return entries
 
-    # the index's offset is 0 unless canon 2
+
+def count_select_checks(entries, engine, nodes, tile_seq, dsel, selmin,
+                        offset, cfg, torch, dev, tag, controls=True):
+    """Kernels 2 and 3 against their plain versions on the path's tiled
+    ids (folded by ``offset`` for canon 2) and thresholds, and with
+    ``controls`` kernel 2's L2 control and kernel 3's selmin = 0 control."""
+    from metagraph_tpu_torch.query import device as qd
+    S, L = len(dsel), len(engine.labels)
+    bitmap = engine.annotation.bitmap
+    _, c2 = cfg["plain_chunks"]
     counts, present = qd.label_counts(nodes, bitmap, tile_seq, S, L, offset)
     want = qd.label_counts_plain(nodes, bitmap, tile_seq, S, L, c2, offset)
     base = torch.where(nodes > offset, nodes - offset, nodes) if offset \
         else nodes
     rows = int(torch.unique(base[base > 0]).numel())
-    entry("label_counts", [counts, present], want,
-          device_ms(torch, dev, lambda: qd.label_counts(
-              nodes, bitmap, tile_seq, S, L, offset), 10),
-          plain_ms(lambda: qd.label_counts_plain(nodes, bitmap, tile_seq, S,
-                                                 L, c2, offset)),
-          nodes.nbytes + tile_seq.nbytes + rows * bitmap.shape[1] * 4
-          + counts.nbytes + present.nbytes)
-    l2_control_counts(nodes, bitmap, tile_seq, S, L, offset, cfg, torch, dev,
-                      tag)
+    add_entry(entries, torch, tag, "label_counts", [counts, present], want,
+              device_ms(torch, dev, lambda: qd.label_counts(
+                  nodes, bitmap, tile_seq, S, L, offset), 10),
+              device_ms(torch, dev, lambda: qd.label_counts_plain(
+                  nodes, bitmap, tile_seq, S, L, c2, offset), 1),
+              nodes.nbytes + tile_seq.nbytes + rows * bitmap.shape[1] * 4
+              + counts.nbytes + present.nbytes)
+    if controls:
+        l2_control_counts(nodes, bitmap, tile_seq, S, L, offset, cfg, torch,
+                          dev, tag)
 
     mask = qd.selection_mask(counts, present, dsel, selmin)
     # bytes the data needs: the counts of the rows whose presence passes
@@ -559,14 +762,110 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
         f"counts their {passing * L * 4} B of counts; every row's (the "
         f"former yardstick) would be {counts.nbytes + small} B = "
         f"{(counts.nbytes + small) / HBM_BYTES_PER_S * 1e3:.4f} ms")
-    entry("selection_mask", [mask],
-          [qd.selection_mask_plain(counts, present, dsel, selmin)],
-          device_ms(torch, dev, lambda: qd.selection_mask(
-              counts, present, dsel, selmin), 20),
-          plain_ms(lambda: qd.selection_mask_plain(counts, present, dsel,
-                                                   selmin)),
-          passing * L * 4 + small)
-    select_control(counts, present, dsel, torch, dev, tag)
+    add_entry(entries, torch, tag, "selection_mask", [mask],
+              [qd.selection_mask_plain(counts, present, dsel, selmin)],
+              device_ms(torch, dev, lambda: qd.selection_mask(
+                  counts, present, dsel, selmin), 20),
+              device_ms(torch, dev, lambda: qd.selection_mask_plain(
+                  counts, present, dsel, selmin), 1),
+              passing * L * 4 + small)
+    if controls:
+        select_control(counts, present, dsel, torch, dev, tag)
+    return counts
+
+
+def codes_checks(engine, seqs, cfg, torch, dev, tag):
+    """Kernel B, then kernels 2 and 3, against their plain versions on the
+    codes route's inputs (the batch packed as query_batch_fused packs
+    it)."""
+    from metagraph_tpu_torch.query import device as qd
+    from metagraph_tpu_torch.query.tile_pack import tile_pack2
+    from metagraph_tpu_torch.succinct import ops
+    k, S, table = engine.k, len(seqs), engine.hash_index.table
+    tiles2, validb, tile_seq, nwins = tile_pack2(seqs, k, qd.TILE)
+    dsel, selmin = qd._thresholds(nwins, 0.7, 0.0)
+    p2, vb, tile_seq, dsel, selmin = (
+        torch.from_numpy(a).to(dev)
+        for a in (tiles2, validb, tile_seq, dsel, selmin))
+    c1, _ = cfg["plain_chunks"]
+    entries = {}
+    nodes = ops.codes_lookup(p2, vb, table, k, qd.TILE)
+    nodes_p = ops.codes_lookup_plain(p2, vb, table, k, qd.TILE, c1)
+
+    def probed():          # the valid windows' keys, as kernel B packs them
+        for lo in range(0, len(p2), c1):
+            keys, valid = ops.device_pack_windows(ops.tile_codes(
+                p2[lo: lo + c1], vb[lo: lo + c1], qd.TILE + k - 1), k)
+            yield keys[valid]
+    groups_bytes, rows_bytes = probe_bytes(table, probed(), torch, dev)
+    io = p2.nbytes + vb.nbytes + nodes.nbytes
+    log(f"  codes_lookup{tag}: bound counts {groups_bytes} B of slot "
+        f"groups (whole rows: {rows_bytes} B)")
+    add_entry(entries, torch, tag, "codes_lookup", [nodes], [nodes_p],
+              device_ms(torch, dev, lambda: ops.codes_lookup(
+                  p2, vb, table, k, qd.TILE), 10),
+              device_ms(torch, dev, lambda: ops.codes_lookup_plain(
+                  p2, vb, table, k, qd.TILE, c1), 1),
+              io + groups_bytes)
+    counts = count_select_checks(entries, engine, nodes, tile_seq, dsel,
+                                 selmin, 0, cfg, torch, dev, tag,
+                                 controls=False)
+    n = int(counts[S - 1].max())
+    log(f"  long sequence{tag}: {nwins[-1]} windows, label count {n} "
+        f"(> 2^24: {n > 1 << 24}; float32 would hold {int(np.float32(n))})")
+    if cfg is FULL and not (n > 1 << 24 and int(np.float32(n)) != n):
+        raise AssertionError("the long sequence does not test the 2^24 bound")
+    return entries
+
+
+def key_checks(engine, seqs, cfg, torch, dev, tag):
+    """Kernel A on the keys of the batch's valid windows (packed as
+    map_batch packs them), then kernels 2 and 3 on the host-tiled rows of
+    the ids it found, against their plain versions."""
+    from metagraph_tpu_torch._u32 import np_words, to_u64
+    from metagraph_tpu_torch.query import device as qd
+    from metagraph_tpu_torch.succinct import ops
+    k, ex, S = engine.k, engine.extractor, len(seqs)
+    table = engine.hash_index.table
+    cat = np.concatenate([np.concatenate([ex.encode(s), [ex.invalid]])
+                          for s in seqs]).astype(np.uint8)
+    wins = np.lib.stride_tricks.sliding_window_view(cat, k)
+    bad = np.concatenate([[0], np.cumsum(cat >= ex.invalid)])
+    valid = (bad[k:] - bad[:-k]) == 0
+    sub = wins[valid]
+    step = 1 << 22
+    keys = np_words(np.concatenate([
+        ops.pack_kmers32(sub[lo: lo + step], engine.index.bits)
+        for lo in range(0, len(sub), step)])).to(dev)
+    chunk = 1 << 16
+    ids = ops.key_lookup(keys, table)
+    ids_p = ops.key_lookup_plain(keys, table, chunk)
+    groups_bytes, rows_bytes = probe_bytes(
+        table, (to_u64(keys[lo: lo + chunk])
+                for lo in range(0, len(keys), chunk)), torch, dev)
+    log(f"  key_lookup{tag}: {len(keys)} keys of {keys.shape[1]} words; "
+        f"bound counts {groups_bytes} B of slot groups (whole rows: "
+        f"{rows_bytes} B)")
+    entries = {}
+    add_entry(entries, torch, tag, "key_lookup", [ids], [ids_p],
+              device_ms(torch, dev, lambda: ops.key_lookup(keys, table), 10),
+              device_ms(torch, dev, lambda: ops.key_lookup_plain(
+                  keys, table, chunk), 1),
+              keys.nbytes + ids.nbytes + groups_bytes)
+    # count_epoch_tiled's input: rows + 1 of the hits, tiled per sequence
+    flat = np.zeros(len(wins), np.int64)
+    flat[valid] = ids.cpu().numpy()
+    starts = np.concatenate([[0], np.cumsum([len(s) + 1 for s in seqs])])
+    nk = [max(len(s) - k + 1, 0) for s in seqs]
+    seq_ids = np.repeat(np.arange(S, dtype=np.int32), nk)
+    at = np.concatenate([np.arange(a, a + n) for a, n in zip(starts, nk)])
+    rows1, tile_seq = qd.tile_layout(flat[at].astype(np.int32), seq_ids, S,
+                                     fill=0)
+    dsel, selmin = qd._thresholds(nk, 0.7, 0.0)
+    rows1, tile_seq, dsel, selmin = (torch.from_numpy(a).to(dev) for a in (
+        np.ascontiguousarray(rows1), tile_seq, dsel, selmin))
+    count_select_checks(entries, engine, rows1, tile_seq, dsel, selmin, 0,
+                        cfg, torch, dev, tag, controls=False)
     return entries
 
 
@@ -666,13 +965,14 @@ def max_sm_clock_hz():
 
 
 def sw_phase(cfg, rng, torch, dev):
-    """Kernel 4 through batch_local_align_scores at two shapes: the
+    """Kernel 4 through batch_local_align_scores at three shapes: the
     phase's 150 x 300 pairs (also held against the numpy oracle on a
-    sample) and 1,000 x 1,000 pairs, the kernel's largest P; each held
+    sample), 1,000 x 1,000 pairs, the largest P of one launch, and 2,000 x
+    2,000 pairs, two query blocks with the carry between them; each held
     exactly against the plain version.  -> {shape name: (launches,
     entry)}."""
     from metagraph_tpu_torch.align.sw import (batch_local_align_scores,
-                                              positions_per_lane,
+                                              query_blocks,
                                               reference_local_align_score,
                                               sw_scores, sw_scores_plain)
     from metagraph_tpu_torch.scripts.kernel_times import sw_pairs
@@ -684,7 +984,8 @@ def sw_phase(cfg, rng, torch, dev):
             dev).multi_processor_count * 64 * max_sm_clock_hz()
     out = {}
     for name, (B, LQ, LR), oracle in (("", cfg["sw"], cfg["sw_oracle"]),
-                                      ("/large", cfg["sw_big"], 0)):
+                                      ("/large", cfg["sw_big"], 0),
+                                      ("/long", cfg["sw_long"], 0)):
         qs, rs = sw_pairs(rng, B, LQ, LR)
 
         def drive():
@@ -714,8 +1015,9 @@ def sw_phase(cfg, rng, torch, dev):
         if dev.type == "cuda" and launches["sw_scores"] < 1:
             raise AssertionError(f"sw_scores{name} never launched in the SW "
                                  "phase")
-        log(f"SW phase{name}: {B} pairs of {LQ} x {LR} (P = "
-            f"{positions_per_lane(LQ)}) in {secs:.3f} s through "
+        P, blocks = query_blocks(LQ)
+        log(f"SW phase{name}: {B} pairs of {LQ} x {LR} (P = {P}, {blocks} "
+            f"query block{'s' if blocks > 1 else ''}) in {secs:.3f} s through "
             f"batch_local_align_scores; kernel {ms:.4f} ms = "
             f"{B / ms * 1e3:.4g} pairs/s = {B * LQ * LR / ms / 1e9:.4g} "
             f"Gcells/s (plain {plain:.2f} ms, bound {bound:.4f} ms by "
@@ -825,6 +1127,10 @@ SOURCES = {
                     "scripts/exp_pallas_gather.py:54"),
     "gather_take": ("metagraph_tpu_torch/csrc/gather_rows.cu",
                     "scripts/exp_pallas_gather.py:82"),
+    "key_lookup": ("metagraph_tpu_torch/csrc/key_lookup.cu",
+                   "metagraph_tpu/succinct/ops.py:433"),
+    "codes_lookup": ("metagraph_tpu_torch/csrc/codes_lookup.cu",
+                     "metagraph_tpu/query/device.py:297"),
 }
 
 
@@ -901,14 +1207,58 @@ def main(argv=None) -> int:
               "canonical graph (canon 1)", modes=("labels",)),
         timed("kernel checks", kernel_checks, engine, seqs2, cfg, torch, dev,
               " [canon 1]"))
-    del engine
+    del engine, index_c, oracle_c
+
+    # k = 41 over the same references (the codes route: kernels B, 2, 3),
+    # the basic batch's reads and a long sequence for k = 41
+    index41, oracle41 = timed("k41 index", make_wide_index, refs,
+                              index.labels)
+    log(f"k41 index: {index41.num_rows} k-mers, hash table "
+        f"{index41.table.shape} = {index41.table.nbytes} B, bitmap "
+        f"{index41.bitmap.shape} = {index41.bitmap.nbytes} B; made in "
+        f"{phases['k41 index']:.1f} s")
+    long41 = long_sequence(cfg, refs[0], K41)
+    seqs41 = seqs[:-1] + [np.frombuffer(b"ACGTN", np.uint8)[long41]
+                          .tobytes()]
+    codes41 = codes[:-1] + [long41]
+    engine = timed("uploads", QueryEngine, index41, device=dev)
+    more["k41"] = (
+        timed("query paths and oracle", main_path, engine, seqs41, codes41,
+              len(refs[0]), oracle41, cfg, rng, torch, dev,
+              "k41 graph (codes route)",
+              modes=("labels", "counts-sum", "coords"),
+              kernels=("codes_lookup", "label_counts", "selection_mask")),
+        timed("kernel checks", codes_checks, engine, seqs41, cfg, torch, dev,
+              " [k41]"))
+    del engine, index41, oracle41
+
+    # Protein at k = 20 (8-bit keys: the map route, kernel A, then kernels
+    # 2 and 3), from a third stream of the seed
+    rng3 = np.random.default_rng([args.seed, 3])
+    prefs, index_p, oracle_p = timed("protein index", make_protein_index,
+                                     cfg, rng3, index.labels)
+    log(f"protein index: {index_p.num_rows} k-mers, hash table "
+        f"{index_p.table.shape} = {index_p.table.nbytes} B, bitmap "
+        f"{index_p.bitmap.shape} = {index_p.bitmap.nbytes} B; made in "
+        f"{phases['protein index']:.1f} s")
+    pseqs, pcodes = timed("batches", make_protein_batch, cfg, rng3, prefs)
+    engine = timed("uploads", QueryEngine, index_p, device=dev)
+    more["protein"] = (
+        timed("query paths and oracle", main_path, engine, pseqs, pcodes, 0,
+              oracle_p, cfg, rng3, torch, dev, "protein graph (map route)",
+              modes=("labels", "matches"),
+              kernels=("key_lookup", "label_counts", "selection_mask")),
+        timed("kernel checks", key_checks, engine, pseqs, cfg, torch, dev,
+              " [protein]"))
+    del engine, index_p, oracle_p
 
     sw = timed("SW phase", sw_phase, cfg, rng, torch, dev)
     launches["sw_scores"], entries["sw_scores"] = sw.pop("")
     gl, ge = timed("gather phase", gather_phase, cfg, torch, dev)
     for name in ("gather_loop", "gather_take"):
         launches[name], entries[name] = gl[name], ge[name]
-    rows = [(name, launches[name], entries[name]) for name in SOURCES]
+    rows = [(name, launches[name], entries[name]) for name in SOURCES
+            if name in entries]
     for dep, (dl, de) in more.items():
         rows += [(f"{name}/{dep}", dl[name], e) for name, e in de.items()]
     rows += [(f"sw_scores{shape}", n, e) for shape, (n, e) in sw.items()]

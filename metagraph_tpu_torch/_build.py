@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/torch_kernels/``
 (beside the package, listed in ``.gitignore``).  A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt.
+carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt.
 ``build_all`` starts one ``nvcc`` per missing library, all at once.
 
 Every C entry point returns ``cudaGetLastError()`` right after its launch;
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 KERNELS = ("wire_lookup", "label_counts", "selection_mask", "sw_scores",
-           "gather_rows")
+           "gather_rows", "key_lookup", "codes_lookup")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,9 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 

@@ -12,7 +12,10 @@ scan of max(M, F) (valid because gap_open <= gap_ext).
 The kernel walks E sequentially, E[j] = max(E[j-1] + ext, SF[j-1] + open),
 which is the scan's prefix max unrolled by one term and holds for any
 scores; its wavefront gives each lane ``positions_per_lane(LQ)`` query
-positions (the template parameter it launches with).
+positions (the template parameter it launches with).  A query of more than
+1,024 positions runs in the query blocks of ``query_blocks``, one launch a
+block, each carrying its last column's S and E to the next through B x LR
+x 8 bytes of scratch.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from .. import _build
 from ..device import resolve_device
 
 NEG = -(2 ** 30)
-MAX_QUERY = 1024      # kernel limit: 32 lanes x at most 32 positions each
+BLOCK_QUERY = 1024    # positions a launch takes: 32 lanes x at most 32
 
 
 def _shift_right(x: torch.Tensor, s: int, fill: int) -> torch.Tensor:
@@ -65,9 +68,19 @@ def sw_scores_plain(queries: torch.Tensor, refs: torch.Tensor, match: int,
     return best
 
 
+def query_blocks(LQ: int):
+    """Kernel 4's split of a query of LQ >= 1 positions: (P, blocks).  One
+    block of P = ceil(LQ / 32) up to 1,024 positions; beyond, blocks of 32 P
+    positions (the last one shorter), P = ceil(ceil(LQ / n0) / 32) with n0 =
+    ceil(LQ / 1024), as csrc/sw_scores.cu splits them."""
+    n0 = -(-LQ // BLOCK_QUERY)
+    P = -(-(-(-LQ // n0)) // 32)
+    return P, -(-LQ // (32 * P))
+
+
 def positions_per_lane(LQ: int) -> int:
-    """Query positions a lane of kernel 4 owns: ceil(LQ / 32), exactly."""
-    return -(-LQ // 32)
+    """Query positions a lane of kernel 4 owns."""
+    return query_blocks(LQ)[0]
 
 
 def sw_scores(queries: torch.Tensor, refs: torch.Tensor, match: int = 2,
@@ -89,18 +102,22 @@ def sw_scores(queries: torch.Tensor, refs: torch.Tensor, match: int = 2,
                                gap_ext)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if LQ > MAX_QUERY:
-        raise ValueError(f"sw_scores kernel takes LQ <= {MAX_QUERY}, got {LQ}")
     out = torch.zeros(B, dtype=torch.int32, device=dev)
     if B == 0 or LQ == 0:
         return out
+    LR = refs.shape[1]
+    _, blocks = query_blocks(LQ)
+    # the boundary column's (S, E) of each pair and reference row
+    carry = torch.empty((B, LR, 2), dtype=torch.int32, device=dev) \
+        if blocks > 1 else None
     P, I = ctypes.c_void_p, ctypes.c_int32
     fn = _build.function("sw_scores", "mg_sw_scores",
-                         [P, P, P, I, I, I, I, I, I, I, P])
+                         [P, P, P, I, I, I, I, I, I, I, P, P])
     _build.check(fn(queries.data_ptr(), refs.data_ptr(), out.data_ptr(), B,
-                    LQ, refs.shape[1], match, mismatch, gap_open, gap_ext,
+                    LQ, LR, match, mismatch, gap_open, gap_ext,
+                    None if carry is None else carry.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream), "sw_scores")
-    sw_scores.launches += 1
+    sw_scores.launches += blocks
     return out
 
 

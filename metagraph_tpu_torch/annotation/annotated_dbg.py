@@ -1,16 +1,18 @@
 """Query semantics of the annotated graph.
 
-Own copy of metagraph_tpu/annotation/annotated_dbg.py:26-63: annotation
-row = base node - 1 (reverse-complement ids of a primary graph seen through
-``CanonicalDBG`` fold back to their base node), the min-count rule of the
-reference, and the top-label order (count descending, label code
-ascending).
+Own copy of metagraph_tpu/annotation/annotated_dbg.py:26-63 and :119-124:
+annotation row = base node - 1 (reverse-complement ids of a primary graph
+seen through ``CanonicalDBG`` fold back to their base node), the min-count
+rule of the reference, the top-label order (count descending, label code
+ascending) and the row multiset of a sequence.
 """
 
 from __future__ import annotations
 
 import math
 from typing import List, Tuple
+
+import numpy as np
 
 from ..graph.canonical import base_node
 
@@ -32,3 +34,11 @@ def graph_to_anno_index(node, offset: int = 0):
     graph) ids above it fold to ``node - offset`` first (ref
     annotated_dbg.hpp:50-56, canonical_dbg.hpp:38-41)."""
     return base_node(node, offset) - 1
+
+
+def row_multiset(rows):
+    """[(row, multiplicity)] in first-seen order (``_row_multiset``)."""
+    uniq, first, counts = np.unique(rows, return_index=True,
+                                    return_counts=True)
+    order = np.argsort(first, kind="stable")
+    return list(zip(uniq[order].tolist(), counts[order].tolist()))

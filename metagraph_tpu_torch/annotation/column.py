@@ -3,7 +3,10 @@
 Own copy of the loading part of metagraph_tpu/annotation/column.py:347-374
 for the "sorted" codec: one sorted array of set rows per label, with
 optional per-entry k-mer counts (``vals_c``) and coordinates
-(``coords_c``).  The "smallest" codec is not ported yet and raises.
+(``coords_c``: (row, coordinate) pairs sorted by row, then coordinate),
+and of its row queries ``get_rows_mask``, ``get_row_values`` and
+``get_row_tuples`` (:232-291).  The "smallest" codec is not ported yet and
+raises.
 """
 
 from __future__ import annotations
@@ -51,6 +54,61 @@ class ColumnMajorAnnotation:
             return np.zeros(len(rows), dtype=np.int64)
         pos = np.minimum(np.searchsorted(col, rows), len(col) - 1)
         return self._values[code][pos]
+
+    def get_rows_mask(self, rows: np.ndarray) -> np.ndarray:
+        """(Q,) rows -> (Q, L) bool membership matrix."""
+        rows = np.asarray(rows, dtype=np.int64)
+        out = np.zeros((len(rows), self.num_labels), dtype=bool)
+        for c, col in enumerate(self._rows):
+            if len(col):
+                pos = np.minimum(np.searchsorted(col, rows), len(col) - 1)
+                out[:, c] = col[pos] == rows
+        return out
+
+    def get_row_values(self, rows: np.ndarray):
+        """Per row: [(label code, value)] in code order; the value of a
+        coordinate-only annotation is the row's number of coordinates."""
+        if not self.has_values and self.has_coords:
+            return [[(c, len(t)) for c, t in row]
+                    for row in self.get_row_tuples(rows)]
+        rows = np.asarray(rows, dtype=np.int64)
+        out = [[] for _ in range(len(rows))]
+        for c, col in enumerate(self._rows):
+            if not len(col):
+                continue
+            pos = np.minimum(np.searchsorted(col, rows), len(col) - 1)
+            vals = self._values[c] if self._values is not None \
+                else np.zeros(len(col), dtype=np.int64)
+            for i in np.flatnonzero(col[pos] == rows):
+                out[i].append((c, int(vals[pos[i]])))
+        return out
+
+    def get_row_tuples(self, rows: np.ndarray):
+        """Per row: [(label code, [coordinates])] in code order."""
+        rows = np.asarray(rows, dtype=np.int64)
+        out = [[] for _ in range(len(rows))]
+        for c in range(self.num_labels):
+            lo, hi = self.coord_spans(rows, c)
+            rc = self._coords[c]
+            for i in np.flatnonzero(hi > lo):
+                out[i].append((c, rc[lo[i]:hi[i], 1].tolist()))
+        return out
+
+    def coord_spans(self, rows: np.ndarray, code: int):
+        """(lo, hi): label ``code``'s coordinates of row i are
+        coords[lo[i]:hi[i]], sorted; empty where it has none."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if self._coords is None:
+            z = np.zeros(len(rows), dtype=np.int64)
+            return z, z
+        rc = self._coords[code][:, 0]
+        return (np.searchsorted(rc, rows, side="left"),
+                np.searchsorted(rc, rows, side="right"))
+
+    def coords_of(self, code: int) -> np.ndarray:
+        """(n,) coordinates of label ``code``, in the order of its (row,
+        coordinate) pairs."""
+        return self._coords[code][:, 1]
 
     @classmethod
     def load(cls, path: str) -> "ColumnMajorAnnotation":

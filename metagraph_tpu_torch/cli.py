@@ -1,17 +1,30 @@
 """Command line interface of the port: ``query``.
 
-``python -m metagraph_tpu_torch query -i G.dbg -a A.column.annodbg
-[--device cuda|cpu] reads.fa`` mirrors ``metagraph_tpu.cli query --device``
-(metagraph_tpu/cli/main.py:792-853) for basic, canonical and primary DNA
-graphs (a primary graph is queried through ``CanonicalDBG``, main.py:800-802)
-and column annotations, and prints the same bytes.
+``python -m metagraph_tpu_torch query -i G.dbg -a A.column.annodbg --device
+reads.fa`` takes the command lines of ``metagraph_tpu.cli query``
+(metagraph_tpu/cli/main.py:1454-1483, ``_add_common`` :16-27, the align
+scoring flags :30-45) and prints the bytes of its ``--device`` query
+(:792-853) for succinct graphs of every alphabet and k (a primary graph is
+queried through ``CanonicalDBG``, :800-802) and column annotations, in the
+six query modes.  ``--device`` is a flag, as there: the port always runs
+on the card, unless ``--torch-device cpu`` asks for the CPU, which runs the
+plain PyTorch versions of the kernels.  ``-o`` is accepted and unused and
+``--mmap`` changes nothing for the npz graphs the port loads, as in the
+JAX ``query``; ``-v`` prints progress lines on stderr.  The error contract
+is JAX ``main``'s (:1675-1686).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import resource
 import sys
+import time
+
+
+def _trace(msg: str):
+    print(f"[trace] {msg}", file=sys.stderr)
 
 
 def cmd_query(args):
@@ -20,10 +33,12 @@ def cmd_query(args):
     from .query.pipeline import QueryEngine
     from .seq_io.fasta import read_fasta
 
-    if args.parallel > 1:
-        raise NotImplementedError("-p above 1 is not ported yet (ROADMAP A7)")
-    if args.align:
-        raise NotImplementedError("--align is not ported yet (ROADMAP A13)")
+    if max(args.parallel, args.parallel_each) > 1:
+        raise NotImplementedError("-p/--parallel-each above 1 is not ported "
+                                  "yet (ROADMAP A7.4)")
+    if args.align or args.batch_align:
+        raise NotImplementedError("--align and --batch-align are not ported "
+                                  "yet (ROADMAP A13)")
     if not args.no_coord_mapping:
         base = args.annotation
         for ext in (".column.annodbg.npz", ".column.annodbg",
@@ -34,10 +49,12 @@ def cmd_query(args):
         if os.path.exists(base + ".seqs"):
             raise NotImplementedError(
                 "the .seqs coordinate-to-header mapping is not ported yet "
-                "(ROADMAP A7); pass --no-coord-mapping")
-    device = resolve_device(args.device)     # before the index is built
+                "(ROADMAP A7.1); pass --no-coord-mapping")
+    device = resolve_device(args.torch_device)   # before the index is built
     index = load(args.infile_base, args.annotation)
     engine = QueryEngine(index, device=device)
+    if args.verbose:
+        engine.trace = _trace
     out = sys.stdout
     num_top = args.num_top_labels if args.num_top_labels is not None \
         else 2 ** 63
@@ -54,10 +71,28 @@ def cmd_query(args):
                                         args.verbose_output, index.k) + "\n")
 
 
-def main(argv=None):
+def _add_align_scoring_flags(p):
+    # accepted as metagraph_tpu's query accepts them; --align is not ported
+    for name, kind, default in (
+            ("match-score", int, 2), ("mm-transition-penalty", int, 3),
+            ("mm-transversion-penalty", int, 3), ("gap-open-penalty", int, 6),
+            ("gap-extension-penalty", int, 2), ("end-bonus", int, 5),
+            ("xdrop", int, 27), ("max-nodes-per-seq-char", float, 5.0),
+            ("max-num-seeds-per-locus", int, 1000), ("max-ram", float, 200.0),
+            ("rel-score-cutoff", float, 0.95)):
+        p.add_argument(f"--align-{name}", type=kind, default=default)
+    p.add_argument("--align-no-seed-complexity-filter", action="store_true")
+
+
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="metagraph-tpu-torch")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser("query")
+    p.add_argument("-o", "--outfile-base", dest="out", default="graph")
+    p.add_argument("-p", "--parallel", type=int, default=1)
+    p.add_argument("--parallel-each", type=int, default=1)
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--mmap", action="store_true")
     p.add_argument("-i", "--infile-base", required=True)
     p.add_argument("-a", "--annotation", required=True)
     p.add_argument("--query-mode", default="labels",
@@ -70,18 +105,47 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=100_000_000)
     p.add_argument("--fwd-and-reverse", action="store_true")
     p.add_argument("--align", action="store_true")
+    p.add_argument("--align-min-exact-match", type=float, default=0.7)
+    _add_align_scoring_flags(p)
+    p.add_argument("--batch-align", action="store_true")
+    p.add_argument("--max-hull-forks", type=int, default=4)
+    p.add_argument("--max-hull-depth", type=int, default=None)
     p.add_argument("--json", action="store_true")
     p.add_argument("--suppress-unlabeled", action="store_true")
     p.add_argument("--verbose-output", action="store_true")
-    p.add_argument("-p", "--parallel", type=int, default=1)
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+    p.add_argument("--device", action="store_true",
+                   help="the device query (the port always runs it)")
+    p.add_argument("--torch-device", default="cuda", choices=["cuda", "cpu"],
                    help="where the kernels run; the CPU runs their plain "
                         "PyTorch versions")
     p.add_argument("input", nargs="+")
     p.set_defaults(func=cmd_query)
-    args = ap.parse_args(argv)
-    args.func(args)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    t0 = time.perf_counter()
+    try:
+        ret = args.func(args)
+        if args.verbose:
+            rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+            _trace(f"{args.command}: finished in "
+                   f"{time.perf_counter() - t0:.3f} sec, peak RSS "
+                   f"{rss / 1e6:.0f} MB")
+        return ret
+    except BrokenPipeError:
+        sys.exit(0)
+    except FileNotFoundError as e:
+        path = getattr(e, "filename", None) or str(e)
+        print(f"[error] File not found: {path}", file=sys.stderr)
+        sys.exit(1)
+    except PermissionError as e:
+        path = getattr(e, "filename", None) or str(e)
+        print(f"[error] Permission denied, cannot read: {path}",
+              file=sys.stderr)
+        sys.exit(1)
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -1,8 +1,10 @@
 """DBGSuccinct graphs from the JAX package's ``.dbg.npz`` artifacts.
 
-Own copy of the loading part of metagraph_tpu/graph/dbg_succinct.py:611-642
-for the npz layout.  The reference-format ``.dbg`` and the mmap layout
-(``.meta.npz`` beside raw ``.npy`` arrays) are not ported yet and raise.
+Own copy of the loading part of metagraph_tpu/graph/dbg_succinct.py:611-655
+for the npz layout, every alphabet (``_alphabet_of``: the recorded name, or
+the alphabet of the table's sigma) and every k.  The reference-format
+``.dbg`` and the mmap layout (``.meta.npz`` beside raw ``.npy`` arrays) are
+not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import os
 
 import numpy as np
 
+from ..kmer.alphabets import ALPHABETS, DNA
+from ..kmer.extractor import KmerExtractor
 from ..succinct.boss import BOSS
 
 
@@ -19,7 +23,11 @@ class DBGSuccinct:
         self.boss = boss
         self.k = k                      # dbg k (= boss.k + 1)
         self.mode = mode
-        self.alphabet = alphabet
+        self.alphabet = alphabet        # an ALPHABETS name
+
+    @property
+    def extractor(self) -> KmerExtractor:
+        return KmerExtractor(ALPHABETS[self.alphabet])
 
     def max_index(self) -> int:
         return self.boss.num_edges
@@ -46,7 +54,10 @@ class DBGSuccinct:
                     "(ROADMAP A7)")
             mode = str(z["mode"]) if "mode" in z.files else "basic"
             alph_size = int(z["alph_size"])
-            alphabet = str(z["alphabet"]) if "alphabet" in z.files \
-                else ("DNA" if alph_size == 5 else f"sigma={alph_size}")
+            if "alphabet" in z.files:
+                alphabet = str(z["alphabet"])
+            else:
+                alphabet = next((a.name for a in ALPHABETS.values()
+                                 if a.sigma == alph_size), DNA.name)
         boss = BOSS.load(npz)
         return cls(boss, boss.k + 1, mode, alphabet)

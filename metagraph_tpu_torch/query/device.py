@@ -1,7 +1,8 @@
 """The device half of the annotated batch query, and kernels 2 and 3.
 
 Own copies of metagraph_tpu/query/device.py's host helpers (``TILE``,
-``wire_words_layout`` :463, ``untile_nodes`` :517) and of ``_thresholds``
+``wire_words_layout`` :463, ``untile_nodes`` :517, ``tile_layout`` :579)
+and of ``_thresholds``
 (query/pipeline.py:32-50), plain PyTorch versions of ``_tile_label_counts``
 (:107), ``_fold_tiles`` (:152) and ``_pack_selection_mask`` (:168), and the
 wrappers of the hand-written kernels that replace them:
@@ -12,11 +13,21 @@ wrappers of the hand-written kernels that replace them:
   package's f32 matmul fold is exact only below 2^24.
 * ``selection_mask`` (``csrc/selection_mask.cu``): the packed label mask.
 
-``wire_epoch`` chains kernels 1 to 3 with the return contract of
-``query_epoch_wire_buf``, for basic, canonical and primary graphs (canon 0,
-1 and 2 of ``_wire_epoch_core``).  The TPU's fused upload buffer, chunk
-scan and geometric tile padding served its host link and its recompiles
-and are not copied.
+Three epochs chain the kernels, each with the return contract of
+``query_epoch_wire_buf`` (mask, counts, present, and the per-window ids
+where the epoch finds them):
+
+* ``wire_epoch``: kernels 1, 2, 3, for DNA graphs with 2 <= k <= 31
+  (canon 0, 1 and 2 of ``_wire_epoch_core``);
+* ``codes_epoch``: kernels B, 2, 3, for basic DNA graphs with k >= 32
+  (``query_epoch_codes2``);
+* ``count_route``: kernels 2, 3 over host-tiled annotation rows, after the
+  host mapped the windows with kernel A (``count_epoch_tiled`` +
+  ``select_mask_epoch``); the values at the hits are a torch index of the
+  counts, as ``gather_flat`` is outside any Pallas kernel.
+
+The TPU's fused upload buffer, chunk scan and geometric tile padding
+served its host link and its recompiles and are not copied.
 """
 
 from __future__ import annotations
@@ -30,7 +41,7 @@ import torch
 from .. import _build
 from .._u32 import to_i32, to_u64
 from ..annotation.ops import gather_anno_rows
-from ..succinct.ops import wire_lookup
+from ..succinct.ops import codes_lookup, wire_lookup
 
 TILE = 256   # windows per tile
 
@@ -81,6 +92,33 @@ def untile_nodes(nodes_tiled: np.ndarray, nwins, tile: int = TILE):
         out.append(flat.astype(np.int64))
         base += nt
     return out
+
+
+def tile_layout(queries: np.ndarray, seq_ids: np.ndarray, num_seqs: int,
+                tile: int = TILE, fill=None):
+    """Flat (Q, W) windows (or (Q,) row ids) with sorted ``seq_ids`` ->
+    the (N, T, W) (or (N, T)) tiled layout, padded with ``fill`` (0 for
+    ids, EMPTY_WORD for keys), and the (N,) owning sequence of each tile."""
+    nwin = np.bincount(seq_ids, minlength=num_seqs) if len(seq_ids) \
+        else np.zeros(num_seqs, dtype=np.int64)
+    ntiles = -(-nwin // tile)
+    tile_base = np.concatenate([[0], np.cumsum(ntiles)])
+    N = int(tile_base[-1])
+    if queries.ndim == 1:
+        shape = (N * tile,)
+        fill = 0 if fill is None else fill
+    else:
+        shape = (N * tile, queries.shape[1])
+        fill = np.iinfo(np.uint32).max if fill is None else fill
+    out = np.full(shape, fill, dtype=queries.dtype)
+    if len(seq_ids):
+        seq_start = np.concatenate([[0], np.cumsum(nwin)])
+        idx = np.arange(len(seq_ids)) - seq_start[seq_ids]
+        flat = (tile_base[seq_ids] + idx // tile) * tile + idx % tile
+        out[flat] = queries
+    tile_seq = np.repeat(np.arange(num_seqs, dtype=np.int32),
+                         ntiles.astype(np.int64))
+    return out.reshape((N, tile) + shape[1:]), tile_seq
 
 
 # --------------------------------------------------------------------------
@@ -311,3 +349,33 @@ def wire_epoch(table: torch.Tensor, bitmap: torch.Tensor,
                                    num_labels, offset)
     mask = selection_mask(counts, present, dsel, selmin)
     return mask, counts, present, nodes
+
+
+def codes_epoch(table: torch.Tensor, bitmap: torch.Tensor,
+                packed2: torch.Tensor, validb: torch.Tensor,
+                tile_seq: torch.Tensor, dsel: torch.Tensor,
+                selmin: torch.Tensor, num_seqs: int, num_labels: int, K: int,
+                T: int = TILE):
+    """The codes epoch of a basic DNA graph at any K: (N, TKp/4) uint8
+    2-bit code tiles, (N, ceil(TK/8)) uint8 valid bits (``tile_pack2``),
+    (N,) tile_seq and (S,) thresholds -> (mask (S, Lw), counts (S, L),
+    present (S,), nodes (N, T)), the contract of query_epoch_codes2 without
+    its padding."""
+    nodes = codes_lookup(packed2, validb, table, K, T)
+    counts, present = label_counts(nodes, bitmap, tile_seq, num_seqs,
+                                   num_labels)
+    mask = selection_mask(counts, present, dsel, selmin)
+    return mask, counts, present, nodes
+
+
+def count_route(bitmap: torch.Tensor, rows1: torch.Tensor,
+                tile_seq: torch.Tensor, dsel: torch.Tensor,
+                selmin: torch.Tensor, num_seqs: int, num_labels: int):
+    """(N, T) tiled annotation rows + 1 (0 = miss; count_epoch_tiled's
+    input), (N,) tile_seq and (S,) thresholds -> (mask (S, Lw), counts (S,
+    L), present (S,)).  ``selmin`` is max(dmin, pmin), so the mask is
+    _hits' ``counts >= dmin`` on the rows whose presence passes."""
+    counts, present = label_counts(rows1, bitmap, tile_seq, num_seqs,
+                                   num_labels)
+    mask = selection_mask(counts, present, dsel, selmin)
+    return mask, counts, present

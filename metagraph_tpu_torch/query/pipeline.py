@@ -1,17 +1,32 @@
 """The annotated batch query (``metagraph query --device``) on the port.
 
-Own copy of the fused device route of metagraph_tpu/query/pipeline.py:
-``query_records`` (:961-1096) batches the records, ``query_batch_fused``
-(:607-668) packs one batch, runs the wire epoch (kernels 1-3,
-query/device.py) and downloads the selection mask, and ``_hits_from_mask``
-(:466) and ``_payloads_from_hits`` (:808) build the per-sequence payloads
-on the host.  Per-window node ids are downloaded only for the counts and
-signature modes.
+Own copy of the device routes of metagraph_tpu/query/pipeline.py:
+``query_records`` (:961-1096) batches the records and each batch takes the
+route that ``query_batch_fused`` (:607-668) and ``_wire_ok`` (:128-143)
+choose:
 
-Scope: basic, canonical and primary DNA graphs (a primary graph is queried
-through ``CanonicalDBG``, as the JAX CLI does) with 2 <= k <= 31 and a
-dense annotation, in the labels, matches, counts and signature modes.  Everything else raises
-NotImplementedError and names the ROADMAP item that will port it.
+* **wire** (DNA graphs, 2 <= k <= 31; basic, canonical and primary):
+  ``tile_pack2`` on the host, then kernels 1-3 (``device.wire_epoch``);
+* **codes** (basic DNA graphs, k >= 32): ``tile_pack2``, then kernels B,
+  2 and 3 (``device.codes_epoch``, the counterpart of
+  ``query_epoch_codes2``);
+* **map** (DNA5, DNA_CASE and Protein graphs, and canonical or primary DNA
+  graphs with k >= 32): ``map_batch`` (:208-264) maps the windows, packed
+  on the host (canonicalised on the host for a canonical graph, a
+  reverse-complement pass for the misses of a primary one), through kernel
+  A; ``execute_batch`` (:577-605) counts and selects on the host-tiled
+  annotation rows with kernels 2 and 3 (``device.count_route``).
+
+The selection mask comes back to the host; ``_hits_from_mask`` (:466) and
+``_payloads_from_hits`` (:808) build the per-sequence payloads of the six
+modes there.  Per-window node ids are downloaded only for the modes that
+need positions.  The JAX package sends a sequence of 2^24 or more windows
+to the host counters, because its fused fold is a float32 matmul; the
+port's fold is integer, so such a sequence stays on its route.
+
+Scope: succinct graphs of every alphabet and k with a column annotation.
+Compressed annotations, the .seqs coordinate mapping and -p above 1 raise
+NotImplementedError elsewhere and name their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -23,24 +38,40 @@ import numpy as np
 import torch
 
 from .._u32 import np_words, words_np
-from ..annotation.annotated_dbg import _top_n_sorted, graph_to_anno_index
+from ..annotation.annotated_dbg import (_top_n_sorted, graph_to_anno_index,
+                                        row_multiset)
 from ..annotation.ops import DeviceAnnotation
 from ..convert import QueryIndex
 from ..device import resolve_device
-from ..succinct.ops import DeviceHashIndex
-from .device import (TILE, _thresholds, untile_nodes, wire_epoch,
+from ..kmer.alphabets import ALPHABETS
+from ..kmer.extractor import KmerExtractor, _rows_greater
+from ..kmer.packing import boss_priority_order
+from ..succinct.ops import (DeviceHashIndex, key_lookup, pack_codes32,
+                            pack_kmers32)
+from .device import (TILE, _thresholds, codes_epoch, count_route,
+                     tile_layout, untile_nodes, wire_epoch,
                      wire_words_layout)
-from .results import QuerySequence, SeqSearchResult
+from .results import KIND_FOR_MODE, QuerySequence, SeqSearchResult
 from .tile_pack import tile_pack2
 
-MODES = ("labels", "matches", "counts", "signature")
+MODES = tuple(KIND_FOR_MODE)
+_PACK_CHUNK = 1 << 22       # windows packed into keys per numpy pass
 
 
 def _check_mode(mode: str):
     if mode not in MODES:
-        raise NotImplementedError(
-            f"query mode {mode!r} is not ported yet (ROADMAP A7); the port "
-            f"serves {', '.join(MODES)}")
+        raise ValueError(f"unknown query mode {mode!r}")
+
+
+def route_of(index: QueryIndex) -> str:
+    """'wire', 'codes' or 'map': the route of query_batch_fused's choice
+    for the index's graph (see the module docstring)."""
+    if index.alphabet == "DNA":
+        if index.k <= 31:
+            return "wire"
+        if index.canon == 0:
+            return "codes"
+    return "map"
 
 
 class QueryEngine:
@@ -49,40 +80,73 @@ class QueryEngine:
         self.index = index
         self.k = index.k
         self.labels = index.labels
+        self.route = route_of(index)
+        self.extractor = KmerExtractor(ALPHABETS[index.alphabet])
         self.hash_index = DeviceHashIndex.from_table(index.table, self.device)
         self.annotation = DeviceAnnotation.from_bitmap(
             index.bitmap, len(index.labels), self.device)
-        # host seconds of the last batch: packing, device (upload, kernels,
-        # mask download) and payload assembly
+        # host seconds of the last batch: packing, device (uploads,
+        # kernels, downloads) and payload assembly
         self.last_batch_seconds = {}
+        # called with a progress line per batch when set (the CLI's -v)
+        self.trace = None
+
+    def _up(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
 
     # ------------------------------------------------------------ batches
+    def query_batch(self, seqs: List[bytes], mode: str, num_top_labels: int,
+                    discovery_fraction: float,
+                    presence_fraction: float) -> list:
+        """Per-sequence payloads for one batch of raw sequences, on the
+        index's route."""
+        out = self.query_batch_fused(seqs, mode, num_top_labels,
+                                     discovery_fraction, presence_fraction)
+        if out is not None:
+            return out
+        nodes_list = self.map_batch(seqs)
+        mapped = self.last_batch_seconds
+        out = self.execute_batch(nodes_list, mode, num_top_labels,
+                                 discovery_fraction, presence_fraction)
+        for key, v in mapped.items():
+            self.last_batch_seconds[key] += v
+        return out
+
     def query_batch_fused(self, seqs: List[bytes], mode: str,
                           num_top_labels: int, discovery_fraction: float,
-                          presence_fraction: float) -> list:
-        """Per-sequence payloads for one batch of raw sequences."""
+                          presence_fraction: float):
+        """Per-sequence payloads for one batch on the wire or codes route;
+        None when the index takes the map route."""
         _check_mode(mode)
+        if self.route == "map":
+            return None
         if not seqs:
             return []
-        k, dev = self.k, self.device
+        k = self.k
         t0 = time.perf_counter()
         S, L = len(seqs), len(self.labels)
         tiles2, validb, tile_seq, nwins = tile_pack2(seqs, k, TILE)
-        n = len(tiles2)
-        words, vwords = wire_words_layout(tiles2, validb, k, TILE, n)
         dsel, selmin = _thresholds(nwins, discovery_fraction,
                                    presence_fraction)
+        if self.route == "wire":
+            words, vwords = wire_words_layout(tiles2, validb, k, TILE,
+                                              len(tiles2))
         t1 = time.perf_counter()
-        up = lambda a: torch.from_numpy(a).to(dev)
-        mask, counts, present, nodes_t = wire_epoch(
-            self.hash_index.table, self.annotation.bitmap,
-            np_words(words).to(dev), np_words(vwords).to(dev), up(tile_seq),
-            up(dsel), up(selmin), S, L, k, TILE, self.index.canon,
-            self.index.offset)
+        if self.route == "wire":
+            mask, counts, _, nodes_t = wire_epoch(
+                self.hash_index.table, self.annotation.bitmap,
+                np_words(words).to(self.device),
+                np_words(vwords).to(self.device), self._up(tile_seq),
+                self._up(dsel), self._up(selmin), S, L, k, TILE,
+                self.index.canon, self.index.offset)
+        else:
+            mask, counts, _, nodes_t = codes_epoch(
+                self.hash_index.table, self.annotation.bitmap,
+                self._up(tiles2), self._up(validb), self._up(tile_seq),
+                self._up(dsel), self._up(selmin), S, L, k, TILE)
         mask = words_np(mask)
         t2 = time.perf_counter()
-        rows, cols, vals = self._hits_from_mask(mask, counts, L,
-                                                need_vals=mode != "labels")
+        rows, cols, vals = self._hits_from_mask(mask, counts, L, mode)
         nodes_cache = {}
 
         def nodes_of(i):
@@ -98,15 +162,118 @@ class QueryEngine:
                                    "collect": time.perf_counter() - t2}
         return out
 
+    def map_batch(self, seqs: List[bytes]) -> List[np.ndarray]:
+        """Each sequence's windows -> (nwin,) int64 node ids (0 = miss),
+        in one lookup of the batch's valid windows through kernel A."""
+        t0 = time.perf_counter()
+        k, ex = self.k, self.extractor
+        canon, offset = self.index.canon, self.index.offset
+        codes_list = [ex.encode(s) for s in seqs]
+        sep = np.array([ex.invalid], dtype=np.uint8)
+        cat = np.concatenate([np.concatenate([c, sep]) for c in codes_list]) \
+            if codes_list else sep[:0]
+        seconds = {"pack": 0.0, "device": 0.0}
+        if len(cat) < k:
+            self.last_batch_seconds = dict(seconds)
+            return [np.zeros(0, dtype=np.int64) for _ in seqs]
+        wins = np.lib.stride_tricks.sliding_window_view(cat, k)
+        bad = np.concatenate([[0], np.cumsum(cat >= ex.invalid)])
+        valid = (bad[k:] - bad[:-k]) == 0
+        nodes_flat = np.zeros(len(wins), dtype=np.int64)
+        if canon:
+            comp = ex.extended_complement_table()
+            rc_wins = np.lib.stride_tricks.sliding_window_view(
+                comp[cat[::-1]], k)[::-1]
+        if valid.any():
+            sub = wins[valid]
+            if canon == 1:
+                # a canonical graph holds the strand first in BOSS order
+                order = boss_priority_order(k)
+                rc = rc_wins[valid]
+                take_rc = _rows_greater(
+                    pack_codes32(sub, order, self.index.bits),
+                    pack_codes32(rc, order, self.index.bits))
+                sub = np.where(take_rc[:, None], rc, sub)
+            seconds["pack"] += time.perf_counter() - t0
+            nodes_flat[valid] = self._map_windows(sub, seconds)
+            if canon == 2:
+                # CanonicalDBG: a forward miss is looked up on the reverse
+                # complement, and its hit is reported as id + offset
+                miss = valid & (nodes_flat == 0)
+                if miss.any():
+                    rc_nodes = self._map_windows(rc_wins[miss], seconds)
+                    nodes_flat[miss] = np.where(rc_nodes > 0,
+                                                rc_nodes + offset, 0)
+        t1 = time.perf_counter()
+        out, at = [], 0
+        for c in codes_list:
+            nwin = max(len(c) - k + 1, 0)
+            out.append(nodes_flat[at: at + nwin])
+            at += len(c) + 1
+        seconds["pack"] += time.perf_counter() - t1
+        self.last_batch_seconds = seconds
+        return out
+
+    def _map_windows(self, sub: np.ndarray, seconds: dict) -> np.ndarray:
+        """(n, k) window codes -> (n,) int64 ids: keys packed on the host
+        in chunks, then one kernel A launch."""
+        t0 = time.perf_counter()
+        bits = self.index.bits
+        keys = np.concatenate([pack_kmers32(sub[lo: lo + _PACK_CHUNK], bits)
+                               for lo in range(0, len(sub), _PACK_CHUNK)])
+        t1 = time.perf_counter()
+        ids = key_lookup(np_words(keys).to(self.device),
+                         self.hash_index.table).cpu().numpy()
+        seconds["pack"] += t1 - t0
+        seconds["device"] += time.perf_counter() - t1
+        return ids.astype(np.int64)
+
+    def execute_batch(self, nodes_list, mode: str,
+                      num_top_labels: int = 2 ** 63,
+                      discovery_fraction: float = 0.7,
+                      presence_fraction: float = 0.0) -> list:
+        """Mapped node arrays -> per-sequence payloads: the annotation rows
+        + 1 tiled on the host (count_epoch_tiled's input), kernels 2 and 3
+        on the device, payloads from the hit rows."""
+        _check_mode(mode)
+        t0 = time.perf_counter()
+        S, L = len(nodes_list), len(self.labels)
+        self.last_batch_seconds = {"pack": 0.0, "device": 0.0,
+                                   "collect": 0.0}
+        if not S:
+            return []
+        nk_list = [len(n) for n in nodes_list]
+        flat = np.concatenate(nodes_list)
+        seq_ids = np.repeat(np.arange(S, dtype=np.int32), nk_list)
+        rows1 = np.where(flat > 0, graph_to_anno_index(
+            np.maximum(flat, 1), self.index.offset) + 1, 0).astype(np.int32)
+        tiles, tile_seq = tile_layout(rows1, seq_ids, S, fill=0)
+        dsel, selmin = _thresholds(nk_list, discovery_fraction,
+                                   presence_fraction)
+        t1 = time.perf_counter()
+        mask, counts, _ = count_route(
+            self.annotation.bitmap, self._up(tiles), self._up(tile_seq),
+            self._up(dsel), self._up(selmin), S, L)
+        mask = words_np(mask)
+        t2 = time.perf_counter()
+        rows, cols, vals = self._hits_from_mask(mask, counts, L, mode)
+        out = self._payloads_from_hits(rows, cols, vals,
+                                       lambda i: nodes_list[i], nk_list,
+                                       mode, num_top_labels)
+        self.last_batch_seconds = {"pack": t1 - t0, "device": t2 - t1,
+                                   "collect": time.perf_counter() - t2}
+        return out
+
     def _hits_from_mask(self, mask: np.ndarray, counts: torch.Tensor, L: int,
-                        need_vals: bool):
+                        mode: str):
         """Hit coordinates (sorted by row) from the (S, Lw) selection mask;
-        the count values are gathered on the device at the hits only."""
+        the count values are gathered on the device at the hits only, for
+        the modes that print them."""
         bits = np.unpackbits(np.ascontiguousarray(mask).view(np.uint8),
                              axis=1, bitorder="little")
         rows, cols = np.nonzero(bits[:, :L])
         vals = np.zeros(0, dtype=np.int64)
-        if need_vals and len(rows):
+        if mode not in ("labels", "counts-sum") and len(rows):
             flat = rows.astype(np.int64) * L + cols
             idx = torch.from_numpy(flat).to(counts.device)
             vals = counts.reshape(-1)[idx].cpu().numpy().astype(np.int64)
@@ -116,6 +283,29 @@ class QueryEngine:
         """Which of ``rows`` carry label c, from the host bitmap."""
         return ((self.index.bitmap[rows, c >> 5] >> np.uint32(c & 31))
                 & np.uint32(1)).astype(bool)
+
+    def _row_multiset_of(self, nodes: np.ndarray):
+        return row_multiset(graph_to_anno_index(nodes[nodes > 0],
+                                                self.index.offset))
+
+    def _count_sums(self, nodes: np.ndarray, csel) -> list:
+        """counts-sum: [(label, sum over the sequence's rows of the row's
+        value times its multiplicity)] for the selected labels, as
+        IntMatrix::sum_row_values sums them (the presence-filtered value
+        sums of metagraph_tpu's payloads, :834-841), in int64."""
+        anno = self.index.annotation
+        pairs = self._row_multiset_of(nodes)
+        rows = np.array([r for r, _ in pairs], dtype=np.int64)
+        mult = np.array([m for _, m in pairs], dtype=np.int64)
+        out = []
+        for c in csel:
+            has = self._label_rows(rows, int(c))
+            total = 0
+            if anno is not None and has.any():
+                total = int((anno.values_of(rows[has], int(c))
+                             * mult[has]).sum())
+            out.append((int(c), total))
+        return out
 
     def _payloads_from_hits(self, hit_rows, hit_cols, hit_vals, nodes_of,
                             nk_list, mode, num_top_labels):
@@ -134,10 +324,13 @@ class QueryEngine:
             if mode == "labels":
                 out.append([dec[c] for c in csel])
                 continue
-            selected = [(int(c), int(v))
-                        for c, v in zip(csel, hit_vals[lo:hi])]
+            if mode == "counts-sum":
+                selected = self._count_sums(nodes_of(i), csel)
+            else:
+                selected = [(int(c), int(v))
+                            for c, v in zip(csel, hit_vals[lo:hi])]
             _top_n_sorted(selected, num_top_labels)
-            if mode == "matches":
+            if mode in ("matches", "counts-sum"):
                 out.append([(dec[c], n) for c, n in selected])
                 continue
             if not selected:
@@ -148,6 +341,16 @@ class QueryEngine:
             rows = graph_to_anno_index(nodes[pos], self.index.offset)
             result = []
             for c, n in selected:
+                if mode == "coords":
+                    co = [[] for _ in range(nk)]
+                    if anno is not None:
+                        lo_c, hi_c = anno.coord_spans(rows, c)
+                        crd = anno.coords_of(c) if (hi_c > lo_c).any() \
+                            else None
+                        for j in np.flatnonzero(hi_c > lo_c):
+                            co[pos[j]] = crd[lo_c[j]:hi_c[j]].tolist()
+                    result.append((dec[c], n, co))
+                    continue
                 has = self._label_rows(rows, c)
                 if mode == "signature":
                     bits = np.zeros(nk, dtype=bool)
@@ -173,13 +376,19 @@ class QueryEngine:
         With fwd_and_reverse each record is queried on both strands as two
         result lines, forward first."""
         _check_mode(mode)
+        kind = KIND_FOR_MODE[mode]
 
-        def process(batch):
-            payloads = self.query_batch_fused(
+        def process(batch, batch_bp):
+            t0 = time.perf_counter()
+            payloads = self.query_batch(
                 [s for _, _, s in batch], mode, num_top_labels,
                 discovery_fraction, presence_fraction)
+            if self.trace is not None:
+                dt = max(time.perf_counter() - t0, 1e-9)
+                self.trace(f"Batch of {batch_bp} bp queried in {dt:.5f} "
+                           f"sec, {batch_bp / dt:.1f} bp/s")
             return [SeqSearchResult(QuerySequence(sid, name, seq.decode()),
-                                    mode, payload)
+                                    kind, payload)
                     for (sid, name, seq), payload in zip(batch, payloads)]
 
         seq_id = 0
@@ -194,10 +403,10 @@ class QueryEngine:
                 seq_id += 1
                 batch_bp += len(seq)
             if batch_bp >= max(batch_size_bp, 1):
-                yield from process(batch)
+                yield from process(batch, batch_bp)
                 batch, batch_bp = [], 0
         if batch:
-            yield from process(batch)
+            yield from process(batch, batch_bp)
 
 
 # seqtk-style complement: case-preserving, IUPAC degenerate codes included

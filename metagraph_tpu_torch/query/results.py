@@ -1,18 +1,24 @@
 """Query result formatting, byte-identical to metagraph_tpu's.
 
-Own copy of metagraph_tpu/query/results.py:15-179 for the four modes the
-port serves (labels, matches, counts, signature); coordinate output and
-alignment headers are not ported yet.
+Own copy of metagraph_tpu/query/results.py:15-179 for the payload kinds
+of the six query modes (``KIND_FOR_MODE``: counts-sum prints as matches)
+and the coordinate ranges; alignment headers are not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass
+from typing import List
 
 import numpy as np
 
 from ..align.kmer_presence import score_kmer_presence_mask
+
+# payload kind of each query mode (metagraph_tpu/query/pipeline.py:22-29)
+KIND_FOR_MODE = {"labels": "labels", "matches": "matches",
+                 "counts-sum": "matches", "counts": "counts",
+                 "signature": "signature", "coords": "coords"}
 
 
 def encode_presence_mask(bits: np.ndarray) -> str:
@@ -50,6 +56,39 @@ def _runs_counts(abundances) -> str:
     return "".join(out)
 
 
+def collapse_coord_ranges(tuples: List[List[int]]) -> List[str]:
+    """Per-position sorted coordinates -> diagonal ranges
+    'pos-first[-last]': a range (pos, first, last) extends iff last + 1
+    occurs at the next position (a two-pointer merge)."""
+    out: List[str] = []
+    ranges: List[list] = []            # [start_pos, first, last] by last
+    for i, coords in enumerate(tuples):
+        j = 0
+        next_ranges: List[list] = []
+        for c in coords:
+            while j < len(ranges) and ranges[j][2] + 1 < c:
+                out.append(_fmt_range(ranges[j]))
+                j += 1
+            if j < len(ranges) and ranges[j][2] + 1 == c:
+                r = ranges[j]
+                j += 1
+                next_ranges.append([r[0], r[1], r[2] + 1])
+            else:
+                next_ranges.append([i, c, c])
+        while j < len(ranges):
+            out.append(_fmt_range(ranges[j]))
+            j += 1
+        ranges = next_ranges
+    for r in ranges:
+        out.append(_fmt_range(r))
+    return out
+
+
+def _fmt_range(r) -> str:
+    pos, first, last = r
+    return f"{pos}-{first}" if last == first else f"{pos}-{first}-{last}"
+
+
 @dataclass
 class QuerySequence:
     id: int
@@ -62,7 +101,7 @@ class SeqSearchResult:
     """One query sequence's result; ``kind`` selects the payload format."""
 
     sequence: QuerySequence
-    kind: str                 # labels | matches | counts | signature
+    kind: str                 # labels | matches | counts | signature | coords
     payload: list
 
     def to_string(self, delimiter: str = ":", suppress_unlabeled: bool = False,
@@ -88,6 +127,15 @@ class SeqSearchResult:
                     out += "".join(f":{v}" for v in abundances)
                 else:
                     out += _runs_counts(list(abundances))
+        elif self.kind == "coords":
+            for label, count, tuples in self.payload:
+                out += f"\t<{label}>"
+                if verbose:
+                    for coords in tuples:
+                        out += ":" + ",".join(str(c) for c in coords)
+                else:
+                    out += "".join(":" + r
+                                   for r in collapse_coord_ranges(tuples))
         return out
 
     def to_json(self, verbose: bool = False, k: int = 0) -> str:
@@ -105,5 +153,8 @@ class SeqSearchResult:
                     "sample": item[0], "kmer_count": item[1],
                     "signature": encode_presence_mask(item[2]),
                     "score": score_kmer_presence_mask(k, item[2])})
+            elif self.kind == "coords":
+                results.append({"sample": item[0], "kmer_count": item[1],
+                                "kmer_coords": collapse_coord_ranges(item[2])})
         return json.dumps({"seq_description": self.sequence.name,
                            "results": results})

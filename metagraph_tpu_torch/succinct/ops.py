@@ -1,19 +1,30 @@
-"""The k-mer hash index and kernel 1, ``wire_lookup``.
+"""The k-mer hash index and its probe kernels.
 
 Own copies of metagraph_tpu/succinct/ops.py: the host packers
-``pack_codes32``/``pack_kmers32``/``pack_kmers2`` (:49-95), ``_hash_words``
-(:345-360, numpy and torch), the ``DeviceHashIndex`` builder (:389-431,
-byte-identical tables) and plain PyTorch versions of ``_funnel_shift``,
-``extract_windows2``, ``window_valid2``, ``keys2_to_keys4`` and
-``_hash_lookup_flat`` (:98-268, :438-455), and of the canonical key ops
+``pack_codes32``/``pack_kmers32``/``pack_kmers2`` (:49-95, 4-bit and 8-bit
+codes), ``_hash_words`` (:345-360, numpy and torch), the
+``DeviceHashIndex`` builder (:389-431, byte-identical tables) and plain
+PyTorch versions of ``_funnel_shift``, ``extract_windows2``,
+``window_valid2``, ``keys2_to_keys4``, ``_hash_lookup_flat`` and
+``device_pack_windows`` (:98-268, :438-490), and of the canonical key ops
 ``_rev2_word``, ``rc_keys2``, ``boss_rot2`` and ``keys2_greater``
 (:112-177).
 
-``wire_lookup`` is the hand-written kernel that replaces those XLA programs
-as ``query/device.py::_wire_epoch_core`` composes them, for basic (canon 0),
-canonical (canon 1) and primary graphs seen through ``CanonicalDBG``
-(canon 2); its source is ``csrc/wire_lookup.cu``.  The plain versions carry
-uint32 words as int64 masked to 32 bits (see ``_u32``).
+Three hand-written kernels probe the table:
+
+* ``wire_lookup`` (``csrc/wire_lookup.cu``) replaces the XLA programs that
+  ``query/device.py::_wire_epoch_core`` composes from 2-bit wire words, for
+  basic (canon 0), canonical (canon 1) and primary graphs seen through
+  ``CanonicalDBG`` (canon 2), 2 <= K <= 31;
+* ``key_lookup`` (``csrc/key_lookup.cu``) replaces
+  ``DeviceHashIndex.lookup`` -> ``_hash_lookup_flat`` on packed 4-bit or
+  8-bit keys;
+* ``codes_lookup`` (``csrc/codes_lookup.cu``) replaces the front end of
+  ``query/device.py::query_epoch_codes2``: 2-bit code tiles ->
+  ``device_pack_windows`` -> ``_hash_lookup_flat``, for any K up to 64.
+
+The plain versions carry uint32 words as int64 masked to 32 bits (see
+``_u32``).
 """
 
 from __future__ import annotations
@@ -44,27 +55,37 @@ def _ceil_div(a, b):
 # host packers
 # --------------------------------------------------------------------------
 
-def pack_codes32(chars: np.ndarray,
-                 order: np.ndarray | None = None) -> np.ndarray:
-    """(N, K) uint8 codes < 16 -> (N, ceil(K/8)) uint32 nibble words, the
-    first code of each word in its top slot (the DNA-family layout)."""
+def key_words(K: int, bits: int = 4) -> int:
+    """uint32 words of a packed K-mer key with ``bits`` bits a code."""
+    if bits not in (4, 8):
+        raise ValueError(f"keys pack 4 or 8 bits a code, not {bits}")
+    return _ceil_div(K, 32 // bits)
+
+
+def pack_codes32(chars: np.ndarray, order: np.ndarray | None = None,
+                 bits: int = 4) -> np.ndarray:
+    """(N, K) uint8 codes -> (N, key_words(K, bits)) uint32 words, ``bits``
+    bits a code (4: 8 codes a word, the DNA family; 8: 4 codes a word,
+    Protein), the first code of each word in its top slot."""
     chars = np.asarray(chars)
     if chars.ndim == 1:
         chars = chars[None, :]
     if order is not None:
         chars = chars[:, order]
     N, K = chars.shape
-    out = np.zeros((N, _ceil_div(K, 8)), dtype=np.uint32)
+    per = 32 // bits
+    out = np.zeros((N, key_words(K, bits)), dtype=np.uint32)
     for j in range(K):
-        w, slot = divmod(j, 8)
-        out[:, w] |= chars[:, j].astype(np.uint32) << np.uint32(28 - 4 * slot)
+        w, slot = divmod(j, per)
+        out[:, w] |= chars[:, j].astype(np.uint32) \
+            << np.uint32(32 - bits - bits * slot)
     return out
 
 
-def pack_kmers32(chars: np.ndarray) -> np.ndarray:
-    """Edge k-mer code rows -> nibble keys in BOSS comparison order (the
-    hash index's key layout)."""
-    return pack_codes32(chars, boss_priority_order(chars.shape[1]))
+def pack_kmers32(chars: np.ndarray, bits: int = 4) -> np.ndarray:
+    """Edge k-mer code rows -> keys in BOSS comparison order (the hash
+    index's key layout)."""
+    return pack_codes32(chars, boss_priority_order(chars.shape[1]), bits)
 
 
 def pack_kmers2(chars: np.ndarray) -> np.ndarray:
@@ -312,7 +333,8 @@ def check_slot_fill(table: np.ndarray, chunk: int = 1 << 20):
     (no occupied slot after an empty one), as ``_build`` places them.
     Kernel 1 stops each probe at the first slot group holding its key or
     an empty slot, which is exact only on such tables.  A slot is empty iff
-    its first key word is EMPTY_WORD (a real key's nibbles are 1-4)."""
+    its first key word is EMPTY_WORD (a real key's codes stay below 15 at
+    4 bits and below 255 at 8 bits, so no key word is all ones)."""
     n_buckets, row = table.shape
     for lo in range(0, n_buckets, chunk):
         empty = table[lo: lo + chunk].reshape(-1, BUCKET, row // BUCKET)[
@@ -372,6 +394,73 @@ def wire_lookup_plain(words: torch.Tensor, vwords: torch.Tensor,
     if not out:
         return torch.zeros((0, T), dtype=torch.int32, device=words.device)
     return torch.cat(out)
+
+
+def key_lookup_plain(keys: torch.Tensor, table: torch.Tensor,
+                     chunk: int = 1 << 16) -> torch.Tensor:
+    """Plain version of kernel A: (Q, W) int32 key words -> (Q,) int32 ids
+    (0 = miss), ``chunk`` keys at a time."""
+    W = keys.shape[1]
+    out = [_hash_lookup_flat(table, to_u64(keys[lo: lo + chunk]), W)
+           for lo in range(0, keys.shape[0], chunk)]
+    return torch.cat(out) if out else \
+        torch.zeros(0, dtype=torch.int32, device=keys.device)
+
+
+def device_pack_windows(codes: torch.Tensor, K: int):
+    """(B, L) codes -> ((B, L-K+1, ceil(K/8)) nibble window keys in BOSS
+    priority order (chars K-2 .. 0, then K-1; int64 holding uint32 words),
+    (B, L-K+1) valid): a code >= 5 invalidates every window it falls in
+    and packs as 0."""
+    B, L = codes.shape
+    n_win = L - K + 1
+    codes = codes.to(torch.int64)
+    bad = (codes >= 5).to(torch.int64).cumsum(dim=1)
+    bad = torch.cat([torch.zeros_like(bad[:, :1]), bad], dim=1)
+    valid = (bad[:, K:] - bad[:, :-K]) == 0
+    safe = torch.where(codes >= 5, 0, codes)
+    words = []
+    for w in range(_ceil_div(K, 8)):
+        acc = torch.zeros((B, n_win), dtype=torch.int64, device=codes.device)
+        for slot in range(min(8, K - 8 * w)):
+            p = w * 8 + slot
+            off = (K - 2 - p) if p < K - 1 else (K - 1)
+            acc |= safe[:, off: off + n_win] << (28 - 4 * slot)
+        words.append(acc)
+    return torch.stack(words, dim=-1), valid
+
+
+def codes_lookup_plain(packed2: torch.Tensor, validb: torch.Tensor,
+                       table: torch.Tensor, K: int, T: int,
+                       chunk: int = 256) -> torch.Tensor:
+    """Plain version of kernel B, ``chunk`` tiles at a time, as
+    query_epoch_codes2's body computes it: unpack the 2-bit codes and the
+    valid bits of TK = T + K - 1 positions (valid ? code + 1 : 5), pack
+    every window, probe, and zero the invalid windows."""
+    W = table.shape[1] // BUCKET - 1
+    out = []
+    for lo in range(0, packed2.shape[0], chunk):
+        packed, valid = device_pack_windows(
+            tile_codes(packed2[lo: lo + chunk], validb[lo: lo + chunk],
+                       T + K - 1), K)
+        C = packed.shape[0]
+        nodes = _hash_lookup_flat(table, packed.reshape(C * T, W), W)
+        out.append(torch.where(valid, nodes.reshape(C, T), 0))
+    return torch.cat(out) if out else \
+        torch.zeros((0, T), dtype=torch.int32, device=packed2.device)
+
+
+def tile_codes(packed2: torch.Tensor, validb: torch.Tensor,
+               TK: int) -> torch.Tensor:
+    """(C, TKp/4) 2-bit code bytes and (C, ceil(TK/8)) valid bytes ->
+    (C, TK) int64 codes: code + 1 where valid, else 5."""
+    dev = packed2.device
+    C = packed2.shape[0]
+    c4 = ((packed2.to(torch.int64)[..., None]
+           >> torch.arange(0, 8, 2, device=dev)) & 3).reshape(C, -1)[:, :TK]
+    v8 = ((validb.to(torch.int64)[..., None]
+           >> torch.arange(8, device=dev)) & 1).reshape(C, -1)[:, :TK]
+    return torch.where(v8 == 1, c4 + 1, 5)
 
 
 # --------------------------------------------------------------------------
@@ -449,3 +538,113 @@ def wire_lookup(words: torch.Tensor, vwords: torch.Tensor,
 
 
 wire_lookup.launches = 0
+
+
+# --------------------------------------------------------------------------
+# kernels A and B
+# --------------------------------------------------------------------------
+
+MAX_KEY_WORDS = 8     # kernels A and B are instantiated for W = 1 .. 8
+
+
+def _kernel_key_words(W: int):
+    if not 1 <= W <= MAX_KEY_WORDS:
+        raise NotImplementedError(
+            f"keys of {W} words: the probe kernels take 1 to "
+            f"{MAX_KEY_WORDS} (k up to 64 at 4 bits a code, 32 at 8 bits); "
+            "wider keys are not ported yet (ROADMAP A7.5)")
+
+
+def _check_table(table: torch.Tensor):
+    if table.data_ptr() % 16 or table.shape[0] >= 2 ** 31:
+        raise ValueError("the kernels need a 16-byte aligned table of fewer "
+                         "than 2^31 buckets")
+
+
+def key_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(Q, W) packed keys (int32 bit patterns of the uint32 words, 4 or 8
+    bits a code), (n_buckets, BUCKET * (W + 1)) table -> (Q,) int32 ids
+    (0 = miss): ``DeviceHashIndex.lookup``.  A key is never all EMPTY_WORD,
+    so callers pass no padding.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/key_lookup.cu`` or raises.  The kernel stops each probe at the
+    first 4-slot group holding the key or an empty slot, so ``table`` must
+    fill its slots from slot 0 (``check_slot_fill``)."""
+    dev = keys.device
+    _check_words("keys", keys, dev)
+    _check_words("table", table, dev)
+    Q, W = keys.shape
+    if table.shape[1] != BUCKET * (W + 1):
+        raise ValueError(f"table shape {tuple(table.shape)} does not fit "
+                         f"keys of {W} words")
+    if dev.type == "cpu":
+        return key_lookup_plain(keys, table)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty(Q, dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out
+    _kernel_key_words(W)
+    _check_table(table)
+    fn = _build.function("key_lookup", "mg_key_lookup",
+                         [_P, _P, _P, _L, _I, _L, _P])
+    _build.check(fn(keys.data_ptr(), table.data_ptr(), out.data_ptr(), Q, W,
+                    table.shape[0],
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "key_lookup")
+    key_lookup.launches += 1
+    return out
+
+
+key_lookup.launches = 0
+
+
+def codes_lookup(packed2: torch.Tensor, validb: torch.Tensor,
+                 table: torch.Tensor, K: int, T: int) -> torch.Tensor:
+    """(N, TKp/4) uint8 2-bit code tiles and (N, ceil(TK/8)) uint8 valid
+    bits (``tile_pack2``'s layout, TK = T + K - 1), 4-bit table of
+    ceil(K/8) key words -> (N, T) int32 ids (0 for a miss or an invalid
+    window).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/codes_lookup.cu`` or raises.  The probe stops as kernel A's."""
+    dev = packed2.device
+    for name, t in (("packed2", packed2), ("validb", validb)):
+        if t.dtype != torch.uint8 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D uint8 tensor")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    _check_words("table", table, dev)
+    N, PB = packed2.shape
+    W = table.shape[1] // BUCKET - 1
+    TK = T + K - 1
+    if K < 2 or W != _ceil_div(K, 8) or table.shape[1] != BUCKET * (W + 1):
+        raise ValueError(f"table shape {tuple(table.shape)} does not fit K={K}")
+    if T % 32 or not 32 <= T <= 1024 or PB * 4 < TK \
+            or validb.shape[0] != N or validb.shape[1] * 8 < TK:
+        raise ValueError(f"bad tile layout: T={T}, K={K}, packed2 "
+                         f"{tuple(packed2.shape)}, validb "
+                         f"{tuple(validb.shape)}")
+    if dev.type == "cpu":
+        return codes_lookup_plain(packed2, validb, table, K, T)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    nodes = torch.empty((N, T), dtype=torch.int32, device=dev)
+    if N == 0:
+        return nodes
+    _kernel_key_words(W)
+    _check_table(table)
+    if N >= 2 ** 31:
+        raise ValueError(f"{N} tiles: the grid takes fewer than 2^31")
+    fn = _build.function("codes_lookup", "mg_codes_lookup",
+                         [_P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _P])
+    _build.check(fn(packed2.data_ptr(), validb.data_ptr(), table.data_ptr(),
+                    nodes.data_ptr(), N, PB, validb.shape[1], table.shape[0],
+                    K, T, torch.cuda.current_stream(dev).cuda_stream),
+                 "codes_lookup")
+    codes_lookup.launches += 1
+    return nodes
+
+
+codes_lookup.launches = 0

@@ -322,7 +322,7 @@ def test_cli_stdout_matches_jax(cli_index, opts):
     env = dict(os.environ, PYTHONPATH=REPO)
     got = subprocess.run(
         [sys.executable, "-m", "metagraph_tpu_torch", *args, "--device",
-         "cpu", str(cli_index / "q.fa")],
+         "--torch-device", "cpu", str(cli_index / "q.fa")],
         capture_output=True, env=env, cwd=str(cli_index), timeout=120)
     assert got.returncode == 0, got.stderr.decode()[-2000:]
     assert got.stdout == want

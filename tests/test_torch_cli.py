@@ -1,5 +1,6 @@
-"""``python -m metagraph_tpu_torch query --device cpu`` prints the same bytes
-as ``python -m metagraph_tpu.cli query --device``.
+"""``python -m metagraph_tpu_torch query --device --torch-device cpu`` prints
+the same bytes as ``python -m metagraph_tpu.cli query --device``, takes its
+command lines and keeps its error contract.
 
 The JAX CLI builds and annotates a small random-ACGT index in tmp_path; its
 query runs in this process (stdout captured), the port's in a subprocess
@@ -74,7 +75,7 @@ def test_stdout_matches_jax_cli(index, opts):
     env = dict(os.environ, PYTHONPATH=REPO)
     got = subprocess.run(
         [sys.executable, "-m", "metagraph_tpu_torch", *args, "--device",
-         "cpu", str(index / "q.fa")],
+         "--torch-device", "cpu", str(index / "q.fa")],
         capture_output=True, env=env, cwd=str(index), timeout=120)
     assert got.returncode == 0, got.stderr.decode()[-2000:]
     assert got.stdout == want
@@ -105,7 +106,102 @@ def test_chip_smoke_rehearsal_and_refusal(tmp_path):
 def test_port_cli_refuses_out_of_scope(index):
     from metagraph_tpu_torch.cli import main
     base = ["query", "-i", str(index / "g.dbg"), "-a",
-            str(index / "a.column.annodbg"), "--device", "cpu"]
-    for extra in (["--query-mode", "coords"], ["-p", "2"], ["--align"]):
+            str(index / "a.column.annodbg"), "--torch-device", "cpu"]
+    for extra in (["-p", "2"], ["--parallel-each", "2"], ["--align"],
+                  ["--batch-align"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(base + extra + [str(index / "q.fa")])
+
+
+def _run_both(index, args, jax_args=None):
+    """The JAX CLI in this process and the port in a subprocess on the same
+    command line (the port's with ``--torch-device cpu``): -> ((JAX stdout,
+    stderr, exit code), the port's)."""
+    from metagraph_tpu.cli.main import main as jax_main
+    out, err = io.StringIO(), io.StringIO()
+    code = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            jax_main(jax_args or args)
+        except SystemExit as e:
+            code = e.code or 0
+    env = dict(os.environ, PYTHONPATH=REPO)
+    got = subprocess.run(
+        [sys.executable, "-m", "metagraph_tpu_torch", *args,
+         "--torch-device", "cpu"], capture_output=True, env=env,
+        cwd=str(index), timeout=120)
+    return ((out.getvalue().encode(), err.getvalue(), code),
+            (got.stdout, got.stderr.decode(), got.returncode))
+
+
+# C1: JAX command lines, in JAX's argument order (--device before the
+# input), with its common flags
+JAX_LINES = [
+    ["-v", "--query-mode", "matches"],
+    ["--mmap", "--query-mode", "counts"],
+    ["-o", "x", "--parallel-each", "1", "-p", "1"],
+    ["--align-match-score", "3", "--max-hull-forks", "2",
+     "--query-mode", "signature"],
+]
+
+
+@pytest.mark.parametrize("opts", JAX_LINES, ids=lambda o: " ".join(o))
+def test_jax_command_lines_run_on_the_port(index, opts):
+    args = ["query", "-i", str(index / "g.dbg"), "-a",
+            str(index / "a.column.annodbg"), *opts, "--device",
+            str(index / "q.fa")]
+    want, got = _run_both(index, args)
+    assert got[2] == 0, got[1][-2000:]
+    assert got[0] == want[0] and want[0].count(b"\n") >= 27
+    if "-v" in opts:        # progress lines on stderr, as JAX's trace
+        assert "[trace] Batch of" in got[1] and "[trace] query:" in got[1]
+
+
+@pytest.mark.parametrize("missing", ("graph", "annotation", "input"))
+def test_missing_file_error_contract(index, missing):
+    """C2: a missing file prints the JAX CLI's [error] line and exits 1."""
+    paths = {"graph": str(index / "g.dbg"),
+             "annotation": str(index / "a.column.annodbg"),
+             "input": str(index / "q.fa")}
+    paths[missing] = str(index / "absent")
+    args = ["query", "-i", paths["graph"], "-a", paths["annotation"],
+            "--device", paths["input"]]
+    want, got = _run_both(index, args)
+    assert want[2] == got[2] == 1
+    assert got[0] == want[0] == b""
+    line = [ln for ln in got[1].splitlines() if ln.startswith("[error]")]
+    assert line == [ln for ln in want[1].splitlines()
+                    if ln.startswith("[error]")]
+    assert line and "File not found: " in line[0] and "absent" in line[0]
+
+
+def _closed_early(cmd, env, cwd):
+    """Run ``cmd``, read one line of its stdout, close the pipe and wait:
+    -> (exit code, stderr)."""
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, env=env, cwd=cwd)
+    first = proc.stdout.readline()
+    proc.stdout.close()
+    err = proc.stderr.read().decode()
+    proc.wait(timeout=120)
+    assert first
+    return proc.returncode, err
+
+
+def test_stdout_closed_early_exits_as_jax(index):
+    """C2: a reader that closes stdout after one line: both CLIs exit 0
+    and print no traceback."""
+    with open(index / "q.fa") as f:
+        body = f.read()
+    big = index / "many.fa"
+    with open(big, "w") as f:
+        f.write(body * 400)        # far more than a pipe holds
+    args = ["query", "-i", str(index / "g.dbg"), "-a",
+            str(index / "a.column.annodbg"), "--device", str(big)]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    want = _closed_early([sys.executable, "-m", "metagraph_tpu.cli", *args],
+                         env, str(index))
+    got = _closed_early([sys.executable, "-m", "metagraph_tpu_torch", *args,
+                         "--torch-device", "cpu"], env, str(index))
+    assert got == want
+    assert got[0] == 0 and "Traceback" not in got[1]

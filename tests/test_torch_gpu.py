@@ -18,7 +18,8 @@ import torch
 
 from metagraph_tpu_torch import convert
 from metagraph_tpu_torch._u32 import np_words
-from metagraph_tpu_torch.align.sw import positions_per_lane, sw_scores
+from metagraph_tpu_torch.align.sw import (positions_per_lane, query_blocks,
+                                          sw_scores)
 from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
 from metagraph_tpu_torch.annotation.ops import (DeviceAnnotation,
                                                pack_annotation_bitmap)
@@ -416,3 +417,116 @@ def test_canonical_query_engine_cuda_matches_cpu(cuda, mode, canon):
         seqs, mode, 3, 0.3, 0.1)
     assert str(got) == str(want)
     assert sum(bool(p) for p in want) > 10
+
+
+# --------------------------------------------------------------------------
+# kernels A and B
+# --------------------------------------------------------------------------
+
+def _fills_table(K, bits, seed, fills=FILLS):
+    """table_with_fills for keys of ``bits`` bits a code: codes 1 .. 14
+    (4 bits) or 1 .. 27 (8 bits, the Protein range)."""
+    rng = np.random.default_rng(seed)
+    nb = len(fills)
+    top = 15 if bits == 4 else 28
+    pool = np.unique(rng.integers(1, top, (64 * nb, K)).astype(np.uint8),
+                     axis=0)
+    b = ops._hash_words(ops.pack_kmers32(pool, bits), nb, 1)
+    take, absent = [], []
+    for bucket, n in enumerate(fills):
+        mine = np.flatnonzero(b == bucket)
+        take.append(mine[:n])
+        absent.append(mine[n: n + 3])
+    chars = pool[rng.permutation(np.concatenate(take))]
+    ids = rng.permutation(len(chars)).astype(np.uint32) + 1
+    table = ops.DeviceHashIndex._build(ops.pack_kmers32(chars, bits), ids, nb)
+    return (table.reshape(nb, -1), chars, ids,
+            pool[np.concatenate(absent)])
+
+
+@pytest.mark.parametrize("traffic", ("hits", "misses", "mixed"))
+@pytest.mark.parametrize("bits", (4, 8))
+@pytest.mark.parametrize("W", range(1, ops.MAX_KEY_WORDS + 1))
+def test_key_lookup_matches_plain(cuda, W, bits, traffic):
+    """Kernel A at every instantiated W, 4-bit and 8-bit keys, in buckets of
+    0, 1, 3, 4, 5, 15 and 16 keys (a key in slot 15 included)."""
+    K = W * 32 // bits - 1
+    table, chars, ids, absent = _fills_table(K, bits, 9000 + 10 * W + bits)
+    kmers = {"hits": chars, "misses": absent,
+             "mixed": np.concatenate([absent, chars, absent])}[traffic]
+    keys = np_words(ops.pack_kmers32(kmers, bits))
+    tab = np_words(table)
+    want = ops.key_lookup(keys, tab)
+    before = ops.key_lookup.launches
+    got = ops.key_lookup(keys.to(cuda), tab.to(cuda))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert ops.key_lookup.launches == before + 1
+    if traffic == "hits":
+        np.testing.assert_array_equal(want.numpy(), ids)
+    if traffic == "misses":
+        assert not want.any()
+
+
+@pytest.mark.parametrize("K", (32, 33, 41, 64))
+def test_codes_lookup_matches_plain(cuda, K):
+    """Kernel B on reads with N runs and tails (reads shorter than a tile,
+    shorter than K), and the codes epoch (kernels B, 2, 3) whole."""
+    index, seqs = _index(K, 300 + K)
+    tiles2, validb, tile_seq, nwins = tile_pack2(seqs, K, qd.TILE)
+    dsel, selmin = qd._thresholds(nwins, 0.6, 0.1)
+    args = [np_words(index.table), np_words(index.bitmap)] + [
+        torch.from_numpy(a) for a in (tiles2, validb, tile_seq, dsel, selmin)]
+    L = len(index.labels)
+    want = qd.codes_epoch(*args, len(seqs), L, K)
+    before = ops.codes_lookup.launches
+    got = qd.codes_epoch(*[a.to(cuda) for a in args], len(seqs), L, K)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert ops.codes_lookup.launches == before + 1
+    assert (want[3] > 0).sum() > 100 and (want[3] == 0).sum() > 100
+
+
+@pytest.mark.parametrize("mode", ("labels", "matches", "counts-sum",
+                                  "counts"))
+@pytest.mark.parametrize("route", ("codes", "map"))
+def test_query_engine_routes_cuda_matches_cpu(cuda, route, mode):
+    """The codes route (basic, k = 41) and the map route (the same k-mers
+    as a primary graph: kernel A, then kernels 2 and 3)."""
+    index, seqs = _index(41, 11, rc_share=0.3)
+    if route == "map":
+        index = dataclasses.replace(index, canon=2)
+    want = QueryEngine(index, device="cpu").query_batch(
+        seqs, mode, 3, 0.5, 0.1)
+    engine = QueryEngine(index, device=cuda)
+    assert engine.route == route
+    got = engine.query_batch(seqs, mode, 3, 0.5, 0.1)
+    assert str(got) == str(want)
+    assert sum(bool(p) for p in want) > 10
+
+
+@pytest.mark.parametrize("scores", sorted(SW_SCORES))
+@pytest.mark.parametrize("LQ", (1025, 1100, 1500, 2048, 2049))
+def test_sw_kernel_query_blocks_match_plain(cuda, LQ, scores):
+    """Queries of more than 1,024 positions: two or three query blocks,
+    the carry between them, alignments across their boundaries."""
+    rng = np.random.default_rng(LQ)
+    B, LR = 67, 300
+    qs = rng.integers(0, 4, (B, LQ)).astype(np.int32)
+    rs = rng.integers(0, 4, (B, LR)).astype(np.int32)
+    P, blocks = query_blocks(LQ)
+    for b in range(B):
+        at = int(rng.integers(0, LQ - LR)) if b % 2 else \
+            max(32 * P - int(rng.integers(1, LR)), 0)
+        qs[b, at: at + LR] = rs[b]
+        qs[b, int(rng.integers(LQ // 2, LQ + 1)):] = -1
+        rs[b, int(rng.integers(LR // 2, LR + 1)):] = -1
+    qs[rng.random(qs.shape) < 0.01] = -1
+    q, r = torch.from_numpy(qs), torch.from_numpy(rs)
+    want = sw_scores(q, r, *SW_SCORES[scores])
+    before = sw_scores.launches
+    got = sw_scores(q.to(cuda), r.to(cuda), *SW_SCORES[scores])
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert sw_scores.launches == before + blocks and blocks > 1

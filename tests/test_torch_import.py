@@ -17,7 +17,8 @@ import metagraph_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
 assert {"metagraph_tpu_torch.graph.canonical",
-        "metagraph_tpu_torch.scripts.exp_gather"} <= set(names), names
+        "metagraph_tpu_torch.scripts.exp_gather",
+        "metagraph_tpu_torch.kmer.extractor"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -33,7 +34,7 @@ def test_import_pulls_in_no_jax():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     n, bad = out.stdout.split()[0], out.stdout.strip().split(" ", 1)[1:]
-    assert int(n) >= 15
+    assert int(n) >= 26
     assert bad == [], bad
 
 

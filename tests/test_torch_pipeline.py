@@ -137,7 +137,20 @@ def test_thresholds_follow_get_min_count():
 
 
 def test_out_of_scope_raises(case):
+    """counts-sum and coords, once refused, now give the JAX engine's
+    payloads; compressed annotations and reference-format graphs still
+    raise and name their ROADMAP items."""
     engine = QueryEngine(_from_files(case), device="cpu")
     for mode in ("counts-sum", "coords"):
+        want = case["jax_engine"].query_batch_fused(case["queries"], mode, 3,
+                                                    0.6, 0.05)
+        got = engine.query_batch_fused(case["queries"], mode, 3, 0.6, 0.05)
+        assert _norm(got) == _norm(want) and any(want)
+    brwt = case["tmp"] / "a.brwt.annodbg"
+    brwt.write_bytes(b"not read")
+    ref_dbg = case["tmp"] / "ref.dbg"
+    ref_dbg.write_bytes(b"\x00\x01 a reference-format graph")
+    for graph, anno in ((case["tmp"] / "g.dbg", brwt),
+                        (ref_dbg, case["tmp"] / "a.column.annodbg")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            engine.query_batch_fused(case["queries"], mode, 3, 0.6, 0.05)
+            convert.load(str(graph), str(anno))

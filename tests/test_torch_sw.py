@@ -3,6 +3,8 @@
 
 On the CPU the port runs the plain PyTorch version of kernel 4
 (tests/test_torch_gpu.py holds the CUDA kernel against it on the card).
+A numpy model of the kernel's schedule, its query blocks and their carry
+included, is held against both here.
 """
 
 import numpy as np
@@ -11,6 +13,7 @@ import pytest
 from metagraph_tpu.align.pallas_sw import \
     batch_local_align_scores as pallas_scores
 from metagraph_tpu_torch.align.sw import (batch_local_align_scores,
+                                          query_blocks,
                                           reference_local_align_score)
 
 
@@ -89,18 +92,21 @@ def _i32(x, act):
     return x
 
 
-def wavefront_scores(qs, rs, match, mismatch, gap_open, gap_ext):
-    """The kernel's wavefront, step by step: lane p owns query positions
-    p P .. p P + P - 1 (P = ceil(LQ / 32)) and works on reference row t - p
-    at step t; E entering a lane's first position, the S of its last
-    position and the reference code come from lane p - 1's previous step;
-    E runs E[j] = max(E[j-1] + ext, SF[j-1] + open) inside the lane.  Padded
-    query positions and positions past LQ get code -2 and mismatch NEG, a
-    padded row adds NEG, and one best a position is masked to positions <
-    LQ at the end.  -> (B,) scores."""
+def _wavefront_block(qs, rs, P, carry, match, mismatch, gap_open, gap_ext):
+    """One launch of the kernel's wavefront, step by step: lane p owns
+    query positions p P .. p P + P - 1 of the block and works on reference
+    row t - p at step t; E entering a lane's first position, the S of its
+    last position and the reference code come from lane p - 1's previous
+    step; E runs E[j] = max(E[j-1] + ext, SF[j-1] + open) inside the lane.
+    Padded query positions and positions past the block get code -2 and
+    mismatch NEG, a padded row adds NEG, and one best a position is masked
+    to the block's positions at the end.  With a ``carry`` (B, LR, 2) of
+    the previous block, lane 0 takes row t's S and E from it (and row t -
+    1's S as its diagonal) instead of 0 and NEG.  -> ((B,) best, the
+    carry lane 31 writes: row i's S of its last position and the E after
+    it, at step i + 31)."""
     B, LQ = qs.shape
     LR = rs.shape[1]
-    P = -(-LQ // 32)
     lanes = np.arange(32)
     pos = lanes[:, None] * P + np.arange(P)
     valid = pos < LQ
@@ -111,6 +117,7 @@ def wavefront_scores(qs, rs, match, mismatch, gap_open, gap_ext):
     bk = np.zeros((B, 32, P), np.int64)
     s_out, sleft, rcode = (np.zeros((B, 32), np.int64) for _ in range(3))
     e_out = np.full((B, 32), NEG, np.int64)
+    out = np.zeros((B, LR, 2), np.int64)
     first = lanes == 0
 
     def up(x):                  # __shfl_up_sync by 1: lane 0 keeps its own
@@ -119,13 +126,15 @@ def wavefront_scores(qs, rs, match, mismatch, gap_open, gap_ext):
     for t in range(LR + (LQ - 1) // P):
         e_in, s_in, r_up = up(e_out), up(s_out), up(rcode)
         r_new = rs[:, t] if t < LR else np.zeros(B, np.int64)
-        diag = np.where(first, 0, sleft)
-        sleft = np.where(first, 0, s_in)
+        c_s, c_e = (carry[:, t, 0], carry[:, t, 1]) \
+            if carry is not None and t < LR else (0, NEG)
+        diag = sleft if carry is not None else np.where(first, 0, sleft)
+        sleft = np.where(first, np.reshape(c_s, (-1, 1)), s_in)
         rcode = np.where(first, r_new[:, None], r_up)
         act = (t - lanes >= 0) & (t - lanes < LR)
         ri = np.where(rcode < 0, -1, rcode)
         rb = np.where(rcode < 0, NEG, 0)
-        e = np.where(first, NEG, e_in)
+        e = np.where(first, np.reshape(c_e, (-1, 1)), e_in)
         for k in range(P):
             sub = np.where(qv[..., k] == ri, match, qx[..., k])
             m = _i32(diag + sub + rb, act)
@@ -141,7 +150,24 @@ def wavefront_scores(qs, rs, match, mismatch, gap_open, gap_ext):
                                   bk[..., k])
         s_out = np.where(act, s[..., P - 1], s_out)
         e_out = np.where(act, e, e_out)
-    return np.where(valid, bk, 0).max(axis=(1, 2))
+        if 0 <= t - 31 < LR:
+            out[:, t - 31] = np.stack([s_out[:, 31], e_out[:, 31]], axis=1)
+    return np.where(valid, bk, 0).max(axis=(1, 2)), out
+
+
+def wavefront_scores(qs, rs, match, mismatch, gap_open, gap_ext):
+    """The kernel's launches over the query blocks of ``query_blocks``,
+    each block's carry feeding the next; the best over all blocks.  ->
+    (B,) scores."""
+    B, LQ = qs.shape
+    P, blocks = query_blocks(LQ)
+    best, carry = np.zeros(B, np.int64), None
+    for b in range(blocks):
+        bb, carry = _wavefront_block(qs[:, b * 32 * P: (b + 1) * 32 * P], rs,
+                                     P, carry, match, mismatch, gap_open,
+                                     gap_ext)
+        best = np.maximum(best, bb)
+    return best
 
 
 def _padded(seed, B, LQ, LR):
@@ -180,3 +206,37 @@ def test_wavefront_model_matches_pallas_and_plain(LQ, lr, scores):
     np.testing.assert_array_equal(wavefront_scores(qs, rs, **kw), want)
     if LQ >= 31 and LR >= LQ:
         assert want.max() > 0
+
+
+def test_query_blocks_cover_the_query():
+    """One block up to 1,024 positions; beyond, full blocks of 32 P
+    positions with 17 <= P <= 32 and a last block of 1 .. 32 P."""
+    for LQ in range(1, 40_000):
+        P, blocks = query_blocks(LQ)
+        if LQ <= 1024:
+            assert (P, blocks) == (-(-LQ // 32), 1)
+        else:
+            assert 17 <= P <= 32 and blocks >= 2
+            assert 0 < LQ - (blocks - 1) * 32 * P <= 32 * P
+
+
+@pytest.mark.parametrize("scores", sorted(SCORES))
+@pytest.mark.parametrize("LQ", (1025, 1500, 2048, 2049))
+def test_blocked_model_matches_pallas_and_plain(LQ, scores):
+    """Queries of more than 1,024 positions: the kernel's query blocks and
+    their carry, modelled, against the Pallas kernel (interpret mode) and
+    the port's plain version, with alignments that cross the blocks'
+    boundaries."""
+    LR = 48
+    qs, rs = _padded(LQ + 11, 3, LQ, LR)
+    P, _ = query_blocks(LQ)
+    for b, at in enumerate((32 * P - 20, 32 * P - 1, LQ - LR)):
+        qs[b, at: at + LR] = rs[b]                  # across a boundary
+        qs[b, at + 5] = (qs[b, at + 5] + 1) % 4
+    qs[1, 32 * P + 3: 32 * P + 6] = -1
+    kw = SCORES[scores]
+    want = pallas_scores(qs, rs, interpret=True, **kw)
+    np.testing.assert_array_equal(
+        batch_local_align_scores(qs, rs, device="cpu", **kw), want)
+    np.testing.assert_array_equal(wavefront_scores(qs, rs, **kw), want)
+    assert want.max() > 0
