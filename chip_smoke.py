@@ -35,7 +35,8 @@ then:
    kernel A, then kernels 2, 3) of 1,000 random protein references, with
    150,000 reads of 200 residues, in the labels and matches modes;
    payloads against the oracle, kernels A, B, 2 and 3 against their plain
-   versions on each path's own inputs;
+   versions on each path's own inputs, and A and B again on L2-resident
+   controls (2^15-bucket tables), also held against their plain versions;
 6. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
    300 and holds it against its plain version and, on a sample, the numpy
    oracle; then on 1,024 pairs of 1,000 x 1,000 and 256 pairs of 2,000 x
@@ -712,7 +713,12 @@ def kernel_checks(engine, seqs, cfg, torch, dev, tag=""):
               device_ms(torch, dev, lambda: ops.wire_lookup_plain(
                   words, vwords, table, K, qd.TILE, c1, canon, offset), 1),
               io + groups_bytes)
-    l2_control_wire(engine, words, vwords, cfg, torch, dev, tag)
+    l2_control("wire_lookup", tag, engine.index.table,
+               lambda t: qd.wire_lookup(words, vwords, t, K, qd.TILE, canon,
+                                        offset),
+               lambda t: ops.wire_lookup_plain(words, vwords, t, K, qd.TILE,
+                                               c1, canon, offset),
+               cfg, torch, dev)
 
     if canon == 2:
         last = nodes[tile_seq == S - 1]            # the long sequence
@@ -807,6 +813,10 @@ def codes_checks(engine, seqs, cfg, torch, dev, tag):
               device_ms(torch, dev, lambda: ops.codes_lookup_plain(
                   p2, vb, table, k, qd.TILE, c1), 1),
               io + groups_bytes)
+    l2_control("codes_lookup", tag, engine.index.table,
+               lambda t: ops.codes_lookup(p2, vb, t, k, qd.TILE),
+               lambda t: ops.codes_lookup_plain(p2, vb, t, k, qd.TILE, c1),
+               cfg, torch, dev)
     counts = count_select_checks(entries, engine, nodes, tile_seq, dsel,
                                  selmin, 0, cfg, torch, dev, tag,
                                  controls=False)
@@ -852,6 +862,10 @@ def key_checks(engine, seqs, cfg, torch, dev, tag):
               device_ms(torch, dev, lambda: ops.key_lookup_plain(
                   keys, table, chunk), 1),
               keys.nbytes + ids.nbytes + groups_bytes)
+    l2_control("key_lookup", tag, engine.index.table,
+               lambda t: ops.key_lookup(keys, t),
+               lambda t: ops.key_lookup_plain(keys, t, chunk), cfg, torch,
+               dev)
     # count_epoch_tiled's input: rows + 1 of the hits, tiled per sequence
     flat = np.zeros(len(wins), np.int64)
     flat[valid] = ids.cpu().numpy()
@@ -898,37 +912,30 @@ def select_control(counts, present, dsel, torch, dev, tag):
                              "version on the selmin = 0 control")
 
 
-def l2_control_wire(engine, words, vwords, cfg, torch, dev, tag):
-    """Kernel 1 on the path's batch against a table small enough for L2:
-    2^ctrl_log buckets at the index's load, built from a prefix of its
-    keys.  A time close to the real table's says the kernel is not bound
-    by device-memory bytes.  Checked against the plain version too."""
+def l2_control(name, tag, table, run, plain, cfg, torch, dev):
+    """Kernel ``name`` (1, A or B) on its path's inputs against a table
+    small enough for L2: 2^ctrl_log buckets at the index's load, built from
+    a prefix of the host ``table``'s keys (kernel_times.control_table).  A
+    time close to the real table's says the kernel is not bound by
+    device-memory bytes.  ``run(t)`` and ``plain(t)`` launch the kernel and
+    its plain version on table ``t``; they must agree exactly."""
     from metagraph_tpu_torch._u32 import np_words
-    from metagraph_tpu_torch.query import device as qd
+    from metagraph_tpu_torch.scripts.kernel_times import control_table
     from metagraph_tpu_torch.succinct import ops
-    host, canon, offset = engine.index.table, engine.index.canon, \
-        engine.index.offset
-    nb, W = host.shape[0], host.shape[1] // ops.BUCKET - 1
-    slots = host.reshape(nb, ops.BUCKET, W + 1)
-    slots = slots[slots[:, :, 0] != ops.EMPTY_WORD]
-    nbc = 1 << cfg["ctrl_log"]
-    keep = slots[: round(len(slots) * nbc / nb)]
-    ctab = ops.DeviceHashIndex._build(keep[:, :W], keep[:, W], nbc)
-    if ctab is None:
-        raise AssertionError("the control table overflowed a bucket")
-    ctab = np_words(ctab.reshape(nbc, -1)).to(dev)
-    got = qd.wire_lookup(words, vwords, ctab, K, qd.TILE, canon, offset)
-    want = ops.wire_lookup_plain(words, vwords, ctab, K, qd.TILE,
-                                 cfg["plain_chunks"][0], canon, offset)
-    err = max_abs_err(torch, got, want)
-    ms = device_ms(torch, dev, lambda: qd.wire_lookup(
-        words, vwords, ctab, K, qd.TILE, canon, offset), 10)
-    log(f"kernel wire_lookup{tag} L2 control: {ms:.4f} ms on {len(keep)} "
-        f"keys in {nbc} buckets ({ctab.nbytes} B), "
-        f"{int((got > 0).sum())} hits, max_abs_err {err}")
+    host = control_table(table, cfg["ctrl_log"])
+    nbc, W = host.shape[0], host.shape[1] // ops.BUCKET - 1
+    keys = int((host.reshape(nbc, ops.BUCKET, W + 1)[:, :, 0]
+                != ops.EMPTY_WORD).sum())
+    ctab = np_words(host).to(dev)
+    got = run(ctab)
+    err = max_abs_err(torch, got, plain(ctab))
+    ms = device_ms(torch, dev, lambda: run(ctab), 10)
+    log(f"kernel {name}{tag} L2 control: {ms:.4f} ms on {keys} keys in "
+        f"{nbc} buckets ({ctab.nbytes} B), {int((got > 0).sum())} hits, "
+        f"max_abs_err {err}")
     if err:
-        raise AssertionError(f"wire_lookup{tag} disagrees with its plain "
-                             "version on the control table")
+        raise AssertionError(f"{name}{tag} disagrees with its plain version "
+                             "on the control table")
 
 
 def l2_control_counts(nodes, bitmap, tile_seq, S, L, offset, cfg, torch, dev,

@@ -9,13 +9,27 @@
 // _hash_lookup_flat (:439).  Label counting and selection stay with kernels
 // 2 and 3.
 //
-// What bounds it on an H100: the table's bytes at random, as kernel A; the
-// tiles are 2.25 bits a position.  Design, simple first: one block a tile,
-// one thread a window.  The block copies its tile's code bytes and valid
-// bytes into shared memory; each thread checks its K valid bits, builds
-// its key from shared memory and probes as kernel A does (hash_probe.cuh).
-// Invalid windows read no row.  W = ceil(K / 8) is a template parameter
-// (1 .. 8).
+// What bounds it on an H100: per-window work and the latency of the random
+// bucket reads, not bytes: against a table held in L2 it keeps about 70% of
+// its time (PERF.md).  So each window costs O(1) arithmetic whatever K (a
+// first version with loops over the K positions and a probe of its own took
+// 1.7x as long), and the probe is block-wide:
+// * One block a tile.  The block copies the tile's code bytes and valid
+//   bytes into word-aligned shared memory as the aligned 4-byte words that
+//   hold them (rows of TKp/4 and ceil(TK/8) bytes start at any byte); the
+//   row's misalignment is added to every bit offset instead of shifting the
+//   bytes.
+// * Validity: bits j .. j+K-1 of the valid words, taken into 64 bits with
+//   two funnel shifts, against the K-bit mask (K <= 64 on the card).
+// * Key: the 128 stream bits that end with char K-2, taken with four funnel
+//   shifts, hold chars K-2 .. 0 from the top down, the BOSS priority order of
+//   key positions 0 .. K-2; so key word w is one 16-bit half of them, spread
+//   to nibbles by three shift-and-mask steps, plus 1 in each nibble.  Char
+//   K-1 goes to slot (K-1) mod 8 of the last word.
+// * Probe: the tile's THREADS windows probe together (hash_probe.cuh's
+//   probe_block: group 0 of every probed row staged by cp.async).  Invalid
+//   windows read no row.  Tiles wider than THREADS windows take rounds.
+// W = ceil(K / 8) is a template parameter (1 .. 8).
 //
 // Built with nvcc for sm_90a into a plain C library (see _build.py).
 
@@ -23,58 +37,110 @@
 
 namespace {
 
-// K positions from j: true iff each one's valid bit is set
-__device__ __forceinline__ bool window_valid(const uint8_t *vb, int j, int K) {
-    for (int p = j; p < j + K; ++p)
-        if (!((vb[p >> 3] >> (p & 7)) & 1))
-            return false;
-    return true;
+using hash_probe::THREADS;
+
+constexpr int LEAD = 4;            // zero words before a tile's codes
+// Words of a staged tile at T <= 1024, K <= 64 (TK <= 1,087), any alignment:
+// LEAD + 69 words of codes + the word that window T-1's key reads last.
+constexpr int CODE_WORDS = 80;
+constexpr int VALID_WORDS = 40;    // 35 words of valid bits + 2 read past
+
+// The aligned 4-byte words that hold ``nbytes`` bytes from ``row`` (any
+// alignment) -> dst[lead ..], zeros before and after, up to ``cap`` words;
+// returns the row's offset in bytes from its first word.  Every word read
+// holds a byte of the row, so no read leaves the tensor's allocation.
+__device__ __forceinline__ int stage_row(const uint8_t *row, int nbytes,
+                                         uint32_t *dst, int lead, int cap) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(row);
+    const uint32_t *src =
+        reinterpret_cast<const uint32_t *>(a & ~(uintptr_t)3);
+    const int mis = (int)(a & 3);
+    const int n = (mis + nbytes + 3) >> 2;
+    for (int i = threadIdx.x; i < cap; i += THREADS) {
+        const int k = i - lead;
+        dst[i] = (k >= 0 && k < n) ? __ldg(src + k) : 0u;
+    }
+    return mis;
+}
+
+// Window at valid bit ``vo``: true iff bits vo .. vo+K-1 are all set.
+__device__ __forceinline__ bool window_valid(const uint32_t *__restrict__ sv,
+                                             int vo, int K) {
+    const int g = vo >> 5, sh = vo & 31;
+    const uint64_t v = (uint64_t)__funnelshift_r(sv[g], sv[g + 1], sh)
+        | (uint64_t)__funnelshift_r(sv[g + 1], sv[g + 2], sh) << 32;
+    const uint64_t need = K >= 64 ? ~0ull : (1ull << K) - 1ull;
+    return (v & need) == need;
+}
+
+// The nibble key, in BOSS priority order, of the window whose char 0 sits at
+// bit ``b0`` of the staged codes (char i at bits b0 + 2i).
+template <int W>
+__device__ __forceinline__ void window_key(const uint32_t *__restrict__ sc,
+                                           int b0, int K, uint32_t (&key)[W]) {
+    // u[3]:u[2]:u[1]:u[0] = bits o .. o+127, char K-2 at the top two bits,
+    // then K-3 .. 0 down to bit 130 - 2K; the bits below belong to earlier
+    // chars (LEAD keeps o >= 0) and land in the last word's empty slots
+    const int o = b0 + 2 * K - 130;
+    const int g = o >> 5, sh = o & 31;
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        u[i] = __funnelshift_r(sc[g + i], sc[g + i + 1], sh);
+    const uint32_t last = (sc[g + 4] >> sh) & 3u;   // char K-1, just above
+    const int r = (K - 1) & 7;                      // its slot
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+        // positions 8w .. 8w+7: chars K-2-8w .. K-9-8w, one 16-bit half
+        uint32_t x = (u[3 - (w >> 1)] >> ((w & 1) ? 0 : 16)) & 0xFFFFu;
+        x = (x | x << 8) & 0x00FF00FFu;
+        x = (x | x << 4) & 0x0F0F0F0Fu;
+        x = (x | x << 2) & 0x33333333u;            // 2-bit code a nibble
+        x += 0x11111111u;                           // code + 1
+        if (w == W - 1) {
+            // only positions < K-1 hold chars K-2 .. 0; then char K-1
+            const uint32_t keep = r ? 0xFFFFFFFFu << (32 - 4 * r) : 0u;
+            x = (x & keep) | (last + 1u) << (28 - 4 * r);
+        }
+        key[w] = x;
+    }
 }
 
 template <int W>
-__global__ void codes_lookup_kernel(const uint8_t *__restrict__ packed2,
-                                    const uint8_t *__restrict__ validb,
-                                    const uint32_t *__restrict__ table,
-                                    int32_t *__restrict__ nodes, int pb,
-                                    int vbn, uint32_t n_buckets, int K,
-                                    int T) {
-    extern __shared__ uint8_t smem[];
-    uint8_t *codes = smem;                      // pb bytes
-    uint8_t *vb = smem + pb;                    // vbn bytes
+__global__ void __launch_bounds__(THREADS)
+codes_lookup_kernel(const uint8_t *__restrict__ packed2,
+                    const uint8_t *__restrict__ validb,
+                    const uint32_t *__restrict__ table,
+                    int32_t *__restrict__ nodes, int pb, int vbn,
+                    uint32_t n_buckets, int K, int T) {
+    __shared__ uint32_t sc[CODE_WORDS];
+    __shared__ uint32_t sv[VALID_WORDS];
     const int64_t tile = blockIdx.x;
-    for (int i = threadIdx.x; i < pb; i += blockDim.x)
-        codes[i] = packed2[tile * pb + i];
-    for (int i = threadIdx.x; i < vbn; i += blockDim.x)
-        vb[i] = validb[tile * vbn + i];
+    const int TK = T + K - 1;
+    const int cmis = stage_row(packed2 + tile * pb, (TK + 3) >> 2, sc, LEAD,
+                               CODE_WORDS);
+    const int vmis = stage_row(validb + tile * vbn, (TK + 7) >> 3, sv, 0,
+                               VALID_WORDS);
     __syncthreads();
-    const int j = threadIdx.x;                  // blockDim.x == T
-    uint32_t id = 0;
-    if (window_valid(vb, j, K)) {
-        uint32_t key[W];
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-            uint32_t acc = 0;
-#pragma unroll
-            for (int slot = 0; slot < 8; ++slot) {
-                const int p = w * 8 + slot;     // priority index
-                if (p < K) {
-                    const int c = j + (p < K - 1 ? K - 2 - p : K - 1);
-                    const uint32_t code = (codes[c >> 2] >> (2 * (c & 3))) & 3u;
-                    acc |= (code + 1u) << (28 - 4 * slot);
-                }
-            }
-            key[w] = acc;
+    for (int j0 = 0; j0 < T; j0 += THREADS) {
+        const int j = j0 + threadIdx.x;
+        uint32_t key[W] = {};
+        int32_t bucket = -1;
+        if (j < T && window_valid(sv, 8 * vmis + j, K)) {
+            window_key<W>(sc, 32 * LEAD + 8 * cmis + 2 * j, K, key);
+            bucket = (int32_t)hash_probe::bucket_of<W>(key, n_buckets);
         }
-        id = hash_probe::probe<W>(table, key, n_buckets);
+        const uint32_t id = hash_probe::probe_block<W>(table, key, bucket);
+        if (j < T)
+            nodes[tile * T + j] = (int32_t)id;
     }
-    nodes[tile * T + j] = (int32_t)id;
 }
 
 template <int W>
 int launch(const void *p2, const void *vb, const void *table, void *nodes,
            int64_t n_tiles, int pb, int vbn, uint32_t nb, int K, int T,
            cudaStream_t st) {
-    codes_lookup_kernel<W><<<(unsigned)n_tiles, T, pb + vbn, st>>>(
+    codes_lookup_kernel<W><<<(unsigned)n_tiles, THREADS, 0, st>>>(
         (const uint8_t *)p2, (const uint8_t *)vb, (const uint32_t *)table,
         (int32_t *)nodes, pb, vbn, nb, K, T);
     return (int)cudaGetLastError();

@@ -6,11 +6,17 @@
 // _map_windows (:175-191) packs on the host: 4 bits a code for the DNA
 // family, 8 bits for Protein, W words a key.
 //
-// What bounds it on an H100: the table's bytes, read at random, one bucket
-// group of 64 (W + 1) / 4 bytes at least a probe, plus the keys and ids.
-// Design, simple first: one thread a key; its W words, then the row's
-// groups with 16-byte loads until the stop rule of hash_probe.cuh holds.
-// W is a template parameter (1 .. 8).
+// What bounds it on an H100: device memory, read at random.  Every probe
+// reads its bucket's group 0, 16 (W + 1) bytes (96 at W = 5, three 32-byte
+// sectors) that no other probe nearby shares, and the keys stream once;
+// against a table held in L2 it keeps only about 40% of its time (PERF.md).
+// Design: a block takes THREADS consecutive keys and copies their THREADS x
+// W words into shared memory in one coalesced pass, so each warp load
+// instruction reads 128 contiguous bytes rather than 32 strided keys; each
+// thread then hashes its key and the block probes with probe_block, which
+// has group 0 of every probed row in flight at once.  A ragged last block
+// probes with its first Q mod THREADS threads.  W is a template parameter
+// (1 .. 8).
 //
 // Built with nvcc for sm_90a into a plain C library (see _build.py).
 
@@ -18,21 +24,31 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+using hash_probe::THREADS;
 
 template <int W>
 __global__ void __launch_bounds__(THREADS)
 key_lookup_kernel(const uint32_t *__restrict__ keys,
                   const uint32_t *__restrict__ table,
                   int32_t *__restrict__ out, int64_t Q, uint32_t n_buckets) {
-    const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-    if (i >= Q)
-        return;
-    uint32_t key[W];
+    __shared__ uint32_t s_keys[THREADS * W];
+    const int64_t base = (int64_t)blockIdx.x * THREADS;
+    const int n = (int)min((int64_t)THREADS, Q - base);
+    const uint32_t *src = keys + base * W;
+    for (int i = threadIdx.x; i < n * W; i += THREADS)
+        s_keys[i] = __ldg(src + i);
+    __syncthreads();
+    uint32_t key[W] = {};
+    int32_t bucket = -1;
+    if (threadIdx.x < n) {
 #pragma unroll
-    for (int w = 0; w < W; ++w)
-        key[w] = __ldg(keys + i * W + w);
-    out[i] = (int32_t)hash_probe::probe<W>(table, key, n_buckets);
+        for (int w = 0; w < W; ++w)
+            key[w] = s_keys[threadIdx.x * W + w];
+        bucket = (int32_t)hash_probe::bucket_of<W>(key, n_buckets);
+    }
+    const uint32_t id = hash_probe::probe_block<W>(table, key, bucket);
+    if (threadIdx.x < n)
+        out[base + threadIdx.x] = (int32_t)id;
 }
 
 template <int W>

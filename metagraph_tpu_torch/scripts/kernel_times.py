@@ -1,14 +1,28 @@
-"""Time kernels 3 and 4 (``selection_mask``, ``sw_scores``) of one tree of
-the port on the card, each held exactly against its plain version.
+"""Time kernels A, B, 3 and 4 (``key_lookup``, ``codes_lookup``,
+``selection_mask``, ``sw_scores``) of one or more trees of the port on the
+card, each held exactly against its plain version.
 
-    python metagraph_tpu_torch/scripts/kernel_times.py [--root DIR]
+    python metagraph_tpu_torch/scripts/kernel_times.py [--root DIR ...]
 
-``--root`` names the tree whose ``metagraph_tpu_torch`` is imported (by
-default the one this file lives in), so that two trees, say a commit
-unpacked with ``git archive`` and the working tree, can be timed on one
-card in turns: their wrappers take the same arguments.  The inputs come
-from fixed seeds:
+``--root`` names a tree whose ``metagraph_tpu_torch`` is timed (by default
+the one this file lives in).  Given more than once, the trees are timed in
+one process on the same inputs, in turns: in the order given, then in
+reverse (parent, change, change, parent for two), so that a commit unpacked
+with ``git archive`` and the working tree compare on one card; their
+wrappers take the same arguments.  The inputs come from fixed seeds:
 
+* ``key_lookup`` on 27,150,000 keys of 5 words, 8 bits a code (the protein
+  deployment's shape, k = 20), 80% of them in the table, into a table of
+  8,100,000 such keys in 2^22 buckets (the deployments' load, about 1.9
+  keys a bucket);
+* ``codes_lookup`` on the K = 41 tiles (T = 256) of 150,000 reads of 200 bp
+  drawn from 1,000 random references of 8,101 bp (10% reverse complemented,
+  1% substitutions, 3% with an N run) and of reference 0 repeated past
+  2^24 windows, into a table of the references' 8,061,000 k-mers in 2^22
+  buckets (the k41 deployment's shape);
+* both again on their L2 controls: tables of 2^15 buckets at the same load,
+  built from a prefix of each table's keys (``control_table``), which stay
+  in the card's L2;
 * ``sw_scores`` on 4,096 pairs of 150 x 300 and 1,024 pairs of 1,000 x
   1,000 (the two shapes of ``chip_smoke.py``'s SW phase: related pairs,
   ragged padding on both sides), default scores;
@@ -16,21 +30,34 @@ from fixed seeds:
   deployments' shape) with every row's presence passing (selmin = 0) and
   with half of the rows failing it.
 
-The last line of stdout is a JSON object of the times (CUDA events, mean of
-``--reps`` launches after a warm-up) and the card.  It needs a CUDA card.
+The last line of stdout is a JSON object: every tree's times in its turns
+(CUDA events, mean of ``--reps`` launches after a warm-up) and the card.
+It needs a CUDA card; ``--rehearse`` runs the same steps at a tiny size on
+the CPU with the plain versions and exits 2 without a result.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
+import subprocess
 import sys
+import time
+from types import SimpleNamespace
 
 import numpy as np
 
 SW_SHAPES = ((4096, 150, 300), (1024, 1000, 1000))
 SELECT_SHAPE = (150_001, 1000)
+K41, KP = 41, 20
+FULL = dict(keys=27_150_000, key_table=8_100_000, refs=1000, ref_len=8101,
+            reads=150_000, read_len=200, long_windows=1 << 24,
+            buckets_log=22, ctrl_log=15, sw=SW_SHAPES, select=SELECT_SHAPE)
+TINY = dict(keys=5000, key_table=1500, refs=12, ref_len=300, reads=200,
+            read_len=120, long_windows=2000, buckets_log=9, ctrl_log=6,
+            sw=((16, 37, 60), (4, 70, 90)), select=(301, 100))
 
 
 def sw_pairs(rng, B, LQ, LR):
@@ -50,6 +77,23 @@ def sw_pairs(rng, B, LQ, LR):
     return qs, rs
 
 
+def control_table(table: np.ndarray, log_buckets: int) -> np.ndarray:
+    """A (2^log_buckets, row) uint32 table at ``table``'s load, built by the
+    port's builder from a prefix of its keys (in bucket order): at 2^15
+    buckets it stays in the card's L2, so a kernel's time on it is its time
+    without device-memory latency."""
+    from metagraph_tpu_torch.succinct import ops
+    nb, W = table.shape[0], table.shape[1] // ops.BUCKET - 1
+    slots = table.reshape(nb, ops.BUCKET, W + 1)
+    slots = slots[slots[:, :, 0] != ops.EMPTY_WORD]
+    nbc = 1 << log_buckets
+    keep = slots[: round(len(slots) * nbc / nb)]
+    ctab = ops.DeviceHashIndex._build(keep[:, :W], keep[:, W], nbc)
+    if ctab is None:
+        raise AssertionError("the control table overflowed a bucket")
+    return ctab.reshape(nbc, -1)
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -63,52 +107,206 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def host_ms(fn) -> float:
+    """One run on the host clock: rehearsals only, no device metric."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def exact(torch, got, want, what):
     if got.shape != want.shape or not torch.equal(got, want):
         raise AssertionError(f"{what} disagrees with its plain version")
 
 
+def load_port(root: str) -> SimpleNamespace:
+    """Import ``root``'s metagraph_tpu_torch afresh.  A tree imported
+    before stays alive through the functions taken from it; each builds
+    its kernels into its own ``build/torch_kernels``."""
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "metagraph_tpu_torch"]:
+        del sys.modules[name]
+    sys.path.insert(0, root)
+    try:
+        mods = {n: importlib.import_module(f"metagraph_tpu_torch.{n}")
+                for n in ("succinct.ops", "align.sw", "query.device",
+                          "query.tile_pack")}
+    finally:
+        sys.path.remove(root)
+    return SimpleNamespace(root=root, ops=mods["succinct.ops"],
+                           sw=mods["align.sw"], qd=mods["query.device"],
+                           tile_pack2=mods["query.tile_pack"].tile_pack2)
+
+
+def protein_inputs(rng, s, ops):
+    """-> (table, queries): ``key_table`` random keys of KP codes 1..20 at 8
+    bits, in 2^buckets_log buckets; ``keys`` queries, 80% of them drawn
+    from the table's keys."""
+    n, Q = s["key_table"], s["keys"]
+    keys = ops.pack_kmers32(rng.integers(1, 21, (n, KP), dtype=np.uint8), 8)
+    table = ops.DeviceHashIndex._build(keys, np.arange(1, n + 1,
+                                                       dtype=np.uint32),
+                                       1 << s["buckets_log"])
+    if table is None:
+        raise AssertionError("the protein table overflowed a bucket")
+    hit = rng.random(Q) < 0.8
+    q = np.empty((Q, keys.shape[1]), np.uint32)
+    q[hit] = keys[rng.integers(0, n, int(hit.sum()))]
+    q[~hit] = ops.pack_kmers32(rng.integers(1, 21, (Q - int(hit.sum()), KP),
+                                            dtype=np.uint8), 8)
+    return table.reshape(1 << s["buckets_log"], -1), q
+
+
+def k41_inputs(rng, s, ops, tile_pack2, T):
+    """-> (table, packed2, validb): the k-mers of random references in
+    2^buckets_log buckets, and the tiles of reads drawn from them plus
+    reference 0 repeated past ``long_windows`` windows."""
+    refs = rng.integers(0, 4, (s["refs"], s["ref_len"]), dtype=np.uint8)
+    win = np.lib.stride_tricks.sliding_window_view(refs, K41, axis=1)
+    keys = ops.pack_kmers32(win.reshape(-1, K41) + 1)
+    table = ops.DeviceHashIndex._build(keys, np.arange(1, len(keys) + 1,
+                                                       dtype=np.uint32),
+                                       1 << s["buckets_log"])
+    if table is None:
+        raise AssertionError("the k41 table overflowed a bucket")
+    n, m = s["reads"], s["read_len"]
+    which = rng.integers(0, len(refs), n)
+    start = rng.integers(0, s["ref_len"] - m, n)
+    codes = refs[which[:, None], start[:, None] + np.arange(m)]
+    codes = np.where(rng.random((n, m)) < 0.01,
+                     (codes + rng.integers(1, 4, (n, m))) % 4, codes)
+    rc = rng.random(n) < 0.1
+    codes[rc] = 3 - codes[rc, ::-1]
+    at, ln = rng.integers(0, m - 20, n), rng.integers(1, 20, n)
+    col = np.arange(m)
+    nrun = (rng.random(n) < 0.03)[:, None] & (col >= at[:, None]) \
+        & (col < (at + ln)[:, None])
+    codes = np.where(nrun, 4, codes).astype(np.uint8)
+    long = np.tile(refs[0], s["long_windows"] // (s["ref_len"] - K41 + 1)
+                   + 1)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    seqs = [letters[row].tobytes() for row in codes]
+    seqs.append(letters[long].tobytes())
+    t2, vb, _, _ = tile_pack2(seqs, K41, T)
+    return table.reshape(1 << s["buckets_log"], -1), t2, vb
+
+
+def make_inputs(port, s, torch, dev):
+    """Every kernel's inputs and plain result, from fixed seeds, with the
+    first tree's host code (every tree has the same)."""
+    from metagraph_tpu_torch._u32 import np_words
+    ops, qd, T = port.ops, port.qd, port.qd.TILE
+    rng = np.random.default_rng(7)
+    ptab, q = protein_inputs(rng, s, ops)
+    ktab, t2, vb = k41_inputs(rng, s, ops, port.tile_pack2, T)
+    up = lambda a: np_words(a).to(dev)     # noqa: E731
+    inp = SimpleNamespace(q=up(q), p2=torch.from_numpy(t2).to(dev),
+                          vb=torch.from_numpy(vb).to(dev), T=T, tables={})
+    for kernel, tab in (("key_lookup", ptab), ("codes_lookup", ktab)):
+        inp.tables[kernel] = {"": up(tab), " L2 control": up(
+            control_table(tab, s["ctrl_log"]))}
+    inp.want = {}
+    for what, tab in inp.tables["key_lookup"].items():
+        inp.want["key_lookup" + what] = ops.key_lookup_plain(inp.q, tab)
+    for what, tab in inp.tables["codes_lookup"].items():
+        inp.want["codes_lookup" + what] = ops.codes_lookup_plain(
+            inp.p2, inp.vb, tab, K41, T, 1024)
+    hits = [int((inp.want[k] > 0).sum()) for k in ("key_lookup",
+                                                     "codes_lookup")]
+    print(f"inputs: {len(q)} keys of {q.shape[1]} words into "
+          f"{ptab.shape[0]} buckets; {len(t2)} tiles of K = {K41} into "
+          f"{ktab.shape[0]} buckets; hits {hits[0]} and {hits[1]}",
+          flush=True)
+    inp.sw = [sw_pairs(rng, *shape) for shape in s["sw"]]
+    S, L = s["select"]
+    inp.select = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(0, 40, (S, L)).astype(np.int32),
+        rng.integers(0, 200, S).astype(np.int32),
+        rng.integers(1, 40, S).astype(np.int32))]
+    inp.half = torch.where(torch.arange(S) % 2 == 0, 0, 2 ** 31 - 1).to(
+        dev, torch.int32)
+    return inp
+
+
+def time_tree(port, inp, s, torch, dev, reps, check):
+    """-> {case: ms} for one tree; with ``check``, each kernel's output is
+    first held against its plain version's."""
+    ops, qd, T = port.ops, port.qd, inp.T
+    clock = (lambda fn: cuda_ms(torch, fn, reps)) if dev.type == "cuda" \
+        else host_ms
+    cases = []
+    for what, tab in inp.tables["key_lookup"].items():
+        cases.append((f"key_lookup{what}",
+                      lambda what=what: inp.want["key_lookup" + what],
+                      lambda tab=tab: ops.key_lookup(inp.q, tab)))
+    for what, tab in inp.tables["codes_lookup"].items():
+        cases.append((f"codes_lookup{what}",
+                      lambda what=what: inp.want["codes_lookup" + what],
+                      lambda tab=tab: ops.codes_lookup(inp.p2, inp.vb, tab,
+                                                       K41, T)))
+    for (B, LQ, LR), (qs, rs) in zip(s["sw"], inp.sw):
+        qt, rt = torch.from_numpy(qs).to(dev), torch.from_numpy(rs).to(dev)
+        cases.append((f"sw_scores {B}x{LQ}x{LR}",
+                      lambda qt=qt, rt=rt: port.sw.sw_scores_plain(
+                          qt, rt, 2, -3, -6, -2),
+                      lambda qt=qt, rt=rt: port.sw.sw_scores(qt, rt)))
+    counts, present, dsel = inp.select
+    for what, selmin in (("every row", torch.zeros_like(present)),
+                         ("half the rows", inp.half)):
+        args = (counts, present, dsel, selmin)
+        cases.append((f"selection_mask {tuple(counts.shape)} {what}",
+                      lambda args=args: qd.selection_mask_plain(*args),
+                      lambda args=args: qd.selection_mask(*args)))
+    times = {}
+    for name, plain, fn in cases:
+        if check:
+            exact(torch, fn(), plain(), name)
+        times[name] = clock(fn)
+        print(f"  {name}: {times[name]:.4f} ms", flush=True)
+    return times
+
+
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True,
+                          timeout=60).stdout.strip().splitlines()[0]
+
+
 def main(argv=None) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(here)))
+    ap.add_argument("--root", action="append",
+                    help="a tree to time (repeat to time several in turns)")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--rehearse", action="store_true",
+                    help="tiny sizes on the CPU with the plain versions; "
+                         "exits 2 without a result")
     args = ap.parse_args(argv)
     import torch
-    if not torch.cuda.is_available():
+    if not args.rehearse and not torch.cuda.is_available():
         print("kernel_times: CUDA is not available", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.abspath(args.root))
-    from metagraph_tpu_torch.align.sw import sw_scores, sw_scores_plain
-    from metagraph_tpu_torch.query import device as qd
-    dev = torch.device("cuda")
-    times = {}
-    rng = np.random.default_rng(0)
-    for B, LQ, LR in SW_SHAPES:
-        qs, rs = sw_pairs(rng, B, LQ, LR)
-        q, r = torch.from_numpy(qs).to(dev), torch.from_numpy(rs).to(dev)
-        exact(torch, sw_scores(q, r), sw_scores_plain(q, r, 2, -3, -6, -2),
-              "sw_scores")
-        key = f"sw_scores {B}x{LQ}x{LR}"
-        times[key] = cuda_ms(torch, lambda: sw_scores(q, r), args.reps)
-        print(f"{key}: {times[key]:.4f} ms", flush=True)
-    S, L = SELECT_SHAPE
-    counts = torch.from_numpy(rng.integers(0, 40, (S, L)).astype(np.int32))
-    present = torch.from_numpy(rng.integers(0, 200, S).astype(np.int32))
-    dsel = torch.from_numpy(rng.integers(1, 40, S).astype(np.int32))
-    half = torch.where(torch.arange(S) % 2 == 0, 0, 2 ** 31 - 1)
-    counts, present, dsel = counts.to(dev), present.to(dev), dsel.to(dev)
-    for what, selmin in (("every row", torch.zeros_like(present)),
-                         ("half the rows", half.to(dev, torch.int32))):
-        exact(torch, qd.selection_mask(counts, present, dsel, selmin),
-              qd.selection_mask_plain(counts, present, dsel, selmin),
-              "selection_mask")
-        key = f"selection_mask {S}x{L} {what}"
-        times[key] = cuda_ms(torch, lambda: qd.selection_mask(
-            counts, present, dsel, selmin), args.reps)
-        print(f"{key}: {times[key]:.4f} ms", flush=True)
-    print(json.dumps({"root": os.path.abspath(args.root), "ms": times,
-                      "card": torch.cuda.get_device_name(0)}))
+    roots = [os.path.abspath(r) for r in
+             args.root or [os.path.dirname(os.path.dirname(here))]]
+    dev = torch.device("cpu" if args.rehearse else "cuda")
+    s = TINY if args.rehearse else FULL
+    ports = [load_port(r) for r in roots]
+    if not args.rehearse:
+        print(card(), flush=True)
+    t0 = time.perf_counter()
+    inp = make_inputs(ports[0], s, torch, dev)
+    print(f"inputs made in {time.perf_counter() - t0:.1f} s", flush=True)
+    turns = ports + ports[::-1] if len(ports) > 1 else ports
+    times = {p.root: [] for p in ports}
+    for i, port in enumerate(turns):
+        print(f"turn {i + 1}: {port.root}", flush=True)
+        times[port.root].append(time_tree(port, inp, s, torch, dev,
+                                          args.reps, not times[port.root]))
+    if args.rehearse:
+        print("rehearsal finished: no result on the CPU", file=sys.stderr)
+        return 2
+    print(json.dumps({"ms": times, "card": card()}))
     return 0
 
 

@@ -488,6 +488,87 @@ def test_codes_lookup_matches_plain(cuda, K):
     assert (want[3] > 0).sum() > 100 and (want[3] == 0).sum() > 100
 
 
+@pytest.mark.parametrize("Q", (1, 7, 31, 127, 129, 1000, 3 * 128 + 1))
+def test_key_lookup_ragged_batches_match_plain(cuda, Q):
+    """Kernel A where Q is not a multiple of the block's 128 keys, and
+    where Q < 32: the last block stages and probes its first Q mod 128
+    keys only."""
+    table, chars, _, absent = _fills_table(19, 8, 9500 + Q)    # W = 5
+    rng = np.random.default_rng(Q)
+    pool = np.concatenate([chars, absent])
+    keys = np_words(ops.pack_kmers32(pool[rng.integers(0, len(pool), Q)],
+                                     8))
+    tab = np_words(table)
+    want = ops.key_lookup(keys, tab)
+    before = ops.key_lookup.launches
+    got = ops.key_lookup(keys.to(cuda), tab.to(cuda))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert ops.key_lookup.launches == before + 1
+    assert got.shape == (Q,) and (Q < 7 or want.any())
+
+
+@pytest.mark.parametrize("traffic", ("hits", "misses", "mixed"))
+@pytest.mark.parametrize("K", (32, 33, 41, 64))
+def test_codes_lookup_stop_rule_matches_plain(cuda, K, traffic):
+    """Kernel B in buckets of 0, 1, 3, 4, 5, 15 and 16 keys (a key in slot
+    15 included), with hits, misses and mixed traffic.  Each k-mer follows
+    a prefix of 0 .. 299 random characters, so that its window starts at
+    every 2-bit offset of a tile's words, crosses every word boundary and
+    lies in a first or a second tile; the prefix's windows add misses."""
+    table, chars, ids, absent = table_with_fills(K, 8000 + K)
+    kmers, kid = {"hits": (chars, ids),
+                  "misses": (absent, np.zeros(len(absent), np.uint32)),
+                  "mixed": (np.concatenate([chars, absent]), np.concatenate(
+                      [ids, np.zeros(len(absent), np.uint32)]))}[traffic]
+    rng = np.random.default_rng(K)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    pre = [(37 * i) % 300 for i in range(len(kmers))]
+    seqs = [letters[np.concatenate([rng.integers(0, 4, p), c - 1])]
+            .tobytes() for p, c in zip(pre, kmers)]
+    tiles2, validb, _, nwins = tile_pack2(seqs, K, qd.TILE)
+    args = [torch.from_numpy(tiles2), torch.from_numpy(validb),
+            np_words(table)]
+    want = ops.codes_lookup(*args, K, qd.TILE)
+    before = ops.codes_lookup.launches
+    got = ops.codes_lookup(*[a.to(cuda) for a in args], K, qd.TILE)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert ops.codes_lookup.launches == before + 1
+    # each k-mer's own window: window p of its sequence's first tile
+    first = np.cumsum(-(-np.array(nwins) // qd.TILE)) \
+        - -(-np.array(nwins) // qd.TILE)
+    p = np.array(pre)
+    np.testing.assert_array_equal(
+        want.numpy()[first + p // qd.TILE, p % qd.TILE].view(np.uint32), kid)
+
+
+@pytest.mark.parametrize("shift", ((0, 0), (1, 3), (3, 2)),
+                         ids=lambda s: f"codes+{s[0]}-valid+{s[1]}")
+@pytest.mark.parametrize("T", (32, 96, 288, 1024))
+def test_codes_lookup_tile_layouts_match_plain(cuda, T, shift):
+    """Kernel B on tiles narrower and wider than its 128-thread block (one
+    round with idle threads, several rounds, a partial last round) with the
+    tile rows starting at every byte offset of a word."""
+    K = 41
+    index, seqs = _index(K, 400 + T)
+    tiles2, validb, _, _ = tile_pack2(seqs, K, T)
+    table = np_words(index.table)
+    want = ops.codes_lookup(torch.from_numpy(tiles2),
+                            torch.from_numpy(validb), table, K, T)
+
+    def placed(a, at):
+        buf = torch.zeros(a.size + 8, dtype=torch.uint8, device=cuda)
+        buf[at: at + a.size] = torch.from_numpy(a.reshape(-1)).to(cuda)
+        return buf[at: at + a.size].view(a.shape)
+    p2, vb = placed(tiles2, shift[0]), placed(validb, shift[1])
+    assert (p2.data_ptr() % 4, vb.data_ptr() % 4) == shift
+    got = ops.codes_lookup(p2, vb, table.to(cuda), K, T)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert (want > 0).sum() > 100
+
+
 @pytest.mark.parametrize("mode", ("labels", "matches", "counts-sum",
                                   "counts"))
 @pytest.mark.parametrize("route", ("codes", "map"))

@@ -2,7 +2,10 @@
 
 * ``pack_codes32``/``pack_kmers32`` at 4 and 8 bits a code;
 * the plain ``device_pack_windows`` at K = 32, 33, 40, 41, 63 and 64 (keys
-  of 4 to 8 words, the nibble order across word boundaries);
+  of 4 to 8 words, the nibble order across word boundaries), and a numpy
+  model of kernel B's own window arithmetic against it;
+* the L2 controls' tables (``kernel_times.control_table``) and a rehearsal
+  of ``kernel_times.py`` on two trees;
 * the plain key lookup (kernel A) against ``_hash_lookup`` on the tables
   that both packages build for DNA5, DNA_CASE and Protein graphs and a DNA
   graph at k = 41, and the host window mapping (``map_batch``) against the
@@ -65,6 +68,148 @@ def test_device_pack_windows_match(K):
     chars = np.lib.stride_tricks.sliding_window_view(codes[0], K)
     np.testing.assert_array_equal(got_p[0].numpy(),
                                   tops.pack_kmers32(chars.astype(np.uint8)))
+
+
+# --------------------------------------------------------------------------
+# a numpy model of kernel B's window arithmetic (csrc/codes_lookup.cu)
+# --------------------------------------------------------------------------
+
+_LEAD, _CODE_WORDS, _VALID_WORDS = 4, 80, 40     # as in codes_lookup.cu
+
+
+def _funnel(lo, hi, sh):
+    """__funnelshift_r: the low 32 bits of (hi:lo) >> sh, 0 <= sh < 32."""
+    both = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return (both >> sh.astype(np.uint64)) & np.uint64(0xFFFFFFFF)
+
+
+def _stage_row(row, mis, lead, cap, rng):
+    """stage_row: the row's bytes placed ``mis`` bytes into aligned 4-byte
+    words (the bytes around them random, as a neighbouring row's would be),
+    after ``lead`` zero words, zeros up to ``cap`` words."""
+    n = (mis + len(row) + 3) >> 2
+    buf = rng.integers(0, 256, 4 * n).astype(np.uint8)
+    buf[mis: mis + len(row)] = row
+    out = np.zeros(cap, np.uint64)
+    out[lead: lead + n] = buf.view("<u4")
+    return out
+
+
+def _model_tile(p2row, vbrow, K, T, cmis, vmis, rng):
+    """Kernel B's keys and validity of one tile's T windows, by its
+    arithmetic: funnel shifts over the staged 32-bit words, 16-bit halves
+    spread to nibbles, char K-1 in the last word."""
+    TK, W = T + K - 1, -(-K // 8)
+    sc = _stage_row(p2row[: (TK + 3) >> 2], cmis, _LEAD, _CODE_WORDS, rng)
+    sv = _stage_row(vbrow[: (TK + 7) >> 3], vmis, 0, _VALID_WORDS, rng)
+    j = np.arange(T)
+    vo = 8 * vmis + j
+    g, sh = vo >> 5, vo & 31
+    v = _funnel(sv[g], sv[g + 1], sh) \
+        | (_funnel(sv[g + 1], sv[g + 2], sh) << np.uint64(32))
+    need = np.uint64((1 << K) - 1)
+    valid = (v & need) == need
+    o = 32 * _LEAD + 8 * cmis + 2 * j + 2 * K - 130
+    assert o.min() >= 0 and (o >> 5).max() + 4 < _CODE_WORDS
+    g, sh = o >> 5, o & 31
+    u = [_funnel(sc[g + i], sc[g + i + 1], sh) for i in range(4)]
+    last = (sc[g + 4] >> sh.astype(np.uint64)) & np.uint64(3)
+    r = (K - 1) & 7
+    words = []
+    for w in range(W):
+        x = (u[3 - (w >> 1)] >> np.uint64(0 if w & 1 else 16)) \
+            & np.uint64(0xFFFF)
+        x = (x | x << np.uint64(8)) & np.uint64(0x00FF00FF)
+        x = (x | x << np.uint64(4)) & np.uint64(0x0F0F0F0F)
+        x = (x | x << np.uint64(2)) & np.uint64(0x33333333)
+        x = x + np.uint64(0x11111111)
+        if w == W - 1:
+            keep = np.uint64((0xFFFFFFFF << (32 - 4 * r)) & 0xFFFFFFFF
+                             if r else 0)
+            x = (x & keep) | ((last + np.uint64(1)) << np.uint64(28 - 4 * r))
+        words.append(x)
+    return np.stack(words, -1), valid
+
+
+@pytest.mark.parametrize("mis", ((0, 0), (1, 3), (2, 1), (3, 2)),
+                         ids=lambda m: f"codes+{m[0]}-valid+{m[1]}")
+@pytest.mark.parametrize("K", (2, 9) + WIDE_KS)
+def test_codes_kernel_window_model_matches_jax(K, mis):
+    """The model of kernel B's window keys and validity, with the tile rows
+    at every byte alignment, against device_pack_windows on the unpacked
+    tiles: reads with N runs (an N at a read's first and last position
+    too), reads shorter than K, a read longer than a tile."""
+    rng = np.random.default_rng(100 * K + mis[0])
+    T = tdev.TILE
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    seqs = []
+    for i in range(12):
+        read = rng.integers(0, 4, int(rng.integers(K - 2, 3 * K + 40)))
+        for _ in range(i % 3):
+            at = int(rng.integers(0, len(read)))
+            read[at: at + int(rng.integers(1, 6))] = 4
+        if i == 5:
+            read[0] = read[-1] = 4
+        seqs.append(letters[read].tobytes())
+    seqs.append(letters[rng.integers(0, 4, T + 2 * K)].tobytes())
+    t2, vb, _, _ = tile_pack2(seqs, K, T)
+    codes = tops.tile_codes(torch.from_numpy(t2), torch.from_numpy(vb),
+                            T + K - 1).numpy().astype(np.int32)
+    want_p, want_v = jops.device_pack_windows(jnp.asarray(codes), K)
+    want_p, want_v = np.asarray(want_p), np.asarray(want_v)
+    for c in range(len(t2)):
+        keys, valid = _model_tile(t2[c], vb[c], K, T, *mis, rng)
+        np.testing.assert_array_equal(valid, want_v[c])
+        np.testing.assert_array_equal(keys[valid], want_p[c][valid])
+    assert want_v.any() and not want_v.all()
+
+
+# --------------------------------------------------------------------------
+# the L2 controls and kernel_times.py
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits,K", ((4, 41), (8, 20)))
+def test_control_table_keeps_load_and_keys(bits, K):
+    """control_table: 2^log buckets at the source table's load, slots filled
+    from slot 0, each kept key found with its id by the plain lookup."""
+    from metagraph_tpu_torch.scripts.kernel_times import control_table
+    rng = np.random.default_rng(K)
+    n, nb = 8000, 1 << 12           # about 1.95 keys a bucket
+    keys = tops.pack_kmers32(rng.integers(1, 5 if bits == 4 else 21, (n, K))
+                             .astype(np.uint8), bits)
+    table = tops.DeviceHashIndex._build(keys, np.arange(1, n + 1,
+                                                        dtype=np.uint32), nb)
+    ctab = control_table(table.reshape(nb, -1), 8)
+    W = keys.shape[1]
+    assert ctab.shape == (256, tops.BUCKET * (W + 1))
+    tops.check_slot_fill(ctab)
+    slots = ctab.reshape(256, tops.BUCKET, W + 1)
+    slots = slots[slots[:, :, 0] != tops.EMPTY_WORD]
+    assert abs(len(slots) / 256 - n / nb) < 0.05
+    got = tops.key_lookup(np_words(slots[:, :W].copy()), np_words(ctab))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), slots[:, W])
+
+
+def test_kernel_times_rehearsal_takes_turns(tmp_path):
+    """kernel_times.py --rehearse on two trees (this one twice): every
+    phase at a tiny size on the CPU, each tree's turn in order and then in
+    reverse, exit code 2 and no result line."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "metagraph_tpu_torch", "scripts",
+                          "kernel_times.py")
+    out = subprocess.run([sys.executable, script, "--rehearse", "--root",
+                          root, "--root", root], capture_output=True,
+                         text=True, timeout=600, cwd=tmp_path)
+    assert out.returncode == 2, out.stderr[-2000:]
+    turns = [ln for ln in out.stdout.splitlines() if ln.startswith("turn ")]
+    assert len(turns) == 4
+    for name in ("key_lookup L2 control", "codes_lookup L2 control",
+                 "sw_scores", "selection_mask"):
+        assert sum(name in ln for ln in out.stdout.splitlines()) >= 4
+    assert not out.stdout.rstrip().endswith("}")
 
 
 # --------------------------------------------------------------------------
