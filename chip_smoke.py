@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of metagraph_tpu_torch on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N] [--out DIR]
+    python3 chip_smoke.py [--seed N] [--out DIR] [--work DIR]
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit.  It builds the port's kernels from ``metagraph_tpu_torch/csrc``,
@@ -37,6 +37,19 @@ then:
    payloads against the oracle, kernels A, B, 2 and 3 against their plain
    versions on each path's own inputs, and A and B again on L2-resident
    controls (2^15-bucket tables), also held against their plain versions;
+5a. drives the basic graph's table and batch with a converted annotation
+   of 4,096 labels ("many-labels"): each row of references 16-999 carries
+   1-3 random labels, each row of reference r < 16 carries pattern r of
+   48-64 labels.  It is saved as a ``.brwt.annodbg`` (the port's
+   ``BRWT.from_columns``, arity 2) with its ``.devsparse.npz`` (the port's
+   ``DeviceBlockSparseAnno.from_columns``, as ``transform_anno --anno-type
+   devsparse`` writes it), loaded back through ``load_annotation`` and
+   ``convert.from_annotation``, whose dense bitmap (4.15 GB) would pass
+   the 2 GiB budget, so the index is block-sparse: kernels 1, then S1 and
+   S2 in kernel 2's place, then 3.  Labels and matches modes; payloads
+   against the oracle; S1 and S2 against their plain versions exactly on
+   the path's own inputs (the long sequence puts more than 2^24 windows on
+   pattern 0), timed beside ``index_add_`` over the keys S1 forms;
 6. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
    300 and holds it against its plain version and, on a sample, the numpy
    oracle; then on 1,024 pairs of 1,000 x 1,000 and 256 pairs of 2,000 x
@@ -53,12 +66,13 @@ Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (kernels 1-3 once more
 for each of the primary and canonical deployments, kernels B, 2, 3 for
-k41 and A, 2, 3 for protein, named ``<kernel>/<deployment>``, and
+k41, A, 2, 3 for protein and 3 for many-labels, named
+``<kernel>/<deployment>``, and
 ``sw_scores/large`` and ``sw_scores/long`` for the other SW shapes), the
 last is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without CUDA the script exits 1 before printing a result.  Long compiler
-reports go to ``--out``.
+reports go to ``--out``; the many-labels annotation files to ``--work``.
 
 ``--rehearse`` runs the same phases at a tiny size on the CPU with the
 plain versions (no build, no card) and exits 2 without a result: a dry run
@@ -84,6 +98,10 @@ CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
 
 K41 = 41                       # the k41 deployment (codes route)
 KP = 20                        # the protein deployment (map route)
+# the least share of sampled sequences with a non-empty payload in every
+# run that is held against the oracle, so that it does not pass on empty
+# payloads against empty ones
+MIN_HIT_SHARE = 0.25
 AMINO = "ACDEFGHIKLMNPQRSTVWY"  # protein references; code 20 = outside
 
 FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
@@ -93,14 +111,14 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             plain_chunks=(1024, 256), coords_prefix=20_000,
             protein_len=8120, protein_repeat=(1000, 1300),
             gather=(22, (16, 17), 1024), gather_big=21, ctrl_log=15,
-            ctrl_rows=4096)
+            ctrl_rows=4096, many=(4096, 16, (48, 65)), anno_budget=2 << 30)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
             sw_oracle=4, plain_chunks=(16, 8), coords_prefix=100,
             protein_len=480, protein_repeat=(100, 160),
             gather=(12, (6, 7), 64), gather_big=9, ctrl_log=6,
-            ctrl_rows=64)
+            ctrl_rows=64, many=(256, 4, (8, 13)), anno_budget=1 << 16)
 
 
 def log(msg: str):
@@ -418,6 +436,95 @@ def make_protein_batch(cfg, rng, refs):
     return [letters[row].tobytes() for row in codes], list(codes)
 
 
+def make_many_labels(cfg, rng, oracle, index, out_dir):
+    """The many-labels annotation over the basic index's rows: every row
+    of references 16-999 carries its reference's label and 0-2 random
+    ones, every row of reference r < 16 carries pattern r (48-64 fixed labels; 4 patterns of 8-12 in a
+    rehearsal); a row of several such references carries the first one's.
+    Saved as a .brwt.annodbg with its .devsparse.npz, loaded back and
+    indexed with the basic index's keys -> (QueryIndex, oracle, seconds by
+    step)."""
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.annotation.column import LabelEncoder
+    from metagraph_tpu_torch.annotation.matrix import (BRWT,
+                                                       StaticAnnotation,
+                                                       load_annotation)
+    from metagraph_tpu_torch.annotation.sparse_device import \
+        DeviceBlockSparseAnno
+    from metagraph_tpu_torch.succinct.ops import pack_kmers32
+    L, n_pat, (lo, hi) = cfg["many"]
+    R = len(oracle["keys"])
+    t0 = time.perf_counter()
+    rows, refs = oracle["row_of_pair"], oracle["pair_label"]
+    patterns = [np.sort(rng.choice(L, int(rng.integers(lo, hi)),
+                                   replace=False)) for _ in range(n_pat)]
+    # a row's pattern: that of its first reference below n_pat (-1: none);
+    # other rows carry their first reference's own label r and 0-2 random
+    # ones (sorted, repeats dropped), so that a read of reference r passes
+    # the discovery fraction on the label ids of the table's entries.
+    # Pairs come out in (row, label) order with no global sort, by counts
+    # and offsets
+    first = np.full(R, L, np.int64)
+    np.minimum.at(first, rows, refs)
+    pid = np.where(first < n_pat, first, -1)
+    free = np.flatnonzero(pid < 0)
+    draw = rng.integers(0, L, (len(free), 3))
+    draw[:, 0] = first[free]
+    draw[np.arange(3)[None, :] > rng.integers(0, 3, len(free))[:, None]] = L
+    draw = np.sort(draw, axis=1)
+    keep = draw < L
+    keep[:, 1:] &= draw[:, 1:] != draw[:, :-1]
+    plen = np.array([len(p) for p in patterns] + [0])
+    nl = plen[pid]
+    nl[free] = keep.sum(axis=1)
+    csr_start = np.concatenate([[0], np.cumsum(nl)])
+    row_of_pair = np.repeat(np.arange(R), nl)
+    pair_label = np.empty(int(csr_start[-1]), np.int64)
+    pair_label[np.repeat(csr_start[free], 3).reshape(-1, 3)[keep]
+               + (np.cumsum(keep, axis=1) - 1)[keep]] = draw[keep]
+    prow = np.flatnonzero(pid >= 0)
+    table = np.zeros((n_pat, max(plen)), np.int64)
+    for i, p in enumerate(patterns):
+        table[i, :len(p)] = p
+    within = np.arange(len(row_of_pair)) - csr_start[row_of_pair]
+    at = np.flatnonzero(pid[row_of_pair] >= 0)
+    pair_label[at] = table[pid[row_of_pair[at]], within[at]]
+    o = dict(oracle, row_of_pair=row_of_pair, pair_label=pair_label,
+             mult=np.ones(len(pair_label), np.int64), L=L,
+             csr_start=csr_start)
+    # columns by a stable radix sort of the 16-bit labels
+    order = np.argsort(pair_label.astype(np.uint16), kind="stable")
+    starts = np.searchsorted(pair_label[order], np.arange(L + 1))
+    cols = [row_of_pair[order[starts[c]: starts[c + 1]]] for c in range(L)]
+    del order, within, at
+    secs = {"pairs": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    brwt = BRWT.from_columns(cols, R, L, linkage=False)
+    secs["BRWT"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = os.path.join(out_dir, "many_labels.brwt.annodbg")
+    StaticAnnotation(brwt, LabelEncoder([f"ref{c}" for c in range(L)]),
+                     "brwt").save(path)
+    del brwt
+    secs["save"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    DeviceBlockSparseAnno.from_columns(cols, R, L).save(
+        path + ".devsparse.npz")
+    secs["devsparse"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    anno = load_annotation(path)
+    index_m = convert.from_annotation(
+        pack_kmers32(key_chars(oracle["keys"])),
+        np.arange(1, R + 1, dtype=np.uint32), anno, K, R,
+        cache=path + ".devsparse.npz")
+    secs["load and index"] = time.perf_counter() - t0
+    if not isinstance(index_m.device_anno, DeviceBlockSparseAnno):
+        raise AssertionError("the many-labels index is not block-sparse")
+    if not np.array_equal(index_m.table, index.table):
+        raise AssertionError("the many-labels index has another table")
+    return index_m, o, secs
+
+
 def oracle_lookup(codes, o, canon):
     """Per window: the oracle row and whether the window hits.  canon 1
     looks up min(fwd, rc) in an oracle keyed so; canon 2 the forward key,
@@ -460,30 +567,40 @@ def oracle_payload(codes, mode, o, canon=0, period=0, df=0.7, pf=0.0,
         pos, hit = oracle_lookup(codes, o, canon)
     rows = pos[hit]
     present = len(rows)
-    lo, hi = o["csr_start"][rows], o["csr_start"][rows + 1]
-    span = hi - lo
-    pidx = np.repeat(lo - np.cumsum(np.concatenate([[0], span[:-1]])),
-                     span) + np.arange(span.sum())
-    labs = o["pair_label"][pidx]
-    counts = np.bincount(labs, minlength=o["L"])
+
+    def pairs_of(r):
+        """The oracle's (row, label) pair indices of rows ``r``, and each
+        row's span of them."""
+        lo, hi = o["csr_start"][r], o["csr_start"][r + 1]
+        span = hi - lo
+        return np.repeat(lo - np.cumsum(np.concatenate([[0], span[:-1]])),
+                         span) + np.arange(span.sum()), span
+    # counts over the distinct rows, each weighted by its windows
+    urows, rmult = np.unique(rows, return_counts=True)
+    upidx, uspan = pairs_of(urows)
+    weight = np.repeat(rmult, uspan)
+    counts = np.zeros(o["L"], np.int64)
+    np.add.at(counts, o["pair_label"][upidx], weight)
     if present < max(1.0, math.ceil(pf * nk)):
         return []
     min_count = int(max(1.0, math.ceil(df * nk)))
     if present < min_count:
         return []
-    sel = [c for c in range(o["L"]) if counts[c] >= min_count]
+    sel = np.flatnonzero(counts >= min_count).tolist()
     if mode == "labels":
         return [f"ref{c}" for c in sel]
     if mode == "counts-sum":
         # every window's occurrences of the label, summed
         sums = np.zeros(o["L"], np.int64)
-        np.add.at(sums, labs, o["mult"][pidx])
+        np.add.at(sums, o["pair_label"][upidx], o["mult"][upidx] * weight)
         sel = sorted(sel, key=lambda c: (-sums[c], c))[:top]
         return [(f"ref{c}", int(sums[c])) for c in sel]
     sel = sorted(sel, key=lambda c: (-counts[c], c))[:top]
     if mode == "matches":
         return [(f"ref{c}", int(counts[c])) for c in sel]
     out = []
+    pidx, span = pairs_of(rows)
+    labs = o["pair_label"][pidx]
     win = np.flatnonzero(hit)
     owner = np.repeat(np.arange(len(rows)), span)
     for c in sel:
@@ -547,10 +664,14 @@ def counters():
     from metagraph_tpu_torch.scripts.exp_gather import gather_loop, gather_take
     from metagraph_tpu_torch.succinct.ops import (codes_lookup, key_lookup,
                                                   wire_lookup)
+    from metagraph_tpu_torch.annotation.sparse_device import (
+        overflow_counts, sparse_label_counts)
     return {"wire_lookup": wire_lookup, "label_counts": label_counts,
             "selection_mask": selection_mask, "sw_scores": sw_scores,
             "gather_loop": gather_loop, "gather_take": gather_take,
-            "key_lookup": key_lookup, "codes_lookup": codes_lookup}
+            "key_lookup": key_lookup, "codes_lookup": codes_lookup,
+            "sparse_label_counts": sparse_label_counts,
+            "overflow_counts": overflow_counts}
 
 
 def run_path(fn):
@@ -611,6 +732,11 @@ def main_path(engine, seqs, codes, period, oracle, cfg, rng, torch, dev,
         hits = sum(bool(results[i].payload) for i in mine)
         log(f"  oracle: {len(mine)} sequences equal ({hits} with hits) "
             f"in {time.perf_counter() - t0:.1f} s")
+        if hits < MIN_HIT_SHARE * len(mine):
+            raise AssertionError(
+                f"{tag} {mode}: {hits} of {len(mine)} sampled sequences "
+                f"have hits, below {MIN_HIT_SHARE}: the payload check "
+                "holds too few labels")
         if mode == "counts" and period:
             long_res = results[-1].payload
             long_count = long_res[0][1] if long_res else 0
@@ -741,7 +867,7 @@ def count_select_checks(entries, engine, nodes, tile_seq, dsel, selmin,
     ``controls`` kernel 2's L2 control and kernel 3's selmin = 0 control."""
     from metagraph_tpu_torch.query import device as qd
     S, L = len(dsel), len(engine.labels)
-    bitmap = engine.annotation.bitmap
+    bitmap = engine.annotation
     _, c2 = cfg["plain_chunks"]
     counts, present = qd.label_counts(nodes, bitmap, tile_seq, S, L, offset)
     want = qd.label_counts_plain(nodes, bitmap, tile_seq, S, L, c2, offset)
@@ -880,6 +1006,107 @@ def key_checks(engine, seqs, cfg, torch, dev, tag):
         np.ascontiguousarray(rows1), tile_seq, dsel, selmin))
     count_select_checks(entries, engine, rows1, tile_seq, dsel, selmin, 0,
                         cfg, torch, dev, tag, controls=False)
+    return entries
+
+
+def sparse_checks(engine, seqs, cfg, torch, dev, tag):
+    """Kernels S1 and S2 against their plain versions on the many-labels
+    path's inputs (kernel 1's ids of the batch, packed as
+    query_batch_fused packs it), exactly; S1 timed beside index_add_ over
+    the keys it forms (built before the timer: a yardstick of the scatter
+    alone); then kernel 3 on their counts."""
+    from metagraph_tpu_torch._u32 import np_words, to_u64
+    from metagraph_tpu_torch.annotation import sparse_device as sd
+    from metagraph_tpu_torch.query import device as qd
+    from metagraph_tpu_torch.query.tile_pack import tile_pack2
+    anno = engine.annotation
+    S, L, P = len(seqs), anno.num_labels, anno.dense8.shape[0]
+    tau = anno.entries.shape[1]
+    tiles2, validb, tile_seq, nwins = tile_pack2(seqs, K, qd.TILE)
+    words, vwords = qd.wire_words_layout(tiles2, validb, K, qd.TILE,
+                                         len(tiles2))
+    dsel, selmin = qd._thresholds(nwins, 0.7, 0.0)
+    tile_seq, dsel, selmin = (torch.from_numpy(a).to(dev)
+                              for a in (tile_seq, dsel, selmin))
+    nodes = qd.wire_lookup(np_words(words).to(dev), np_words(vwords).to(dev),
+                           engine.hash_index.table, K, qd.TILE)
+    del words, vwords
+    c2 = cfg["plain_chunks"][1]
+
+    def zeros():
+        return (torch.zeros((S, L), dtype=torch.int32, device=dev),
+                torch.zeros(S, dtype=torch.int32, device=dev),
+                torch.zeros((S, P), dtype=torch.int32, device=dev))
+
+    def s1(out):
+        sd.sparse_label_counts(nodes, tile_seq, anno.entries, anno.dmap, *out)
+
+    def s1_plain(out):
+        sd.sparse_label_counts_plain(nodes, tile_seq, anno.entries,
+                                     anno.dmap, *out, chunk=c2)
+    got, want = zeros(), zeros()
+    s1(got)
+    s1_plain(want)
+    entries = {}
+    # bytes the data needs: the ids and tile owners, each distinct hit
+    # row's tau ids and pattern slot once, and the count, present and
+    # multiplicity cells written
+    rows = int(torch.unique(nodes[nodes > 0]).numel())
+    cells, pairs = int((got[0] > 0).sum()), int((got[2] > 0).sum())
+    scratch = zeros()
+    ms = device_ms(torch, dev, lambda: s1(scratch), 10)
+    scratch = zeros()
+    plain = device_ms(torch, dev, lambda: s1_plain(scratch), 1)
+    del scratch
+    add_entry(entries, torch, tag, "sparse_label_counts", got, want, ms,
+              plain, nodes.nbytes + tile_seq.nbytes + rows * (tau + 1) * 4
+              + cells * 4 + S * 4 + pairs * 4)
+    del want
+    keys = (tile_seq.long().repeat_interleave(qd.TILE)[:, None] * (L + 1)
+            + to_u64(anno.entries[nodes.reshape(-1).long()])).reshape(-1)
+    ones = torch.ones(keys.shape[0], dtype=torch.int32, device=dev)
+    buf = torch.zeros(S * (L + 1), dtype=torch.int32, device=dev)
+    lib = device_ms(torch, dev, lambda: buf.index_add_(0, keys, ones), 10)
+    entries["sparse_label_counts"]["library_ms"] = lib
+    log(f"  sparse_label_counts{tag}: {nodes.numel()} windows, {rows} "
+        f"distinct hit rows, tau {tau}, {cells} count cells, {pairs} "
+        f"(sequence, pattern) pairs; index_add_ of its {keys.shape[0]} keys "
+        f"{lib:.4f} ms")
+    del keys, ones, buf
+
+    counts, mult = got[0], got[2]
+    kern, ref = counts.clone(), counts.clone()
+    sd.overflow_counts(kern, mult, anno.dense8)
+    sd.overflow_counts_plain(ref, mult, anno.dense8)
+    nz = mult[:, 1:] > 0
+    seq_rows, pats = int(nz.any(1).sum()), int(nz.any(0).sum())
+    scratch = counts.clone()
+    ms = device_ms(torch, dev, lambda: sd.overflow_counts(
+        scratch, mult, anno.dense8), 20)
+    plain = device_ms(torch, dev, lambda: sd.overflow_counts_plain(
+        scratch, mult, anno.dense8), 1)
+    del scratch
+    # the multiplicities, each pattern row used and each counts row written
+    add_entry(entries, torch, tag, "overflow_counts", [kern], [ref], ms,
+              plain, mult.nbytes + pats * L + seq_rows * L * 4)
+    n = int(kern[S - 1].max())
+    log(f"  overflow_counts{tag}: {seq_rows} sequences on {pats} patterns; "
+        f"long sequence {nwins[-1]} windows, label count {n} (> 2^24: "
+        f"{n > 1 << 24}; float32 would hold {int(np.float32(n))})")
+    if cfg is FULL and not (n > 1 << 24 and int(np.float32(n)) != n):
+        raise AssertionError("the long sequence does not test the 2^24 bound")
+    del counts, mult, ref
+
+    present = got[1]
+    mask = qd.selection_mask(kern, present, dsel, selmin)
+    passing = int((present >= selmin).sum())
+    add_entry(entries, torch, tag, "selection_mask", [mask],
+              [qd.selection_mask_plain(kern, present, dsel, selmin)],
+              device_ms(torch, dev, lambda: qd.selection_mask(
+                  kern, present, dsel, selmin), 20),
+              device_ms(torch, dev, lambda: qd.selection_mask_plain(
+                  kern, present, dsel, selmin), 1),
+              passing * L * 4 + 3 * present.nbytes + mask.nbytes)
     return entries
 
 
@@ -1138,6 +1365,10 @@ SOURCES = {
                    "metagraph_tpu/succinct/ops.py:433"),
     "codes_lookup": ("metagraph_tpu_torch/csrc/codes_lookup.cu",
                      "metagraph_tpu/query/device.py:297"),
+    "sparse_label_counts": ("metagraph_tpu_torch/csrc/sparse_counts.cu",
+                            "metagraph_tpu/annotation/sparse_device.py:268"),
+    "overflow_counts": ("metagraph_tpu_torch/csrc/sparse_counts.cu",
+                        "metagraph_tpu/annotation/sparse_device.py:304"),
 }
 
 
@@ -1146,6 +1377,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "chip_smoke"))
+    ap.add_argument("--work", default=os.path.join(ROOT, "build",
+                                                   "chip_smoke_work"),
+                    help="where the many-labels annotation files go "
+                         "(a few hundred MB)")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny sizes on the CPU with the plain versions; "
                          "exits 2 without a result")
@@ -1157,8 +1392,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from metagraph_tpu_torch.query.pipeline import QueryEngine
     cfg = TINY if args.rehearse else FULL
+    if args.rehearse:
+        # tiny shapes gain nothing from threads, and a thread team that
+        # waits on its slowest member stalls when other processes load
+        # the CPU (the test suite runs this beside its own workers)
+        torch.set_num_threads(1)
     dev = torch.device("cpu" if args.rehearse else "cuda")
     os.makedirs(args.out, exist_ok=True)
+    os.makedirs(args.work, exist_ok=True)
     t_start = time.perf_counter()
     phases = {}
 
@@ -1174,7 +1415,8 @@ def main(argv=None) -> int:
     refs, index, oracle = timed("basic index", make_index, cfg, rng)
     log(f"index: {index.num_rows} k-mers (k = {K}), {len(index.labels)} "
         f"labels; hash table {index.table.shape} = {index.table.nbytes} B, "
-        f"bitmap {index.bitmap.shape} = {index.bitmap.nbytes} B; made in "
+        f"bitmap {index.device_anno.shape} = {index.device_anno.nbytes} B; "
+        f"made in "
         f"{phases['basic index']:.1f} s")
     engine = timed("uploads", QueryEngine, index, device=dev)
     seqs, codes, period = timed("batches", make_batch, cfg, rng, refs)
@@ -1183,6 +1425,31 @@ def main(argv=None) -> int:
     entries = timed("kernel checks", kernel_checks, engine, seqs, cfg, torch,
                     dev)
     del engine
+
+    # many-labels: the basic table and batch with a converted 4,096-label
+    # annotation past the dense budget (block-sparse: kernels 1, S1, S2, 3)
+    os.environ["METAGRAPH_DENSE_ANNO_BUDGET"] = str(cfg["anno_budget"])
+    rng4 = np.random.default_rng([args.seed, 4])
+    index_m, oracle_m, msecs = timed("many-labels index", make_many_labels,
+                                     cfg, rng4, oracle, index, args.work)
+    sp = index_m.device_anno
+    log(f"many-labels index: {len(index_m.labels)} labels, block-sparse "
+        f"entries {sp.entries.shape} = {sp.entries.nbytes} B (tau {sp.tau}), "
+        f"dmap {sp.dmap.nbytes} B, dense8 {sp.dense8.shape}; the dense "
+        f"bitmap would be {index_m.num_rows * (-(-sp.num_labels // 32)) * 4}"
+        " B; " + ", ".join(f"{k} {v:.1f} s" for k, v in msecs.items()))
+    engine = timed("uploads", QueryEngine, index_m, device=dev)
+    ml_launches = timed(
+        "query paths and oracle", main_path, engine, seqs, codes, period,
+        oracle_m, cfg, rng4, torch, dev, "many-labels (block-sparse)",
+        modes=("labels", "matches"),
+        kernels=("wire_lookup", "sparse_label_counts", "overflow_counts",
+                 "selection_mask"))
+    ml_entries = timed("kernel checks", sparse_checks, engine, seqs, cfg,
+                       torch, dev, " [many-labels]")
+    del engine, index_m, oracle_m, sp
+    for name in ("sparse_label_counts", "overflow_counts"):
+        launches[name], entries[name] = ml_launches[name], ml_entries.pop(name)
 
     # the primary graph (the basic index's k-mers queried through
     # CanonicalDBG: canon 2) and the canonical graph (both strands: canon
@@ -1193,7 +1460,7 @@ def main(argv=None) -> int:
     engine = timed("uploads", QueryEngine, dataclasses.replace(
         index, canon=2), device=dev)
     # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
-    more = {}
+    more = {"many_labels": (ml_launches, ml_entries)}
     more["primary"] = (
         timed("query paths and oracle", main_path, engine, seqs2, codes2,
               period2, oracle, cfg, rng2, torch, dev,
@@ -1205,7 +1472,8 @@ def main(argv=None) -> int:
                               index.labels)
     log(f"canonical index: {index_c.num_rows} k-mers (both strands), hash "
         f"table {index_c.table.shape} = {index_c.table.nbytes} B, bitmap "
-        f"{index_c.bitmap.shape} = {index_c.bitmap.nbytes} B; made in "
+        f"{index_c.device_anno.shape} = {index_c.device_anno.nbytes} B; "
+        f"made in "
         f"{phases['canonical index']:.1f} s")
     engine = timed("uploads", QueryEngine, index_c, device=dev)
     more["canonical"] = (
@@ -1222,7 +1490,8 @@ def main(argv=None) -> int:
                               index.labels)
     log(f"k41 index: {index41.num_rows} k-mers, hash table "
         f"{index41.table.shape} = {index41.table.nbytes} B, bitmap "
-        f"{index41.bitmap.shape} = {index41.bitmap.nbytes} B; made in "
+        f"{index41.device_anno.shape} = {index41.device_anno.nbytes} B; "
+        f"made in "
         f"{phases['k41 index']:.1f} s")
     long41 = long_sequence(cfg, refs[0], K41)
     seqs41 = seqs[:-1] + [np.frombuffer(b"ACGTN", np.uint8)[long41]
@@ -1246,7 +1515,8 @@ def main(argv=None) -> int:
                                      cfg, rng3, index.labels)
     log(f"protein index: {index_p.num_rows} k-mers, hash table "
         f"{index_p.table.shape} = {index_p.table.nbytes} B, bitmap "
-        f"{index_p.bitmap.shape} = {index_p.bitmap.nbytes} B; made in "
+        f"{index_p.device_anno.shape} = {index_p.device_anno.nbytes} B; "
+        f"made in "
         f"{phases['protein index']:.1f} s")
     pseqs, pcodes = timed("batches", make_protein_batch, cfg, rng3, prefs)
     engine = timed("uploads", QueryEngine, index_p, device=dev)
@@ -1276,7 +1546,8 @@ def main(argv=None) -> int:
                         "replaces": replaces, "launches": n,
                         "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                        "bound_by": e["bound_by"], "library_ms": None})
+                        "bound_by": e["bound_by"],
+                        "library_ms": e.get("library_ms")})
     log("kernels: " + ", ".join(
         f"{k['name']} launches={k['launches']} "
         f"match={'exact' if k['max_abs_err'] == 0 else 'NO'}"

@@ -6,7 +6,8 @@ optional per-entry k-mer counts (``vals_c``) and coordinates
 (``coords_c``: (row, coordinate) pairs sorted by row, then coordinate),
 and of its row queries ``get_rows_mask``, ``get_row_values`` and
 ``get_row_tuples`` (:232-291).  The "smallest" codec is not ported yet and
-raises.
+raises.  ``LabelEncoder`` (:21) is the label table that converted
+(``StaticAnnotation``) files hold.
 """
 
 from __future__ import annotations
@@ -14,6 +15,21 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+
+
+class LabelEncoder:
+    """label string <-> code; the attribute names are the JAX class's, so
+    that its pickles restore into this one."""
+
+    def __init__(self, labels: Sequence[str] = ()):
+        self._labels: List[str] = list(labels)
+
+    def decode(self, code: int) -> str:
+        return self._labels[code]
+
+    @property
+    def labels(self) -> List[str]:
+        return self._labels
 
 
 class ColumnMajorAnnotation:
@@ -117,7 +133,7 @@ class ColumnMajorAnnotation:
             if "codec" in z.files and str(z["codec"]) == "smallest":
                 raise NotImplementedError(
                     "the 'smallest' column codec is not ported yet "
-                    "(ROADMAP A7)")
+                    "(ROADMAP A8.3)")
             n = len(labels)
             return cls(int(z["num_rows"]), labels,
                        [z[f"rows_{c}"] for c in range(n)],

@@ -5,10 +5,15 @@ reads.fa`` takes the command lines of ``metagraph_tpu.cli query``
 (metagraph_tpu/cli/main.py:1454-1483, ``_add_common`` :16-27, the align
 scoring flags :30-45) and prints the bytes of its ``--device`` query
 (:792-853) for succinct graphs of every alphabet and k (a primary graph is
-queried through ``CanonicalDBG``, :800-802) and column annotations, in the
-six query modes.  ``--device`` is a flag, as there: the port always runs
-on the card, unless ``--torch-device cpu`` asks for the CPU, which runs the
-plain PyTorch versions of the kernels.  ``-o`` is accepted and unused and
+queried through ``CanonicalDBG``, :800-802) and column annotations or the
+annotations that ``transform_anno`` writes (a staged row-diff with its
+``.rd_succ``/``.anchors`` sidecars beside the graph), in the six query
+modes.  Past ``METAGRAPH_DENSE_ANNO_BUDGET`` a BRWT or row-diff
+annotation takes the block-sparse device form, cached beside it in
+``<annotation>.devsparse.npz`` as the JAX CLI caches it.  ``--device``
+is a flag, as there: the port always runs on the card, unless
+``--torch-device cpu`` asks for the CPU, which runs the plain PyTorch
+versions of the kernels.  ``-o`` is accepted and unused and
 ``--mmap`` changes nothing for the npz graphs the port loads, as in the
 JAX ``query``; ``-v`` prints progress lines on stderr.  The error contract
 is JAX ``main``'s (:1675-1686).

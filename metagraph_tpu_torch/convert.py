@@ -1,17 +1,20 @@
 """The query index: the host arrays a ``QueryEngine`` puts on the device.
 
 A ``QueryIndex`` is the hash table over the graph's k-mers (node ids as
-payload) and the dense ``(R, Lw)`` annotation bitmap, plus the label names
-and, for the counts mode, the column annotation that holds per-row values.
-It comes from
+payload) and one of two device annotations: the dense ``(R, Lw)`` bitmap,
+or past ``METAGRAPH_DENSE_ANNO_BUDGET`` a ``DeviceBlockSparseAnno``
+(``device_annotation``, the JAX package's choice); plus the label names
+and the host annotation that the payloads read.  It comes from
 
 * ``from_graph``/``load``: a basic, canonical or primary graph of any
-  alphabet and k and a column annotation, the JAX package's ``.dbg.npz``
-  and ``.column.annodbg.npz`` artifacts;
-* ``from_jax_arrays``: the JAX package's device state as numpy arrays, so
-  that both packages compute on the same state;
-* ``from_kmers``: packed k-mer keys and their node ids, for callers that
-  build an index without a graph file.
+  alphabet and k and any annotation that ``transform_anno`` writes, the
+  JAX package's ``.dbg.npz`` and ``.annodbg`` artifacts;
+* ``from_annotation``: packed k-mer keys, their node ids and an
+  annotation, for callers that build an index without a graph file;
+* ``from_jax_arrays`` (with ``from_jax_block_sparse``): the JAX package's
+  device state as numpy arrays, so that both packages compute on the same
+  state;
+* ``from_kmers``: packed k-mer keys, their node ids and a dense bitmap.
 
 The keys pack ``bits`` = 4 bits a code for the DNA family and 8 for
 Protein (``bits_for_alphabet``), W = ceil(k * bits / 32) words a key, as
@@ -20,20 +23,25 @@ metagraph_tpu's ``QueryEngine._build_device_index`` packs them.
 ``canon`` says how windows map to nodes (``query/device.py::wire_epoch``):
 0 for a basic graph, 1 for a canonical graph (the canonical strand is
 probed), 2 for a primary graph, which the JAX CLI queries through
-``CanonicalDBG``: the table and the bitmap cover the base graph, and
-reverse-complement hits carry ids above ``offset`` = the bitmap's rows =
-the base graph's ``max_index()``.
+``CanonicalDBG``: the table and the annotation cover the base graph, and
+reverse-complement hits carry ids above ``offset`` = the annotation's rows
+= the base graph's ``max_index()``.
 """
 
 from __future__ import annotations
 
+import os
+import zipfile
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Union
 
 import numpy as np
 
 from .annotation.column import ColumnMajorAnnotation
+from .annotation.matrix import BRWT, RowDiff, load_annotation
 from .annotation.ops import pack_annotation_bitmap
+from .annotation.sparse_device import (DeviceBlockSparseAnno,
+                                       check_block_sparse, rows_words)
 from .graph.dbg_succinct import DBGSuccinct
 from .kmer.alphabets import ALPHABETS
 from .kmer.packing import bits_for_alphabet
@@ -45,11 +53,14 @@ from .succinct.ops import (BUCKET, DeviceHashIndex, check_slot_fill,
 class QueryIndex:
     k: int
     table: np.ndarray       # (n_buckets, BUCKET * (W + 1)) uint32
-    bitmap: np.ndarray      # (R, Lw) uint32; row = node - 1
+    # the device annotation (``device_annotation``): an (R, Lw) uint32
+    # bitmap, row = node - 1, or a DeviceBlockSparseAnno past the budget
+    device_anno: Union[np.ndarray, DeviceBlockSparseAnno]
     labels: List[str]
-    # per-row values for the counts mode; None means a binary annotation,
-    # whose values are 0 (as the JAX package reports them)
-    annotation: Optional[ColumnMajorAnnotation] = None
+    # the host annotation the payloads read (a ColumnMajorAnnotation or a
+    # StaticAnnotation); None means a binary annotation, whose values are 0
+    # (as the JAX package reports them)
+    annotation: object = None
     canon: int = 0          # 0 basic, 1 canonical, 2 primary (CanonicalDBG)
     alphabet: str = "DNA"   # an ALPHABETS name
 
@@ -69,11 +80,14 @@ class QueryIndex:
             raise ValueError(f"hash table {self.table.shape} "
                              f"{self.table.dtype} does not fit k={self.k}")
         check_slot_fill(self.table)
-        Lw = max((len(self.labels) + 31) // 32, 1)
-        if self.bitmap.dtype != np.uint32 or self.bitmap.ndim != 2 \
-                or self.bitmap.shape[1] != Lw:
-            raise ValueError(f"bitmap {self.bitmap.shape} does not fit "
-                             f"{len(self.labels)} labels")
+        L = len(self.labels)
+        dev = self.device_anno
+        if isinstance(dev, DeviceBlockSparseAnno):
+            check_block_sparse(dev, L)
+        elif not isinstance(dev, np.ndarray) or dev.dtype != np.uint32 \
+                or dev.ndim != 2 or dev.shape[1] != max((L + 31) // 32, 1):
+            raise ValueError(f"bitmap {getattr(dev, 'shape', None)} does not "
+                             f"fit {L} labels")
         if 2 * self.offset >= 2 ** 31:
             raise ValueError(f"{self.num_rows} rows: canon 2 ids past 2^31")
 
@@ -84,26 +98,43 @@ class QueryIndex:
 
     @property
     def num_rows(self) -> int:
-        return self.bitmap.shape[0]
+        if isinstance(self.device_anno, DeviceBlockSparseAnno):
+            return self.device_anno.num_rows
+        return self.device_anno.shape[0]
 
     @property
     def offset(self) -> int:
         """canon 2: reverse-complement ids are base id + offset, and the
-        base graph's ids are the bitmap's rows; 0 otherwise."""
+        base graph's ids are the annotation's rows; 0 otherwise."""
         return self.num_rows if self.canon == 2 else 0
 
 
-def from_jax_arrays(table, bitmap, labels, k: int, num_rows: int,
-                    annotation: ColumnMajorAnnotation | None = None,
-                    canon: int = 0, alphabet: str = "DNA") -> QueryIndex:
-    """``table`` is ``np.asarray(engine._device_index.table)``; ``bitmap`` is
-    ``DeviceAnnotation.unpacked()`` or ``pack_annotation_bitmap(anno, R)``
-    (rows past ``num_rows`` are layout padding and dropped); ``canon`` is
-    the engine's ``_canon_mode()``; ``alphabet`` sets the key bits."""
+def from_jax_arrays(table, device_anno, labels, k: int, num_rows: int,
+                    annotation=None, canon: int = 0, alphabet: str = "DNA"
+                    ) -> QueryIndex:
+    """``table`` is ``np.asarray(engine._device_index.table)``;
+    ``device_anno`` is ``DeviceAnnotation.unpacked()`` or
+    ``pack_annotation_bitmap(anno, R)`` (rows past ``num_rows`` are layout
+    padding and dropped), or a block-sparse annotation
+    (``from_jax_block_sparse``); ``canon`` is the engine's
+    ``_canon_mode()``; ``alphabet`` sets the key bits."""
+    if not isinstance(device_anno, DeviceBlockSparseAnno):
+        device_anno = np.ascontiguousarray(
+            np.asarray(device_anno)[:num_rows], dtype=np.uint32)
     return QueryIndex(k, np.ascontiguousarray(table, dtype=np.uint32),
-                      np.ascontiguousarray(np.asarray(bitmap)[:num_rows],
-                                           dtype=np.uint32),
-                      list(labels), annotation, canon, alphabet)
+                      device_anno, list(labels), annotation, canon, alphabet)
+
+
+def from_jax_block_sparse(entries, dmap, dense8, tau: int,
+                          num_labels: int) -> DeviceBlockSparseAnno:
+    """A JAX ``DeviceBlockSparseAnno``'s state (``np.asarray`` of its
+    ``entries``, ``dmap`` and ``dense8``, its ``tau`` and ``num_labels``)
+    -> the port's."""
+    return DeviceBlockSparseAnno(
+        np.ascontiguousarray(entries, dtype=np.uint32),
+        np.ascontiguousarray(dmap, dtype=np.int32),
+        np.ascontiguousarray(dense8, dtype=np.int8), int(tau),
+        int(num_labels))
 
 
 def from_kmers(keys: np.ndarray, ids: np.ndarray, bitmap: np.ndarray,
@@ -119,14 +150,90 @@ def from_kmers(keys: np.ndarray, ids: np.ndarray, bitmap: np.ndarray,
                       list(labels), annotation, canon, alphabet)
 
 
-def from_graph(graph: DBGSuccinct,
-               annotation: ColumnMajorAnnotation) -> QueryIndex:
-    """A succinct graph + column annotation -> QueryIndex (the table of
-    metagraph_tpu's QueryEngine._build_device_index and the bitmap of
-    DeviceAnnotation.from_column_annotation): the table over the graph's
-    valid edges, the bitmap over its ``max_index()`` rows.  A primary graph
-    is queried as the JAX CLI queries it, through ``CanonicalDBG`` (canon
-    2, offset = its ``max_index()``)."""
+def pack_matrix_bitmap(matrix, num_rows: int) -> np.ndarray:
+    """Any host matrix -> (num_rows, ceil(L/32)) uint32 bitmap, 2^16 rows
+    at a time, through its packed rows where it has them (RowDiff's
+    ``get_rows_words``; the bool mask is 8x the bytes)."""
+    Lw = max((matrix.num_labels + 31) // 32, 1)
+    bm = np.zeros((num_rows, Lw), dtype=np.uint32)
+    step = 1 << 16
+    for lo in range(0, min(num_rows, matrix.num_rows), step):
+        rows = np.arange(lo, min(lo + step, matrix.num_rows))
+        bm[lo: lo + len(rows)] = rows_words(matrix, rows, Lw)
+    return bm
+
+
+def device_annotation(annotation, num_rows: int, cache: str | None = None):
+    """The device annotation that the JAX package's
+    ``_build_device_annotation`` (query/pipeline.py:270-355) chooses ->
+    a (num_rows, Lw) uint32 bitmap or a ``DeviceBlockSparseAnno``.  A BRWT
+    or RowDiff matrix whose bitmap would pass ``METAGRAPH_DENSE_ANNO_BUDGET``
+    bytes (2 GiB by default, as in the JAX package) takes the block-sparse
+    form: the ``cache`` file when its labels and rows match, else
+    ``from_matrix``, saved to ``cache``.  Every other annotation takes the
+    bitmap."""
+    matrix = getattr(annotation, "matrix", None)
+    budget = int(os.environ.get("METAGRAPH_DENSE_ANNO_BUDGET", 2 << 30))
+    if isinstance(matrix, (BRWT, RowDiff)) \
+            and not getattr(matrix, "needs_sidecars", False) \
+            and num_rows * max((matrix.num_labels + 31) // 32, 1) * 4 \
+            > budget:
+        return _block_sparse(matrix, num_rows, budget, cache)
+    if isinstance(annotation, ColumnMajorAnnotation):
+        return pack_annotation_bitmap(annotation, num_rows)
+    return pack_matrix_bitmap(matrix or annotation, num_rows)
+
+
+def _block_sparse(matrix, num_rows: int, budget: int, cache: str | None):
+    sp = None
+    if cache is not None and os.path.exists(cache):
+        try:
+            sp = DeviceBlockSparseAnno.load(cache)
+            # the JAX package's check (labels and rows), then the ranges
+            # that kernel S1 indexes with
+            if sp.entries.shape[0] != num_rows + 1:
+                sp = None
+            else:
+                check_block_sparse(sp, matrix.num_labels)
+        except (OSError, KeyError, ValueError, zipfile.BadZipFile):
+            sp = None      # an unreadable cache is rebuilt, as in JAX
+    if sp is None:
+        sp = DeviceBlockSparseAnno.from_matrix(matrix, num_rows,
+                                               max_dense_bytes=budget)
+        if sp is None:
+            raise NotImplementedError(
+                "the annotation's overflow patterns pass "
+                "METAGRAPH_DENSE_ANNO_BUDGET: the JAX package serves it on "
+                "the device BRWT / row-diff words route, which is not "
+                "ported yet (ROADMAP A9/B7)")
+        if cache is not None:
+            try:
+                sp.save(cache)
+            except OSError:
+                pass       # the cache is an optimisation
+    return sp
+
+
+def from_annotation(keys: np.ndarray, ids: np.ndarray, annotation, k: int,
+                    num_rows: int, canon: int = 0, alphabet: str = "DNA",
+                    cache: str | None = None) -> QueryIndex:
+    """Packed keys of distinct k-mers (as ``from_kmers`` takes them), their
+    node ids and an annotation of ``num_rows`` rows -> QueryIndex with the
+    device annotation of ``device_annotation``."""
+    dev = device_annotation(annotation, num_rows, cache)
+    table = DeviceHashIndex.build_table(
+        np.ascontiguousarray(keys, dtype=np.uint32), ids)
+    return QueryIndex(k, table, dev, list(annotation.labels), annotation,
+                      canon, alphabet)
+
+
+def from_graph(graph: DBGSuccinct, annotation,
+               cache: str | None = None) -> QueryIndex:
+    """A succinct graph + an annotation -> QueryIndex (the table of
+    metagraph_tpu's QueryEngine._build_device_index over the graph's valid
+    edges, the device annotation over its ``max_index()`` rows).  A primary
+    graph is queried as the JAX CLI queries it, through ``CanonicalDBG``
+    (canon 2, offset = its ``max_index()``)."""
     canon = {"basic": 0, "canonical": 1, "primary": 2}.get(graph.mode)
     if canon is None:
         raise NotImplementedError(
@@ -135,26 +242,26 @@ def from_graph(graph: DBGSuccinct,
     valid_edges = np.flatnonzero(boss.valid)
     keys = pack_kmers32(boss.get_edge_seq(valid_edges),
                         bits_for_alphabet(ALPHABETS[graph.alphabet].sigma))
-    bitmap = pack_annotation_bitmap(annotation, graph.max_index())
-    return from_kmers(keys, valid_edges.astype(np.uint32), bitmap,
-                      annotation.labels, graph.k, annotation, canon,
-                      graph.alphabet)
+    return from_annotation(keys, valid_edges.astype(np.uint32), annotation,
+                           graph.k, graph.max_index(), canon, graph.alphabet,
+                           cache)
+
+
+def load_annotation_for(graph_path: str, anno_path: str):
+    """``load_annotation``, then the staged row-diff sidecars
+    (``.rd_succ``/``.anchors`` beside the graph) where the matrix needs
+    them (metagraph_tpu/cli/main.py:69-77)."""
+    anno = load_annotation(anno_path)
+    if getattr(getattr(anno, "matrix", None), "needs_sidecars", False):
+        anno.matrix.attach_sidecars(graph_path)
+    return anno
 
 
 def load(graph_path: str, anno_path: str) -> QueryIndex:
-    """``.dbg``/``.dbg.npz`` graph + ``.column.annodbg(.npz)`` annotation,
-    loaded in that order; a missing file raises FileNotFoundError naming
-    it, as metagraph_tpu's loaders do."""
-    import errno
-    import os
+    """``.dbg``/``.dbg.npz`` graph + annotation, loaded in that order; a
+    missing file raises FileNotFoundError naming it, as metagraph_tpu's
+    loaders do.  A block-sparse annotation is cached in
+    ``<anno_path>.devsparse.npz``, where the JAX CLI caches it."""
     graph = DBGSuccinct.load(graph_path)
-    if not os.path.exists(anno_path):
-        if not os.path.exists(anno_path + ".npz"):
-            raise FileNotFoundError(errno.ENOENT, os.strerror(errno.ENOENT),
-                                    anno_path)
-        anno_path += ".npz"
-    if not anno_path.endswith(".column.annodbg.npz"):
-        raise NotImplementedError(
-            f"{anno_path}: only the column annotation (.column.annodbg.npz) "
-            "is ported; other representations wait for ROADMAP A8/A9")
-    return from_graph(graph, ColumnMajorAnnotation.load(anno_path))
+    return from_graph(graph, load_annotation_for(graph_path, anno_path),
+                      cache=anno_path + ".devsparse.npz")

@@ -15,7 +15,9 @@ wrappers of the hand-written kernels that replace them:
 
 Three epochs chain the kernels, each with the return contract of
 ``query_epoch_wire_buf`` (mask, counts, present, and the per-window ids
-where the epoch finds them):
+where the epoch finds them).  Each counts on the index's device
+annotation (``count_labels``): kernel 2 on a dense bitmap, kernels S1 and
+S2 (``annotation/sparse_device.py``) in its place on a block-sparse one:
 
 * ``wire_epoch``: kernels 1, 2, 3, for DNA graphs with 2 <= k <= 31
   (canon 0, 1 and 2 of ``_wire_epoch_core``);
@@ -41,6 +43,7 @@ import torch
 from .. import _build
 from .._u32 import to_i32, to_u64
 from ..annotation.ops import gather_anno_rows
+from ..annotation.sparse_device import SparseOnDevice, sparse_count_epoch
 from ..succinct.ops import codes_lookup, wire_lookup
 
 TILE = 256   # windows per tile
@@ -332,8 +335,18 @@ def selection_mask(counts: torch.Tensor, present: torch.Tensor,
 selection_mask.launches = 0
 
 
-def wire_epoch(table: torch.Tensor, bitmap: torch.Tensor,
-               words: torch.Tensor, vwords: torch.Tensor,
+def count_labels(anno, nodes: torch.Tensor, tile_seq: torch.Tensor,
+                 num_seqs: int, num_labels: int, offset: int = 0):
+    """(N, T) node ids (or rows + 1) -> ((S, L) counts, (S,) present) on a
+    device annotation: kernel 2 on an (R, Lw) bitmap tensor, S1 and S2 on
+    a ``SparseOnDevice``."""
+    if isinstance(anno, SparseOnDevice):
+        return sparse_count_epoch(anno, nodes, tile_seq, num_seqs, offset)
+    return label_counts(nodes, anno, tile_seq, num_seqs, num_labels, offset)
+
+
+def wire_epoch(table: torch.Tensor, anno, words: torch.Tensor,
+               vwords: torch.Tensor,
                tile_seq: torch.Tensor, dsel: torch.Tensor,
                selmin: torch.Tensor, num_seqs: int, num_labels: int, K: int,
                T: int = TILE, canon: int = 0, offset: int = 0):
@@ -342,40 +355,40 @@ def wire_epoch(table: torch.Tensor, bitmap: torch.Tensor,
     (S,), nodes (N, T)), the contract of query_epoch_wire_buf without its
     padding.  canon 0 = basic graph, 1 = canonical graph, 2 = primary graph
     through CanonicalDBG: ``nodes`` then carries reverse-complement hits as
-    base id + ``offset``, and the label counts use the base rows."""
+    base id + ``offset``, and the label counts use the base rows.  ``anno``
+    is the dense bitmap or a ``SparseOnDevice`` (``count_labels``)."""
     nodes = wire_lookup(words, vwords, table, K, T, canon, offset)
     # wire_lookup takes an offset with canon 2 only
-    counts, present = label_counts(nodes, bitmap, tile_seq, num_seqs,
+    counts, present = count_labels(anno, nodes, tile_seq, num_seqs,
                                    num_labels, offset)
     mask = selection_mask(counts, present, dsel, selmin)
     return mask, counts, present, nodes
 
 
-def codes_epoch(table: torch.Tensor, bitmap: torch.Tensor,
-                packed2: torch.Tensor, validb: torch.Tensor,
-                tile_seq: torch.Tensor, dsel: torch.Tensor,
-                selmin: torch.Tensor, num_seqs: int, num_labels: int, K: int,
-                T: int = TILE):
+def codes_epoch(table: torch.Tensor, anno, packed2: torch.Tensor,
+                validb: torch.Tensor, tile_seq: torch.Tensor,
+                dsel: torch.Tensor, selmin: torch.Tensor, num_seqs: int,
+                num_labels: int, K: int, T: int = TILE):
     """The codes epoch of a basic DNA graph at any K: (N, TKp/4) uint8
     2-bit code tiles, (N, ceil(TK/8)) uint8 valid bits (``tile_pack2``),
     (N,) tile_seq and (S,) thresholds -> (mask (S, Lw), counts (S, L),
     present (S,), nodes (N, T)), the contract of query_epoch_codes2 without
     its padding."""
     nodes = codes_lookup(packed2, validb, table, K, T)
-    counts, present = label_counts(nodes, bitmap, tile_seq, num_seqs,
+    counts, present = count_labels(anno, nodes, tile_seq, num_seqs,
                                    num_labels)
     mask = selection_mask(counts, present, dsel, selmin)
     return mask, counts, present, nodes
 
 
-def count_route(bitmap: torch.Tensor, rows1: torch.Tensor,
-                tile_seq: torch.Tensor, dsel: torch.Tensor,
-                selmin: torch.Tensor, num_seqs: int, num_labels: int):
+def count_route(anno, rows1: torch.Tensor, tile_seq: torch.Tensor,
+                dsel: torch.Tensor, selmin: torch.Tensor, num_seqs: int,
+                num_labels: int):
     """(N, T) tiled annotation rows + 1 (0 = miss; count_epoch_tiled's
     input), (N,) tile_seq and (S,) thresholds -> (mask (S, Lw), counts (S,
     L), present (S,)).  ``selmin`` is max(dmin, pmin), so the mask is
     _hits' ``counts >= dmin`` on the rows whose presence passes."""
-    counts, present = label_counts(rows1, bitmap, tile_seq, num_seqs,
+    counts, present = count_labels(anno, rows1, tile_seq, num_seqs,
                                    num_labels)
     mask = selection_mask(counts, present, dsel, selmin)
     return mask, counts, present

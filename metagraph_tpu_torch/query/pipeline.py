@@ -17,15 +17,22 @@ choose:
   A; ``execute_batch`` (:577-605) counts and selects on the host-tiled
   annotation rows with kernels 2 and 3 (``device.count_route``).
 
-The selection mask comes back to the host; ``_hits_from_mask`` (:466) and
-``_payloads_from_hits`` (:808) build the per-sequence payloads of the six
-modes there.  Per-window node ids are downloaded only for the modes that
-need positions.  The JAX package sends a sequence of 2^24 or more windows
-to the host counters, because its fused fold is a float32 matmul; the
-port's fold is integer, so such a sequence stays on its route.
+Each route counts on the index's device annotation: kernel 2 on a dense
+bitmap, kernels S1 and S2 on a block-sparse one (``query/device.py::
+count_labels``; the JAX package sends a block-sparse batch to
+``execute_batch``, whose counts are the same).  The selection mask comes
+back to the host; ``_hits_from_mask`` (:466) and ``_payloads_from_hits``
+(:808) build the per-sequence payloads of the six modes there, from the
+bitmap and the column annotation's values, or through a converted
+annotation's row queries (:835-906).  Per-window node ids are
+downloaded only for the modes that need positions.  The JAX package sends
+a sequence of 2^24 or more windows to the host counters, because its
+fused fold is a float32 matmul; the port's fold is integer, so such a
+sequence stays on its route.
 
-Scope: succinct graphs of every alphabet and k with a column annotation.
-Compressed annotations, the .seqs coordinate mapping and -p above 1 raise
+Scope: succinct graphs of every alphabet and k with a column annotation
+or any annotation that ``transform_anno`` writes.  The device BRWT and
+row-diff words route, the .seqs coordinate mapping and -p above 1 raise
 NotImplementedError elsewhere and name their ROADMAP items.
 """
 
@@ -40,7 +47,9 @@ import torch
 from .._u32 import np_words, words_np
 from ..annotation.annotated_dbg import (_top_n_sorted, graph_to_anno_index,
                                         row_multiset)
+from ..annotation.matrix import StaticAnnotation
 from ..annotation.ops import DeviceAnnotation
+from ..annotation.sparse_device import DeviceBlockSparseAnno, SparseOnDevice
 from ..convert import QueryIndex
 from ..device import resolve_device
 from ..kmer.alphabets import ALPHABETS
@@ -83,8 +92,17 @@ class QueryEngine:
         self.route = route_of(index)
         self.extractor = KmerExtractor(ALPHABETS[index.alphabet])
         self.hash_index = DeviceHashIndex.from_table(index.table, self.device)
-        self.annotation = DeviceAnnotation.from_bitmap(
-            index.bitmap, len(index.labels), self.device)
+        # the device annotation the epochs count on: the (R, Lw) bitmap
+        # tensor, or the block-sparse tensors
+        dev_anno = index.device_anno
+        self.annotation = (
+            SparseOnDevice.from_host(dev_anno, self.device)
+            if isinstance(dev_anno, DeviceBlockSparseAnno) else
+            DeviceAnnotation.from_bitmap(dev_anno, len(index.labels),
+                                         self.device).bitmap)
+        # payloads through the annotation's row queries (a converted
+        # annotation) rather than the bitmap and column values
+        self._by_rows = isinstance(index.annotation, StaticAnnotation)
         # host seconds of the last batch: packing, device (uploads,
         # kernels, downloads) and payload assembly
         self.last_batch_seconds = {}
@@ -134,14 +152,14 @@ class QueryEngine:
         t1 = time.perf_counter()
         if self.route == "wire":
             mask, counts, _, nodes_t = wire_epoch(
-                self.hash_index.table, self.annotation.bitmap,
+                self.hash_index.table, self.annotation,
                 np_words(words).to(self.device),
                 np_words(vwords).to(self.device), self._up(tile_seq),
                 self._up(dsel), self._up(selmin), S, L, k, TILE,
                 self.index.canon, self.index.offset)
         else:
             mask, counts, _, nodes_t = codes_epoch(
-                self.hash_index.table, self.annotation.bitmap,
+                self.hash_index.table, self.annotation,
                 self._up(tiles2), self._up(validb), self._up(tile_seq),
                 self._up(dsel), self._up(selmin), S, L, k, TILE)
         mask = words_np(mask)
@@ -252,7 +270,7 @@ class QueryEngine:
                                    presence_fraction)
         t1 = time.perf_counter()
         mask, counts, _ = count_route(
-            self.annotation.bitmap, self._up(tiles), self._up(tile_seq),
+            self.annotation, self._up(tiles), self._up(tile_seq),
             self._up(dsel), self._up(selmin), S, L)
         mask = words_np(mask)
         t2 = time.perf_counter()
@@ -281,7 +299,7 @@ class QueryEngine:
 
     def _label_rows(self, rows: np.ndarray, c: int) -> np.ndarray:
         """Which of ``rows`` carry label c, from the host bitmap."""
-        return ((self.index.bitmap[rows, c >> 5] >> np.uint32(c & 31))
+        return ((self.index.device_anno[rows, c >> 5] >> np.uint32(c & 31))
                 & np.uint32(1)).astype(bool)
 
     def _row_multiset_of(self, nodes: np.ndarray):
@@ -297,6 +315,12 @@ class QueryEngine:
         pairs = self._row_multiset_of(nodes)
         rows = np.array([r for r, _ in pairs], dtype=np.int64)
         mult = np.array([m for _, m in pairs], dtype=np.int64)
+        if self._by_rows:
+            sums = np.zeros(len(self.labels), dtype=np.int64)
+            for m, row_vals in zip(mult, anno.get_row_values(rows)):
+                for c, v in row_vals:
+                    sums[c] += v * m
+            return [(int(c), int(sums[c])) for c in csel]
         out = []
         for c in csel:
             has = self._label_rows(rows, int(c))
@@ -339,6 +363,10 @@ class QueryEngine:
             nodes = nodes_of(i)
             pos = np.flatnonzero(nodes > 0)
             rows = graph_to_anno_index(nodes[pos], self.index.offset)
+            if self._by_rows:
+                out.append(self._payload_by_rows(mode, selected, rows, pos,
+                                                 nk))
+                continue
             result = []
             for c, n in selected:
                 if mode == "coords":
@@ -363,6 +391,33 @@ class QueryEngine:
                     result.append((dec[c], n, ab))
             out.append(result)
         return out
+
+    def _payload_by_rows(self, mode, selected, rows, pos, nk):
+        """signature, counts or coords payload of one sequence through the
+        converted annotation's row queries (metagraph_tpu's
+        _payloads_from_hits, :872-906); a mode whose values or coordinates
+        the representation lacks raises its ValueError."""
+        anno, dec = self.index.annotation, self.labels
+        if mode == "signature":
+            mask = anno.get_rows_mask(rows)
+            out = []
+            for c, n in selected:
+                bits = np.zeros(nk, dtype=bool)
+                bits[pos[mask[:, c]]] = True
+                out.append((dec[c], n, bits))
+            return out
+        if mode == "counts":
+            per_row = anno.get_row_values(rows)
+            by_c = {c: np.zeros(nk, dtype=np.int64) for c, _ in selected}
+        else:
+            per_row = anno.get_row_tuples(rows)
+            by_c = {c: [[] for _ in range(nk)] for c, _ in selected}
+        for j, row in enumerate(per_row):
+            for c, v in row:
+                slot = by_c.get(c)
+                if slot is not None:
+                    slot[pos[j]] = v
+        return [(dec[c], n, by_c[c]) for c, n in selected]
 
     # -------------------------------------------------------------- query
     def query_records(self, records: Sequence, mode: str,

@@ -184,7 +184,7 @@ def test_wire_epoch_matches_jax(case):
     idx = _from_jax_arrays(case)
     assert (idx.canon, idx.offset) == (canon, offset)
     mask, counts, present, nodes = tdev.wire_epoch(
-        np_words(idx.table), np_words(idx.bitmap), np_words(words),
+        np_words(idx.table), np_words(idx.device_anno), np_words(words),
         np_words(vwords), torch.from_numpy(tile_seq),
         torch.from_numpy(dsel), torch.from_numpy(selmin), S, L, K, TILE,
         canon, offset)
@@ -199,7 +199,7 @@ def test_wire_epoch_matches_jax(case):
         assert (got > offset).sum() > 300
         # the rc hits count through their base rows
         fwd_only = tdev.label_counts(torch.where(nodes > offset, 0, nodes),
-                                     np_words(idx.bitmap),
+                                     np_words(idx.device_anno),
                                      torch.from_numpy(tile_seq), S, L)
         assert (counts - fwd_only[0]).sum() > 300
 
@@ -218,7 +218,7 @@ def test_payloads_match_jax(case, source, mode):
 def test_index_from_files_equals_jax_state(case):
     a, b = _from_jax_arrays(case), _from_files(case)
     assert a.table.tobytes() == b.table.tobytes()
-    np.testing.assert_array_equal(a.bitmap, b.bitmap)
+    np.testing.assert_array_equal(a.device_anno, b.device_anno)
     assert a.labels == b.labels
     assert (a.canon, a.offset) == (b.canon, b.offset)
     assert b.canon == (1 if case["mode"] == "canonical" else 2)

@@ -68,7 +68,7 @@ def test_wire_epoch_matches_jax(wire_case):
         c["S"], c["L"], K, TILE)
     idx = c["index"]
     mask, counts, present, nodes = tdev.wire_epoch(
-        np_words(idx.table), np_words(idx.bitmap), np_words(c["words"]),
+        np_words(idx.table), np_words(idx.device_anno), np_words(c["words"]),
         np_words(c["vwords"]), torch.from_numpy(c["tile_seq"]),
         torch.from_numpy(c["dsel"]), torch.from_numpy(c["selmin"]),
         c["S"], c["L"], K, TILE)

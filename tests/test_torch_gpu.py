@@ -21,6 +21,7 @@ from metagraph_tpu_torch._u32 import np_words
 from metagraph_tpu_torch.align.sw import (positions_per_lane, query_blocks,
                                           sw_scores)
 from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+from metagraph_tpu_torch.annotation import sparse_device as sd
 from metagraph_tpu_torch.annotation.ops import (DeviceAnnotation,
                                                pack_annotation_bitmap)
 from metagraph_tpu_torch.query import device as qd
@@ -78,7 +79,7 @@ def _wire_inputs(index, seqs, dev):
     words, vwords = qd.wire_words_layout(tiles2, validb, K, qd.TILE,
                                          len(tiles2))
     dsel, selmin = qd._thresholds(nwins, 0.6, 0.1)
-    t = [np_words(index.table), np_words(index.bitmap), np_words(words),
+    t = [np_words(index.table), np_words(index.device_anno), np_words(words),
          np_words(vwords)] + [torch.from_numpy(a)
                               for a in (tile_seq, dsel, selmin)]
     return [a.to(dev) for a in t]
@@ -475,7 +476,7 @@ def test_codes_lookup_matches_plain(cuda, K):
     index, seqs = _index(K, 300 + K)
     tiles2, validb, tile_seq, nwins = tile_pack2(seqs, K, qd.TILE)
     dsel, selmin = qd._thresholds(nwins, 0.6, 0.1)
-    args = [np_words(index.table), np_words(index.bitmap)] + [
+    args = [np_words(index.table), np_words(index.device_anno)] + [
         torch.from_numpy(a) for a in (tiles2, validb, tile_seq, dsel, selmin)]
     L = len(index.labels)
     want = qd.codes_epoch(*args, len(seqs), L, K)
@@ -611,3 +612,178 @@ def test_sw_kernel_query_blocks_match_plain(cuda, LQ, scores):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     assert sw_scores.launches == before + blocks and blocks > 1
+
+
+# --------------------------------------------------------------------------
+# kernels S1 and S2 (block-sparse annotation)
+# --------------------------------------------------------------------------
+
+def _sparse(rng, R, L, tau, n_patterns=4, pattern_rows=60):
+    """A block-sparse annotation: rows of 0-3 labels, and ``pattern_rows``
+    rows of one of ``n_patterns`` patterns of 20-40 labels."""
+    rows = [np.repeat(np.arange(R), 3), rng.choice(R, pattern_rows, False)]
+    labs = rng.integers(0, L, 3 * R)
+    keep = (rng.random(3 * R) < 0.5) & ~np.isin(rows[0], rows[1])
+    pats = [rng.choice(L, int(rng.integers(20, min(41, L))), replace=False)
+            for _ in range(n_patterns)]
+    pr = np.repeat(rows[1], [len(pats[i % n_patterns])
+                             for i in range(pattern_rows)])
+    pl = np.concatenate([pats[i % n_patterns] for i in range(pattern_rows)])
+    r = np.concatenate([rows[0][keep], pr])
+    c = np.concatenate([labs[keep], pl])
+    cols = [np.unique(r[c == j]) for j in range(L)]
+    sp = sd.DeviceBlockSparseAnno.from_columns(cols, R, L, tau)
+    assert sp.dense8.shape[0] == n_patterns + 1
+    return sp
+
+
+def _sparse_tiles(rng, R, S, offset, max_win=900):
+    nwins = rng.integers(0, max_win, S)
+    n = int(nwins.sum())
+    ids = rng.integers(1, R + 1, n).astype(np.int32)
+    ids[rng.random(n) < 0.1] = 0
+    if offset:
+        rc = (ids > 0) & (rng.random(n) < 0.4)
+        ids[rc] += offset
+    nodes, tile_seq = qd.tile_layout(
+        ids, np.repeat(np.arange(S, dtype=np.int32), nwins), S, fill=0)
+    return nodes, tile_seq
+
+
+def _s1_s2_vs_plain(anno, nodes, tile_seq, S, offset, dev):
+    """S1 and S2 on the card and their plain versions on the same inputs
+    -> the card's (counts, present, mult)."""
+    L, P = anno.num_labels, anno.dense8.shape[0]
+    out = {}
+    for name, s1, s2 in (("kernel", sd.sparse_label_counts,
+                          sd.overflow_counts),
+                         ("plain", sd.sparse_label_counts_plain,
+                          sd.overflow_counts_plain)):
+        c = torch.zeros((S, L), dtype=torch.int32, device=dev)
+        p = torch.zeros(S, dtype=torch.int32, device=dev)
+        m = torch.zeros((S, P), dtype=torch.int32, device=dev)
+        s1(nodes, tile_seq, anno.entries, anno.dmap, c, p, m, 0, offset)
+        before = c.clone()
+        s2(c, m, anno.dense8)
+        out[name] = (before, p, m, c)
+    torch.cuda.synchronize()
+    for g, w in zip(out["kernel"], out["plain"]):
+        assert torch.equal(g, w)
+    return out["kernel"]
+
+
+@pytest.mark.parametrize("canon", (0, 2))
+@pytest.mark.parametrize("L", (33, 100, 4096))
+@pytest.mark.parametrize("tau", (4, 16))
+def test_sparse_count_kernels_match_plain(cuda, tau, L, canon):
+    rng = np.random.default_rng(tau * 1000 + L + canon)
+    R, S = 5000, 97
+    anno = sd.SparseOnDevice.from_host(_sparse(rng, R, L, tau), cuda)
+    offset = R if canon == 2 else 0
+    nodes, tile_seq = _sparse_tiles(rng, R, S, offset)
+    nodes, tile_seq = (torch.from_numpy(a).to(cuda)
+                       for a in (nodes, tile_seq))
+    n1, n2 = sd.sparse_label_counts.launches, sd.overflow_counts.launches
+    _, _, mult, counts = _s1_s2_vs_plain(anno, nodes, tile_seq, S, offset,
+                                         cuda)
+    assert sd.sparse_label_counts.launches == n1 + 1
+    assert sd.overflow_counts.launches == n2 + 1
+    assert int(mult.sum()) > 0 and int(counts.max()) > 0
+    got = sd.sparse_count_epoch(anno, nodes, tile_seq, S, offset)
+    want = sd.sparse_counts_plain(anno, nodes, tile_seq, S, offset)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_sparse_counts_past_2_24_match_plain(cuda):
+    """A sequence of 2^24 + 1 windows on one overflow pattern: counts that
+    float32 cannot hold, exact."""
+    rng = np.random.default_rng(77)
+    R, L = 3000, 300
+    sp = _sparse(rng, R, L, 4, n_patterns=1)
+    row = int(np.flatnonzero(sp.dmap > 0)[0])
+    n = (1 << 24) + 1
+    nodes = np.zeros((-(-n // qd.TILE) + 2, qd.TILE), np.int32)
+    nodes[2:].reshape(-1)[:n] = row
+    nodes[:2] = rng.integers(0, R + 1, (2, qd.TILE))
+    tile_seq = np.array([0, 1] + [2] * (len(nodes) - 2), np.int32)
+    anno = sd.SparseOnDevice.from_host(sp, cuda)
+    nodes, tile_seq = (torch.from_numpy(a).to(cuda)
+                       for a in (nodes, tile_seq))
+    _, present, mult, counts = _s1_s2_vs_plain(anno, nodes, tile_seq, 3, 0,
+                                               cuda)
+    labels = np.flatnonzero(sp.dense8[sp.dmap[row]])
+    assert int(present[2]) == n and int(mult[2].max()) == n
+    assert (counts[2, torch.from_numpy(labels).to(cuda)] == n).all()
+    assert int(np.float32(n)) != n
+
+
+def test_sparse_label_counts_drops_out_of_range_windows(cuda):
+    """S1 with a mult buffer for sequences 5-14 of 20, and some ids past
+    the table or negative: the windows of other sequences are dropped and
+    the bad ids count as misses, so the counts equal the plain version's
+    on the windows in range; the rows around counts and mult stay zero."""
+    rng = np.random.default_rng(79)
+    R, L, S, lo, rows = 3000, 100, 20, 5, 10
+    sp = _sparse(rng, R, L, 4)
+    nodes, tile_seq = _sparse_tiles(rng, R, S, 0, max_win=300)
+    bad = rng.random(nodes.shape) < 0.02
+    nodes[bad] = rng.choice([-3, R + 1, R + 77, 2 ** 31 - 1], int(bad.sum()))
+    keep = (tile_seq >= lo) & (tile_seq < lo + rows)
+    clean = np.where(bad, 0, nodes)[keep]
+    P = sp.dense8.shape[0]
+    out = {}
+    for name, fn, n, ts in (
+            ("kernel", sd.sparse_label_counts, nodes, tile_seq),
+            ("plain", sd.sparse_label_counts_plain, clean, tile_seq[keep])):
+        anno = sd.SparseOnDevice.from_host(sp, cuda)
+        cbuf = torch.zeros((S + 2, L), dtype=torch.int32, device=cuda)
+        pbuf = torch.zeros(S + 2, dtype=torch.int32, device=cuda)
+        mbuf = torch.zeros((rows + 2, P), dtype=torch.int32, device=cuda)
+        fn(torch.from_numpy(np.ascontiguousarray(n)).to(cuda),
+           torch.from_numpy(np.ascontiguousarray(ts)).to(cuda),
+           anno.entries, anno.dmap, cbuf[1: S + 1], pbuf[1: S + 1],
+           mbuf[1: rows + 1], lo)
+        out[name] = (cbuf, pbuf, mbuf)
+    torch.cuda.synchronize()
+    for g, w in zip(out["kernel"], out["plain"]):
+        assert torch.equal(g, w)
+        assert not g[0].any() and not g[-1].any()
+    assert int(out["kernel"][0].sum()) > 0 and bad.any()
+
+
+def test_sparse_epoch_chunks_match_plain(cuda, monkeypatch):
+    rng = np.random.default_rng(78)
+    R, L, S = 4000, 500, 301
+    anno = sd.SparseOnDevice.from_host(_sparse(rng, R, L, 8), cuda)
+    nodes, tile_seq = _sparse_tiles(rng, R, S, R, max_win=400)
+    nodes, tile_seq = (torch.from_numpy(a).to(cuda)
+                       for a in (nodes, tile_seq))
+    want = sd.sparse_counts_plain(anno, nodes, tile_seq, S, R)
+    monkeypatch.setattr(sd, "MULT_BYTES", 40 * 4 * anno.dense8.shape[0])
+    got = sd.sparse_count_epoch(anno, nodes, tile_seq, S, R)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("canon", (0, 2))
+@pytest.mark.parametrize("mode", ("labels", "matches"))
+def test_sparse_query_engine_cuda_matches_cpu(cuda, mode, canon):
+    """The wire route with kernels S1 and S2 in kernel 2's place: a
+    block-sparse index (the column annotation's columns, and two rows
+    patterns of every label) on the card against the CPU."""
+    index, seqs = _index(31, 13, rc_share=0.4 if canon else 0.0)
+    L, R = len(index.labels), index.num_rows
+    cols = [np.unique(np.concatenate([index.annotation.column_rows(c),
+                                      np.arange(0, R, 7)]))
+            for c in range(L)]
+    index = dataclasses.replace(
+        index, annotation=None, canon=canon,
+        device_anno=sd.DeviceBlockSparseAnno.from_columns(cols, R, L, 4))
+    assert index.device_anno.dense8.shape[0] > 1
+    want = QueryEngine(index, device="cpu").query_batch(
+        seqs, mode, 3, 0.3, 0.1)
+    engine = QueryEngine(index, device=cuda)
+    n = sd.sparse_label_counts.launches
+    got = engine.query_batch(seqs, mode, 3, 0.3, 0.1)
+    assert sd.sparse_label_counts.launches > n
+    assert str(got) == str(want)
+    assert sum(bool(p) for p in want) > 10

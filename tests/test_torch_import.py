@@ -18,7 +18,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
 assert {"metagraph_tpu_torch.graph.canonical",
         "metagraph_tpu_torch.scripts.exp_gather",
-        "metagraph_tpu_torch.kmer.extractor"} <= set(names), names
+        "metagraph_tpu_torch.kmer.extractor",
+        "metagraph_tpu_torch.annotation.matrix",
+        "metagraph_tpu_torch.annotation.sparse_device",
+        "metagraph_tpu_torch.succinct.bitrank"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -34,7 +37,51 @@ def test_import_pulls_in_no_jax():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     n, bad = out.stdout.split()[0], out.stdout.strip().split(" ", 1)[1:]
-    assert int(n) >= 26
+    assert int(n) >= 29
+    assert bad == [], bad
+
+
+_LOAD_PROBE = """
+import sys
+from metagraph_tpu_torch.annotation.matrix import load_annotation
+anno = load_annotation(sys.argv[1])
+rows = anno.get_rows_mask(list(range(anno.num_rows)))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "metagraph_tpu"))
+print(type(anno.matrix).__module__, int(rows.sum()), ",".join(bad))
+"""
+
+
+@pytest.mark.parametrize("rep", ("brwt", "row_diff", "int_brwt",
+                                 "brwt_coord"))
+def test_loading_a_jax_pickle_pulls_in_no_jax(tmp_path, rep):
+    """A StaticAnnotation pickled by the JAX package (its classes' module
+    names) loads into the port's classes without importing jax or
+    metagraph_tpu."""
+    from metagraph_tpu.annotation.column import ColumnMajorAnnotation
+    from metagraph_tpu.annotation.matrix import (RowDiff, StaticAnnotation,
+                                                 convert_annotation)
+    rng = np.random.default_rng(4)
+    anno = ColumnMajorAnnotation(50)
+    for c in range(5):
+        rows = np.unique(rng.integers(0, 50, 12))
+        anno.add_label_counts(rows, rng.integers(1, 4, len(rows)), [f"l{c}"])
+        anno.add_label_coords(rows, rng.integers(0, 99, len(rows)), [f"l{c}"])
+    anno.freeze()
+    if rep == "row_diff":
+        m = convert_annotation(anno, "flat")
+        m = RowDiff(m, np.full(50, -1), np.ones(50, bool), 5)
+    else:
+        m = convert_annotation(anno, rep)
+    path = str(tmp_path / f"x.{rep}.annodbg")
+    StaticAnnotation(m, anno.encoder, rep).save(path)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _LOAD_PROBE, path],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    module, ones, *bad = out.stdout.split()
+    assert module == "metagraph_tpu_torch.annotation.matrix"
+    assert int(ones) == sum(len(anno.column_rows(c)) for c in range(5))
     assert bad == [], bad
 
 

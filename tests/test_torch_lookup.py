@@ -361,11 +361,11 @@ def test_codes_epoch_matches_jax(K):
     np.testing.assert_array_equal(vb, nv)
     dsel, selmin = tdev._thresholds(nwins, 0.6, 0.1)
     mask, counts, present, nodes = tdev.codes_epoch(
-        np_words(index.table), np_words(index.bitmap), torch.from_numpy(t2),
+        np_words(index.table), np_words(index.device_anno), torch.from_numpy(t2),
         torch.from_numpy(vb), torch.from_numpy(tile_seq),
         torch.from_numpy(dsel), torch.from_numpy(selmin), S, L, K)
     want = query_epoch_codes2(
-        jnp.asarray(index.table), jnp.asarray(index.bitmap), jnp.asarray(t2),
+        jnp.asarray(index.table), jnp.asarray(index.device_anno), jnp.asarray(t2),
         jnp.asarray(vb), jnp.asarray(tile_seq), jnp.asarray(dsel),
         jnp.asarray(selmin), S, L, K, tdev.TILE + K - 1)
     n = len(t2)
@@ -376,7 +376,7 @@ def test_codes_epoch_matches_jax(K):
     ex = KmerExtractor()
     tiles, tseq, _ = tile_codes_layout([ex.encode(s) for s in seqs], K)
     want_c = query_epoch_codes(jnp.asarray(index.table),
-                               jnp.asarray(index.bitmap), jnp.asarray(tiles),
+                               jnp.asarray(index.device_anno), jnp.asarray(tiles),
                                jnp.asarray(tseq), S, L, K)
     np.testing.assert_array_equal(counts.numpy(), np.asarray(want_c[0]))
     np.testing.assert_array_equal(nodes.numpy(), np.asarray(want_c[2])[:n])

@@ -104,7 +104,7 @@ def test_payloads_match_jax(case, source, mode):
 def test_index_from_files_equals_jax_state(case):
     a, b = _from_jax_arrays(case), _from_files(case)
     assert a.table.tobytes() == b.table.tobytes()
-    np.testing.assert_array_equal(a.bitmap, b.bitmap)
+    np.testing.assert_array_equal(a.device_anno, b.device_anno)
     assert a.labels == b.labels
 
 
@@ -138,19 +138,19 @@ def test_thresholds_follow_get_min_count():
 
 def test_out_of_scope_raises(case):
     """counts-sum and coords, once refused, now give the JAX engine's
-    payloads; compressed annotations and reference-format graphs still
-    raise and name their ROADMAP items."""
+    payloads; reference-format annotations and graphs still raise and name
+    their ROADMAP items (converted annotations load: test_torch_matrix)."""
     engine = QueryEngine(_from_files(case), device="cpu")
     for mode in ("counts-sum", "coords"):
         want = case["jax_engine"].query_batch_fused(case["queries"], mode, 3,
                                                     0.6, 0.05)
         got = engine.query_batch_fused(case["queries"], mode, 3, 0.6, 0.05)
         assert _norm(got) == _norm(want) and any(want)
-    brwt = case["tmp"] / "a.brwt.annodbg"
-    brwt.write_bytes(b"not read")
+    ref_anno = case["tmp"] / "ref.column.annodbg"
+    ref_anno.write_bytes(b"\x00\x01 a reference-format annotation")
     ref_dbg = case["tmp"] / "ref.dbg"
     ref_dbg.write_bytes(b"\x00\x01 a reference-format graph")
-    for graph, anno in ((case["tmp"] / "g.dbg", brwt),
+    for graph, anno in ((case["tmp"] / "g.dbg", ref_anno),
                         (ref_dbg, case["tmp"] / "a.column.annodbg")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             convert.load(str(graph), str(anno))
