@@ -49,7 +49,9 @@ then:
    S2 in kernel 2's place, then 3.  Labels and matches modes; payloads
    against the oracle; S1 and S2 against their plain versions exactly on
    the path's own inputs (the long sequence puts more than 2^24 windows on
-   pattern 0), timed beside ``index_add_`` over the keys S1 forms;
+   pattern 0), S1 timed beside ``index_add_`` over the keys it forms (and
+   the 32 B sectors its data touches printed beside its bound), S2 beside
+   ``torch.mm`` in float64, which computes its function exactly;
 6. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
    300 and holds it against its plain version and, on a sample, the numpy
    oracle; then on 1,024 pairs of 1,000 x 1,000 and 256 pairs of 2,000 x
@@ -1014,7 +1016,9 @@ def sparse_checks(engine, seqs, cfg, torch, dev, tag):
     path's inputs (kernel 1's ids of the batch, packed as
     query_batch_fused packs it), exactly; S1 timed beside index_add_ over
     the keys it forms (built before the timer: a yardstick of the scatter
-    alone); then kernel 3 on their counts."""
+    alone), S2 beside torch.mm in float64 over the multiplicities and the
+    patterns (converted before the timer); then kernel 3 on their
+    counts."""
     from metagraph_tpu_torch._u32 import np_words, to_u64
     from metagraph_tpu_torch.annotation import sparse_device as sd
     from metagraph_tpu_torch.query import device as qd
@@ -1062,6 +1066,21 @@ def sparse_checks(engine, seqs, cfg, torch, dev, tag):
               plain, nodes.nbytes + tile_seq.nbytes + rows * (tau + 1) * 4
               + cells * 4 + S * 4 + pairs * 4)
     del want
+    # for information beside the bound: the 32 B sectors the data makes
+    # S1 touch, each hit window's row record and each counts sector that a
+    # flush adds to (a read's flush adds each of its labels once)
+    hits = int((nodes > 0).sum())
+    rec_sectors = hits * anno.record.shape[1] * 4 // 32
+    n8 = -(-L // 8)
+    cnt_sectors = int(torch.nn.functional.pad(
+        (got[0] > 0).to(torch.int8), (0, 8 * n8 - L)).view(S, n8, 8)
+        .any(-1).sum())
+    sectors = rec_sectors + cnt_sectors + pairs + int((got[1] > 0).sum())
+    log(f"  sparse_label_counts{tag}: 32 B sectors touched: {rec_sectors} "
+        f"row records ({hits} hit windows on {rows} distinct rows), "
+        f"{cnt_sectors} counts, {pairs} multiplicities and the present "
+        f"counts: {sectors * 32} B, {sectors * 32 / HBM_BYTES_PER_S * 1e3:.4f}"
+        f" ms at {HBM_BYTES_PER_S / 1e12} TB/s")
     keys = (tile_seq.long().repeat_interleave(qd.TILE)[:, None] * (L + 1)
             + to_u64(anno.entries[nodes.reshape(-1).long()])).reshape(-1)
     ones = torch.ones(keys.shape[0], dtype=torch.int32, device=dev)
@@ -1089,6 +1108,18 @@ def sparse_checks(engine, seqs, cfg, torch, dev, tag):
     # the multiplicities, each pattern row used and each counts row written
     add_entry(entries, torch, tag, "overflow_counts", [kern], [ref], ms,
               plain, mult.nbytes + pats * L + seq_rows * L * 4)
+    # yardstick: one float64 product computes S2's function (integers
+    # below 2^53 are exact), its operands converted before the timer
+    m64, d64 = mult.double(), anno.dense8.double()
+    prod = torch.mm(m64, d64)
+    if not torch.equal(prod, (kern - counts).double()):
+        raise AssertionError("the float64 product disagrees with S2")
+    del prod
+    entries["overflow_counts"]["library_ms"] = device_ms(
+        torch, dev, lambda: torch.mm(m64, d64), 10)
+    del m64, d64
+    log(f"  overflow_counts{tag}: torch.mm in float64 "
+        f"{entries['overflow_counts']['library_ms']:.4f} ms")
     n = int(kern[S - 1].max())
     log(f"  overflow_counts{tag}: {seq_rows} sequences on {pats} patterns; "
         f"long sequence {nwins[-1]} windows, label count {n} (> 2^24: "
@@ -1439,6 +1470,9 @@ def main(argv=None) -> int:
         f"bitmap would be {index_m.num_rows * (-(-sp.num_labels // 32)) * 4}"
         " B; " + ", ".join(f"{k} {v:.1f} s" for k, v in msecs.items()))
     engine = timed("uploads", QueryEngine, index_m, device=dev)
+    log(f"many-labels on the card: row records "
+        f"{tuple(engine.annotation.record.shape)} = "
+        f"{engine.annotation.record.nbytes} B")
     ml_launches = timed(
         "query paths and oracle", main_path, engine, seqs, codes, period,
         oracle_m, cfg, rng4, torch, dev, "many-labels (block-sparse)",

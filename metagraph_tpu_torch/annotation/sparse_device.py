@@ -24,12 +24,16 @@ plain PyTorch version (int64 ``index_add_``) that CPU tensors take:
 
 ``sparse_count_epoch`` chains them.  It keeps the multiplicities as a
 dense (sequences, Rd+1) buffer of at most ``MULT_BYTES``, one chunk of
-sequences at a time.
+sequences at a time.  On the card the label ids and slots sit in one row
+record a row (``row_records``; ``SparseOnDevice.entries`` and ``dmap`` are
+views of it), and S1 tallies each block's run of tiles in shared memory as
+``label_count_plan`` lays it out.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +43,9 @@ from .. import _build
 from .._u32 import np_words, to_u64
 
 MULT_BYTES = 1 << 28     # multiplicity buffer of one chunk of sequences
+S1_THREADS = 256         # kernel S1's largest block
+DENSE_BINS = 8192        # L + P past this: S1 tallies in a hash table
+S1_SMEM = 200 << 10      # S1's shared memory a block, at most
 
 
 @dataclass
@@ -239,22 +246,52 @@ def _popcount_rows(words: np.ndarray) -> np.ndarray:
 
 @dataclass
 class SparseOnDevice:
-    """A DeviceBlockSparseAnno's arrays as tensors: ``entries`` (R+1, tau)
-    int32 bit patterns of the uint32 label ids, ``dmap`` (R+1,) int32,
-    ``dense8`` (Rd+1, L) int8."""
+    """A DeviceBlockSparseAnno's arrays as tensors: ``record`` (R+1, W)
+    int32 row records (``row_records``), which kernel S1 reads; ``entries``
+    (R+1, tau) int32 bit patterns of the uint32 label ids and ``dmap``
+    (R+1,) int32 are views of it; ``dense8`` (Rd+1, L) int8."""
     entries: torch.Tensor
     dmap: torch.Tensor
     dense8: torch.Tensor
     num_labels: int
+    record: torch.Tensor
 
     @classmethod
     def from_host(cls, sp: DeviceBlockSparseAnno, device) -> "SparseOnDevice":
-        return cls(np_words(sp.entries).to(device),
-                   torch.from_numpy(np.require(
-                       sp.dmap, np.int32, ["C", "W"])).to(device),
+        record = row_records(
+            np_words(sp.entries),
+            torch.from_numpy(np.require(sp.dmap, np.int32, ["C", "W"]))
+        ).to(device)
+        tau = sp.entries.shape[1]
+        return cls(record[:, :tau], record[:, tau],
                    torch.from_numpy(np.require(
                        sp.dense8, np.int8, ["C", "W"])).to(device),
-                   sp.num_labels)
+                   sp.num_labels, record)
+
+
+def row_records(entries: torch.Tensor, dmap: torch.Tensor) -> torch.Tensor:
+    """(R+1, tau) label ids and (R+1,) pattern slots (int32) -> the (R+1, W)
+    int32 row records that kernel S1 reads: W = 8 ceil((tau + 1) / 8)
+    words, the tau label ids, then the slot, then zeros, so that a row of
+    tau <= 7 is one 32-byte sector (the ids and the slot apart are two)."""
+    n, tau = entries.shape
+    rec = torch.zeros((n, 8 * -(-(tau + 1) // 8)), dtype=torch.int32,
+                      device=entries.device)
+    rec[:, :tau] = entries
+    rec[:, tau] = dmap
+    return rec
+
+
+def _record_of(entries: torch.Tensor, dmap: torch.Tensor):
+    """The row records that ``entries`` and ``dmap`` are views of, as
+    SparseOnDevice holds them, or None."""
+    tau, W = entries.shape[1], entries.stride(0)
+    if entries.stride(1) == 1 and W % 8 == 0 and W > tau \
+            and dmap.stride(0) == W \
+            and dmap.data_ptr() == entries.data_ptr() + 4 * tau \
+            and entries.data_ptr() % 32 == 0:
+        return entries.as_strided((entries.shape[0], W), (W, 1))
+    return None
 
 
 # --------------------------------------------------------------------------
@@ -327,19 +364,73 @@ def sparse_counts_plain(anno: SparseOnDevice, nodes, tile_seq,
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 
 
-def _check(dev, dtype, **tensors):
+def _check(dev, dtype, contiguous=True, **tensors):
     for name, t in tensors.items():
-        if t.dtype != dtype or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor "
-                             f"on {dev}")
+        if t.dtype != dtype or t.device != dev \
+                or contiguous and not t.is_contiguous():
+            raise ValueError(f"{name} must be a {'contiguous ' * contiguous}"
+                             f"{dtype} tensor on {dev}")
 
 
-def _grid(dev, blocks: int) -> int:
-    """At most 8 blocks an SM of a grid-stride loop."""
-    index = dev.index if dev.index is not None else \
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else \
         torch.cuda.current_device()
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return max(1, min(blocks, 8 * sms))
+
+
+def _sms(dev) -> int:
+    return torch.cuda.get_device_properties(
+        _device_index(dev)).multi_processor_count
+
+
+@dataclass(frozen=True)
+class LabelCountPlan:
+    """Kernel S1's tally a block: ``threads`` windows a step, each bringing
+    at most ``tau`` + 1 keys (``step_keys`` a step).  Dense (``hashed``
+    False): ``slots`` = L + P counts indexed by key.  Hashed: a table of
+    ``slots`` (a power of two) keys and counts, flushed before a step could
+    take it past 3/4 full.  ``smem``: dynamic shared memory bytes (counts,
+    keys when hashed, and a uint16 list of the slots in use)."""
+    threads: int
+    hashed: bool
+    slots: int
+    step_keys: int
+    smem: int
+
+
+def label_count_plan(T: int, tau: int, L: int, P: int) -> LabelCountPlan:
+    """S1's plan for tiles of T windows, rows of tau label ids, L labels
+    and P pattern slots: dense when L + P <= DENSE_BINS, else hashed with
+    the most threads (a multiple of 32, at most min(T, S1_THREADS)) whose
+    table fits S1_SMEM."""
+    if T < 32 or T % 32 or tau < 1 or L < 0 or P < 1:
+        raise ValueError(f"bad S1 plan: T {T}, tau {tau}, L {L}, P {P}")
+    threads = min(T, S1_THREADS)
+    if L + P <= DENSE_BINS:
+        return LabelCountPlan(threads, False, L + P, threads * (tau + 1),
+                              (L + P) * 6)
+    while threads >= 32:
+        step = threads * (tau + 1)
+        slots = 1 << (-(-step * 4 // 3) - 1).bit_length()
+        if slots * 10 <= S1_SMEM:
+            return LabelCountPlan(threads, True, slots, step, slots * 10)
+        threads -= 32
+    raise ValueError(f"S1 cannot tally rows of {tau} label ids in "
+                     f"{S1_SMEM} bytes")
+
+
+@functools.lru_cache(maxsize=32)
+def _s1_blocks_per_sm(hashed: bool, threads: int, smem: int,
+                      device_index: int) -> int:
+    fn = _build.function("sparse_counts", "mg_sparse_label_counts_occupancy",
+                         [_I, _I, _I, ctypes.POINTER(ctypes.c_int32)])
+    blocks = ctypes.c_int32(0)
+    with torch.cuda.device(device_index):
+        _build.check(fn(int(hashed), threads, smem, ctypes.byref(blocks)),
+                     "sparse_label_counts occupancy")
+    if blocks.value < 1:
+        raise RuntimeError(f"sparse_label_counts: no block of {threads} "
+                           f"threads and {smem} B fits an SM")
+    return blocks.value
 
 
 def sparse_label_counts(nodes, tile_seq, entries, dmap, counts, present,
@@ -351,10 +442,13 @@ def sparse_label_counts(nodes, tile_seq, entries, dmap, counts, present,
     The kernel drops the windows of sequences outside [seq_lo, seq_lo +
     rows), label ids past L and slots past Rd; the plain version raises on
     them.  CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/sparse_counts.cu`` or raise."""
+    ``csrc/sparse_counts.cu`` or raise.  On the card ``entries`` and
+    ``dmap`` must be the views of row records that a SparseOnDevice holds
+    (``row_records``): the kernel reads a window's record whole."""
     dev = nodes.device
-    _check(dev, torch.int32, nodes=nodes, tile_seq=tile_seq, entries=entries,
-           dmap=dmap, counts=counts, present=present, mult=mult)
+    _check(dev, torch.int32, nodes=nodes, tile_seq=tile_seq, counts=counts,
+           present=present, mult=mult)
+    _check(dev, torch.int32, False, entries=entries, dmap=dmap)
     N, T = nodes.shape
     S, L = counts.shape
     if T % 32 or tile_seq.shape != (N,) or entries.ndim != 2 \
@@ -373,15 +467,25 @@ def sparse_label_counts(nodes, tile_seq, entries, dmap, counts, present,
         raise ValueError(f"unsupported device {dev}")
     if N == 0:
         return
+    tau, P = entries.shape[1], mult.shape[1]
+    if L + P >= 2 ** 31 - 1:
+        raise ValueError(f"{L} labels and {P} patterns pass S1's keys")
+    plan = label_count_plan(T, tau, L, P)
+    grid = min(N, _sms(dev) * _s1_blocks_per_sm(
+        plan.hashed, plan.threads, plan.smem, _device_index(dev)))
+    rec = _record_of(entries, dmap)
+    if rec is None:
+        raise ValueError("on the card, entries and dmap must be views of "
+                         "row records (SparseOnDevice, row_records)")
     fn = _build.function("sparse_counts", "mg_sparse_label_counts",
-                         [_P, _L, _I, _P, _P, _L, _I, _P, _P, _I, _P, _P, _I,
-                          _I, _I, _I, _I, _P])
-    _build.check(fn(nodes.data_ptr(), N * T, T, tile_seq.data_ptr(),
-                    entries.data_ptr(), entries.shape[0], entries.shape[1],
-                    dmap.data_ptr(), counts.data_ptr(), L, present.data_ptr(),
-                    mult.data_ptr(), mult.shape[1], seq_lo,
-                    seq_lo + mult.shape[0], offset,
-                    _grid(dev, -(-N * T // 256)),
+                         [_P, _L, _I, _P, _P, _L, _I, _I, _P, _I, _P, _P, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _P])
+    _build.check(fn(nodes.data_ptr(), N, T, tile_seq.data_ptr(),
+                    rec.data_ptr(), rec.shape[0], rec.shape[1], tau,
+                    counts.data_ptr(), L, present.data_ptr(),
+                    mult.data_ptr(), P, seq_lo, seq_lo + mult.shape[0],
+                    offset, int(plan.hashed), plan.slots, plan.step_keys,
+                    plan.threads, plan.smem, grid,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "sparse_label_counts")
     sparse_label_counts.launches += 1
@@ -411,9 +515,13 @@ def overflow_counts(counts, mult, dense8, seq_lo: int = 0):
     if rows == 0:
         return
     fn = _build.function("sparse_counts", "mg_overflow_counts",
-                         [_P, _I, _P, _L, _I, _P, _L, _I, _P])
+                         [_P, _I, _P, _L, _I, _P, _L, _I, _I, _P])
+    vec = L % 16 == 0 and counts.data_ptr() % 16 == 0 \
+        and dense8.data_ptr() % 16 == 0
+    # a warp a row, 8 warps a block, at most 8 blocks an SM
+    grid = min(-(-rows // 8), 8 * _sms(dev))
     _build.check(fn(counts.data_ptr(), L, mult.data_ptr(), rows, P,
-                    dense8.data_ptr(), seq_lo, _grid(dev, rows),
+                    dense8.data_ptr(), seq_lo, int(vec), grid,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "overflow_counts")
     overflow_counts.launches += 1

@@ -1,6 +1,7 @@
-"""Time kernels A, B, 3 and 4 (``key_lookup``, ``codes_lookup``,
-``selection_mask``, ``sw_scores``) of one or more trees of the port on the
-card, each held exactly against its plain version.
+"""Time kernels A, B, 3, 4, S1 and S2 (``key_lookup``, ``codes_lookup``,
+``selection_mask``, ``sw_scores``, ``sparse_label_counts``,
+``overflow_counts``) of one or more trees of the port on the card, each
+held exactly against its plain version.
 
     python metagraph_tpu_torch/scripts/kernel_times.py [--root DIR ...]
 
@@ -28,7 +29,26 @@ wrappers take the same arguments.  The inputs come from fixed seeds:
   ragged padding on both sides), default scores;
 * ``selection_mask`` on (150,001, 1,000) int32 counts (the query
   deployments' shape) with every row's presence passing (selmin = 0) and
-  with half of the rows failing it.
+  with half of the rows failing it;
+* ``sparse_label_counts`` (S1) at the many-labels deployment's shapes,
+  with no graph build: R = 8,100,000 rows, 8,100 of each of 1,000
+  references at random (BOSS-order) ids; a row of reference r >= 16
+  carries label r and 0-2 random ones (tau = 4), a row of reference r < 16
+  overflow pattern r (48-64 labels; 17 rows of ``dense8``), L = 4,096.
+  150,000 reads of 170 windows in 256-window tiles (a reference and a
+  start at random; 10% reverse complemented, which miss; 1% substitutions
+  and 3% with an N run, whose windows miss) and reference 0's rows
+  repeated until pattern 0 passes 2^24 hits (30 misses a period, as at
+  the copies' junctions): 150,001 sequences.  Then its two controls: the
+  same windows on an L2-resident table (each window's position in its
+  reference taken modulo 256, so its row keeps its reference's kind:
+  1,000 x 256 rows, 5 MB), which removes the random row sectors, and on a
+  table whose label ids are all the sentinel, which removes the counts
+  atomics.  Then a hashed-tally shape: L = 65,536 (random labels drawn
+  again, 16 patterns of 48-64 of them), S cut to the first 15,000 reads
+  and the long sequence so that the counts stay under 4 GB;
+* ``overflow_counts`` (S2) on S1's multiplicities and counts (L = 4,096),
+  and on multiplicities that are all zero (its scan alone).
 
 The last line of stdout is a JSON object: every tree's times in its turns
 (CUDA events, mean of ``--reps`` launches after a warm-up) and the card.
@@ -54,10 +74,17 @@ SELECT_SHAPE = (150_001, 1000)
 K41, KP = 41, 20
 FULL = dict(keys=27_150_000, key_table=8_100_000, refs=1000, ref_len=8101,
             reads=150_000, read_len=200, long_windows=1 << 24,
-            buckets_log=22, ctrl_log=15, sw=SW_SHAPES, select=SELECT_SHAPE)
+            buckets_log=22, ctrl_log=15, sw=SW_SHAPES, select=SELECT_SHAPE,
+            sparse=dict(refs=1000, ref_rows=8100, reads=150_000, read_len=200,
+                        long_hits=1 << 24, labels=(4096, 65_536),
+                        wide_reads=15_000, patterns=(16, 48, 65),
+                        ctrl_rows=256))
 TINY = dict(keys=5000, key_table=1500, refs=12, ref_len=300, reads=200,
             read_len=120, long_windows=2000, buckets_log=9, ctrl_log=6,
-            sw=((16, 37, 60), (4, 70, 90)), select=(301, 100))
+            sw=((16, 37, 60), (4, 70, 90)), select=(301, 100),
+            sparse=dict(refs=24, ref_rows=400, reads=300, read_len=120,
+                        long_hits=3000, labels=(4096, 65_536), wide_reads=40,
+                        patterns=(4, 8, 13), ctrl_rows=64))
 
 
 def sw_pairs(rng, B, LQ, LR):
@@ -130,12 +157,13 @@ def load_port(root: str) -> SimpleNamespace:
     try:
         mods = {n: importlib.import_module(f"metagraph_tpu_torch.{n}")
                 for n in ("succinct.ops", "align.sw", "query.device",
-                          "query.tile_pack")}
+                          "query.tile_pack", "annotation.sparse_device")}
     finally:
         sys.path.remove(root)
     return SimpleNamespace(root=root, ops=mods["succinct.ops"],
                            sw=mods["align.sw"], qd=mods["query.device"],
-                           tile_pack2=mods["query.tile_pack"].tile_pack2)
+                           tile_pack2=mods["query.tile_pack"].tile_pack2,
+                           sd=mods["annotation.sparse_device"])
 
 
 def protein_inputs(rng, s, ops):
@@ -191,6 +219,122 @@ def k41_inputs(rng, s, ops, tile_pack2, T):
     return table.reshape(1 << s["buckets_log"], -1), t2, vb
 
 
+def sparse_tables(rng, L, rows_of, n_pat, lo, hi):
+    """-> (entries (R+1, 4) uint32, dmap (R+1,) int32, dense8 (n_pat+1, L)
+    int8) for rows listed by reference (``rows_of[r, p]``: the id of
+    reference r's p-th row): label r and 0-2 random ones, or pattern r for
+    r < n_pat."""
+    nref, nrow = rows_of.shape
+    ref = np.repeat(np.arange(nref), nrow)
+    lab = np.stack([ref, *rng.integers(0, L, (2, ref.size))], 1)
+    extra = rng.integers(0, 3, ref.size)          # 0-2 random labels
+    lab[:, 1:][np.arange(2)[None, :] >= extra[:, None]] = L
+    lab = np.sort(lab, 1)
+    lab[:, 1:][lab[:, 1:] == lab[:, :-1]] = L
+    lab = np.sort(lab, 1)
+    lab[ref < n_pat] = L
+    entries = np.full((rows_of.size + 1, 4), L, np.uint32)
+    entries[rows_of.reshape(-1), :3] = lab
+    dmap = np.zeros(rows_of.size + 1, np.int32)
+    dmap[rows_of[:n_pat].reshape(-1)] = np.repeat(np.arange(1, n_pat + 1),
+                                                  nrow)
+    dense8 = np.zeros((n_pat + 1, L), np.int8)
+    for d in range(1, n_pat + 1):
+        dense8[d, rng.choice(L, int(rng.integers(lo, hi)), replace=False)] = 1
+    return entries, dmap, dense8
+
+
+def sparse_windows(rng, sp, T, K=31):
+    """-> (ref, pos, hit) of every window slot of the reads' tiles and the
+    long sequence's (see the module docstring), and tile_seq."""
+    n, m, nrow = sp["reads"], sp["read_len"], sp["ref_rows"]
+    nw = m - K + 1
+    ref = np.repeat(rng.integers(0, sp["refs"], n)[:, None], nw, 1)
+    pos = rng.integers(0, nrow - nw + 1, n)[:, None] + np.arange(nw)
+    bad = rng.random((n, m)) < 0.01
+    for i in np.flatnonzero(rng.random(n) < 0.03):
+        at = int(rng.integers(0, m - 20))
+        bad[i, at: at + int(rng.integers(1, 20))] = True
+    cs = np.concatenate([np.zeros((n, 1), np.int64), np.cumsum(bad, 1)], 1)
+    hit = (cs[:, K: K + nw] == cs[:, :nw]) & (rng.random(n) >= 0.1)[:, None]
+    reads = [np.zeros((n, T), np.int64) for _ in range(3)]
+    for out, a in zip(reads, (ref, pos, hit)):
+        out[:, :nw] = a
+    reps = -(-sp["long_hits"] // nrow)
+    reps += 1 - reps % 2
+    period = nrow + K - 1
+    lp = np.tile(np.arange(period), reps)
+    nt = -(-lp.size // T)
+    lpos = np.zeros(nt * T, np.int64)
+    lpos[:lp.size] = lp
+    lhit = np.zeros(nt * T, bool)
+    lhit[:lp.size] = lp < nrow
+    long = [np.zeros((nt, T), np.int64), np.minimum(lpos, nrow - 1)
+            .reshape(nt, T), lhit.reshape(nt, T)]
+    tile_seq = np.concatenate([np.arange(n), np.full(nt, n)]).astype(np.int32)
+    return [np.concatenate([a, b]) for a, b in zip(reads, long)], tile_seq
+
+
+def sparse_inputs(port, s, torch, dev):
+    """S1's and S2's inputs (the module docstring) and plain results."""
+    from metagraph_tpu_torch._u32 import np_words
+    sp, T, sd = s["sparse"], port.qd.TILE, port.sd
+    rng = np.random.default_rng(8)
+    nref, nrow, M = sp["refs"], sp["ref_rows"], sp["ctrl_rows"]
+    n_pat, lo, hi = sp["patterns"]
+    rows_of = (rng.permutation(nref * nrow) + 1).reshape(nref, nrow)
+    (ref, pos, hit), tile_seq = sparse_windows(rng, sp, T)
+    ids = np.where(hit, rows_of[ref, pos], 0).astype(np.int32)
+    ctrl = np.where(hit, ref * M + pos % M + 1, 0).astype(np.int32)
+    del ref, pos, hit
+    up = lambda a: np_words(a).to(dev) if a.dtype == np.uint32 \
+        else torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    S = int(tile_seq[-1]) + 1
+    cases = {}
+    for L in sp["labels"]:
+        entries, dmap, dense8 = sparse_tables(rng, L, rows_of, n_pat, lo, hi)
+        if L == sp["labels"][0]:
+            # the control table: row 0, then each reference's first M rows
+            first = rows_of[:, :M].reshape(-1)
+            tabs = {"": (entries, dmap, ids),
+                    " L2 control": (entries[np.r_[0, first]],
+                                    dmap[np.r_[0, first]], ctrl),
+                    " sentinel control": (np.full_like(entries, L), dmap,
+                                          ids)}
+            for what, (e, d, i) in tabs.items():
+                cases["sparse_label_counts" + what] = (
+                    up(i), up(tile_seq), up(e), up(d), S, L, n_pat + 1)
+            dense = up(dense8)
+        else:
+            keep = (tile_seq < sp["wide_reads"]) | (tile_seq == S - 1)
+            ts = np.where(tile_seq == S - 1, sp["wide_reads"], tile_seq)
+            cases[f"sparse_label_counts L={L}"] = (
+                up(ids[keep]), up(ts[keep].astype(np.int32)), up(entries),
+                up(dmap), sp["wide_reads"] + 1, L, n_pat + 1)
+    want = {}
+    for name, (i, ts, e, d, S_, L, P) in cases.items():
+        out = sparse_zeros(torch, dev, S_, L, P)
+        sd.sparse_label_counts_plain(i, ts, e, d, *out, chunk=1024)
+        want[name] = out
+    counts, _, mult = want["sparse_label_counts"]
+    ref = counts.clone()
+    sd.overflow_counts_plain(ref, mult, dense)
+    want["overflow_counts"] = ref
+    i = cases["sparse_label_counts"][0]
+    print(f"sparse inputs: {i.numel()} window slots in {i.shape[0]} tiles, "
+          f"{int((i > 0).sum())} hits on {int(torch.unique(i[i > 0]).numel())}"
+          f" distinct rows of {nref * nrow}; {S} sequences; "
+          f"{int((mult[:, 1:] > 0).sum())} (sequence, pattern) pairs",
+          flush=True)
+    return SimpleNamespace(cases=cases, want=want, dense8=dense)
+
+
+def sparse_zeros(torch, dev, S, L, P):
+    return (torch.zeros((S, L), dtype=torch.int32, device=dev),
+            torch.zeros(S, dtype=torch.int32, device=dev),
+            torch.zeros((S, P), dtype=torch.int32, device=dev))
+
+
 def make_inputs(port, s, torch, dev):
     """Every kernel's inputs and plain result, from fixed seeds, with the
     first tree's host code (every tree has the same)."""
@@ -225,15 +369,16 @@ def make_inputs(port, s, torch, dev):
         rng.integers(1, 40, S).astype(np.int32))]
     inp.half = torch.where(torch.arange(S) % 2 == 0, 0, 2 ** 31 - 1).to(
         dev, torch.int32)
+    inp.sparse = sparse_inputs(port, s, torch, dev)
     return inp
 
 
 def time_tree(port, inp, s, torch, dev, reps, check):
     """-> {case: ms} for one tree; with ``check``, each kernel's output is
     first held against its plain version's."""
-    ops, qd, T = port.ops, port.qd, inp.T
     clock = (lambda fn: cuda_ms(torch, fn, reps)) if dev.type == "cuda" \
         else host_ms
+    ops, qd, T = port.ops, port.qd, inp.T
     cases = []
     for what, tab in inp.tables["key_lookup"].items():
         cases.append((f"key_lookup{what}",
@@ -262,6 +407,40 @@ def time_tree(port, inp, s, torch, dev, reps, check):
         if check:
             exact(torch, fn(), plain(), name)
         times[name] = clock(fn)
+        print(f"  {name}: {times[name]:.4f} ms", flush=True)
+    times.update(time_sparse(port.sd, inp.sparse, torch, dev, clock, check))
+    return times
+
+
+def time_sparse(sd, sp, torch, dev, clock, check):
+    """S1 on each of its cases, then S2, into buffers zeroed once: each
+    launch adds into them, as a caller's zeroed buffers take one batch.
+    S1 reads its table as a SparseOnDevice holds it (row records, where the
+    tree has them)."""
+    times = {}
+    for name, (i, ts, e, d, S, L, P) in sp.cases.items():
+        if hasattr(sd, "row_records"):   # the views a SparseOnDevice holds
+            rec = sd.row_records(e, d)
+            e, d = rec[:, :e.shape[1]], rec[:, e.shape[1]]
+        out = sparse_zeros(torch, dev, S, L, P)
+        if check:
+            sd.sparse_label_counts(i, ts, e, d, *out)
+            for g, w in zip(out, sp.want[name]):
+                exact(torch, g, w, name)
+        times[name] = clock(lambda: sd.sparse_label_counts(i, ts, e, d,
+                                                           *out))
+        print(f"  {name}: {times[name]:.4f} ms", flush=True)
+        del out
+    counts, _, mult = sp.want["sparse_label_counts"]
+    for what, m, want in (("", mult, sp.want["overflow_counts"]),
+                          (" no multiplicities", torch.zeros_like(mult),
+                           counts)):
+        name = "overflow_counts" + what
+        got = counts.clone()
+        if check:
+            sd.overflow_counts(got, m, sp.dense8)
+            exact(torch, got, want, name)
+        times[name] = clock(lambda: sd.overflow_counts(got, m, sp.dense8))
         print(f"  {name}: {times[name]:.4f} ms", flush=True)
     return times
 

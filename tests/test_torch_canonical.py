@@ -19,6 +19,7 @@ import io
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -123,10 +124,31 @@ def _build(mode_name, k):
     return g, anno, ag, queries
 
 
+_NATIVE_WAIT = [120.0]      # seconds left to wait for the native library
+
+
+def native_lib():
+    """The JAX package's native library, without which its engine's
+    ``query_batch_fused`` returns None on canonical and primary graphs.  In
+    a fresh checkout the parallel workers each build it with g++ into the
+    same file at their first use, and a worker that loads the file while
+    another is still writing it keeps None for the rest of its run.  So
+    while the file exists but does not load, wait and load it again, two
+    minutes at most in all; the JAX package is left as it is."""
+    from metagraph_tpu import native
+    while native.get_lib() is None and os.path.exists(native._SO) \
+            and _NATIVE_WAIT[0] > 0:
+        time.sleep(1.0)
+        _NATIVE_WAIT[0] -= 1.0
+        native._lib = None
+    return native.get_lib()
+
+
 @pytest.fixture(scope="module", params=CASES,
                 ids=[f"{m}-k{k}" for m, k in CASES])
 def case(request, tmp_path_factory):
     from metagraph_tpu.query.pipeline import QueryEngine as JaxEngine
+    assert native_lib() is not None, "the JAX native library does not load"
     mode_name, k = request.param
     g, anno, ag, queries = _build(mode_name, k)
     jax_engine = JaxEngine(ag, use_device=True)

@@ -787,3 +787,114 @@ def test_sparse_query_engine_cuda_matches_cpu(cuda, mode, canon):
     assert sd.sparse_label_counts.launches > n
     assert str(got) == str(want)
     assert sum(bool(p) for p in want) > 10
+
+
+def _sparse_rows(rng, R, L, tau, n_patterns, pattern_rows=60):
+    """A block-sparse annotation made directly (any L, quickly): each row
+    0..tau distinct random labels (a tenth of the rows exactly tau), and
+    ``pattern_rows`` rows on one of ``n_patterns`` patterns of 20-40
+    labels."""
+    entries = np.full((R + 1, tau), L, np.uint32)
+    n = rng.integers(0, tau + 1, R)
+    n[rng.random(R) < 0.1] = tau
+    for r in np.flatnonzero(n):
+        entries[r + 1, :n[r]] = np.sort(rng.choice(L, n[r], replace=False))
+    dmap = np.zeros(R + 1, np.int32)
+    prow = rng.choice(np.arange(1, R + 1), pattern_rows, replace=False)
+    entries[prow] = L
+    dmap[prow] = rng.integers(1, n_patterns + 1, pattern_rows)
+    dense8 = np.zeros((n_patterns + 1, L), np.int8)
+    for d in range(1, n_patterns + 1):
+        dense8[d, rng.choice(L, int(rng.integers(20, min(41, L))),
+                             replace=False)] = 1
+    sp = sd.DeviceBlockSparseAnno(entries, dmap, dense8, tau, L)
+    sd.check_block_sparse(sp, L)
+    return sp
+
+
+# (L, tau, T, canon, sequences, the most windows a sequence, patterns)
+SPARSE_PATHS = {
+    "hashed L=70000 tau=16": (70_000, 16, 256, 0, 60, 900, 4),
+    "hashed canon 2": (70_000, 16, 256, 2, 60, 900, 4),
+    "tau=5": (4096, 5, 256, 0, 97, 900, 4),
+    "tau=7 canon 2": (4096, 7, 256, 2, 97, 900, 4),
+    "T=32": (500, 4, 32, 0, 97, 300, 4),
+    "T=32 hashed canon 2": (9000, 6, 32, 2, 40, 300, 4),
+    "T=512": (4096, 4, 512, 0, 97, 2000, 4),
+    "T=512 hashed": (20_000, 4, 512, 0, 50, 2000, 4),
+    "P=300": (1000, 4, 256, 0, 97, 900, 299),
+    "P=300 hashed canon 2": (9000, 4, 256, 2, 60, 900, 299),
+}
+
+
+@pytest.mark.parametrize("path", sorted(SPARSE_PATHS))
+def test_sparse_count_kernel_paths_match_plain(cuda, path):
+    """S1's dense and hashed tallies, any tau, tiles narrower and wider than
+    a block, and S2's row loop past 256 patterns, against the plain
+    versions, exactly."""
+    L, tau, T, canon, S, max_win, n_pat = SPARSE_PATHS[path]
+    rng = np.random.default_rng(sum(map(ord, path)))
+    R = 4000
+    sp = _sparse_rows(rng, R, L, tau, n_pat, pattern_rows=600)
+    P = sp.dense8.shape[0]
+    plan = sd.label_count_plan(min(T, 256), tau, L, P)
+    assert plan.hashed == ("hashed" in path)
+    anno = sd.SparseOnDevice.from_host(sp, cuda)
+    offset = R if canon == 2 else 0
+    nwins = rng.integers(0, max_win, S)
+    ids = rng.integers(1, R + 1, int(nwins.sum())).astype(np.int32)
+    ids[rng.random(ids.size) < 0.1] = 0
+    if offset:
+        ids[(ids > 0) & (rng.random(ids.size) < 0.4)] += offset
+    nodes, tile_seq = qd.tile_layout(
+        ids, np.repeat(np.arange(S, dtype=np.int32), nwins), S, tile=T,
+        fill=0)
+    nodes, tile_seq = (torch.from_numpy(a).to(cuda) for a in (nodes, tile_seq))
+    _, _, mult, counts = _s1_s2_vs_plain(anno, nodes, tile_seq, S, offset,
+                                         cuda)
+    assert int((mult[:, 1:] > 0).sum()) > S // 2 and int(counts.max()) > 0
+    if n_pat > 256:
+        assert int((mult[:, 256:] > 0).sum()) > 0
+    with pytest.raises(ValueError, match="row records"):
+        sd.sparse_label_counts(nodes, tile_seq, anno.entries.contiguous(),
+                               anno.dmap.contiguous(), counts,
+                               torch.zeros_like(counts[:, 0]), mult)
+
+
+def test_overflow_counts_all_zero_rows(cuda):
+    """S2 on multiplicities that are all zero leaves the counts as they
+    were, on both of its load paths (L % 16 == 0 and not)."""
+    rng = np.random.default_rng(81)
+    for L in (4096, 4099):
+        sp = _sparse_rows(rng, 500, L, 4, 5)
+        counts = torch.from_numpy(rng.integers(0, 9, (300, L)).astype(
+            np.int32)).to(cuda)
+        before = counts.clone()
+        mult = torch.zeros((300, 6), dtype=torch.int32, device=cuda)
+        n = sd.overflow_counts.launches
+        sd.overflow_counts(counts, mult, torch.from_numpy(sp.dense8).to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(counts, before)
+        assert sd.overflow_counts.launches == n + 1
+
+
+@pytest.mark.parametrize("canon", (0, 2))
+def test_sparse_long_sequence_over_many_blocks(cuda, canon):
+    """One sequence over more tiles than 132 x 8 blocks, between short
+    ones: every block's run of its tiles flushes into the same rows."""
+    rng = np.random.default_rng(82 + canon)
+    R, L = 3000, 4096
+    sp = _sparse_rows(rng, R, L, 4, 3, pattern_rows=300)
+    anno = sd.SparseOnDevice.from_host(sp, cuda)
+    offset = R if canon == 2 else 0
+    nwins = np.array([700, 3000 * qd.TILE + 17, 5, 900])
+    ids = rng.integers(0, R + 1, int(nwins.sum())).astype(np.int32)
+    if offset:
+        ids[(ids > 0) & (rng.random(ids.size) < 0.4)] += offset
+    nodes, tile_seq = qd.tile_layout(
+        ids, np.repeat(np.arange(4, dtype=np.int32), nwins), 4, fill=0)
+    assert int((tile_seq == 1).sum()) > 132 * 8
+    nodes, tile_seq = (torch.from_numpy(a).to(cuda) for a in (nodes, tile_seq))
+    _, present, mult, _ = _s1_s2_vs_plain(anno, nodes, tile_seq, 4, offset,
+                                          cuda)
+    assert int(present[1]) > 3000 * qd.TILE // 2 and int(mult[1].sum()) > 0

@@ -10,7 +10,11 @@ oracle, where the JAX package's f32 product rounds (ROADMAP's watch-list:
 that is the JAX package's inexactness, not a port fault).  The chunked
 ``sparse_count_epoch`` and the wrappers on CPU tensors equal the plain
 version, and a QueryIndex made from a JAX engine's block-sparse state
-gives the JAX engine's payloads.
+gives the JAX engine's payloads.  A numpy model of the kernels' order of
+work (S1's per-block tallies and flushes as ``label_count_plan`` lays them
+out, then S2 row by row) equals JAX ``sparse_count_epoch`` over tau, L,
+canon and tile widths, and the device row records hold the JAX package's
+``entries`` and ``dmap``.
 """
 
 import io
@@ -107,6 +111,34 @@ def test_from_columns_matches_jax(tau):
                 JaxSparse.from_columns(cols, R, L, tau))
 
 
+@pytest.mark.parametrize("tau", (4, 5, 7, 8, 16))
+def test_row_records_hold_jax_entries_and_dmap(tmp_path, tau):
+    """The device row records (SparseOnDevice.from_host) of a
+    .devsparse.npz that the JAX package wrote hold its entries and dmap:
+    the tau label ids, then the slot, in rows of 8 ceil((tau + 1) / 8)
+    words; ``entries`` and ``dmap`` are views of them."""
+    from metagraph_tpu.annotation.sparse_device import \
+        DeviceBlockSparseAnno as JaxSparse
+    rng = np.random.default_rng(14 + tau)
+    R, L = 400, 33
+    JaxSparse.from_columns(random_columns(rng, R, L), R, L, tau).save(
+        str(tmp_path / "a.devsparse.npz"))
+    jsp = JaxSparse.load(str(tmp_path / "a.devsparse.npz"))
+    anno = sd.SparseOnDevice.from_host(
+        sd.DeviceBlockSparseAnno.load(str(tmp_path / "a.devsparse.npz")),
+        "cpu")
+    rec = anno.record.numpy()
+    assert rec.shape == (R + 1, 8 * -(-(tau + 1) // 8))
+    np.testing.assert_array_equal(rec[:, :tau].view(np.uint32),
+                                  np.asarray(jsp.entries))
+    np.testing.assert_array_equal(rec[:, tau], np.asarray(jsp.dmap))
+    assert not rec[:, tau + 1:].any()
+    assert (rec[:, tau] > 0).any() == (tau < 12)    # patterns of 6-12
+    assert sd._record_of(anno.entries, anno.dmap).data_ptr() \
+        == anno.record.data_ptr()
+    assert sd._record_of(anno.entries.contiguous(), anno.dmap) is None
+
+
 def test_devsparse_files_load_in_both_packages(tmp_path):
     from metagraph_tpu.annotation.sparse_device import \
         DeviceBlockSparseAnno as JaxSparse
@@ -191,11 +223,11 @@ def sparse_pair(rng, R, L, n_patterns=3):
     return sp, sd.SparseOnDevice.from_host(sp, "cpu"), jsp
 
 
-def tiled_ids(rng, R, nwins, canon, offset, overflow_rows=None):
+def tiled_ids(rng, R, nwins, canon, offset, overflow_rows=None, tile=TILE):
     """Per-sequence window rows (about 15% misses; from ``overflow_rows``
-    only where given) -> the port's (N, T) node ids (canon 2: a third of
-    the hits as reverse-complement ids, id + offset), the JAX package's
-    folded rows + 1, and tile_seq."""
+    only where given) -> the port's (N, ``tile``) node ids (canon 2: a
+    third of the hits as reverse-complement ids, id + offset), the JAX
+    package's folded rows + 1, and tile_seq."""
     S = len(nwins)
     n = int(sum(nwins))
     pool = np.arange(1, R + 1) if overflow_rows is None \
@@ -203,7 +235,7 @@ def tiled_ids(rng, R, nwins, canon, offset, overflow_rows=None):
     ids = pool[rng.integers(0, len(pool), n)].astype(np.int32)
     ids[rng.random(n) < 0.15] = 0
     seq_ids = np.repeat(np.arange(S, dtype=np.int32), nwins)
-    rows1, tile_seq = tile_layout(ids, seq_ids, S, fill=0)
+    rows1, tile_seq = tile_layout(ids, seq_ids, S, tile=tile, fill=0)
     nodes = rows1.copy()
     if canon == 2:
         rc = (nodes > 0) & (rng.random(nodes.shape) < 0.33)
@@ -380,3 +412,145 @@ def test_engine_on_jax_block_sparse_state(mode, monkeypatch):
         return [[(t[0], t[1], t[2].tolist()) if isinstance(t, tuple)
                  and len(t) == 3 else t for t in r] for r in p]
     assert norm(got) == norm(want) and any(got)
+
+
+def direct_pair(rng, R, L, tau, n_patterns=3, pattern_rows=40):
+    """The same block-sparse annotation in both packages, made directly
+    from arrays (any L, quickly): each row 0..tau distinct random labels,
+    ``pattern_rows`` rows on one of ``n_patterns`` patterns of 6-12 labels
+    -> (port host, port CPU tensors, JAX)."""
+    import jax.numpy as jnp
+    from metagraph_tpu.annotation.sparse_device import \
+        DeviceBlockSparseAnno as JaxSparse
+    entries = np.full((R + 1, tau), L, np.uint32)
+    n = rng.integers(0, tau + 1, R)
+    for r in np.flatnonzero(n):
+        entries[r + 1, :n[r]] = np.sort(rng.choice(L, n[r], replace=False))
+    dmap = np.zeros(R + 1, np.int32)
+    prow = rng.choice(np.arange(1, R + 1), pattern_rows, replace=False)
+    entries[prow] = L
+    dmap[prow] = rng.integers(1, n_patterns + 1, pattern_rows)
+    dense8 = np.zeros((n_patterns + 1, L), np.int8)
+    for d in range(1, n_patterns + 1):
+        dense8[d, rng.choice(L, int(rng.integers(6, 13)), replace=False)] = 1
+    sp = convert.from_jax_block_sparse(entries, dmap, dense8, tau, L)
+    jsp = JaxSparse(jnp.asarray(entries), jnp.asarray(dmap),
+                    jnp.asarray(dense8), tau, L)
+    return sp, sd.SparseOnDevice.from_host(sp, "cpu"), jsp
+
+
+def kernel_model(sp, nodes, tile_seq, S, offset, grid=5):
+    """numpy model of the order of work of kernel S1, then S2.  Block b of
+    ``grid`` walks the tiles [N b / grid, N (b+1) / grid) in steps of the
+    plan's threads, tallies each step's keys (label l is key l, pattern d
+    key L + d) and hits for the sequence it is on, and flushes them (one
+    add a distinct key) when the sequence changes, before a step could take
+    the hashed table past 3/4 full, and at the end of its range.  Then S2
+    adds each row's non-zero multiplicities times their patterns, row by
+    row.  Asserts that no flush holds more distinct keys than the plan's
+    table takes."""
+    L, P, tau = sp.num_labels, sp.dense8.shape[0], sp.tau
+    N, T = nodes.shape
+    plan = sd.label_count_plan(T, tau, L, P)
+    cap = plan.slots // 4 * 3 if plan.hashed else plan.slots
+    entries, dmap = sp.entries.astype(np.int64), sp.dmap.astype(np.int64)
+    counts = np.zeros((S, L), np.int64)
+    present = np.zeros(S, np.int64)
+    mult = np.zeros((S, P), np.int64)
+    flushes = []
+
+    def flush(seq, keys, hits):
+        k, c = np.unique(np.concatenate(keys or [np.zeros(0, np.int64)]),
+                         return_counts=True)
+        assert len(k) <= cap
+        lab = k < L
+        counts[seq, k[lab]] += c[lab]
+        mult[seq, k[~lab] - L] += c[~lab]
+        present[seq] += hits
+        flushes.append(len(k))
+
+    for b in range(grid):
+        keys, hits, used, cur = [], 0, 0, None
+        for t in range(N * b // grid, N * (b + 1) // grid):
+            seq = int(tile_seq[t])
+            if seq != cur:
+                if cur is not None and 0 <= cur < S:
+                    flush(cur, keys, hits)
+                keys, hits, used, cur = [], 0, 0, seq
+            if not 0 <= seq < S:
+                continue
+            for base in range(0, T, plan.threads):
+                if plan.hashed and used + plan.step_keys > cap:
+                    flush(seq, keys, hits)
+                    keys, hits, used = [], 0, 0
+                used += plan.step_keys
+                ids = nodes[t, base: base + plan.threads].astype(np.int64)
+                if offset:
+                    ids = np.where(ids > offset, ids - offset, ids)
+                ids = np.where((ids < 0) | (ids >= len(entries)), 0, ids)
+                labs, d = entries[ids].reshape(-1), dmap[ids]
+                keys += [labs[labs < L], L + d[(d > 0) & (d < P)]]
+                hits += int((ids > 0).sum())
+        if cur is not None and 0 <= cur < S:
+            flush(cur, keys, hits)
+    for s in range(S):
+        for d in np.flatnonzero(mult[s, 1:]) + 1:
+            counts[s] += mult[s, d] * sp.dense8[d].astype(np.int64)
+    return counts, present, plan, flushes
+
+
+@pytest.mark.parametrize("T", (32, 256))
+@pytest.mark.parametrize("canon", (0, 2))
+@pytest.mark.parametrize("L", (33, 4096, 70_000))
+@pytest.mark.parametrize("tau", (4, 7, 16))
+def test_kernel_order_model_and_plain_match_jax(tau, L, canon, T):
+    """The model of S1's per-block tally and flushes and S2's rows, and the
+    plain versions, against JAX ``sparse_count_epoch``, exactly; sequences
+    span several tiles and the blocks' ranges split them."""
+    rng = np.random.default_rng(tau * 100_003 + L + 7 * canon + T)
+    R, S = 300, 23
+    sp, anno, jsp = direct_pair(rng, R, L, tau)
+    offset = R if canon == 2 else 0
+    nwins = rng.integers(0, 3 * T, S)
+    nwins[3], nwins[11] = 0, 9 * T + 5
+    nodes, rows1, tile_seq = tiled_ids(rng, R, nwins, canon, offset, tile=T)
+    want = jax_counts(jsp, rows1, tile_seq, S)
+    counts, present, plan, flushes = kernel_model(sp, nodes, tile_seq, S,
+                                                  offset)
+    assert plan.hashed == (L == 70_000) and plan.threads == min(T, 256)
+    np.testing.assert_array_equal(counts, want[0])
+    np.testing.assert_array_equal(present, want[1])
+    for g, w in zip(port_counts(anno, nodes, tile_seq, S, offset), want):
+        np.testing.assert_array_equal(g, w)
+    assert want[0].max() > 0 and len(flushes) >= S - 1
+
+
+@pytest.mark.parametrize("T, tau, L, P, hashed, threads, slots", (
+    (256, 4, 4096, 17, False, 256, 4113),
+    (32, 16, 8000, 192, False, 32, 8192),
+    (256, 4, 65_536, 17, True, 256, 2048),
+    (256, 16, 70_000, 4, True, 256, 8192),
+    (512, 7, 8192, 1, True, 256, 4096),
+    (96, 40, 10_000, 9, True, 96, 8192),
+    (256, 100, 10_000, 9, True, 96, 16384),
+))
+def test_label_count_plan(T, tau, L, P, hashed, threads, slots):
+    """S1's plan: dense up to DENSE_BINS keys, else a power-of-two table
+    that holds a step's keys at 3/4 load, with fewer threads where a
+    block's table would pass S1_SMEM."""
+    plan = sd.label_count_plan(T, tau, L, P)
+    assert (plan.hashed, plan.threads, plan.slots) == (hashed, threads,
+                                                       slots)
+    assert plan.step_keys == threads * (tau + 1)
+    assert plan.smem <= sd.S1_SMEM and plan.threads % 32 == 0
+    if hashed:
+        assert plan.step_keys <= plan.slots // 4 * 3 < plan.slots <= 65_536
+    else:
+        assert plan.slots == L + P <= sd.DENSE_BINS
+
+
+@pytest.mark.parametrize("args", ((33, 4, 100, 2), (256, 0, 100, 2),
+                                  (256, 2000, 70_000, 2)))
+def test_label_count_plan_refuses(args):
+    with pytest.raises(ValueError):
+        sd.label_count_plan(*args)
