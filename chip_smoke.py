@@ -52,6 +52,17 @@ then:
    pattern 0), S1 timed beside ``index_add_`` over the keys it forms (and
    the 32 B sectors its data touches printed beside its bound), S2 beside
    ``torch.mm`` in float64, which computes its function exactly;
+5b. drives the same columns past a budget of 32,768 bytes, which the 16
+   overflow patterns pass, so the index keeps them compressed on the card
+   (the words route: kernels 1, W1 or W2, 2, 3): "words-brwt" loads a copy
+   of the many-labels .brwt.annodbg without its .devsparse.npz,
+   "words-rowdiff" a row_diff_brwt of the same columns built by
+   ``RowDiff.from_annotation`` along the references (anchors every 100
+   windows); each must take the words form and write no cache.  Labels
+   and matches modes on the first 15,000 reads and reference 0 once;
+   payloads against the oracle; W1 and W2 against their plain versions
+   exactly on the first and the last words chunk of the batch (which hold
+   pattern rows), timed on the first, and kernel 2 on that chunk's words;
 6. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
    300 and holds it against its plain version and, on a sample, the numpy
    oracle; then on 1,024 pairs of 1,000 x 1,000 and 256 pairs of 2,000 x
@@ -68,7 +79,8 @@ Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (kernels 1-3 once more
 for each of the primary and canonical deployments, kernels B, 2, 3 for
-k41, A, 2, 3 for protein and 3 for many-labels, named
+k41, A, 2, 3 for protein, 3 for many-labels and 2 for each words
+deployment, named
 ``<kernel>/<deployment>``, and
 ``sw_scores/large`` and ``sw_scores/long`` for the other SW shapes), the
 last is
@@ -113,14 +125,16 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             plain_chunks=(1024, 256), coords_prefix=20_000,
             protein_len=8120, protein_repeat=(1000, 1300),
             gather=(22, (16, 17), 1024), gather_big=21, ctrl_log=15,
-            ctrl_rows=4096, many=(4096, 16, (48, 65)), anno_budget=2 << 30)
+            ctrl_rows=4096, many=(4096, 16, (48, 65)), anno_budget=2 << 30,
+            words_budget=32768, words_reads=15_000, rd_max_length=100)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
             sw_oracle=4, plain_chunks=(16, 8), coords_prefix=100,
             protein_len=480, protein_repeat=(100, 160),
             gather=(12, (6, 7), 64), gather_big=9, ctrl_log=6,
-            ctrl_rows=64, many=(256, 4, (8, 13)), anno_budget=1 << 16)
+            ctrl_rows=64, many=(256, 2, (8, 13)), anno_budget=1 << 16,
+            words_budget=256, words_reads=100, rd_max_length=20)
 
 
 def log(msg: str):
@@ -441,11 +455,11 @@ def make_protein_batch(cfg, rng, refs):
 def make_many_labels(cfg, rng, oracle, index, out_dir):
     """The many-labels annotation over the basic index's rows: every row
     of references 16-999 carries its reference's label and 0-2 random
-    ones, every row of reference r < 16 carries pattern r (48-64 fixed labels; 4 patterns of 8-12 in a
-    rehearsal); a row of several such references carries the first one's.
-    Saved as a .brwt.annodbg with its .devsparse.npz, loaded back and
-    indexed with the basic index's keys -> (QueryIndex, oracle, seconds by
-    step)."""
+    ones, every row of reference r < 16 carries pattern r (48-64 fixed
+    labels; 2 patterns of 8-12 in a rehearsal); a row of several such
+    references carries the first one's.  Saved as a .brwt.annodbg with
+    its .devsparse.npz, loaded back and indexed with the basic index's
+    keys -> (QueryIndex, oracle, seconds by step, the label columns)."""
     from metagraph_tpu_torch import convert
     from metagraph_tpu_torch.annotation.column import LabelEncoder
     from metagraph_tpu_torch.annotation.matrix import (BRWT,
@@ -524,7 +538,83 @@ def make_many_labels(cfg, rng, oracle, index, out_dir):
         raise AssertionError("the many-labels index is not block-sparse")
     if not np.array_equal(index_m.table, index.table):
         raise AssertionError("the many-labels index has another table")
-    return index_m, o, secs
+    return index_m, o, secs, cols
+
+
+def reference_routing(refs, oracle, max_length=100):
+    """A row-diff routing along the references: a row's successor is the
+    row of the next window of the reference where the row first occurs,
+    kept only where that next window is the successor's own first
+    occurrence, so first occurrences rise along a chain and no chain
+    cycles; an anchor at every ``max_length``-th window of a reference
+    and wherever no successor is kept -> (succ, anchors)."""
+    keys = np.concatenate([window_keys(r, K)[0] for r in refs])
+    n = np.array([len(r) - K + 1 for r in refs])
+    j = np.arange(len(keys)) - np.repeat(np.cumsum(n) - n, n)
+    last = j == np.repeat(n - 1, n)
+    rows = np.searchsorted(oracle["keys"], keys)
+    R = len(oracle["keys"])
+    _, first = np.unique(rows, return_index=True)
+    if len(first) != R:
+        raise AssertionError("a row occurs in no reference")
+    nxt = np.where(last[first], -1,
+                   rows[np.minimum(first + 1, len(rows) - 1)])
+    keep = (nxt >= 0) & (first[np.maximum(nxt, 0)] == first + 1)
+    succ = np.where(keep, nxt, -1)
+    anchors = ((j[first] + 1) % max_length == 0) | (succ < 0)
+    return succ, anchors
+
+
+def make_words(cfg, refs, oracle_m, index_m, cols, work):
+    """The words deployments' indexes over the many-labels columns, past
+    ``words_budget`` bytes, which the 16 overflow patterns pass (so
+    from_matrix gives None): "words-brwt" loads a copy of the many-labels
+    .brwt.annodbg without its .devsparse.npz; "words-rowdiff" a
+    row_diff_brwt of the same columns (RowDiff.from_annotation over
+    reference_routing, its inner an arity-2 BRWT).  Each is loaded with
+    load_annotation and given its device annotation by
+    convert.device_annotation (the many-labels index's table is kept);
+    each must take the words form and write no cache -> ({name:
+    QueryIndex}, seconds by step)."""
+    import shutil
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.annotation.column import LabelEncoder
+    from metagraph_tpu_torch.annotation.device_matrix import (FlatBRWT,
+                                                              FlatRowDiff)
+    from metagraph_tpu_torch.annotation.matrix import (RowDiff,
+                                                       StaticAnnotation,
+                                                       load_annotation)
+    from metagraph_tpu_torch.scripts.kernel_times import Arity2BRWT
+    R, L = index_m.num_rows, len(index_m.labels)
+    secs, out = {}, {}
+    brwt_path = os.path.join(work, "words.brwt.annodbg")
+    shutil.copyfile(os.path.join(work, "many_labels.brwt.annodbg"),
+                    brwt_path)
+    t0 = time.perf_counter()
+    succ, anchors = reference_routing(refs, oracle_m, cfg["rd_max_length"])
+    rd = RowDiff.from_annotation(cols, R, L, (succ, anchors), Arity2BRWT)
+    rd_path = os.path.join(work, "words.row_diff_brwt.annodbg")
+    StaticAnnotation(rd, LabelEncoder(index_m.labels),
+                     "row_diff_brwt").save(rd_path)
+    del rd
+    secs["row-diff build and save"] = time.perf_counter() - t0
+    for name, path, form in (("words-brwt", brwt_path, FlatBRWT),
+                             ("words-rowdiff", rd_path, FlatRowDiff)):
+        t0 = time.perf_counter()
+        cache = path + ".devsparse.npz"
+        if os.path.exists(cache):
+            os.remove(cache)
+        anno = load_annotation(path)
+        dev = convert.device_annotation(anno, R, cache)
+        if not isinstance(dev, form):
+            raise AssertionError(f"{name}: device annotation "
+                                 f"{type(dev).__name__}, not the words form")
+        if os.path.exists(cache):
+            raise AssertionError(f"{name} wrote a block-sparse cache")
+        out[name] = dataclasses.replace(index_m, device_anno=dev,
+                                        annotation=anno)
+        secs[name] = time.perf_counter() - t0
+    return out, secs
 
 
 def oracle_lookup(codes, o, canon):
@@ -668,12 +758,16 @@ def counters():
                                                   wire_lookup)
     from metagraph_tpu_torch.annotation.sparse_device import (
         overflow_counts, sparse_label_counts)
+    from metagraph_tpu_torch.annotation.device_matrix import (
+        brwt_row_words, rowdiff_row_words)
     return {"wire_lookup": wire_lookup, "label_counts": label_counts,
             "selection_mask": selection_mask, "sw_scores": sw_scores,
             "gather_loop": gather_loop, "gather_take": gather_take,
             "key_lookup": key_lookup, "codes_lookup": codes_lookup,
             "sparse_label_counts": sparse_label_counts,
-            "overflow_counts": overflow_counts}
+            "overflow_counts": overflow_counts,
+            "brwt_row_words": brwt_row_words,
+            "rowdiff_row_words": rowdiff_row_words}
 
 
 def run_path(fn):
@@ -687,18 +781,20 @@ def run_path(fn):
 
 def main_path(engine, seqs, codes, period, oracle, cfg, rng, torch, dev,
               tag="main path", modes=("labels", "counts"),
-              kernels=("wire_lookup", "label_counts", "selection_mask")):
+              kernels=("wire_lookup", "label_counts", "selection_mask"),
+              check_last=False):
     """Query the batch through ``query_records`` in each mode; hold a sample
-    and the long sequence (last, of that ``period``; none without one)
-    against the oracle, and check that each of ``kernels`` launched.  The
+    and the long sequence (last, of that ``period``; none without one; the
+    last sequence with ``check_last``) against the oracle, and check that
+    each of ``kernels`` launched.  The
     coords mode runs on the first ``coords_prefix`` reads, to bound the
     host time of its per-position lists."""
     from metagraph_tpu_torch.seq_io.fasta import FastaRecord
     canon, k = engine.index.canon, engine.k
     n_reads = len(seqs) - (1 if period else 0)
     sample = np.sort(rng.choice(n_reads, cfg["sample"], replace=False))
-    if period:
-        sample = np.append(sample, len(seqs) - 1)      # the long sequence
+    if period or check_last:
+        sample = np.union1d(sample, [len(seqs) - 1])   # the long sequence
     launches, long_count = {}, None
     for mode in modes:
         n = min(cfg["coords_prefix"], n_reads) if mode == "coords" \
@@ -1141,6 +1237,85 @@ def sparse_checks(engine, seqs, cfg, torch, dev, tag):
     return entries
 
 
+def words_checks(engine, seqs, cfg, torch, dev, tag):
+    """Kernel W1 or W2 against its plain version on the words deployment's
+    inputs (kernel 1's ids of the batch, cut into the chunks that
+    words_count_epoch cuts), exactly, on the first chunk and the last (the
+    last sequence's, reference 0: pattern rows); W timed on the first, a
+    full chunk, beside its plain version.  Then kernel 2 on the first
+    chunk's words, as words_count_epoch calls it."""
+    from metagraph_tpu_torch._u32 import np_words, to_u64
+    from metagraph_tpu_torch.annotation import device_matrix as dm
+    from metagraph_tpu_torch.query import device as qd
+    from metagraph_tpu_torch.query.tile_pack import tile_pack2
+    anno = engine.annotation
+    brwt = isinstance(anno, dm.BRWTOnDevice)
+    name = "brwt_row_words" if brwt else "rowdiff_row_words"
+    fn, plain = ((dm.brwt_row_words, dm.brwt_row_words_plain) if brwt else
+                 (dm.rowdiff_row_words, dm.rowdiff_row_words_plain))
+    S, L = len(seqs), anno.num_labels
+    Lw = max((L + 31) // 32, 1)
+    ld = -(-Lw // 4) * 4
+    tiles2, validb, tile_seq, nwins = tile_pack2(seqs, K, qd.TILE)
+    words, vwords = qd.wire_words_layout(tiles2, validb, K, qd.TILE,
+                                         len(tiles2))
+    tile_seq = torch.from_numpy(tile_seq).to(dev)
+    nodes = qd.wire_lookup(np_words(words).to(dev), np_words(vwords).to(dev),
+                           engine.hash_index.table, K, qd.TILE)
+    N = nodes.shape[0]
+    step = max(1, qd.WORDS_BYTES // (qd.TILE * ld * 4))
+    starts = sorted({0, (N - 1) // step * step})
+    got, want, visited = [], [], {}
+    for t0 in starts:
+        ids = nodes[t0: t0 + step].reshape(-1).contiguous()
+        # rows padded to a multiple of 4 words, as words_count_epoch pads
+        # them for kernel 2
+        out = torch.zeros((ids.shape[0], ld), dtype=torch.int32,
+                          device=dev)[:, :Lw]
+        got.append(fn(anno, ids, 0, out))
+        want.append(plain(anno, ids, 0, visited if t0 == 0 else None))
+    ids, out = nodes[:step].reshape(-1).contiguous(), got[0]
+    ms = device_ms(torch, dev, lambda: fn(anno, ids, 0, out), 10)
+    plain_ms = device_ms(torch, dev, lambda: plain(anno, ids), 1)
+    # the compared windows whose row has more than tau = 4 labels (an
+    # overflow pattern)
+    pop = sum(int((dm.popcount32(to_u64(g)).sum(1) > 4).sum()) for g in got)
+    # bytes the data needs: the ids, the words written, and each node,
+    # word and successor that the walk reads, once
+    nbytes = ids.nbytes + ids.shape[0] * Lw * 4
+    uniq = {k: int(torch.unique(torch.cat(v)).numel())
+            for k, v in visited.items()}
+    nbytes += 16 * uniq.get("nodes", 0) + 8 * uniq.get("words", 0) \
+        + 4 * uniq.get("rows", 0)
+    entries = {}
+    add_entry(entries, torch, tag, name, got, want, ms, plain_ms, nbytes)
+    entries[name]["library_ms"] = None
+    log(f"  {name}{tag}: chunks at tiles {starts} of {N} ({ids.shape[0]} "
+        f"windows a chunk, {int((ids > 0).sum())} hits in the first); "
+        f"distinct reads {uniq}; {pop} compared windows hold more than "
+        "4 labels")
+    if pop == 0:
+        raise AssertionError(f"{name}{tag}: no compared window holds an "
+                             "overflow pattern")
+    # kernel 2 on the first chunk's words, the chunk's places as ids
+    chunk = nodes[:step]
+    place = torch.arange(1, chunk.numel() + 1, dtype=torch.int32,
+                         device=dev).view(chunk.shape)
+    local = torch.where(chunk > 0, place, 0)
+    bitmap, ts = got[0], tile_seq[:step]
+    c, p = qd.label_counts(local, bitmap, ts, S, L)
+    _, c2 = cfg["plain_chunks"]
+    hits = int((chunk > 0).sum())
+    add_entry(entries, torch, tag, "label_counts", [c, p],
+              qd.label_counts_plain(local, bitmap, ts, S, L, c2),
+              device_ms(torch, dev, lambda: qd.label_counts(
+                  local, bitmap, ts, S, L), 10),
+              device_ms(torch, dev, lambda: qd.label_counts_plain(
+                  local, bitmap, ts, S, L, c2), 1),
+              local.nbytes + ts.nbytes + hits * Lw * 4 + c.nbytes + p.nbytes)
+    return entries
+
+
 def select_control(counts, present, dsel, torch, dev, tag):
     """Kernel 3 with selmin = 0 for every row, so that it reads every
     row's counts: held exactly against the plain version and timed beside
@@ -1400,6 +1575,10 @@ SOURCES = {
                             "metagraph_tpu/annotation/sparse_device.py:268"),
     "overflow_counts": ("metagraph_tpu_torch/csrc/sparse_counts.cu",
                         "metagraph_tpu/annotation/sparse_device.py:304"),
+    "brwt_row_words": ("metagraph_tpu_torch/csrc/row_words.cu",
+                       "metagraph_tpu/annotation/device_matrix.py:338"),
+    "rowdiff_row_words": ("metagraph_tpu_torch/csrc/row_words.cu",
+                          "metagraph_tpu/annotation/device_matrix.py:190"),
 }
 
 
@@ -1410,7 +1589,7 @@ def main(argv=None) -> int:
                                                   "chip_smoke"))
     ap.add_argument("--work", default=os.path.join(ROOT, "build",
                                                    "chip_smoke_work"),
-                    help="where the many-labels annotation files go "
+                    help="where the many-labels and words annotation files go "
                          "(a few hundred MB)")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny sizes on the CPU with the plain versions; "
@@ -1461,8 +1640,9 @@ def main(argv=None) -> int:
     # annotation past the dense budget (block-sparse: kernels 1, S1, S2, 3)
     os.environ["METAGRAPH_DENSE_ANNO_BUDGET"] = str(cfg["anno_budget"])
     rng4 = np.random.default_rng([args.seed, 4])
-    index_m, oracle_m, msecs = timed("many-labels index", make_many_labels,
-                                     cfg, rng4, oracle, index, args.work)
+    index_m, oracle_m, msecs, cols_m = timed(
+        "many-labels index", make_many_labels, cfg, rng4, oracle, index,
+        args.work)
     sp = index_m.device_anno
     log(f"many-labels index: {len(index_m.labels)} labels, block-sparse "
         f"entries {sp.entries.shape} = {sp.entries.nbytes} B (tau {sp.tau}), "
@@ -1481,9 +1661,47 @@ def main(argv=None) -> int:
                  "selection_mask"))
     ml_entries = timed("kernel checks", sparse_checks, engine, seqs, cfg,
                        torch, dev, " [many-labels]")
-    del engine, index_m, oracle_m, sp
+    del engine, sp
     for name in ("sparse_label_counts", "overflow_counts"):
         launches[name], entries[name] = ml_launches[name], ml_entries.pop(name)
+
+    # words-brwt and words-rowdiff: the many-labels columns past a budget
+    # that the overflow patterns pass (the words route: kernels 1, W1 or
+    # W2, 2, 3), on the first words_reads reads and reference 0 once
+    os.environ["METAGRAPH_DENSE_ANNO_BUDGET"] = str(cfg["words_budget"])
+    words_idx, wsecs = timed("words indexes", make_words, cfg, refs,
+                             oracle_m, index_m, cols_m, args.work)
+    del cols_m
+    log("words indexes: " + ", ".join(f"{k} {v:.1f} s"
+                                      for k, v in wsecs.items()))
+    nw = cfg["words_reads"]
+    wseqs = seqs[:nw] + [np.frombuffer(b"ACGTN", np.uint8)[refs[0]]
+                         .tobytes()]
+    wcodes = codes[:nw] + [refs[0]]
+    rng5 = np.random.default_rng([args.seed, 5])
+    words_more = {}
+    for name, idx in words_idx.items():
+        walk = idx.device_anno
+        tree = getattr(walk, "inner", walk)
+        log(f"{name} index: tree of {tree.nodes.shape[0]} nodes and "
+            f"{tree.words.shape[0]} words ({tree.nodes.nbytes} + "
+            f"{tree.words.nbytes} B), stack {tree.stack_cap} runs a warp"
+            + (f"; walk of at most {walk.max_depth} steps"
+               if walk is not tree else ""))
+        kern = "brwt_row_words" if name == "words-brwt" \
+            else "rowdiff_row_words"
+        engine = timed("uploads", QueryEngine, idx, device=dev)
+        wl = timed("query paths and oracle", main_path, engine, wseqs,
+                   wcodes, 0, oracle_m, cfg, rng5, torch, dev, name,
+                   modes=("labels", "matches"),
+                   kernels=("wire_lookup", kern, "label_counts",
+                            "selection_mask"), check_last=True)
+        we = timed("kernel checks", words_checks, engine, wseqs, cfg, torch,
+                   dev, f" [{name}]")
+        launches[kern], entries[kern] = wl[kern], we.pop(kern)
+        words_more[name.replace("-", "_")] = (wl, we)
+        del engine
+    del words_idx, index_m, oracle_m
 
     # the primary graph (the basic index's k-mers queried through
     # CanonicalDBG: canon 2) and the canonical graph (both strands: canon
@@ -1494,7 +1712,7 @@ def main(argv=None) -> int:
     engine = timed("uploads", QueryEngine, dataclasses.replace(
         index, canon=2), device=dev)
     # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
-    more = {"many_labels": (ml_launches, ml_entries)}
+    more = {"many_labels": (ml_launches, ml_entries), **words_more}
     more["primary"] = (
         timed("query paths and oracle", main_path, engine, seqs2, codes2,
               period2, oracle, cfg, rng2, torch, dev,

@@ -25,7 +25,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 KERNELS = ("wire_lookup", "label_counts", "selection_mask", "sw_scores",
-           "gather_rows", "key_lookup", "codes_lookup", "sparse_counts")
+           "gather_rows", "key_lookup", "codes_lookup", "sparse_counts",
+           "row_words")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

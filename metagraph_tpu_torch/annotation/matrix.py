@@ -9,9 +9,11 @@ metagraph_tpu/annotation/matrix.py: the binary matrices ``RowFlat`` (:66),
 ``CSRIntMatrix`` (:909), ``IntRowDiff`` (:960), ``TupleCSCMatrix``
 (:1066) and ``TupleRowDiff`` (:1157); ``MATRIX_TYPES`` (:1274),
 ``StaticAnnotation`` (:1287) and ``load_annotation`` (:1337).  Of the
-converters only ``BRWT.from_columns`` (:547, with ``greedy_linkage``) is
-copied, so that a BRWT can be built where the JAX package is not
-installed; the row-diff converters wait for ROADMAP A8.4.
+converters ``BRWT.from_columns`` (:547, with ``greedy_linkage``) and
+``RowDiff.from_annotation`` (:649-682, with its routing given) are
+copied, so that a BRWT or a row-diff BRWT can be built where the JAX
+package is not installed; ``build_routing`` and the other converters wait
+for ROADMAP A8.4.
 
 A ``StaticAnnotation`` file is a pickle of the JAX package's classes.  It
 is read through ``_AnnotationUnpickler``, whose ``find_class`` maps those
@@ -445,6 +447,36 @@ class RowDiff:
         self.succ = np.load(graph_base + ".rd_succ")["succ"]
         self.anchors = np.load(graph_base + ".anchors")["anchors"]
         self.needs_sidecars = False
+
+    @classmethod
+    def from_annotation(cls, columns, num_rows, num_labels, routing,
+                        inner_type: type = BRWT) -> "RowDiff":
+        """Per-label sorted row arrays and the routing ``(succ, anchors)``
+        -> RowDiff whose inner matrix (``inner_type.from_columns``) holds
+        the diff columns: diff[r] = col[r] ^ col[succ[r]] where r is no
+        anchor, as the predecessor image of each column.  Building the
+        routing from a graph (``build_routing``) is not ported (ROADMAP
+        A8.4), so the routing is given."""
+        succ, anchors = routing
+        has = succ >= 0
+        src = np.flatnonzero(has)
+        order = np.argsort(succ[src], kind="stable")
+        pred_idx = src[order]
+        pred_ptr = np.zeros(num_rows + 1, np.int64)
+        np.add.at(pred_ptr, succ[src] + 1, 1)
+        pred_ptr = np.cumsum(pred_ptr)
+        diff_cols = []
+        for col in columns:
+            col = np.asarray(col, dtype=np.int64)
+            cnt = pred_ptr[col + 1] - pred_ptr[col]
+            starts = pred_ptr[col]
+            flat = np.repeat(starts - np.cumsum(cnt) + cnt, cnt) \
+                + np.arange(int(cnt.sum()))
+            shifted = pred_idx[flat]
+            shifted = shifted[~anchors[shifted]]
+            diff_cols.append(np.setxor1d(col, shifted))
+        inner = inner_type.from_columns(diff_cols, num_rows, num_labels)
+        return cls(inner, succ, anchors, num_labels)
 
     def get_rows_words(self, rows):
         """Packed (n, ceil(L/32)) uint32 row words (little-endian bits)."""

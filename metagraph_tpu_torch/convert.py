@@ -1,8 +1,9 @@
 """The query index: the host arrays a ``QueryEngine`` puts on the device.
 
 A ``QueryIndex`` is the hash table over the graph's k-mers (node ids as
-payload) and one of two device annotations: the dense ``(R, Lw)`` bitmap,
-or past ``METAGRAPH_DENSE_ANNO_BUDGET`` a ``DeviceBlockSparseAnno``
+payload) and one of the device annotations: the dense ``(R, Lw)`` bitmap,
+or past ``METAGRAPH_DENSE_ANNO_BUDGET`` a ``DeviceBlockSparseAnno`` or,
+where that does not fit either, a ``FlatBRWT`` or ``FlatRowDiff``
 (``device_annotation``, the JAX package's choice); plus the label names
 and the host annotation that the payloads read.  It comes from
 
@@ -11,9 +12,9 @@ and the host annotation that the payloads read.  It comes from
   JAX package's ``.dbg.npz`` and ``.annodbg`` artifacts;
 * ``from_annotation``: packed k-mer keys, their node ids and an
   annotation, for callers that build an index without a graph file;
-* ``from_jax_arrays`` (with ``from_jax_block_sparse``): the JAX package's
-  device state as numpy arrays, so that both packages compute on the same
-  state;
+* ``from_jax_arrays`` (with ``from_jax_block_sparse`` or
+  ``from_jax_device_matrix``): the JAX package's device state as numpy
+  arrays, so that both packages compute on the same state;
 * ``from_kmers``: packed k-mer keys, their node ids and a dense bitmap.
 
 The keys pack ``bits`` = 4 bits a code for the DNA family and 8 for
@@ -38,6 +39,8 @@ from typing import List, Union
 import numpy as np
 
 from .annotation.column import ColumnMajorAnnotation
+from .annotation.device_matrix import (FlatBRWT, FlatRowDiff,
+                                       check_words_annotation)
 from .annotation.matrix import BRWT, RowDiff, load_annotation
 from .annotation.ops import pack_annotation_bitmap
 from .annotation.sparse_device import (DeviceBlockSparseAnno,
@@ -54,8 +57,10 @@ class QueryIndex:
     k: int
     table: np.ndarray       # (n_buckets, BUCKET * (W + 1)) uint32
     # the device annotation (``device_annotation``): an (R, Lw) uint32
-    # bitmap, row = node - 1, or a DeviceBlockSparseAnno past the budget
-    device_anno: Union[np.ndarray, DeviceBlockSparseAnno]
+    # bitmap, row = node - 1, or past the budget a DeviceBlockSparseAnno,
+    # a FlatBRWT or a FlatRowDiff
+    device_anno: Union[np.ndarray, DeviceBlockSparseAnno, FlatBRWT,
+                       FlatRowDiff]
     labels: List[str]
     # the host annotation the payloads read (a ColumnMajorAnnotation or a
     # StaticAnnotation); None means a binary annotation, whose values are 0
@@ -84,6 +89,8 @@ class QueryIndex:
         dev = self.device_anno
         if isinstance(dev, DeviceBlockSparseAnno):
             check_block_sparse(dev, L)
+        elif isinstance(dev, (FlatBRWT, FlatRowDiff)):
+            check_words_annotation(dev, L)
         elif not isinstance(dev, np.ndarray) or dev.dtype != np.uint32 \
                 or dev.ndim != 2 or dev.shape[1] != max((L + 31) // 32, 1):
             raise ValueError(f"bitmap {getattr(dev, 'shape', None)} does not "
@@ -98,9 +105,9 @@ class QueryIndex:
 
     @property
     def num_rows(self) -> int:
-        if isinstance(self.device_anno, DeviceBlockSparseAnno):
-            return self.device_anno.num_rows
-        return self.device_anno.shape[0]
+        if isinstance(self.device_anno, np.ndarray):
+            return self.device_anno.shape[0]
+        return self.device_anno.num_rows
 
     @property
     def offset(self) -> int:
@@ -115,10 +122,12 @@ def from_jax_arrays(table, device_anno, labels, k: int, num_rows: int,
     """``table`` is ``np.asarray(engine._device_index.table)``;
     ``device_anno`` is ``DeviceAnnotation.unpacked()`` or
     ``pack_annotation_bitmap(anno, R)`` (rows past ``num_rows`` are layout
-    padding and dropped), or a block-sparse annotation
-    (``from_jax_block_sparse``); ``canon`` is the engine's
+    padding and dropped), a block-sparse annotation
+    (``from_jax_block_sparse``) or a BRWT or row-diff one
+    (``from_jax_device_matrix``); ``canon`` is the engine's
     ``_canon_mode()``; ``alphabet`` sets the key bits."""
-    if not isinstance(device_anno, DeviceBlockSparseAnno):
+    if not isinstance(device_anno, (DeviceBlockSparseAnno, FlatBRWT,
+                                    FlatRowDiff)):
         device_anno = np.ascontiguousarray(
             np.asarray(device_anno)[:num_rows], dtype=np.uint32)
     return QueryIndex(k, np.ascontiguousarray(table, dtype=np.uint32),
@@ -135,6 +144,44 @@ def from_jax_block_sparse(entries, dmap, dense8, tau: int,
         np.ascontiguousarray(dmap, dtype=np.int32),
         np.ascontiguousarray(dense8, dtype=np.int8), int(tau),
         int(num_labels))
+
+
+def from_jax_device_matrix(dm):
+    """A JAX ``DynDeviceBRWT`` (``words``, ``rdir``, ``offs``, ``parent``
+    and ``lv_nodes`` a level each, ``inv_perm``, ``num_rows``,
+    ``num_labels``) or ``DeviceRowDiff`` (``succ``, ``anchors``,
+    ``max_depth``, ``inner``: a DynDeviceBRWT, or a ``DeviceAnnotation``,
+    whose ``unpacked()`` rows are the inner bitmap), read as numpy arrays
+    -> the port's FlatBRWT or FlatRowDiff.  A level's leaves are the labels
+    at its run of sorted positions (``inv_perm`` maps a label to its
+    position)."""
+    if hasattr(dm, "succ"):
+        L = int(dm.num_labels)
+        inner = dm.inner
+        succ = np.asarray(dm.succ, dtype=np.int32)
+        if hasattr(inner, "unpacked"):
+            Lw = max((L + 31) // 32, 1)
+            inner = np.ascontiguousarray(
+                np.asarray(inner.unpacked()).reshape(-1, Lw)[:len(succ)],
+                dtype=np.uint32)
+        else:
+            inner = from_jax_device_matrix(inner)
+        stop = np.asarray(dm.anchors, dtype=bool) | (succ < 0)
+        return FlatRowDiff(np.where(stop, -1, succ).astype(np.int32),
+                           int(dm.max_depth), inner, L)
+    lv_nodes = [np.asarray(x, np.int64) for x in dm.lv_nodes]
+    order = np.argsort(np.asarray(dm.inv_perm, np.int64), kind="stable")
+    level = np.concatenate([np.full(len(x), l) for l, x in
+                            enumerate(lv_nodes)]) if lv_nodes else []
+    node = np.concatenate(lv_nodes) if lv_nodes else []
+    has = np.asarray(node) >= 0
+    return FlatBRWT.from_levels(
+        [np.asarray(w, np.uint32) for w in dm.words],
+        [np.asarray(r, np.int32) for r in dm.rdir],
+        [np.asarray(o, np.int64) for o in dm.offs],
+        [np.asarray(p, np.int64) for p in dm.parent],
+        np.asarray(level)[has], np.asarray(node)[has], order[has],
+        int(dm.num_rows), int(dm.num_labels))
 
 
 def from_kmers(keys: np.ndarray, ids: np.ndarray, bitmap: np.ndarray,
@@ -166,19 +213,23 @@ def pack_matrix_bitmap(matrix, num_rows: int) -> np.ndarray:
 def device_annotation(annotation, num_rows: int, cache: str | None = None):
     """The device annotation that the JAX package's
     ``_build_device_annotation`` (query/pipeline.py:270-355) chooses ->
-    a (num_rows, Lw) uint32 bitmap or a ``DeviceBlockSparseAnno``.  A BRWT
-    or RowDiff matrix whose bitmap would pass ``METAGRAPH_DENSE_ANNO_BUDGET``
-    bytes (2 GiB by default, as in the JAX package) takes the block-sparse
-    form: the ``cache`` file when its labels and rows match, else
-    ``from_matrix``, saved to ``cache``.  Every other annotation takes the
-    bitmap."""
+    a (num_rows, Lw) uint32 bitmap, a ``DeviceBlockSparseAnno``, a
+    ``FlatBRWT`` or a ``FlatRowDiff``.  A BRWT or RowDiff matrix whose
+    bitmap would pass ``METAGRAPH_DENSE_ANNO_BUDGET`` bytes (2 GiB by
+    default, as in the JAX package) takes the block-sparse form: the
+    ``cache`` file when its labels and rows match, else ``from_matrix``,
+    saved to ``cache``.  Where ``from_matrix`` gives None (the overflow
+    patterns pass the budget), a BRWT takes the FlatBRWT and a RowDiff the
+    FlatRowDiff over its inner BRWT, or over its inner rows' dense bitmap;
+    no cache is written.  Every other annotation takes the bitmap."""
     matrix = getattr(annotation, "matrix", None)
     budget = int(os.environ.get("METAGRAPH_DENSE_ANNO_BUDGET", 2 << 30))
     if isinstance(matrix, (BRWT, RowDiff)) \
             and not getattr(matrix, "needs_sidecars", False) \
             and num_rows * max((matrix.num_labels + 31) // 32, 1) * 4 \
             > budget:
-        return _block_sparse(matrix, num_rows, budget, cache)
+        sp = _block_sparse(matrix, num_rows, budget, cache)
+        return sp if sp is not None else _words(matrix, num_rows)
     if isinstance(annotation, ColumnMajorAnnotation):
         return pack_annotation_bitmap(annotation, num_rows)
     return pack_matrix_bitmap(matrix or annotation, num_rows)
@@ -200,18 +251,26 @@ def _block_sparse(matrix, num_rows: int, budget: int, cache: str | None):
     if sp is None:
         sp = DeviceBlockSparseAnno.from_matrix(matrix, num_rows,
                                                max_dense_bytes=budget)
-        if sp is None:
-            raise NotImplementedError(
-                "the annotation's overflow patterns pass "
-                "METAGRAPH_DENSE_ANNO_BUDGET: the JAX package serves it on "
-                "the device BRWT / row-diff words route, which is not "
-                "ported yet (ROADMAP A9/B7)")
-        if cache is not None:
+        if sp is not None and cache is not None:
             try:
                 sp.save(cache)
             except OSError:
                 pass       # the cache is an optimisation
     return sp
+
+
+def _words(matrix, num_rows: int):
+    """A BRWT -> FlatBRWT; a RowDiff -> FlatRowDiff over its inner BRWT,
+    or over its inner rows packed as a bitmap (pipeline.py:329-345)."""
+    if matrix.num_rows != num_rows:
+        raise ValueError(f"the annotation has {matrix.num_rows} rows, the "
+                         f"graph {num_rows}")
+    if isinstance(matrix, BRWT):
+        return FlatBRWT.from_brwt(matrix)
+    inner = matrix.inner
+    inner = FlatBRWT.from_brwt(inner) if isinstance(inner, BRWT) else \
+        pack_matrix_bitmap(inner, inner.num_rows)
+    return FlatRowDiff.from_row_diff(matrix, inner)
 
 
 def from_annotation(keys: np.ndarray, ids: np.ndarray, annotation, k: int,

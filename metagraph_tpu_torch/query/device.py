@@ -17,7 +17,12 @@ Three epochs chain the kernels, each with the return contract of
 ``query_epoch_wire_buf`` (mask, counts, present, and the per-window ids
 where the epoch finds them).  Each counts on the index's device
 annotation (``count_labels``): kernel 2 on a dense bitmap, kernels S1 and
-S2 (``annotation/sparse_device.py``) in its place on a block-sparse one:
+S2 (``annotation/sparse_device.py``) in its place on a block-sparse one,
+and on a BRWT or row-diff one W1 or W2 (``annotation/device_matrix.py``)
+writing a chunk of windows' label words for kernel 2 to count
+(``words_count_epoch``, the counterpart of ``make_tiled_count_epoch`` and
+of ``_tile_label_counts`` with a ``words_fn``; the codes epoch takes none,
+as in the JAX package):
 
 * ``wire_epoch``: kernels 1, 2, 3, for DNA graphs with 2 <= k <= 31
   (canon 0, 1 and 2 of ``_wire_epoch_core``);
@@ -42,11 +47,13 @@ import torch
 
 from .. import _build
 from .._u32 import to_i32, to_u64
+from ..annotation.device_matrix import WordsOnDevice, row_words
 from ..annotation.ops import gather_anno_rows
 from ..annotation.sparse_device import SparseOnDevice, sparse_count_epoch
 from ..succinct.ops import codes_lookup, wire_lookup
 
 TILE = 256   # windows per tile
+WORDS_BYTES = 1 << 26    # label words of one chunk of words_count_epoch
 
 
 def _thresholds(nk_list, discovery_fraction: float,
@@ -202,10 +209,11 @@ def _require(device: torch.device, **tensors):
 
 def label_counts(nodes: torch.Tensor, bitmap: torch.Tensor,
                  tile_seq: torch.Tensor, num_seqs: int, num_labels: int,
-                 offset: int = 0):
+                 offset: int = 0, out=None):
     """(N, T) node ids, (R, Lw) bitmap (rows may be padded: its row stride
     is passed on), (N,) tile_seq -> ((S, L) int32 counts, (S,) int32
-    present).  ``offset`` > 0 folds ids above it to
+    present), added into ``out`` = (counts, present) when given, else into
+    zeros.  ``offset`` > 0 folds ids above it to
     ``node - offset`` before the row gather (0 means no fold).  CPU tensors
     take the plain version; CUDA tensors launch ``csrc/label_counts.cu`` or
     raise."""
@@ -223,14 +231,23 @@ def label_counts(nodes: torch.Tensor, bitmap: torch.Tensor,
                          f"{tuple(bitmap.shape)} for {num_labels} labels")
     if not 0 <= offset < 2 ** 31:
         raise ValueError(f"offset {offset} out of range")
+    if out is None:
+        out = (torch.zeros((num_seqs, num_labels), dtype=torch.int32,
+                           device=dev),
+               torch.zeros(num_seqs, dtype=torch.int32, device=dev))
+    counts, present = out
+    _require(dev, counts=counts, present=present)
+    if counts.shape != (num_seqs, num_labels) or present.shape != (num_seqs,):
+        raise ValueError(f"out must be ({num_seqs}, {num_labels}) counts and "
+                         f"({num_seqs},) present")
     if dev.type == "cpu":
-        return label_counts_plain(nodes, bitmap, tile_seq, num_seqs,
+        c, p = label_counts_plain(nodes, bitmap, tile_seq, num_seqs,
                                   num_labels, offset=offset)
+        counts += c
+        present += p
+        return counts, present
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    counts = torch.zeros((num_seqs, num_labels), dtype=torch.int32,
-                         device=dev)
-    present = torch.zeros(num_seqs, dtype=torch.int32, device=dev)
     if N == 0:
         return counts, present
     stride = bitmap.stride(0)
@@ -335,13 +352,49 @@ def selection_mask(counts: torch.Tensor, present: torch.Tensor,
 selection_mask.launches = 0
 
 
+def words_count_epoch(anno, nodes: torch.Tensor, tile_seq: torch.Tensor,
+                      num_seqs: int, offset: int = 0):
+    """(N, T) node ids (or rows + 1), (N,) tile_seq -> ((S, L) int32
+    counts, (S,) int32 present) on a BRWT or row-diff device annotation
+    (``make_tiled_count_epoch``): a chunk of whole tiles at a time, W1 or
+    W2 writes the windows' label words (of at most WORDS_BYTES, rows padded
+    to a multiple of 4 words as DeviceAnnotation pads them, so that kernel
+    2 keeps its 16-byte copies), then kernel 2 counts them as a bitmap
+    whose row i + 1 is the chunk's window i, adding into one (S, L)
+    buffer."""
+    dev = nodes.device
+    N, T = nodes.shape
+    L = anno.num_labels
+    Lw = max((L + 31) // 32, 1)
+    ld = -(-Lw // 4) * 4
+    counts = torch.zeros((num_seqs, L), dtype=torch.int32, device=dev)
+    present = torch.zeros(num_seqs, dtype=torch.int32, device=dev)
+    step = max(1, WORDS_BYTES // (T * ld * 4))      # tiles a chunk
+    n = min(step, N) * T
+    if not n:
+        return counts, present
+    buf = torch.zeros((n, ld), dtype=torch.int32, device=dev)
+    place = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    for t0 in range(0, N, step):
+        chunk = nodes[t0: t0 + step]
+        m = chunk.numel()
+        words = row_words(anno, chunk.reshape(-1), offset, buf[:m, :Lw])
+        ids = torch.where(chunk > 0, place[:m].view(chunk.shape), 0)
+        label_counts(ids, words, tile_seq[t0: t0 + step], num_seqs, L,
+                     out=(counts, present))
+    return counts, present
+
+
 def count_labels(anno, nodes: torch.Tensor, tile_seq: torch.Tensor,
                  num_seqs: int, num_labels: int, offset: int = 0):
     """(N, T) node ids (or rows + 1) -> ((S, L) counts, (S,) present) on a
     device annotation: kernel 2 on an (R, Lw) bitmap tensor, S1 and S2 on
-    a ``SparseOnDevice``."""
+    a ``SparseOnDevice``, W1 or W2 then kernel 2 on a BRWT or row-diff
+    one."""
     if isinstance(anno, SparseOnDevice):
         return sparse_count_epoch(anno, nodes, tile_seq, num_seqs, offset)
+    if isinstance(anno, WordsOnDevice):
+        return words_count_epoch(anno, nodes, tile_seq, num_seqs, offset)
     return label_counts(nodes, anno, tile_seq, num_seqs, num_labels, offset)
 
 
@@ -373,7 +426,11 @@ def codes_epoch(table: torch.Tensor, anno, packed2: torch.Tensor,
     2-bit code tiles, (N, ceil(TK/8)) uint8 valid bits (``tile_pack2``),
     (N,) tile_seq and (S,) thresholds -> (mask (S, Lw), counts (S, L),
     present (S,), nodes (N, T)), the contract of query_epoch_codes2 without
-    its padding."""
+    its padding.  It takes no BRWT or row-diff annotation: the JAX package
+    sends those to execute_batch (the map route)."""
+    if isinstance(anno, WordsOnDevice):
+        raise ValueError("the codes epoch counts on a bitmap or a "
+                         "block-sparse annotation, not on a words one")
     nodes = codes_lookup(packed2, validb, table, K, T)
     counts, present = count_labels(anno, nodes, tile_seq, num_seqs,
                                    num_labels)

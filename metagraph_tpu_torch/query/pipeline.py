@@ -10,8 +10,9 @@ choose:
 * **codes** (basic DNA graphs, k >= 32): ``tile_pack2``, then kernels B,
   2 and 3 (``device.codes_epoch``, the counterpart of
   ``query_epoch_codes2``);
-* **map** (DNA5, DNA_CASE and Protein graphs, and canonical or primary DNA
-  graphs with k >= 32): ``map_batch`` (:208-264) maps the windows, packed
+* **map** (DNA5, DNA_CASE and Protein graphs, canonical or primary DNA
+  graphs with k >= 32, and basic ones on a BRWT or row-diff device
+  annotation): ``map_batch`` (:208-264) maps the windows, packed
   on the host (canonicalised on the host for a canonical graph, a
   reverse-complement pass for the misses of a primary one), through kernel
   A; ``execute_batch`` (:577-605) counts and selects on the host-tiled
@@ -20,20 +21,23 @@ choose:
 Each route counts on the index's device annotation: kernel 2 on a dense
 bitmap, kernels S1 and S2 on a block-sparse one (``query/device.py::
 count_labels``; the JAX package sends a block-sparse batch to
-``execute_batch``, whose counts are the same).  The selection mask comes
-back to the host; ``_hits_from_mask`` (:466) and ``_payloads_from_hits``
-(:808) build the per-sequence payloads of the six modes there, from the
-bitmap and the column annotation's values, or through a converted
-annotation's row queries (:835-906).  Per-window node ids are
-downloaded only for the modes that need positions.  The JAX package sends
-a sequence of 2^24 or more windows to the host counters, because its
-fused fold is a float32 matmul; the port's fold is integer, so such a
-sequence stays on its route.
+``execute_batch``, whose counts are the same), and on a BRWT or row-diff
+one W1 or W2, then kernel 2 on the words they write (the JAX words route:
+the wire epoch with a ``words_fn``, or ``make_tiled_count_epoch`` after
+``execute_batch``, which also takes a basic DNA graph with k >= 32).  The
+selection mask comes back to the host; ``_hits_from_mask`` (:466) and
+``_payloads_from_hits`` (:808) build the per-sequence payloads of the six
+modes there, from the bitmap and the column annotation's values, or
+through a converted annotation's row queries (:835-906).  Per-window node
+ids are downloaded only for the modes that need positions.  The JAX
+package sends a sequence of 2^24 or more windows to the host counters,
+because its fused fold is a float32 matmul; the port's fold is integer,
+so such a sequence stays on its route.
 
 Scope: succinct graphs of every alphabet and k with a column annotation
-or any annotation that ``transform_anno`` writes.  The device BRWT and
-row-diff words route, the .seqs coordinate mapping and -p above 1 raise
-NotImplementedError elsewhere and name their ROADMAP items.
+or any annotation that ``transform_anno`` writes, at every budget.  The
+.seqs coordinate mapping and -p above 1 raise NotImplementedError
+elsewhere and name their ROADMAP items.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import torch
 from .._u32 import np_words, words_np
 from ..annotation.annotated_dbg import (_top_n_sorted, graph_to_anno_index,
                                         row_multiset)
+from ..annotation.device_matrix import FlatBRWT, FlatRowDiff, device_words
 from ..annotation.matrix import StaticAnnotation
 from ..annotation.ops import DeviceAnnotation
 from ..annotation.sparse_device import DeviceBlockSparseAnno, SparseOnDevice
@@ -74,11 +79,13 @@ def _check_mode(mode: str):
 
 def route_of(index: QueryIndex) -> str:
     """'wire', 'codes' or 'map': the route of query_batch_fused's choice
-    for the index's graph (see the module docstring)."""
+    for the index's graph and device annotation (see the module
+    docstring)."""
     if index.alphabet == "DNA":
         if index.k <= 31:
             return "wire"
-        if index.canon == 0:
+        if index.canon == 0 and not isinstance(index.device_anno,
+                                               (FlatBRWT, FlatRowDiff)):
             return "codes"
     return "map"
 
@@ -93,13 +100,15 @@ class QueryEngine:
         self.extractor = KmerExtractor(ALPHABETS[index.alphabet])
         self.hash_index = DeviceHashIndex.from_table(index.table, self.device)
         # the device annotation the epochs count on: the (R, Lw) bitmap
-        # tensor, or the block-sparse tensors
+        # tensor, the block-sparse tensors, or a BRWT's or row-diff's
         dev_anno = index.device_anno
-        self.annotation = (
-            SparseOnDevice.from_host(dev_anno, self.device)
-            if isinstance(dev_anno, DeviceBlockSparseAnno) else
-            DeviceAnnotation.from_bitmap(dev_anno, len(index.labels),
-                                         self.device).bitmap)
+        if isinstance(dev_anno, DeviceBlockSparseAnno):
+            self.annotation = SparseOnDevice.from_host(dev_anno, self.device)
+        elif isinstance(dev_anno, (FlatBRWT, FlatRowDiff)):
+            self.annotation = device_words(dev_anno, self.device)
+        else:
+            self.annotation = DeviceAnnotation.from_bitmap(
+                dev_anno, len(index.labels), self.device).bitmap
         # payloads through the annotation's row queries (a converted
         # annotation) rather than the bitmap and column values
         self._by_rows = isinstance(index.annotation, StaticAnnotation)

@@ -1,6 +1,7 @@
-"""Time kernels A, B, 3, 4, S1 and S2 (``key_lookup``, ``codes_lookup``,
-``selection_mask``, ``sw_scores``, ``sparse_label_counts``,
-``overflow_counts``) of one or more trees of the port on the card, each
+"""Time kernels A, B, 3, 4, S1, S2, W1 and W2 (``key_lookup``,
+``codes_lookup``, ``selection_mask``, ``sw_scores``,
+``sparse_label_counts``, ``overflow_counts``, ``brwt_row_words``,
+``rowdiff_row_words``) of one or more trees of the port on the card, each
 held exactly against its plain version.
 
     python metagraph_tpu_torch/scripts/kernel_times.py [--root DIR ...]
@@ -48,7 +49,15 @@ wrappers take the same arguments.  The inputs come from fixed seeds:
   again, 16 patterns of 48-64 of them), S cut to the first 15,000 reads
   and the long sequence so that the counts stay under 4 GB;
 * ``overflow_counts`` (S2) on S1's multiplicities and counts (L = 4,096),
-  and on multiplicities that are all zero (its scan alone).
+  and on multiplicities that are all zero (its scan alone);
+* ``brwt_row_words`` (W1) and ``rowdiff_row_words`` (W2) at the words
+  deployments' shapes: S1's table at L = 4,096 as a BRWT (arity 2, no
+  linkage) and as a row-diff BRWT whose successor is each row's next row
+  in its reference (an anchor every 100 rows and at a reference's end), on
+  the first words chunk of S1's windows (512 tiles, 131,072 windows); and
+  their L2 controls: the same windows on the control rows of S1's (each
+  reference's first 256 rows, its BRWT and walk about 1 MB).  A tree
+  without ``annotation/device_matrix.py`` skips them.
 
 The last line of stdout is a JSON object: every tree's times in its turns
 (CUDA events, mean of ``--reps`` launches after a warm-up) and the card.
@@ -78,13 +87,14 @@ FULL = dict(keys=27_150_000, key_table=8_100_000, refs=1000, ref_len=8101,
             sparse=dict(refs=1000, ref_rows=8100, reads=150_000, read_len=200,
                         long_hits=1 << 24, labels=(4096, 65_536),
                         wide_reads=15_000, patterns=(16, 48, 65),
-                        ctrl_rows=256))
+                        ctrl_rows=256, anchor_every=100, words_tiles=None))
 TINY = dict(keys=5000, key_table=1500, refs=12, ref_len=300, reads=200,
             read_len=120, long_windows=2000, buckets_log=9, ctrl_log=6,
             sw=((16, 37, 60), (4, 70, 90)), select=(301, 100),
             sparse=dict(refs=24, ref_rows=400, reads=300, read_len=120,
                         long_hits=3000, labels=(4096, 65_536), wide_reads=40,
-                        patterns=(4, 8, 13), ctrl_rows=64))
+                        patterns=(4, 8, 13), ctrl_rows=64, anchor_every=10,
+                        words_tiles=8))
 
 
 def sw_pairs(rng, B, LQ, LR):
@@ -157,13 +167,20 @@ def load_port(root: str) -> SimpleNamespace:
     try:
         mods = {n: importlib.import_module(f"metagraph_tpu_torch.{n}")
                 for n in ("succinct.ops", "align.sw", "query.device",
-                          "query.tile_pack", "annotation.sparse_device")}
+                          "query.tile_pack", "annotation.sparse_device",
+                          "annotation.matrix")}
+        dm = importlib.import_module(
+            "metagraph_tpu_torch.annotation.device_matrix") \
+            if os.path.exists(os.path.join(
+                root, "metagraph_tpu_torch", "annotation",
+                "device_matrix.py")) else None
     finally:
         sys.path.remove(root)
     return SimpleNamespace(root=root, ops=mods["succinct.ops"],
                            sw=mods["align.sw"], qd=mods["query.device"],
                            tile_pack2=mods["query.tile_pack"].tile_pack2,
-                           sd=mods["annotation.sparse_device"])
+                           sd=mods["annotation.sparse_device"], dm=dm,
+                           matrix=mods["annotation.matrix"])
 
 
 def protein_inputs(rng, s, ops):
@@ -294,6 +311,7 @@ def sparse_inputs(port, s, torch, dev):
     for L in sp["labels"]:
         entries, dmap, dense8 = sparse_tables(rng, L, rows_of, n_pat, lo, hi)
         if L == sp["labels"][0]:
+            words = (entries, dmap, dense8)
             # the control table: row 0, then each reference's first M rows
             first = rows_of[:, :M].reshape(-1)
             tabs = {"": (entries, dmap, ids),
@@ -326,7 +344,91 @@ def sparse_inputs(port, s, torch, dev):
           f" distinct rows of {nref * nrow}; {S} sequences; "
           f"{int((mult[:, 1:] > 0).sum())} (sequence, pattern) pairs",
           flush=True)
-    return SimpleNamespace(cases=cases, want=want, dense8=dense)
+    return SimpleNamespace(cases=cases, want=want, dense8=dense,
+                           words=words_inputs(port, s, torch, dev, words,
+                                              rows_of, ids, ctrl))
+
+
+class Arity2BRWT:
+    """BRWT.from_columns with arity 2 and no linkage (greedy linkage is
+    Python over millions of pairs a round at 4,096 labels): the words
+    deployments' trees, and RowDiff.from_annotation's inner type for
+    them."""
+
+    @staticmethod
+    def from_columns(columns, num_rows, num_labels):
+        from metagraph_tpu_torch.annotation.matrix import BRWT
+        return BRWT.from_columns(columns, num_rows, num_labels,
+                                 linkage=False)
+
+
+def table_columns(entries, dmap, dense8, rows):
+    """The label columns of table rows ``rows`` (ids; column rows are the
+    places in ``rows``): their label ids and overflow patterns."""
+    L = dense8.shape[1]
+    e = entries[rows]
+    r, c = np.nonzero(e < L)
+    lab = e[r, c].astype(np.int64)
+    pr, pl = [r], [lab]
+    for d in range(1, dense8.shape[0]):
+        at = np.flatnonzero(dmap[rows] == d)
+        pat = np.flatnonzero(dense8[d])
+        pr.append(np.repeat(at, len(pat)))
+        pl.append(np.tile(pat, len(at)))
+    r, lab = np.concatenate(pr), np.concatenate(pl)
+    order = np.lexsort((r, lab))
+    starts = np.searchsorted(lab[order], np.arange(L + 1))
+    return [r[order[starts[c]: starts[c + 1]]] for c in range(L)]
+
+
+def words_inputs(port, s, torch, dev, table, rows_of, ids, ctrl):
+    """W1's and W2's inputs (the module docstring) on the device, with
+    their plain results; None for a tree without them."""
+    dm = port.dm
+    if dm is None:
+        return None
+    RowDiff = port.matrix.RowDiff
+    sp, T = s["sparse"], port.qd.TILE
+    M, every = sp["ctrl_rows"], sp["anchor_every"]
+    nref, nrow = rows_of.shape
+    L = table[2].shape[1]
+    Lw = -(-L // 32)
+    step = sp["words_tiles"] or max(
+        1, port.qd.WORDS_BYTES // (T * -(-Lw // 4) * 16))
+    cases, t0 = {}, time.perf_counter()
+    for what, rows, n, win in (
+            ("", rows_of, nrow, ids),
+            (" L2 control", rows_of[:, :M], M, ctrl)):
+        R = rows.size
+        # column row i holds table id i + 1; the control's column rows are
+        # reference r's first M rows at r * M + p (its ids ``ctrl``)
+        if what:
+            cols = table_columns(*table, rows.reshape(-1))
+            place = np.arange(R).reshape(nref, n)
+        else:
+            cols = table_columns(*table, np.arange(1, R + 1))
+            place = rows - 1
+        succ = np.full(R, -1, np.int64)
+        succ[place[:, :-1].reshape(-1)] = place[:, 1:].reshape(-1)
+        anchors = np.zeros(R, bool)
+        anchors[place[:, every - 1::every].reshape(-1)] = True
+        anchors |= succ < 0
+        brwt = dm.BRWTOnDevice.from_host(dm.FlatBRWT.from_brwt(
+            Arity2BRWT.from_columns(cols, R, L)), dev)
+        rd = RowDiff.from_annotation(cols, R, L, (succ, anchors),
+                                     Arity2BRWT)
+        walk = dm.RowDiffOnDevice.from_host(dm.FlatRowDiff.from_row_diff(
+            rd, dm.FlatBRWT.from_brwt(rd.inner)), dev)
+        w = torch.from_numpy(
+            np.ascontiguousarray(win[:step].reshape(-1))).to(dev)
+        cases["brwt_row_words" + what] = (brwt, w)
+        cases["rowdiff_row_words" + what] = (walk, w)
+    want = {name: getattr(dm, name.split()[0] + "_plain")(a, w)
+            for name, (a, w) in cases.items()}
+    w = cases["brwt_row_words"][1]
+    print(f"words inputs: {w.numel()} windows, {int((w > 0).sum())} hits; "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    return SimpleNamespace(cases=cases, want=want)
 
 
 def sparse_zeros(torch, dev, S, L, P):
@@ -409,6 +511,14 @@ def time_tree(port, inp, s, torch, dev, reps, check):
         times[name] = clock(fn)
         print(f"  {name}: {times[name]:.4f} ms", flush=True)
     times.update(time_sparse(port.sd, inp.sparse, torch, dev, clock, check))
+    words = inp.sparse.words
+    if port.dm is not None and words is not None:
+        for name, (anno, w) in words.cases.items():
+            fn = getattr(port.dm, name.split()[0])
+            if check:
+                exact(torch, fn(anno, w), words.want[name], name)
+            times[name] = clock(lambda: fn(anno, w))
+            print(f"  {name}: {times[name]:.4f} ms", flush=True)
     return times
 
 

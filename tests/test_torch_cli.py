@@ -214,25 +214,30 @@ def test_stdout_closed_early_exits_as_jax(index):
 # dense within METAGRAPH_DENSE_ANNO_BUDGET and block-sparse past it
 
 # runs [budget, args] items through the port's CLI in one process, and
-# records for each its stdout, the error it raised and whether it wrote
-# the block-sparse cache (removed after each run, so that no later run
-# reads it); checks that JAX never loaded
+# records for each its stdout, the error it raised, whether it wrote the
+# block-sparse cache (removed after each run, so that no later run reads
+# it) and the device annotation's form that ``convert.load`` gives at that
+# budget; checks that JAX never loaded
 _CONVERTED_RUNNER = """
 import contextlib, io, json, os, sys
+from metagraph_tpu_torch import convert
 from metagraph_tpu_torch.cli import main
 out = []
 for budget, args in json.load(open(sys.argv[1])):
     os.environ.pop("METAGRAPH_DENSE_ANNO_BUDGET", None)
     if budget is not None:
         os.environ["METAGRAPH_DENSE_ANNO_BUDGET"] = budget
-    cache = args[args.index("-a") + 1] + ".devsparse.npz"
-    buf, err = io.StringIO(), None
+    anno = args[args.index("-a") + 1]
+    cache = anno + ".devsparse.npz"
+    buf, err, form = io.StringIO(), None, None
     try:
         with contextlib.redirect_stdout(buf):
             main(args)
+        form = type(convert.load(args[args.index("-i") + 1],
+                                 anno).device_anno).__name__
     except (ValueError, NotImplementedError) as e:
         err = f"{type(e).__name__}: {e}"
-    out.append([buf.getvalue(), err, os.path.exists(cache)])
+    out.append([buf.getvalue(), err, os.path.exists(cache), form])
     if os.path.exists(cache):
         os.remove(cache)
 json.dump(out, open(sys.argv[2], "w"))
@@ -271,8 +276,15 @@ CONVERTED = (
        for m in ("labels", "matches")]
     # counts on a binary representation: the JAX ValueError
     + [("g", "a", "brwt", b, "counts") for b in (None, OVER)]
-    # from_matrix gives None: the port raises, the JAX package serves it
-    + [("g", "a", rep, GAP, "labels") for rep in ("brwt", "row_diff_brwt")])
+    # from_matrix gives None: the words route (W1 on a brwt, W2 on a
+    # row-diff over a BRWT or, row_diff_flat, over a dense inner bitmap);
+    # wire route at k = 19 (basic, canonical, primary), map route on the
+    # basic k = 41 graph
+    + [("g", "a", rep, GAP, m) for rep in ("brwt", "row_diff_brwt")
+       for m in ("labels", "matches", "signature")]
+    + [("g", "a", "row_diff_flat", GAP, m) for m in ("labels", "matches")]
+    + [(g, "a", rep, GAP, m) for g in ("gc", "gp", "g41")
+       for rep in ("brwt", "row_diff_brwt") for m in ("labels", "matches")])
 
 
 def _converted_args(tmp, graph, src, rep, mode):
@@ -356,13 +368,13 @@ def test_converted_annotations_match_jax_cli(converted, case, monkeypatch):
     """The port prints the JAX CLI's stdout bytes; brwt and row_diff_brwt
     past the budget take the block-sparse route (they write its cache),
     every other case the dense one.  Counts on a brwt raise the JAX
-    package's ValueError.  Where from_matrix gives None (GAP) the JAX
-    package serves the query on its device BRWT / row-diff words route
-    (ROADMAP A9/B7), which the port refuses with NotImplementedError."""
+    package's ValueError.  Where from_matrix gives None (GAP), both take
+    the device BRWT / row-diff words route: the port's index holds a
+    FlatBRWT or FlatRowDiff and no cache is written."""
     from metagraph_tpu.cli.main import main as jax_main
     tmp, port = converted
     graph, src, rep, budget, mode = case
-    out, err, sparse = port[case]
+    out, err, sparse, form = port[case]
     if budget is None:
         monkeypatch.delenv("METAGRAPH_DENSE_ANNO_BUDGET", raising=False)
     else:
@@ -379,13 +391,14 @@ def test_converted_annotations_match_jax_cli(converted, case, monkeypatch):
     finally:
         if os.path.exists(cache):
             os.remove(cache)
-    if budget == GAP:
-        assert err.startswith("NotImplementedError") and "A9" in err
-        assert jax_err is None and buf.getvalue().count("\n") >= 30
-        return
     assert err == jax_err
     assert out == buf.getvalue()
-    assert sparse == (rep in ("brwt", "row_diff_brwt") and budget is not None)
+    if budget == GAP:
+        assert not sparse and not os.path.exists(cache)
+        assert form == ("FlatBRWT" if rep == "brwt" else "FlatRowDiff")
+    else:
+        assert sparse == (rep in ("brwt", "row_diff_brwt")
+                          and budget is not None)
     if mode == "counts" and rep == "brwt":
         assert err == "ValueError: k-mer counts are not indexed in a brwt " \
             "annotator"

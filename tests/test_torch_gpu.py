@@ -21,7 +21,9 @@ from metagraph_tpu_torch._u32 import np_words
 from metagraph_tpu_torch.align.sw import (positions_per_lane, query_blocks,
                                           sw_scores)
 from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+from metagraph_tpu_torch.annotation import device_matrix as dm
 from metagraph_tpu_torch.annotation import sparse_device as sd
+from metagraph_tpu_torch.annotation.matrix import BRWT, RowDiff
 from metagraph_tpu_torch.annotation.ops import (DeviceAnnotation,
                                                pack_annotation_bitmap)
 from metagraph_tpu_torch.query import device as qd
@@ -898,3 +900,118 @@ def test_sparse_long_sequence_over_many_blocks(cuda, canon):
     _, present, mult, _ = _s1_s2_vs_plain(anno, nodes, tile_seq, 4, offset,
                                           cuda)
     assert int(present[1]) > 3000 * qd.TILE // 2 and int(mult[1].sum()) > 0
+
+
+# --------------------------------------------------------------------------
+# kernels W1 and W2 (BRWT and row-diff device annotations)
+# --------------------------------------------------------------------------
+
+def _words_columns(rng, R, L, hot_rows=40):
+    """Label columns over R rows: 0-3 random labels a row, and ``hot_rows``
+    rows that carry most labels."""
+    hot = rng.choice(R, hot_rows, replace=False)
+    r = np.concatenate([rng.integers(0, R, 2 * R), np.repeat(hot, L // 2)])
+    c = np.concatenate([rng.integers(0, L, 2 * R),
+                        rng.integers(0, L, hot_rows * (L // 2))])
+    return [np.unique(r[c == j]) for j in range(L)]
+
+
+def _chain_routing(R, length):
+    """Chains of ``length`` rows in row order (the last row of each an
+    anchor), so that walks reach max_depth = length."""
+    succ = np.arange(1, R + 1, dtype=np.int64)
+    ends = (np.arange(R) % length == length - 1) | (succ >= R)
+    succ[ends] = -1
+    return succ, ends.copy()
+
+
+def _word_ids(rng, R, Q, offset):
+    ids = rng.integers(0, R + 1, Q).astype(np.int32)
+    ids[rng.random(Q) < 0.1] = 0
+    if offset:
+        rc = (ids > 0) & (rng.random(Q) < 0.4)
+        ids[rc] += offset
+    return ids
+
+
+def _words_vs_plain(fn, plain, anno, ids, offset, dev):
+    before = fn.launches
+    got = fn(anno, ids.to(dev), offset)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(anno, ids.to(dev), offset)
+    assert torch.equal(got, want)
+    return got
+
+
+W1_TREES = [(7, 2, True), (100, 3, True), (100, 40, False),
+            (4096, 2, False)]
+
+
+@pytest.mark.parametrize("canon", (0, 2))
+@pytest.mark.parametrize("L,arity,linkage", W1_TREES)
+def test_brwt_row_words_matches_plain(cuda, L, arity, linkage, canon):
+    rng = np.random.default_rng(L + arity + canon)
+    R = 3000
+    brwt = BRWT.from_columns(_words_columns(rng, R, L), R, L, arity=arity,
+                             linkage=linkage)
+    anno = dm.BRWTOnDevice.from_host(dm.FlatBRWT.from_brwt(brwt), cuda)
+    offset = R if canon == 2 else 0
+    ids = torch.from_numpy(_word_ids(rng, R, 20_000, offset))
+    got = _words_vs_plain(dm.brwt_row_words, dm.brwt_row_words_plain, anno,
+                          ids, offset, cuda)
+    assert int((got != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("canon", (0, 2))
+@pytest.mark.parametrize("inner", ("brwt", "dense"))
+@pytest.mark.parametrize("L", (9, 300))
+def test_rowdiff_row_words_matches_plain(cuda, L, inner, canon):
+    """Chains of 37 rows (walks that reach max_depth), misses, a canon 2
+    offset, on both inner sources."""
+    rng = np.random.default_rng(L * 3 + canon + (inner == "brwt"))
+    R = 2500
+    rd = RowDiff.from_annotation(_words_columns(rng, R, L), R, L,
+                                 _chain_routing(R, 37))
+    inner_f = dm.FlatBRWT.from_brwt(rd.inner) if inner == "brwt" else \
+        convert.pack_matrix_bitmap(rd.inner, R)
+    flat = dm.FlatRowDiff.from_row_diff(rd, inner_f)
+    assert flat.max_depth == 37
+    anno = dm.RowDiffOnDevice.from_host(flat, cuda)
+    offset = R if canon == 2 else 0
+    ids = torch.from_numpy(_word_ids(rng, R, 12_000, offset))
+    got = _words_vs_plain(dm.rowdiff_row_words, dm.rowdiff_row_words_plain,
+                          anno, ids, offset, cuda)
+    base = ids.long()
+    base = torch.where(base > offset, base - offset, base) if offset else base
+    rows = np.flatnonzero(base.numpy() > 0)[:500]
+    truth = rd.get_rows_words(base.numpy()[rows] - 1)
+    assert np.array_equal(got.cpu().numpy()[rows].view(np.uint32), truth)
+
+
+@pytest.mark.parametrize("inner", ("brwt", "dense", None))
+def test_words_count_epoch_cuda_matches_cpu(cuda, inner, monkeypatch):
+    """W1 or W2 then kernel 2, a few tiles a chunk, against the CPU's plain
+    versions."""
+    monkeypatch.setattr(qd, "WORDS_BYTES", 7 * qd.TILE * 4 * 4)
+    rng = np.random.default_rng(5)
+    R, L, S = 4000, 97, 61
+    cols = _words_columns(rng, R, L)
+    if inner is None:
+        flat = dm.FlatBRWT.from_brwt(BRWT.from_columns(cols, R, L,
+                                                       linkage=False))
+    else:
+        rd = RowDiff.from_annotation(cols, R, L, _chain_routing(R, 20))
+        flat = dm.FlatRowDiff.from_row_diff(
+            rd, dm.FlatBRWT.from_brwt(rd.inner) if inner == "brwt"
+            else convert.pack_matrix_bitmap(rd.inner, R))
+    nodes, tile_seq = _sparse_tiles(rng, R, S, R)
+    got = qd.count_labels(dm.device_words(flat, cuda),
+                          torch.from_numpy(nodes).to(cuda),
+                          torch.from_numpy(tile_seq).to(cuda), S, L, R)
+    want = qd.count_labels(dm.device_words(flat, torch.device("cpu")),
+                           torch.from_numpy(nodes),
+                           torch.from_numpy(tile_seq), S, L, R)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(got[0].sum()) > 0
