@@ -63,6 +63,8 @@ then:
    payloads against the oracle; W1 and W2 against their plain versions
    exactly on the first and the last words chunk of the batch (which hold
    pattern rows), timed on the first, and kernel 2 on that chunk's words;
+   W2's walks of the first chunk counted (steps of a walk a window,
+   distinct rows, forward-linked windows, tails and their chain steps);
 6. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
    300 and holds it against its plain version and, on a sample, the numpy
    oracle; then on 1,024 pairs of 1,000 x 1,000 and 256 pairs of 2,000 x
@@ -1275,6 +1277,10 @@ def words_checks(engine, seqs, cfg, torch, dev, tag):
         got.append(fn(anno, ids, 0, out))
         want.append(plain(anno, ids, 0, visited if t0 == 0 else None))
     ids, out = nodes[:step].reshape(-1).contiguous(), got[0]
+    if not brwt:
+        from metagraph_tpu_torch.scripts.kernel_times import walk_counts
+        log(f"  {name}{tag} walks of the first chunk: "
+            f"{walk_counts(dm, torch, anno, ids)}")
     ms = device_ms(torch, dev, lambda: fn(anno, ids, 0, out), 10)
     plain_ms = device_ms(torch, dev, lambda: plain(anno, ids), 1)
     # the compared windows whose row has more than tau = 4 labels (an

@@ -6,6 +6,9 @@ for ``sm_90a`` into its own shared library under ``build/torch_kernels/``
 carries a hash of its source, the shared headers (``csrc/*.cuh``) and the
 flags, so an edited source or header is rebuilt.
 ``build_all`` starts one ``nvcc`` per missing library, all at once.
+A variant (``VARIANTS``) is a source built with extra flags into a library
+of its own name, at its first use only: ``row_words_split`` is W1 and W2
+with the descent's load-wait counters (scripts/kernel_times.py).
 
 Every C entry point returns ``cudaGetLastError()`` right after its launch;
 ``check`` raises if that is not 0.
@@ -29,6 +32,7 @@ KERNELS = ("wire_lookup", "label_counts", "selection_mask", "sw_scores",
            "row_words")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+VARIANTS = {"row_words_split": ("row_words", ["-DMG_ROW_WORDS_SPLIT"])}
 
 _lock = threading.Lock()
 _funcs: dict = {}
@@ -42,18 +46,26 @@ def _nvcc() -> str:
     return path
 
 
+def _source(name: str):
+    """-> (source file, flags) of library ``name``."""
+    src, extra = VARIANTS.get(name, (name, []))
+    return os.path.join(CSRC, src + ".cu"), NVCC_FLAGS + extra
+
+
 def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    src, flags = _source(name)
+    h = hashlib.sha256(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for f in [name + ".cu"] + headers:
-        with open(os.path.join(CSRC, f), "rb") as fh:
+    for f in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(f, "rb") as fh:
             h.update(fh.read())
     digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
-def build_all() -> dict:
-    """Compile every kernel library that is missing, in parallel.
+def build_all(names=KERNELS) -> dict:
+    """Compile every kernel library of ``names`` that is missing, in
+    parallel.
 
     Returns {name: (seconds, compiler report)} for the ones built; the
     report holds ptxas's registers, shared memory and spills per kernel."""
@@ -61,13 +73,13 @@ def build_all() -> dict:
         os.makedirs(BUILD_DIR, exist_ok=True)
         jobs = {}
         t0 = time.perf_counter()
-        for name in KERNELS:
+        for name in names:
             so = library_path(name)
             if os.path.exists(so):
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC, name + ".cu")]
+            src, flags = _source(name)
+            cmd = [_nvcc(), *flags, "-o", tmp, src]
             jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT,
                                            text=True), tmp, so)
@@ -92,7 +104,7 @@ def function(name: str, symbol: str, argtypes: list):
     if fn is None:
         so = library_path(name)
         if not os.path.exists(so):
-            build_all()
+            build_all(KERNELS if name in KERNELS else (name,))
         fn = getattr(ctypes.CDLL(so), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

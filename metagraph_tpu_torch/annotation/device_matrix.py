@@ -58,6 +58,9 @@ from .ops import DeviceAnnotation
 
 WARP_SMEM = 96 << 10     # shared memory of a block of W1 or W2, at most
 MAX_WARPS = 8            # warps a block
+SLOTS = 8                # windows a warp of W1 or W2 descends at once, at most
+LIBRARY = "row_words"    # W1's and W2's library ("row_words_split": the
+#                          descent's load-wait counters, kernel_times.py)
 
 
 # --------------------------------------------------------------------------
@@ -108,7 +111,8 @@ class FlatBRWT:
     words: np.ndarray       # (W, 2) int32: bitmap word, exclusive rank
     num_rows: int
     num_labels: int
-    stack_cap: int          # W1's stack runs a warp (csrc/row_words.cu)
+    stack_cap: int          # stack runs a warp of SLOTS windows
+    #                         (csrc/row_words.cu)
 
     @classmethod
     def from_brwt(cls, brwt) -> "FlatBRWT":
@@ -166,9 +170,9 @@ class FlatBRWT:
         wr = np.zeros((W, 2), np.int32)
         wr[:, 0] = np.concatenate(words).view(np.int32) if W else []
         wr[:, 1] = np.concatenate(rdir) if W else []
-        # the root's virtual run, then at most 32 runs a depth and no more
-        # than the inner nodes there (csrc/row_words.cu)
-        cap = 1 + sum(min(32, c) for c in inner)
+        # the SLOTS roots' virtual runs, then at most 32 runs a depth and
+        # no more than SLOTS x the inner nodes there (csrc/row_words.cu)
+        cap = SLOTS + sum(min(32, SLOTS * c) for c in inner)
         return cls(nodes, wr, int(num_rows), int(num_labels), cap)
 
 
@@ -239,7 +243,7 @@ def check_words_annotation(dev, num_labels: int):
             or words[:, 1].min(initial=0) < 0:
         raise ValueError("BRWT word offsets or ranks outside the words")
     inner = cnt > 0
-    if cnt.min() < 0 or np.any(first[inner] < 1) \
+    if cnt.min() < 0 or cnt.max() >= 2 ** 28 or np.any(first[inner] < 1) \
             or np.any(first[inner] + cnt[inner] > len(nodes)):
         raise ValueError("BRWT children outside the node table")
     if lab.min() < -1 or lab.max() >= L or np.any(inner & (lab >= 0)):
@@ -414,13 +418,21 @@ def rowdiff_row_words_plain(rd: RowDiffOnDevice, ids: torch.Tensor,
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 
 
-def _warps(Lw: int, cap: int) -> int:
-    """Warps a block: as many as fit WARP_SMEM, at most MAX_WARPS."""
+def _plan(Lw: int, cap: int) -> tuple[int, int]:
+    """-> (warps a block, windows a warp) of W1 or W2 on a tree of ``cap``
+    stack runs (0: W2's dense inner rows, no shared memory): MAX_WARPS
+    warps of as many windows as fit WARP_SMEM, at most SLOTS, or fewer
+    warps of one window."""
+    if cap == 0:
+        return MAX_WARPS, SLOTS
+    for slots in range(min(SLOTS, cap), 0, -1):
+        if MAX_WARPS * (slots * Lw + 3 * cap) * 4 <= WARP_SMEM:
+            return MAX_WARPS, slots
     per = (Lw + 3 * cap) * 4
     if per > 227 << 10:
         raise ValueError(f"a warp's row of {Lw} words and stack of {cap} "
                          "runs pass an SM's shared memory")
-    return max(1, min(MAX_WARPS, WARP_SMEM // per))
+    return max(1, min(MAX_WARPS, WARP_SMEM // per)), 1
 
 
 def _prepare(ids: torch.Tensor, num_labels: int, out):
@@ -466,12 +478,13 @@ def brwt_row_words(tree: BRWTOnDevice, ids: torch.Tensor, offset: int = 0,
     Q, Lw = out.shape
     if Q == 0:
         return out
-    fn = _build.function("row_words", "mg_brwt_row_words",
+    fn = _build.function(LIBRARY, "mg_brwt_row_words",
                          [_P, _L, _P, _L, _I, _P, _L, _I, _L, _I, _I, _P, _L,
-                          _I, _P])
+                          _I, _I, _P])
+    warps, slots = _plan(Lw, tree.stack_cap)
     _build.check(fn(*_tree_args(tree), ids.data_ptr(), Q, offset,
                     tree.num_rows, tree.num_labels, Lw, out.data_ptr(), ld,
-                    _warps(Lw, tree.stack_cap),
+                    slots, warps,
                     torch.cuda.current_stream(ids.device).cuda_stream),
                  "brwt_row_words")
     brwt_row_words.launches += 1
@@ -510,16 +523,24 @@ def rowdiff_row_words(rd: RowDiffOnDevice, ids: torch.Tensor,
     Q, Lw = out.shape
     if Q == 0:
         return out
-    fn = _build.function("row_words", "mg_rowdiff_row_words",
+    if Q >= 2 ** 31:
+        raise ValueError(f"rowdiff_row_words takes fewer than 2^31 windows, "
+                         f"got {Q}")
+    fn = _build.function(LIBRARY, "mg_rowdiff_row_words",
                          [_P, _L, _P, _L, _I, _P, _L, _I, _P, _I, _P, _L, _I,
-                          _L, _I, _I, _P, _L, _I, _P])
+                          _L, _I, _I, _P, _L, _P, _L, _I, _I, _P])
     tree = None if dense else rd.inner
-    cap = 0 if dense else tree.stack_cap
+    warps, slots = _plan(Lw, 0 if dense else tree.stack_cap)
+    # two counts, the tails' chain rows (2 a window; a tail whose chain
+    # does not fit is walked by one warp), the tails, a flag byte a window
+    list_cap = 2 * Q
+    scratch = torch.empty(16 + 8 * list_cap + 5 * Q, dtype=torch.uint8,
+                          device=ids.device)
     _build.check(fn(*_tree_args(tree), rd.inner.data_ptr() if dense else None,
                     rd.inner.stride(0) if dense else 0, int(dense),
                     rd.next_row.data_ptr(), rd.max_depth, ids.data_ptr(), Q,
                     offset, R, rd.num_labels, Lw, out.data_ptr(), ld,
-                    _warps(Lw, cap),
+                    scratch.data_ptr(), list_cap, slots, warps,
                     torch.cuda.current_stream(ids.device).cuda_stream),
                  "rowdiff_row_words")
     rowdiff_row_words.launches += 1

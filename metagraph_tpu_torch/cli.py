@@ -38,6 +38,10 @@ def cmd_query(args):
     from .query.pipeline import QueryEngine
     from .seq_io.fasta import read_fasta
 
+    device = resolve_device(args.torch_device)   # before the index is built
+    # the graph and the annotation load first, as in the JAX cmd_query
+    # (cli/main.py:799-815): a missing file is reported before any refusal
+    index = load(args.infile_base, args.annotation)
     if max(args.parallel, args.parallel_each) > 1:
         raise NotImplementedError("-p/--parallel-each above 1 is not ported "
                                   "yet (ROADMAP A7.4)")
@@ -55,8 +59,6 @@ def cmd_query(args):
             raise NotImplementedError(
                 "the .seqs coordinate-to-header mapping is not ported yet "
                 "(ROADMAP A7.1); pass --no-coord-mapping")
-    device = resolve_device(args.torch_device)   # before the index is built
-    index = load(args.infile_base, args.annotation)
     engine = QueryEngine(index, device=device)
     if args.verbose:
         engine.trace = _trace

@@ -57,7 +57,16 @@ wrappers take the same arguments.  The inputs come from fixed seeds:
   the first words chunk of S1's windows (512 tiles, 131,072 windows); and
   their L2 controls: the same windows on the control rows of S1's (each
   reference's first 256 rows, its BRWT and walk about 1 MB).  A tree
-  without ``annotation/device_matrix.py`` skips them.
+  without ``annotation/device_matrix.py`` skips them.  Before the turns,
+  W2's walks on both are counted (``walk_counts``: the steps of a walk a
+  window, the distinct rows, the forward-linked windows, the tails and
+  their chain steps); in each tree's first turn that has the split build
+  (``_build.VARIANTS``), W1 and W2 run once more in it and print the
+  cycles a lane waits on the descent's node and word loads and a round's
+  cycles, then once under torch.profiler (the device ms of each kernel a
+  call launches: W2's four steps); ``--slots 1,2,4,8`` times W1 and W2
+  again at each number of windows a warp, in the trees that have that
+  setting.
 
 The last line of stdout is a JSON object: every tree's times in its turns
 (CUDA events, mean of ``--reps`` launches after a warm-up) and the card.
@@ -176,7 +185,8 @@ def load_port(root: str) -> SimpleNamespace:
                 "device_matrix.py")) else None
     finally:
         sys.path.remove(root)
-    return SimpleNamespace(root=root, ops=mods["succinct.ops"],
+    build = importlib.import_module("metagraph_tpu_torch._build")
+    return SimpleNamespace(root=root, ops=mods["succinct.ops"], build=build,
                            sw=mods["align.sw"], qd=mods["query.device"],
                            tile_pack2=mods["query.tile_pack"].tile_pack2,
                            sd=mods["annotation.sparse_device"], dm=dm,
@@ -428,7 +438,37 @@ def words_inputs(port, s, torch, dev, table, rows_of, ids, ctrl):
     w = cases["brwt_row_words"][1]
     print(f"words inputs: {w.numel()} windows, {int((w > 0).sum())} hits; "
           f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    for what in ("", " L2 control"):
+        walks = walk_counts(dm, torch, *cases["rowdiff_row_words" + what])
+        print(f"  rowdiff_row_words{what} walks: {walks}", flush=True)
     return SimpleNamespace(cases=cases, want=want)
+
+
+def walk_counts(dm, torch, rd, ids, offset=0) -> dict:
+    """W2's walks on ``ids``, from its plain version: the steps that a walk
+    a window takes (rows stepped on, repeats counted), the distinct rows
+    among them, the hit windows whose successor is the next window's row
+    (forward links: next_row[row(q)] == row(q + 1)), and the steps of the
+    walks of the windows that link forward to none (tails) past their own
+    row: a descent of every hit window's own row and of the tails' chains
+    is what a walk that shares each linked run's chain takes."""
+    visited = {}
+    dm.rowdiff_row_words_plain(rd, ids, offset, visited)
+    rows = torch.cat(visited["rows"]) if visited else ids[:0].long()
+    r = dm._rows_of(ids, offset, rd.num_rows)
+    link = torch.zeros_like(r, dtype=torch.bool)
+    link[:-1] = (r[:-1] >= 0) & (r[1:] >= 0) \
+        & (rd.next_row.long()[r[:-1].clamp(min=0)] == r[1:])
+    tails = (r >= 0) & ~link
+    tail_steps = {}
+    dm.rowdiff_row_words_plain(rd, torch.where(tails, ids, 0), offset,
+                               tail_steps)
+    n_tail = sum(int(v.numel()) for v in tail_steps.get("rows", []))
+    return {"windows": int(ids.numel()), "hits": int((r >= 0).sum()),
+            "steps": int(rows.numel()),
+            "distinct rows": int(torch.unique(rows).numel()),
+            "forward-linked": int(link.sum()), "tails": int(tails.sum()),
+            "tail chain steps": n_tail - int(tails.sum())}
 
 
 def sparse_zeros(torch, dev, S, L, P):
@@ -475,9 +515,10 @@ def make_inputs(port, s, torch, dev):
     return inp
 
 
-def time_tree(port, inp, s, torch, dev, reps, check):
+def time_tree(port, inp, s, torch, dev, reps, check, slots=()):
     """-> {case: ms} for one tree; with ``check``, each kernel's output is
-    first held against its plain version's."""
+    first held against its plain version's; W1 and W2 also at each of
+    ``slots`` windows a warp, where the tree has that setting."""
     clock = (lambda fn: cuda_ms(torch, fn, reps)) if dev.type == "cuda" \
         else host_ms
     ops, qd, T = port.ops, port.qd, inp.T
@@ -519,7 +560,89 @@ def time_tree(port, inp, s, torch, dev, reps, check):
                 exact(torch, fn(anno, w), words.want[name], name)
             times[name] = clock(lambda: fn(anno, w))
             print(f"  {name}: {times[name]:.4f} ms", flush=True)
+        if check and dev.type == "cuda" \
+                and "row_words_split" in getattr(port.build, "VARIANTS", {}):
+            times["split"] = load_split(port, words, torch)
+            times["kernels"] = kernel_profile(port.dm, words, torch)
+        if hasattr(port.dm, "SLOTS"):
+            times.update(time_slots(port.dm, words, slots, torch, clock))
     return times
+
+
+def kernel_profile(dm, words, torch, calls=5) -> dict:
+    """The device ms of each kernel that a W1 or W2 call launches (W2's
+    steps one by one), a mean over ``calls`` calls, from torch.profiler;
+    {} where the profiler records no device time."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, (anno, w) in words.cases.items():
+        fn = getattr(dm, name.split()[0])
+        fn(anno, w)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(anno, w)
+            torch.cuda.synchronize()
+        ms = {}
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0) or 0
+            if us > 0:
+                m = re.search(r"\w+_kernel(<[^>]*>)?", e.key)
+                short = m.group(0) if m else e.key[:40]
+                ms[short] = ms.get(short, 0.0) + us / calls / 1e3
+        out[name] = ms
+        print(f"  kernels of {name}: {ms}", flush=True)
+    return out
+
+
+def time_slots(dm, words, slots, torch, clock) -> dict:
+    """W1 and W2 again with at most each of ``slots`` windows a warp
+    (device_matrix.SLOTS; the trees' stack bound holds for fewer)."""
+    times, keep = {}, dm.SLOTS
+    try:
+        for n in slots:
+            dm.SLOTS = n
+            for name, (anno, w) in words.cases.items():
+                fn = getattr(dm, name.split()[0])
+                exact(torch, fn(anno, w), words.want[name], name)
+                key = f"{name} slots={n}"
+                times[key] = clock(lambda: fn(anno, w))
+                print(f"  {key}: {times[key]:.4f} ms", flush=True)
+    finally:
+        dm.SLOTS = keep
+    return times
+
+
+def load_split(port, words, torch) -> dict:
+    """W1's and W2's descents in the split build (csrc/row_words.cu,
+    MG_ROW_WORDS_SPLIT), one launch a case: the cycles a lane waits on the
+    node load and on the word load per node it loads, a round's cycles
+    and the lanes that load a node per round."""
+    import ctypes
+    dm, out = port.dm, {}
+    read = port.build.function("row_words_split", "mg_row_words_split",
+                               [ctypes.c_void_p])
+    buf = (ctypes.c_ulonglong * 5)()
+    dm.LIBRARY = "row_words_split"
+    try:
+        for name, (anno, w) in words.cases.items():
+            fn = getattr(dm, name.split()[0])
+            torch.cuda.synchronize()
+            port.build.check(read(buf), "mg_row_words_split")
+            exact(torch, fn(anno, w), words.want[name], name + " (split)")
+            torch.cuda.synchronize()
+            port.build.check(read(buf), "mg_row_words_split")
+            node, word, rnd, rounds, loads = (int(x) for x in buf)
+            out[name] = {"node wait / load": node / max(loads, 1),
+                         "word wait / load": word / max(loads, 1),
+                         "cycles / round": rnd / max(rounds, 1),
+                         "loads / round": loads / max(rounds, 1),
+                         "rounds": rounds}
+            print(f"  split {name}: {out[name]}", flush=True)
+    finally:
+        dm.LIBRARY = "row_words"
+    return out
 
 
 def time_sparse(sd, sp, torch, dev, clock, check):
@@ -568,6 +691,9 @@ def main(argv=None) -> int:
     ap.add_argument("--root", action="append",
                     help="a tree to time (repeat to time several in turns)")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--slots", default="",
+                    help="comma-separated windows a warp at which W1 and W2 "
+                         "are timed again (device_matrix.SLOTS)")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny sizes on the CPU with the plain versions; "
                          "exits 2 without a result")
@@ -590,8 +716,9 @@ def main(argv=None) -> int:
     times = {p.root: [] for p in ports}
     for i, port in enumerate(turns):
         print(f"turn {i + 1}: {port.root}", flush=True)
-        times[port.root].append(time_tree(port, inp, s, torch, dev,
-                                          args.reps, not times[port.root]))
+        times[port.root].append(time_tree(
+            port, inp, s, torch, dev, args.reps, not times[port.root],
+            [int(n) for n in args.slots.split(",") if n]))
     if args.rehearse:
         print("rehearsal finished: no result on the CPU", file=sys.stderr)
         return 2

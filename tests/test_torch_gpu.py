@@ -1015,3 +1015,125 @@ def test_words_count_epoch_cuda_matches_cpu(cuda, inner, monkeypatch):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert int(got[0].sum()) > 0
+
+
+def _read_ids(rng, R, Q, offset=0, backward=0.2):
+    """ids laid out as reads along _chain_routing chains: each tile holds a
+    read of consecutive rows (forward links, broken at each chain's end),
+    shorter than the tile; misses (0) and substitutions (a random row)
+    break links inside it, some of its windows take canon 2's offset, and
+    a share of the reads run backward (against the successors)."""
+    ids = np.zeros(Q, np.int32)
+    for t0 in range(0, Q, qd.TILE):
+        n = min(qd.TILE, Q - t0) - int(rng.integers(0, 40))
+        if n <= 0:
+            continue
+        rows = int(rng.integers(0, R - n)) + np.arange(n)
+        if rng.random() < backward:
+            rows = rows[::-1]
+        w = rows + 1
+        w[rng.random(n) < 0.02] = 0
+        sub = rng.random(n) < 0.02
+        w[sub] = rng.integers(1, R + 1, int(sub.sum()))
+        if offset:
+            rc = (w > 0) & (rng.random(n) < 0.3)
+            w[rc] += offset
+        ids[t0: t0 + n] = w
+    return ids
+
+
+def _rowdiff_anno(rng, R, L, inner, length, dev):
+    rd = RowDiff.from_annotation(_words_columns(rng, R, L), R, L,
+                                 _chain_routing(R, length))
+    inner_f = dm.FlatBRWT.from_brwt(rd.inner) if inner == "brwt" else \
+        convert.pack_matrix_bitmap(rd.inner, R)
+    return dm.RowDiffOnDevice.from_host(
+        dm.FlatRowDiff.from_row_diff(rd, inner_f), dev)
+
+
+@pytest.mark.parametrize("canon", (0, 2))
+@pytest.mark.parametrize("inner", ("brwt", "dense"))
+def test_rowdiff_row_words_shared_walks_match_plain(cuda, inner, canon):
+    """W2 on windows laid out as reads (each linked run's chain walked
+    once): forward and backward runs, misses, substitutions and canon 2
+    offsets inside runs, calls that cut runs at their ends (a chunk
+    boundary), and max_depth cut to 7, 1 and 0; then isolated hits whose
+    chains pass the list (walked a warp a window)."""
+    rng = np.random.default_rng(91 + canon + 2 * (inner == "brwt"))
+    R, L = 6000, 300
+    anno = _rowdiff_anno(rng, R, L, inner, 37, cuda)
+    assert anno.max_depth == 37
+    offset = R if canon == 2 else 0
+    ids = torch.from_numpy(_read_ids(rng, R, 40 * qd.TILE, offset))
+    r = torch.where(ids > offset, ids - offset, ids) if offset else ids
+    nxt = anno.next_row.cpu()
+    link = (r[:-1] > 0) & (r[1:] > 0) & (nxt[(r[:-1] - 1).clamp(min=0)]
+                                         == r[1:] - 1)
+    assert int(link.sum()) > ids.numel() // 2
+    for lo, hi in ((0, ids.numel()), (1000, 7001), (5, 6)):
+        _words_vs_plain(dm.rowdiff_row_words, dm.rowdiff_row_words_plain,
+                        anno, ids[lo:hi].contiguous(), offset, cuda)
+    for depth in (7, 1, 0):
+        got = _words_vs_plain(dm.rowdiff_row_words,
+                              dm.rowdiff_row_words_plain,
+                              dataclasses.replace(anno, max_depth=depth),
+                              ids, offset, cuda)
+        assert (int((got != 0).sum()) > 0) == (depth > 0)
+    lone = np.zeros(8 * qd.TILE, np.int32)
+    lone[::2] = rng.integers(1, R + 1, lone.size // 2)
+    _words_vs_plain(dm.rowdiff_row_words, dm.rowdiff_row_words_plain, anno,
+                    torch.from_numpy(lone), 0, cuda)
+
+
+@pytest.mark.parametrize("inner", ("brwt", "dense"))
+def test_words_count_epoch_chunks_cut_runs(cuda, inner, monkeypatch):
+    """W2 then kernel 2 on reads whose runs cross the epoch's chunks (3
+    tiles a chunk), against the CPU's plain versions."""
+    monkeypatch.setattr(qd, "WORDS_BYTES", 3 * qd.TILE * 12 * 4)
+    rng = np.random.default_rng(93)
+    R, L, S = 5000, 365, 7
+    anno = _rowdiff_anno(rng, R, L, inner, 50, torch.device("cpu"))
+    nodes = _read_ids(rng, R, 20 * qd.TILE, backward=0.1).reshape(-1,
+                                                                 qd.TILE)
+    # a read over several tiles, as a long sequence spans them
+    nodes[4:8] = (np.arange(4 * qd.TILE) + 300).reshape(4, qd.TILE)
+    tile_seq = np.sort(rng.integers(0, S, nodes.shape[0])).astype(np.int32)
+    want = qd.count_labels(anno, torch.from_numpy(nodes),
+                           torch.from_numpy(tile_seq), S, L)
+    got = qd.count_labels(dm.RowDiffOnDevice(
+        anno.next_row.to(cuda), anno.max_depth,
+        anno.inner.to(cuda) if inner == "dense" else dm.BRWTOnDevice(
+            anno.inner.nodes.to(cuda), anno.inner.words.to(cuda),
+            anno.inner.num_rows, anno.inner.num_labels,
+            anno.inner.stack_cap), L),
+        torch.from_numpy(nodes).to(cuda), torch.from_numpy(tile_seq).to(cuda),
+        S, L)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert int(got[0].sum()) > 0
+
+
+def test_brwt_row_words_windows_share_warps(cuda):
+    """W1 with several windows a warp: tiles of one row repeated, of a few
+    rows alternating and of every row in turn, on an arity-2 tree and on
+    the wide tree of test_w1_stack_bound_holds_on_wide_trees (arity 40, a
+    row with every label), against the plain descent."""
+    rng = np.random.default_rng(95)
+    R, L = 3000, 4096
+    narrow = BRWT.from_columns(_words_columns(rng, R, L), R, L, arity=2,
+                               linkage=False)
+    Rw, Lw = 64, 100
+    wide = BRWT.from_columns(
+        [np.arange(Rw) if c % 9 == 0 else np.arange(c % 7, Rw, 5)
+         for c in range(Lw)], Rw, Lw, arity=40, linkage=False)
+    for brwt, rows in ((narrow, R), (wide, Rw)):
+        anno = dm.BRWTOnDevice.from_host(dm.FlatBRWT.from_brwt(brwt), cuda)
+        ids = np.concatenate([
+            np.full(qd.TILE, 1 + int(rng.integers(0, rows)), np.int32),
+            np.tile(rng.integers(1, rows + 1, 3), qd.TILE)[:qd.TILE],
+            np.arange(qd.TILE) % rows + 1,
+            _word_ids(rng, rows, 2 * qd.TILE + 13, 0)]).astype(np.int32)
+        for lo in (0, 1, 7):
+            got = _words_vs_plain(dm.brwt_row_words, dm.brwt_row_words_plain,
+                                  anno, torch.from_numpy(ids[lo:]), 0, cuda)
+            assert int((got != 0).sum()) > 0
