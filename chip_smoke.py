@@ -20,6 +20,10 @@ then:
    rows), also held against their plain versions; runs kernel 3 on a
    control with selmin = 0 for every row (all counts read), exact and
    timed beside ``torch.amax`` over the same counts;
+3a. queries the same batch cut into ``par_batches`` batches in the labels
+   mode sequentially and with ``par_threads`` batches in flight (``query
+   -p``): the same output bytes and exactly the same launches of every
+   kernel; both walls printed;
 4. drives the same query path on a primary graph (the references' forward
    k-mers, queried through CanonicalDBG: canon 2) in the labels and counts
    modes and on a canonical graph (both strands, about 16 M k-mers: canon
@@ -65,6 +69,22 @@ then:
    pattern rows), timed on the first, and kernel 2 on that chunk's words;
    W2's walks of the first chunk counted (steps of a walk a window,
    distinct rows, forward-linked windows, tails and their chain steps);
+5c. drives the k41 index with a ``.seqs`` mapping (the port's
+   ``CoordToHeader``, saved and loaded back) that splits each label into
+   ``seqs_headers`` headers of consecutive k-mers, on the first
+   ``coords_prefix`` reads in the labels, matches and coords modes: every
+   batch maps through kernel A (W = 6), then aggregates per header on the
+   host, and no codes epoch runs; payloads against an independent oracle
+   (per-header k-mer membership by coordinate range), kernel A against its
+   plain version;
+5d. drives four deployments of keys wider than 8 words from a sixth
+   stream of the seed (``WIDE``: 200 references of 8,101 bp or residues,
+   20,000 reads of 200, 0.2% substitutions): DNA k = 70 basic (the codes
+   route, kernel B at W = 9, its key a word at a time) and canonical (the
+   map route, kernel A at W = 9), Protein k = 40 (kernel A at W = 10) and
+   k = 80 (kernel A's warp form, W = 20), in the labels mode; payloads
+   against the oracle, kernels B or A (with an L2 control), 2 and 3
+   against their plain versions;
 6. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
    300 and holds it against its plain version and, on a sample, the numpy
    oracle; then on 1,024 pairs of 1,000 x 1,000 and 256 pairs of 2,000 x
@@ -81,8 +101,8 @@ Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (kernels 1-3 once more
 for each of the primary and canonical deployments, kernels B, 2, 3 for
-k41, A, 2, 3 for protein, 3 for many-labels and 2 for each words
-deployment, named
+k41, A for seqs, A, 2, 3 for protein, 3 for many-labels, 2 for each words
+deployment and B or A, 2, 3 for each wide deployment, named
 ``<kernel>/<deployment>``, and
 ``sw_scores/large`` and ``sw_scores/long`` for the other SW shapes), the
 last is
@@ -128,7 +148,9 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             protein_len=8120, protein_repeat=(1000, 1300),
             gather=(22, (16, 17), 1024), gather_big=21, ctrl_log=15,
             ctrl_rows=4096, many=(4096, 16, (48, 65)), anno_budget=2 << 30,
-            words_budget=32768, words_reads=15_000, rd_max_length=100)
+            words_budget=32768, words_reads=15_000, rd_max_length=100,
+            seqs_headers=10, par_batches=8, par_threads=4,
+            wide=(200, 8101, 20_000, 200))
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -136,7 +158,9 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             protein_len=480, protein_repeat=(100, 160),
             gather=(12, (6, 7), 64), gather_big=9, ctrl_log=6,
             ctrl_rows=64, many=(256, 2, (8, 13)), anno_budget=1 << 16,
-            words_budget=256, words_reads=100, rd_max_length=20)
+            words_budget=256, words_reads=100, rd_max_length=20,
+            seqs_headers=2, par_batches=3, par_threads=4,
+            wide=(8, 501, 100, 120))
 
 
 def log(msg: str):
@@ -323,19 +347,28 @@ def make_canonical_index(refs, labels):
 
 
 def make_batch(cfg, rng, refs, rc_share=0.1, long_rc=False):
-    """Reads drawn from the references (``rc_share`` of them reverse-
-    complemented, 1% substitutions, 3% with an N run) and one long
+    """Reads drawn from the references (``make_reads``) and one long
     sequence: reference 0 (its reverse complement with ``long_rc``)
     repeated an odd number of times until its label's count passes
     ``long_windows`` (2^24 at full size) and is odd.  Returns the
     sequences, their codes and the long sequence's period."""
-    n, m = cfg["n_reads"], cfg["read_len"]
+    seqs, codes = make_reads(cfg["n_reads"], cfg["read_len"], rng, refs,
+                             rc_share)
+    long_codes = long_sequence(cfg, refs[0], K, long_rc)
+    seqs.append(np.frombuffer(b"ACGTN", np.uint8)[long_codes].tobytes())
+    return seqs, codes + [long_codes], len(refs[0])
+
+
+def make_reads(n, m, rng, refs, rc_share=0.1, sub_rate=0.01):
+    """``n`` reads of ``m`` bp drawn from the DNA references, ``rc_share``
+    of them reverse-complemented, ``sub_rate`` substitutions, 3% with an N
+    run: -> (sequences, codes)."""
     which = rng.integers(0, len(refs), n)
     start = rng.integers(0, len(refs[0]) - m, n)
     cat = np.concatenate(refs)
     offs = np.concatenate([[0], np.cumsum([len(r) for r in refs])])
     codes = cat[(offs[which] + start)[:, None] + np.arange(m)]
-    sub = rng.random((n, m)) < 0.01
+    sub = rng.random((n, m)) < sub_rate
     codes = np.where(sub, (codes + rng.integers(1, 4, (n, m))) % 4, codes)
     rc = rng.random(n) < rc_share
     codes[rc] = 3 - codes[rc, ::-1]
@@ -344,11 +377,8 @@ def make_batch(cfg, rng, refs, rc_share=0.1, long_rc=False):
         at = int(rng.integers(0, m - 20))
         codes[i, at: at + int(rng.integers(1, 20))] = 4
     codes = codes.astype(np.uint8)
-    long_codes = long_sequence(cfg, refs[0], K, long_rc)
     letters = np.frombuffer(b"ACGTN", np.uint8)
-    seqs = [letters[row].tobytes() for row in codes]
-    seqs.append(letters[long_codes].tobytes())
-    return seqs, list(codes) + [long_codes], len(refs[0])
+    return [letters[row].tobytes() for row in codes], list(codes)
 
 
 def long_sequence(cfg, ref, k, rc=False):
@@ -434,17 +464,17 @@ def make_protein_index(cfg, rng, labels):
     return refs, index, oracle
 
 
-def make_protein_batch(cfg, rng, refs):
-    """Reads of the protein references: 1% substitutions, 3% with a run of
-    '*' (outside the alphabet: it encodes as X, which no reference holds;
-    code 20 here)."""
+def make_protein_batch(cfg, rng, refs, sub_rate=0.01):
+    """Reads of the protein references: ``sub_rate`` substitutions, 3% with
+    a run of '*' (outside the alphabet: it encodes as X, which no reference
+    holds; code 20 here)."""
     n, m = cfg["n_reads"], cfg["read_len"]
     which = rng.integers(0, len(refs), n)
     start = rng.integers(0, len(refs[0]) - m, n)
     cat = np.concatenate(refs)
     offs = np.concatenate([[0], np.cumsum([len(r) for r in refs])])
     codes = cat[(offs[which] + start)[:, None] + np.arange(m)]
-    sub = rng.random((n, m)) < 0.01
+    sub = rng.random((n, m)) < sub_rate
     codes = np.where(sub, (codes + rng.integers(1, 20, (n, m))) % 20, codes)
     for i in np.flatnonzero(rng.random(n) < 0.03):
         at = int(rng.integers(0, m - 20))
@@ -452,6 +482,85 @@ def make_protein_batch(cfg, rng, refs):
     codes = codes.astype(np.uint8)
     letters = np.frombuffer((AMINO + "*").encode(), np.uint8)
     return [letters[row].tobytes() for row in codes], list(codes)
+
+
+WIDE = {"wide-dna70": ("DNA", 70, 0), "wide-dna70c": ("DNA", 70, 1),
+        "wide-prot40": ("Protein", 40, 0), "wide-prot80": ("Protein", 80, 0)}
+
+
+def make_wide_deployment(refs, alphabet, k, canon):
+    """The wide deployments (keys of more than 8 words): DNA at k = 70
+    (4-bit keys of 9 words; basic: the codes route, kernel B; canonical:
+    the map route, kernel A), Protein at k = 40 and 80 (8-bit keys of 10
+    and 20 words: kernel A, the second at its warp form), one label a
+    reference.  A canonical index holds both strands; each k-mer's labels
+    sit on the strand first in BOSS order, the one the map route probes;
+    its oracle keys each pair by the smaller of the two strands' keys.  ->
+    (QueryIndex, oracle)."""
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.annotation.ops import pack_annotation_bitmap
+    from metagraph_tpu_torch.kmer.alphabets import PROTEIN
+    from metagraph_tpu_torch.succinct.ops import pack_kmers32
+    if alphabet == "DNA":
+        def keys_of(codes):
+            return wide_window_keys(codes, k, 2, 4)
+
+        def rc_of(codes):
+            comp = np.where(codes < 4, 3 - codes.astype(np.int16), 4)
+            return keys_of(comp[::-1].astype(np.uint8))[0][::-1]
+
+        def chars_of(keys):
+            return void_chars(keys, k, 2) + 1
+        bits = 4
+    else:
+        boss = np.array([PROTEIN.letters.index(ch) for ch in AMINO + "X"],
+                        np.uint8)
+
+        def keys_of(codes):
+            return wide_window_keys(codes, k, 5, 21)
+
+        def chars_of(keys):
+            return boss[void_chars(keys, k, 5)]
+        bits = 8
+    keys = [keys_of(r)[0] for r in refs]
+    if canon:
+        keys = [key_min(f, rc_of(r)) for f, r in zip(keys, refs)]
+    labs = np.concatenate([np.full(len(kk), i, np.int64)
+                           for i, kk in enumerate(keys)])
+    L = len(refs)
+    oracle = make_oracle(np.concatenate(keys), labs, L, k, keys_of)
+    labels = [f"ref{i}" for i in range(L)]
+    R = len(oracle["keys"])
+    chars = chars_of(oracle["keys"])
+    if not canon:
+        anno = annotation_of(oracle, labels)
+        return convert.from_kmers(
+            pack_kmers32(chars, bits), np.arange(1, R + 1, dtype=np.uint32),
+            pack_annotation_bitmap(anno, R), labels, k, anno,
+            alphabet=alphabet), oracle
+    oracle["rc_of"] = rc_of
+    fwd = pack_kmers32(chars)
+    rev = pack_kmers32(5 - chars[:, ::-1])
+    W = fwd.shape[1]
+
+    def as_bytes(x):
+        return np.ascontiguousarray(x.astype(">u4")).view(f"S{4 * W}") \
+            .ravel()
+    first = np.where((as_bytes(rev) < as_bytes(fwd))[:, None], rev, fwd)
+    both = np.unique(np.concatenate([fwd, rev]).astype(">u4").view(
+        f"V{4 * W}").ravel())
+    table_keys = np.frombuffer(both.tobytes(), ">u4").reshape(-1, W) \
+        .astype(np.uint32)
+    row_of = np.searchsorted(both, np.ascontiguousarray(
+        first.astype(">u4")).view(f"V{4 * W}").ravel())
+    Lw = max((L + 31) // 32, 1)
+    bitmap = np.zeros((len(both), Lw), np.uint32)
+    pl, pr = oracle["pair_label"], oracle["row_of_pair"]
+    np.bitwise_or.at(bitmap, (row_of[pr], pl // 32),
+                     np.uint32(1) << (pl % 32).astype(np.uint32))
+    return convert.from_kmers(
+        table_keys, np.arange(1, len(both) + 1, dtype=np.uint32), bitmap,
+        labels, k, canon=1), oracle
 
 
 def make_many_labels(cfg, rng, oracle, index, out_dir):
@@ -622,20 +731,30 @@ def make_words(cfg, refs, oracle_m, index_m, cols, work):
 def oracle_lookup(codes, o, canon):
     """Per window: the oracle row and whether the window hits.  canon 1
     looks up min(fwd, rc) in an oracle keyed so; canon 2 the forward key,
-    then the reverse complement."""
+    then the reverse complement.  An oracle of wide keys names its
+    reverse-complement keys (``rc_of``)."""
     keys, valid = o["keys_of"](codes)
     if canon:
-        rc = rc_window_keys(codes, K)
+        rc = o["rc_of"](codes) if "rc_of" in o else rc_window_keys(codes, K)
 
     def find(q):
         pos = np.minimum(np.searchsorted(o["keys"], q), len(o["keys"]) - 1)
         return pos, valid & (o["keys"][pos] == q)
-    pos, hit = find(np.minimum(keys, rc) if canon == 1 else keys)
+    pos, hit = find(key_min(keys, rc) if canon == 1 else keys)
     if canon == 2:
         pos_r, hit_r = find(rc)
         pos = np.where(hit, pos, pos_r)
         hit = hit | hit_r
     return pos, hit
+
+
+def key_min(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Element-wise min of two key arrays: integers, or wide_window_keys'
+    byte strings (compared as bytes)."""
+    if a.dtype.kind != "V":
+        return np.minimum(a, b)
+    s = f"S{a.dtype.itemsize}"
+    return np.where(a.view(s) <= b.view(s), a, b)
 
 
 def oracle_payload(codes, mode, o, canon=0, period=0, df=0.7, pf=0.0,
@@ -784,13 +903,14 @@ def run_path(fn):
 def main_path(engine, seqs, codes, period, oracle, cfg, rng, torch, dev,
               tag="main path", modes=("labels", "counts"),
               kernels=("wire_lookup", "label_counts", "selection_mask"),
-              check_last=False):
+              check_last=False, oracle_of=None, idle=()):
     """Query the batch through ``query_records`` in each mode; hold a sample
     and the long sequence (last, of that ``period``; none without one; the
-    last sequence with ``check_last``) against the oracle, and check that
-    each of ``kernels`` launched.  The
-    coords mode runs on the first ``coords_prefix`` reads, to bound the
-    host time of its per-position lists."""
+    last sequence with ``check_last``) against the oracle
+    (``oracle_of(codes, mode)`` where given), and check that each of
+    ``kernels`` launched and none of ``idle``.  The coords mode runs on the
+    first ``coords_prefix`` reads, to bound the host time of its
+    per-position lists."""
     from metagraph_tpu_torch.seq_io.fasta import FastaRecord
     canon, k = engine.index.canon, engine.k
     n_reads = len(seqs) - (1 if period else 0)
@@ -823,9 +943,10 @@ def main_path(engine, seqs, codes, period, oracle, cfg, rng, torch, dev,
         t0 = time.perf_counter()
         mine = [i for i in sample if i < n]
         bad = [i for i in mine if not same_payload(
-            results[i].payload, oracle_payload(
-                codes[i], mode, oracle, canon,
-                period if period and i == len(seqs) - 1 else 0))]
+            results[i].payload, oracle_of(codes[i], mode) if oracle_of
+            else oracle_payload(codes[i], mode, oracle, canon,
+                                period if period and i == len(seqs) - 1
+                                else 0))]
         if bad:
             raise AssertionError(f"{tag} {mode}: payloads differ from the "
                                  f"oracle for sequences {bad[:10]}")
@@ -853,7 +974,182 @@ def main_path(engine, seqs, codes, period, oracle, cfg, rng, torch, dev,
             if dev.type == "cuda" and got[name] < 1:
                 raise AssertionError(f"{name} never launched in the {mode} "
                                      f"run of the {tag}")
+        for name in idle:
+            if got[name]:
+                raise AssertionError(f"{name} launched in the {mode} run "
+                                     f"of the {tag}")
     return launches[modes[0]]
+
+
+def seqs_oracle(o, starts, names, df=0.7, pf=0.0):
+    """Independent oracle of a .seqs query (per-header k-mer membership by
+    coordinate range): window w carries header h of label c iff one of its
+    k-mer's positions in reference c lies in [starts[c][h],
+    starts[c][h + 1]); a header's count is its windows; headers pass
+    get_min_count and keep their first-seen order (window, label, position;
+    no top-n cap); coords are each window's local positions.  ->
+    oracle_of(codes, mode)."""
+    import math
+    cs, cp = o["coord_start"], o["coord_pos"]
+
+    def oracle_of(codes, mode):
+        nk = len(codes) - o["k"] + 1
+        if nk <= 0:
+            return []
+        pos, hit = oracle_lookup(codes, o, 0)
+        present = int(hit.sum())
+        min_count = int(max(1.0, math.ceil(df * nk)))
+        if present < max(1.0, math.ceil(pf * nk)) or present < min_count:
+            return []
+        seen = {}                  # (label, header) -> {window: [local]}
+        for w in np.flatnonzero(hit):
+            r = pos[w]
+            for p in range(o["csr_start"][r], o["csr_start"][r + 1]):
+                c = int(o["pair_label"][p])
+                for x in cp[cs[p]: cs[p + 1]]:
+                    h = int(np.searchsorted(starts[c], x, "right")) - 1
+                    seen.setdefault((c, h), {}).setdefault(int(w), []) \
+                        .append(int(x - starts[c][h]))
+        out = []
+        for (c, h), wins in seen.items():
+            if len(wins) < min_count:
+                continue
+            name = names[c][h]
+            if mode == "labels":
+                out.append(name)
+            elif mode == "matches":
+                out.append((name, len(wins)))
+            else:
+                co = [[] for _ in range(nk)]
+                for w, xs in wins.items():
+                    co[w] = sorted(xs)
+                out.append((name, len(wins), co))
+        return out
+    return oracle_of
+
+
+def seqs_phase(cfg, index41, oracle41, refs, seqs41, codes41, rng, torch,
+               dev, work):
+    """The k41 deployment's coordinate annotation with a .seqs mapping
+    (the port's CoordToHeader, saved and loaded back) that splits each
+    label into ``seqs_headers`` headers of consecutive k-mers; the first
+    ``coords_prefix`` reads in the labels, matches and coords modes: every
+    batch maps through kernel A (W = 6) and aggregates per header on the
+    host, no codes epoch."""
+    from metagraph_tpu_torch.annotation.coord_to_header import CoordToHeader
+    from metagraph_tpu_torch.query.pipeline import QueryEngine
+    nh = cfg["seqs_headers"]
+    names, sizes = [], []
+    for c, r in enumerate(refs):
+        n = len(r) - K41 + 1
+        sizes.append([n // nh] * (nh - 1) + [n - (nh - 1) * (n // nh)])
+        names.append([f"ref{c}.{h}" for h in range(nh)])
+    path = os.path.join(work, "k41.seqs")
+    CoordToHeader(names, sizes).save(path)
+    cth = CoordToHeader.load(path)
+    t0 = time.perf_counter()
+    engine = QueryEngine(index41, device=dev, coord_to_header=cth)
+    log(f"seqs: {sum(map(len, names))} headers in {path} "
+        f"({os.path.getsize(path)} B); engine and row index in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = cfg["coords_prefix"]
+    starts = [np.concatenate([[0], np.cumsum(z)]) for z in sizes]
+    launches = main_path(engine, seqs41[:n], codes41[:n], 0, oracle41, cfg,
+                         rng, torch, dev, "k41 with .seqs (map route)",
+                         modes=("labels", "matches", "coords"),
+                         kernels=("key_lookup",),
+                         oracle_of=seqs_oracle(oracle41, starts, names),
+                         idle=("codes_lookup", "label_counts"))
+    return launches, key_checks(engine, seqs41[:n], cfg, torch, dev,
+                                " [seqs]", counts=False)
+
+
+def parallel_phase(engine, seqs, cfg, torch, dev):
+    """The basic deployment's batch cut into ``par_batches`` batches,
+    queried sequentially and with ``par_threads`` batches in flight
+    (``query -p``): the same output bytes and exactly the same launches of
+    every kernel; both walls printed."""
+    from metagraph_tpu_torch.seq_io.fasta import FastaRecord
+    records = [FastaRecord(f"r{i}", s) for i, s in enumerate(seqs)]
+    size = sum(len(s) for s in seqs) // cfg["par_batches"] + 1
+    runs = {}
+    for n in (1, cfg["par_threads"]):
+        def drive():
+            t0 = time.perf_counter()
+            out = [r.to_string(":", False, False, engine.k) for r in
+                   engine.query_records(records, "labels",
+                                        batch_size_bp=size, n_threads=n)]
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        (out, secs), launches = run_path(drive)
+        runs[n] = (out, launches)
+        log(f"parallel [labels, -p {n}]: {len(out)} sequences in batches "
+            f"of {size} bp, wall {secs:.3f} s; launches {launches}")
+    (a, la), (b, lb) = runs.values()
+    if a != b:
+        raise AssertionError("-p changed the output")
+    if la != lb:
+        raise AssertionError(f"-p changed the launches: {la} != {lb}")
+    batches, acc = 0, 0
+    for s in seqs:
+        acc += len(s)
+        if acc >= size:
+            batches, acc = batches + 1, 0
+    batches += acc > 0
+    for name in ("wire_lookup", "label_counts", "selection_mask"):
+        if dev.type == "cuda" and lb[name] < batches:
+            raise AssertionError(f"{name} launched {lb[name]} times for "
+                                 f"{batches} batches under -p")
+    log(f"  parallel: {sum(map(len, a))} bytes equal to the sequential "
+        "run's, launches equal")
+    return lb
+
+
+def wide_phase(cfg, torch, dev, seed, timed):
+    """The four WIDE deployments: references and reads from their own
+    streams of the seed (DNA shared by dna70 and dna70c, 10% and 50% of its
+    reads reverse-complemented; Protein by prot40 and prot80), labels mode
+    against the oracle, then each kernel of the path against its plain
+    version on the path's inputs (kernel B or A with an L2 control, 2, 3).
+    The reads carry 0.2% substitutions: at 1% a read of 200 holds two on
+    average, and each takes k windows, so that at k = 70 and 80 too few
+    reads keep 70% of their k-mers for the oracle check to hold labels.
+    -> {deployment: (launches, entries)}."""
+    from metagraph_tpu_torch.query.pipeline import QueryEngine
+    n_refs, ref_len, n_reads, read_len = cfg["wide"]
+    rng = np.random.default_rng([seed, 6])
+    dna = list(rng.integers(0, 4, (n_refs, ref_len)).astype(np.uint8))
+    prot = list(rng.integers(0, 20, (n_refs, ref_len)).astype(np.uint8))
+    reads = {
+        0: make_reads(n_reads, read_len, rng, dna, 0.1, 0.002),
+        1: make_reads(n_reads, read_len, rng, dna, 0.5, 0.002),
+        "Protein": make_protein_batch(dict(cfg, n_reads=n_reads,
+                                           read_len=read_len), rng, prot,
+                                      0.002)}
+    out = {}
+    for name, (alphabet, k, canon) in WIDE.items():
+        index, oracle = timed("wide indexes", make_wide_deployment,
+                              dna if alphabet == "DNA" else prot, alphabet,
+                              k, canon)
+        log(f"{name} index: {index.num_rows} k-mers (k = {k}, "
+            f"{index.table.shape[1] // 16 - 1} words a key), hash table "
+            f"{index.table.shape} = {index.table.nbytes} B")
+        seqs, codes = reads["Protein" if alphabet == "Protein" else canon]
+        engine = timed("uploads", QueryEngine, index, device=dev)
+        kern = "codes_lookup" if engine.route == "codes" else "key_lookup"
+        launches = timed(
+            "query paths and oracle", main_path, engine, seqs, codes, 0,
+            oracle, cfg, rng, torch, dev, f"{name} ({engine.route} route)",
+            modes=("labels",),
+            kernels=(kern, "label_counts", "selection_mask"))
+        check = codes_checks if kern == "codes_lookup" else key_checks
+        kw = {"long": False} if kern == "codes_lookup" else {}
+        out[name.replace("-", "_")] = (launches, timed(
+            "kernel checks", check, engine, seqs, cfg, torch, dev,
+            f" [{name}]", **kw))
+        del engine, index, oracle
+    return out
 
 
 def add_entry(entries, torch, tag, name, got, want, ms, plain_ms, nbytes):
@@ -1006,10 +1302,10 @@ def count_select_checks(entries, engine, nodes, tile_seq, dsel, selmin,
     return counts
 
 
-def codes_checks(engine, seqs, cfg, torch, dev, tag):
+def codes_checks(engine, seqs, cfg, torch, dev, tag, long=True):
     """Kernel B, then kernels 2 and 3, against their plain versions on the
     codes route's inputs (the batch packed as query_batch_fused packs
-    it)."""
+    it); with ``long``, the last sequence's label count passes 2^24."""
     from metagraph_tpu_torch.query import device as qd
     from metagraph_tpu_torch.query.tile_pack import tile_pack2
     from metagraph_tpu_torch.succinct import ops
@@ -1046,6 +1342,8 @@ def codes_checks(engine, seqs, cfg, torch, dev, tag):
     counts = count_select_checks(entries, engine, nodes, tile_seq, dsel,
                                  selmin, 0, cfg, torch, dev, tag,
                                  controls=False)
+    if not long:
+        return entries
     n = int(counts[S - 1].max())
     log(f"  long sequence{tag}: {nwins[-1]} windows, label count {n} "
         f"(> 2^24: {n > 1 << 24}; float32 would hold {int(np.float32(n))})")
@@ -1054,11 +1352,13 @@ def codes_checks(engine, seqs, cfg, torch, dev, tag):
     return entries
 
 
-def key_checks(engine, seqs, cfg, torch, dev, tag):
+def key_checks(engine, seqs, cfg, torch, dev, tag, counts=True):
     """Kernel A on the keys of the batch's valid windows (packed as
-    map_batch packs them), then kernels 2 and 3 on the host-tiled rows of
-    the ids it found, against their plain versions."""
+    map_batch packs them: of a canonical graph, the strand first in BOSS
+    order), then kernels 2 and 3 on the host-tiled rows of the ids it
+    found (with ``counts``), against their plain versions."""
     from metagraph_tpu_torch._u32 import np_words, to_u64
+    from metagraph_tpu_torch.kmer.extractor import _rows_greater
     from metagraph_tpu_torch.query import device as qd
     from metagraph_tpu_torch.succinct import ops
     k, ex, S = engine.k, engine.extractor, len(seqs)
@@ -1069,6 +1369,11 @@ def key_checks(engine, seqs, cfg, torch, dev, tag):
     bad = np.concatenate([[0], np.cumsum(cat >= ex.invalid)])
     valid = (bad[k:] - bad[:-k]) == 0
     sub = wins[valid]
+    if engine.index.canon == 1:
+        rc = np.lib.stride_tricks.sliding_window_view(
+            ex.extended_complement_table()[cat[::-1]], k)[::-1][valid]
+        sub = np.where(_rows_greater(ops.pack_kmers32(sub),
+                                     ops.pack_kmers32(rc))[:, None], rc, sub)
     step = 1 << 22
     keys = np_words(np.concatenate([
         ops.pack_kmers32(sub[lo: lo + step], engine.index.bits)
@@ -1092,6 +1397,8 @@ def key_checks(engine, seqs, cfg, torch, dev, tag):
                lambda t: ops.key_lookup(keys, t),
                lambda t: ops.key_lookup_plain(keys, t, chunk), cfg, torch,
                dev)
+    if not counts:
+        return entries
     # count_epoch_tiled's input: rows + 1 of the hits, tiled per sequence
     flat = np.zeros(len(wins), np.int64)
     flat[valid] = ids.cpu().numpy()
@@ -1361,8 +1668,21 @@ def l2_control(name, tag, table, run, plain, cfg, torch, dev):
     from metagraph_tpu_torch._u32 import np_words
     from metagraph_tpu_torch.scripts.kernel_times import control_table
     from metagraph_tpu_torch.succinct import ops
-    host = control_table(table, cfg["ctrl_log"])
-    nbc, W = host.shape[0], host.shape[1] // ops.BUCKET - 1
+    W = table.shape[1] // ops.BUCKET - 1
+    if W <= 8:
+        host = control_table(table, cfg["ctrl_log"])
+    else:
+        # wide keys: at most about 24 MB of table, and the first buckets
+        # whole, which land in the same buckets of the smaller table (no
+        # bucket overflows, the load kept)
+        log_b = cfg["ctrl_log"]
+        while log_b > 6 and (table.shape[1] * 4) << log_b > 24 << 20:
+            log_b -= 1
+        slots = table[: 1 << log_b].reshape(-1, W + 1)
+        slots = slots[slots[:, 0] != ops.EMPTY_WORD]
+        host = ops.DeviceHashIndex._build(slots[:, :W], slots[:, W],
+                                          1 << log_b).reshape(1 << log_b, -1)
+    nbc = host.shape[0]
     keys = int((host.reshape(nbc, ops.BUCKET, W + 1)[:, :, 0]
                 != ops.EMPTY_WORD).sum())
     ctab = np_words(host).to(dev)
@@ -1640,6 +1960,8 @@ def main(argv=None) -> int:
                      codes, period, oracle, cfg, rng, torch, dev)
     entries = timed("kernel checks", kernel_checks, engine, seqs, cfg, torch,
                     dev)
+    # -p: the same batch in par_batches batches, par_threads in flight
+    timed("parallel", parallel_phase, engine, seqs, cfg, torch, dev)
     del engine
 
     # many-labels: the basic table and batch with a converted 4,096-label
@@ -1764,7 +2086,11 @@ def main(argv=None) -> int:
               kernels=("codes_lookup", "label_counts", "selection_mask")),
         timed("kernel checks", codes_checks, engine, seqs41, cfg, torch, dev,
               " [k41]"))
-    del engine, index41, oracle41
+    del engine
+    # the same index with a .seqs mapping (the map route: kernel A)
+    more["seqs"] = timed("seqs", seqs_phase, cfg, index41, oracle41, refs,
+                         seqs41, codes41, rng, torch, dev, args.work)
+    del index41, oracle41
 
     # Protein at k = 20 (8-bit keys: the map route, kernel A, then kernels
     # 2 and 3), from a third stream of the seed
@@ -1786,6 +2112,10 @@ def main(argv=None) -> int:
         timed("kernel checks", key_checks, engine, pseqs, cfg, torch, dev,
               " [protein]"))
     del engine, index_p, oracle_p
+
+    # keys wider than 8 words: DNA k = 70 (codes and map routes), Protein
+    # k = 40 and 80 (the second past kernel A's block form)
+    more.update(wide_phase(cfg, torch, dev, args.seed, timed))
 
     sw = timed("SW phase", sw_phase, cfg, rng, torch, dev)
     launches["sw_scores"], entries["sw_scores"] = sw.pop("")

@@ -11,7 +11,9 @@ of its own name, at its first use only: ``row_words_split`` is W1 and W2
 with the descent's load-wait counters (scripts/kernel_times.py).
 
 Every C entry point returns ``cudaGetLastError()`` right after its launch;
-``check`` raises if that is not 0.
+``check`` raises if that is not 0.  A wrapper adds its launches to its
+``launches`` counter through ``count``, under a lock, so that the counts
+stay exact when several threads launch (``query -p``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 VARIANTS = {"row_words_split": ("row_words", ["-DMG_ROW_WORDS_SPLIT"])}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _funcs: dict = {}
 
 
@@ -96,9 +99,10 @@ def build_all(names=KERNELS) -> dict:
         return built
 
 
-def function(name: str, symbol: str, argtypes: list):
+def function(name: str, symbol: str, argtypes: list,
+             restype=ctypes.c_int):
     """The C entry point ``symbol`` of kernel library ``name``, with its
-    argument types set; builds the libraries on first use."""
+    argument and result types set; builds the libraries on first use."""
     key = (name, symbol)
     fn = _funcs.get(key)
     if fn is None:
@@ -107,9 +111,15 @@ def function(name: str, symbol: str, argtypes: list):
             build_all(KERNELS if name in KERNELS else (name,))
         fn = getattr(ctypes.CDLL(so), symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _funcs[key] = fn
     return fn
+
+
+def count(wrapper, n: int = 1):
+    """Add ``n`` launches to ``wrapper.launches``."""
+    with _count_lock:
+        wrapper.launches += n
 
 
 def check(err: int, name: str):

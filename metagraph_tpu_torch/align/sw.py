@@ -117,7 +117,7 @@ def sw_scores(queries: torch.Tensor, refs: torch.Tensor, match: int = 2,
                     LQ, LR, match, mismatch, gap_open, gap_ext,
                     None if carry is None else carry.data_ptr(),
                     torch.cuda.current_stream(dev).cuda_stream), "sw_scores")
-    sw_scores.launches += blocks
+    _build.count(sw_scores, blocks)
     return out
 
 

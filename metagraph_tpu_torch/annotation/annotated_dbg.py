@@ -4,13 +4,15 @@ Own copy of metagraph_tpu/annotation/annotated_dbg.py:26-63 and :119-124:
 annotation row = base node - 1 (reverse-complement ids of a primary graph
 seen through ``CanonicalDBG`` fold back to their base node), the min-count
 rule of the reference, the top-label order (count descending, label code
-ascending) and the row multiset of a sequence.
+ascending) and the row multiset of a sequence; and of ``_cth_aggregate``
+(:126-200), the per-sequence results of a ``.seqs`` mapping
+(``cth_aggregate``), computed for a whole batch in numpy.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -42,3 +44,135 @@ def row_multiset(rows):
                                     return_counts=True)
     order = np.argsort(first, kind="stable")
     return list(zip(uniq[order].tolist(), counts[order].tolist()))
+
+
+def row_triples(annotation, rows: np.ndarray):
+    """The coordinate annotation's ``get_row_tuples(rows)`` flattened: ->
+    (owner, label, coordinate) int64 arrays, owner i for rows[i], in the
+    order of the tuples and their coordinates."""
+    if hasattr(annotation, "row_triples"):
+        return annotation.row_triples(rows)
+    tuples = annotation.get_row_tuples(rows)
+    owner, lab, crd = [], [], []
+    for i, row in enumerate(tuples):
+        for c, coords in row:
+            owner += [i] * len(coords)
+            lab += [c] * len(coords)
+            crd += list(coords)
+    return tuple(np.asarray(a, dtype=np.int64) for a in (owner, lab, crd))
+
+
+class HeaderIndex:
+    """A ``CoordToHeader`` as one sorted array: column c's sequence i is
+    header ``base[c] + i``, whose first global coordinate is ``start``
+    at that index; ``locate`` maps (column, coordinate) pairs to (header,
+    local coordinate) for many pairs at once."""
+
+    _SHIFT = 40          # a column's coordinates stay below 2^40
+
+    def __init__(self, cth):
+        n = [cth.num_sequences(c) for c in range(cth.num_columns())]
+        self.headers = [h for c in range(len(n)) for h in cth.get_headers(c)]
+        self.base = np.concatenate([[0], np.cumsum(n)]).astype(np.int64)
+        self.start = np.concatenate(
+            [o[:-1] for o in cth.offsets] or [np.zeros(0, np.int64)])
+        self.end = np.array([o[-1] for o in cth.offsets], dtype=np.int64)
+        col = np.repeat(np.arange(len(n), dtype=np.int64), n)
+        self._keys = (col << self._SHIFT) + self.start
+
+    def locate(self, col: np.ndarray, coord: np.ndarray):
+        if len(col) and (col.max() >= len(self.end)
+                         or (coord >= self.end[col]).any()):
+            raise IndexError("a coordinate lies past its column's "
+                             "sequences in the .seqs mapping")
+        h = np.searchsorted(self._keys, (col << self._SHIFT) + coord,
+                            side="right") - 1
+        return h, coord - self.start[h]
+
+
+def cth_aggregate(annotation, headers: HeaderIndex,
+                  nodes_list: Sequence[np.ndarray], mode: str,
+                  num_top_labels: int, discovery_fraction: float,
+                  presence_fraction: float, offset: int = 0) -> list:
+    """Per-sequence payloads of ``_cth_aggregate`` for a batch of mapped
+    node arrays (0 = miss): each k-mer's coordinates name (header, local
+    coordinate) pairs; a header's count is the number of k-mers that carry
+    it; thresholds and the top-n cap run per sequence; headers in
+    first-seen order, sorted (count descending, first seen) only where the
+    cap filters, and only outside the labels mode."""
+    out: list = [[] for _ in nodes_list]
+    take, rows, pos, seq_of = {}, [], [], []
+    for s, nodes in enumerate(nodes_list):
+        p = np.flatnonzero(nodes > 0)
+        min_count = get_min_count(discovery_fraction, presence_fraction,
+                                  len(nodes), len(p))
+        if not len(nodes) or len(p) < min_count:
+            continue
+        take[s] = min_count
+        rows.append(graph_to_anno_index(nodes[p], offset))
+        pos.append(p)
+        seq_of.append(np.full(len(p), s, np.int64))
+    if not take:
+        return out
+    pos, seq_of = np.concatenate(pos), np.concatenate(seq_of)
+    owner, col, coord = row_triples(annotation, np.concatenate(rows))
+    hdr, local = headers.locate(col, coord)
+    # distinct (k-mer, header) pairs in first-seen order, with their
+    # coordinates (counts, counts-sum) and their k-mer's sequence
+    G = len(headers.headers) + 1
+    pair_key = owner * G + hdr
+    order = np.lexsort((local, pair_key))
+    pk, first, ncrd = np.unique(pair_key, return_index=True,
+                                return_counts=True)
+    p_owner, p_hdr = pk // G, pk % G
+    p_seq = seq_of[p_owner]
+    crd_start = np.concatenate([[0], np.cumsum(ncrd)])
+    # (sequence, header) groups: their pairs, in k-mer order
+    grp = np.lexsort((p_owner, p_hdr, p_seq))
+    gkey = p_seq[grp] * G + p_hdr[grp]
+    gstart = np.flatnonzero(np.concatenate([[True], gkey[1:] != gkey[:-1]]))
+    gend = np.concatenate([gstart[1:], [len(grp)]])
+    g_seq, g_hdr = p_seq[grp[gstart]], p_hdr[grp[gstart]]
+    g_match = gend - gstart
+    g_first = np.minimum.reduceat(first[grp], gstart)
+    g_coords = np.add.reduceat(ncrd[grp], gstart)
+    seq_lo = np.searchsorted(g_seq, np.arange(len(nodes_list) + 1))
+    for s, min_count in take.items():
+        nk = len(nodes_list[s])
+        mine = np.arange(seq_lo[s], seq_lo[s + 1])
+        mine = mine[np.argsort(g_first[mine], kind="stable")]
+        sel = mine[g_match[mine] >= min_count]
+        if mode != "labels" and len(sel) > num_top_labels:
+            sel = sel[np.lexsort((g_first[sel], -g_match[sel]))]
+            sel = sel[:num_top_labels]
+        result = []
+        for g in sel:
+            name = headers.headers[g_hdr[g]]
+            n = int(g_match[g])
+            if mode == "labels":
+                result.append(name)
+                continue
+            if mode == "matches":
+                result.append((name, n))
+                continue
+            if mode == "counts-sum":
+                result.append((name, int(g_coords[g])))
+                continue
+            pairs = grp[gstart[g]: gend[g]]
+            at = pos[p_owner[pairs]]
+            if mode == "signature":
+                bits = np.zeros(nk, dtype=bool)
+                bits[at] = True
+                result.append((name, n, bits))
+            elif mode == "counts":
+                ab = np.zeros(nk, dtype=np.int64)
+                ab[at] = ncrd[pairs]
+                result.append((name, n, ab))
+            else:
+                co = [[] for _ in range(nk)]
+                for a, lo, hi in zip(at, crd_start[pairs],
+                                     crd_start[pairs + 1]):
+                    co[a] = local[order[lo:hi]].tolist()
+                result.append((name, n, co))
+        out[s] = result
+    return out

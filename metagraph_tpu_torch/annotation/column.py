@@ -48,6 +48,7 @@ class ColumnMajorAnnotation:
                   for c in coords]
         self.has_values = has_values
         self.has_coords = has_coords
+        self._row_index = None
 
     @property
     def num_labels(self) -> int:
@@ -109,6 +110,37 @@ class ColumnMajorAnnotation:
             for i in np.flatnonzero(hi > lo):
                 out[i].append((c, rc[lo[i]:hi[i], 1].tolist()))
         return out
+
+    def row_index(self):
+        """The coordinates in row-major order: -> (ptr (num_rows + 1,),
+        labels, coordinates); row r's are [ptr[r], ptr[r + 1]), labels
+        ascending, each label's coordinates as stored.  Built at the first
+        call (a caller that shares the annotation between threads calls it
+        first)."""
+        if self._row_index is None:
+            coords = self._coords or []
+            n = [len(c) for c in coords]
+            if sum(n):
+                rc = np.concatenate(coords)
+                lab = np.repeat(np.arange(len(coords), dtype=np.int64), n)
+                order = np.lexsort((lab, rc[:, 0]))       # stable
+                row, lab, crd = rc[order, 0], lab[order], rc[order, 1]
+            else:
+                row = lab = crd = np.zeros(0, np.int64)
+            ptr = np.searchsorted(row, np.arange(self.num_rows + 1))
+            self._row_index = (ptr, lab, crd)
+        return self._row_index
+
+    def row_triples(self, rows: np.ndarray):
+        """``get_row_tuples(rows)`` flattened: -> (owner, label,
+        coordinate) arrays, owner i for rows[i], in the order of its
+        tuples and their coordinates."""
+        rows = np.asarray(rows, dtype=np.int64)
+        ptr, lab, crd = self.row_index()
+        lo = ptr[rows]
+        n = ptr[rows + 1] - lo
+        at = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(int(n.sum()))
+        return np.repeat(np.arange(len(rows)), n), lab[at], crd[at]
 
     def coord_spans(self, rows: np.ndarray, code: int):
         """(lo, hi): label ``code``'s coordinates of row i are

@@ -487,7 +487,7 @@ def brwt_row_words(tree: BRWTOnDevice, ids: torch.Tensor, offset: int = 0,
                     slots, warps,
                     torch.cuda.current_stream(ids.device).cuda_stream),
                  "brwt_row_words")
-    brwt_row_words.launches += 1
+    _build.count(brwt_row_words)
     return out
 
 
@@ -543,7 +543,7 @@ def rowdiff_row_words(rd: RowDiffOnDevice, ids: torch.Tensor,
                     scratch.data_ptr(), list_cap, slots, warps,
                     torch.cuda.current_stream(ids.device).cuda_stream),
                  "rowdiff_row_words")
-    rowdiff_row_words.launches += 1
+    _build.count(rowdiff_row_words)
     return out
 
 

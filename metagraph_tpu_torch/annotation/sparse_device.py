@@ -488,7 +488,7 @@ def sparse_label_counts(nodes, tile_seq, entries, dmap, counts, present,
                     plan.threads, plan.smem, grid,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "sparse_label_counts")
-    sparse_label_counts.launches += 1
+    _build.count(sparse_label_counts)
 
 
 sparse_label_counts.launches = 0
@@ -524,7 +524,7 @@ def overflow_counts(counts, mult, dense8, seq_lo: int = 0):
                     dense8.data_ptr(), seq_lo, int(vec), grid,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "overflow_counts")
-    overflow_counts.launches += 1
+    _build.count(overflow_counts)
 
 
 overflow_counts.launches = 0

@@ -8,7 +8,9 @@ scoring flags :30-45) and prints the bytes of its ``--device`` query
 queried through ``CanonicalDBG``, :800-802) and column annotations or the
 annotations that ``transform_anno`` writes (a staged row-diff with its
 ``.rd_succ``/``.anchors`` sidecars beside the graph), in the six query
-modes.  Past ``METAGRAPH_DENSE_ANNO_BUDGET`` a BRWT or row-diff
+modes, with per-sequence results where a ``.seqs`` mapping sits beside the
+annotation (unless ``--no-coord-mapping``), and with up to ``-p`` batches
+in flight.  Past ``METAGRAPH_DENSE_ANNO_BUDGET`` a BRWT or row-diff
 annotation takes the block-sparse device form, cached beside it in
 ``<annotation>.devsparse.npz`` as the JAX CLI caches it.  ``--device``
 is a flag, as there: the port always runs on the card, unless
@@ -33,21 +35,18 @@ def _trace(msg: str):
 
 
 def cmd_query(args):
+    from .annotation.coord_to_header import CoordToHeader
     from .convert import load
     from .device import resolve_device
     from .query.pipeline import QueryEngine
     from .seq_io.fasta import read_fasta
 
     device = resolve_device(args.torch_device)   # before the index is built
-    # the graph and the annotation load first, as in the JAX cmd_query
-    # (cli/main.py:799-815): a missing file is reported before any refusal
+    # the graph, the annotation and the .seqs mapping load in that order,
+    # as in the JAX cmd_query (cli/main.py:799-815): a missing file is
+    # reported before any refusal
     index = load(args.infile_base, args.annotation)
-    if max(args.parallel, args.parallel_each) > 1:
-        raise NotImplementedError("-p/--parallel-each above 1 is not ported "
-                                  "yet (ROADMAP A7.4)")
-    if args.align or args.batch_align:
-        raise NotImplementedError("--align and --batch-align are not ported "
-                                  "yet (ROADMAP A13)")
+    cth = None
     if not args.no_coord_mapping:
         base = args.annotation
         for ext in (".column.annodbg.npz", ".column.annodbg",
@@ -56,10 +55,11 @@ def cmd_query(args):
                 base = base[: -len(ext)]
                 break
         if os.path.exists(base + ".seqs"):
-            raise NotImplementedError(
-                "the .seqs coordinate-to-header mapping is not ported yet "
-                "(ROADMAP A7.1); pass --no-coord-mapping")
-    engine = QueryEngine(index, device=device)
+            cth = CoordToHeader.load(base + ".seqs")
+    if args.align or args.batch_align:
+        raise NotImplementedError("--align and --batch-align are not ported "
+                                  "yet (ROADMAP A13)")
+    engine = QueryEngine(index, device=device, coord_to_header=cth)
     if args.verbose:
         engine.trace = _trace
     out = sys.stdout
@@ -70,7 +70,8 @@ def cmd_query(args):
                 read_fasta(f), args.query_mode, num_top,
                 args.min_kmers_fraction_label, args.min_kmers_fraction_graph,
                 fwd_and_reverse=args.fwd_and_reverse,
-                batch_size_bp=args.batch_size):
+                batch_size_bp=args.batch_size,
+                n_threads=max(args.parallel, args.parallel_each)):
             if args.json:
                 out.write(res.to_json(args.verbose_output, index.k) + "\n")
             else:

@@ -296,7 +296,7 @@ def from_graph(graph: DBGSuccinct, annotation,
     canon = {"basic": 0, "canonical": 1, "primary": 2}.get(graph.mode)
     if canon is None:
         raise NotImplementedError(
-            f"{graph.mode} graphs are not ported yet (ROADMAP A7)")
+            f"{graph.mode} graphs are not ported yet (ROADMAP A7.3)")
     boss = graph.boss
     valid_edges = np.flatnonzero(boss.valid)
     keys = pack_kmers32(boss.get_edge_seq(valid_edges),

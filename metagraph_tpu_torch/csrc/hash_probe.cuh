@@ -26,6 +26,17 @@
 //   same stop rule.
 // A thread's group sits in the stage with its chunks in a swizzled order, so
 // that the scan's 16-byte reads hit no bank twice for any W.
+//
+// probe_block keeps its key in registers and stages THREADS groups of
+// 16 (W + 1) bytes in static shared memory, which fits 48 KB up to W = 17.
+// Wider keys (k > 136 at 4 bits a code, k > 68 at 8 bits; the JAX package
+// builds and queries any k) take probe_warp: a warp takes 32 keys, each
+// lane hashes one (bucket_of_words: the hash is a chain over the words, so
+// a lane a key keeps all 32 lanes busy), then the 32 lanes probe each key
+// together: they read a group as consecutive words, each lane comparing
+// its words with the key's words at the same place, and OR their
+// mismatches and empty slots across the warp.  No lane holds a whole key,
+// and no shared memory grows with W, so one kernel serves every width.
 
 #pragma once
 
@@ -150,6 +161,62 @@ __device__ __forceinline__ uint32_t probe_block(
             r[4 * u + 3] = x.w;
         }
         stop = scan_group<W>(r, key, id);
+    }
+    return id;
+}
+
+// The bucket of a key of W words, hashed by one thread; ``word(w)`` gives
+// key word w.
+template <class KeyWord>
+__device__ __forceinline__ uint32_t bucket_of_words(const KeyWord &word,
+                                                    int W,
+                                                    uint32_t n_buckets) {
+    uint32_t h = 1u;                            // salt
+    for (int w = 0; w < W; ++w) {
+        h = (h ^ (word(w) * HASH_C[w & 7])) * 0x9E3779B1u;
+        h ^= h >> 15;
+    }
+    return (n_buckets & (n_buckets - 1u)) ? h % n_buckets
+                                          : h & (n_buckets - 1u);
+}
+
+// One probe by a whole warp, for keys of any W: every lane of the warp
+// calls it with the same bucket and key; ``word(w)`` gives key word w
+// (0 <= w < W) to any lane that asks.  Lane l reads words l, l + 32, ...
+// of each group it scans.  Returns the id (0 = miss) to every lane, under
+// the stop rule of probe_block.
+template <class KeyWord>
+__device__ __forceinline__ uint32_t probe_warp(
+    const uint32_t *__restrict__ table, uint32_t bucket, int W,
+    const KeyWord &word) {
+    constexpr unsigned FULL = 0xFFFFFFFFu;
+    const int lane = threadIdx.x & 31;
+    const int SW = W + 1, GW = GROUP * SW;      // words of a slot, a group
+    const uint32_t *grp = table + (int64_t)bucket * BUCKET * SW;
+    uint32_t id = 0;
+    for (int g = 0; g < BUCKET / GROUP; ++g, grp += GW) {
+        unsigned miss = 0u, empty = 0u;         // bit s: slot s of the group
+        for (int p = lane, s = lane / SW, w = lane % SW; p < GW;
+             p += 32, w += 32) {
+            while (w >= SW) {
+                w -= SW;
+                ++s;
+            }
+            if (w < W) {
+                const uint32_t x = __ldg(grp + p);
+                if (x != word(w))
+                    miss |= 1u << s;
+                if (w == 0 && x == EMPTY)
+                    empty |= 1u << s;
+            }
+        }
+        const unsigned eq = ~__reduce_or_sync(FULL, miss) & 0xFu;
+        empty = __reduce_or_sync(FULL, empty);
+        for (int s = 0; s < GROUP; ++s)
+            if (eq >> s & 1u)
+                id = max(id, __ldg(grp + s * SW + W));
+        if (eq | empty)
+            break;
     }
     return id;
 }

@@ -16,7 +16,15 @@
 // thread then hashes its key and the block probes with probe_block, which
 // has group 0 of every probed row in flight at once.  A ragged last block
 // probes with its first Q mod THREADS threads.  W is a template parameter
-// (1 .. 8).
+// (1 .. 17: the stage, the keys and a thread's key fit static shared memory
+// and registers).
+//
+// Wider keys (W >= 18: k > 136 DNA, k > 68 Protein) take a second form
+// (hash_probe.cuh's probe_warp), 32 consecutive keys a warp, 4 warps a
+// block: each lane hashes one key, then the warp probes them one after
+// another and lane j writes key j's id.  The lanes read a key's words from
+// device memory when they need them, where L1 keeps its few lines, so no
+// array grows with W and any W runs.
 //
 // Built with nvcc for sm_90a into a plain C library (see _build.py).
 
@@ -51,6 +59,40 @@ key_lookup_kernel(const uint32_t *__restrict__ keys,
         out[base + threadIdx.x] = (int32_t)id;
 }
 
+struct KeyRow {
+    const uint32_t *key;
+    __device__ __forceinline__ uint32_t operator()(int w) const {
+        return __ldg(key + w);
+    }
+};
+
+constexpr int WARPS = THREADS / 32;
+
+__global__ void __launch_bounds__(THREADS)
+key_lookup_wide_kernel(const uint32_t *__restrict__ keys,
+                       const uint32_t *__restrict__ table,
+                       int32_t *__restrict__ out, int64_t Q, int W,
+                       uint32_t n_buckets) {
+    const int lane = threadIdx.x & 31;
+    const int64_t q0 = ((int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5))
+        * 32;
+    if (q0 >= Q)
+        return;                                 // the whole warp
+    const int n = (int)min((int64_t)32, Q - q0);
+    const uint32_t bucket = lane < n ? hash_probe::bucket_of_words(
+        KeyRow{keys + (q0 + lane) * W}, W, n_buckets) : 0u;
+    uint32_t mine = 0;
+    for (int j = 0; j < n; ++j) {
+        const uint32_t id = hash_probe::probe_warp(
+            table, __shfl_sync(0xFFFFFFFFu, bucket, j), W,
+            KeyRow{keys + (q0 + j) * W});
+        if (lane == j)
+            mine = id;
+    }
+    if (lane < n)
+        out[q0 + lane] = (int32_t)mine;
+}
+
 template <int W>
 int launch(const void *keys, const void *table, void *out, int64_t Q,
            uint32_t nb, cudaStream_t st) {
@@ -64,8 +106,8 @@ int launch(const void *keys, const void *table, void *out, int64_t Q,
 }  // namespace
 
 // keys (Q, W) uint32, table (n_buckets, 16 * (W + 1)) uint32 -> out (Q,)
-// int32.  The wrapper checks 1 <= W <= 8, Q >= 1, a 16-byte aligned table
-// and n_buckets < 2^31.
+// int32.  The wrapper checks W >= 1, Q >= 1, a 16-byte aligned table and
+// n_buckets < 2^31.
 extern "C" int mg_key_lookup(const void *keys, const void *table, void *out,
                              int64_t Q, int32_t W, int64_t n_buckets,
                              void *stream) {
@@ -80,6 +122,23 @@ extern "C" int mg_key_lookup(const void *keys, const void *table, void *out,
     case 6: return launch<6>(keys, table, out, Q, nb, st);
     case 7: return launch<7>(keys, table, out, Q, nb, st);
     case 8: return launch<8>(keys, table, out, Q, nb, st);
-    default: return (int)cudaErrorInvalidValue;
+    case 9: return launch<9>(keys, table, out, Q, nb, st);
+    case 10: return launch<10>(keys, table, out, Q, nb, st);
+    case 11: return launch<11>(keys, table, out, Q, nb, st);
+    case 12: return launch<12>(keys, table, out, Q, nb, st);
+    case 13: return launch<13>(keys, table, out, Q, nb, st);
+    case 14: return launch<14>(keys, table, out, Q, nb, st);
+    case 15: return launch<15>(keys, table, out, Q, nb, st);
+    case 16: return launch<16>(keys, table, out, Q, nb, st);
+    case 17: return launch<17>(keys, table, out, Q, nb, st);
+    default:
+        if (W < 18)
+            return (int)cudaErrorInvalidValue;
+        key_lookup_wide_kernel<<<(unsigned)((Q + 32 * WARPS - 1)
+                                            / (32 * WARPS)), THREADS,
+                                 0, st>>>((const uint32_t *)keys,
+                                          (const uint32_t *)table,
+                                          (int32_t *)out, Q, W, nb);
+        return (int)cudaGetLastError();
     }
 }

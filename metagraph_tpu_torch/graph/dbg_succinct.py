@@ -39,19 +39,19 @@ class DBGSuccinct:
                 if f.read(2) != b"PK":
                     raise NotImplementedError(
                         "reference-format .dbg graphs are not ported yet "
-                        "(ROADMAP A7)")
+                        "(ROADMAP A7.3)")
         base = path[:-4] if path.endswith(".npz") else path
         if os.path.exists(base + ".meta.npz") \
                 and not os.path.exists(base + ".npz"):
             raise NotImplementedError(
-                "the mmap graph layout is not ported yet (ROADMAP A7)")
+                "the mmap graph layout is not ported yet (ROADMAP A7.3)")
         npz = base + ".npz"
         with np.load(npz) as z:
             if "graph_type" in z.files \
                     and str(z["graph_type"]) != "succinct":
                 raise NotImplementedError(
                     f"graph type {str(z['graph_type'])!r} is not ported yet "
-                    "(ROADMAP A7)")
+                    "(ROADMAP A7.3)")
             mode = str(z["mode"]) if "mode" in z.files else "basic"
             alph_size = int(z["alph_size"])
             if "alphabet" in z.files:

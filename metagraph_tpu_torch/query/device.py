@@ -264,7 +264,7 @@ def label_counts(nodes: torch.Tensor, bitmap: torch.Tensor,
                     Lw, num_labels, offset, int(vec16),
                     torch.cuda.current_stream(dev).cuda_stream),
                  "label_counts")
-    label_counts.launches += 1
+    _build.count(label_counts)
     return counts, present
 
 
@@ -345,7 +345,7 @@ def selection_mask(counts: torch.Tensor, present: torch.Tensor,
                     selmin.data_ptr(), mask.data_ptr(), S, L, Lw, vec, grid,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "selection_mask")
-    selection_mask.launches += 1
+    _build.count(selection_mask)
     return mask
 
 

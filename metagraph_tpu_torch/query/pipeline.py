@@ -34,22 +34,36 @@ package sends a sequence of 2^24 or more windows to the host counters,
 because its fused fold is a float32 matmul; the port's fold is integer,
 so such a sequence stays on its route.
 
+With a ``.seqs`` mapping (a ``CoordToHeader``) every batch takes
+``map_batch`` (kernel A), whatever the alphabet, k and canon, and then the
+per-sequence aggregation of ``_cth_aggregate`` (``annotated_dbg.
+cth_aggregate``, on the host), as the JAX package does (pipeline.py:587,
+:619): no wire or codes epoch runs.
+
+``query_records(..., n_threads=N)`` keeps up to N batches in flight on a
+thread pool and yields their results in submission order (:1066-1093), so
+the output is the sequential run's.  Each batch's host seconds travel with
+it (``last_batch_seconds`` is set as its results are yielded), and the
+kernels build before the first batch is submitted.
+
 Scope: succinct graphs of every alphabet and k with a column annotation
-or any annotation that ``transform_anno`` writes, at every budget.  The
-.seqs coordinate mapping and -p above 1 raise NotImplementedError
-elsewhere and name their ROADMAP items.
+or any annotation that ``transform_anno`` writes, at every budget.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Iterable, List, Sequence, Tuple
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, List, Sequence
 
 import numpy as np
 import torch
 
+from .. import _build
 from .._u32 import np_words, words_np
-from ..annotation.annotated_dbg import (_top_n_sorted, graph_to_anno_index,
+from ..annotation.annotated_dbg import (HeaderIndex, _top_n_sorted,
+                                        cth_aggregate, graph_to_anno_index,
                                         row_multiset)
 from ..annotation.device_matrix import FlatBRWT, FlatRowDiff, device_words
 from ..annotation.matrix import StaticAnnotation
@@ -77,6 +91,12 @@ def _check_mode(mode: str):
         raise ValueError(f"unknown query mode {mode!r}")
 
 
+def _seconds() -> dict:
+    """A batch's host seconds: packing, device (uploads, kernels,
+    downloads) and payload assembly."""
+    return {"pack": 0.0, "device": 0.0, "collect": 0.0}
+
+
 def route_of(index: QueryIndex) -> str:
     """'wire', 'codes' or 'map': the route of query_batch_fused's choice
     for the index's graph and device annotation (see the module
@@ -91,12 +111,19 @@ def route_of(index: QueryIndex) -> str:
 
 
 class QueryEngine:
-    def __init__(self, index: QueryIndex, device=None):
+    def __init__(self, index: QueryIndex, device=None, coord_to_header=None):
         self.device = resolve_device(device)
         self.index = index
         self.k = index.k
         self.labels = index.labels
-        self.route = route_of(index)
+        # with a .seqs mapping every batch is mapped, then aggregated per
+        # sequence on the host
+        self.headers = None
+        if coord_to_header is not None:
+            self.headers = HeaderIndex(coord_to_header)
+            if hasattr(index.annotation, "row_index"):
+                index.annotation.row_index()    # built once, before threads
+        self.route = "map" if self.headers is not None else route_of(index)
         self.extractor = KmerExtractor(ALPHABETS[index.alphabet])
         self.hash_index = DeviceHashIndex.from_table(index.table, self.device)
         # the device annotation the epochs count on: the (R, Lw) bitmap
@@ -112,8 +139,7 @@ class QueryEngine:
         # payloads through the annotation's row queries (a converted
         # annotation) rather than the bitmap and column values
         self._by_rows = isinstance(index.annotation, StaticAnnotation)
-        # host seconds of the last batch: packing, device (uploads,
-        # kernels, downloads) and payload assembly
+        # host seconds (_seconds) of the last batch returned or yielded
         self.last_batch_seconds = {}
         # called with a progress line per batch when set (the CLI's -v)
         self.trace = None
@@ -127,23 +153,44 @@ class QueryEngine:
                     presence_fraction: float) -> list:
         """Per-sequence payloads for one batch of raw sequences, on the
         index's route."""
-        out = self.query_batch_fused(seqs, mode, num_top_labels,
-                                     discovery_fraction, presence_fraction)
-        if out is not None:
-            return out
-        nodes_list = self.map_batch(seqs)
-        mapped = self.last_batch_seconds
-        out = self.execute_batch(nodes_list, mode, num_top_labels,
-                                 discovery_fraction, presence_fraction)
-        for key, v in mapped.items():
-            self.last_batch_seconds[key] += v
+        out, self.last_batch_seconds = self._query_batch(
+            seqs, mode, num_top_labels, discovery_fraction,
+            presence_fraction)
         return out
+
+    def _query_batch(self, seqs, mode, num_top_labels, discovery_fraction,
+                     presence_fraction):
+        """-> (payloads, the batch's seconds)."""
+        st = _seconds()
+        out = self._fused(seqs, mode, num_top_labels, discovery_fraction,
+                          presence_fraction, st)       # None: the map route
+        if out is not None:
+            return out, st
+        nodes_list = self._map(seqs, st)
+        if self.headers is None:
+            return self._execute(nodes_list, mode, num_top_labels,
+                                 discovery_fraction, presence_fraction,
+                                 st), st
+        t0 = time.perf_counter()
+        out = cth_aggregate(self.index.annotation, self.headers, nodes_list,
+                            mode, num_top_labels, discovery_fraction,
+                            presence_fraction, self.index.offset)
+        st["collect"] += time.perf_counter() - t0
+        return out, st
 
     def query_batch_fused(self, seqs: List[bytes], mode: str,
                           num_top_labels: int, discovery_fraction: float,
                           presence_fraction: float):
         """Per-sequence payloads for one batch on the wire or codes route;
         None when the index takes the map route."""
+        st = _seconds()
+        out = self._fused(seqs, mode, num_top_labels, discovery_fraction,
+                          presence_fraction, st)
+        self.last_batch_seconds = st
+        return out
+
+    def _fused(self, seqs, mode, num_top_labels, discovery_fraction,
+               presence_fraction, st):
         _check_mode(mode)
         if self.route == "map":
             return None
@@ -185,13 +232,18 @@ class QueryEngine:
 
         out = self._payloads_from_hits(rows, cols, vals, nodes_of, nwins,
                                        mode, num_top_labels)
-        self.last_batch_seconds = {"pack": t1 - t0, "device": t2 - t1,
-                                   "collect": time.perf_counter() - t2}
+        st["pack"] += t1 - t0
+        st["device"] += t2 - t1
+        st["collect"] += time.perf_counter() - t2
         return out
 
     def map_batch(self, seqs: List[bytes]) -> List[np.ndarray]:
         """Each sequence's windows -> (nwin,) int64 node ids (0 = miss),
         in one lookup of the batch's valid windows through kernel A."""
+        self.last_batch_seconds = _seconds()
+        return self._map(seqs, self.last_batch_seconds)
+
+    def _map(self, seqs, seconds):
         t0 = time.perf_counter()
         k, ex = self.k, self.extractor
         canon, offset = self.index.canon, self.index.offset
@@ -199,9 +251,7 @@ class QueryEngine:
         sep = np.array([ex.invalid], dtype=np.uint8)
         cat = np.concatenate([np.concatenate([c, sep]) for c in codes_list]) \
             if codes_list else sep[:0]
-        seconds = {"pack": 0.0, "device": 0.0}
         if len(cat) < k:
-            self.last_batch_seconds = dict(seconds)
             return [np.zeros(0, dtype=np.int64) for _ in seqs]
         wins = np.lib.stride_tricks.sliding_window_view(cat, k)
         bad = np.concatenate([[0], np.cumsum(cat >= ex.invalid)])
@@ -238,7 +288,6 @@ class QueryEngine:
             out.append(nodes_flat[at: at + nwin])
             at += len(c) + 1
         seconds["pack"] += time.perf_counter() - t1
-        self.last_batch_seconds = seconds
         return out
 
     def _map_windows(self, sub: np.ndarray, seconds: dict) -> np.ndarray:
@@ -262,11 +311,16 @@ class QueryEngine:
         """Mapped node arrays -> per-sequence payloads: the annotation rows
         + 1 tiled on the host (count_epoch_tiled's input), kernels 2 and 3
         on the device, payloads from the hit rows."""
+        self.last_batch_seconds = _seconds()
+        return self._execute(nodes_list, mode, num_top_labels,
+                             discovery_fraction, presence_fraction,
+                             self.last_batch_seconds)
+
+    def _execute(self, nodes_list, mode, num_top_labels, discovery_fraction,
+                 presence_fraction, st):
         _check_mode(mode)
         t0 = time.perf_counter()
         S, L = len(nodes_list), len(self.labels)
-        self.last_batch_seconds = {"pack": 0.0, "device": 0.0,
-                                   "collect": 0.0}
         if not S:
             return []
         nk_list = [len(n) for n in nodes_list]
@@ -287,8 +341,9 @@ class QueryEngine:
         out = self._payloads_from_hits(rows, cols, vals,
                                        lambda i: nodes_list[i], nk_list,
                                        mode, num_top_labels)
-        self.last_batch_seconds = {"pack": t1 - t0, "device": t2 - t1,
-                                   "collect": time.perf_counter() - t2}
+        st["pack"] += t1 - t0
+        st["device"] += t2 - t1
+        st["collect"] += time.perf_counter() - t2
         return out
 
     def _hits_from_mask(self, mask: np.ndarray, counts: torch.Tensor, L: int,
@@ -434,17 +489,19 @@ class QueryEngine:
                       discovery_fraction: float = 0.7,
                       presence_fraction: float = 0.0,
                       fwd_and_reverse: bool = False,
-                      batch_size_bp: int = 100_000_000
-                      ) -> Iterable[SeqSearchResult]:
+                      batch_size_bp: int = 100_000_000,
+                      n_threads: int = 1) -> Iterable[SeqSearchResult]:
         """Query FASTA records; yields per-sequence (per-strand) results.
         With fwd_and_reverse each record is queried on both strands as two
-        result lines, forward first."""
+        result lines, forward first.  With n_threads > 1 (-p) up to that
+        many batches run at once on a thread pool, their results yielded
+        in submission order."""
         _check_mode(mode)
         kind = KIND_FOR_MODE[mode]
 
         def process(batch, batch_bp):
             t0 = time.perf_counter()
-            payloads = self.query_batch(
+            payloads, st = self._query_batch(
                 [s for _, _, s in batch], mode, num_top_labels,
                 discovery_fraction, presence_fraction)
             if self.trace is not None:
@@ -453,24 +510,42 @@ class QueryEngine:
                            f"sec, {batch_bp / dt:.1f} bp/s")
             return [SeqSearchResult(QuerySequence(sid, name, seq.decode()),
                                     kind, payload)
-                    for (sid, name, seq), payload in zip(batch, payloads)]
+                    for (sid, name, seq), payload in zip(batch, payloads)], st
 
-        seq_id = 0
-        batch: List[Tuple[int, str, bytes]] = []
-        batch_bp = 0
-        for rec in records:
-            seqs = [(rec.name, rec.seq)]
-            if fwd_and_reverse:
-                seqs.append((rec.name, _revcomp(rec.seq)))
-            for name, seq in seqs:
-                batch.append((seq_id, name, seq))
-                seq_id += 1
-                batch_bp += len(seq)
-            if batch_bp >= max(batch_size_bp, 1):
-                yield from process(batch, batch_bp)
-                batch, batch_bp = [], 0
-        if batch:
-            yield from process(batch, batch_bp)
+        def batches():
+            seq_id, batch, batch_bp = 0, [], 0
+            for rec in records:
+                seqs = [(rec.name, rec.seq)]
+                if fwd_and_reverse:
+                    seqs.append((rec.name, _revcomp(rec.seq)))
+                for name, seq in seqs:
+                    batch.append((seq_id, name, seq))
+                    seq_id += 1
+                    batch_bp += len(seq)
+                if batch_bp >= max(batch_size_bp, 1):
+                    yield batch, batch_bp
+                    batch, batch_bp = [], 0
+            if batch:
+                yield batch, batch_bp
+
+        def results(done):
+            res, self.last_batch_seconds = done
+            return res
+
+        if n_threads <= 1:
+            for b, bp in batches():
+                yield from results(process(b, bp))
+            return
+        if self.device.type == "cuda":
+            _build.build_all()      # the kernels build before any batch
+        with ThreadPoolExecutor(max_workers=n_threads) as pool:
+            pending = deque()
+            for b, bp in batches():
+                pending.append(pool.submit(process, b, bp))
+                while len(pending) > n_threads:
+                    yield from results(pending.popleft().result())
+            while pending:
+                yield from results(pending.popleft().result())
 
 
 # seqtk-style complement: case-preserving, IUPAC degenerate codes included

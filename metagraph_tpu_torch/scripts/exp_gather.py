@@ -173,7 +173,7 @@ def _gather(kernel, form: str, tab: torch.Tensor, idx: torch.Tensor,
                     out.data_ptr(), n, n_rows, W, grid, smem,
                     torch.cuda.current_stream(dev).cuda_stream),
                  f"gather_{form}")
-    kernel.launches += 1
+    _build.count(kernel)
     return out
 
 

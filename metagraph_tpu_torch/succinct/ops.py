@@ -18,10 +18,12 @@ Three hand-written kernels probe the table:
   ``CanonicalDBG`` (canon 2), 2 <= K <= 31;
 * ``key_lookup`` (``csrc/key_lookup.cu``) replaces
   ``DeviceHashIndex.lookup`` -> ``_hash_lookup_flat`` on packed 4-bit or
-  8-bit keys;
+  8-bit keys of any width: a thread a key up to ``STATIC_KEY_WORDS``
+  words, a warp a key past it;
 * ``codes_lookup`` (``csrc/codes_lookup.cu``) replaces the front end of
   ``query/device.py::query_epoch_codes2``: 2-bit code tiles ->
-  ``device_pack_windows`` -> ``_hash_lookup_flat``, for any K up to 64.
+  ``device_pack_windows`` -> ``_hash_lookup_flat``, for any K (a thread a
+  window up to K = 136, a warp a window past it).
 
 The plain versions carry uint32 words as int64 masked to 32 bits (see
 ``_u32``).
@@ -533,7 +535,7 @@ def wire_lookup(words: torch.Tensor, vwords: torch.Tensor,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "wire_lookup")
     # canon 2 runs two kernels: forward probes, then the misses' rc probes
-    wire_lookup.launches += 2 if canon == 2 else 1
+    _build.count(wire_lookup, 2 if canon == 2 else 1)
     return nodes
 
 
@@ -544,15 +546,9 @@ wire_lookup.launches = 0
 # kernels A and B
 # --------------------------------------------------------------------------
 
-MAX_KEY_WORDS = 8     # kernels A and B are instantiated for W = 1 .. 8
-
-
-def _kernel_key_words(W: int):
-    if not 1 <= W <= MAX_KEY_WORDS:
-        raise NotImplementedError(
-            f"keys of {W} words: the probe kernels take 1 to "
-            f"{MAX_KEY_WORDS} (k up to 64 at 4 bits a code, 32 at 8 bits); "
-            "wider keys are not ported yet (ROADMAP A7.5)")
+STATIC_KEY_WORDS = 17  # kernel A's block form; wider keys take a warp a key
+# the dynamic shared memory a block may ask for on an H100 (227 KB)
+MAX_DYNAMIC_SMEM = 232_448
 
 
 def _check_table(table: torch.Tensor):
@@ -585,7 +581,8 @@ def key_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     out = torch.empty(Q, dtype=torch.int32, device=dev)
     if Q == 0:
         return out
-    _kernel_key_words(W)
+    if W < 1:
+        raise ValueError("keys need at least one word")
     _check_table(table)
     fn = _build.function("key_lookup", "mg_key_lookup",
                          [_P, _P, _P, _L, _I, _L, _P])
@@ -593,7 +590,7 @@ def key_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
                     table.shape[0],
                     torch.cuda.current_stream(dev).cuda_stream),
                  "key_lookup")
-    key_lookup.launches += 1
+    _build.count(key_lookup)
     return out
 
 
@@ -633,17 +630,22 @@ def codes_lookup(packed2: torch.Tensor, validb: torch.Tensor,
     nodes = torch.empty((N, T), dtype=torch.int32, device=dev)
     if N == 0:
         return nodes
-    _kernel_key_words(W)
     _check_table(table)
     if N >= 2 ** 31:
         raise ValueError(f"{N} tiles: the grid takes fewer than 2^31")
+    if K > 136:
+        smem = _build.function("codes_lookup", "mg_codes_lookup_smem",
+                               [_I, _I], ctypes.c_int64)(T, K)
+        if smem > MAX_DYNAMIC_SMEM:
+            raise ValueError(f"K={K}: a tile's stage needs {smem} bytes of "
+                             f"shared memory, past {MAX_DYNAMIC_SMEM}")
     fn = _build.function("codes_lookup", "mg_codes_lookup",
                          [_P, _P, _P, _P, _L, _I, _I, _L, _I, _I, _P])
     _build.check(fn(packed2.data_ptr(), validb.data_ptr(), table.data_ptr(),
                     nodes.data_ptr(), N, PB, validb.shape[1], table.shape[0],
                     K, T, torch.cuda.current_stream(dev).cuda_stream),
                  "codes_lookup")
-    codes_lookup.launches += 1
+    _build.count(codes_lookup)
     return nodes
 
 

@@ -108,8 +108,7 @@ def test_port_cli_refuses_out_of_scope(index):
     from metagraph_tpu_torch.cli import main
     base = ["query", "-i", str(index / "g.dbg"), "-a",
             str(index / "a.column.annodbg"), "--torch-device", "cpu"]
-    for extra in (["-p", "2"], ["--parallel-each", "2"], ["--align"],
-                  ["--batch-align"]):
+    for extra in (["--align"], ["--batch-align"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             main(base + extra + [str(index / "q.fa")])
 

@@ -1,10 +1,12 @@
-"""The port's ``query`` loads the graph and the annotation before it refuses
-what it has not ported (``-p``/``--parallel-each`` above 1, ``--align``,
-``--batch-align``, a ``.seqs`` file beside the annotation), as the JAX
-``cmd_query`` loads them before it builds its engine
-(metagraph_tpu/cli/main.py:799-815): a missing graph or annotation prints
-the JAX CLI's ``[error] File not found: ...`` line and exits 1 whatever
-else the command line asks.
+"""The port's ``query`` loads the graph, the annotation and a ``.seqs`` file
+beside it before it refuses what it has not ported (``--align``,
+``--batch-align``), as the JAX ``cmd_query`` loads them before it builds
+its engine (metagraph_tpu/cli/main.py:799-815): a missing graph or
+annotation prints the JAX CLI's ``[error] File not found: ...`` line and
+exits 1 whatever else the command line asks (``-p``, ``--align``, a
+``.seqs`` file); with its inputs present, ``-p``/``--parallel-each`` above
+1 and a ``.seqs`` file that is no mapping give the JAX CLI's bytes and
+exit code.
 
 The JAX CLI builds and annotates a small random-ACGT index in tmp_path and
 runs in this process; the port runs in a subprocess without JAX.
@@ -94,11 +96,29 @@ def test_missing_input_reported_before_refusal(index, tmp_path, missing,
     assert "Traceback" not in got[1] and "NotImplementedError" not in got[1]
 
 
+def _in_process(main, args):
+    """-> (stdout, exit code, the uncaught error's type and message)."""
+    out, code, err = io.StringIO(), 0, None
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        try:
+            main(args)
+        except SystemExit as e:
+            code = e.code or 0
+        except Exception as e:      # noqa: BLE001 (an uncaught CLI error)
+            code, err = 1, f"{type(e).__name__}: {e}"
+    return out.getvalue(), code, err
+
+
 @pytest.mark.parametrize("unported", ("-p 2", "--parallel-each 3",
                                       "--align", "--batch-align", ".seqs"))
 def test_present_inputs_then_refusal(index, tmp_path, unported):
     """With the graph and the annotation present, the port loads them and
-    then refuses what it has not ported, naming the ROADMAP item."""
+    then refuses what it has not ported (--align, --batch-align), naming
+    the ROADMAP item; -p 2, --parallel-each 3 and a .seqs file that holds
+    no mapping (a text file) give the JAX CLI's stdout and exit code (the
+    last: its ValueError from np.load, exit 1)."""
+    from metagraph_tpu.cli.main import main as jax_main
     from metagraph_tpu_torch.cli import main
     anno = tmp_path / "a.column.annodbg"
     shutil.copyfile(index / "a.column.annodbg.npz", f"{anno}.npz")
@@ -107,6 +127,16 @@ def test_present_inputs_then_refusal(index, tmp_path, unported):
         (tmp_path / "a.seqs").write_text("ref0 sample\n")
     else:
         extra = unported.split()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["query", "-i", str(index / "g.dbg"), "-a", str(anno), *extra,
-              "--torch-device", "cpu", str(index / "q.fa")])
+    args = ["query", "-i", str(index / "g.dbg"), "-a", str(anno), *extra,
+            str(index / "q.fa")]
+    if unported in ("--align", "--batch-align"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            main(args + ["--torch-device", "cpu"])
+        return
+    want = _in_process(jax_main, args[:-1] + ["--device", args[-1]])
+    got = _in_process(main, args + ["--torch-device", "cpu"])
+    assert got == want
+    if unported == ".seqs":
+        assert want[1] == 1 and want[2].startswith("ValueError")
+    else:
+        assert want[1] == 0 and want[0].count("\n") == 4

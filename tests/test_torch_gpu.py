@@ -42,10 +42,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _index(K, seed, n_refs=6, ref_len=700, rc_share=0.0):
+def _index(K, seed, n_refs=6, ref_len=700, rc_share=0.0, read_max=150,
+           n_rate=0.02):
     """A port-built index over random references (one label each, every
-    other reference also labelled 'all') and reads cut from them, a
-    ``rc_share`` of them reverse-complemented."""
+    other reference also labelled 'all') and reads of K - 3 to
+    ``read_max`` bp cut from them, a ``rc_share`` of them
+    reverse-complemented, an ``n_rate`` of their bases N."""
     rng = np.random.default_rng(seed)
     refs = rng.integers(0, 4, (n_refs, ref_len)).astype(np.uint8)
     win = np.lib.stride_tricks.sliding_window_view(refs, K, axis=1)
@@ -65,11 +67,11 @@ def _index(K, seed, n_refs=6, ref_len=700, rc_share=0.0):
     seqs = []
     for i in range(40):
         r = refs[i % n_refs]
-        a = int(rng.integers(0, ref_len - 150))
-        read = r[a: a + int(rng.integers(K - 3, 150))].copy()
+        a = int(rng.integers(0, ref_len - read_max))
+        read = r[a: a + int(rng.integers(K - 3, read_max))].copy()
         if rng.random() < rc_share:
             read = 3 - read[::-1]
-        read[rng.random(len(read)) < 0.02] = 4
+        read[rng.random(len(read)) < n_rate] = 4
         seqs.append(letters[read].tobytes())
     seqs.append(letters[np.tile(refs[0], 3)].tobytes())
     return index, seqs
@@ -447,12 +449,18 @@ def _fills_table(K, bits, seed, fills=FILLS):
             pool[np.concatenate(absent)])
 
 
+# kernel A's widths: every W of its block form, then its warp form (any W
+# past ops.STATIC_KEY_WORDS) at widths of one, two and several warp rounds
+KEY_WIDTHS = (*range(1, ops.STATIC_KEY_WORDS + 2), 20, 32, 33, 64, 125, 250)
+
+
 @pytest.mark.parametrize("traffic", ("hits", "misses", "mixed"))
 @pytest.mark.parametrize("bits", (4, 8))
-@pytest.mark.parametrize("W", range(1, ops.MAX_KEY_WORDS + 1))
+@pytest.mark.parametrize("W", KEY_WIDTHS)
 def test_key_lookup_matches_plain(cuda, W, bits, traffic):
-    """Kernel A at every instantiated W, 4-bit and 8-bit keys, in buckets of
-    0, 1, 3, 4, 5, 15 and 16 keys (a key in slot 15 included)."""
+    """Kernel A at every W of its block form and at widths of its warp
+    form, 4-bit and 8-bit keys, in buckets of 0, 1, 3, 4, 5, 15 and 16 keys
+    (a key in slot 15 included)."""
     K = W * 32 // bits - 1
     table, chars, ids, absent = _fills_table(K, bits, 9000 + 10 * W + bits)
     kmers = {"hits": chars, "misses": absent,
@@ -471,11 +479,17 @@ def test_key_lookup_matches_plain(cuda, W, bits, traffic):
         assert not want.any()
 
 
-@pytest.mark.parametrize("K", (32, 33, 41, 64))
+# kernel B's K: its thread-a-window form up to 64, then with a key a word
+# at a time up to 136, its warp form past it
+CODES_KS = (32, 33, 41, 64, 65, 70, 100, 128, 136, 137, 200)
+
+
+@pytest.mark.parametrize("K", CODES_KS)
 def test_codes_lookup_matches_plain(cuda, K):
     """Kernel B on reads with N runs and tails (reads shorter than a tile,
     shorter than K), and the codes epoch (kernels B, 2, 3) whole."""
-    index, seqs = _index(K, 300 + K)
+    index, seqs = _index(K, 300 + K, read_max=max(150, K + 50),
+                         n_rate=0.02 if K <= 64 else 0.004)
     tiles2, validb, tile_seq, nwins = tile_pack2(seqs, K, qd.TILE)
     dsel, selmin = qd._thresholds(nwins, 0.6, 0.1)
     args = [np_words(index.table), np_words(index.device_anno)] + [
@@ -491,12 +505,14 @@ def test_codes_lookup_matches_plain(cuda, K):
     assert (want[3] > 0).sum() > 100 and (want[3] == 0).sum() > 100
 
 
+@pytest.mark.parametrize("K", (19, 79), ids=("W5", "W20"))
 @pytest.mark.parametrize("Q", (1, 7, 31, 127, 129, 1000, 3 * 128 + 1))
-def test_key_lookup_ragged_batches_match_plain(cuda, Q):
+def test_key_lookup_ragged_batches_match_plain(cuda, Q, K):
     """Kernel A where Q is not a multiple of the block's 128 keys, and
     where Q < 32: the last block stages and probes its first Q mod 128
-    keys only."""
-    table, chars, _, absent = _fills_table(19, 8, 9500 + Q)    # W = 5
+    keys only (W = 5); the warp form's last block holds Q mod 4 keys
+    (W = 20)."""
+    table, chars, _, absent = _fills_table(K, 8, 9500 + Q)
     rng = np.random.default_rng(Q)
     pool = np.concatenate([chars, absent])
     keys = np_words(ops.pack_kmers32(pool[rng.integers(0, len(pool), Q)],
@@ -511,8 +527,38 @@ def test_key_lookup_ragged_batches_match_plain(cuda, Q):
     assert got.shape == (Q,) and (Q < 7 or want.any())
 
 
+@pytest.mark.parametrize("bits", (4, 8))
+@pytest.mark.parametrize("W", (9, 17, 18, 33, 125))
+def test_key_lookup_near_misses_match_plain(cuda, W, bits):
+    """Kernel A on two buckets of keys that differ from one key in one code
+    each, at every word of it, probed with all of them (half are in the
+    table) and with that key (absent): a mismatch in any one word misses."""
+    K = W * 32 // bits - 1
+    rng = np.random.default_rng(700 + W + bits)
+    top = 15 if bits == 4 else 28
+    base = rng.integers(1, top, K).astype(np.uint8)
+    pos = rng.permutation(K)[:40]
+    var = np.repeat(base[None], len(pos), 0)
+    var[np.arange(len(pos)), pos] = var[np.arange(len(pos)), pos] \
+        % (top - 1) + 1
+    keys = ops.pack_kmers32(var, bits)
+    b = ops._hash_words(keys, 2, 1)
+    put = np.concatenate([np.flatnonzero(b == 0)[:10],
+                          np.flatnonzero(b == 1)[:10]])
+    table = ops.DeviceHashIndex._build(
+        keys[put], np.arange(1, len(put) + 1, dtype=np.uint32), 2)
+    q = np_words(np.concatenate([keys, ops.pack_kmers32(base[None], bits)]))
+    tab = np_words(table.reshape(2, -1))
+    want = ops.key_lookup(q, tab)
+    got = ops.key_lookup(q.to(cuda), tab.to(cuda))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert sorted(want.numpy()[put]) == list(range(1, len(put) + 1))
+    assert int((want > 0).sum()) == len(put)
+
+
 @pytest.mark.parametrize("traffic", ("hits", "misses", "mixed"))
-@pytest.mark.parametrize("K", (32, 33, 41, 64))
+@pytest.mark.parametrize("K", CODES_KS + (300,))
 def test_codes_lookup_stop_rule_matches_plain(cuda, K, traffic):
     """Kernel B in buckets of 0, 1, 3, 4, 5, 15 and 16 keys (a key in slot
     15 included), with hits, misses and mixed traffic.  Each k-mer follows
@@ -549,12 +595,14 @@ def test_codes_lookup_stop_rule_matches_plain(cuda, K, traffic):
 @pytest.mark.parametrize("shift", ((0, 0), (1, 3), (3, 2)),
                          ids=lambda s: f"codes+{s[0]}-valid+{s[1]}")
 @pytest.mark.parametrize("T", (32, 96, 288, 1024))
-def test_codes_lookup_tile_layouts_match_plain(cuda, T, shift):
+@pytest.mark.parametrize("K", (41, 100, 200))
+def test_codes_lookup_tile_layouts_match_plain(cuda, K, T, shift):
     """Kernel B on tiles narrower and wider than its 128-thread block (one
-    round with idle threads, several rounds, a partial last round) with the
-    tile rows starting at every byte offset of a word."""
-    K = 41
-    index, seqs = _index(K, 400 + T)
+    round with idle threads, several rounds, a partial last round; the
+    K > 136 form's 4 warps) with the tile rows starting at every byte
+    offset of a word."""
+    index, seqs = _index(K, 400 + T, read_max=max(150, K + 50),
+                         n_rate=0.02 if K <= 64 else 0.004)
     tiles2, validb, _, _ = tile_pack2(seqs, K, T)
     table = np_words(index.table)
     want = ops.codes_lookup(torch.from_numpy(tiles2),
@@ -575,10 +623,12 @@ def test_codes_lookup_tile_layouts_match_plain(cuda, T, shift):
 @pytest.mark.parametrize("mode", ("labels", "matches", "counts-sum",
                                   "counts"))
 @pytest.mark.parametrize("route", ("codes", "map"))
-def test_query_engine_routes_cuda_matches_cpu(cuda, route, mode):
-    """The codes route (basic, k = 41) and the map route (the same k-mers
-    as a primary graph: kernel A, then kernels 2 and 3)."""
-    index, seqs = _index(41, 11, rc_share=0.3)
+@pytest.mark.parametrize("K", (41, 70))
+def test_query_engine_routes_cuda_matches_cpu(cuda, K, route, mode):
+    """The codes route (basic, k = 41 and 70) and the map route (the same
+    k-mers as a primary graph: kernel A, then kernels 2 and 3)."""
+    index, seqs = _index(K, 11, rc_share=0.3, read_max=K + 109,
+                         n_rate=0.02 if K == 41 else 0.004)
     if route == "map":
         index = dataclasses.replace(index, canon=2)
     want = QueryEngine(index, device="cpu").query_batch(
@@ -1137,3 +1187,91 @@ def test_brwt_row_words_windows_share_warps(cuda):
             got = _words_vs_plain(dm.brwt_row_words, dm.brwt_row_words_plain,
                                   anno, torch.from_numpy(ids[lo:]), 0, cuda)
             assert int((got != 0).sum()) > 0
+
+
+def _seqs_index(K, seed, n_refs=6, ref_len=700):
+    """A port-built index of random references whose annotation holds each
+    k-mer's positions in its reference (one label a reference), a
+    CoordToHeader that splits each label into 3 headers of consecutive
+    k-mers, and reads cut from the references."""
+    from metagraph_tpu_torch.annotation.coord_to_header import CoordToHeader
+    rng = np.random.default_rng(seed)
+    refs = rng.integers(0, 4, (n_refs, ref_len)).astype(np.uint8)
+    refs[1, 300:400] = refs[0, 100:200]          # k-mers of two references
+    win = np.lib.stride_tricks.sliding_window_view(refs, K, axis=1) + 1
+    n = win.shape[1]
+    chars, inv = np.unique(win.reshape(-1, K), axis=0, return_inverse=True)
+    rows = inv.reshape(n_refs, n)
+    cols, crd = [], []
+    for c in range(n_refs):
+        order = np.lexsort((np.arange(n), rows[c]))
+        cols.append(np.unique(rows[c]))
+        crd.append(np.stack([rows[c][order], order], 1))
+    labels = [f"s{c}" for c in range(n_refs)]
+    anno = ColumnMajorAnnotation(len(chars), labels, cols, coords=crd,
+                                 has_coords=True)
+    index = convert.from_kmers(
+        ops.pack_kmers32(chars), np.arange(1, len(chars) + 1,
+                                           dtype=np.uint32),
+        pack_annotation_bitmap(anno), labels, K, anno)
+    cth = CoordToHeader([[f"s{c}h{i}" for i in range(3)]
+                         for c in range(n_refs)],
+                        [[n // 3, n // 3, n - 2 * (n // 3)]] * n_refs)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    seqs = []
+    for i in range(60):
+        a = int(rng.integers(0, ref_len - 150))
+        read = refs[i % n_refs, a: a + int(rng.integers(K - 3, 150))].copy()
+        read[rng.random(len(read)) < 0.01] = 4
+        seqs.append(letters[read].tobytes())
+    return index, seqs, cth
+
+
+@pytest.mark.parametrize("mode", ("labels", "matches", "counts",
+                                  "coords"))
+@pytest.mark.parametrize("K", (31, 41, 70))
+def test_seqs_query_engine_cuda_matches_cpu(cuda, K, mode):
+    """With a .seqs mapping every batch maps through kernel A (k = 31 and
+    41 too, whose usual routes are wire and codes) and aggregates per
+    header on the host: the payloads of the CPU engine."""
+    index, seqs, cth = _seqs_index(K, 90 + K)
+    want = QueryEngine(index, device="cpu", coord_to_header=cth).query_batch(
+        seqs, mode, 2, 0.5, 0.0)
+    engine = QueryEngine(index, device=cuda, coord_to_header=cth)
+    before = {f.__name__: f.launches for f in (
+        ops.key_lookup, ops.wire_lookup, ops.codes_lookup, qd.label_counts)}
+    got = engine.query_batch(seqs, mode, 2, 0.5, 0.0)
+    assert str(got) == str(want)
+    assert sum(bool(p) for p in want) > 20
+    assert ops.key_lookup.launches == before["key_lookup"] + 1
+    assert (ops.wire_lookup.launches, ops.codes_lookup.launches,
+            qd.label_counts.launches) == (
+        before["wire_lookup"], before["codes_lookup"],
+        before["label_counts"])
+
+
+@pytest.mark.parametrize("route", ("wire", "codes", "map", "seqs"))
+def test_parallel_query_records_cuda(cuda, route):
+    """query_records with 4 batches in flight on the card: the sequential
+    run's results, and exactly its launches of every kernel."""
+    from metagraph_tpu_torch.seq_io.fasta import FastaRecord
+    K = {"wire": 31, "codes": 41, "map": 41, "seqs": 41}[route]
+    index, seqs, cth = _seqs_index(K, 7)
+    if route == "map":
+        index = dataclasses.replace(index, canon=2)
+    engine = QueryEngine(index, device=cuda,
+                         coord_to_header=cth if route == "seqs" else None)
+    assert engine.route == ("map" if route == "seqs" else route)
+    recs = [FastaRecord(f"r{i}", s) for i, s in enumerate(seqs)]
+    kernels = (ops.wire_lookup, ops.codes_lookup, ops.key_lookup,
+               qd.label_counts, qd.selection_mask)
+    runs = []
+    for n_threads in (1, 4):
+        for f in kernels:
+            f.launches = 0
+        res = list(engine.query_records(recs, "matches", batch_size_bp=500,
+                                        n_threads=n_threads))
+        runs.append(([str(r.payload) for r in res],
+                     [f.launches for f in kernels]))
+    assert runs[0] == runs[1]
+    assert sum(runs[0][1]) >= 10      # one or more launches a batch
