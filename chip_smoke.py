@@ -85,6 +85,34 @@ then:
    k = 80 (kernel A's warp form, W = 20), in the labels mode; payloads
    against the oracle, kernels B or A (with an L2 control), 2 and 3
    against their plain versions;
+5e. drives graphs that are not succinct, each loaded from a ``.dbg.npz``
+   in the JAX package's layout (``graph_type``, ``k``, ``mode``,
+   ``kmers``, ``ids``, ``alphabet``; rows written out of order) through
+   ``DBGSuccinct.load``, which rebuilds their node ids, and
+   ``convert.from_graph``: the map route (kernel A, then kernels 2, 3).
+   "bitmap" holds the basic deployment's k-mers (node id = rank in
+   left-to-right code order; its annotation is the basic one with rows
+   moved to those ids), queried with the basic batch's first
+   ``bitmap_reads`` reads (50,000: on one H100 80GB HBM3 at 700 W the
+   whole batch took 48.6 s of queries and about as long again of kernel
+   checks, and the script 1,053 s in all) in the labels and counts
+   modes; "hash-canonical" (both strands, ids in insertion order,
+   labels on the strand first in BOSS order) and "sshash" (basic, ids by
+   rank, entries bucketed by minimizer) hold the wide deployments' DNA
+   references at k = 31 and take their reads (50% and 10% reverse
+   complemented), in the labels mode: their Python rebuilds set the cut,
+   as the JAX package rebuilds them too.  Payloads against the oracle
+   (ids computed here from the keys, not by the port), kernels A, 2 and 3
+   against their plain versions, A with an L2 control;
+5f. serves the basic deployment's index with the port's
+   ``MetaGraphServer`` on 127.0.0.1 (a port the system chooses, in the
+   background): eight ``/search`` requests of ``server_reads`` reads,
+   two at a time from two client threads, in the matches, signature and
+   counts-sum modes, each reply equal to the engine's own sequential
+   ``query_records`` output and, label for label and count for count, to
+   the oracle; then ``/stats``, ``/column_labels``, a malformed request
+   (400) and ``/align`` (500, naming ROADMAP A13); each request's latency
+   printed;
 6. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
    300 and holds it against its plain version and, on a sample, the numpy
    oracle; then on 1,024 pairs of 1,000 x 1,000 and 256 pairs of 2,000 x
@@ -102,7 +130,8 @@ after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (kernels 1-3 once more
 for each of the primary and canonical deployments, kernels B, 2, 3 for
 k41, A for seqs, A, 2, 3 for protein, 3 for many-labels, 2 for each words
-deployment and B or A, 2, 3 for each wide deployment, named
+deployment, B or A, 2, 3 for each wide deployment and A, 2, 3 for each
+graph-types deployment, named
 ``<kernel>/<deployment>``, and
 ``sw_scores/large`` and ``sw_scores/long`` for the other SW shapes), the
 last is
@@ -150,7 +179,8 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             ctrl_rows=4096, many=(4096, 16, (48, 65)), anno_budget=2 << 30,
             words_budget=32768, words_reads=15_000, rd_max_length=100,
             seqs_headers=10, par_batches=8, par_threads=4,
-            wide=(200, 8101, 20_000, 200))
+            wide=(200, 8101, 20_000, 200), server_reads=2000,
+            bitmap_reads=50_000)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -160,7 +190,7 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             ctrl_rows=64, many=(256, 2, (8, 13)), anno_budget=1 << 16,
             words_budget=256, words_reads=100, rd_max_length=20,
             seqs_headers=2, par_batches=3, par_threads=4,
-            wide=(8, 501, 100, 120))
+            wide=(8, 501, 100, 120), server_reads=30, bitmap_reads=100)
 
 
 def log(msg: str):
@@ -1106,17 +1136,12 @@ def parallel_phase(engine, seqs, cfg, torch, dev):
     return lb
 
 
-def wide_phase(cfg, torch, dev, seed, timed):
-    """The four WIDE deployments: references and reads from their own
-    streams of the seed (DNA shared by dna70 and dna70c, 10% and 50% of its
-    reads reverse-complemented; Protein by prot40 and prot80), labels mode
-    against the oracle, then each kernel of the path against its plain
-    version on the path's inputs (kernel B or A with an L2 control, 2, 3).
-    The reads carry 0.2% substitutions: at 1% a read of 200 holds two on
-    average, and each takes k windows, so that at k = 70 and 80 too few
-    reads keep 70% of their k-mers for the oracle check to hold labels.
-    -> {deployment: (launches, entries)}."""
-    from metagraph_tpu_torch.query.pipeline import QueryEngine
+def wide_inputs(cfg, seed):
+    """The wide deployments' references and reads, from a sixth stream of
+    the seed: (DNA references, protein references, reads by stream: 0 and
+    1 of the DNA references, 10% and 50% reverse-complemented, and
+    "Protein"; the stream, which wide_phase's oracle samples go on
+    drawing from)."""
     n_refs, ref_len, n_reads, read_len = cfg["wide"]
     rng = np.random.default_rng([seed, 6])
     dna = list(rng.integers(0, 4, (n_refs, ref_len)).astype(np.uint8))
@@ -1127,6 +1152,22 @@ def wide_phase(cfg, torch, dev, seed, timed):
         "Protein": make_protein_batch(dict(cfg, n_reads=n_reads,
                                            read_len=read_len), rng, prot,
                                       0.002)}
+    return dna, prot, reads, rng
+
+
+def wide_phase(cfg, torch, dev, wide, timed):
+    """The four WIDE deployments: references and reads from their own
+    streams of the seed (``wide_inputs``: DNA shared by dna70 and dna70c,
+    10% and 50% of its reads reverse-complemented; Protein by prot40 and
+    prot80), labels mode
+    against the oracle, then each kernel of the path against its plain
+    version on the path's inputs (kernel B or A with an L2 control, 2, 3).
+    The reads carry 0.2% substitutions: at 1% a read of 200 holds two on
+    average, and each takes k windows, so that at k = 70 and 80 too few
+    reads keep 70% of their k-mers for the oracle check to hold labels.
+    -> {deployment: (launches, entries)}."""
+    from metagraph_tpu_torch.query.pipeline import QueryEngine
+    dna, prot, reads, rng = wide
     out = {}
     for name, (alphabet, k, canon) in WIDE.items():
         index, oracle = timed("wide indexes", make_wide_deployment,
@@ -1150,6 +1191,261 @@ def wide_phase(cfg, torch, dev, seed, timed):
             f" [{name}]", **kw))
         del engine, index, oracle
     return out
+
+
+def lex_keys(keys: np.ndarray, k: int) -> np.ndarray:
+    """2-bit keys (char i at bits 2i) -> integers in the order of the
+    codes read left to right (char 0 most significant): the order of a
+    bitmap or sshash graph's node ids."""
+    out = np.zeros_like(keys)
+    for i in range(k):
+        out |= ((keys >> np.uint64(2 * i)) & np.uint64(3)) \
+            << np.uint64(2 * (k - 1 - i))
+    return out
+
+
+def rank_of(keys: np.ndarray) -> np.ndarray:
+    """Each key's rank among ``keys`` (distinct)."""
+    rank = np.empty(len(keys), np.int64)
+    rank[np.argsort(keys, kind="stable")] = np.arange(len(keys))
+    return rank
+
+
+def moved_annotation(anno, row_of: np.ndarray):
+    """A column annotation with row r moved to ``row_of[r]`` (values moved
+    with their rows)."""
+    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+    cols, vals = [], []
+    for c in range(anno.num_labels):
+        rows = row_of[anno.column_rows(c)]
+        order = np.argsort(rows, kind="stable")
+        cols.append(rows[order])
+        if anno.has_values:
+            vals.append(anno.values_of(anno.column_rows(c), c)[order])
+    return ColumnMajorAnnotation(len(row_of), anno.labels, cols,
+                                 values=vals if anno.has_values else None,
+                                 has_values=anno.has_values)
+
+
+def save_kmer_graph(path, gtype, mode, chars, ids, rng):
+    """A non-succinct graph's ``.dbg.npz`` with the arrays of the JAX
+    package's ``_KmerGraphBase.save``, its rows (with their ids) in a
+    shuffled order; not deflated (``np.load`` reads either, and the
+    deflate of the three files' 400 MB is host time the script's limit
+    does not need to spend)."""
+    perm = rng.permutation(len(chars))
+    np.savez(path, graph_type=gtype, k=chars.shape[1], mode=mode,
+             kmers=chars[perm], ids=ids[perm], alphabet="DNA")
+
+
+def kmer_graph_deployments(oracle, anno, wide, work, rng):
+    """The graph-types deployments' files, then their graphs loaded
+    through ``DBGSuccinct.load``: -> {name: (graph, annotation, oracle,
+    reads)}; the bitmap one's reads are the caller's (None)."""
+    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    paths, out = {}, {}
+    t0 = time.perf_counter()
+    # bitmap: the basic deployment's k-mers; id = 1 + rank in
+    # left-to-right code order
+    keys = oracle["keys"]
+    paths["bitmap"] = os.path.join(work, "bitmap.dbg.npz")
+    save_kmer_graph(paths["bitmap"], "bitmap", "basic", key_chars(keys),
+                    np.arange(1, len(keys) + 1), rng)
+    out["bitmap"] = [moved_annotation(anno, rank_of(lex_keys(keys, K))),
+                     oracle, None]
+    dna, _, reads, _ = wide
+    L = len(dna)
+    labels = [f"ref{i}" for i in range(L)]
+    fwd = [window_keys(r, K)[0] for r in dna]
+    labs = np.concatenate([np.full(len(f), i, np.int64)
+                           for i, f in enumerate(fwd)])
+    rc = [rc_window_keys(r, K) for r in dna]
+    # hash canonical: each reference's windows, then its reverse
+    # complement's, inserted in that order (first occurrence: id 1, 2, ..)
+    order = np.concatenate([np.concatenate([f, r[::-1]])
+                            for f, r in zip(fwd, rc)])
+    ukeys, first = np.unique(order, return_index=True)
+    ids = np.empty(len(ukeys), np.int64)
+    ids[np.argsort(first)] = np.arange(1, len(ukeys) + 1)
+    paths["hash-canonical"] = os.path.join(work, "hash.dbg.npz")
+    save_kmer_graph(paths["hash-canonical"], "hash", "canonical",
+                    key_chars(ukeys), ids, rng)
+    fwd_all, rc_all = np.concatenate(fwd), np.concatenate(rc)
+    probed = np.where(boss_rot(fwd_all, K) <= boss_rot(rc_all, K), fwd_all,
+                      rc_all)
+    rows = ids[np.searchsorted(ukeys, probed)] - 1
+    cols = [np.unique(rows[labs == c]) for c in range(L)]
+    out["hash-canonical"] = [
+        ColumnMajorAnnotation(len(ukeys), labels, cols),
+        make_oracle(np.minimum(fwd_all, rc_all), labs, L), reads[1]]
+    # sshash basic: id = 1 + rank in left-to-right code order
+    o = make_oracle(fwd_all, labs, L)
+    paths["sshash"] = os.path.join(work, "sshash.dbg.npz")
+    save_kmer_graph(paths["sshash"], "sshash", "basic", key_chars(o["keys"]),
+                    np.arange(1, len(o["keys"]) + 1), rng)
+    out["sshash"] = [moved_annotation(annotation_of(o, labels),
+                                      rank_of(lex_keys(o["keys"], K))),
+                     o, reads[0]]
+    log(f"graph-types files written in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        graph = DBGSuccinct.load(path[:-4])
+        log(f"{name}: {os.path.getsize(path)} B file; loaded and rebuilt "
+            f"({type(graph).__name__}, {graph.max_index()} nodes) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[name] = (graph, *out[name])
+    return out
+
+
+def graph_types_phase(cfg, deployments, seqs, codes, rng, torch, dev,
+                      timed):
+    """Each graph-types deployment through ``convert.from_graph``: it must
+    take the map route; the labels mode (and the counts mode on bitmap, on
+    the basic batch's first ``bitmap_reads`` reads) against the oracle,
+    then kernels A (with an L2 control), 2 and 3 against their plain
+    versions.  -> {deployment: (launches, entries)}."""
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.query.pipeline import QueryEngine
+    out = {}
+    for name, (graph, anno, oracle, reads) in deployments.items():
+        t0 = time.perf_counter()
+        index = timed("graph-types indexes", convert.from_graph, graph,
+                      anno)
+        log(f"{name} index: {index.num_rows} rows, graph type "
+            f"{index.graph_type}, canon {index.canon}, hash table "
+            f"{index.table.shape} = {index.table.nbytes} B; "
+            f"convert.from_graph in {time.perf_counter() - t0:.1f} s")
+        engine = timed("uploads", QueryEngine, index, device=dev)
+        if engine.route != "map":
+            raise AssertionError(f"{name} takes the {engine.route} route")
+        n = cfg["bitmap_reads"]
+        s, c, p = (seqs[:n], codes[:n], 0) if reads is None \
+            else (reads[0], reads[1], 0)
+        launches = timed(
+            "query paths and oracle", main_path, engine, s, c, p, oracle,
+            cfg, rng, torch, dev, f"{name} graph (map route)",
+            modes=("labels", "counts") if name == "bitmap" else ("labels",),
+            kernels=("key_lookup", "label_counts", "selection_mask"),
+            idle=("wire_lookup", "codes_lookup"))
+        out[name.replace("-", "_")] = (launches, timed(
+            "kernel checks", key_checks, engine, s, cfg, torch, dev,
+            f" [{name}]"))
+        del engine, index
+    return out
+
+
+def server_phase(cfg, index, graph, seqs, codes, oracle, torch, dev):
+    """The basic deployment's index served by the port's MetaGraphServer
+    on 127.0.0.1 (a port the system chooses): eight /search requests of
+    ``server_reads`` reads, two at a time from two client threads, in the
+    matches, signature and counts-sum modes; each reply equal to the
+    engine's sequential ``query_records`` output and, label and count, to
+    the oracle; then /stats, /column_labels, a malformed request and
+    /align.  -> the launches of the requests."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from metagraph_tpu_torch.seq_io.fasta import FastaRecord
+    from metagraph_tpu_torch.server.server import MetaGraphServer
+    t0 = time.perf_counter()
+    server = MetaGraphServer(graph, index.annotation, device=dev,
+                             index=index)
+    server.serve("127.0.0.1", 0, background=True)
+    log(f"server: listening on 127.0.0.1:{server.port} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = cfg["server_reads"]
+    modes = ["matches", "signature", "counts-sum"] * 3
+    flag = {"matches": {}, "signature": {"with_signature": True},
+            "counts-sum": {"abundance_sum": True}}
+    jobs = [(i, modes[i], list(range(i * n, (i + 1) * n))) for i in range(8)]
+
+    def ask(path, body=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/{path}",
+            data=None if body is None else body.encode(),
+            method="GET" if body is None else "POST")
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as f:
+                code, reply = f.status, json.loads(f.read())
+        except urllib.error.HTTPError as e:
+            code, reply = e.code, json.loads(e.read())
+        return code, reply, time.perf_counter() - t
+
+    replies = {}
+
+    def client(mine):
+        for i, mode, which in mine:
+            fasta = "".join(f">r{j}\n{seqs[j].decode()}\n" for j in which)
+            replies[i] = ask("search", json.dumps(dict(FASTA=fasta,
+                                                       **flag[mode])))
+
+    def drive():
+        threads = [threading.Thread(target=client, args=(jobs[t::2],))
+                   for t in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    try:
+        _, launches = run_path(drive)
+        for i, mode, which in jobs:
+            code, got, secs = replies[i]
+            log(f"server /search {i} [{mode}]: {len(which)} reads, status "
+                f"{code}, {secs:.3f} s")
+            if code != 200:
+                raise AssertionError(f"server /search {i}: status {code}")
+            recs = [FastaRecord(f"r{j}", seqs[j]) for j in which]
+            want = sorted((json.loads(r.to_json(False, index.k)) for r in
+                           server.engine.query_records(recs, mode, 10000,
+                                                       0.7, 0.0)),
+                          key=lambda r: r["seq_description"])
+            if got != want:
+                raise AssertionError(f"server /search {i} [{mode}] differs "
+                                     "from the engine's sequential run")
+            oracle_mode = "counts-sum" if mode == "counts-sum" \
+                else "matches"
+            hits = 0
+            for r in got:
+                j = int(r["seq_description"][1:])
+                pairs = [(x["sample"], x["kmer_count"]) for x in r["results"]]
+                if pairs != oracle_payload(codes[j], oracle_mode, oracle,
+                                           top=10000):
+                    raise AssertionError(f"server /search {i}: read {j} "
+                                         "differs from the oracle")
+                hits += bool(pairs)
+            if hits < MIN_HIT_SHARE * len(got):
+                raise AssertionError(f"server /search {i}: {hits} of "
+                                     f"{len(got)} reads with hits")
+        log(f"  server: 8 replies equal to the sequential engine and the "
+            f"oracle; launches {launches}")
+        for name in ("wire_lookup", "label_counts", "selection_mask"):
+            if dev.type == "cuda" and launches[name] < 8:
+                raise AssertionError(f"{name} launched {launches[name]} "
+                                     "times for 8 requests")
+        checks = [("stats", None, 200), ("column_labels", None, 200),
+                  ("search", "{FASTA", 400),
+                  ("align", json.dumps({"FASTA": ">a\nACGT\n"}), 500)]
+        for path, body, status in checks:
+            code, reply, secs = ask(path, body)
+            log(f"server /{path}: status {code}, {secs:.3f} s: "
+                f"{json.dumps(reply)[:160]}")
+            if code != status:
+                raise AssertionError(f"server /{path}: status {code}, "
+                                     f"expected {status}")
+            if path == "column_labels" and reply != index.labels:
+                raise AssertionError("server /column_labels differs")
+            if path == "align" and "A13" not in reply["error"]:
+                raise AssertionError("server /align does not name A13")
+            if path == "stats" and reply["annotation"]["labels"] \
+                    != len(index.labels):
+                raise AssertionError("server /stats labels differ")
+    finally:
+        server.shutdown()
+    return launches
 
 
 def add_entry(entries, torch, tag, name, got, want, ms, plain_ms, nbytes):
@@ -1964,6 +2260,23 @@ def main(argv=None) -> int:
     timed("parallel", parallel_phase, engine, seqs, cfg, torch, dev)
     del engine
 
+    # graphs without a BOSS, from JAX-layout files (the map route: kernels
+    # A, 2, 3): the basic k-mers as a bitmap graph, the wide DNA
+    # references as a canonical hash graph and a basic sshash graph
+    wide = timed("batches", wide_inputs, cfg, args.seed)
+    rng7 = np.random.default_rng([args.seed, 7])
+    deployments = timed("graph-types indexes", kmer_graph_deployments,
+                        oracle, index.annotation, wide, args.work, rng7)
+    bitmap_graph = deployments["bitmap"][0]
+    more_graphs = graph_types_phase(cfg, deployments, seqs, codes, rng7,
+                                    torch, dev, timed)
+    del deployments
+    # the basic index behind the port's HTTP server (the wire route),
+    # requests from two client threads
+    timed("server", server_phase, cfg, index, bitmap_graph, seqs, codes,
+          oracle, torch, dev)
+    del bitmap_graph
+
     # many-labels: the basic table and batch with a converted 4,096-label
     # annotation past the dense budget (block-sparse: kernels 1, S1, S2, 3)
     os.environ["METAGRAPH_DENSE_ANNO_BUDGET"] = str(cfg["anno_budget"])
@@ -2040,7 +2353,8 @@ def main(argv=None) -> int:
     engine = timed("uploads", QueryEngine, dataclasses.replace(
         index, canon=2), device=dev)
     # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
-    more = {"many_labels": (ml_launches, ml_entries), **words_more}
+    more = {"many_labels": (ml_launches, ml_entries), **words_more,
+            **more_graphs}
     more["primary"] = (
         timed("query paths and oracle", main_path, engine, seqs2, codes2,
               period2, oracle, cfg, rng2, torch, dev,
@@ -2115,7 +2429,7 @@ def main(argv=None) -> int:
 
     # keys wider than 8 words: DNA k = 70 (codes and map routes), Protein
     # k = 40 and 80 (the second past kernel A's block form)
-    more.update(wide_phase(cfg, torch, dev, args.seed, timed))
+    more.update(wide_phase(cfg, torch, dev, wide, timed))
 
     sw = timed("SW phase", sw_phase, cfg, rng, torch, dev)
     launches["sw_scores"], entries["sw_scores"] = sw.pop("")

@@ -1,12 +1,14 @@
 """Column-major multi-label annotation, read from ``.column.annodbg.npz``.
 
 Own copy of the loading part of metagraph_tpu/annotation/column.py:347-374
-for the "sorted" codec: one sorted array of set rows per label, with
+for both codecs ("sorted": one sorted array of set rows per label;
+"smallest": each label's rows as an sd, rrr or stat bit vector,
+``succinct/bitvector.py``), with
 optional per-entry k-mer counts (``vals_c``) and coordinates
 (``coords_c``: (row, coordinate) pairs sorted by row, then coordinate),
 and of its row queries ``get_rows_mask``, ``get_row_values`` and
-``get_row_tuples`` (:232-291).  The "smallest" codec is not ported yet and
-raises.  ``LabelEncoder`` (:21) is the label table that converted
+``get_row_tuples`` (:232-291).  ``LabelEncoder`` (:21) is the label table
+that converted
 (``StaticAnnotation``) files hold.
 """
 
@@ -49,6 +51,7 @@ class ColumnMajorAnnotation:
         self.has_values = has_values
         self.has_coords = has_coords
         self._row_index = None
+        self.column_codecs = None
 
     @property
     def num_labels(self) -> int:
@@ -162,13 +165,25 @@ class ColumnMajorAnnotation:
     def load(cls, path: str) -> "ColumnMajorAnnotation":
         with np.load(path, allow_pickle=True) as z:
             labels = [str(x) for x in z["labels"]]
-            if "codec" in z.files and str(z["codec"]) == "smallest":
-                raise NotImplementedError(
-                    "the 'smallest' column codec is not ported yet "
-                    "(ROADMAP A8.3)")
             n = len(labels)
-            return cls(int(z["num_rows"]), labels,
-                       [z[f"rows_{c}"] for c in range(n)],
+            codecs = None
+            if "codec" in z.files and str(z["codec"]) == "smallest":
+                from ..succinct.bitvector import bitvector_from_dict
+                rows, codecs = [], []
+                for c in range(n):
+                    pre = f"col{c}_"
+                    v = bitvector_from_dict({k[len(pre):]: z[k]
+                                             for k in z.files
+                                             if k.startswith(pre)})
+                    codecs.append(v.kind)
+                    m = v.num_set_bits
+                    rows.append(v.select1(np.arange(m, dtype=np.int64))
+                                if m else np.zeros(0, np.int64))
+            else:
+                rows = [z[f"rows_{c}"] for c in range(n)]
+            anno = cls(int(z["num_rows"]), labels, rows,
                        [z[f"vals_{c}"] for c in range(n)],
                        [z[f"coords_{c}"] for c in range(n)],
                        bool(z["has_values"]), bool(z["has_coords"]))
+            anno.column_codecs = codecs     # each column's kind, "smallest"
+            return anno

@@ -782,9 +782,9 @@ class _AnnotationUnpickler(pickle.Unpickler):
 
 
 def load_annotation(path: str):
-    """A ``.column.annodbg(.npz)`` column annotation or a converted
-    annotation (a pickle); the reference-format ``.column.annodbg`` is not
-    ported yet."""
+    """A ``.column.annodbg(.npz)`` column annotation, a converted
+    annotation (a pickle) or a reference-format ``.column.annodbg`` (sdsl
+    serialization; ``seq_io/refformat.py``)."""
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         path += ".npz"
     if path.endswith(".npz"):
@@ -792,8 +792,7 @@ def load_annotation(path: str):
     if path.endswith(".column.annodbg"):
         with open(path, "rb") as f:
             head = f.read(2)
-        if head != b"\x80\x04" and head != b"\x80\x05":
-            raise NotImplementedError(
-                f"{path}: the reference-format .column.annodbg is not "
-                "ported yet (ROADMAP A8.3)")
+        if head != b"\x80\x04" and head != b"\x80\x05":   # not a pickle
+            from ..seq_io.refformat import load_reference_column_annotation
+            return load_reference_column_annotation(path)
     return StaticAnnotation.load(path)

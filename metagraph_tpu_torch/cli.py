@@ -1,11 +1,13 @@
-"""Command line interface of the port: ``query``.
+"""Command line interface of the port: ``query`` and ``server_query``.
 
 ``python -m metagraph_tpu_torch query -i G.dbg -a A.column.annodbg --device
 reads.fa`` takes the command lines of ``metagraph_tpu.cli query``
 (metagraph_tpu/cli/main.py:1454-1483, ``_add_common`` :16-27, the align
 scoring flags :30-45) and prints the bytes of its ``--device`` query
-(:792-853) for succinct graphs of every alphabet and k (a primary graph is
-queried through ``CanonicalDBG``, :800-802) and column annotations or the
+(:792-853) for graphs of every type (succinct in any layout: npz, the
+reference format, the mmap layout; hash, bitmap, sshash), alphabet and k
+(a primary graph is queried through ``CanonicalDBG``, :800-802) and column
+annotations (either codec, or the reference format) or the
 annotations that ``transform_anno`` writes (a staged row-diff with its
 ``.rd_succ``/``.anchors`` sidecars beside the graph), in the six query
 modes, with per-sequence results where a ``.seqs`` mapping sits beside the
@@ -15,10 +17,16 @@ annotation takes the block-sparse device form, cached beside it in
 ``<annotation>.devsparse.npz`` as the JAX CLI caches it.  ``--device``
 is a flag, as there: the port always runs on the card, unless
 ``--torch-device cpu`` asks for the CPU, which runs the plain PyTorch
-versions of the kernels.  ``-o`` is accepted and unused and
-``--mmap`` changes nothing for the npz graphs the port loads, as in the
-JAX ``query``; ``-v`` prints progress lines on stderr.  The error contract
-is JAX ``main``'s (:1675-1686).
+versions of the kernels.  ``-o`` is accepted and unused; ``--mmap`` reads
+a graph's mmap layout where it has one (``DEFAULT_MMAP``, as
+cli/main.py:1664-1666 sets it); ``-v`` prints progress lines on stderr.
+
+``python -m metagraph_tpu_torch server_query -i G.dbg -a A.annodbg
+--device --port P`` takes the command line of ``metagraph_tpu.cli
+server_query`` (:1547-1559) and serves the JAX server's HTTP contract
+(``server/server.py``) from the same device routes, on the card unless
+``--torch-device cpu``.  The error contract is JAX ``main``'s
+(:1675-1686).
 """
 
 from __future__ import annotations
@@ -79,6 +87,39 @@ def cmd_query(args):
                                         args.verbose_output, index.k) + "\n")
 
 
+def cmd_server_query(args):
+    from .convert import load_annotation_for
+    from .device import resolve_device
+    from .graph.canonical import CanonicalDBG
+    from .graph.dbg_succinct import DBGSuccinct
+    from .server.server import MetaGraphServer
+
+    device = resolve_device(args.torch_device)
+    # the graph, then the annotation, as the JAX cmd_server_query loads
+    # them (cli/main.py:1113-1128)
+    g = DBGSuccinct.load(args.infile_base)
+    if g.mode == "primary":
+        g = CanonicalDBG(g)
+    anno = load_annotation_for(args.infile_base, args.annotation)
+    server = MetaGraphServer(g, anno, device=device)
+    print(f"[Server] listening on {args.host}:{args.port}", file=sys.stderr)
+    server.serve(args.host, args.port)
+
+
+def _add_common(p):
+    p.add_argument("-o", "--outfile-base", dest="out", default="graph")
+    p.add_argument("-p", "--parallel", type=int, default=1)
+    p.add_argument("--parallel-each", type=int, default=1)
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.add_argument("--mmap", action="store_true")
+
+
+def _add_torch_device(p):
+    p.add_argument("--torch-device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the kernels run; the CPU runs their plain "
+                        "PyTorch versions")
+
+
 def _add_align_scoring_flags(p):
     # accepted as metagraph_tpu's query accepts them; --align is not ported
     for name, kind, default in (
@@ -96,11 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="metagraph-tpu-torch")
     sub = ap.add_subparsers(dest="command", required=True)
     p = sub.add_parser("query")
-    p.add_argument("-o", "--outfile-base", dest="out", default="graph")
-    p.add_argument("-p", "--parallel", type=int, default=1)
-    p.add_argument("--parallel-each", type=int, default=1)
-    p.add_argument("-v", "--verbose", action="store_true")
-    p.add_argument("--mmap", action="store_true")
+    _add_common(p)
     p.add_argument("-i", "--infile-base", required=True)
     p.add_argument("-a", "--annotation", required=True)
     p.add_argument("--query-mode", default="labels",
@@ -123,16 +160,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose-output", action="store_true")
     p.add_argument("--device", action="store_true",
                    help="the device query (the port always runs it)")
-    p.add_argument("--torch-device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the kernels run; the CPU runs their plain "
-                        "PyTorch versions")
+    _add_torch_device(p)
     p.add_argument("input", nargs="+")
     p.set_defaults(func=cmd_query)
+
+    p = sub.add_parser("server_query")
+    _add_common(p)
+    p.add_argument("-i", "--infile-base", required=True)
+    p.add_argument("-a", "--annotation", required=True)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--address", dest="host",
+                   help="interface to listen on (alias of --host)")
+    p.add_argument("--port", type=int, default=5555)
+    p.add_argument("--threads-each", type=int, default=1,
+                   help="accepted as the JAX CLI accepts it")
+    p.add_argument("--device", action="store_true",
+                   help="the device query (the port always runs it)")
+    _add_torch_device(p)
+    p.set_defaults(func=cmd_server_query)
     return ap
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from .graph import dbg_succinct
+    dbg_succinct.DEFAULT_MMAP = args.mmap
     t0 = time.perf_counter()
     try:
         ret = args.func(args)

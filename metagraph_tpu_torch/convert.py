@@ -8,8 +8,9 @@ where that does not fit either, a ``FlatBRWT`` or ``FlatRowDiff``
 and the host annotation that the payloads read.  It comes from
 
 * ``from_graph``/``load``: a basic, canonical or primary graph of any
-  alphabet and k and any annotation that ``transform_anno`` writes, the
-  JAX package's ``.dbg.npz`` and ``.annodbg`` artifacts;
+  type (succinct, in any of its layouts, hash, bitmap or sshash), alphabet
+  and k and any annotation that the JAX package writes, its ``.dbg.npz``,
+  ``.dbg`` and ``.annodbg`` artifacts;
 * ``from_annotation``: packed k-mer keys, their node ids and an
   annotation, for callers that build an index without a graph file;
 * ``from_jax_arrays`` (with ``from_jax_block_sparse`` or
@@ -27,6 +28,10 @@ probed), 2 for a primary graph, which the JAX CLI queries through
 ``CanonicalDBG``: the table and the annotation cover the base graph, and
 reverse-complement hits carry ids above ``offset`` = the annotation's rows
 = the base graph's ``max_index()``.
+
+``graph_type`` records the graph's representation: a graph without a BOSS
+(hash, bitmap, sshash) takes the map route (``query/pipeline.py::
+route_of``), as the JAX package sends it to ``_map_windows``.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from .annotation.matrix import BRWT, RowDiff, load_annotation
 from .annotation.ops import pack_annotation_bitmap
 from .annotation.sparse_device import (DeviceBlockSparseAnno,
                                        check_block_sparse, rows_words)
+from .graph import GRAPH_CLASSES
+from .graph.canonical import CanonicalDBG
 from .graph.dbg_succinct import DBGSuccinct
 from .kmer.alphabets import ALPHABETS
 from .kmer.packing import bits_for_alphabet
@@ -68,6 +75,7 @@ class QueryIndex:
     annotation: object = None
     canon: int = 0          # 0 basic, 1 canonical, 2 primary (CanonicalDBG)
     alphabet: str = "DNA"   # an ALPHABETS name
+    graph_type: str = "succinct"   # a GRAPH_CLASSES name
 
     def __post_init__(self):
         if self.canon not in (0, 1, 2):
@@ -79,6 +87,10 @@ class QueryIndex:
                              "complement: canon must be 0")
         if self.k < 2:
             raise ValueError(f"k={self.k}: k must be at least 2")
+        try:
+            GRAPH_CLASSES[self.graph_type]
+        except KeyError:
+            raise ValueError(f"unknown graph type {self.graph_type!r}")
         W = key_words(self.k, self.bits)
         if self.table.dtype != np.uint32 \
                 or self.table.shape[1:] != (BUCKET * (W + 1),):
@@ -275,7 +287,8 @@ def _words(matrix, num_rows: int):
 
 def from_annotation(keys: np.ndarray, ids: np.ndarray, annotation, k: int,
                     num_rows: int, canon: int = 0, alphabet: str = "DNA",
-                    cache: str | None = None) -> QueryIndex:
+                    cache: str | None = None,
+                    graph_type: str = "succinct") -> QueryIndex:
     """Packed keys of distinct k-mers (as ``from_kmers`` takes them), their
     node ids and an annotation of ``num_rows`` rows -> QueryIndex with the
     device annotation of ``device_annotation``."""
@@ -283,27 +296,36 @@ def from_annotation(keys: np.ndarray, ids: np.ndarray, annotation, k: int,
     table = DeviceHashIndex.build_table(
         np.ascontiguousarray(keys, dtype=np.uint32), ids)
     return QueryIndex(k, table, dev, list(annotation.labels), annotation,
-                      canon, alphabet)
+                      canon, alphabet, graph_type)
 
 
-def from_graph(graph: DBGSuccinct, annotation,
-               cache: str | None = None) -> QueryIndex:
-    """A succinct graph + an annotation -> QueryIndex (the table of
-    metagraph_tpu's QueryEngine._build_device_index over the graph's valid
-    edges, the device annotation over its ``max_index()`` rows).  A primary
-    graph is queried as the JAX CLI queries it, through ``CanonicalDBG``
-    (canon 2, offset = its ``max_index()``)."""
-    canon = {"basic": 0, "canonical": 1, "primary": 2}.get(graph.mode)
-    if canon is None:
-        raise NotImplementedError(
-            f"{graph.mode} graphs are not ported yet (ROADMAP A7.3)")
-    boss = graph.boss
-    valid_edges = np.flatnonzero(boss.valid)
-    keys = pack_kmers32(boss.get_edge_seq(valid_edges),
-                        bits_for_alphabet(ALPHABETS[graph.alphabet].sigma))
-    return from_annotation(keys, valid_edges.astype(np.uint32), annotation,
-                           graph.k, graph.max_index(), canon, graph.alphabet,
-                           cache)
+def from_graph(graph, annotation, cache: str | None = None) -> QueryIndex:
+    """A graph + an annotation -> QueryIndex: the table of metagraph_tpu's
+    ``QueryEngine._build_device_index`` (pipeline.py:111-125) over a
+    succinct graph's valid edges, or over the k-mers and node ids of a
+    graph without a BOSS (``node_kmers_and_ids``), and the device
+    annotation over the graph's ``max_index()`` rows.  A primary graph, or
+    a ``CanonicalDBG`` over one, is queried as the JAX CLI queries it,
+    through ``CanonicalDBG`` (canon 2, offset = the base graph's
+    ``max_index()``)."""
+    if isinstance(graph, CanonicalDBG):
+        graph, canon = graph.graph, 2
+    else:
+        canon = {"basic": 0, "canonical": 1, "primary": 2}.get(graph.mode)
+        if canon is None:
+            raise ValueError(f"unknown graph mode {graph.mode!r}")
+    bits = bits_for_alphabet(ALPHABETS[graph.alphabet].sigma)
+    boss = getattr(graph, "boss", None)
+    if boss is None:
+        kchars, ids = graph.node_kmers_and_ids()
+        gtype = graph.GRAPH_TYPE
+    else:
+        ids = np.flatnonzero(boss.valid)
+        kchars = boss.get_edge_seq(ids)
+        gtype = "succinct"
+    return from_annotation(pack_kmers32(kchars, bits), ids.astype(np.uint32),
+                           annotation, graph.k, graph.max_index(), canon,
+                           graph.alphabet, cache, gtype)
 
 
 def load_annotation_for(graph_path: str, anno_path: str):
@@ -317,7 +339,8 @@ def load_annotation_for(graph_path: str, anno_path: str):
 
 
 def load(graph_path: str, anno_path: str) -> QueryIndex:
-    """``.dbg``/``.dbg.npz`` graph + annotation, loaded in that order; a
+    """``.dbg``/``.dbg.npz`` graph (any layout and type that
+    ``DBGSuccinct.load`` reads) + annotation, loaded in that order; a
     missing file raises FileNotFoundError naming it, as metagraph_tpu's
     loaders do.  A block-sparse annotation is cached in
     ``<anno_path>.devsparse.npz``, where the JAX CLI caches it."""

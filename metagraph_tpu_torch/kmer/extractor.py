@@ -3,7 +3,9 @@
 Own copy of the part of metagraph_tpu/kmer/extractor.py that
 ``QueryEngine.map_batch`` uses: the per-alphabet encode table
 (``KmerExtractor.__init__``/``encode``), the complement table extended to
-the invalid code (``extended_complement_table``) and ``_rows_greater``.
+the invalid code (``extended_complement_table``) and ``_rows_greater``;
+and ``extract`` (:96-172: its distinct k-mers, without counts, weights or
+the BOSS order of its output), from which the sshash graph rebuilds.
 """
 
 from __future__ import annotations
@@ -46,6 +48,39 @@ class KmerExtractor:
             [self.alphabet.complement_table,
              np.arange(self.alphabet.sigma, self.invalid + 1)]).astype(
                  np.uint8)
+
+    def extract(self, seqs, K: int, mode: str = "basic") -> np.ndarray:
+        """The distinct valid k-mers of ``seqs`` -> (N, K) uint8 codes,
+        sorted (codes compared left to right).  ``mode``: 'basic' (forward
+        windows) or 'both' (both strands, as a canonical graph holds
+        them)."""
+        sep = np.array([self.invalid], dtype=np.uint8)
+        parts = [p for s in seqs for p in (self.encode(s), sep)]
+        return self.extract_codes(np.concatenate(parts) if parts else sep[:0],
+                                  K, mode)
+
+    def extract_codes(self, codes: np.ndarray, K: int,
+                      mode: str = "basic") -> np.ndarray:
+        """``extract`` of encoded sequences, each followed by the invalid
+        code."""
+        if mode not in ("basic", "both"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if len(codes) < K:
+            return np.zeros((0, K), dtype=np.uint8)
+        bad = np.concatenate([[0], np.cumsum(codes >= self.invalid)])
+        valid = (bad[K:] - bad[:-K]) == 0
+        wins = np.lib.stride_tricks.sliding_window_view(codes, K)[valid]
+        if mode == "both":
+            # the reverse complement of window j is window n-K-j of the
+            # reverse-complemented codes
+            rc = np.lib.stride_tricks.sliding_window_view(
+                self.extended_complement_table()[codes[::-1]], K)[::-1][valid]
+            wins = np.concatenate([wins, rc])
+        wins = np.ascontiguousarray(wins)
+        if not len(wins):
+            return wins
+        uniq = np.unique(wins.view(f"V{K}").ravel())
+        return np.frombuffer(uniq.tobytes(), np.uint8).reshape(-1, K)
 
 
 def _rows_greater(a: np.ndarray, b: np.ndarray) -> np.ndarray:

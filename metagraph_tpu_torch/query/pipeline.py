@@ -10,7 +10,8 @@ choose:
 * **codes** (basic DNA graphs, k >= 32): ``tile_pack2``, then kernels B,
   2 and 3 (``device.codes_epoch``, the counterpart of
   ``query_epoch_codes2``);
-* **map** (DNA5, DNA_CASE and Protein graphs, canonical or primary DNA
+* **map** (graphs without a BOSS: hash, bitmap and sshash, :619-627;
+  DNA5, DNA_CASE and Protein graphs, canonical or primary DNA
   graphs with k >= 32, and basic ones on a BRWT or row-diff device
   annotation): ``map_batch`` (:208-264) maps the windows, packed
   on the host (canonicalised on the host for a canonical graph, a
@@ -46,8 +47,9 @@ the output is the sequential run's.  Each batch's host seconds travel with
 it (``last_batch_seconds`` is set as its results are yielded), and the
 kernels build before the first batch is submitted.
 
-Scope: succinct graphs of every alphabet and k with a column annotation
-or any annotation that ``transform_anno`` writes, at every budget.
+Scope: graphs of every type, alphabet and k with a column annotation
+(either codec, or the reference format) or any annotation that
+``transform_anno`` writes, at every budget.
 """
 
 from __future__ import annotations
@@ -101,6 +103,8 @@ def route_of(index: QueryIndex) -> str:
     """'wire', 'codes' or 'map': the route of query_batch_fused's choice
     for the index's graph and device annotation (see the module
     docstring)."""
+    if index.graph_type != "succinct":
+        return "map"
     if index.alphabet == "DNA":
         if index.k <= 31:
             return "wire"

@@ -1,7 +1,10 @@
-"""The BOSS table, read from the JAX package's ``.dbg.npz`` artifact.
+"""The BOSS table, read from the JAX package's ``.dbg.npz`` artifact or its
+mmap layout.
 
 Own numpy copy of the part of metagraph_tpu/succinct/boss.py the query
-slice uses: loading (boss.py:686-700) and the navigation needed to decode
+slice uses: loading (boss.py:660-700: the npz, or the mmap layout's
+``.meta.npz`` beside raw ``.W/.last/.valid/.weights.npy`` arrays, mapped
+read-only with ``mmap``) and the navigation needed to decode
 edge k-mers (``rank_last``, ``select_W``, ``node_last_char``, ``bwd``,
 ``get_node_seq``, ``get_edge_seq``; boss.py:113-300, 593-610).  Rank and
 select are plain prefix counts and position lists instead of the JAX
@@ -12,6 +15,8 @@ value ``c + alph_size`` marks a non-first incoming edge.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -45,22 +50,46 @@ class _BitIndex:
 
 class BOSS:
     def __init__(self, k: int, alph_size: int, W: np.ndarray,
-                 last: np.ndarray, F: np.ndarray, valid: np.ndarray):
+                 last: np.ndarray, F: np.ndarray, valid: np.ndarray,
+                 weights: np.ndarray | None = None):
         self.k = k                         # node length; edges are (k+1)-mers
         self.alph_size = alph_size
         self.W = np.asarray(W, dtype=np.uint8)
         self.last = np.asarray(last, dtype=np.uint8)
         self.F = np.asarray(F, dtype=np.int64)
         self.valid = np.asarray(valid, dtype=np.uint8)
+        self.weights = weights             # k-mer counts by edge, or None
         self._last = _BitIndex(self.last == 1)
         self._W = [_BitIndex(self.W == c) for c in range(alph_size)]
         self.NF = self._last.rank(self.F)            # rank_last(F[c])
 
     @classmethod
-    def load(cls, path: str) -> "BOSS":
-        with np.load(path) as z:
+    def load(cls, path: str, mmap: bool = False) -> "BOSS":
+        """``path`` is the ``.dbg.npz``, or its name without ``.npz``; the
+        mmap layout is read where its ``.meta.npz`` exists and ``mmap`` is
+        asked for or no npz is there."""
+        base = path[:-4] if path.endswith(".npz") else path
+        if os.path.exists(base + ".meta.npz") and (
+                mmap or not os.path.exists(base + ".npz")
+                and not os.path.exists(path)):
+            mode = "r" if mmap else None
+            wpath = base + ".weights.npy"
+            with np.load(base + ".meta.npz") as meta:
+                return cls(int(meta["k"]), int(meta["alph_size"]),
+                           np.load(base + ".W.npy", mmap_mode=mode),
+                           np.load(base + ".last.npy", mmap_mode=mode),
+                           meta["F"],
+                           np.load(base + ".valid.npy", mmap_mode=mode),
+                           np.load(wpath, mmap_mode=mode)
+                           if os.path.exists(wpath) else None)
+        with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+            w = z["weights"] if "weights" in z.files else np.zeros(0)
             return cls(int(z["k"]), int(z["alph_size"]), z["W"], z["last"],
-                       z["F"], z["valid"])
+                       z["F"], z["valid"], w if len(w) else None)
+
+    @property
+    def num_valid(self) -> int:
+        return int(np.count_nonzero(self.valid))
 
     @property
     def num_edges(self) -> int:

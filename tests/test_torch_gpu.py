@@ -1275,3 +1275,132 @@ def test_parallel_query_records_cuda(cuda, route):
                      [f.launches for f in kernels]))
     assert runs[0] == runs[1]
     assert sum(runs[0][1]) >= 10      # one or more launches a batch
+
+
+def _kmer_graph(gtype, mode, K, seed, n_refs=6, ref_len=700):
+    """A port hash, bitmap or sshash graph rebuilt from the k-mers of
+    random references (both strands in canonical mode, as the JAX build
+    stores them), a column annotation of one label a reference (rows of
+    the strand the map route probes: the first in BOSS order in
+    canonical mode) and reads cut from the references, a third of them
+    reverse-complemented."""
+    from metagraph_tpu_torch.graph import GRAPH_CLASSES
+    from metagraph_tpu_torch.kmer.extractor import (KmerExtractor,
+                                                    _rows_greater)
+    rng = np.random.default_rng(seed)
+    refs = rng.integers(0, 4, (n_refs, ref_len)).astype(np.uint8)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    ex = KmerExtractor()
+    kmers = ex.extract([letters[r].tobytes() for r in refs], K,
+                       "both" if mode == "canonical" else "basic")
+    graph = GRAPH_CLASSES[gtype].rebuild(
+        kmers, np.arange(1, len(kmers) + 1), K, mode)
+    chars, ids = graph.node_kmers_and_ids()
+    id_of = {c.tobytes(): int(i) for c, i in zip(chars, ids)}
+    cols = []
+    for r in refs:
+        sub = np.lib.stride_tricks.sliding_window_view(r + 1, K)
+        if mode == "canonical":
+            rc = 5 - sub[:, ::-1]
+            sub = np.where(_rows_greater(ops.pack_kmers32(sub),
+                                         ops.pack_kmers32(rc))[:, None],
+                           rc, sub)
+        cols.append(np.unique([id_of[w.tobytes()] - 1 for w in sub]))
+    labels = [f"s{c}" for c in range(n_refs)]
+    anno = ColumnMajorAnnotation(graph.max_index(), labels, cols)
+    seqs = []
+    for i in range(60):
+        r = refs[i % n_refs]
+        a = int(rng.integers(0, ref_len - 150))
+        read = r[a: a + int(rng.integers(K - 3, 150))].copy()
+        if i % 3 == 1:
+            read = 3 - read[::-1]
+        seqs.append(letters[read].tobytes())
+    return graph, anno, seqs
+
+
+KMER_GRAPHS = [("bitmap", "basic", 31), ("bitmap", "canonical", 31),
+               ("bitmap", "primary", 31), ("hash", "basic", 41),
+               ("hash", "canonical", 15), ("sshash", "basic", 31),
+               ("sshash", "canonical", 21)]
+
+
+@pytest.mark.parametrize("mode", ("labels", "matches", "signature"))
+@pytest.mark.parametrize("gtype,gmode,K", KMER_GRAPHS)
+def test_kmer_graph_map_route_cuda_matches_cpu(cuda, gtype, gmode, K, mode):
+    """A graph without a BOSS takes the map route (kernel A, then kernels 2
+    and 3) on the card: the CPU engine's payloads, one launch of kernel A
+    a batch (two for a primary graph's reverse-complement pass) and no
+    wire or codes launch; kernel A's ids against its plain version."""
+    graph, anno, seqs = _kmer_graph(gtype, gmode, K, 300 + K)
+    index = convert.from_graph(graph, anno)
+    assert index.graph_type == gtype and index.canon == \
+        {"basic": 0, "canonical": 1, "primary": 2}[gmode]
+    want = QueryEngine(index, device="cpu").query_batch(seqs, mode, 3, 0.6,
+                                                        0.0)
+    engine = QueryEngine(index, device=cuda)
+    assert engine.route == "map"
+    before = [f.launches for f in (ops.key_lookup, ops.wire_lookup,
+                                   ops.codes_lookup, qd.label_counts)]
+    got = engine.query_batch(seqs, mode, 3, 0.6, 0.0)
+    assert str(got) == str(want)
+    assert sum(bool(p) for p in want) >= 30
+    after = [f.launches for f in (ops.key_lookup, ops.wire_lookup,
+                                  ops.codes_lookup, qd.label_counts)]
+    assert after[0] - before[0] == (2 if gmode == "primary" else 1)
+    assert after[1:3] == before[1:3] and after[3] == before[3] + 1
+    chars, _ = graph.node_kmers_and_ids()
+    keys = np_words(ops.pack_kmers32(chars[::3])).to(cuda)
+    np.testing.assert_array_equal(
+        ops.key_lookup(keys, engine.hash_index.table).cpu().numpy(),
+        ops.key_lookup_plain(keys, engine.hash_index.table, 1000)
+        .cpu().numpy())
+
+
+def test_server_cuda_matches_cpu(cuda):
+    """The port's MetaGraphServer on the card answers /search in every
+    mode the annotation allows, /stats and /column_labels as the one on
+    the CPU, and refuses /align naming A13."""
+    import json
+    import urllib.error
+    import urllib.request
+    from metagraph_tpu_torch.server.server import MetaGraphServer
+    graph, anno, seqs = _kmer_graph("bitmap", "basic", 31, 77)
+    fasta = "".join(f">r{i}\n{s.decode()}\n" for i, s in enumerate(seqs))
+    servers = [MetaGraphServer(graph, anno, device=d)
+               for d in ("cpu", cuda)]
+    for s in servers:
+        s.serve("127.0.0.1", 0, background=True)
+
+    def ask(port, path, body=None):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/{path}",
+            data=None if body is None else json.dumps(body).encode(),
+            method="GET" if body is None else "POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as f:
+                return f.status, json.loads(f.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+    try:
+        for path, body in (("search", {"FASTA": fasta}),
+                           ("search", {"FASTA": fasta, "top_labels": 1,
+                                       "discovery_fraction": 0.4}),
+                           ("search", {"FASTA": fasta,
+                                       "with_signature": True}),
+                           ("search", {"FASTA": fasta,
+                                       "query_counts": True}),
+                           ("column_labels", None)):
+            want, got = (ask(s.port, path, body) for s in servers)
+            assert got == want
+        code, body = ask(servers[1].port, "search", {"FASTA": fasta})
+        assert code == 200 and sum(bool(r["results"]) for r in body) >= 30
+        stats = [ask(s.port, "stats")[1] for s in servers]
+        for s in stats:
+            del s["process"]
+        assert stats[0] == stats[1]
+        code, body = ask(servers[1].port, "align", {"FASTA": fasta})
+        assert code == 500 and "A13" in body["error"]
+    finally:
+        for s in servers:
+            s.shutdown()

@@ -21,7 +21,13 @@ assert {"metagraph_tpu_torch.graph.canonical",
         "metagraph_tpu_torch.kmer.extractor",
         "metagraph_tpu_torch.annotation.matrix",
         "metagraph_tpu_torch.annotation.sparse_device",
-        "metagraph_tpu_torch.succinct.bitrank"} <= set(names), names
+        "metagraph_tpu_torch.succinct.bitrank",
+        "metagraph_tpu_torch.succinct.bitvector",
+        "metagraph_tpu_torch.seq_io.refformat",
+        "metagraph_tpu_torch.graph.hash_graph",
+        "metagraph_tpu_torch.graph.sshash_graph",
+        "metagraph_tpu_torch.server.server",
+        "metagraph_tpu_torch.utils.timer"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules

@@ -7,6 +7,8 @@ once from the artifacts the JAX package saved (``convert.load``).  The
 payloads of all four modes must be equal.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -138,8 +140,10 @@ def test_thresholds_follow_get_min_count():
 
 def test_out_of_scope_raises(case):
     """counts-sum and coords, once refused, now give the JAX engine's
-    payloads; reference-format annotations and graphs still raise and name
-    their ROADMAP items (converted annotations load: test_torch_matrix)."""
+    payloads; reference-format annotations and graphs, once refused, now
+    go through the port's sdsl readers, which refuse malformed bytes with
+    the JAX readers' error (their parity on real files:
+    test_torch_refformat)."""
     engine = QueryEngine(_from_files(case), device="cpu")
     for mode in ("counts-sum", "coords"):
         want = case["jax_engine"].query_batch_fused(case["queries"], mode, 3,
@@ -150,7 +154,12 @@ def test_out_of_scope_raises(case):
     ref_anno.write_bytes(b"\x00\x01 a reference-format annotation")
     ref_dbg = case["tmp"] / "ref.dbg"
     ref_dbg.write_bytes(b"\x00\x01 a reference-format graph")
-    for graph, anno in ((case["tmp"] / "g.dbg", ref_anno),
-                        (ref_dbg, case["tmp"] / "a.column.annodbg")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    from metagraph_tpu.annotation.matrix import load_annotation
+    from metagraph_tpu.graph.dbg_succinct import DBGSuccinct as JaxDBG
+    for graph, anno, jax_load in (
+            (case["tmp"] / "g.dbg", ref_anno, load_annotation),
+            (ref_dbg, case["tmp"] / "a.column.annodbg", JaxDBG.load)):
+        with pytest.raises(Exception) as want:
+            jax_load(str(anno if jax_load is load_annotation else graph))
+        with pytest.raises(want.type, match=re.escape(str(want.value))):
             convert.load(str(graph), str(anno))
