@@ -8,6 +8,27 @@ toolkit.  It builds the port's kernels from ``metagraph_tpu_torch/csrc``,
 then:
 
 1. prints the card (``nvidia-smi``) and the build time;
+1a. builds two graphs at k = 21 with the device construction (kernels
+   D1-D4 of ``succinct/device_build.py``), each through the port's CLI
+   (``build --device -v``, its ``main`` in this process, so that the
+   launch counters show) from a FASTA file it writes from the seed's
+   stream 8: "pan", a pan-genome of 5 random base genomes of
+   4,000,000 bp with 4 strains each at 1% substitutions (25 references,
+   100,000,000 bp, 3 N runs a reference), and "reads", 400,000 reads of
+   150 bp from the strains, half reverse-complemented, 1% substitutions,
+   3% with an N run (several hundred thousand dummy sink and source
+   nodes).  For each: the wall and the phases the build traced; D1-D4
+   against their plain versions on the card, step by step through the
+   build on its own inputs (every output whole, exactly; the kernels' W,
+   last, valid and F equal to the file's), each timed beside its plain
+   version and D2 beside ``torch.sort(stable=True)`` over the same keys;
+   an independent oracle (the valid edges are the distinct valid windows,
+   numpy 2-bit keys sorted and deduped, label by label, and 100,000
+   edges decoded with ``BOSS.get_edge_seq`` are among them); and, for
+   "pan", the file loaded back through ``DBGSuccinct.load`` and
+   ``convert.from_graph`` (one label on every valid edge), queried with
+   100,000 of the input's windows through ``QueryEngine.query_batch``
+   (kernels 1, 2, 3): each must come back labelled;
 2. drives the main path at full size: a dense-annotated k = 31 DNA index of
    over 8 M k-mers and 1,000 labels, made from ``--seed``, queried through
    ``QueryEngine.query_records`` with one batch of 150,000 reads of 200 bp
@@ -127,7 +148,9 @@ then:
 
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
-stdout is a JSON object with every kernel's numbers (kernels 1-3 once more
+stdout is a JSON object with every kernel's numbers (D1-D4 for each build,
+``build_windows/pan`` and the like, D2 with its ``torch.sort`` ms as
+``library_ms``; kernels 1-3 once more
 for each of the primary and canonical deployments, kernels B, 2, 3 for
 k41, A for seqs, A, 2, 3 for protein, 3 for many-labels, 2 for each words
 deployment, B or A, 2, 3 for each wide deployment and A, 2, 3 for each
@@ -141,7 +164,8 @@ reports go to ``--out``; the many-labels annotation files to ``--work``.
 
 ``--rehearse`` runs the same phases at a tiny size on the CPU with the
 plain versions (no build, no card) and exits 2 without a result: a dry run
-of the control flow.
+of the control flow.  ``--only-build`` runs the card, the kernels' build
+and phase 1a alone and exits 3 without a result.
 """
 
 from __future__ import annotations
@@ -180,7 +204,9 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             words_budget=32768, words_reads=15_000, rd_max_length=100,
             seqs_headers=10, par_batches=8, par_threads=4,
             wide=(200, 8101, 20_000, 200), server_reads=2000,
-            bitmap_reads=50_000)
+            bitmap_reads=50_000, pan=(5, 4_000_000, 4, 0.01, 3),
+            build_reads=(400_000, 150, 0.5, 0.01), build_k=21,
+            build_sample=100_000, build_reps=3)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -190,7 +216,9 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             ctrl_rows=64, many=(256, 2, (8, 13)), anno_budget=1 << 16,
             words_budget=256, words_reads=100, rd_max_length=20,
             seqs_headers=2, par_batches=3, par_threads=4,
-            wide=(8, 501, 100, 120), server_reads=30, bitmap_reads=100)
+            wide=(8, 501, 100, 120), server_reads=30, bitmap_reads=100,
+            pan=(2, 3000, 2, 0.01, 2), build_reads=(300, 150, 0.5, 0.01),
+            build_k=21, build_sample=500, build_reps=1)
 
 
 def log(msg: str):
@@ -875,6 +903,316 @@ def same_payload(got, want) -> bool:
 
 
 # --------------------------------------------------------------------------
+# the build phase: the device construction (kernels D1-D4)
+# --------------------------------------------------------------------------
+
+def make_pangenome(cfg, rng):
+    """``genomes`` random base genomes of ``length`` bp, each with
+    ``strains`` strains at ``sub_rate`` substitutions: -> (n, length) codes
+    0..3, the base genomes at rows 0, strains + 1, ..."""
+    G, L, S, sub, _ = cfg["pan"]
+    refs = np.empty((G * (S + 1), L), np.uint8)
+    for g in range(G):
+        base = rng.integers(0, 4, L, dtype=np.uint8)
+        refs[g * (S + 1)] = base
+        for s in range(1, S + 1):
+            at = np.flatnonzero(rng.random(L) < sub)
+            strain = base.copy()
+            strain[at] = (strain[at] + rng.integers(1, 4, len(at))) % 4
+            refs[g * (S + 1) + s] = strain
+    return refs
+
+
+def add_n_runs(refs, runs, rng):
+    """``runs`` runs of N (1-500 bp) in every reference, in place."""
+    for r in refs:
+        for _ in range(runs):
+            at = int(rng.integers(0, len(r) - 500))
+            r[at: at + int(rng.integers(1, 500))] = 4
+
+
+def window_keys_2d(codes: np.ndarray, k: int):
+    """(n, m) codes -> ((n, m-k+1) uint64 2-bit keys, validity), as
+    ``window_keys`` row by row."""
+    n, m = codes.shape
+    w = m - k + 1
+    c = codes.astype(np.uint64) & np.uint64(3)
+    key = np.zeros((n, w), np.uint64)
+    for i in range(k):
+        key |= c[:, i: i + w] << np.uint64(2 * i)
+    bad = np.concatenate([np.zeros((n, 1), np.int64),
+                          np.cumsum(codes >= 4, axis=1)], axis=1)
+    return key, (bad[:, k:] - bad[:, :-k]) == 0
+
+
+def write_records(path, codes):
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    with open(path, "wb") as f:
+        for i, row in enumerate(codes):
+            f.write(b">s%d\n" % i + letters[row].tobytes() + b"\n")
+
+
+def cli_build(fa, out, k, dev):
+    """``python -m metagraph_tpu_torch build --device -v`` (its ``main``
+    in this process, so that the launch counters show): -> (wall s, the
+    phases it traced, the nodes it reported)."""
+    import contextlib
+    import io
+    from metagraph_tpu_torch.cli import main as cli_main
+    from metagraph_tpu_torch.graph import dbg_succinct
+    from metagraph_tpu_torch.utils.timer import set_trace
+    args = ["build", "--device", "-v", "-k", str(k), "-o", out, fa] \
+        + (["--torch-device", "cpu"] if dev.type == "cpu" else [])
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            cli_main(args)
+    finally:
+        set_trace(False)
+        dbg_succinct.DEFAULT_MMAP = False
+    wall = time.perf_counter() - t0
+    phases, nodes = {}, None
+    for ln in err.getvalue().splitlines():
+        if ln.startswith("[trace] ") and " sec, RSS" in ln:
+            name, rest = ln[8:].split(": ", 1)
+            phases[name] = float(rest.split(" sec")[0])
+        elif ln.startswith("graph built: "):
+            nodes = int(ln.rsplit("nodes=", 1)[1])
+    if nodes is None:
+        raise AssertionError(f"build printed no 'graph built' line: "
+                             f"{err.getvalue()[-2000:]}")
+    return wall, phases, nodes
+
+
+def build_kernel_checks(seqs, k, torch, dev, reps):
+    """D1-D4 against their plain versions, on the card, on this build's
+    inputs, step by step through the build (every output held whole,
+    exactly), each timed beside its plain version, D2 also beside
+    ``torch.sort(stable=True)`` over the same keys -> (entries, the
+    kernels' W, last, valid, F)."""
+    from metagraph_tpu_torch._u32 import np_words
+    from metagraph_tpu_torch.query.device import wire_words_layout
+    from metagraph_tpu_torch.query.tile_pack import tile_pack2
+    from metagraph_tpu_torch.succinct import device_build as db
+    tiles2, validb, _, _ = tile_pack2(seqs, k, db.T_WIRE)
+    words, vwords = wire_words_layout(tiles2, validb, k, db.T_WIRE,
+                                      len(tiles2))
+    words, vwords = np_words(words).to(dev), np_words(vwords).to(dev)
+    del tiles2, validb
+    res = {}
+
+    def step(name, fn, plain, nbytes, cmp=None):
+        got, want = fn(), plain()
+        got_t = got if isinstance(got, tuple) else (got,)
+        want_t = want if isinstance(want, tuple) else (want,)
+        if cmp is not None:
+            got_t, want_t = cmp(got_t), cmp(want_t)
+        err = max((max_abs_err(torch, torch.as_tensor(g),
+                               torch.as_tensor(w))
+                   for g, w in zip(got_t, want_t)), default=0)
+        e = res.setdefault(name, dict(max_abs_err=0, ms=0.0, plain_ms=0.0,
+                                      nbytes=0, library_ms=None))
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["ms"] += device_ms(torch, dev, fn, reps)
+        e["plain_ms"] += device_ms(torch, dev, plain, 1)
+        e["nbytes"] += nbytes
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        return got
+
+    def sort(x, bits):
+        out = step("radix_sort", lambda: db.radix_sort(x, bits)[0],
+                   lambda: db.radix_sort_plain(x, bits)[0], 16 * len(x))
+        lib = device_ms(torch, dev, lambda: torch.sort(x, stable=True), reps)
+        e = res["radix_sort"]
+        e["library_ms"] = (e["library_ms"] or 0.0) + lib
+        return out
+
+    n = words.shape[0] * db.T_WIRE
+    keys = step("build_windows", lambda: db.build_windows(words, vwords, k),
+                lambda: db.build_windows_plain(words, vwords, k),
+                words.numel() * 4 + vwords.numel() * 4 + 8 * n)
+    skeys = sort(keys, 2 * k + 1)
+    del keys
+    uniq, J, U = step("build_join", lambda: db.build_join(skeys, k),
+                      lambda: db.build_join_plain(skeys, k), 25 * n)
+    J = sort(J, 2 * k + 1)
+    cap = db.capd_limit(db._CAPD_DEFAULT, 1 << 22)      # the build's limit
+
+    def sorted_lists(t):
+        return tuple(torch.sort(x).values for x in t[:2]) \
+            + tuple(torch.tensor(x) for x in t[2:])
+
+    sink, src1, n_sink, n_src1 = step(
+        "build_join", lambda: db.join_nodes(J, k, cap),
+        lambda: db.join_nodes_plain(J, k, cap), 16 * n, sorted_lists)
+    res["build_join"]["nbytes"] += 8 * (n_sink + n_src1)
+    del J
+    sink, src1 = sort(sink, 2 * k - 2), sort(src1, 2 * k - 2)
+    dummies = db.expand_dummies(db.unpack_node_keys(sink.cpu().numpy(), k),
+                                db.unpack_node_keys(src1.cpu().numpy(), k),
+                                k)
+    d3 = torch.from_numpy(db.host_key3(dummies, k)).to(dev)
+    D = len(dummies)
+    k3 = step("build_emit", lambda: db.emit_keys(skeys, uniq, d3, k),
+              lambda: db.emit_keys_plain(skeys, uniq, d3, k),
+              9 * n + 16 * D + 8 * n)
+    S = sort(k3, 3 * k)
+    del k3
+    M = U + D
+    W, last, valid, F = step(
+        "build_emit", lambda: db.build_emit(S, M, k),
+        lambda: db.build_emit_plain(S, M, k), 8 * M + 3 * (M + 1) + 40)
+    entries = {}
+    for name, e in res.items():
+        bound = e.pop("nbytes") / HBM_BYTES_PER_S * 1e3
+        entries[name] = dict(e, bound_ms=bound, bound_by="bytes")
+        lib = e["library_ms"]
+        log(f"kernel {name} [build k = {k}]: {e['ms']:.4f} ms (plain "
+            f"{e['plain_ms']:.2f} ms, bound {bound:.4f} ms"
+            + (f", torch.sort {lib:.4f} ms" if lib is not None else "")
+            + f"), max_abs_err {e['max_abs_err']}")
+    log(f"build inputs: {n} windows, U = {U} distinct edges, {n_sink} sink "
+        f"and {n_src1} source nodes, {D} dummy rows, {len(W) - 1} rows")
+    return entries, tuple(x.cpu().numpy() for x in (W, last, valid, F))
+
+
+def build_oracle(boss, codes, k, rng, sample):
+    """An oracle independent of the code under test: the valid edges are
+    the distinct valid windows (numpy 2-bit keys, sorted and deduped),
+    label by label; a sample of edges decoded with ``get_edge_seq`` is
+    among them.  ``codes``: (n, m) code rows."""
+    t0 = time.perf_counter()
+    keys = []
+    for lo in range(0, len(codes), 1 << 14):
+        kk, ok = window_keys_2d(codes[lo: lo + (1 << 14)], k)
+        keys.append(kk[ok])
+    keys = np.sort(np.concatenate(keys))
+    t1 = time.perf_counter()
+    # np.unique's result by its own method, a sort and an adjacent compare
+    # (np.unique itself, numpy 2.3.5, took 67 and 85 s over these keys on
+    # the H100 machine's host, where sorting them took 13 and 4 s)
+    new = np.ones(len(keys), bool)
+    new[1:] = keys[1:] != keys[:-1]
+    distinct = keys[new]
+    del keys, new
+    t2 = time.perf_counter()
+    ids = np.flatnonzero(boss.valid)
+    if len(ids) != len(distinct):
+        raise AssertionError(f"{len(ids)} valid edges, {len(distinct)} "
+                             "distinct valid windows")
+    want = np.bincount((distinct >> np.uint64(2 * (k - 1))).astype(np.int64)
+                       & 3, minlength=4)
+    got = np.bincount(boss.W[ids] % boss.alph_size, minlength=5)[1:]
+    if not np.array_equal(got, want):
+        raise AssertionError(f"label counts {got} != {want}")
+    pick = rng.choice(ids, min(sample, len(ids)), replace=False)
+    chars = boss.get_edge_seq(pick).astype(np.uint64) - np.uint64(1)
+    key = np.zeros(len(pick), np.uint64)
+    for i in range(k):
+        key |= chars[:, i] << np.uint64(2 * i)
+    at = np.minimum(np.searchsorted(distinct, key), len(distinct) - 1)
+    if not np.array_equal(distinct[at], key):
+        raise AssertionError("a decoded edge is no window of the input")
+    log(f"build oracle: window keys sorted {t1 - t0:.1f} s, deduped "
+        f"{t2 - t1:.1f} s, edges checked {time.perf_counter() - t2:.1f} s")
+    return len(distinct), got
+
+
+def build_lookup(path, codes, k, rng, sample, torch, dev):
+    """The written graph, loaded back (``DBGSuccinct.load``), indexed
+    (``convert.from_graph``, one label on every valid edge) and queried
+    (``QueryEngine.query_batch``: kernels 1, 2, 3) with a sample of the
+    input's windows as sequences: every one must come back with its
+    label."""
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    from metagraph_tpu_torch.query.pipeline import QueryEngine
+    t0 = time.perf_counter()
+    g = DBGSuccinct.load(path)
+    t1 = time.perf_counter()
+    anno = ColumnMajorAnnotation(g.max_index(), ["all"],
+                                 [np.flatnonzero(g.boss.valid) - 1])
+    index = convert.from_graph(g, anno)
+    t2 = time.perf_counter()
+    rows = rng.integers(0, len(codes), 4 * sample)
+    at = rng.integers(0, codes.shape[1] - k + 1, 4 * sample)
+    wins = codes[rows[:, None], at[:, None] + np.arange(k)]
+    wins = wins[(wins < 4).all(axis=1)][:sample]
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    seqs = [letters[w].tobytes() for w in wins]
+    engine = QueryEngine(index, device=dev)
+    got = engine.query_batch(seqs, "labels", 2 ** 63, 0.7, 0.0)
+    t3 = time.perf_counter()
+    missed = sum(1 for p in got if not p)
+    if missed or len(got) != len(wins) or len(wins) < sample // 2:
+        raise AssertionError(f"{missed} of {len(wins)} sampled windows not "
+                             "found in the built graph")
+    log(f"build lookup: {len(wins)} sampled windows found; load "
+        f"{t1 - t0:.1f} s, from_graph {t2 - t1:.1f} s, query "
+        f"{t3 - t2:.1f} s")
+    return g
+
+
+def build_phase(cfg, seed, torch, dev, work, timed):
+    """The device construction on two deployments from ``seed``:
+    "pan" (a pan-genome of related assemblies) and "reads" (reads drawn
+    from its strains), each built through the port's CLI and held against
+    the plain versions, the oracle and (pan) the query path."""
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    k = cfg["build_k"]
+    rng = np.random.default_rng([seed, 8])
+    refs = timed("build inputs", make_pangenome, cfg, rng)
+    S = cfg["pan"][2]
+    strains = np.array([r for i, r in enumerate(refs) if i % (S + 1)])
+    n, m, rc_share, err = cfg["build_reads"]
+    reads = timed("build inputs", make_reads, n, m, rng, strains, rc_share,
+                  err)[1]
+    reads = np.stack(reads)
+    del strains
+    add_n_runs(refs, cfg["pan"][4], rng)
+    out = {}
+    for name, codes in (("pan", refs), ("reads", reads)):
+        fa = os.path.join(work, f"{name}.fa")
+        timed("build inputs", write_records, fa, codes)
+        base = os.path.join(work, f"{name}-k{k}")
+        (wall, phases, nodes), launches = timed(
+            "build cli", run_path, lambda: cli_build(fa, base, k, dev))
+        log(f"build {name}: {len(codes)} sequences, {codes.size} bp, k = "
+            f"{k}: {nodes} nodes in {wall:.1f} s (" + ", ".join(
+                f"{p} {v:.3f}" for p, v in phases.items()) + ")")
+        for kern in BUILD_KERNELS:
+            if dev.type == "cuda" and not launches[kern]:
+                raise AssertionError(f"build {name} launched no {kern}")
+        letters = np.frombuffer(b"ACGTN", np.uint8)
+        seqs = [letters[r].tobytes() for r in codes]
+        entries, arrays = timed("build checks", build_kernel_checks, seqs,
+                                k, torch, dev, cfg["build_reps"])
+        del seqs
+        g = DBGSuccinct.load(base + ".dbg")
+        for f, a in zip(("W", "last", "valid", "F"), arrays):
+            if not np.array_equal(getattr(g.boss, f), a):
+                raise AssertionError(f"build {name}: the file's {f} is not "
+                                     "the kernels' ")
+        if g.num_nodes() != nodes:
+            raise AssertionError("nodes")
+        distinct, labels = timed("build oracle", build_oracle, g.boss, codes,
+                                 k, rng, cfg["build_sample"])
+        log(f"build {name} oracle: {distinct} valid edges = distinct valid "
+            f"windows, labels A/C/G/T {labels.tolist()}; "
+            f"{cfg['build_sample']} decoded edges among them")
+        del g
+        if name == "pan":
+            timed("build lookup", build_lookup, base + ".dbg", codes, k, rng,
+                  cfg["build_sample"], torch, dev)
+        out[name] = ({kern: launches[kern] for kern in BUILD_KERNELS},
+                     entries)
+    return out
+
+
+# --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
 
@@ -901,8 +1239,12 @@ def card_and_build(rehearse: bool, out_dir: str):
     return card, secs
 
 
+BUILD_KERNELS = ("build_windows", "radix_sort", "build_join", "build_emit")
+
+
 def counters():
     from metagraph_tpu_torch.align.sw import sw_scores
+    from metagraph_tpu_torch.succinct import device_build
     from metagraph_tpu_torch.query.device import label_counts, selection_mask
     from metagraph_tpu_torch.scripts.exp_gather import gather_loop, gather_take
     from metagraph_tpu_torch.succinct.ops import (codes_lookup, key_lookup,
@@ -918,7 +1260,8 @@ def counters():
             "sparse_label_counts": sparse_label_counts,
             "overflow_counts": overflow_counts,
             "brwt_row_words": brwt_row_words,
-            "rowdiff_row_words": rowdiff_row_words}
+            "rowdiff_row_words": rowdiff_row_words,
+            **{name: getattr(device_build, name) for name in BUILD_KERNELS}}
 
 
 def run_path(fn):
@@ -2201,6 +2544,14 @@ SOURCES = {
                        "metagraph_tpu/annotation/device_matrix.py:338"),
     "rowdiff_row_words": ("metagraph_tpu_torch/csrc/row_words.cu",
                           "metagraph_tpu/annotation/device_matrix.py:190"),
+    "build_windows": ("metagraph_tpu_torch/csrc/build_windows.cu",
+                      "metagraph_tpu/succinct/device_build.py:190"),
+    "radix_sort": ("metagraph_tpu_torch/csrc/radix_sort.cu",
+                   "metagraph_tpu/succinct/device_build.py:194"),
+    "build_join": ("metagraph_tpu_torch/csrc/build_join.cu",
+                   "metagraph_tpu/succinct/device_build.py:195"),
+    "build_emit": ("metagraph_tpu_torch/csrc/build_emit.cu",
+                   "metagraph_tpu/succinct/device_build.py:253"),
 }
 
 
@@ -2216,6 +2567,9 @@ def main(argv=None) -> int:
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny sizes on the CPU with the plain versions; "
                          "exits 2 without a result")
+    ap.add_argument("--only-build", action="store_true",
+                    help="the card, the kernels' build and the build phase "
+                         "alone; exits 3 without a result")
     args = ap.parse_args(argv)
     import torch
     if not args.rehearse and not torch.cuda.is_available():
@@ -2243,6 +2597,17 @@ def main(argv=None) -> int:
 
     card, _ = timed("card and build", card_and_build, args.rehearse,
                     args.out)
+    # the device construction (kernels D1-D4): a pan-genome and a read set
+    builds = build_phase(cfg, args.seed, torch, dev, args.work, timed)
+    if args.only_build:
+        for dep, (bl, be) in builds.items():
+            for name, e in be.items():
+                log(f"{name}/{dep}: launches {bl[name]}, " + json.dumps(e))
+        log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in phases.items()))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print("build phase only: no result", file=sys.stderr)
+        return 3
     rng = np.random.default_rng(args.seed)
     refs, index, oracle = timed("basic index", make_index, cfg, rng)
     log(f"index: {index.num_rows} k-mers (k = {K}), {len(index.labels)} "
@@ -2354,7 +2719,7 @@ def main(argv=None) -> int:
         index, canon=2), device=dev)
     # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
     more = {"many_labels": (ml_launches, ml_entries), **words_more,
-            **more_graphs}
+            **more_graphs, **builds}
     more["primary"] = (
         timed("query paths and oracle", main_path, engine, seqs2, codes2,
               period2, oracle, cfg, rng2, torch, dev,

@@ -1,4 +1,20 @@
-"""Command line interface of the port: ``query`` and ``server_query``.
+"""Command line interface of the port: ``build``, ``query`` and
+``server_query``.
+
+``python -m metagraph_tpu_torch build --device -k K -o OUT in.fa`` takes
+the command line of ``metagraph_tpu.cli build`` (metagraph_tpu/cli/
+main.py:1369-1412, ``_add_common`` :16-27) and follows its ``cmd_build``
+(:80-240): read the inputs, construct, set the state tag, save (``--mmap``
+or ``--state fast``: the mmap layout), print ``graph built: k=K nodes=N``
+on stderr.  The table is built on the card (``succinct/device_build.py``)
+with or without ``--device``, unless ``--torch-device cpu``: the builds
+that the JAX package sends to its device construction (basic mode, DNA,
+3 <= k <= 21, no counts, disk swap or memory cap), whose arrays its host
+construction gives too.  Every other build is refused once the inputs are
+read, naming its ROADMAP item: A12.2 (the host construction: other modes,
+alphabets and k, ``--count-kmers``, ``--disk-swap``, ``--mem-cap-gb``,
+``--suffix``, ``--graph``, ``--index-ranges``, KMC inputs) or A15
+(``--mesh-shards``).  ``-v`` prints the build's phases on stderr.
 
 ``python -m metagraph_tpu_torch query -i G.dbg -a A.column.annodbg --device
 reads.fa`` takes the command lines of ``metagraph_tpu.cli query``
@@ -40,6 +56,48 @@ import time
 
 def _trace(msg: str):
     print(f"[trace] {msg}", file=sys.stderr)
+
+
+def cmd_build(args):
+    from .device import resolve_device
+    from .graph.dbg_succinct import DBGSuccinct, not_ported
+    from .seq_io.fasta import read_fasta
+    from .utils.timer import PhaseTimer
+
+    device = resolve_device(args.torch_device)
+    with PhaseTimer("parse input"):
+        # KMC databases (JAX's pre-pass, cli/main.py:87-98) are host
+        # construction inputs
+        for f in args.input:
+            if f.endswith(".kmc_suf") or f.endswith(".kmc_pre"):
+                raise not_ported("a KMC input")
+        seqs = []
+        for f in args.input:
+            seqs.extend(r.seq for r in read_fasta(f))
+    # the refusals come after the inputs are read, so that a missing input
+    # is reported first, as the JAX CLI reports it
+    if args.suffix is not None:
+        raise not_ported("--suffix")
+    if args.graph != "succinct":
+        raise not_ported(f"--graph {args.graph}")
+    if args.mesh_shards:
+        raise not_ported("--mesh-shards", "A15")
+    if args.alphabet == "Protein" and args.mode != "basic":
+        raise SystemExit("[error] canonical/primary modes are not "
+                         "supported for the Protein alphabet")
+    if args.index_ranges:
+        raise not_ported("--index-ranges")
+    with PhaseTimer("construct BOSS"):
+        g = DBGSuccinct.build(
+            seqs, args.k, mode=args.mode, alphabet=args.alphabet,
+            with_counts=args.count_kmers, bits_per_count=args.count_width,
+            mask_dummy=args.mask_dummy, disk_swap=args.disk_swap,
+            mem_cap_bytes=None if args.mem_cap_gb is None
+            else int(args.mem_cap_gb * (1 << 30)), device=device)
+    g.boss.state = args.state
+    with PhaseTimer("serialize"):
+        g.save(args.out, mmap_layout=args.mmap or args.state == "fast")
+    print(f"graph built: k={args.k} nodes={g.num_nodes()}", file=sys.stderr)
 
 
 def cmd_query(args):
@@ -136,6 +194,33 @@ def _add_align_scoring_flags(p):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="metagraph-tpu-torch")
     sub = ap.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("build")
+    _add_common(p)
+    p.add_argument("-k", type=int, required=True)
+    p.add_argument("--mode", choices=["basic", "canonical", "primary"],
+                   default="basic")
+    p.add_argument("--graph", default="succinct",
+                   choices=["succinct", "bitmap", "hash", "hashfast",
+                            "hashstr", "sshash"])
+    p.add_argument("--count-kmers", action="store_true")
+    p.add_argument("--count-width", type=int, default=8)
+    p.add_argument("--mask-dummy", action="store_true")
+    p.add_argument("--in-ram", action="store_true")
+    p.add_argument("--state", default="stat",
+                   choices=["stat", "small", "fast", "dynamic"])
+    p.add_argument("--alphabet", default="DNA",
+                   choices=["DNA", "DNA5", "Protein", "DNA_CASE"])
+    p.add_argument("--suffix", default=None)
+    p.add_argument("--disk-swap", default=None, metavar="DIR")
+    p.add_argument("--index-ranges", type=int, default=0, metavar="L")
+    p.add_argument("--mesh-shards", type=int, default=0, metavar="N")
+    p.add_argument("--mem-cap-gb", type=float, default=None)
+    p.add_argument("--device", action="store_true",
+                   help="the device construction (the port always runs it)")
+    _add_torch_device(p)
+    p.add_argument("input", nargs="+")
+    p.set_defaults(func=cmd_build)
+
     p = sub.add_parser("query")
     _add_common(p)
     p.add_argument("-i", "--infile-base", required=True)
@@ -184,7 +269,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from .graph import dbg_succinct
+    from .utils.timer import set_trace
     dbg_succinct.DEFAULT_MMAP = args.mmap
+    set_trace(args.verbose)
     t0 = time.perf_counter()
     try:
         ret = args.func(args)

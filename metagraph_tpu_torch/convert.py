@@ -10,7 +10,8 @@ and the host annotation that the payloads read.  It comes from
 * ``from_graph``/``load``: a basic, canonical or primary graph of any
   type (succinct, in any of its layouts, hash, bitmap or sshash), alphabet
   and k and any annotation that the JAX package writes, its ``.dbg.npz``,
-  ``.dbg`` and ``.annodbg`` artifacts;
+  ``.dbg`` and ``.annodbg`` artifacts; ``from_graph`` takes a graph that
+  ``DBGSuccinct.build`` made as it takes a loaded one;
 * ``from_annotation``: packed k-mer keys, their node ids and an
   annotation, for callers that build an index without a graph file;
 * ``from_jax_arrays`` (with ``from_jax_block_sparse`` or

@@ -1,7 +1,15 @@
-"""De Bruijn graphs from the JAX package's artifacts: ``DBGSuccinct.load``.
+"""De Bruijn graphs: ``DBGSuccinct.build``, ``save`` and ``load``.
 
-Own copy of the loading part of metagraph_tpu/graph/dbg_succinct.py:611-655
-for every layout it reads:
+Own copy of the parts of metagraph_tpu/graph/dbg_succinct.py the port uses:
+
+* ``build`` (:38-89) for the builds that the JAX package sends to its
+  device construction (:56-73): basic mode, the DNA alphabet, 3 <= k <=
+  21, no counts, window weights, disk swap or memory cap.  The table is
+  built on the card (``succinct/device_build.py``); every other build
+  raises ``NotImplementedError`` naming ROADMAP A12.2 (the host
+  construction);
+* ``save`` (:602-609), in the npz or the mmap layout;
+* ``load`` (:611-655), for every layout it reads:
 
 * the reference-format ``.dbg`` (not a zip file), through
   ``seq_io/refformat.py::load_reference_boss``;
@@ -26,6 +34,14 @@ from ..kmer.extractor import KmerExtractor
 from ..succinct.boss import BOSS
 
 DEFAULT_MMAP = False
+DEVICE_K = (3, 21)          # the k the device construction takes
+
+
+def not_ported(what: str, item: str = "A12.2") -> NotImplementedError:
+    """The refusal of a build outside the device construction: A12.2 is
+    the host construction, A15 the mesh."""
+    return NotImplementedError(f"build: {what} is not ported yet (ROADMAP "
+                               f"{item})")
 
 
 class DBGSuccinct:
@@ -40,6 +56,48 @@ class DBGSuccinct:
     @property
     def extractor(self) -> KmerExtractor:
         return KmerExtractor(ALPHABETS[self.alphabet])
+
+    @classmethod
+    def build(cls, sequences, k: int, mode: str = "basic",
+              alphabet=DNA.name, with_counts: bool = False,
+              bits_per_count: int = 8, mask_dummy: bool = True,
+              window_weights=None, disk_swap: str | None = None,
+              mem_cap_bytes: int | None = None,
+              device=None) -> "DBGSuccinct":
+        """The graph of ``sequences`` (bytes or str), its BOSS table built
+        on ``device`` (the card unless "cpu"): the arrays of the JAX
+        ``DBGSuccinct.build(..., device=True)``.  Where no sequence holds a
+        window the table is the host pipeline's of no k-mers, as there."""
+        from ..succinct.construct import empty_boss_arrays
+        from ..succinct.device_build import device_build_boss_arrays
+        from ..utils.timer import PhaseTimer
+        name = getattr(alphabet, "name", alphabet)
+        if mode != "basic":
+            raise not_ported(f"mode {mode!r}")
+        if ALPHABETS[name].sigma != 5:
+            raise not_ported(f"the {name} alphabet")
+        if not DEVICE_K[0] <= k <= DEVICE_K[1]:
+            raise not_ported(f"k = {k} (the device construction takes "
+                              f"{DEVICE_K[0]} <= k <= {DEVICE_K[1]})")
+        if with_counts or window_weights is not None:
+            raise not_ported("counting k-mers")
+        if disk_swap is not None or mem_cap_bytes is not None:
+            raise not_ported("a disk swap or memory cap")
+        seqs = [s if isinstance(s, bytes) else s.encode() for s in sequences]
+        arrays = device_build_boss_arrays(seqs, k, device=device)
+        if arrays is None:
+            arrays = empty_boss_arrays(k)
+        with PhaseTimer("BOSS indexes"):
+            boss = BOSS.from_arrays(arrays)
+        boss.count_width = bits_per_count
+        return cls(boss, k, mode, name, mask_dummy)
+
+    def save(self, path: str, mmap_layout: bool = False):
+        """``<path>.dbg.npz`` (or ``path`` itself if it ends in .npz), or
+        the mmap layout beside that name."""
+        out = path if path.endswith(".npz") else path + ".dbg.npz"
+        save = self.boss.save_mmap if mmap_layout else self.boss.save
+        save(out, mode=self.mode, masked=self.masked, alphabet=self.alphabet)
 
     def num_nodes(self) -> int:
         return self.boss.num_valid if self.masked else self.boss.num_edges

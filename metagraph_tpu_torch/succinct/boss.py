@@ -1,10 +1,14 @@
-"""The BOSS table, read from the JAX package's ``.dbg.npz`` artifact or its
-mmap layout.
+"""The BOSS table, read from and written to the JAX package's ``.dbg.npz``
+artifact or its mmap layout.
 
-Own numpy copy of the part of metagraph_tpu/succinct/boss.py the query
-slice uses: loading (boss.py:660-700: the npz, or the mmap layout's
-``.meta.npz`` beside raw ``.W/.last/.valid/.weights.npy`` arrays, mapped
-read-only with ``mmap``) and the navigation needed to decode
+Own numpy copy of the part of metagraph_tpu/succinct/boss.py the port
+uses: the table of a ``BossArrays`` with its ``state`` tag and
+``count_width`` (boss.py:36-53), writing (``save``, ``save_mmap``,
+:622-657: the same npz keys and dtypes; the suffix-range keys are not
+written, as the port's ``build`` refuses ``--index-ranges``), loading
+(:660-700: the npz, or the mmap layout's ``.meta.npz`` beside raw
+``.W/.last/.valid/.weights.npy`` arrays, mapped read-only with ``mmap``)
+and the navigation needed to decode
 edge k-mers (``rank_last``, ``select_W``, ``node_last_char``, ``bwd``,
 ``get_node_seq``, ``get_edge_seq``; boss.py:113-300, 593-610).  Rank and
 select are plain prefix counts and position lists instead of the JAX
@@ -59,9 +63,42 @@ class BOSS:
         self.F = np.asarray(F, dtype=np.int64)
         self.valid = np.asarray(valid, dtype=np.uint8)
         self.weights = weights             # k-mer counts by edge, or None
+        # the representation tag ('fast' selects the mmap layout) and the
+        # bits a stored count takes, both kept in the artifact
+        self.state = "stat"
+        self.count_width = 8
         self._last = _BitIndex(self.last == 1)
         self._W = [_BitIndex(self.W == c) for c in range(alph_size)]
         self.NF = self._last.rank(self.F)            # rank_last(F[c])
+
+    @classmethod
+    def from_arrays(cls, arrays) -> "BOSS":
+        """The table of a ``construct.BossArrays``."""
+        return cls(arrays.k, arrays.alph_size, arrays.W, arrays.last,
+                   arrays.F, arrays.valid, arrays.weights)
+
+    def save(self, path: str, **extra):
+        """The npz artifact, compressed (boss.py:622-635)."""
+        extra.setdefault("state", self.state)
+        extra.setdefault("count_width", self.count_width)
+        np.savez_compressed(
+            path, k=self.k, alph_size=self.alph_size, W=self.W,
+            last=self.last, F=self.F, valid=self.valid,
+            weights=self.weights if self.weights is not None
+            else np.zeros(0), **extra)
+
+    def save_mmap(self, path: str, **extra):
+        """The mmap layout: a raw ``.npy`` an array beside a small
+        ``.meta.npz`` (boss.py:637-657)."""
+        base = path[:-4] if path.endswith(".npz") else path
+        for name in ("W", "last", "valid"):
+            np.save(base + f".{name}.npy", getattr(self, name))
+        if self.weights is not None:
+            np.save(base + ".weights.npy", self.weights)
+        extra.setdefault("state", self.state)
+        extra.setdefault("count_width", self.count_width)
+        np.savez(base + ".meta.npz", k=self.k, alph_size=self.alph_size,
+                 F=self.F, **extra)
 
     @classmethod
     def load(cls, path: str, mmap: bool = False) -> "BOSS":
@@ -75,17 +112,29 @@ class BOSS:
             mode = "r" if mmap else None
             wpath = base + ".weights.npy"
             with np.load(base + ".meta.npz") as meta:
-                return cls(int(meta["k"]), int(meta["alph_size"]),
+                boss = cls(int(meta["k"]), int(meta["alph_size"]),
                            np.load(base + ".W.npy", mmap_mode=mode),
                            np.load(base + ".last.npy", mmap_mode=mode),
                            meta["F"],
                            np.load(base + ".valid.npy", mmap_mode=mode),
                            np.load(wpath, mmap_mode=mode)
                            if os.path.exists(wpath) else None)
+                boss._tags(meta, "fast")
+                return boss
         with np.load(path if path.endswith(".npz") else path + ".npz") as z:
             w = z["weights"] if "weights" in z.files else np.zeros(0)
-            return cls(int(z["k"]), int(z["alph_size"]), z["W"], z["last"],
+            boss = cls(int(z["k"]), int(z["alph_size"]), z["W"], z["last"],
                        z["F"], z["valid"], w if len(w) else None)
+            boss._tags(z, "stat")
+            return boss
+
+    def _tags(self, z, state: str):
+        """``state`` and ``count_width`` as the artifact records them
+        (boss.py:677-695); an older one without a state tag reads as
+        ``state``."""
+        self.state = str(z["state"]) if "state" in z.files else state
+        if "count_width" in z.files:
+            self.count_width = int(z["count_width"])
 
     @property
     def num_valid(self) -> int:
@@ -125,13 +174,29 @@ class BOSS:
         return np.where(target == 1, 1, res)
 
     def get_node_seq(self, i) -> np.ndarray:
-        """(Q, k) source-node code strings of edge(s) i."""
+        """(Q, k) source-node code strings of edge(s) i.  Where Q passes a
+        quarter of the table (``convert.from_graph`` decodes every valid
+        edge) each step is a gather from ``bwd`` and ``node_last_char`` of
+        every row, computed once, instead of computing both anew for Q
+        rows k times."""
         cur = np.atleast_1d(np.asarray(i, dtype=np.int64))
         out = np.zeros((len(cur), self.k), dtype=np.uint8)
+        step, last_char = self.bwd, self.node_last_char
+        if len(cur) * 4 > len(self.W) and self.k > 2:
+            rows = np.arange(len(self.W), dtype=np.int64)
+            bwd_all = self.bwd(rows)
+            nlc_all = self.node_last_char(rows).astype(np.uint8)
+            del rows
+
+            def step(c):
+                return bwd_all[c]
+
+            def last_char(c):
+                return nlc_all[c]
         for pos in range(self.k - 1, -1, -1):
-            out[:, pos] = self.node_last_char(cur).astype(np.uint8)
+            out[:, pos] = last_char(cur)
             if pos:
-                cur = self.bwd(cur)
+                cur = step(cur)
         return out
 
     def get_edge_seq(self, i) -> np.ndarray:

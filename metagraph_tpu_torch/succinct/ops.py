@@ -165,33 +165,23 @@ class DeviceHashIndex:
 
     @staticmethod
     def _build(keys, ids, n_buckets):
+        """The JAX package places keys in rounds, each bucket's first
+        remaining key (in input order) at its next slot: a key's slot is
+        its rank among its bucket's keys in input order, which one stable
+        sort by bucket gives.  None where a bucket holds more than BUCKET
+        keys."""
         N, W = keys.shape
+        h = _hash_words(keys, n_buckets, 1)
+        counts = np.bincount(h, minlength=n_buckets)
+        if N and counts.max() > BUCKET:
+            return None     # a bucket overflowed: grow the directory, retry
+        order = np.argsort(h, kind="stable")
+        b = h[order]
+        slot = np.arange(N) - (np.cumsum(counts) - counts)[b]
         table = np.full((n_buckets, BUCKET, W + 1), EMPTY_WORD,
                         dtype=np.uint32)
-        fill = np.zeros(n_buckets, dtype=np.int32)
-        remaining = np.arange(N)
-        h = _hash_words(keys, n_buckets, 1)
-        # stable first-come placement per bucket, vectorised in rounds
-        for _ in range(BUCKET):
-            if remaining.size == 0:
-                break
-            hh = h[remaining]
-            order = np.argsort(hh, kind="stable")
-            s = hh[order]
-            first = np.ones(len(s), dtype=bool)
-            first[1:] = s[1:] != s[:-1]
-            cand = order[first]
-            b = hh[cand]
-            ok = fill[b] < BUCKET
-            cand, b = cand[ok], b[ok]
-            table[b, fill[b], :W] = keys[remaining[cand]]
-            table[b, fill[b], W] = ids[remaining[cand]]
-            fill[b] += 1
-            placed = np.zeros(len(remaining), dtype=bool)
-            placed[cand] = True
-            remaining = remaining[~placed]
-        if remaining.size:
-            return None     # a bucket overflowed: grow the directory, retry
+        table[b, slot, :W] = keys[order]
+        table[b, slot, W] = ids[order]
         return table
 
 

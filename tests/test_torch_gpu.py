@@ -26,10 +26,12 @@ from metagraph_tpu_torch.annotation import sparse_device as sd
 from metagraph_tpu_torch.annotation.matrix import BRWT, RowDiff
 from metagraph_tpu_torch.annotation.ops import (DeviceAnnotation,
                                                pack_annotation_bitmap)
+from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
 from metagraph_tpu_torch.query import device as qd
 from metagraph_tpu_torch.query.pipeline import QueryEngine
 from metagraph_tpu_torch.query.tile_pack import tile_pack2
 from metagraph_tpu_torch.scripts import exp_gather as eg
+from metagraph_tpu_torch.succinct import device_build as db
 from metagraph_tpu_torch.succinct import ops
 
 pytestmark = pytest.mark.gpu
@@ -1404,3 +1406,203 @@ def test_server_cuda_matches_cpu(cuda):
     finally:
         for s in servers:
             s.shutdown()
+
+
+# --------------------------------------------------------------------------
+# the device construction: kernels D1-D4 (succinct/device_build.py)
+# --------------------------------------------------------------------------
+
+BUILD_KS = (3, 11, 16, 17, 20, 21)
+
+
+def _sort_keys(rng, n, bits):
+    """n keys with many repeats (a pool of about n / 3 values), below 2^bits
+    (any int64 at 64 bits)."""
+    if bits == 64:
+        pool = rng.integers(-2 ** 63, 2 ** 63 - 1, n // 3 + 1, dtype=np.int64)
+    else:
+        pool = rng.integers(0, 2 ** bits, n // 3 + 1, dtype=np.uint64) \
+            .astype(np.int64)
+    return pool[rng.integers(0, len(pool), n)]
+
+
+@pytest.mark.parametrize("payload", (None, torch.int32, torch.int64),
+                         ids=("keys", "int32", "int64"))
+@pytest.mark.parametrize("bits", (1, 3, 42, 43, 63, 64))
+@pytest.mark.parametrize("n", (0, 1, 255, 257, (1 << 20) + 7))
+def test_radix_sort_matches_plain_and_torch_sort(cuda, n, bits, payload):
+    rng = np.random.default_rng([n, bits])
+    keys = torch.from_numpy(_sort_keys(rng, n, bits)).to(cuda)
+    pay = None if payload is None else \
+        torch.arange(n, dtype=payload, device=cuda)
+    before = db.radix_sort.launches
+    got_k, got_p = db.radix_sort(keys, bits, pay)
+    torch.cuda.synchronize()
+    assert db.radix_sort.launches - before == (5 * -(-bits // 8) if n else 0)
+    want_k, want_p = db.radix_sort_plain(keys, bits, pay)
+    assert torch.equal(got_k, want_k)
+    if payload is not None:
+        assert got_p.dtype == payload and torch.equal(got_p, want_p)
+    # the library sort agrees (unsigned order: flip the sign bit at 64)
+    k = keys ^ torch.iinfo(torch.int64).min if bits == 64 else keys
+    lib = torch.sort(k, stable=True)
+    assert torch.equal(keys[lib.indices], got_k)
+    if payload is not None:
+        assert torch.equal(lib.indices.to(payload), got_p)
+
+
+def test_radix_sort_low_bits_only(cuda):
+    """Bits above ``bits`` take no part in the order, as in the plain
+    version."""
+    rng = np.random.default_rng(3)
+    keys = torch.from_numpy(rng.integers(-2 ** 63, 2 ** 63 - 1, 100_000,
+                                         dtype=np.int64)).to(cuda)
+    for bits in (5, 17, 40):
+        assert torch.equal(db.radix_sort(keys, bits)[0],
+                           db.radix_sort_plain(keys, bits)[0])
+
+
+def _build_seqs(rng, n_seqs=60, max_len=2000, n_share=0.04):
+    letters = np.array(list(b"ACGTNacgt"), np.uint8)
+    p = np.array([.24, .24, .24, .24, n_share, 0, 0, 0, 0])
+    p[5:] = [0.01] * 4
+    p /= p.sum()
+    return [letters[rng.choice(9, size=int(m), p=p)].tobytes()
+            for m in rng.integers(1, max_len, size=n_seqs)]
+
+
+def _build_words(seqs, K, dev):
+    tiles2, validb, _, _ = tile_pack2(seqs, K, db.T_WIRE)
+    words, vwords = qd.wire_words_layout(tiles2, validb, K, db.T_WIRE,
+                                         len(tiles2))
+    return np_words(words).to(dev), np_words(vwords).to(dev)
+
+
+@pytest.mark.parametrize("K", BUILD_KS)
+def test_build_kernels_match_plain(cuda, K):
+    """D1, D3 and D4 against their plain versions on one build's inputs."""
+    rng = np.random.default_rng(K)
+    words, vwords = _build_words(_build_seqs(rng), K, cuda)
+    keys = db.build_windows(words, vwords, K)
+    assert torch.equal(keys, db.build_windows_plain(words, vwords, K))
+    skeys, _ = db.radix_sort(keys, 2 * K + 1)
+    uniq, J, U = db.build_join(skeys, K)
+    puniq, pJ, pU = db.build_join_plain(skeys, K)
+    assert torch.equal(uniq, puniq) and torch.equal(J, pJ) and U == pU > 0
+    J, _ = db.radix_sort(J, 2 * K + 1)
+    got = db.join_nodes(J, K, 1 << 40)
+    want = db.join_nodes_plain(J, K, 1 << 40)
+    assert got[2:] == want[2:] and (K == 3 or min(got[2:]) > 3)
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(torch.sort(g).values, w)
+    # a cap below the counts keeps the exact counts
+    capped = db.join_nodes(J, K, 3)
+    assert capped[2:] == want[2:]
+    assert [len(c) for c in capped[:2]] == [min(3, n) for n in want[2:]]
+    sink = db.unpack_node_keys(db.radix_sort(got[0], 2 * K - 2)[0].cpu()
+                               .numpy(), K)
+    src1 = db.unpack_node_keys(db.radix_sort(got[1], 2 * K - 2)[0].cpu()
+                               .numpy(), K)
+    d3 = torch.from_numpy(db.host_key3(db.expand_dummies(sink, src1, K),
+                                       K)).to(cuda)
+    k3 = db.emit_keys(skeys, uniq, d3, K)
+    assert torch.equal(k3, db.emit_keys_plain(skeys, uniq, d3, K))
+    S, _ = db.radix_sort(k3, 3 * K)
+    M = U + len(d3)
+    for g, w in zip(db.build_emit(S, M, K), db.build_emit_plain(S, M, K)):
+        assert torch.equal(g, w)
+
+
+def test_build_emit_drops_redundant_sinks(cuda):
+    """Rows that emit_boss drops (a $-labelled row whose node ends in a
+    real character and goes on) leave the kept rows in order, F counting
+    only them."""
+    rng = np.random.default_rng(11)
+    K = 5
+    rows = rng.integers(1, 5, (5000, K)).astype(np.uint8)
+    rows[::3, K - 1] = 0                          # many $-labelled rows
+    rows = np.concatenate([np.zeros((1, K), np.uint8), rows])
+    keys = np.unique(db.host_key3(rows, K))
+    S = torch.from_numpy(keys).to(cuda)
+    got = db.build_emit(S, len(keys), K)
+    want = db.build_emit_plain(S, len(keys), K)
+    assert len(want[0]) < len(keys) + 1           # some rows were dropped
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("K", BUILD_KS)
+def test_device_build_cuda_matches_cpu(cuda, K):
+    rng = np.random.default_rng([K, 1])
+    seqs = _build_seqs(rng, n_seqs=120)
+    names = ("build_windows", "radix_sort", "build_join", "build_emit")
+    for n in names:
+        getattr(db, n).launches = 0
+    got = db.device_build_boss_arrays(seqs, K, device=cuda)
+    launches = {n: getattr(db, n).launches for n in names}
+    want = db.device_build_boss_arrays(seqs, K, device="cpu")
+    for f in ("W", "last", "valid", "F"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    # launches per build: D1 once; D2's edge, join and 3-bit sorts and
+    # the node lists that are not empty; D3 twice; D4's keys and five
+    # emission kernels
+    p1 = db.build_p1(*_build_words(seqs, K, torch.device("cpu")), K)
+    passes = [-(-b // 8) for b in (2 * K + 1, 2 * K + 1, 3 * K)] \
+        + [-(-(2 * K - 2) // 8)] * ((p1.n_sink > 0) + (p1.n_src1 > 0))
+    assert launches == {"build_windows": 1,
+                        "radix_sort": 5 * sum(passes),
+                        "build_join": 2, "build_emit": 6}
+
+
+def test_device_build_cuda_regrowth_and_limit(cuda):
+    rng = np.random.default_rng(9)
+    seqs = ["".join(rng.choice(list("ACGT"), size=40)).encode()
+            for _ in range(300)]
+    got = db.device_build_boss_arrays(seqs, 20, capd=64, device=cuda)
+    want = db.device_build_boss_arrays(seqs, 20, capd=64, device="cpu")
+    for f in ("W", "last", "valid", "F"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    with pytest.raises(RuntimeError, match="> 256 dummy sink/source"):
+        db.device_build_boss_arrays(seqs, 20, capd=64, _max_capd=1023,
+                                    device=cuda)
+
+
+def test_dbg_build_cuda_matches_cpu(cuda):
+    rng = np.random.default_rng(21)
+    seqs = _build_seqs(rng, n_seqs=30)
+    got = DBGSuccinct.build(seqs, 21, device=cuda)
+    want = DBGSuccinct.build(seqs, 21, device="cpu")
+    for f in ("W", "last", "valid", "F"):
+        assert np.array_equal(getattr(got.boss, f), getattr(want.boss, f))
+    assert got.num_nodes() == want.num_nodes() > 0
+
+
+def test_sort_kmers_device_matches_cpu(cuda):
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 2 ** 32, (5000, 3), dtype=np.uint64) \
+        .astype(np.uint32)
+    keys[1000:2000] = keys[:1000]
+    got = db.device_sort_unique(keys, with_counts=True, device=cuda)
+    want = db.device_sort_unique(keys, with_counts=True, device="cpu")
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("K", BUILD_KS)
+def test_join_nodes_on_adversarial_runs(cuda, K):
+    """Runs of a node with 4 sources and 0 targets, 0 and 4, 4 and 4."""
+    rng = np.random.default_rng(K)
+
+    def node():
+        return "".join(rng.choice(list("ACGT"), size=K - 1))
+    X, Y, Z = node(), node(), node()
+    seqs = [X + c for c in "ACGT"] + [c + Y for c in "ACGT"] \
+        + [c + Z for c in "ACGT"] + [Z + c for c in "ACGT"]
+    words, vwords = _build_words([s.encode() for s in seqs], K, cuda)
+    skeys, _ = db.radix_sort(db.build_windows(words, vwords, K), 2 * K + 1)
+    J, _ = db.radix_sort(db.build_join(skeys, K)[1], 2 * K + 1)
+    got = db.join_nodes(J, K, 1 << 20)
+    want = db.join_nodes_plain(J, K, 1 << 20)
+    assert got[2:] == want[2:]
+    for g, w in zip(got[:2], want[:2]):
+        assert torch.equal(torch.sort(g).values, w)

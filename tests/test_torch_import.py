@@ -27,7 +27,9 @@ assert {"metagraph_tpu_torch.graph.canonical",
         "metagraph_tpu_torch.graph.hash_graph",
         "metagraph_tpu_torch.graph.sshash_graph",
         "metagraph_tpu_torch.server.server",
-        "metagraph_tpu_torch.utils.timer"} <= set(names), names
+        "metagraph_tpu_torch.utils.timer",
+        "metagraph_tpu_torch.succinct.construct",
+        "metagraph_tpu_torch.succinct.device_build"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
@@ -43,7 +45,7 @@ def test_import_pulls_in_no_jax():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     n, bad = out.stdout.split()[0], out.stdout.strip().split(" ", 1)[1:]
-    assert int(n) >= 29
+    assert int(n) >= 31
     assert bad == [], bad
 
 

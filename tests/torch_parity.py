@@ -12,41 +12,45 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # runs each command line through the port's CLI in this one process: ->
-# [stdout, exit code, the error an uncaught exception printed last]
+# [stdout, exit code, the error an uncaught exception printed last] and,
+# given a third argument, the stderr text
 RUNNER = """
 import contextlib, io, json, sys
 from metagraph_tpu_torch.cli import main
+with_stderr = len(sys.argv) > 3
 out = []
 for args in json.load(open(sys.argv[1])):
-    buf, code, err = io.StringIO(), 0, None
+    buf, ebuf, code, err = io.StringIO(), io.StringIO(), 0, None
     try:
         with contextlib.redirect_stdout(buf), \\
-                contextlib.redirect_stderr(io.StringIO()):
+                contextlib.redirect_stderr(ebuf):
             main(args)
     except SystemExit as e:
         code = e.code or 0
     except Exception as e:
         code, err = 1, f"{type(e).__name__}: {e}"
-    out.append([buf.getvalue(), code, err])
+    out.append([buf.getvalue(), code, err]
+               + ([ebuf.getvalue()] if with_stderr else []))
 json.dump(out, open(sys.argv[2], "w"))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "metagraph_tpu")]
 assert not bad, bad
 """
 
 
-def run_jax(args):
-    """The JAX CLI on one command line: -> [stdout, exit code, error]."""
+def run_jax(args, stderr=False):
+    """The JAX CLI on one command line: -> [stdout, exit code, error] and,
+    if ``stderr``, the stderr text."""
     from metagraph_tpu.cli.main import main as jax_main
-    buf, code, err = io.StringIO(), 0, None
+    buf, ebuf, code, err = io.StringIO(), io.StringIO(), 0, None
     try:
         with contextlib.redirect_stdout(buf), \
-                contextlib.redirect_stderr(io.StringIO()):
+                contextlib.redirect_stderr(ebuf):
             jax_main(args)
     except SystemExit as e:
         code = e.code or 0
     except Exception as e:          # noqa: BLE001 (an uncaught CLI error)
         code, err = 1, f"{type(e).__name__}: {e}"
-    return [buf.getvalue(), code, err]
+    return [buf.getvalue(), code, err] + ([ebuf.getvalue()] if stderr else [])
 
 
 def jax_cli(*args):
@@ -57,15 +61,16 @@ def jax_cli(*args):
     return out
 
 
-def run_port(tmp, lines):
+def run_port(tmp, lines, stderr=False):
     """The port's CLI on every command line (with --torch-device cpu), in
-    one subprocess."""
+    one subprocess; each result as ``run_jax``'s."""
     spec, res = tmp / "port_lines.json", tmp / "port_out.json"
     spec.write_text(json.dumps([[str(a) for a in line]
                                 + ["--torch-device", "cpu"]
                                 for line in lines]))
     env = dict(os.environ, PYTHONPATH=REPO)
-    got = subprocess.run([sys.executable, "-c", RUNNER, str(spec), str(res)],
+    got = subprocess.run([sys.executable, "-c", RUNNER, str(spec), str(res)]
+                         + (["stderr"] if stderr else []),
                          capture_output=True, env=env, cwd=str(tmp),
                          timeout=900)
     assert got.returncode == 0, got.stderr.decode()[-3000:]
