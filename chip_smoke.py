@@ -21,7 +21,9 @@ then:
    against their plain versions on the card, step by step through the
    build on its own inputs (every output whole, exactly; the kernels' W,
    last, valid and F equal to the file's), each timed beside its plain
-   version and D2 beside ``torch.sort(stable=True)`` over the same keys;
+   version and D2 beside ``torch.sort(stable=True)`` over the same keys
+   (a line a sort: n, bits, the passes its plan runs, ms, torch.sort's ms
+   and the pass floor of 16 B a key a pass);
    an independent oracle (the valid edges are the distinct valid windows,
    numpy 2-bit keys sorted and deduped, label by label, and 100,000
    edges decoded with ``BOSS.get_edge_seq`` are among them); and, for
@@ -1021,23 +1023,45 @@ def build_kernel_checks(seqs, k, torch, dev, reps):
             raise AssertionError(f"{name} disagrees with its plain version")
         return got
 
-    def sort(x, bits):
-        out = step("radix_sort", lambda: db.radix_sort(x, bits)[0],
+    def sort(what, x, bits, sentinel=None):
+        """One D2 sort as the build runs it (``sentinel=`` for the join and
+        stream sorts), held whole against the plain version without it;
+        a line with its passes (the plan's, and on the card the launches
+        of one call less the memset and the histogram), its ms, torch.sort's
+        and the pass floor (16 B a key a pass)."""
+        kw = {} if sentinel is None else {"sentinel": sentinel}
+        passes = len(db.radix_plan_of(x, bits, sentinel)[1])
+        if dev.type == "cuda" and len(x):
+            before = db.radix_sort.launches
+            db.radix_sort(x, bits, **kw)
+            if db.radix_sort.launches - before != 2 + passes:
+                raise AssertionError(f"radix_sort {what}: launches differ "
+                                     "from its pass plan")
+        e0 = res.get("radix_sort", {}).get("ms", 0.0)
+        out = step("radix_sort", lambda: db.radix_sort(x, bits, **kw)[0],
                    lambda: db.radix_sort_plain(x, bits)[0], 16 * len(x))
+        ms = res["radix_sort"]["ms"] - e0
         lib = device_ms(torch, dev, lambda: torch.sort(x, stable=True), reps)
         e = res["radix_sort"]
         e["library_ms"] = (e["library_ms"] or 0.0) + lib
+        floor = 16 * len(x) * passes / HBM_BYTES_PER_S * 1e3
+        log(f"kernel radix_sort [build k = {k}, {what}]: n = {len(x)}, "
+            f"bits {bits}" + ("" if sentinel is None else
+                              f", {int((x != sentinel).sum())} not the "
+                              "sentinel")
+            + f", {passes} passes: {ms:.4f} ms (torch.sort {lib:.4f} ms, "
+            f"pass floor {floor:.4f} ms)")
         return out
 
     n = words.shape[0] * db.T_WIRE
     keys = step("build_windows", lambda: db.build_windows(words, vwords, k),
                 lambda: db.build_windows_plain(words, vwords, k),
                 words.numel() * 4 + vwords.numel() * 4 + 8 * n)
-    skeys = sort(keys, 2 * k + 1)
+    skeys = sort("edge", keys, 2 * k + 1)
     del keys
     uniq, J, U = step("build_join", lambda: db.build_join(skeys, k),
                       lambda: db.build_join_plain(skeys, k), 25 * n)
-    J = sort(J, 2 * k + 1)
+    J = sort("join", J, 2 * k + 1, db._sent2(k))
     cap = db.capd_limit(db._CAPD_DEFAULT, 1 << 22)      # the build's limit
 
     def sorted_lists(t):
@@ -1049,7 +1073,8 @@ def build_kernel_checks(seqs, k, torch, dev, reps):
         lambda: db.join_nodes_plain(J, k, cap), 16 * n, sorted_lists)
     res["build_join"]["nbytes"] += 8 * (n_sink + n_src1)
     del J
-    sink, src1 = sort(sink, 2 * k - 2), sort(src1, 2 * k - 2)
+    sink, src1 = sort("sink", sink, 2 * k - 2), \
+        sort("source", src1, 2 * k - 2)
     dummies = db.expand_dummies(db.unpack_node_keys(sink.cpu().numpy(), k),
                                 db.unpack_node_keys(src1.cpu().numpy(), k),
                                 k)
@@ -1058,7 +1083,7 @@ def build_kernel_checks(seqs, k, torch, dev, reps):
     k3 = step("build_emit", lambda: db.emit_keys(skeys, uniq, d3, k),
               lambda: db.emit_keys_plain(skeys, uniq, d3, k),
               9 * n + 16 * D + 8 * n)
-    S = sort(k3, 3 * k)
+    S = sort("stream", k3, 3 * k, db._sent3(k))
     del k3
     M = U + D
     W, last, valid, F = step(

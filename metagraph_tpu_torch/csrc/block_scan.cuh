@@ -1,6 +1,5 @@
 // A device-wide exclusive prefix sum of uint32 counts, in place, for the
-// construction kernels (radix_sort.cu: the digit offsets of a pass;
-// build_emit.cu: the kept rows' output offsets).
+// construction kernel build_emit.cu (the kept rows' output offsets).
 //
 // Three launches: each block of SCAN_THREADS sums its SCAN_CHUNK counts;
 // one block scans those sums, SCAN_CHUNK at a time with a carry; each

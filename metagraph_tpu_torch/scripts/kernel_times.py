@@ -1,8 +1,8 @@
-"""Time kernels A, B, 3, 4, S1, S2, W1 and W2 (``key_lookup``,
+"""Time kernels A, B, 3, 4, S1, S2, W1, W2 and D2 (``key_lookup``,
 ``codes_lookup``, ``selection_mask``, ``sw_scores``,
 ``sparse_label_counts``, ``overflow_counts``, ``brwt_row_words``,
-``rowdiff_row_words``) of one or more trees of the port on the card, each
-held exactly against its plain version.
+``rowdiff_row_words``, ``radix_sort``) of one or more trees of the port
+on the card, each held exactly against its plain version.
 
     python metagraph_tpu_torch/scripts/kernel_times.py [--root DIR ...]
 
@@ -66,7 +66,17 @@ wrappers take the same arguments.  The inputs come from fixed seeds:
   cycles, then once under torch.profiler (the device ms of each kernel a
   call launches: W2's four steps); ``--slots 1,2,4,8`` times W1 and W2
   again at each number of windows a warp, in the trees that have that
-  setting.
+  setting;
+* ``radix_sort`` (D2) on the five sorts of a pan-shaped build
+  (``chip_smoke.py``'s "pan": 5 random base genomes of 4,000,000 bp with
+  4 strains each at 1% substitutions, 3 N runs a reference, k = 21): the
+  edge sort of the window keys (D1's), the join sort of D3's entries, the
+  sink and source node lists and the 3-bit stream sort of D4's keys, the
+  inputs made with the first tree's kernels (and the plain sorts between
+  them).  Each tree sorts each as its build does (the join and stream
+  sorts with ``sentinel=`` where its wrapper takes it, and once more
+  without it), ``torch.sort(stable=True)`` over the same keys beside
+  them.  A tree without ``succinct/device_build.py`` skips them.
 
 The last line of stdout is a JSON object: every tree's times in its turns
 (CUDA events, mean of ``--reps`` launches after a warm-up) and the card.
@@ -96,14 +106,16 @@ FULL = dict(keys=27_150_000, key_table=8_100_000, refs=1000, ref_len=8101,
             sparse=dict(refs=1000, ref_rows=8100, reads=150_000, read_len=200,
                         long_hits=1 << 24, labels=(4096, 65_536),
                         wide_reads=15_000, patterns=(16, 48, 65),
-                        ctrl_rows=256, anchor_every=100, words_tiles=None))
+                        ctrl_rows=256, anchor_every=100, words_tiles=None),
+            pan=(5, 4_000_000, 4, 0.01, 3), build_k=21)
 TINY = dict(keys=5000, key_table=1500, refs=12, ref_len=300, reads=200,
             read_len=120, long_windows=2000, buckets_log=9, ctrl_log=6,
             sw=((16, 37, 60), (4, 70, 90)), select=(301, 100),
             sparse=dict(refs=24, ref_rows=400, reads=300, read_len=120,
                         long_hits=3000, labels=(4096, 65_536), wide_reads=40,
                         patterns=(4, 8, 13), ctrl_rows=64, anchor_every=10,
-                        words_tiles=8))
+                        words_tiles=8),
+            pan=(2, 3000, 2, 0.01, 2), build_k=21)
 
 
 def sw_pairs(rng, B, LQ, LR):
@@ -178,11 +190,12 @@ def load_port(root: str) -> SimpleNamespace:
                 for n in ("succinct.ops", "align.sw", "query.device",
                           "query.tile_pack", "annotation.sparse_device",
                           "annotation.matrix")}
-        dm = importlib.import_module(
-            "metagraph_tpu_torch.annotation.device_matrix") \
-            if os.path.exists(os.path.join(
-                root, "metagraph_tpu_torch", "annotation",
-                "device_matrix.py")) else None
+        dm, db = (importlib.import_module(f"metagraph_tpu_torch.{m}")
+                  if os.path.exists(os.path.join(
+                      root, "metagraph_tpu_torch", *m.split("."))
+                      + ".py") else None
+                  for m in ("annotation.device_matrix",
+                            "succinct.device_build"))
     finally:
         sys.path.remove(root)
     build = importlib.import_module("metagraph_tpu_torch._build")
@@ -190,7 +203,7 @@ def load_port(root: str) -> SimpleNamespace:
                            sw=mods["align.sw"], qd=mods["query.device"],
                            tile_pack2=mods["query.tile_pack"].tile_pack2,
                            sd=mods["annotation.sparse_device"], dm=dm,
-                           matrix=mods["annotation.matrix"])
+                           db=db, matrix=mods["annotation.matrix"])
 
 
 def protein_inputs(rng, s, ops):
@@ -477,6 +490,99 @@ def sparse_zeros(torch, dev, S, L, P):
             torch.zeros((S, P), dtype=torch.int32, device=dev))
 
 
+def pan_seqs(rng, pan):
+    """``chip_smoke.py``'s pan-genome: ``genomes`` random base genomes of
+    ``length`` bp, each with ``strains`` strains at ``sub_rate``
+    substitutions, ``runs`` runs of N (1-500 bp) a reference, as bytes."""
+    G, L, S, sub, runs = pan
+    refs = np.empty((G * (S + 1), L), np.uint8)
+    for g in range(G):
+        base = rng.integers(0, 4, L, dtype=np.uint8)
+        refs[g * (S + 1)] = base
+        for i in range(1, S + 1):
+            at = np.flatnonzero(rng.random(L) < sub)
+            strain = base.copy()
+            strain[at] = (strain[at] + rng.integers(1, 4, len(at))) % 4
+            refs[g * (S + 1) + i] = strain
+    for r in refs:
+        for _ in range(runs):
+            at = int(rng.integers(0, len(r) - 500))
+            r[at: at + int(rng.integers(1, 500))] = 4
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    return [letters[r].tobytes() for r in refs]
+
+
+def sort_inputs(port, s, torch, dev):
+    """D2's five cases of a pan-shaped build (the module docstring):
+    {case: (keys, bits, sentinel)} and the plain sorts' keys; None for a
+    tree without the device construction."""
+    db = port.db
+    if db is None:
+        return None
+    from metagraph_tpu_torch._u32 import np_words
+    t0 = time.perf_counter()
+    k = s["build_k"]
+    seqs = pan_seqs(np.random.default_rng(9), s["pan"])
+    t2, vb, _, _ = port.tile_pack2(seqs, k, db.T_WIRE)
+    del seqs
+    words, vwords = port.qd.wire_words_layout(t2, vb, k, db.T_WIRE, len(t2))
+    del t2, vb
+    keys = db.build_windows(np_words(words).to(dev),
+                            np_words(vwords).to(dev), k)
+    del words, vwords
+    skeys = db.radix_sort_plain(keys, 2 * k + 1)[0]
+    uniq, J, U = db.build_join(skeys, k)
+    sink, src1, _, _ = db.join_nodes(db.radix_sort_plain(J, 2 * k + 1)[0],
+                                     k, db.capd_limit(db._CAPD_DEFAULT,
+                                                      1 << 22))
+    sink, src1 = (db.radix_sort_plain(x, 2 * k - 2)[0] for x in (sink, src1))
+    dummies = db.expand_dummies(db.unpack_node_keys(sink.cpu().numpy(), k),
+                                db.unpack_node_keys(src1.cpu().numpy(), k),
+                                k)
+    d3 = torch.from_numpy(db.host_key3(dummies, k)).to(dev)
+    k3 = db.emit_keys(skeys, uniq, d3, k)
+    del skeys, uniq
+    cases = {"edge": (keys, 2 * k + 1, None),
+             "join": (J, 2 * k + 1, db._sent2(k)),
+             "sink": (sink, 2 * k - 2, None),
+             "source": (src1, 2 * k - 2, None),
+             "stream": (k3, 3 * k, db._sent3(k))}
+    want = {name: db.radix_sort_plain(x, bits)[0]
+            for name, (x, bits, _) in cases.items()}
+    print("sort inputs: " + ", ".join(
+        f"{name} {len(x)} keys over {bits} bits"
+        + (f" ({int((x != sent).sum())} not the sentinel)"
+           if sent is not None else "")
+        for name, (x, bits, sent) in cases.items())
+        + f"; U = {U}, {len(dummies)} dummy rows; made in "
+        f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return SimpleNamespace(cases=cases, want=want)
+
+
+def time_sorts(db, sorts, torch, clock, check) -> dict:
+    """D2 on each sort case as the tree's build runs it, and without the
+    sentinel too; ``torch.sort(stable=True)`` over the same keys."""
+    import inspect
+    takes = "sentinel" in inspect.signature(db.radix_sort).parameters
+    times = {}
+    for case, (keys, bits, sent) in sorts.cases.items():
+        for s in (sent, None) if sent is not None and takes else (None,):
+            kw = {} if s is None else {"sentinel": s}
+            name = f"radix_sort {case}" + ("" if s is None else " sentinel")
+            if check:
+                exact(torch, db.radix_sort(keys, bits, **kw)[0],
+                      sorts.want[case], name)
+            times[name] = clock(lambda: db.radix_sort(keys, bits, **kw))
+            plan = ", {} passes".format(len(db.radix_plan_of(
+                keys, bits, s)[1])) if hasattr(db, "radix_plan_of") else ""
+            print(f"  {name}: {times[name]:.4f} ms ({len(keys)} keys, "
+                  f"{bits} bits{plan})", flush=True)
+        name = f"torch.sort {case}"
+        times[name] = clock(lambda: torch.sort(keys, stable=True))
+        print(f"  {name}: {times[name]:.4f} ms", flush=True)
+    return times
+
+
 def make_inputs(port, s, torch, dev):
     """Every kernel's inputs and plain result, from fixed seeds, with the
     first tree's host code (every tree has the same)."""
@@ -512,6 +618,7 @@ def make_inputs(port, s, torch, dev):
     inp.half = torch.where(torch.arange(S) % 2 == 0, 0, 2 ** 31 - 1).to(
         dev, torch.int32)
     inp.sparse = sparse_inputs(port, s, torch, dev)
+    inp.sorts = sort_inputs(port, s, torch, dev)
     return inp
 
 
@@ -566,6 +673,8 @@ def time_tree(port, inp, s, torch, dev, reps, check, slots=()):
             times["kernels"] = kernel_profile(port.dm, words, torch)
         if hasattr(port.dm, "SLOTS"):
             times.update(time_slots(port.dm, words, slots, torch, clock))
+    if port.db is not None and inp.sorts is not None:
+        times.update(time_sorts(port.db, inp.sorts, torch, clock, check))
     return times
 
 

@@ -18,7 +18,9 @@ CPU tensor and launches its kernel, or raises, for a CUDA one:
 
 * D1 ``build_windows`` (``build_windows.cu``): every window's 2-bit key;
 * D2 ``radix_sort`` (``radix_sort.cu``): a stable LSD radix sort over a
-  key's live bits, with an optional payload: every sort of the module;
+  key's live bits (one histogram launch, then one onesweep launch a pass
+  whose digit does not hold every key in one bin), with an optional
+  payload: every sort of the module;
 * D3 ``build_join`` / ``join_nodes`` (``build_join.cu``): dedupe, the join
   entries, then the dummy sink and level-1 source nodes of the sorted
   join;
@@ -80,64 +82,149 @@ def _check_cuda(dev: torch.device, n: int):
 # D2: the stable radix sort
 # --------------------------------------------------------------------------
 
+RADIX_DIGIT_BITS = 8             # D2's digit width (csrc/radix_sort.cu)
+# below this many keys D2 runs every digit's pass (and sorts the sentinel
+# keys along: they sort last all the same), with no host sync: a sync
+# costs more than the passes it could skip
+RADIX_SYNC_MIN = 1 << 17
+
+
+def radix_digits(bits: int, digit_bits: int = RADIX_DIGIT_BITS):
+    """The digits of an LSD sort over ``bits`` bits: [(shift, width)],
+    lowest first, each ``digit_bits`` wide but the last."""
+    return [(s, min(digit_bits, bits - s)) for s in range(0, bits,
+                                                          digit_bits)]
+
+
+def radix_plan(bits: int, single, digit_bits: int = RADIX_DIGIT_BITS,
+               partition: bool = False):
+    """D2's pass plan -> (digits [(shift, width)], the digits' indices to
+    run, in order).  ``single[p]``: digit p has one bin that holds every
+    key, so its stable pass moves nothing and is skipped.  ``partition``
+    (sentinel keys to move last) runs the last digit where no pass would
+    run otherwise: a pass puts the sentinels last."""
+    digits = radix_digits(bits, digit_bits)
+    if len(single) != len(digits):
+        raise ValueError(f"{len(single)} single-bin flags for "
+                         f"{len(digits)} digits")
+    run = [p for p, one in enumerate(single) if not one]
+    if partition and not run:
+        run = [len(digits) - 1]
+    return digits, run
+
+
+def radix_plan_of(keys: torch.Tensor, bits: int, sentinel=None,
+                  digit_bits: int = RADIX_DIGIT_BITS):
+    """``radix_plan`` for these keys as kernel D2 runs it: every digit
+    below ``RADIX_SYNC_MIN`` keys, else the single-bin flags found from
+    them (the keys equal to ``sentinel`` left out) as its histogram finds
+    them."""
+    if len(keys) < RADIX_SYNC_MIN:
+        return radix_plan(bits, [False] * len(radix_digits(bits, digit_bits)),
+                          digit_bits)
+    live = keys if sentinel is None else keys[keys != sentinel]
+    single = []
+    for shift, width in radix_digits(bits, digit_bits):
+        d = (live >> shift) & ((1 << width) - 1)
+        single.append(live.numel() == 0 or bool((d == d[0]).all()))
+    return radix_plan(bits, single, digit_bits,
+                      partition=live.numel() < keys.numel())
+
+
 def radix_sort(keys: torch.Tensor, bits: int,
-               payload: torch.Tensor | None = None):
+               payload: torch.Tensor | None = None, *, sentinel=None):
     """(n,) int64 keys -> (keys, payload) sorted stably by the keys' low
     ``bits`` bits (1..64) as unsigned integers; ``payload`` (int32 or
     int64, or None) moves with its key.  Callers give keys below 2^bits
-    where the order of the whole key matters.
+    where the order of the whole key matters.  ``sentinel``: a value the
+    caller promises is the largest key under ``bits`` (no payload then):
+    the other keys are sorted alone and the sentinels placed last, the
+    same tensors as without it.
 
     A CPU tensor takes the plain version; a CUDA tensor launches
-    ``csrc/radix_sort.cu`` (ceil(bits / 8) passes of five kernels) or
-    raises."""
+    ``csrc/radix_sort.cu`` or raises: one memset and one histogram kernel,
+    the host reads the histograms back (one sync; not below
+    ``RADIX_SYNC_MIN`` keys), then one kernel a pass of ``radix_plan_of``
+    that runs."""
     dev = keys.device
     _check_1d("keys", keys, (torch.int64,))
     if payload is not None:
         _check_1d("payload", payload, (torch.int32, torch.int64), dev)
         if payload.shape != keys.shape:
             raise ValueError("payload and keys differ in length")
+        if sentinel is not None:
+            raise ValueError("sentinel= takes no payload")
     if not 1 <= bits <= 64:
         raise ValueError(f"bits must be 1..64, not {bits}")
     if dev.type == "cpu":
-        return radix_sort_plain(keys, bits, payload)
+        return radix_sort_plain(keys, bits, payload, sentinel=sentinel)
     n = keys.shape[0]
     _check_cuda(dev, n)
     if n == 0:
         return keys.clone(), None if payload is None else payload.clone()
-    ka, kb = torch.empty_like(keys), torch.empty_like(keys)
-    pa = pb = None
-    if payload is not None:
-        pa, pb = torch.empty_like(payload), torch.empty_like(payload)
-    counts, sums = (
-        torch.empty(_build.function("radix_sort", f"mg_radix_{what}", [_L],
-                                    ctypes.c_int64)(n),
-                    dtype=torch.int32, device=dev)
-        for what in ("counts", "sums"))
-    fn = _build.function("radix_sort", "mg_radix_sort",
-                         [_P, _P, _P, _P, _P, _P, _I, _L, _I, _P, _P, _P])
+    if sentinel is not None and not -2 ** 63 <= int(sentinel) < 2 ** 63:
+        raise ValueError(f"sentinel {sentinel} is no int64")
+    drop = sentinel is not None and n >= RADIX_SYNC_MIN
+    sent = int(sentinel) if drop else 0
+    scratch = torch.empty(
+        _build.function("radix_sort", "mg_radix_scratch", [_L],
+                        ctypes.c_int64)(n),
+        dtype=torch.int64, device=dev)
+    hist_fn = _build.function("radix_sort", "mg_radix_hist",
+                              [_P, _L, _I, _I, _L, _P, _P])
+    stream = _stream(dev)
+    _build.check(hist_fn(keys.data_ptr(), n, bits, int(drop), sent,
+                         scratch.data_ptr(), stream), "radix_sort")
+    _build.count(radix_sort, 2)                # the memset and the kernel
+    digits = radix_digits(bits)
+    m = n                                      # the keys sorted
+    if n < RADIX_SYNC_MIN:
+        run = list(range(len(digits)))
+    else:                                      # one host sync a sort
+        R = 1 << RADIX_DIGIT_BITS              # 8 rows of R bins, then
+        hist = scratch.view(torch.int32)[: 8 * R + 1].cpu().numpy()  # drops
+        m = n - int(hist[8 * R])
+        single = [int(hist[p * R: (p + 1) * R].max()) == m
+                  for p in range(len(digits))]
+        _, run = radix_plan(bits, single, partition=m < n)
+    if not run:
+        return keys.clone(), None if payload is None else payload.clone()
+    kbuf = [torch.empty_like(keys) for _ in range(min(2, len(run)))]
+    pbuf = [None, None] if payload is None else \
+        [torch.empty_like(payload) for _ in range(min(2, len(run)))]
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    _build.check(fn(keys.data_ptr(), ka.data_ptr(), kb.data_ptr(),
-                    ptr(payload), ptr(pa), ptr(pb),
-                    0 if payload is None else payload.element_size(),
-                    n, bits, counts.data_ptr(), sums.data_ptr(),
-                    _stream(dev)), "radix_sort")
-    passes = -(-bits // 8)
-    _build.count(radix_sort, 5 * passes)
-    if passes % 2:
-        return ka, pa
-    return kb, pb
+    pass_fn = _build.function("radix_sort", "mg_radix_passes",
+                              [_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I,
+                               _L, _P, _I, _P, _P])
+    _build.check(pass_fn(
+        keys.data_ptr(), kbuf[0].data_ptr(), ptr(kbuf[-1]), ptr(payload),
+        ptr(pbuf[0]), ptr(pbuf[-1]),
+        0 if payload is None else payload.element_size(), n, m, bits,
+        int(drop), sent, (ctypes.c_int * len(run))(*run),
+        len(run), scratch.data_ptr(), stream), "radix_sort")
+    _build.count(radix_sort, len(run))
+    last = (len(run) - 1) % 2
+    return kbuf[last], pbuf[last]
 
 
 radix_sort.launches = 0
 
 
 def radix_sort_plain(keys: torch.Tensor, bits: int,
-                     payload: torch.Tensor | None = None):
+                     payload: torch.Tensor | None = None, *, sentinel=None):
     """Plain version of kernel D2: a stable ``torch.sort`` of the keys' low
-    ``bits`` bits in unsigned order."""
+    ``bits`` bits in unsigned order; with ``sentinel``, of the other keys,
+    the sentinels appended."""
+    if sentinel is not None:
+        if payload is not None:
+            raise ValueError("sentinel= takes no payload")
+        live = keys != sentinel
+        out, _ = radix_sort_plain(keys[live], bits)
+        return torch.cat([out, keys.new_full((len(keys) - len(out),),
+                                             sentinel)]), None
     if bits == 64:
         k = keys ^ torch.iinfo(torch.int64).min      # unsigned order
     else:
@@ -538,13 +625,14 @@ def build_p1(words: torch.Tensor, vwords: torch.Tensor, K: int,
              T: int = T_WIRE, cap: int = 1 << 31) -> P1:
     """Wire tiles -> P1 (device_build.py::_build_p1): D1, the edge sort
     (D2 over 2K + 1 bits: the sentinel sorts last), D3's dedupe and join
-    entries, the join sort (D2, 2K + 1 bits), D3's sink and source nodes,
-    each list sorted by D2 over 2(K-1) bits."""
+    entries, the join sort (D2, 2K + 1 bits, over the entries that are
+    not the sentinel), D3's sink and source nodes, each list sorted by D2
+    over 2(K-1) bits."""
     keys = build_windows(words, vwords, K, T)
     skeys, _ = radix_sort(keys, 2 * K + 1)
     del keys
     uniq, J, U = build_join(skeys, K)
-    J, _ = radix_sort(J, 2 * K + 1)
+    J, _ = radix_sort(J, 2 * K + 1, sentinel=_sent2(K))
     sink, src1, n_sink, n_src1 = join_nodes(J, K, cap)
     del J
     sink, _ = radix_sort(sink, 2 * (K - 1))
@@ -557,9 +645,10 @@ def build_p2(skeys: torch.Tensor, uniq: torch.Tensor, U: int,
     """P1's keys and the dummy rows' 3-bit keys -> (W, last, valid, F) of
     the BOSS table (device_build.py::_build_p2): D4's 3-bit keys, the
     stream sort (D2 over 3K bits: its first U + D rows are real), D4's
-    emission."""
+    emission (the stream sort runs over the keys that are not the
+    sentinel)."""
     k3 = emit_keys(skeys, uniq, dkeys3, K)
-    S, _ = radix_sort(k3, 3 * K)
+    S, _ = radix_sort(k3, 3 * K, sentinel=_sent3(K))
     del k3
     return build_emit(S, U + dkeys3.shape[0], K, alph_size)
 

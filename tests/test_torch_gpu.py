@@ -1426,29 +1426,95 @@ def _sort_keys(rng, n, bits):
     return pool[rng.integers(0, len(pool), n)]
 
 
-@pytest.mark.parametrize("payload", (None, torch.int32, torch.int64),
-                         ids=("keys", "int32", "int64"))
-@pytest.mark.parametrize("bits", (1, 3, 42, 43, 63, 64))
-@pytest.mark.parametrize("n", (0, 1, 255, 257, (1 << 20) + 7))
-def test_radix_sort_matches_plain_and_torch_sort(cuda, n, bits, payload):
-    rng = np.random.default_rng([n, bits])
-    keys = torch.from_numpy(_sort_keys(rng, n, bits)).to(cuda)
+RADIX_BITS = (1, 3, 8, 11, 22, 33, 40, 42, 43, 44, 63, 64)
+PAYLOADS = dict(argvalues=(None, torch.int32, torch.int64),
+                ids=("keys", "int32", "int64"))
+
+
+def _radix_check(keys, bits, payload=None, sentinel=None):
+    """D2 on ``keys`` (on the card) twice: the launches that its pass plan
+    gives, exactly; the same tensors both times; equal to the plain
+    version and to ``torch.sort(stable=True)``'s order."""
+    n = len(keys)
     pay = None if payload is None else \
-        torch.arange(n, dtype=payload, device=cuda)
+        torch.arange(n, dtype=payload, device=keys.device)
+    kw = {} if sentinel is None else {"sentinel": sentinel}
     before = db.radix_sort.launches
-    got_k, got_p = db.radix_sort(keys, bits, pay)
+    got_k, got_p = db.radix_sort(keys, bits, pay, **kw)
     torch.cuda.synchronize()
-    assert db.radix_sort.launches - before == (5 * -(-bits // 8) if n else 0)
+    _, run = db.radix_plan_of(keys, bits, sentinel)
+    assert db.radix_sort.launches - before == (2 + len(run) if n else 0)
+    again = db.radix_sort(keys, bits, pay, **kw)
+    assert torch.equal(again[0], got_k)
     want_k, want_p = db.radix_sort_plain(keys, bits, pay)
     assert torch.equal(got_k, want_k)
     if payload is not None:
         assert got_p.dtype == payload and torch.equal(got_p, want_p)
+        assert torch.equal(again[1], got_p)
     # the library sort agrees (unsigned order: flip the sign bit at 64)
     k = keys ^ torch.iinfo(torch.int64).min if bits == 64 else keys
     lib = torch.sort(k, stable=True)
     assert torch.equal(keys[lib.indices], got_k)
     if payload is not None:
         assert torch.equal(lib.indices.to(payload), got_p)
+    return run
+
+
+@pytest.mark.parametrize("payload", **PAYLOADS)
+@pytest.mark.parametrize("bits", RADIX_BITS)
+@pytest.mark.parametrize("n", (0, 1, 255, 4095, 4096, 4097, 3 * 4096 + 5,
+                               (1 << 17) - 1, (1 << 17) + 5, (1 << 20) + 7))
+def test_radix_sort_matches_plain_and_torch_sort(cuda, n, bits, payload):
+    """n at the 4,096-key tile's edges and on both sides of
+    RADIX_SYNC_MIN."""
+    rng = np.random.default_rng([n, bits])
+    keys = torch.from_numpy(_sort_keys(rng, n, bits)).to(cuda)
+    _radix_check(keys, bits, payload)
+
+
+@pytest.mark.parametrize("payload", **PAYLOADS)
+@pytest.mark.parametrize("bits", (11, 43, 63, 64))
+def test_radix_sort_long_look_back(cuda, bits, payload):
+    """2^24 + 7 keys: look-back across 4,097 tiles."""
+    n = (1 << 24) + 7
+    rng = np.random.default_rng([n, bits, 1])
+    keys = torch.from_numpy(_sort_keys(rng, n, bits)).to(cuda)
+    _radix_check(keys, bits, payload)
+
+
+@pytest.mark.parametrize("payload", **PAYLOADS)
+def test_radix_sort_skips_single_bin_passes(cuda, payload):
+    """All keys equal: every pass skipped (2 launches, the input's order);
+    one digit that every key shares: that pass alone skipped.  Below
+    RADIX_SYNC_MIN keys every pass runs."""
+    keys = torch.full((db.RADIX_SYNC_MIN - 1,), 0x2A5A5A5A5A5,
+                      dtype=torch.int64, device=cuda)
+    assert len(_radix_check(keys, 43, payload)) == 6
+    n = db.RADIX_SYNC_MIN + 11
+    keys = torch.full((n,), 0x2A5A5A5A5A5, dtype=torch.int64, device=cuda)
+    assert _radix_check(keys, 43, payload) == []
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(_sort_keys(rng, n, 43)).to(cuda) & ~(0xFF << 8)
+    assert _radix_check(keys, 43, payload) == [0, 2, 3, 4, 5]
+
+
+@pytest.mark.parametrize("bits", (22, 43, 63))
+@pytest.mark.parametrize("n", (4097, (1 << 17) - 1, 1 << 17, 3_000_001,
+                               (1 << 24) + 7))
+def test_radix_sort_sentinel(cuda, n, bits):
+    """J-like keys, two thirds of them the sentinel (the largest key under
+    ``bits``), sorted with and without ``sentinel=``; and keys that are
+    all the sentinel but a few equal ones (one pass moves them)."""
+    rng = np.random.default_rng([n, bits, 2])
+    sent = (1 << bits) - 1 if bits == 63 else 1 << (bits - 1)
+    keys = _sort_keys(rng, n, bits - 1)
+    keys[rng.random(n) < 2 / 3] = sent
+    keys = torch.from_numpy(keys).to(cuda)
+    for s in (None, sent):
+        _radix_check(keys, bits, None, s)
+    keys = torch.where(torch.arange(n, device=cuda) % 5 == 0, 7, sent)
+    run = _radix_check(keys, bits, None, sent)
+    assert len(run) == (1 if n >= db.RADIX_SYNC_MIN else -(-bits // 8))
 
 
 def test_radix_sort_low_bits_only(cuda):
@@ -1489,7 +1555,9 @@ def test_build_kernels_match_plain(cuda, K):
     uniq, J, U = db.build_join(skeys, K)
     puniq, pJ, pU = db.build_join_plain(skeys, K)
     assert torch.equal(uniq, puniq) and torch.equal(J, pJ) and U == pU > 0
-    J, _ = db.radix_sort(J, 2 * K + 1)
+    Js, _ = db.radix_sort(J, 2 * K + 1, sentinel=db._sent2(K))
+    assert torch.equal(Js, db.radix_sort(J, 2 * K + 1)[0])
+    J = Js
     got = db.join_nodes(J, K, 1 << 40)
     want = db.join_nodes_plain(J, K, 1 << 40)
     assert got[2:] == want[2:] and (K == 3 or min(got[2:]) > 3)
@@ -1507,7 +1575,8 @@ def test_build_kernels_match_plain(cuda, K):
                                        K)).to(cuda)
     k3 = db.emit_keys(skeys, uniq, d3, K)
     assert torch.equal(k3, db.emit_keys_plain(skeys, uniq, d3, K))
-    S, _ = db.radix_sort(k3, 3 * K)
+    S, _ = db.radix_sort(k3, 3 * K, sentinel=db._sent3(K))
+    assert torch.equal(S, db.radix_sort(k3, 3 * K)[0])
     M = U + len(d3)
     for g, w in zip(db.build_emit(S, M, K), db.build_emit_plain(S, M, K)):
         assert torch.equal(g, w)
@@ -1532,7 +1601,7 @@ def test_build_emit_drops_redundant_sinks(cuda):
 
 
 @pytest.mark.parametrize("K", BUILD_KS)
-def test_device_build_cuda_matches_cpu(cuda, K):
+def test_device_build_cuda_matches_cpu(cuda, K, monkeypatch):
     rng = np.random.default_rng([K, 1])
     seqs = _build_seqs(rng, n_seqs=120)
     names = ("build_windows", "radix_sort", "build_join", "build_emit")
@@ -1540,17 +1609,25 @@ def test_device_build_cuda_matches_cpu(cuda, K):
         getattr(db, n).launches = 0
     got = db.device_build_boss_arrays(seqs, K, device=cuda)
     launches = {n: getattr(db, n).launches for n in names}
+    # the CPU build, its sorts' keys recorded
+    sorts, radix_sort = [], db.radix_sort
+
+    def spy(keys, bits, payload=None, **kw):
+        sorts.append((keys, bits, kw.get("sentinel")))
+        return radix_sort(keys, bits, payload, **kw)
+    monkeypatch.setattr(db, "radix_sort", spy)
     want = db.device_build_boss_arrays(seqs, K, device="cpu")
+    monkeypatch.undo()
     for f in ("W", "last", "valid", "F"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
     # launches per build: D1 once; D2's edge, join and 3-bit sorts and
-    # the node lists that are not empty; D3 twice; D4's keys and five
-    # emission kernels
-    p1 = db.build_p1(*_build_words(seqs, K, torch.device("cpu")), K)
-    passes = [-(-b // 8) for b in (2 * K + 1, 2 * K + 1, 3 * K)] \
-        + [-(-(2 * K - 2) // 8)] * ((p1.n_sink > 0) + (p1.n_src1 > 0))
-    assert launches == {"build_windows": 1,
-                        "radix_sort": 5 * sum(passes),
+    # the node lists that are not empty, each a memset, a histogram and
+    # the passes of its plan; D3 twice; D4's keys and five emission
+    # kernels
+    assert len(sorts) == 5
+    d2 = sum(2 + len(db.radix_plan_of(k, b, s)[1])
+             for k, b, s in sorts if len(k))
+    assert launches == {"build_windows": 1, "radix_sort": d2,
                         "build_join": 2, "build_emit": 6}
 
 

@@ -207,7 +207,10 @@ def test_kernel_times_rehearsal_takes_turns(tmp_path):
     turns = [ln for ln in out.stdout.splitlines() if ln.startswith("turn ")]
     assert len(turns) == 4
     for name in ("key_lookup L2 control", "codes_lookup L2 control",
-                 "sw_scores", "selection_mask"):
+                 "sw_scores", "selection_mask", "radix_sort edge",
+                 "radix_sort join sentinel", "radix_sort sink",
+                 "radix_sort source", "radix_sort stream sentinel",
+                 "torch.sort stream"):
         assert sum(name in ln for ln in out.stdout.splitlines()) >= 4
     assert not out.stdout.rstrip().endswith("}")
 
