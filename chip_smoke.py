@@ -1024,8 +1024,8 @@ def build_kernel_checks(seqs, k, torch, dev, reps):
         return got
 
     def sort(what, x, bits, sentinel=None):
-        """One D2 sort as the build runs it (``sentinel=`` for the join and
-        stream sorts), held whole against the plain version without it;
+        """One D2 sort as the build runs it (``sentinel=`` for the join
+        sort), held whole against the plain version without it;
         a line with its passes (the plan's, and on the card the launches
         of one call less the memset and the histogram), its ms, torch.sort's
         and the pass floor (16 B a key a pass)."""
@@ -1080,15 +1080,26 @@ def build_kernel_checks(seqs, k, torch, dev, reps):
                                 k)
     d3 = torch.from_numpy(db.host_key3(dummies, k)).to(dev)
     D = len(dummies)
-    k3 = step("build_emit", lambda: db.emit_keys(skeys, uniq, d3, k),
-              lambda: db.emit_keys_plain(skeys, uniq, d3, k),
-              9 * n + 16 * D + 8 * n)
-    S = sort("stream", k3, 3 * k, db._sent3(k))
+    # the compaction: the n flags read, the U set rows' keys read (no other
+    # key is needed), the dummy rows read and the U + D keys written
+    k3 = step("build_emit", lambda: db.emit_keys(skeys, uniq, U, d3, k),
+              lambda: db.emit_keys_plain(skeys, uniq, U, d3, k),
+              n + 16 * U + 16 * D)
+    # for information beside the bound: the 32 B sectors of skeys that
+    # hold a set flag, which the compaction fetches whole
+    lead = skeys.data_ptr() // 8 % 4
+    key_sectors = int(torch.nn.functional.pad(
+        uniq.to(torch.uint8), (lead, -(lead + n) % 4)).view(-1, 4)
+        .amax(1).sum())
+    S = sort("stream", k3, 3 * k)
     del k3
     M = U + D
+    # the emission: the M rows read, F written, then 3 B a row written of
+    # row 0 and the kept rows
     W, last, valid, F = step(
         "build_emit", lambda: db.build_emit(S, M, k),
-        lambda: db.build_emit_plain(S, M, k), 8 * M + 3 * (M + 1) + 40)
+        lambda: db.build_emit_plain(S, M, k), 8 * M + 40)
+    res["build_emit"]["nbytes"] += 3 * len(W)
     entries = {}
     for name, e in res.items():
         bound = e.pop("nbytes") / HBM_BYTES_PER_S * 1e3
@@ -1100,6 +1111,10 @@ def build_kernel_checks(seqs, k, torch, dev, reps):
             + f"), max_abs_err {e['max_abs_err']}")
     log(f"build inputs: {n} windows, U = {U} distinct edges, {n_sink} sink "
         f"and {n_src1} source nodes, {D} dummy rows, {len(W) - 1} rows")
+    log(f"  build_emit: the compaction's key sectors holding a set flag: "
+        f"{key_sectors} ({32 * key_sectors} B, "
+        f"{32 * key_sectors / HBM_BYTES_PER_S * 1e3:.4f} ms; the bound "
+        f"counts {8 * U} B of keys)")
     return entries, tuple(x.cpu().numpy() for x in (W, last, valid, F))
 
 

@@ -116,6 +116,10 @@ def cth_aggregate(annotation, headers: HeaderIndex,
         return out
     pos, seq_of = np.concatenate(pos), np.concatenate(seq_of)
     owner, col, coord = row_triples(annotation, np.concatenate(rows))
+    if not len(owner):
+        # no coordinates (an annotation without them beside a .seqs
+        # mapping): every sequence that passed its threshold has no header
+        return out
     hdr, local = headers.locate(col, coord)
     # distinct (k-mer, header) pairs in first-seen order, with their
     # coordinates (counts, counts-sum) and their k-mer's sequence

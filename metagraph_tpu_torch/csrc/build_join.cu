@@ -30,17 +30,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
+using lookback::lanemask_lt;
 typedef unsigned long long u64;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int THREADS = 256;
-
-__device__ __forceinline__ unsigned lanemask_lt() {
-    unsigned m;
-    asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-    return m;
-}
 
 __global__ void __launch_bounds__(THREADS)
 join_entries_kernel(const long long *__restrict__ s, int64_t n, int K,

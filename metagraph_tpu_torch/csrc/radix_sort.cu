@@ -35,7 +35,8 @@
 //   in shared memory in digit order and writes each digit's run to its
 //   place, consecutive threads to consecutive addresses; the payload moves
 //   the same way with the same ranks.
-// * A status word is 64 bits: the pass number + 1 (bits 48-55), the kind
+// * A status word (lookback.cuh's load and store; this file's own walk, a
+//   thread a digit) is 64 bits: the pass number + 1 (bits 48-55), the kind
 //   (bits 40-41: a tile's count, or the inclusive prefix) and the value
 //   (n < 2^31).  The memset zeroes it once a sort; a word of an earlier
 //   pass carries another pass number and reads as not yet posted, so no
@@ -52,8 +53,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lookback.cuh"
+
 namespace {
 
+using lookback::lanemask_lt;
+using lookback::load_status;
+using lookback::store_status;
 typedef unsigned long long u64;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int THREADS = 256;
@@ -77,12 +83,6 @@ constexpr u64 VALUE = (1ull << 40) - 1;
 
 static_assert(R == THREADS, "a thread a digit");
 
-__device__ __forceinline__ unsigned lanemask_lt() {
-    unsigned m;
-    asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-    return m;
-}
-
 // The lanes whose value has the same low NB bits as this lane's: NB
 // ballots (__match_any_sync is several times slower on this card).
 template <int NB>
@@ -95,18 +95,6 @@ __device__ __forceinline__ unsigned match_low_bits(unsigned v) {
         m &= bit ? set : ~set;
     }
     return m;
-}
-
-__device__ __forceinline__ u64 load_status(const u64 *p) {
-    u64 v;
-    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
-                 : "=l"(v) : "l"(p) : "memory");
-    return v;
-}
-
-__device__ __forceinline__ void store_status(u64 *p, u64 v) {
-    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
-                 :: "l"(p), "l"(v) : "memory");
 }
 
 // Exclusive sum of one value a thread over the block; every thread calls.

@@ -1,10 +1,12 @@
-"""Time kernels A, B, 3, 4, S1, S2, W1, W2 and D2 (``key_lookup``,
+"""Time kernels A, B, 3, 4, S1, S2, W1, W2, D2 and D4 (``key_lookup``,
 ``codes_lookup``, ``selection_mask``, ``sw_scores``,
 ``sparse_label_counts``, ``overflow_counts``, ``brwt_row_words``,
-``rowdiff_row_words``, ``radix_sort``) of one or more trees of the port
-on the card, each held exactly against its plain version.
+``rowdiff_row_words``, ``radix_sort``, ``emit_keys`` + ``build_emit``) of
+one or more trees of the port on the card, each held exactly against its
+plain version.
 
     python metagraph_tpu_torch/scripts/kernel_times.py [--root DIR ...]
+        [--build-only]
 
 ``--root`` names a tree whose ``metagraph_tpu_torch`` is timed (by default
 the one this file lives in).  Given more than once, the trees are timed in
@@ -67,16 +69,24 @@ wrappers take the same arguments.  The inputs come from fixed seeds:
   call launches: W2's four steps); ``--slots 1,2,4,8`` times W1 and W2
   again at each number of windows a warp, in the trees that have that
   setting;
-* ``radix_sort`` (D2) on the five sorts of a pan-shaped build
+* ``radix_sort`` (D2) on the sorts of a pan-shaped build
   (``chip_smoke.py``'s "pan": 5 random base genomes of 4,000,000 bp with
   4 strains each at 1% substitutions, 3 N runs a reference, k = 21): the
-  edge sort of the window keys (D1's), the join sort of D3's entries, the
-  sink and source node lists and the 3-bit stream sort of D4's keys, the
-  inputs made with the first tree's kernels (and the plain sorts between
-  them).  Each tree sorts each as its build does (the join and stream
-  sorts with ``sentinel=`` where its wrapper takes it, and once more
-  without it), ``torch.sort(stable=True)`` over the same keys beside
-  them.  A tree without ``succinct/device_build.py`` skips them.
+  edge sort of the window keys (D1's), the join sort of D3's entries and
+  the sink and source node lists, the inputs made with the first tree's
+  kernels (and the plain sorts between them).  Each tree sorts each as
+  its build does (the join sort with ``sentinel=`` where its wrapper
+  takes it, and once more without it), ``torch.sort(stable=True)`` over
+  the same keys beside them.  A tree without
+  ``succinct/device_build.py`` skips them;
+* D4 by launch and ``build_p2`` on that build's P1 keys and dummy rows,
+  each tree with its own code (``time_build_p2``): its ``emit_keys``, the
+  stream sort of those keys as its build runs it (a tree that pads the
+  stream with sentinels sorts it with ``sentinel=``), ``torch.sort`` over
+  them, ``build_emit`` on the sorted U + D rows, their sums, and
+  ``build_p2`` whole (its host syncs included), then in each tree's
+  first turn the device ms of every kernel and memset that ``build_p2``
+  launches (torch.profiler).  ``--build-only`` times D2 and D4 alone.
 
 The last line of stdout is a JSON object: every tree's times in its turns
 (CUDA events, mean of ``--reps`` launches after a warm-up) and the card.
@@ -513,8 +523,10 @@ def pan_seqs(rng, pan):
 
 
 def sort_inputs(port, s, torch, dev):
-    """D2's five cases of a pan-shaped build (the module docstring):
-    {case: (keys, bits, sentinel)} and the plain sorts' keys; None for a
+    """D2's four shared cases and D4's inputs of a pan-shaped build (the
+    module docstring): {case: (keys, bits, sentinel)}, the plain sorts'
+    keys, and D4's inputs (P1's sorted keys, uniq flags and U, the dummy
+    rows' 3-bit keys) with the sorted U + D rows of the stream; None for a
     tree without the device construction."""
     db = port.db
     if db is None:
@@ -540,13 +552,11 @@ def sort_inputs(port, s, torch, dev):
                                 db.unpack_node_keys(src1.cpu().numpy(), k),
                                 k)
     d3 = torch.from_numpy(db.host_key3(dummies, k)).to(dev)
-    k3 = db.emit_keys(skeys, uniq, d3, k)
-    del skeys, uniq
+    stream = torch.sort(torch.cat([db.key3_plain(skeys[uniq], k), d3]))[0]
     cases = {"edge": (keys, 2 * k + 1, None),
              "join": (J, 2 * k + 1, db._sent2(k)),
              "sink": (sink, 2 * k - 2, None),
-             "source": (src1, 2 * k - 2, None),
-             "stream": (k3, 3 * k, db._sent3(k))}
+             "source": (src1, 2 * k - 2, None)}
     want = {name: db.radix_sort_plain(x, bits)[0]
             for name, (x, bits, _) in cases.items()}
     print("sort inputs: " + ", ".join(
@@ -554,14 +564,19 @@ def sort_inputs(port, s, torch, dev):
         + (f" ({int((x != sent).sum())} not the sentinel)"
            if sent is not None else "")
         for name, (x, bits, sent) in cases.items())
-        + f"; U = {U}, {len(dummies)} dummy rows; made in "
+        + f"; stream: n = {len(skeys)} window slots, U = {U}, "
+        f"{len(dummies)} dummy rows; made in "
         f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return SimpleNamespace(cases=cases, want=want)
+    emit = SimpleNamespace(skeys=skeys, uniq=uniq, U=U, d3=d3, k=k,
+                           S=stream)
+    return SimpleNamespace(cases=cases, want=want, emit=emit)
 
 
 def time_sorts(db, sorts, torch, clock, check) -> dict:
     """D2 on each sort case as the tree's build runs it, and without the
-    sentinel too; ``torch.sort(stable=True)`` over the same keys."""
+    sentinel too; ``torch.sort(stable=True)`` over the same keys.  A tree
+    whose ``radix_sort`` takes no ``sentinel=`` sorts without it: drop that
+    branch once no tree timed is that old."""
     import inspect
     takes = "sentinel" in inspect.signature(db.radix_sort).parameters
     times = {}
@@ -583,16 +598,72 @@ def time_sorts(db, sorts, torch, clock, check) -> dict:
     return times
 
 
-def make_inputs(port, s, torch, dev):
+def time_build_p2(db, sorts, torch, clock, check) -> dict:
+    """D4 by launch and ``build_p2`` as the tree's own code runs them: its
+    ``emit_keys`` (a tree whose wrapper takes no U writes a sentinel row
+    for every key that is not unique, and its build sorts the stream with
+    ``sentinel=``), the stream sort of those keys, ``torch.sort`` over
+    them, ``build_emit`` on the sorted U + D rows, the sum of D4's two,
+    D4 + the stream sort, and ``build_p2`` whole (its host syncs
+    included).  The branch for a tree whose ``emit_keys`` takes no U
+    serves parents from before the compacted stream: drop it once no tree
+    timed is that old."""
+    import inspect
+    e = sorts.emit
+    k, M = e.k, e.U + len(e.d3)
+    compact = "U" in inspect.signature(db.emit_keys).parameters
+    args = (e.skeys, e.uniq) + ((e.U,) if compact else ()) + (e.d3, k)
+    sent = None if compact else (1 << (3 * k)) - 1
+    kw = {} if sent is None else {"sentinel": sent}
+    k3 = db.emit_keys(*args)
+    times = {}
+    steps = (("emit_keys", lambda: db.emit_keys(*args),
+              lambda: db.emit_keys_plain(*args)),
+             ("radix_sort stream", lambda: db.radix_sort(k3, 3 * k, **kw)[0],
+              lambda: db.radix_sort_plain(k3, 3 * k, **kw)[0]),
+             ("build_emit", lambda: db.build_emit(e.S, M, k),
+              lambda: db.build_emit_plain(e.S, M, k)),
+             ("build_p2", lambda: db.build_p2(e.skeys, e.uniq, e.U, e.d3, k),
+              lambda: db.build_emit_plain(e.S, M, k)))
+    for name, fn, plain in steps:
+        if check:
+            got, want = fn(), plain()
+            for g, w in zip(*((x if isinstance(x, tuple) else (x,))
+                              for x in (got, want))):
+                exact(torch, g, w, name)
+        times[name] = clock(fn)
+        print(f"  {name}: {times[name]:.4f} ms", flush=True)
+    print(f"    (stream: {len(k3)} keys over {3 * k} bits"
+          + ("" if sent is None else f", {M} not the sentinel")
+          + f", {len(db.radix_plan_of(k3, 3 * k, sent)[1])} passes)",
+          flush=True)
+    if check and k3.is_cuda:
+        times["build_p2 kernels"] = launch_profile(
+            lambda: db.build_p2(e.skeys, e.uniq, e.U, e.d3, k), torch)
+    times["torch.sort stream"] = clock(lambda: torch.sort(k3, stable=True))
+    times["D4"] = times["emit_keys"] + times["build_emit"]
+    times["D4 + radix_sort stream"] = times["D4"] \
+        + times["radix_sort stream"]
+    for name in ("torch.sort stream", "D4", "D4 + radix_sort stream"):
+        print(f"  {name}: {times[name]:.4f} ms", flush=True)
+    return times
+
+
+def make_inputs(port, s, torch, dev, build_only=False):
     """Every kernel's inputs and plain result, from fixed seeds, with the
-    first tree's host code (every tree has the same)."""
+    first tree's host code (every tree has the same); ``build_only``: D2's
+    and D4's alone."""
+    if build_only:
+        return SimpleNamespace(build_only=True,
+                               sorts=sort_inputs(port, s, torch, dev))
     from metagraph_tpu_torch._u32 import np_words
     ops, qd, T = port.ops, port.qd, port.qd.TILE
     rng = np.random.default_rng(7)
     ptab, q = protein_inputs(rng, s, ops)
     ktab, t2, vb = k41_inputs(rng, s, ops, port.tile_pack2, T)
     up = lambda a: np_words(a).to(dev)     # noqa: E731
-    inp = SimpleNamespace(q=up(q), p2=torch.from_numpy(t2).to(dev),
+    inp = SimpleNamespace(build_only=False, q=up(q),
+                          p2=torch.from_numpy(t2).to(dev),
                           vb=torch.from_numpy(vb).to(dev), T=T, tables={})
     for kernel, tab in (("key_lookup", ptab), ("codes_lookup", ktab)):
         inp.tables[kernel] = {"": up(tab), " L2 control": up(
@@ -628,6 +699,10 @@ def time_tree(port, inp, s, torch, dev, reps, check, slots=()):
     ``slots`` windows a warp, where the tree has that setting."""
     clock = (lambda fn: cuda_ms(torch, fn, reps)) if dev.type == "cuda" \
         else host_ms
+    if inp.build_only:
+        return {} if port.db is None or inp.sorts is None else {
+            **time_sorts(port.db, inp.sorts, torch, clock, check),
+            **time_build_p2(port.db, inp.sorts, torch, clock, check)}
     ops, qd, T = port.ops, port.qd, inp.T
     cases = []
     for what, tab in inp.tables["key_lookup"].items():
@@ -675,33 +750,43 @@ def time_tree(port, inp, s, torch, dev, reps, check, slots=()):
             times.update(time_slots(port.dm, words, slots, torch, clock))
     if port.db is not None and inp.sorts is not None:
         times.update(time_sorts(port.db, inp.sorts, torch, clock, check))
+        times.update(time_build_p2(port.db, inp.sorts, torch, clock, check))
     return times
+
+
+def launch_profile(fn, torch, calls=5) -> dict:
+    """{kernel: device ms a call} of what ``fn`` launches (memsets
+    included), a mean over ``calls`` calls, from torch.profiler; {} where
+    the profiler records no device time."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or 0
+        if us > 0:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            name = re.split(r"[(<]", name)[0][:48]
+            ms[name] = ms.get(name, 0.0) + us / calls / 1e3
+    print("    device ms a call: " + ", ".join(
+        f"{n} {v:.4f}" for n, v in sorted(ms.items(), key=lambda x: -x[1])),
+        flush=True)
+    return ms
 
 
 def kernel_profile(dm, words, torch, calls=5) -> dict:
     """The device ms of each kernel that a W1 or W2 call launches (W2's
-    steps one by one), a mean over ``calls`` calls, from torch.profiler;
-    {} where the profiler records no device time."""
-    import re
-    from torch.profiler import ProfilerActivity, profile
+    steps one by one), a mean over ``calls`` calls (``launch_profile``)."""
     out = {}
     for name, (anno, w) in words.cases.items():
         fn = getattr(dm, name.split()[0])
-        fn(anno, w)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn(anno, w)
-            torch.cuda.synchronize()
-        ms = {}
-        for e in prof.key_averages():
-            us = getattr(e, "device_time_total", 0) or 0
-            if us > 0:
-                m = re.search(r"\w+_kernel(<[^>]*>)?", e.key)
-                short = m.group(0) if m else e.key[:40]
-                ms[short] = ms.get(short, 0.0) + us / calls / 1e3
-        out[name] = ms
-        print(f"  kernels of {name}: {ms}", flush=True)
+        print(f"  kernels of {name}:", flush=True)
+        out[name] = launch_profile(lambda: fn(anno, w), torch, calls)
     return out
 
 
@@ -803,6 +888,9 @@ def main(argv=None) -> int:
     ap.add_argument("--slots", default="",
                     help="comma-separated windows a warp at which W1 and W2 "
                          "are timed again (device_matrix.SLOTS)")
+    ap.add_argument("--build-only", action="store_true",
+                    help="time D2 and D4 alone (their inputs take about 2 "
+                         "minutes; the other kernels' are not made)")
     ap.add_argument("--rehearse", action="store_true",
                     help="tiny sizes on the CPU with the plain versions; "
                          "exits 2 without a result")
@@ -819,7 +907,7 @@ def main(argv=None) -> int:
     if not args.rehearse:
         print(card(), flush=True)
     t0 = time.perf_counter()
-    inp = make_inputs(ports[0], s, torch, dev)
+    inp = make_inputs(ports[0], s, torch, dev, args.build_only)
     print(f"inputs made in {time.perf_counter() - t0:.1f} s", flush=True)
     turns = ports + ports[::-1] if len(ports) > 1 else ports
     times = {p.root: [] for p in ports}

@@ -24,15 +24,17 @@ CPU tensor and launches its kernel, or raises, for a CUDA one:
 * D3 ``build_join`` / ``join_nodes`` (``build_join.cu``): dedupe, the join
   entries, then the dummy sink and level-1 source nodes of the sorted
   join;
-* D4 ``emit_keys`` / ``build_emit`` (``build_emit.cu``): the 3-bit BOSS
-  keys, then W, last, valid and F of the sorted stream.
+* D4 ``emit_keys`` / ``build_emit`` (``build_emit.cu``): the unique
+  rows' 3-bit BOSS keys, compacted, then W, last, valid and F of the
+  sorted stream.
 
 A key is one int64 where the TPU kept uint32 pairs: the wire key of an
-edge has 2K <= 42 bits (sentinel 1 << 2K), the 3-bit key 3K <= 63 (the
-sentinel 2^3K - 1).  The TPU's compact download buffers and the bucket
-sizes that bounded its recompiles (``_bucket``, ``capd``, ``mcap``) have
-no counterpart; the rule that refuses too many dummy sink or source nodes
-is kept (``capd_limit``).
+edge has 2K <= 42 bits (sentinel 1 << 2K), the 3-bit key 3K <= 63.  The
+3-bit stream holds the U + D real rows alone where the TPU padded it with
+a sentinel row for every window that is not a distinct edge.  The TPU's
+compact download buffers and the bucket sizes that bounded its recompiles
+(``_bucket``, ``capd``, ``mcap``) have no counterpart; the rule that
+refuses too many dummy sink or source nodes is kept (``capd_limit``).
 """
 
 from __future__ import annotations
@@ -320,10 +322,6 @@ def _sent2(K: int) -> int:
     return 1 << (2 * K)
 
 
-def _sent3(K: int) -> int:
-    return (1 << (3 * K)) - 1
-
-
 def _check_scope(K: int):
     if not 3 <= K <= 21:
         raise ValueError(f"the device construction takes 3 <= k <= 21, "
@@ -481,16 +479,19 @@ def join_nodes_plain(J: torch.Tensor, K: int, cap: int):
 # D4: BOSS keys and emission
 # --------------------------------------------------------------------------
 
-def emit_keys(skeys: torch.Tensor, uniq: torch.Tensor, dkeys3: torch.Tensor,
-              K: int) -> torch.Tensor:
-    """Sorted wire keys, their uniq flags and the dummy rows' 3-bit keys
-    (D,) -> the (n + D,) unsorted edge stream as 3-bit keys (the label at
-    bits 0..2, character j <= K-2 at bits 3(j+1); sentinel 2^3K - 1 for a
-    row that is not unique), dummy rows last.
+def emit_keys(skeys: torch.Tensor, uniq: torch.Tensor, U: int,
+              dkeys3: torch.Tensor, K: int) -> torch.Tensor:
+    """Sorted wire keys, their uniq flags (``U`` of them set: D3's count)
+    and the dummy rows' 3-bit keys (D,) -> the (U + D,) unsorted edge
+    stream as 3-bit keys (the label at bits 0..2, character j <= K-2 at
+    bits 3(j+1)): the unique rows in the order of ``skeys``, then the
+    dummy rows.  No row stands for a key that is not unique.
 
     A CPU tensor takes the plain version; a CUDA tensor launches
-    ``mg_emit_keys`` of ``csrc/build_emit.cu`` (counted on
-    ``build_emit``) or raises."""
+    ``mg_emit_keys`` of ``csrc/build_emit.cu`` (a memset and the
+    compaction kernel, counted on ``build_emit``) or raises.  Either
+    raises ValueError where ``U`` is not the count of set flags (the
+    kernel's count is read back: one sync)."""
     dev = skeys.device
     _check_1d("skeys", skeys, (torch.int64,))
     _check_1d("uniq", uniq, (torch.bool,), dev)
@@ -498,18 +499,28 @@ def emit_keys(skeys: torch.Tensor, uniq: torch.Tensor, dkeys3: torch.Tensor,
     _check_scope(K)
     if uniq.shape != skeys.shape:
         raise ValueError("uniq and skeys differ in length")
+    n, D = skeys.shape[0], dkeys3.shape[0]
+    if not 0 <= U <= n:
+        raise ValueError(f"U={U} unique rows of {n}")
     if dev.type == "cpu":
-        return emit_keys_plain(skeys, uniq, dkeys3, K)
-    n = skeys.shape[0]
-    _check_cuda(dev, n + dkeys3.shape[0])
-    k3 = torch.empty(n + dkeys3.shape[0], dtype=torch.int64, device=dev)
-    k3[n:] = dkeys3
-    if n:
+        return emit_keys_plain(skeys, uniq, U, dkeys3, K)
+    _check_cuda(dev, n)
+    _check_cuda(dev, U + D)
+    k3 = torch.empty(U + D, dtype=torch.int64, device=dev)
+    if n + D:
+        scratch = torch.empty(
+            _build.function("build_emit", "mg_emit_keys_scratch", [_L],
+                            ctypes.c_int64)(n),
+            dtype=torch.int64, device=dev)
         fn = _build.function("build_emit", "mg_emit_keys",
-                             [_P, _P, _L, _I, _P, _P])
-        _build.check(fn(skeys.data_ptr(), uniq.data_ptr(), n, K,
-                        k3.data_ptr(), _stream(dev)), "build_emit")
-        _build.count(build_emit)
+                             [_P, _P, _L, _P, _L, _L, _I, _P, _P, _P])
+        _build.check(fn(skeys.data_ptr(), uniq.data_ptr(), n,
+                        dkeys3.data_ptr(), D, U, K, k3.data_ptr(),
+                        scratch.data_ptr(), _stream(dev)), "build_emit")
+        _build.count(build_emit, 2)            # the memset and the kernel
+        n_set = int(scratch[1].item())
+        if n_set != U:
+            raise ValueError(f"U={U}, but {n_set} rows are unique")
     return k3
 
 
@@ -521,10 +532,12 @@ def key3_plain(keys2: torch.Tensor, K: int) -> torch.Tensor:
     return out
 
 
-def emit_keys_plain(skeys, uniq, dkeys3, K: int) -> torch.Tensor:
+def emit_keys_plain(skeys, uniq, U: int, dkeys3, K: int) -> torch.Tensor:
     """Plain version of ``mg_emit_keys``."""
-    return torch.cat([torch.where(uniq, key3_plain(skeys, K), _sent3(K)),
-                      dkeys3])
+    keys = skeys[uniq]
+    if len(keys) != U:
+        raise ValueError(f"U={U}, but {len(keys)} rows are unique")
+    return torch.cat([key3_plain(keys, K), dkeys3])
 
 
 def build_emit(S: torch.Tensor, M: int, K: int, alph_size: int = 5):
@@ -533,7 +546,8 @@ def build_emit(S: torch.Tensor, M: int, K: int, alph_size: int = 5):
     stream order behind the zero row 0 (construct.emit_boss semantics).
 
     A CPU tensor takes the plain version; a CUDA tensor launches
-    ``mg_build_emit`` of ``csrc/build_emit.cu`` (five kernels) or raises."""
+    ``mg_build_emit`` of ``csrc/build_emit.cu`` (a memset and one kernel)
+    or raises."""
     dev = S.device
     _check_1d("S", S, (torch.int64,))
     _check_scope(K)
@@ -544,24 +558,23 @@ def build_emit(S: torch.Tensor, M: int, K: int, alph_size: int = 5):
     if dev.type == "cpu":
         return build_emit_plain(S, M, K, alph_size)
     _check_cuda(dev, M)
-    out = torch.zeros((3, M + 1), dtype=torch.uint8, device=dev)
-    F = torch.zeros(alph_size, dtype=torch.int64, device=dev)
-    kept = torch.zeros(1, dtype=torch.int64, device=dev)
-    if M:
-        counts, sums = (
-            torch.empty(_build.function("build_emit", f"mg_emit_{what}",
-                                        [_L], ctypes.c_int64)(M),
-                        dtype=torch.int32, device=dev)
-            for what in ("counts", "sums"))
-        fn = _build.function("build_emit", "mg_build_emit",
-                             [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P])
-        _build.check(fn(S.data_ptr(), M, K, alph_size, out[0].data_ptr(),
-                        out[1].data_ptr(), out[2].data_ptr(), F.data_ptr(),
-                        kept.data_ptr(), counts.data_ptr(), sums.data_ptr(),
-                        _stream(dev)), "build_emit")
-        _build.count(build_emit, 5)
-    n = 1 + int(kept.item())
-    return out[0, :n], out[1, :n], out[2, :n], F
+    if not M:
+        zero = torch.zeros(1, dtype=torch.uint8, device=dev)
+        return zero, zero.clone(), zero.clone(), torch.zeros(
+            alph_size, dtype=torch.int64, device=dev)
+    out = torch.empty((3, M + 1), dtype=torch.uint8, device=dev)
+    scratch = torch.empty(   # F (8 words), the kept total, then look-back
+        _build.function("build_emit", "mg_emit_rows_scratch", [_L],
+                        ctypes.c_int64)(M),
+        dtype=torch.int64, device=dev)
+    fn = _build.function("build_emit", "mg_build_emit",
+                         [_P, _L, _I, _I, _P, _P, _P, _P, _P])
+    _build.check(fn(S.data_ptr(), M, K, alph_size, out[0].data_ptr(),
+                    out[1].data_ptr(), out[2].data_ptr(), scratch.data_ptr(),
+                    _stream(dev)), "build_emit")
+    _build.count(build_emit, 2)                # the memset and the kernel
+    n = 1 + int(scratch[8].item())
+    return out[0, :n], out[1, :n], out[2, :n], scratch[:alph_size]
 
 
 build_emit.launches = 0
@@ -643,14 +656,13 @@ def build_p1(words: torch.Tensor, vwords: torch.Tensor, K: int,
 def build_p2(skeys: torch.Tensor, uniq: torch.Tensor, U: int,
              dkeys3: torch.Tensor, K: int, alph_size: int = 5):
     """P1's keys and the dummy rows' 3-bit keys -> (W, last, valid, F) of
-    the BOSS table (device_build.py::_build_p2): D4's 3-bit keys, the
-    stream sort (D2 over 3K bits: its first U + D rows are real), D4's
-    emission (the stream sort runs over the keys that are not the
-    sentinel)."""
-    k3 = emit_keys(skeys, uniq, dkeys3, K)
-    S, _ = radix_sort(k3, 3 * K, sentinel=_sent3(K))
+    the BOSS table (device_build.py::_build_p2): D4's compaction into the
+    U + D rows' 3-bit keys, the stream sort (D2 over 3K bits), D4's
+    emission."""
+    k3 = emit_keys(skeys, uniq, U, dkeys3, K)
+    S, _ = radix_sort(k3, 3 * K)
     del k3
-    return build_emit(S, U + dkeys3.shape[0], K, alph_size)
+    return build_emit(S, S.shape[0], K, alph_size)
 
 
 # --------------------------------------------------------------------------

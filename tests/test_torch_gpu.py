@@ -1573,11 +1573,12 @@ def test_build_kernels_match_plain(cuda, K):
                                .numpy(), K)
     d3 = torch.from_numpy(db.host_key3(db.expand_dummies(sink, src1, K),
                                        K)).to(cuda)
-    k3 = db.emit_keys(skeys, uniq, d3, K)
-    assert torch.equal(k3, db.emit_keys_plain(skeys, uniq, d3, K))
-    S, _ = db.radix_sort(k3, 3 * K, sentinel=db._sent3(K))
-    assert torch.equal(S, db.radix_sort(k3, 3 * K)[0])
+    k3 = db.emit_keys(skeys, uniq, U, d3, K)
+    assert torch.equal(k3, db.emit_keys_plain(skeys, uniq, U, d3, K))
+    S, _ = db.radix_sort(k3, 3 * K)
+    assert torch.equal(S, db.radix_sort_plain(k3, 3 * K)[0])
     M = U + len(d3)
+    assert len(S) == M
     for g, w in zip(db.build_emit(S, M, K), db.build_emit_plain(S, M, K)):
         assert torch.equal(g, w)
 
@@ -1598,6 +1599,184 @@ def test_build_emit_drops_redundant_sinks(cuda):
     assert len(want[0]) < len(keys) + 1           # some rows were dropped
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+EMIT_TILE = 4096                  # rows a tile of csrc/build_emit.cu
+
+
+def _emit_keys_check(skeys, uniq, d3, K):
+    """emit_keys against its plain version, exactly, and run twice."""
+    U = int(uniq.sum())
+    got = db.emit_keys(skeys, uniq, U, d3, K)
+    assert torch.equal(got, db.emit_keys_plain(skeys, uniq, U, d3, K))
+    assert torch.equal(got, db.emit_keys(skeys, uniq, U, d3, K))
+    return got
+
+
+def _build_emit_check(S, K, alph_size=5):
+    """build_emit against its plain version, exactly, and run twice."""
+    M = len(S)
+    got = db.build_emit(S, M, K, alph_size)
+    want = db.build_emit_plain(S, M, K, alph_size)
+    again = db.build_emit(S, M, K, alph_size)
+    for g, w, a in zip(got, want, again):
+        assert torch.equal(g, w) and torch.equal(g, a)
+    return got
+
+
+@pytest.mark.parametrize("K", (3, 11, 21))
+@pytest.mark.parametrize("n", (1, EMIT_TILE - 1, EMIT_TILE, EMIT_TILE + 1,
+                               3 * EMIT_TILE - 1, 3 * EMIT_TILE,
+                               3 * EMIT_TILE + 1, 1_000_003))
+def test_emit_keys_tile_edges_match_plain(cuda, n, K):
+    """The compaction at n on and beside tile edges: random keys under 2K
+    bits, flags set in runs (as D3's after duplicates) and at random,
+    none set (U = 0), all set; D = 0 and dummy rows; an offset view whose
+    flags start off a 16-byte boundary."""
+    rng = np.random.default_rng([n, K])
+    skeys = torch.from_numpy(rng.integers(0, 1 << (2 * K), n + 5,
+                                          dtype=np.int64)).to(cuda)
+    top = (1 << (3 * K)) - 1
+    runs = np.repeat(rng.random(n // 5 + 2) < 0.5, 5)[: n + 5]
+    flags = {"runs": runs, "random": rng.random(n + 5) < 0.35,
+             "none": np.zeros(n + 5, bool), "all": np.ones(n + 5, bool)}
+    for what, f in flags.items():
+        uniq = torch.from_numpy(f).to(cuda)
+        for D in (0, 1, 5000):
+            d3 = torch.from_numpy(rng.integers(0, top, D,
+                                               dtype=np.int64)).to(cuda)
+            got = _emit_keys_check(skeys[:n], uniq[:n], d3, K)
+            assert len(got) == int(f[:n].sum()) + D, what
+        _emit_keys_check(skeys[3: n + 3], uniq[3: n + 3], d3, K)
+
+
+def _group_rows(rng, K, n_groups, full=0.5):
+    """3-bit rows (codes $=0..T=4) in minus-flag groups: each group one
+    random node suffix (characters 1..K-2) under every first character
+    and label, or a random part of them; $-labelled rows whose node goes
+    on (dropped), and first characters $ (not valid)."""
+    rest = rng.integers(0, 5, (n_groups, max(K - 2, 0)), dtype=np.uint8)
+    rows = []
+    for g in range(n_groups):
+        pairs = [(f, lab) for f in range(5) for lab in range(5)]
+        if rng.random() >= full:
+            pick = rng.random(25) < 0.4
+            pick[rng.integers(25)] = True
+            pairs = [p for p, on in zip(pairs, pick) if on]
+        for f, lab in pairs:
+            rows.append([f, *rest[g], lab])
+    return np.array(rows, np.uint8)
+
+
+@pytest.mark.parametrize("K", (9, 11, 21))
+@pytest.mark.parametrize("M", (1, 2, EMIT_TILE - 1, EMIT_TILE,
+                               EMIT_TILE + 1, 3 * EMIT_TILE - 1,
+                               3 * EMIT_TILE, 3 * EMIT_TILE + 1, 400_001))
+def test_build_emit_tile_edges_match_plain(cuda, M, K):
+    """The emission at M on and beside tile edges, on streams of whole and
+    partial minus-flag groups (up to 25 rows, so groups and same-node
+    runs straddle tile boundaries), $-labelled rows that are dropped and
+    rows that are not valid; every output byte array starts at another
+    16-byte offset as M changes."""
+    rng = np.random.default_rng([M, K, 3])
+    rows = _group_rows(rng, K, M // 10 + 3)
+    keys = np.unique(db.host_key3(rows, K))
+    while len(keys) < M:
+        more = _group_rows(rng, K, M // 10 + 3)
+        keys = np.unique(np.concatenate([keys, db.host_key3(more, K)]))
+    at = int(rng.integers(0, len(keys) - M + 1))
+    S = torch.from_numpy(keys[at: at + M]).to(cuda)
+    W, last, valid, F = _build_emit_check(S, K)
+    if M > 100:
+        assert int((W > 5).sum()) > M // 10        # many minus flags
+        assert len(W) - 1 < M                      # some rows dropped
+
+
+def _rest_key(v, K):
+    """Group number v -> characters 1..K-2 (base-5 digits, character 1
+    the lowest) in their 3-bit fields above bit 5: keys grow with v."""
+    key = 0
+    for j in range(K - 2):
+        key |= (v % 5) << (3 * j + 6)
+        v //= 5
+    return key
+
+
+@pytest.mark.parametrize("K", (11, 21))
+def test_build_emit_long_groups_past_the_halo(cuda, K):
+    """A stream with repeated rows (no construction makes one): groups of
+    42-62 rows starting 20 rows before a tile boundary, whose last row's
+    minus flag needs a row more than 24 back (the scan goes on in global
+    memory); whole 25-row groups between them."""
+    keys, v = [], 0
+    for t, dup in ((1, 40), (2, 50), (3, 60)):
+        while len(keys) < t * EMIT_TILE - 20:
+            pairs = [(f, lab) for f in range(5) for lab in range(5)]
+            pairs = pairs[: t * EMIT_TILE - 20 - len(keys)]
+            keys += [_rest_key(v, K) | f << 3 | lab for f, lab in pairs]
+            v += 1
+        g = _rest_key(v, K)
+        keys += [g | 1 << 3 | 3] + [g | 2 << 3 | 1] * dup + [g | 2 << 3 | 3]
+        v += 1
+    keys += [_rest_key(v, K) | f << 3 | 1 for f in range(5)]
+    S = torch.tensor(keys, dtype=torch.int64, device=cuda)
+    assert bool((S[1:] >= S[:-1]).all())
+    W, _, _, _ = _build_emit_check(S, K)
+    at = [t * EMIT_TILE - 20 + dup + 1 for t, dup in ((1, 40), (2, 50),
+                                                     (3, 60))]
+    assert all(int(W[1 + i]) == 3 + 5 for i in at)   # no row is dropped
+
+
+def test_d4_empty_and_single_rows(cuda):
+    """U = 0 with and without dummy rows, n = 0, D = 0, M = 1 and M = 0."""
+    K = 11
+    empty = torch.zeros(0, dtype=torch.int64, device=cuda)
+    skeys = torch.arange(10, dtype=torch.int64, device=cuda)
+    none = torch.zeros(10, dtype=torch.bool, device=cuda)
+    d3 = torch.tensor([5, 9, 17], dtype=torch.int64, device=cuda)
+    assert torch.equal(db.emit_keys(skeys, none, 0, d3, K), d3)
+    assert len(db.emit_keys(skeys, none, 0, empty, K)) == 0
+    assert torch.equal(db.emit_keys(empty, none[:0], 0, d3, K), d3)
+    assert len(db.emit_keys(empty, none[:0], 0, empty, K)) == 0
+    for S in (torch.tensor([0], device=cuda), d3[:1], empty):
+        _build_emit_check(S, K)
+
+
+@pytest.mark.parametrize("n", (10, 3 * EMIT_TILE + 1))
+def test_emit_keys_wrong_u_raises(cuda, n):
+    """A U other than the count of set flags raises ValueError on the card
+    as in the plain version, one below it and one above, the flags over
+    one tile and over several."""
+    K = 11
+    rng = np.random.default_rng([n, 16])
+    skeys = torch.from_numpy(rng.integers(0, 1 << (2 * K), n,
+                                          dtype=np.int64)).to(cuda)
+    uniq = torch.from_numpy(rng.random(n) < 0.5).to(cuda)
+    uniq[0], uniq[-1] = True, False
+    d3 = torch.tensor([5, 9], dtype=torch.int64, device=cuda)
+    U = int(uniq.sum())
+    for wrong in (U - 1, U + 1):
+        for fn in (db.emit_keys, db.emit_keys_plain):
+            with pytest.raises(ValueError, match=f"but {U} rows are unique"):
+                fn(skeys, uniq, wrong, d3, K)
+
+
+@pytest.mark.parametrize("K", (11, 21))
+def test_d4_past_2_24_rows(cuda, K):
+    """More than 2^24 rows: the look-back crosses over 4,000 tiles in both
+    kernels (the compaction over 5,000)."""
+    rng = np.random.default_rng([K, 24])
+    n = 5 * (1 << 22) + 4099
+    skeys = torch.from_numpy(rng.integers(0, 1 << (2 * K), n,
+                                          dtype=np.int64)).to(cuda)
+    uniq = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    d3 = torch.from_numpy(rng.integers(0, (1 << (3 * K)) - 1, 70_001,
+                                       dtype=np.int64)).to(cuda)
+    k3 = _emit_keys_check(skeys, uniq, d3, K)
+    del skeys, uniq
+    S = db.radix_sort(k3, 3 * K)[0]
+    assert len(S) > 1 << 24
+    _build_emit_check(S, K)
 
 
 @pytest.mark.parametrize("K", BUILD_KS)
@@ -1622,13 +1801,13 @@ def test_device_build_cuda_matches_cpu(cuda, K, monkeypatch):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
     # launches per build: D1 once; D2's edge, join and 3-bit sorts and
     # the node lists that are not empty, each a memset, a histogram and
-    # the passes of its plan; D3 twice; D4's keys and five emission
-    # kernels
+    # the passes of its plan; D3 twice; D4's compaction and emission, each
+    # a memset and one kernel
     assert len(sorts) == 5
     d2 = sum(2 + len(db.radix_plan_of(k, b, s)[1])
              for k, b, s in sorts if len(k))
     assert launches == {"build_windows": 1, "radix_sort": d2,
-                        "build_join": 2, "build_emit": 6}
+                        "build_join": 2, "build_emit": 4}
 
 
 def test_device_build_cuda_regrowth_and_limit(cuda):

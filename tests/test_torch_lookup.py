@@ -209,9 +209,37 @@ def test_kernel_times_rehearsal_takes_turns(tmp_path):
     for name in ("key_lookup L2 control", "codes_lookup L2 control",
                  "sw_scores", "selection_mask", "radix_sort edge",
                  "radix_sort join sentinel", "radix_sort sink",
-                 "radix_sort source", "radix_sort stream sentinel",
-                 "torch.sort stream"):
+                 "radix_sort source", "radix_sort stream",
+                 "torch.sort stream", "emit_keys", "build_emit",
+                 "build_p2"):
         assert sum(name in ln for ln in out.stdout.splitlines()) >= 4
+    assert not out.stdout.rstrip().endswith("}")
+
+
+def test_kernel_times_build_only_rehearsal(tmp_path):
+    """kernel_times.py --rehearse --build-only: D2's and D4's cases alone,
+    in each tree's turns, exit code 2 and no result line."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "metagraph_tpu_torch", "scripts",
+                          "kernel_times.py")
+    out = subprocess.run([sys.executable, script, "--rehearse",
+                          "--build-only", "--root", root, "--root", root],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=tmp_path)
+    assert out.returncode == 2, out.stderr[-2000:]
+    lines = out.stdout.splitlines()
+    assert sum(ln.startswith("turn ") for ln in lines) == 4
+    for name in ("radix_sort edge", "radix_sort join sentinel",
+                 "radix_sort sink", "radix_sort source", "radix_sort stream",
+                 "torch.sort stream", "emit_keys", "build_emit", "D4:",
+                 "build_p2"):
+        assert sum(name in ln for ln in lines) >= 4, name
+    for name in ("key_lookup", "codes_lookup", "sw_scores",
+                 "selection_mask"):
+        assert not any(name in ln for ln in lines), name
     assert not out.stdout.rstrip().endswith("}")
 
 
