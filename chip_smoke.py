@@ -31,6 +31,25 @@ then:
    ``convert.from_graph`` (one label on every valid edge), queried with
    100,000 of the input's windows through ``QueryEngine.query_batch``
    (kernels 1, 2, 3): each must come back labelled;
+1b. builds three more graphs through the port's CLI, each checking the
+   route its ``-v`` line names and held to an independent numpy oracle
+   (the valid edges are the distinct k-mers of the collector, 100,000
+   decoded edges among them): "pan-canonical", the pan-genome at k = 21
+   with ``--mode canonical`` (the device route, D1's strand mode: D1-D4
+   step by step against their plain versions as in 1a, the oracle the
+   distinct keys of both strands); "reads-k31-counts", the read set at k =
+   31 with ``--mode canonical --count-kmers`` (the general route, 2 words
+   a k-mer; each sampled edge's weight its multiplicity over both strands,
+   capped at 255); "protein-k20-disk", the protein deployment's 1,000
+   references (below) at k = 20 with ``--disk-swap`` and ``--mem-cap-gb
+   0.04`` (the general route in bounded RAM, 3 words a k-mer, at least 4
+   spilled chunks).  The general route's builds run again through
+   ``DBGSuccinct.build`` with the CLI's arguments (protein: the same disk
+   swap and memory cap, spilling as many chunks), every D2 call held whole
+   against ``radix_sort_plain`` and timed beside a stable ``torch.sort``
+   with its payload's gather (a line a sort), their launches and arrays
+   equal to the CLI build's; protein's arrays also equal to an uncapped
+   build's;
 2. drives the main path at full size: a dense-annotated k = 31 DNA index of
    over 8 M k-mers and 1,000 labels, made from ``--seed``, queried through
    ``QueryEngine.query_records`` with one batch of 150,000 reads of 200 bp
@@ -152,7 +171,8 @@ Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (D1-D4 for each build,
 ``build_windows/pan`` and the like, D2 with its ``torch.sort`` ms as
-``library_ms``; kernels 1-3 once more
+``library_ms``, ``radix_sort/reads-k31-counts`` and
+``radix_sort/protein-k20-disk`` for the general route; kernels 1-3 once more
 for each of the primary and canonical deployments, kernels B, 2, 3 for
 k41, A for seqs, A, 2, 3 for protein, 3 for many-labels, 2 for each words
 deployment, B or A, 2, 3 for each wide deployment and A, 2, 3 for each
@@ -167,7 +187,7 @@ reports go to ``--out``; the many-labels annotation files to ``--work``.
 ``--rehearse`` runs the same phases at a tiny size on the CPU with the
 plain versions (no build, no card) and exits 2 without a result: a dry run
 of the control flow.  ``--only-build`` runs the card, the kernels' build
-and phase 1a alone and exits 3 without a result.
+and phases 1a and 1b alone and exits 3 without a result.
 """
 
 from __future__ import annotations
@@ -208,7 +228,7 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             wide=(200, 8101, 20_000, 200), server_reads=2000,
             bitmap_reads=50_000, pan=(5, 4_000_000, 4, 0.01, 3),
             build_reads=(400_000, 150, 0.5, 0.01), build_k=21,
-            build_sample=100_000, build_reps=3)
+            build_sample=100_000, build_reps=3, host_k=31, disk_cap_gb=0.04)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -220,7 +240,8 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             seqs_headers=2, par_batches=3, par_threads=4,
             wide=(8, 501, 100, 120), server_reads=30, bitmap_reads=100,
             pan=(2, 3000, 2, 0.01, 2), build_reads=(300, 150, 0.5, 0.01),
-            build_k=21, build_sample=500, build_reps=1)
+            build_k=21, build_sample=500, build_reps=1, host_k=31,
+            disk_cap_gb=0.00006)
 
 
 def log(msg: str):
@@ -496,6 +517,18 @@ def annotation_of(o, labels, coords=False):
                                  has_coords=coords)
 
 
+def protein_refs(cfg, rng):
+    """``n_refs`` random protein references of ``protein_len`` codes over
+    the 20 amino acids (``AMINO``), each with a repeat of part of
+    itself."""
+    a, b = cfg["protein_repeat"]
+    refs = []
+    for _ in range(cfg["n_refs"]):
+        base = rng.integers(0, 20, cfg["protein_len"]).astype(np.uint8)
+        refs.append(np.concatenate([base, base[a:b]]))
+    return refs
+
+
 def make_protein_index(cfg, rng, labels):
     """Random protein references over the 20 amino acids, each with a
     repeat of part of itself, k = 20 on 8-bit keys (5 words)."""
@@ -503,11 +536,7 @@ def make_protein_index(cfg, rng, labels):
     from metagraph_tpu_torch.annotation.ops import pack_annotation_bitmap
     from metagraph_tpu_torch.kmer.alphabets import PROTEIN
     from metagraph_tpu_torch.succinct.ops import pack_kmers32
-    a, b = cfg["protein_repeat"]
-    refs = []
-    for _ in range(cfg["n_refs"]):
-        base = rng.integers(0, 20, cfg["protein_len"]).astype(np.uint8)
-        refs.append(np.concatenate([base, base[a:b]]))
+    refs = protein_refs(cfg, rng)
     keys_of = lambda codes: wide_window_keys(codes, KP, 5, 21)   # noqa
     keys = [keys_of(r)[0] for r in refs]
     labs = np.concatenate([np.full(len(kk), i, np.int64)
@@ -954,16 +983,17 @@ def write_records(path, codes):
             f.write(b">s%d\n" % i + letters[row].tobytes() + b"\n")
 
 
-def cli_build(fa, out, k, dev):
-    """``python -m metagraph_tpu_torch build --device -v`` (its ``main``
-    in this process, so that the launch counters show): -> (wall s, the
-    phases it traced, the nodes it reported)."""
+def cli_build(fa, out, k, dev, flags=()):
+    """``python -m metagraph_tpu_torch build --device -v`` with ``flags``
+    (its ``main`` in this process, so that the launch counters show): ->
+    (wall s, the phases it traced, the nodes it reported, the other
+    trace lines: its route, the disk sort's chunks)."""
     import contextlib
     import io
     from metagraph_tpu_torch.cli import main as cli_main
     from metagraph_tpu_torch.graph import dbg_succinct
     from metagraph_tpu_torch.utils.timer import set_trace
-    args = ["build", "--device", "-v", "-k", str(k), "-o", out, fa] \
+    args = ["build", "--device", "-v", "-k", str(k), *flags, "-o", out, fa] \
         + (["--torch-device", "cpu"] if dev.type == "cpu" else [])
     err = io.StringIO()
     t0 = time.perf_counter()
@@ -974,25 +1004,29 @@ def cli_build(fa, out, k, dev):
         set_trace(False)
         dbg_succinct.DEFAULT_MMAP = False
     wall = time.perf_counter() - t0
-    phases, nodes = {}, None
+    phases, nodes, notes = {}, None, []
     for ln in err.getvalue().splitlines():
         if ln.startswith("[trace] ") and " sec, RSS" in ln:
             name, rest = ln[8:].split(": ", 1)
             phases[name] = float(rest.split(" sec")[0])
+        elif ln.startswith("[trace] build route: ") \
+                or ln.startswith("[trace] disk sort: "):
+            notes.append(ln[8:])
         elif ln.startswith("graph built: "):
             nodes = int(ln.rsplit("nodes=", 1)[1])
     if nodes is None:
         raise AssertionError(f"build printed no 'graph built' line: "
                              f"{err.getvalue()[-2000:]}")
-    return wall, phases, nodes
+    return wall, phases, nodes, notes
 
 
-def build_kernel_checks(seqs, k, torch, dev, reps):
+def build_kernel_checks(seqs, k, torch, dev, reps, strands=1):
     """D1-D4 against their plain versions, on the card, on this build's
     inputs, step by step through the build (every output held whole,
     exactly), each timed beside its plain version, D2 also beside
     ``torch.sort(stable=True)`` over the same keys -> (entries, the
-    kernels' W, last, valid, F)."""
+    kernels' W, last, valid, F).  ``strands`` 2: a canonical build (D1's
+    strand mode, no dummy limit)."""
     from metagraph_tpu_torch._u32 import np_words
     from metagraph_tpu_torch.query.device import wire_words_layout
     from metagraph_tpu_torch.query.tile_pack import tile_pack2
@@ -1053,16 +1087,19 @@ def build_kernel_checks(seqs, k, torch, dev, reps):
             f"pass floor {floor:.4f} ms)")
         return out
 
-    n = words.shape[0] * db.T_WIRE
-    keys = step("build_windows", lambda: db.build_windows(words, vwords, k),
-                lambda: db.build_windows_plain(words, vwords, k),
+    n = strands * words.shape[0] * db.T_WIRE
+    keys = step("build_windows",
+                lambda: db.build_windows(words, vwords, k, strands=strands),
+                lambda: db.build_windows_plain(words, vwords, k,
+                                               strands=strands),
                 words.numel() * 4 + vwords.numel() * 4 + 8 * n)
     skeys = sort("edge", keys, 2 * k + 1)
     del keys
     uniq, J, U = step("build_join", lambda: db.build_join(skeys, k),
                       lambda: db.build_join_plain(skeys, k), 25 * n)
     J = sort("join", J, 2 * k + 1, db._sent2(k))
-    cap = db.capd_limit(db._CAPD_DEFAULT, 1 << 22)      # the build's limit
+    # the build's limit: the JAX device construction's, or none
+    cap = db.capd_limit(db._CAPD_DEFAULT, 1 << 22) if strands == 1 else n
 
     def sorted_lists(t):
         return tuple(torch.sort(x).values for x in t[:2]) \
@@ -1118,26 +1155,49 @@ def build_kernel_checks(seqs, k, torch, dev, reps):
     return entries, tuple(x.cpu().numpy() for x in (W, last, valid, F))
 
 
-def build_oracle(boss, codes, k, rng, sample):
-    """An oracle independent of the code under test: the valid edges are
-    the distinct valid windows (numpy 2-bit keys, sorted and deduped),
-    label by label; a sample of edges decoded with ``get_edge_seq`` is
-    among them.  ``codes``: (n, m) code rows."""
-    t0 = time.perf_counter()
+def sorted_window_keys(codes, k: int, both: bool = False) -> np.ndarray:
+    """The 2-bit keys (k <= 32) of the valid windows of (n, m) code rows,
+    and with ``both`` of their reverse complements, sorted."""
     keys = []
     for lo in range(0, len(codes), 1 << 14):
-        kk, ok = window_keys_2d(codes[lo: lo + (1 << 14)], k)
+        block = codes[lo: lo + (1 << 14)]
+        kk, ok = window_keys_2d(block, k)
         keys.append(kk[ok])
-    keys = np.sort(np.concatenate(keys))
-    t1 = time.perf_counter()
-    # np.unique's result by its own method, a sort and an adjacent compare
-    # (np.unique itself, numpy 2.3.5, took 67 and 85 s over these keys on
-    # the H100 machine's host, where sorting them took 13 and 4 s)
+        if both:
+            comp = np.where(block < 4, 3 - block.astype(np.int16), 4)
+            rk = window_keys_2d(comp[:, ::-1].astype(np.uint8), k)[0]
+            keys.append(rk[:, ::-1][ok])
+    return np.sort(np.concatenate(keys))
+
+
+def distinct_sorted(keys: np.ndarray):
+    """Sorted keys -> (distinct keys, their multiplicities): np.unique's
+    result by its own method, an adjacent compare (np.unique itself, numpy
+    2.3.5, took 67 and 85 s over the builds' keys on the H100 machine's
+    host, where sorting them took 13 and 4 s)."""
     new = np.ones(len(keys), bool)
     new[1:] = keys[1:] != keys[:-1]
-    distinct = keys[new]
-    del keys, new
-    t2 = time.perf_counter()
+    starts = np.flatnonzero(new)
+    return keys[starts], np.diff(np.append(starts, len(keys)))
+
+
+def rc_keys(keys: np.ndarray, k: int) -> np.ndarray:
+    """2-bit keys of k characters -> their reverse complements' keys."""
+    out = np.zeros_like(keys)
+    for i in range(k):
+        out |= (np.uint64(3) - ((keys >> np.uint64(2 * i)) & np.uint64(3))) \
+            << np.uint64(2 * (k - 1 - i))
+    return out
+
+
+def build_oracle(boss, distinct, k, rng, sample, counts=None, cap=255):
+    """An oracle independent of the code under test: the valid edges are
+    ``distinct``, the sorted distinct 2-bit keys of the collector's
+    windows, label by label; a sample of edges decoded with
+    ``get_edge_seq`` is among them, and where ``counts`` (the keys'
+    multiplicities) are given, each sampled edge's weight is its count,
+    capped at ``cap``.  -> the label counts."""
+    t0 = time.perf_counter()
     ids = np.flatnonzero(boss.valid)
     if len(ids) != len(distinct):
         raise AssertionError(f"{len(ids)} valid edges, {len(distinct)} "
@@ -1155,9 +1215,13 @@ def build_oracle(boss, codes, k, rng, sample):
     at = np.minimum(np.searchsorted(distinct, key), len(distinct) - 1)
     if not np.array_equal(distinct[at], key):
         raise AssertionError("a decoded edge is no window of the input")
-    log(f"build oracle: window keys sorted {t1 - t0:.1f} s, deduped "
-        f"{t2 - t1:.1f} s, edges checked {time.perf_counter() - t2:.1f} s")
-    return len(distinct), got
+    if counts is not None:
+        w = np.asarray(boss.weights)[pick]
+        if not np.array_equal(w, np.minimum(counts[at], cap)):
+            raise AssertionError("a sampled edge's weight is not its count")
+    log(f"build oracle: {len(pick)} edges checked in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return got
 
 
 def build_lookup(path, codes, k, rng, sample, torch, dev):
@@ -1200,7 +1264,8 @@ def build_phase(cfg, seed, torch, dev, work, timed):
     """The device construction on two deployments from ``seed``:
     "pan" (a pan-genome of related assemblies) and "reads" (reads drawn
     from its strains), each built through the port's CLI and held against
-    the plain versions, the oracle and (pan) the query path."""
+    the plain versions, the oracle and (pan) the query path; then the
+    three builds of ``host_builds``."""
     from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
     k = cfg["build_k"]
     rng = np.random.default_rng([seed, 8])
@@ -1218,7 +1283,7 @@ def build_phase(cfg, seed, torch, dev, work, timed):
         fa = os.path.join(work, f"{name}.fa")
         timed("build inputs", write_records, fa, codes)
         base = os.path.join(work, f"{name}-k{k}")
-        (wall, phases, nodes), launches = timed(
+        (wall, phases, nodes, _), launches = timed(
             "build cli", run_path, lambda: cli_build(fa, base, k, dev))
         log(f"build {name}: {len(codes)} sequences, {codes.size} bp, k = "
             f"{k}: {nodes} nodes in {wall:.1f} s (" + ", ".join(
@@ -1238,17 +1303,332 @@ def build_phase(cfg, seed, torch, dev, work, timed):
                                      "the kernels' ")
         if g.num_nodes() != nodes:
             raise AssertionError("nodes")
-        distinct, labels = timed("build oracle", build_oracle, g.boss, codes,
-                                 k, rng, cfg["build_sample"])
-        log(f"build {name} oracle: {distinct} valid edges = distinct valid "
-            f"windows, labels A/C/G/T {labels.tolist()}; "
+        t0 = time.perf_counter()
+        distinct = distinct_sorted(timed("build oracle", sorted_window_keys,
+                                         codes, k))[0]
+        log(f"build {name} oracle: keys sorted and deduped in "
+            f"{time.perf_counter() - t0:.1f} s")
+        labels = timed("build oracle", build_oracle, g.boss, distinct, k,
+                       rng, cfg["build_sample"])
+        log(f"build {name} oracle: {len(distinct)} valid edges = distinct "
+            f"valid windows, labels A/C/G/T {labels.tolist()}; "
             f"{cfg['build_sample']} decoded edges among them")
         del g
+        if name == "pan":
+            pan_distinct = distinct
+        del distinct
         if name == "pan":
             timed("build lookup", build_lookup, base + ".dbg", codes, k, rng,
                   cfg["build_sample"], torch, dev)
         out[name] = ({kern: launches[kern] for kern in BUILD_KERNELS},
                      entries)
+    out.update(host_builds(cfg, seed, torch, dev, work, timed, refs,
+                           pan_distinct, reads))
+    return out
+
+
+# --------------------------------------------------------------------------
+# the host construction (the general route) and canonical builds
+# --------------------------------------------------------------------------
+
+def sort_checks(torch, dev, reps, tag):
+    """A D2 ``radix_sort`` that, besides sorting, holds each call whole
+    against ``radix_sort_plain`` (exactly), checks its launches against
+    its pass plan, times it, the plain version and the library call (a
+    stable ``torch.sort`` of the keys in unsigned order and the payload's
+    gather) and prints a line a call; ``.entry()`` sums the calls and
+    ``.path_launches()`` counts the launches of the sorts themselves (not
+    of the checks).  Put in place of ``device_build.radix_sort`` (``with
+    .active()``), every sort of the general route goes through it."""
+    import contextlib
+    from metagraph_tpu_torch.succinct import device_build as db
+    real = db.radix_sort
+    e = dict(max_abs_err=0, ms=0.0, plain_ms=0.0, nbytes=0, library_ms=0.0,
+             calls=0, launches=0)
+
+    def spy(keys, bits, payload=None, **kw):
+        before = spy.launches
+        out = real(keys, bits, payload, **kw)
+        e["launches"] += spy.launches - before
+        n = len(keys)
+        if not n:
+            return out
+        want = db.radix_sort_plain(keys, bits, payload, **kw)
+        if not all(g is None and w is None or torch.equal(g, w)
+                   for g, w in zip(out, want)):
+            raise AssertionError(f"radix_sort [{tag}] disagrees with its "
+                                 "plain version")
+        del want
+        passes = len(db.radix_plan_of(keys, bits, kw.get("sentinel"))[1])
+        if dev.type == "cuda":
+            before = spy.launches
+            real(keys, bits, payload, **kw)
+            if spy.launches - before != 2 + passes:
+                raise AssertionError(f"radix_sort [{tag}]: launches differ "
+                                     "from its pass plan")
+        ms = device_ms(torch, dev, lambda: real(keys, bits, payload, **kw),
+                       reps)
+        plain = device_ms(torch, dev, lambda: db.radix_sort_plain(
+            keys, bits, payload, **kw), 1)
+        ukeys = keys ^ torch.iinfo(torch.int64).min if bits == 64 \
+            else keys & ((1 << bits) - 1)
+
+        def library():
+            r = torch.sort(ukeys, stable=True)
+            return r.values, None if payload is None \
+                else payload.index_select(0, r.indices)
+        lib = device_ms(torch, dev, library, reps)
+        del ukeys
+        nbytes = 16 * n + (0 if payload is None
+                           else 2 * payload.element_size() * n)
+        e["ms"] += ms
+        e["plain_ms"] += plain
+        e["library_ms"] += lib
+        e["nbytes"] += nbytes
+        e["calls"] += 1
+        if n >= 1 << 16:
+            log(f"kernel radix_sort [{tag}]: n = {n}, bits {bits}, payload "
+                f"{None if payload is None else payload.dtype}, {passes} "
+                f"passes: {ms:.4f} ms (torch.sort {lib:.4f} ms, plain "
+                f"{plain:.2f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
+                " ms)")
+        return out
+
+    spy.launches = 0
+
+    def entry():
+        bound = e["nbytes"] / HBM_BYTES_PER_S * 1e3
+        log(f"kernel radix_sort [{tag}]: {e['calls']} sorts, {e['ms']:.4f} "
+            f"ms (plain {e['plain_ms']:.2f} ms, bound {bound:.4f} ms, "
+            f"torch.sort {e['library_ms']:.4f} ms), max_abs_err 0")
+        return dict(max_abs_err=0, ms=e["ms"], plain_ms=e["plain_ms"],
+                    bound_ms=bound, bound_by="bytes",
+                    library_ms=e["library_ms"])
+
+    @contextlib.contextmanager
+    def active():
+        db.radix_sort = spy
+        try:
+            yield
+        finally:
+            db.radix_sort = real
+
+    spy.active, spy.entry = active, entry
+    spy.path_launches = lambda: e["launches"]
+    return spy
+
+
+def checked_build(torch, dev, reps, what, cli_launches, seqs, k, **kw):
+    """``DBGSuccinct.build(seqs, k, **kw)`` on ``dev`` with the port's
+    trace on and every D2 call checked (``sort_checks``): its sorts must
+    launch D2 as often as the CLI build did (``cli_launches``), so that
+    they are the sorts of that build at its shapes.  -> (the graph, the
+    D2 entry, the build's trace lines)."""
+    import contextlib
+    import io
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    from metagraph_tpu_torch.utils.timer import set_trace
+    spy = sort_checks(torch, dev, reps, what)
+    err = io.StringIO()
+    set_trace(True)
+    try:
+        with spy.active(), contextlib.redirect_stderr(err):
+            g = DBGSuccinct.build(seqs, k, device=dev, **kw)
+    finally:
+        set_trace(False)
+    if dev.type == "cuda" and spy.path_launches() != cli_launches:
+        raise AssertionError(f"build {what}: the checked build launched D2 "
+                             f"{spy.path_launches()} times, the CLI's "
+                             f"{cli_launches}")
+    notes = [ln[8:] for ln in err.getvalue().splitlines()
+             if ln.startswith("[trace] ")]
+    return g, spy.entry(), notes
+
+
+def same_boss(boss, arrays, what):
+    for f in ("W", "last", "valid", "F", "weights"):
+        a, b = getattr(boss, f), getattr(arrays, f)
+        if (a is None) != (b is None) or a is not None and not (
+                np.asarray(a).dtype == b.dtype and np.array_equal(a, b)):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def protein_words(codes: np.ndarray, k: int) -> np.ndarray:
+    """(n,) amino-acid codes 0..19 -> (n-k+1, 2) uint64 rows of 5-bit
+    codes (12 a word), comparable as (word 0, word 1)."""
+    n = len(codes) - k + 1
+    out = np.zeros((n, 2), np.uint64)
+    c = codes.astype(np.uint64)
+    for i in range(k):
+        out[:, i // 12] |= c[i: i + n] << np.uint64(5 * (11 - i % 12))
+    return out
+
+
+def protein_oracle(boss, refs, k, rng, sample):
+    """The valid edges of a Protein graph are the distinct windows of the
+    references (numpy rows, sorted and deduped); a sample of edges decoded
+    with ``get_edge_seq`` is among them.  -> the number of edges."""
+    from metagraph_tpu_torch.kmer.alphabets import PROTEIN
+    t0 = time.perf_counter()
+    rows = np.concatenate([protein_words(r, k) for r in refs])
+    rows = rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+    new = np.ones(len(rows), bool)
+    new[1:] = (rows[1:] != rows[:-1]).any(axis=1)
+    distinct = as_void(rows[new])
+    del rows, new
+    ids = np.flatnonzero(boss.valid)
+    if len(ids) != len(distinct):
+        raise AssertionError(f"{len(ids)} valid edges, {len(distinct)} "
+                             "distinct windows")
+    amino = np.full(len(PROTEIN.letters), 255, np.uint8)
+    for i, ch in enumerate(AMINO):
+        amino[PROTEIN.letters.index(ch)] = i
+    pick = rng.choice(ids, min(sample, len(ids)), replace=False)
+    chars = amino[boss.get_edge_seq(pick)]
+    if (chars == 255).any():
+        raise AssertionError("a decoded edge holds no amino acid")
+    key = as_void(np.concatenate([protein_words(c, k) for c in chars]))
+    at = np.minimum(np.searchsorted(distinct, key), len(distinct) - 1)
+    if not (distinct[at] == key).all():
+        raise AssertionError("a decoded edge is no window of the input")
+    log(f"build oracle: {len(distinct)} distinct windows, {len(pick)} "
+        f"edges checked in {time.perf_counter() - t0:.1f} s")
+    return len(distinct)
+
+
+def host_builds(cfg, seed, torch, dev, work, timed, pan, pan_distinct,
+                reads):
+    """Three builds through the port's CLI, each held to an independent
+    oracle: "pan-canonical" (the pan-genome at k = 21, both strands: the
+    device route, D1's strand mode against its plain version on the
+    build's tiles, D1-D4 step by step), "reads-k31-counts" (the read set,
+    canonical, k = 31, ``--count-kmers``: the general route, 2 words a
+    k-mer, each sampled edge's weight its multiplicity over both strands)
+    and "protein-k20-disk" (the protein references at k = 20, 3 words a
+    k-mer, ``--disk-swap`` and a ``--mem-cap-gb`` that spills at least 4
+    chunks: its arrays equal to the uncapped build's).  The general
+    route's D2 calls are held against ``radix_sort_plain`` as the same
+    build, with the CLI's arguments, runs again (``checked_build``)."""
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    rng = np.random.default_rng([seed, 9])
+    reps, sample = cfg["build_reps"], cfg["build_sample"]
+    out = {}
+
+    def cli(name, fa, k, flags, kernels, route):
+        base = os.path.join(work, name)
+        (wall, phases, nodes, notes), launches = timed(
+            "build cli", run_path, lambda: cli_build(fa, base, k, dev, flags))
+        log(f"build {name}: k = {k} {' '.join(flags)}: {nodes} nodes in "
+            f"{wall:.1f} s (" + ", ".join(f"{p} {v:.3f}"
+                                          for p, v in phases.items())
+            + "); " + "; ".join(notes))
+        if not notes or not notes[0].startswith(f"build route: {route} "):
+            raise AssertionError(f"build {name} took no {route} route")
+        for kern in kernels:
+            if dev.type == "cuda" and not launches[kern]:
+                raise AssertionError(f"build {name} launched no {kern}")
+        g = DBGSuccinct.load(base + ".dbg")
+        if g.num_nodes() != nodes:
+            raise AssertionError(f"build {name}: nodes")
+        return g, {kern: launches[kern] for kern in kernels}, notes
+
+    # pan-canonical: the device route with D1's strand mode
+    k = cfg["build_k"]
+    g, launches, _ = cli("pan-canonical", os.path.join(work, "pan.fa"), k,
+                         ["--mode", "canonical"], BUILD_KERNELS, "device")
+    seqs = [letters[r].tobytes() for r in pan]
+    entries, arrays = timed("build checks", build_kernel_checks, seqs, k,
+                            torch, dev, reps, strands=2)
+    del seqs
+    for f, a in zip(("W", "last", "valid", "F"), arrays):
+        if not np.array_equal(getattr(g.boss, f), a):
+            raise AssertionError(f"build pan-canonical: the file's {f} is "
+                                 "not the kernels'")
+    t0 = time.perf_counter()
+    distinct = distinct_sorted(np.sort(np.concatenate(
+        [pan_distinct, rc_keys(pan_distinct, k)])))[0]
+    log(f"build pan-canonical oracle: both strands' keys in "
+        f"{time.perf_counter() - t0:.1f} s")
+    labels = timed("build oracle", build_oracle, g.boss, distinct, k, rng,
+                   sample)
+    log(f"build pan-canonical oracle: {len(distinct)} valid edges = distinct"
+        f" keys of both strands, labels A/C/G/T {labels.tolist()}; {sample} "
+        "decoded edges among them")
+    out["pan-canonical"] = (launches, entries)
+    del g, distinct
+
+    # reads-k31-counts: the general route, counted
+    k = cfg["host_k"]
+    g, launches, _ = cli("reads-k31-counts", os.path.join(work, "reads.fa"),
+                         k, ["--mode", "canonical", "--count-kmers"],
+                         ("radix_sort",), "general")
+    seqs = [letters[r].tobytes() for r in reads]
+    again, entry, _ = timed(
+        "build checks", checked_build, torch, dev, reps,
+        f"reads-k31-counts, k = {k}", launches["radix_sort"], seqs, k,
+        mode="canonical", with_counts=True)
+    del seqs
+    same_boss(g.boss, again.boss, "build reads-k31-counts (checked sorts)")
+    del again
+    t0 = time.perf_counter()
+    distinct, counts = distinct_sorted(timed(
+        "build oracle", sorted_window_keys, reads, k, True))
+    log(f"build reads-k31-counts oracle: both strands' keys in "
+        f"{time.perf_counter() - t0:.1f} s")
+    labels = timed("build oracle", build_oracle, g.boss, distinct, k, rng,
+                   sample, counts, (1 << 8) - 1)
+    log(f"build reads-k31-counts oracle: {len(distinct)} valid edges = "
+        f"distinct keys of both strands, labels A/C/G/T {labels.tolist()}; "
+        f"{sample} decoded edges among them, each weight its count (max "
+        f"{int(counts.max())}) capped at 255")
+    out["reads-k31-counts"] = (launches, {"radix_sort": entry})
+    del g, distinct, counts
+
+    # protein-k20-disk: the general route in bounded RAM
+    refs = protein_refs(cfg, np.random.default_rng([seed, 3]))
+    amino = np.frombuffer(AMINO.encode(), np.uint8)
+    fa = os.path.join(work, "protein.fa")
+    with open(fa, "wb") as f:
+        for i, r in enumerate(refs):
+            f.write(b">p%d\n" % i + amino[r].tobytes() + b"\n")
+    swap = os.path.join(work, "swap")
+    os.makedirs(swap, exist_ok=True)
+    cap = cfg["disk_cap_gb"]
+    g, launches, notes = cli(
+        "protein-k20-disk", fa, KP, ["--alphabet", "Protein", "--disk-swap",
+                                     swap, "--mem-cap-gb", str(cap)],
+        ("radix_sort",), "general")
+
+    def spilled(notes, what):
+        chunks = [int(n.split()[2]) for n in notes
+                  if n.startswith("disk sort")]
+        if len(chunks) != 1 or chunks[0] < 4 or os.listdir(swap):
+            raise AssertionError(f"build {what} spilled {chunks} chunks (at "
+                                 "least 4 wanted) or left files")
+        return chunks[0]
+    chunks = spilled(notes, "protein-k20-disk")
+    seqs = [amino[r].tobytes() for r in refs]
+    # the same bounded-RAM build (the CLI's --mem-cap-gb in bytes), its
+    # sorts checked
+    again, entry, notes = timed(
+        "build checks", checked_build, torch, dev, reps,
+        f"protein-k20-disk, k = {KP}", launches["radix_sort"], seqs, KP,
+        alphabet="Protein", disk_swap=swap, mem_cap_bytes=int(cap * (1 << 30)))
+    if spilled(notes, "protein-k20-disk (checked sorts)") != chunks:
+        raise AssertionError("build protein-k20-disk: the checked build "
+                             "spilled another number of chunks")
+    same_boss(g.boss, again.boss, "build protein-k20-disk (checked sorts)")
+    del again
+    uncapped = timed("build checks", DBGSuccinct.build, seqs, KP,
+                     alphabet="Protein", device=dev)
+    del seqs
+    same_boss(g.boss, uncapped.boss, "build protein-k20-disk (uncapped)")
+    del uncapped
+    n = timed("build oracle", protein_oracle, g.boss, refs, KP, rng, sample)
+    log(f"build protein-k20-disk oracle: {n} valid edges = distinct windows;"
+        f" {chunks} chunks spilled; arrays equal to the uncapped build's")
+    out["protein-k20-disk"] = (launches, {"radix_sort": entry})
     return out
 
 
@@ -2608,7 +2988,7 @@ def main(argv=None) -> int:
                     help="tiny sizes on the CPU with the plain versions; "
                          "exits 2 without a result")
     ap.add_argument("--only-build", action="store_true",
-                    help="the card, the kernels' build and the build phase "
+                    help="the card, the kernels' build and the build phases "
                          "alone; exits 3 without a result")
     args = ap.parse_args(argv)
     import torch
@@ -2637,7 +3017,9 @@ def main(argv=None) -> int:
 
     card, _ = timed("card and build", card_and_build, args.rehearse,
                     args.out)
-    # the device construction (kernels D1-D4): a pan-genome and a read set
+    # the device construction (kernels D1-D4): a pan-genome and a read set,
+    # then a canonical pan-genome, a counted read set and a bounded-RAM
+    # protein build
     builds = build_phase(cfg, args.seed, torch, dev, args.work, timed)
     if args.only_build:
         for dep, (bl, be) in builds.items():

@@ -4,17 +4,20 @@
 ``python -m metagraph_tpu_torch build --device -k K -o OUT in.fa`` takes
 the command line of ``metagraph_tpu.cli build`` (metagraph_tpu/cli/
 main.py:1369-1412, ``_add_common`` :16-27) and follows its ``cmd_build``
-(:80-240): read the inputs, construct, set the state tag, save (``--mmap``
-or ``--state fast``: the mmap layout), print ``graph built: k=K nodes=N``
-on stderr.  The table is built on the card (``succinct/device_build.py``)
-with or without ``--device``, unless ``--torch-device cpu``: the builds
-that the JAX package sends to its device construction (basic mode, DNA,
-3 <= k <= 21, no counts, disk swap or memory cap), whose arrays its host
-construction gives too.  Every other build is refused once the inputs are
-read, naming its ROADMAP item: A12.2 (the host construction: other modes,
-alphabets and k, ``--count-kmers``, ``--disk-swap``, ``--mem-cap-gb``,
-``--suffix``, ``--graph``, ``--index-ranges``, KMC inputs) or A15
-(``--mesh-shards``).  ``-v`` prints the build's phases on stderr.
+(:80-240): read the inputs and, with ``--count-kmers``, their weights
+(a ``.kmer_counts.npz`` sidecar, else ``ka:f:``/``km:f:`` header
+abundances, ones for a sequence without one), construct, set the state
+tag, save (``--mmap`` or ``--state fast``: the mmap layout), print
+``graph built: k=K nodes=N`` on stderr.  With or without ``--device``
+the graph is built on the card, unless ``--torch-device cpu``: on the
+device route (DNA, 3 <= k <= 21, no counts, disk swap or memory cap, any
+mode) or the general route (every other alphabet, k, ``--count-kmers``,
+``--count-width``, ``--disk-swap``, ``--mem-cap-gb``), with the arrays of
+the JAX ``build`` either way (``DBGSuccinct.build``).  Refused once the
+inputs are read, naming the ROADMAP item: ``--suffix``, ``--graph`` other
+than succinct, ``--index-ranges`` and KMC inputs (A12.3), and
+``--mesh-shards`` (A15).  ``-v`` prints the route and the build's phases
+on stderr.
 
 ``python -m metagraph_tpu_torch query -i G.dbg -a A.column.annodbg --device
 reads.fa`` takes the command lines of ``metagraph_tpu.cli query``
@@ -53,9 +56,28 @@ import resource
 import sys
 import time
 
+import numpy as np
+
 
 def _trace(msg: str):
     print(f"[trace] {msg}", file=sys.stderr)
+
+
+def _count_weights(f, recs, k):
+    """The JAX ``cmd_build``'s window weights of one input under
+    ``--count-kmers`` (cli/main.py:116-143): its count sidecar, else its
+    header abundances (a comment's, else the name's) where any record has
+    one; None for a record without."""
+    from .seq_io.fasta import parse_abundance, read_kmer_counts
+    counts = read_kmer_counts(f)
+    if counts is not None:
+        return counts
+    rec_w = []
+    for r in recs:
+        ab = parse_abundance(r.comment or r.name)
+        rec_w.append(None if ab is None else np.full(
+            max(len(r.seq) - k + 1, 0), ab, dtype=np.uint64))
+    return rec_w if any(w is not None for w in rec_w) else None
 
 
 def cmd_build(args):
@@ -66,14 +88,22 @@ def cmd_build(args):
 
     device = resolve_device(args.torch_device)
     with PhaseTimer("parse input"):
-        # KMC databases (JAX's pre-pass, cli/main.py:87-98) are host
-        # construction inputs
+        # KMC databases (JAX's pre-pass, cli/main.py:87-98) are not ported
         for f in args.input:
             if f.endswith(".kmc_suf") or f.endswith(".kmc_pre"):
                 raise not_ported("a KMC input")
-        seqs = []
+        seqs, weights, have_weights = [], [], False
         for f in args.input:
-            seqs.extend(r.seq for r in read_fasta(f))
+            recs = read_fasta(f)
+            seqs.extend(r.seq for r in recs)
+            w = _count_weights(f, recs, args.k) if args.count_kmers \
+                else None
+            have_weights |= w is not None
+            weights.extend([None] * len(recs) if w is None else w)
+        if have_weights:
+            weights = [np.asarray(w, dtype=np.uint64) if w is not None
+                       else np.ones(max(len(s) - args.k + 1, 0), np.uint64)
+                       for s, w in zip(seqs, weights)]
     # the refusals come after the inputs are read, so that a missing input
     # is reported first, as the JAX CLI reports it
     if args.suffix is not None:
@@ -91,7 +121,9 @@ def cmd_build(args):
         g = DBGSuccinct.build(
             seqs, args.k, mode=args.mode, alphabet=args.alphabet,
             with_counts=args.count_kmers, bits_per_count=args.count_width,
-            mask_dummy=args.mask_dummy, disk_swap=args.disk_swap,
+            mask_dummy=args.mask_dummy,
+            window_weights=weights if have_weights else None,
+            disk_swap=args.disk_swap,
             mem_cap_bytes=None if args.mem_cap_gb is None
             else int(args.mem_cap_gb * (1 << 30)), device=device)
     g.boss.state = args.state
@@ -216,7 +248,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-shards", type=int, default=0, metavar="N")
     p.add_argument("--mem-cap-gb", type=float, default=None)
     p.add_argument("--device", action="store_true",
-                   help="the device construction (the port always runs it)")
+                   help="accepted as the JAX CLI accepts it: the port "
+                        "builds on the card either way")
     _add_torch_device(p)
     p.add_argument("input", nargs="+")
     p.set_defaults(func=cmd_build)

@@ -2,12 +2,21 @@
 
 Own copy of the parts of metagraph_tpu/graph/dbg_succinct.py the port uses:
 
-* ``build`` (:38-89) for the builds that the JAX package sends to its
-  device construction (:56-73): basic mode, the DNA alphabet, 3 <= k <=
-  21, no counts, window weights, disk swap or memory cap.  The table is
-  built on the card (``succinct/device_build.py``); every other build
-  raises ``NotImplementedError`` naming ROADMAP A12.2 (the host
-  construction);
+* ``build`` (:38-89), on one of two routes chosen from its arguments
+  alone (``build_route``):
+
+  - the device route, the builds that fit the card's 2-bit construction
+    (``succinct/device_build.py``, kernels D1-D4): the DNA alphabet, 3 <=
+    k <= 21, no counts, window weights, disk swap or memory cap, in mode
+    basic (the JAX device construction, with its dummy-node limit),
+    primary (JAX builds it from the basic collector: basic's arrays) or
+    canonical (both strands: D1's strand mode); the last two are JAX
+    host builds, which have no dummy-node limit;
+  - the general route, every other build: the host construction
+    (``kmer/extractor.py``, ``kmer/disk_sort.py`` for ``disk_swap`` or
+    ``mem_cap_bytes``, ``succinct/construct.py``), every row sort on
+    the card through kernel D2;
+
 * ``save`` (:602-609), in the npz or the mmap layout;
 * ``load`` (:611-655), for every layout it reads:
 
@@ -35,13 +44,32 @@ from ..succinct.boss import BOSS
 
 DEFAULT_MMAP = False
 DEVICE_K = (3, 21)          # the k the device construction takes
+COLLECTOR = {"basic": "basic", "canonical": "both", "primary": "basic"}
 
 
-def not_ported(what: str, item: str = "A12.2") -> NotImplementedError:
-    """The refusal of a build outside the device construction: A12.2 is
-    the host construction, A15 the mesh."""
+def not_ported(what: str, item: str = "A12.3") -> NotImplementedError:
+    """The refusal of a build the port does not make yet: A12.3 is
+    ``--graph``, ``--suffix``, ``--index-ranges`` and KMC inputs, A15 the
+    mesh."""
     return NotImplementedError(f"build: {what} is not ported yet (ROADMAP "
                                f"{item})")
+
+
+def build_route(k: int, mode: str = "basic", alphabet=DNA.name,
+                with_counts: bool = False, window_weights=None,
+                disk_swap: str | None = None,
+                mem_cap_bytes: int | None = None) -> str:
+    """"device" where the build fits the card's 2-bit construction (DNA,
+    3 <= k <= 21, no counts, weights, disk swap or memory cap, any mode),
+    else "general"."""
+    if mode not in COLLECTOR:
+        raise ValueError(f"unknown mode {mode!r}")
+    name = getattr(alphabet, "name", alphabet)
+    if name == DNA.name and DEVICE_K[0] <= k <= DEVICE_K[1] \
+            and not with_counts and window_weights is None \
+            and disk_swap is None and mem_cap_bytes is None:
+        return "device"
+    return "general"
 
 
 class DBGSuccinct:
@@ -64,29 +92,50 @@ class DBGSuccinct:
               window_weights=None, disk_swap: str | None = None,
               mem_cap_bytes: int | None = None,
               device=None) -> "DBGSuccinct":
-        """The graph of ``sequences`` (bytes or str), its BOSS table built
-        on ``device`` (the card unless "cpu"): the arrays of the JAX
-        ``DBGSuccinct.build(..., device=True)``.  Where no sequence holds a
-        window the table is the host pipeline's of no k-mers, as there."""
-        from ..succinct.construct import empty_boss_arrays
-        from ..succinct.device_build import device_build_boss_arrays
-        from ..utils.timer import PhaseTimer
+        """The graph of ``sequences`` (bytes or str), built on ``device``
+        (the card unless "cpu"): the arrays of the JAX
+        ``DBGSuccinct.build`` with the same arguments, ``device=True`` or
+        not.  ``window_weights``: per sequence, a count a window, summed
+        into the k-mer counts in place of occurrences; ``disk_swap`` and
+        ``mem_cap_bytes``: the bounded-RAM build's spill directory and
+        buffer size (1 << 28 where only the directory is given)."""
+        from ..device import resolve_device
+        from ..utils.timer import PhaseTimer, trace
         name = getattr(alphabet, "name", alphabet)
-        if mode != "basic":
-            raise not_ported(f"mode {mode!r}")
-        if ALPHABETS[name].sigma != 5:
-            raise not_ported(f"the {name} alphabet")
-        if not DEVICE_K[0] <= k <= DEVICE_K[1]:
-            raise not_ported(f"k = {k} (the device construction takes "
-                              f"{DEVICE_K[0]} <= k <= {DEVICE_K[1]})")
-        if with_counts or window_weights is not None:
-            raise not_ported("counting k-mers")
-        if disk_swap is not None or mem_cap_bytes is not None:
-            raise not_ported("a disk swap or memory cap")
-        seqs = [s if isinstance(s, bytes) else s.encode() for s in sequences]
-        arrays = device_build_boss_arrays(seqs, k, device=device)
-        if arrays is None:
-            arrays = empty_boss_arrays(k)
+        alph = ALPHABETS[name]
+        route = build_route(k, mode, name, with_counts, window_weights,
+                            disk_swap, mem_cap_bytes)
+        dev = resolve_device(device)
+        trace(f"build route: {route} ({mode} mode, {name}, k = {k})")
+        if route == "device":
+            from ..succinct.construct import empty_boss_arrays
+            from ..succinct.device_build import device_build_boss_arrays
+            seqs = [s if isinstance(s, bytes) else s.encode()
+                    for s in sequences]
+            arrays = device_build_boss_arrays(
+                seqs, k, device=dev,
+                strands=2 if COLLECTOR[mode] == "both" else 1,
+                bounded=mode == "basic")
+            if arrays is None:
+                arrays = empty_boss_arrays(k)
+        else:
+            from ..succinct.construct import build_boss_arrays
+            ex = KmerExtractor(alph)
+            with PhaseTimer("extract k-mers"):
+                if disk_swap is not None or mem_cap_bytes is not None:
+                    kmers, counts = ex.extract_disk(
+                        sequences, k, mode=COLLECTOR[mode],
+                        with_counts=with_counts,
+                        window_weights=window_weights,
+                        ram_cap_bytes=mem_cap_bytes or (1 << 28),
+                        tmp_dir=disk_swap or None, device=dev)
+                else:
+                    kmers, counts = ex.extract_tensors(
+                        sequences, k, COLLECTOR[mode], with_counts,
+                        window_weights, dev)
+            arrays = build_boss_arrays(kmers, alph.sigma,
+                                       counts if with_counts else None,
+                                       bits_per_count, device=dev)
         with PhaseTimer("BOSS indexes"):
             boss = BOSS.from_arrays(arrays)
         boss.count_width = bits_per_count

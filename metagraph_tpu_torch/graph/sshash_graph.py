@@ -50,7 +50,7 @@ class DBGSSHashGraph(_KmerGraphBase):
     @classmethod
     def build(cls, sequences, k: int, mode: str = BASIC,
               m: int | None = None) -> "DBGSSHashGraph":
-        return cls._bucketed(KmerExtractor(DNA).extract(
+        return cls._bucketed(KmerExtractor(DNA).distinct_kmers(
             sequences, k, mode="both" if mode == CANONICAL else "basic"),
             k, mode, m)
 

@@ -1,15 +1,25 @@
-"""FASTA / FASTQ reading, gzip included.
+"""FASTA / FASTQ reading, gzip included, and the k-mer counts of
+``build --count-kmers``.
 
 Own copy of metagraph_tpu/seq_io/fasta.py:19-120 (``FastaRecord`` and
 ``read_fasta``): the whole file is read into memory and split on record
-markers; multi-line sequences and qualities are joined.
+markers; multi-line sequences and qualities are joined.  And of
+``parse_abundance`` (:26-41: a Logan-style ``ka:f:``/``km:f:`` header
+abundance), ``_counts_sidecar`` (:148) and ``read_kmer_counts`` (:156:
+the per-window counts that ``write_extended_fasta`` stores beside a
+FASTA file as ``<base>.kmer_counts.npz``).
 """
 
 from __future__ import annotations
 
 import gzip
+import math
+import os
+import re
 from dataclasses import dataclass
 from typing import List
+
+import numpy as np
 
 
 @dataclass
@@ -18,6 +28,40 @@ class FastaRecord:
     seq: bytes
     quality: bytes | None = None
     comment: str = ""          # header text after the first token
+
+
+def parse_abundance(comment: str):
+    """The k-mer abundance of a ``ka:f:``/``km:f:`` header field, rounded
+    as ``llround`` rounds (halves away from zero), at least 1; None
+    without one."""
+    m = re.search(r"(ka|km):f:([0-9.eE+-]+)", comment)
+    if not m:
+        return None
+    try:
+        v = float(m.group(2))
+        return max(1, int(math.floor(v + 0.5)) if v >= 0
+                   else int(math.ceil(v - 0.5)))
+    except ValueError:
+        return None
+
+
+def _counts_sidecar(path: str) -> str:
+    base = path
+    for suf in (".gz", ".fasta", ".fa"):
+        if base.endswith(suf):
+            base = base[: -len(suf)]
+    return base + ".kmer_counts.npz"
+
+
+def read_kmer_counts(path: str):
+    """The per-window counts stored beside a FASTA file, one array a
+    record, or None where there is no sidecar."""
+    counts_path = _counts_sidecar(path)
+    if not os.path.exists(counts_path):
+        return None
+    z = np.load(counts_path)
+    flat, offs = z["counts"], z["offsets"]
+    return [flat[offs[i]: offs[i + 1]] for i in range(len(offs) - 1)]
 
 
 def _open(path: str) -> bytes:

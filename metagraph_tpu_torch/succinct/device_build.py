@@ -7,20 +7,24 @@ Own copy of metagraph_tpu/succinct/device_build.py for the card:
   ``build_kmer_set_device`` (:90): multiword keys sorted a word at a time
   (last word first) by kernel D2's stable passes, deduped and counted;
 * ``device_build_boss_arrays`` (:344): the whole BOSS edge stream of a
-  basic-mode DNA graph (3 <= k <= 21) built on the card from the 2-bit
-  wire tiles of ``query/tile_pack.py``, with the host dummy-chain
-  expansion of :385-403 between its two device stages, ``build_p1``
-  (:179) and ``build_p2`` (:242).
+  DNA graph (3 <= k <= 21) built on the card from the 2-bit wire tiles of
+  ``query/tile_pack.py``, with the host dummy-chain expansion of :385-403
+  between its two device stages, ``build_p1`` (:179) and ``build_p2``
+  (:242): of the forward windows (basic and primary mode), or of both
+  strands (canonical mode, which the JAX package builds on its host:
+  D1's strand mode, no dummy-node limit).
 
 The device stages run on four hand-written kernels (``csrc/``), each with
 a plain PyTorch version beside it; a wrapper takes the plain version for a
 CPU tensor and launches its kernel, or raises, for a CUDA one:
 
-* D1 ``build_windows`` (``build_windows.cu``): every window's 2-bit key;
+* D1 ``build_windows`` (``build_windows.cu``): every window's 2-bit key,
+  and in its strand mode the key of the window's reverse complement;
 * D2 ``radix_sort`` (``radix_sort.cu``): a stable LSD radix sort over a
   key's live bits (one histogram launch, then one onesweep launch a pass
   whose digit does not hold every key in one bin), with an optional
-  payload: every sort of the module;
+  payload: every sort of the module, and of the host construction's rows
+  (``kmer/packing.lexsort_rows``, a 64-bit pass set a word);
 * D3 ``build_join`` / ``join_nodes`` (``build_join.cu``): dedupe, the join
   entries, then the dummy sink and level-1 source nodes of the sorted
   join;
@@ -329,11 +333,13 @@ def _check_scope(K: int):
 
 
 def build_windows(words: torch.Tensor, vwords: torch.Tensor, K: int,
-                  T: int = T_WIRE) -> torch.Tensor:
+                  T: int = T_WIRE, strands: int = 1) -> torch.Tensor:
     """(N, NW) wire words and (N, NV) valid words (int32 bit patterns of
-    ``wire_words_layout``'s uint32 words) -> (N * T,) int64 window keys:
-    window j of tile n is bits [2j, 2j + 2K) of its stream where its K
-    characters are valid, else the sentinel 1 << 2K.
+    ``wire_words_layout``'s uint32 words) -> (strands * N * T,) int64
+    window keys: window j of tile n is bits [2j, 2j + 2K) of its stream
+    where its K characters are valid, else the sentinel 1 << 2K; with
+    ``strands`` 2, the keys of the windows' reverse complements follow
+    (``rc_keys_plain``), the sentinel where the window is invalid.
 
     A CPU tensor takes the plain version; a CUDA tensor launches
     ``csrc/build_windows.cu`` or raises."""
@@ -344,21 +350,23 @@ def build_windows(words: torch.Tensor, vwords: torch.Tensor, K: int,
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, expected {dev}")
     _check_scope(K)
+    if strands not in (1, 2):
+        raise ValueError(f"strands must be 1 or 2, not {strands}")
     N, NW = words.shape
     if T % 32 or T < 32 or NW < T // 16 + 2 or vwords.shape[0] != N \
             or vwords.shape[1] * 32 < T + K - 1:
         raise ValueError(f"bad tile layout: T={T} words {tuple(words.shape)}"
                          f" vwords {tuple(vwords.shape)}")
     if dev.type == "cpu":
-        return build_windows_plain(words, vwords, K, T)
-    _check_cuda(dev, N * T)
-    out = torch.empty(N * T, dtype=torch.int64, device=dev)
+        return build_windows_plain(words, vwords, K, T, strands=strands)
+    _check_cuda(dev, strands * N * T)
+    out = torch.empty(strands * N * T, dtype=torch.int64, device=dev)
     if N == 0:
         return out
     fn = _build.function("build_windows", "mg_build_windows",
-                         [_P, _P, _P, _L, _I, _I, _I, _I, _P])
+                         [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P])
     _build.check(fn(words.data_ptr(), vwords.data_ptr(), out.data_ptr(), N,
-                    NW, vwords.shape[1], K, T, _stream(dev)),
+                    NW, vwords.shape[1], K, T, strands, _stream(dev)),
                  "build_windows")
     _build.count(build_windows)
     return out
@@ -367,18 +375,32 @@ def build_windows(words: torch.Tensor, vwords: torch.Tensor, K: int,
 build_windows.launches = 0
 
 
+def rc_keys_plain(keys: torch.Tensor, K: int) -> torch.Tensor:
+    """2-bit keys of K characters (character i at bits 2i) -> the keys of
+    their reverse complements (character i = 3 - character K-1-i); the
+    sentinel 1 << 2K stays."""
+    rc = torch.zeros_like(keys)
+    for i in range(K):
+        rc |= (3 - ((keys >> (2 * i)) & 3)) << (2 * (K - 1 - i))
+    return torch.where(keys == _sent2(K), keys, rc)
+
+
 def build_windows_plain(words: torch.Tensor, vwords: torch.Tensor, K: int,
-                        T: int = T_WIRE, chunk: int = 1 << 14):
+                        T: int = T_WIRE, chunk: int = 1 << 14,
+                        strands: int = 1):
     """Plain version of kernel D1: ``extract_windows2`` and
-    ``window_valid2``, ``chunk`` tiles at a time."""
+    ``window_valid2``, ``chunk`` tiles at a time, then (``strands`` 2)
+    ``rc_keys_plain`` of them."""
     out = []
     for lo in range(0, words.shape[0], chunk):
         kw = extract_windows2(to_u64(words[lo: lo + chunk]), K, T)
         valid = window_valid2(to_u64(vwords[lo: lo + chunk]), K, T)
         key = kw[..., 0] | (kw[..., 1] << 32)
         out.append(torch.where(valid, key, _sent2(K)).reshape(-1))
-    return torch.cat(out) if out else \
+    keys = torch.cat(out) if out else \
         torch.zeros(0, dtype=torch.int64, device=words.device)
+    return torch.cat([keys, rc_keys_plain(keys, K)]) if strands == 2 \
+        else keys
 
 
 # --------------------------------------------------------------------------
@@ -635,13 +657,14 @@ class P1:
 
 
 def build_p1(words: torch.Tensor, vwords: torch.Tensor, K: int,
-             T: int = T_WIRE, cap: int = 1 << 31) -> P1:
-    """Wire tiles -> P1 (device_build.py::_build_p1): D1, the edge sort
+             T: int = T_WIRE, cap: int = 1 << 31, strands: int = 1) -> P1:
+    """Wire tiles -> P1 (device_build.py::_build_p1): D1 (of ``strands``
+    strands), the edge sort
     (D2 over 2K + 1 bits: the sentinel sorts last), D3's dedupe and join
     entries, the join sort (D2, 2K + 1 bits, over the entries that are
     not the sentinel), D3's sink and source nodes, each list sorted by D2
     over 2(K-1) bits."""
-    keys = build_windows(words, vwords, K, T)
+    keys = build_windows(words, vwords, K, T, strands)
     skeys, _ = radix_sort(keys, 2 * K + 1)
     del keys
     uniq, J, U = build_join(skeys, K)
@@ -728,13 +751,19 @@ def capd_limit(capd: int, max_capd: int) -> int:
 
 def device_build_boss_arrays(sequences, k: int, alph_size: int = 5,
                              capd: int = _CAPD_DEFAULT,
-                             _max_capd: int = 1 << 22, device=None):
-    """The BOSS arrays of a basic-mode DNA graph built on the device,
-    equal to metagraph_tpu's ``device_build_boss_arrays`` (and so to its
-    host ``construct.build_boss_arrays``).  Returns None where that returns
-    None: K out of 3..21, another alphabet, or no sequence as long as k.
-    Raises RuntimeError past ``capd_limit(capd, _max_capd)`` dummy sink or
-    source nodes, with the JAX package's message."""
+                             _max_capd: int = 1 << 22, device=None,
+                             strands: int = 1, bounded: bool = True):
+    """The BOSS arrays of a DNA graph built on the device, equal to
+    metagraph_tpu's ``device_build_boss_arrays`` (and so to its host
+    ``construct.build_boss_arrays``): of the forward windows, or with
+    ``strands`` 2 of both strands (its host construction's "both"
+    collector, a canonical graph).  Returns None where that returns None:
+    K out of 3..21, another alphabet, or no sequence as long as k.
+    ``bounded`` (the JAX device construction's rule): raises RuntimeError
+    past ``capd_limit(capd, _max_capd)`` dummy sink or source nodes, with
+    the JAX package's message; unbounded (the builds that JAX sends to its
+    host construction, which has no limit), the limit is the number of
+    window slots, which no node count reaches."""
     from .construct import BossArrays
     K = k
     if not 3 <= K <= 21 or alph_size != 5:
@@ -747,10 +776,11 @@ def device_build_boss_arrays(sequences, k: int, alph_size: int = 5,
         words, vwords = wire_words_layout(tiles2, validb, K, T_WIRE,
                                           len(tiles2))
         del tiles2, validb
-    limit = capd_limit(capd, _max_capd)
+    limit = capd_limit(capd, _max_capd) if bounded \
+        else strands * words.shape[0] * T_WIRE
     with PhaseTimer("build_p1 on the device"):
         p1 = build_p1(np_words(words).to(dev), np_words(vwords).to(dev), K,
-                      T_WIRE, cap=limit)
+                      T_WIRE, cap=limit, strands=strands)
         del words, vwords
         if p1.n_sink > limit or p1.n_src1 > limit:
             raise RuntimeError(

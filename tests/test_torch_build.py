@@ -12,8 +12,8 @@
 * ``sort_kmers_device*``, ``device_sort_unique`` and
   ``build_kmer_set_device``;
 * ``DBGSuccinct.build`` and ``save`` against the JAX package's, each
-  package loading the other's file, and the refusals of builds outside the
-  device scope.
+  package loading the other's file (the builds outside the JAX device
+  construction: tests/test_torch_build_host.py).
 
 Every comparison is exact.
 """
@@ -270,20 +270,6 @@ def test_dbg_build_save_load_both_ways(tmp_path, K, mask):
             assert back.masked == mask and back.mode == "basic"
             assert back.boss.state == "small"
             assert back.boss.count_width == 12
-
-
-@pytest.mark.parametrize("kw", (dict(mode="canonical"), dict(mode="primary"),
-                                dict(alphabet="DNA5"),
-                                dict(alphabet="Protein"), dict(k=2),
-                                dict(k=22), dict(with_counts=True),
-                                dict(disk_swap="/nonexistent"),
-                                dict(mem_cap_bytes=1 << 20),
-                                dict(window_weights=[None])),
-                         ids=lambda kw: "-".join(map(str, kw.items())))
-def test_dbg_build_refuses_the_host_construction(kw):
-    kw = {"k": 11, **kw}
-    with pytest.raises(NotImplementedError, match="ROADMAP A12.2"):
-        DBGSuccinct.build([b"ACGTACGTACGTAGCTAGCA"], device="cpu", **kw)
 
 
 def test_build_entry_points_need_cuda(monkeypatch):

@@ -6,7 +6,7 @@ For K = 3, 11, 16, 17, 20 and 21, in every ``--state``, with and without
 arrays; the mmap layout's ``.meta.npz`` and ``.npy`` files), the stderr
 ``graph built:`` line and the exit code, and each package's
 ``DBGSuccinct.load`` of the other's file.  Then the error contract (a
-missing input, alone and with each flag outside the device scope; those
+missing input, alone and with each flag the port does not take yet; those
 flags with a present input, which the port refuses naming its ROADMAP
 item), and the port's ``query`` on a graph it built, with a JAX-built
 annotation, against the JAX ``query --device``.  The port runs with
@@ -23,30 +23,22 @@ from metagraph_tpu.graph import dbg_succinct as jax_dbg
 from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
 
 from test_torch_canonical import native_lib
-from torch_parity import jax_cli, run_jax, run_port, write_fasta
+from torch_parity import (graph_line, jax_cli, run_jax, run_port,
+                          same_build_files, write_fasta)
 
 KS = (3, 11, 16, 17, 20, 21)
 STATES = ("stat", "small", "fast", "dynamic")
 VARIANTS = [(k, state, mmap, mask) for k in KS for state in STATES
             for mmap in (False, True) for mask in (False, True)]
 PLAIN = [(k, "stat", False, mask) for k in KS for mask in (False, True)]
-MMAP_FILES = (".W.npy", ".last.npy", ".valid.npy", ".meta.npz")
 
-# flags outside the device scope, each with the ROADMAP item the port
-# names (None: the JAX CLI's own error, which the port prints too)
-REFUSED = {"canonical": (["--mode", "canonical"], "A12.2"),
-           "primary": (["--mode", "primary"], "A12.2"),
-           "dna5": (["--alphabet", "DNA5"], "A12.2"),
-           "dna_case": (["--alphabet", "DNA_CASE"], "A12.2"),
-           "protein": (["--alphabet", "Protein"], "A12.2"),
-           "k2": (["-k", "2"], "A12.2"),
-           "k25": (["-k", "25"], "A12.2"),
-           "count_kmers": (["--count-kmers"], "A12.2"),
-           "disk_swap": (["--disk-swap", "swap"], "A12.2"),
-           "mem_cap": (["--mem-cap-gb", "1"], "A12.2"),
-           "suffix": (["--suffix", "A"], "A12.2"),
-           "graph_hash": (["--graph", "hash"], "A12.2"),
-           "index_ranges": (["--index-ranges", "3"], "A12.2"),
+# flags the port does not take yet, each with the ROADMAP item it names
+# (None: the JAX CLI's own error, which the port prints too); the flags
+# of the host construction are parity cases in
+# tests/test_torch_build_host_cli.py
+REFUSED = {"suffix": (["--suffix", "A"], "A12.3"),
+           "graph_hash": (["--graph", "hash"], "A12.3"),
+           "index_ranges": (["--index-ranges", "3"], "A12.3"),
            "mesh_shards": (["--mesh-shards", "2"], "A15"),
            "protein_canonical": (["--alphabet", "Protein", "--mode",
                                   "canonical"], None)}
@@ -116,6 +108,9 @@ def runs(tmp_path_factory):
         lines.append(["build", "-k", "11", "-o", "x-missing", "missing.fa"])
         keys.append(("missing",))
         jax_out[("missing",)] = run_jax(lines[-1], stderr=True)
+        lines.append(["build", "-k", "11", "-o", "y-kmc", "db.kmc_suf"])
+        keys.append(("kmc",))
+        jax_out[("kmc",)] = run_jax(lines[-1], stderr=True)
         # the port's query on its own graph, with the JAX annotation
         jax_cli("annotate", "-i", "j-k11-stat.dbg", "--anno-header", "-o",
                 "anno", "in.fa")
@@ -133,35 +128,11 @@ def runs(tmp_path_factory):
     return dict(tmp=tmp, jax=jax_out, port=dict(zip(keys, got)))
 
 
-def _graph_line(stderr):
-    return [ln for ln in stderr.splitlines() if ln.startswith("graph built")]
-
-
-def _npz(path):
-    with np.load(path) as z:
-        return {f: z[f] for f in z.files}
-
-
 def _same_files(tmp, a, b, mmap_layout):
-    """The artifacts of ``a`` and ``b`` (names without .dbg.npz): the same
-    keys, dtypes and arrays."""
-    if mmap_layout:
-        assert not os.path.exists(tmp / f"{a}.dbg.npz")
-        pairs = [(tmp / f"{a}.dbg{e}", tmp / f"{b}.dbg{e}")
-                 for e in MMAP_FILES]
+    if mmap_layout:                  # no counts: no weights file
         assert not os.path.exists(tmp / f"{a}.dbg.weights.npy")
         assert not os.path.exists(tmp / f"{b}.dbg.weights.npy")
-    else:
-        pairs = [(tmp / f"{a}.dbg.npz", tmp / f"{b}.dbg.npz")]
-    for pa, pb in pairs:
-        if str(pa).endswith(".npy"):
-            x, y = {"": np.load(pa)}, {"": np.load(pb)}
-        else:
-            x, y = _npz(pa), _npz(pb)
-        assert sorted(x) == sorted(y), (pa, sorted(x), sorted(y))
-        for f in x:
-            assert x[f].dtype == y[f].dtype and x[f].shape == y[f].shape \
-                and np.array_equal(x[f], y[f]), (pa, f)
+    same_build_files(tmp, a, b, mmap_layout)
 
 
 @pytest.mark.parametrize("v", VARIANTS, ids=[_name(*v) for v in VARIANTS])
@@ -170,7 +141,7 @@ def test_build_matches_jax_device_build(runs, v):
     tmp = runs["tmp"]
     want, got = runs["jax"][("device",) + v], runs["port"][("device",) + v]
     assert got[1] == want[1] == 0 and got[2] is None and want[2] is None
-    assert _graph_line(got[3]) == _graph_line(want[3]) != []
+    assert graph_line(got[3]) == graph_line(want[3]) != []
     assert got[0] == want[0]
     name = _name(*v)
     layout = mmap or state == "fast"
@@ -191,7 +162,7 @@ def test_build_matches_jax_device_build(runs, v):
 def test_build_matches_jax_plain_build(runs, v):
     want, got = runs["jax"][("plain",) + v], runs["port"][("plain",) + v]
     assert got[1] == want[1] == 0
-    assert _graph_line(got[3]) == _graph_line(want[3]) != []
+    assert graph_line(got[3]) == graph_line(want[3]) != []
     _same_files(runs["tmp"], f"q-{_name(*v)}", f"h-{_name(*v)}", False)
 
 
@@ -222,6 +193,16 @@ def test_refusals_come_after_the_inputs(runs, name):
     assert not os.path.exists(runs["tmp"] / f"y-{name}.dbg.npz")
     if name != "mesh_shards":
         assert runs["jax"][("refused", name, "in.fa")][1] == 0
+
+
+def test_kmc_input_refused(runs):
+    """A KMC database input is refused naming A12.3 before any input is
+    read; the JAX CLI fails on it too (its pre-pass imports a KMCReader
+    that seq_io/kmc.py does not define)."""
+    got, want = runs["port"][("kmc",)], runs["jax"][("kmc",)]
+    assert got[1] == 1 and got[2].startswith("NotImplementedError") \
+        and "ROADMAP A12.3" in got[2], got
+    assert want[1] == 1 and want[2].startswith("ImportError"), want
 
 
 def test_query_on_a_port_built_graph(runs):

@@ -1293,8 +1293,8 @@ def _kmer_graph(gtype, mode, K, seed, n_refs=6, ref_len=700):
     refs = rng.integers(0, 4, (n_refs, ref_len)).astype(np.uint8)
     letters = np.frombuffer(b"ACGTN", np.uint8)
     ex = KmerExtractor()
-    kmers = ex.extract([letters[r].tobytes() for r in refs], K,
-                       "both" if mode == "canonical" else "basic")
+    kmers = ex.distinct_kmers([letters[r].tobytes() for r in refs], K,
+                              "both" if mode == "canonical" else "basic")
     graph = GRAPH_CLASSES[gtype].rebuild(
         kmers, np.arange(1, len(kmers) + 1), K, mode)
     chars, ids = graph.node_kmers_and_ids()
@@ -1862,3 +1862,86 @@ def test_join_nodes_on_adversarial_runs(cuda, K):
     assert got[2:] == want[2:]
     for g, w in zip(got[:2], want[:2]):
         assert torch.equal(torch.sort(g).values, w)
+
+
+# --------------------------------------------------------------------------
+# D1's strand mode and the general route's sorts
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K", BUILD_KS)
+def test_build_windows_strand_mode_matches_plain(cuda, K):
+    rng = np.random.default_rng([K, 2])
+    words, vwords = _build_words(_build_seqs(rng), K, cuda)
+    two = db.build_windows(words, vwords, K, strands=2)
+    assert torch.equal(two, db.build_windows_plain(words, vwords, K,
+                                                   strands=2))
+    one = db.build_windows(words, vwords, K)
+    assert torch.equal(two[: len(one)], one)
+    assert torch.equal(db.rc_keys_plain(two[len(one):], K), one)
+
+
+def _word_rows(rng, n, W, distinct):
+    pool = rng.integers(0, 2 ** 64, (distinct, W), dtype=np.uint64)
+    pool[::3, -1] = 0                     # a padded last word
+    pool[::5, 0] = np.uint64(2 ** 64 - 1)
+    return pool[rng.integers(0, distinct, n)]
+
+
+@pytest.mark.parametrize("n", (1, 4097, 200_000, 1 << 20))
+@pytest.mark.parametrize("W", (1, 2, 3))
+def test_lexsort_and_unique_rows_cuda_match_cpu(cuda, W, n):
+    from metagraph_tpu_torch.kmer import packing
+    rng = np.random.default_rng([W, n])
+    x = _word_rows(rng, n, W, max(n // 4, 1))
+    perm = packing.lexsort_rows(x, device=cuda)
+    assert np.array_equal(perm, packing.lexsort_rows(x, device="cpu"))
+    # weights whose sums wrap int64 and uint64
+    c = rng.integers(0, 2 ** 64, n, dtype=np.uint64)
+    c[::7] = np.uint64(2 ** 64 - 1)
+    for counts in (None, c):
+        got = packing.unique_rows(x, counts, device=cuda)
+        want = packing.unique_rows(x, counts, device="cpu")
+        assert np.array_equal(got[0], want[0])
+        if counts is not None:
+            assert got[1].dtype == np.uint64
+            assert np.array_equal(got[1], want[1])
+    # the keys go through kernel D2: a 64-bit sort a word
+    db.radix_sort.launches = 0
+    packing.lexsort_rows(x, device=cuda)
+    assert db.radix_sort.launches >= 3 * W
+
+
+@pytest.mark.parametrize("case", ("canonical", "primary", "protein-k20",
+                                  "dna5-k9", "k31-counts", "k2",
+                                  "canonical-k31-weights", "disk"))
+def test_dbg_build_routes_cuda_match_cpu(cuda, case, tmp_path):
+    rng = np.random.default_rng(len(case))
+    seqs = _build_seqs(rng, n_seqs=80)
+    kw = {"canonical": dict(k=21, mode="canonical"),
+          "primary": dict(k=15, mode="primary"),
+          "protein-k20": dict(k=20, alphabet="Protein"),
+          "dna5-k9": dict(k=9, alphabet="DNA5"),
+          "k31-counts": dict(k=31, with_counts=True),
+          "k2": dict(k=2),
+          "canonical-k31-weights": dict(
+              k=31, mode="canonical", with_counts=True, bits_per_count=16,
+              window_weights=[rng.integers(0, 2 ** 64, max(len(s) - 30, 0),
+                                           dtype=np.uint64) for s in seqs]),
+          "disk": dict(k=25, with_counts=True, disk_swap=str(tmp_path),
+                       mem_cap_bytes=1 << 16)}[case]
+    if kw.get("alphabet") == "Protein":
+        letters = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX", np.uint8)
+        seqs = [letters[rng.integers(0, 21, len(s))].tobytes() for s in seqs]
+    for name in ("build_windows", "radix_sort"):
+        getattr(db, name).launches = 0
+    got = DBGSuccinct.build(seqs, device=cuda, **kw)
+    launches = (db.build_windows.launches, db.radix_sort.launches)
+    want = DBGSuccinct.build(seqs, device="cpu", **kw)
+    for f in ("W", "last", "valid", "F", "weights"):
+        g, w = getattr(got.boss, f), getattr(want.boss, f)
+        assert (g is None) == (w is None), f
+        assert g is None or (g.dtype == w.dtype and np.array_equal(g, w)), f
+    assert got.num_nodes() == want.num_nodes() > 0
+    route = "device" if case in ("canonical", "primary") else "general"
+    assert launches[0] == (1 if route == "device" else 0)
+    assert launches[1] > 0

@@ -1,6 +1,7 @@
 """Helpers of the port's CLI parity tests: the JAX CLI in this process, the
-port's CLI in one subprocess that imports no JAX, FASTA writing and random
-references with reads cut from them."""
+port's CLI in one subprocess that imports no JAX, FASTA writing, random
+references with reads cut from them, and the comparison of two ``build``
+outputs."""
 
 import contextlib
 import io
@@ -106,3 +107,41 @@ def references_and_reads(rng, n_refs=5, length=(120, 260), letters="ACGT",
         reads.append(s[10:40] + "N" * 5 + s[45:100])
     reads += [refs[0][:9], "", refs[1] + refs[2][:50]]
     return refs, reads
+
+
+MMAP_FILES = (".W.npy", ".last.npy", ".valid.npy", ".meta.npz")
+
+
+def graph_line(stderr):
+    """The ``graph built:`` lines of a build's stderr."""
+    return [ln for ln in stderr.splitlines() if ln.startswith("graph built")]
+
+
+def _npz(path):
+    import numpy as np
+    with np.load(path) as z:
+        return {f: z[f] for f in z.files}
+
+
+def same_build_files(tmp, a, b, mmap_layout):
+    """The artifacts of builds ``a`` and ``b`` (names without .dbg.npz) in
+    ``tmp``: the same files, keys, dtypes and arrays (the mmap layout's
+    ``.weights.npy`` where either has one)."""
+    import numpy as np
+    if mmap_layout:
+        assert not os.path.exists(tmp / f"{a}.dbg.npz")
+        ext = MMAP_FILES + ((".weights.npy",) if any(
+            os.path.exists(tmp / f"{x}.dbg.weights.npy") for x in (a, b))
+            else ())
+        pairs = [(tmp / f"{a}.dbg{e}", tmp / f"{b}.dbg{e}") for e in ext]
+    else:
+        pairs = [(tmp / f"{a}.dbg.npz", tmp / f"{b}.dbg.npz")]
+    for pa, pb in pairs:
+        if str(pa).endswith(".npy"):
+            x, y = {"": np.load(pa)}, {"": np.load(pb)}
+        else:
+            x, y = _npz(pa), _npz(pb)
+        assert sorted(x) == sorted(y), (pa, sorted(x), sorted(y))
+        for f in x:
+            assert x[f].dtype == y[f].dtype and x[f].shape == y[f].shape \
+                and np.array_equal(x[f], y[f]), (pa, f)
