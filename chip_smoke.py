@@ -12,9 +12,9 @@ then:
    D1-D4 of ``succinct/device_build.py``), each through the port's CLI
    (``build --device -v``, its ``main`` in this process, so that the
    launch counters show) from a FASTA file it writes from the seed's
-   stream 8: "pan", a pan-genome of 5 random base genomes of
-   4,000,000 bp with 4 strains each at 1% substitutions (25 references,
-   100,000,000 bp, 3 N runs a reference), and "reads", 400,000 reads of
+   stream 8: "pan", a pan-genome of 4 random base genomes of
+   4,000,000 bp with 4 strains each at 1% substitutions (20 references,
+   80,000,000 bp, 3 N runs a reference), and "reads", 100,000 reads of
    150 bp from the strains, half reverse-complemented, 1% substitutions,
    3% with an N run (several hundred thousand dummy sink and source
    nodes).  For each: the wall and the phases the build traced; D1-D4
@@ -30,7 +30,10 @@ then:
    "pan", the file loaded back through ``DBGSuccinct.load`` and
    ``convert.from_graph`` (one label on every valid edge), queried with
    100,000 of the input's windows through ``QueryEngine.query_batch``
-   (kernels 1, 2, 3): each must come back labelled;
+   (kernels 1, 2, 3): each must come back labelled; "pan" is built with
+   ``--index-ranges 8``, and each of the 65,536 ranges must hold as many
+   nodes as a numpy count of the distinct nodes (dummy source nodes
+   among them) ending in its 8 characters;
 1b. builds three more graphs through the port's CLI, each checking the
    route its ``-v`` line names and held to an independent numpy oracle
    (the valid edges are the distinct k-mers of the collector, 100,000
@@ -50,10 +53,11 @@ then:
    with its payload's gather (a line a sort), their launches and arrays
    equal to the CLI build's; protein's arrays also equal to an uncapped
    build's;
-2. drives the main path at full size: a dense-annotated k = 31 DNA index of
-   over 8 M k-mers and 1,000 labels, made from ``--seed``, queried through
-   ``QueryEngine.query_records`` with one batch of 150,000 reads of 200 bp
-   (1% substitutions, some N runs) plus one sequence of more than 2^24
+2. drives the main path at full width: a dense-annotated k = 31 DNA index
+   of over 8 M k-mers and 1,000 labels, made from ``--seed``, queried
+   through ``QueryEngine.query_records`` with one batch of 40,000 reads of
+   200 bp (the first of a batch of 150,000: 1% substitutions, some N
+   runs) plus one sequence of more than 2^24
    windows, in the labels and counts modes, and holds the payloads of a
    sample and of the long sequence against an independent numpy oracle;
 3. holds kernels 1-3 against their plain PyTorch versions on the main
@@ -66,6 +70,32 @@ then:
    mode sequentially and with ``par_threads`` batches in flight (``query
    -p``): the same output bytes and exactly the same launches of every
    kernel; both walls printed;
+3b. runs the JAX package's own workload (its ``bench.py`` and
+   ``__graft_entry__``'s epochs, ROADMAP A10) on the basic references,
+   built by the port's ``DBGSuccinct.build`` at k = 31 with their 1,000
+   labels placed on its node ids, and the basic batch's 150,000 reads:
+   ``DeviceQueryPipeline.query_labels`` (labels, matches),
+   ``query_step``, ``query_epoch_tiled``, ``query_epoch_codes`` and
+   ``query_epoch_dedup`` after ``dedup_batch`` (kernels A and 2, D2 in
+   the distinct pass): every epoch's counts and presence equal, a
+   sample's equal to the oracle's, as are its payloads; each epoch's
+   seconds and device ms (torch.profiler, each epoch run once more
+   outside the counted run), the distinct share; kernels A and 2 against
+   their plain versions at these shapes;
+3c. builds through the port's CLI ``--graph bitmap`` (the basic
+   references), ``--graph hash --mode canonical`` and ``--graph sshash``
+   (the wide DNA references of 5d) at k = 31: each file's k-mers and ids
+   equal to those computed here (rank in sorted order; for hash, first
+   occurrence in the stream of each reference's windows, then its
+   reverse complement's), every D2 call held against its plain version
+   as the build runs (as in all of 3b and 3c); ``--suffix`` A, C, G,
+   T and $ of the wide DNA references: each chunk's k-mers end their
+   node in the suffix, are distinct windows of the input and together
+   all of them, $ empty; a KMC database written here of the canonical
+   21-mers of the wide DNA references and their first stream's reads
+   with their counts, built with ``--mode canonical --count-kmers`` (k
+   from the database, with its warning): the valid edges both strands'
+   distinct keys, a sample's weights their counts capped at 255;
 4. drives the same query path on a primary graph (the references' forward
    k-mers, queried through CanonicalDBG: canon 2) in the labels and counts
    modes and on a canonical graph (both strands, about 16 M k-mers: canon
@@ -79,7 +109,7 @@ then:
    labels, counts-sum and coords modes (coords on a prefix of the reads),
    and a Protein graph at k = 20 (8-bit keys, 5 words: the map route,
    kernel A, then kernels 2, 3) of 1,000 random protein references, with
-   150,000 reads of 200 residues, in the labels and matches modes;
+   40,000 reads of 200 residues, in the labels and matches modes;
    payloads against the oracle, kernels A, B, 2 and 3 against their plain
    versions on each path's own inputs, and A and B again on L2-resident
    controls (2^15-bucket tables), also held against their plain versions;
@@ -127,17 +157,16 @@ then:
    k = 80 (kernel A's warp form, W = 20), in the labels mode; payloads
    against the oracle, kernels B or A (with an L2 control), 2 and 3
    against their plain versions;
-5e. drives graphs that are not succinct, each loaded from a ``.dbg.npz``
-   in the JAX package's layout (``graph_type``, ``k``, ``mode``,
-   ``kmers``, ``ids``, ``alphabet``; rows written out of order) through
-   ``DBGSuccinct.load``, which rebuilds their node ids, and
+5e. drives graphs that are not succinct, each loaded from the
+   ``.dbg.npz`` that 3c's CLI build wrote in the JAX package's layout
+   (``graph_type``, ``k``, ``mode``, ``kmers``, ``ids``, ``alphabet``)
+   through ``DBGSuccinct.load``, which rebuilds their node ids, and
    ``convert.from_graph``: the map route (kernel A, then kernels 2, 3).
    "bitmap" holds the basic deployment's k-mers (node id = rank in
    left-to-right code order; its annotation is the basic one with rows
    moved to those ids), queried with the basic batch's first
-   ``bitmap_reads`` reads (50,000: on one H100 80GB HBM3 at 700 W the
-   whole batch took 48.6 s of queries and about as long again of kernel
-   checks, and the script 1,053 s in all) in the labels and counts
+   ``bitmap_reads`` reads (10,000: the script's depth cuts, below) in the
+   labels and counts
    modes; "hash-canonical" (both strands, ids in insertion order,
    labels on the strand first in BOSS order) and "sshash" (basic, ids by
    rank, entries bucketed by minimizer) hold the wide deployments' DNA
@@ -167,12 +196,24 @@ then:
    indices into a 2^21-row table (268 MB, random rows from device
    memory).
 
+Depth cuts, which keep the script inside its time limit (widths are
+never cut): the basic batch is drawn at 150,000 reads, which 3b takes
+whole; the main path (2, 3, 3a) and the primary, canonical, k41, protein
+and many-labels deployments take ``path_reads`` = 40,000 reads (the
+first of the basic batch, or of their own stream) and the long sequence,
+the bitmap deployment 10,000; the pan-genome holds 4 base genomes (5
+before) and the read set 100,000 reads (400,000 before).
+
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (D1-D4 for each build,
 ``build_windows/pan`` and the like, D2 with its ``torch.sort`` ms as
 ``library_ms``, ``radix_sort/reads-k31-counts`` and
-``radix_sort/protein-k20-disk`` for the general route; kernels 1-3 once more
+``radix_sort/protein-k20-disk`` for the general route,
+``radix_sort/graph_bitmap``, ``.../graph_hash_canonical``,
+``.../graph_sshash``, ``.../suffix`` and ``.../kmc`` for 3c, and
+``key_lookup/a10``, ``label_counts/a10`` and ``radix_sort/a10`` for 3b;
+kernels 1-3 once more
 for each of the primary and canonical deployments, kernels B, 2, 3 for
 k41, A for seqs, A, 2, 3 for protein, 3 for many-labels, 2 for each words
 deployment, B or A, 2, 3 for each wide deployment and A, 2, 3 for each
@@ -208,6 +249,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 rate outside tensor cores
 
 K41 = 41                       # the k41 deployment (codes route)
+SUFFIX_L = 8                   # pan's suffix-range index (--index-ranges)
+KMC_K = 21                     # the KMC database's k
 KP = 20                        # the protein deployment (map route)
 # the least share of sampled sequences with a non-empty payload in every
 # run that is held against the oracle, so that it does not pass on empty
@@ -226,8 +269,9 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             words_budget=32768, words_reads=15_000, rd_max_length=100,
             seqs_headers=10, par_batches=8, par_threads=4,
             wide=(200, 8101, 20_000, 200), server_reads=2000,
-            bitmap_reads=50_000, pan=(5, 4_000_000, 4, 0.01, 3),
-            build_reads=(400_000, 150, 0.5, 0.01), build_k=21,
+            bitmap_reads=10_000, pan=(4, 4_000_000, 4, 0.01, 3),
+            build_reads=(100_000, 150, 0.5, 0.01), build_k=21,
+            path_reads=40_000,
             build_sample=100_000, build_reps=3, host_k=31, disk_cap_gb=0.04)
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
@@ -239,6 +283,7 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             words_budget=256, words_reads=100, rd_max_length=20,
             seqs_headers=2, par_batches=3, par_threads=4,
             wide=(8, 501, 100, 120), server_reads=30, bitmap_reads=100,
+            path_reads=200,
             pan=(2, 3000, 2, 0.01, 2), build_reads=(300, 150, 0.5, 0.01),
             build_k=21, build_sample=500, build_reps=1, host_k=31,
             disk_cap_gb=0.00006)
@@ -986,8 +1031,9 @@ def write_records(path, codes):
 def cli_build(fa, out, k, dev, flags=()):
     """``python -m metagraph_tpu_torch build --device -v`` with ``flags``
     (its ``main`` in this process, so that the launch counters show): ->
-    (wall s, the phases it traced, the nodes it reported, the other
-    trace lines: its route, the disk sort's chunks)."""
+    (wall s, the phases it traced, the nodes it reported (the k-mers of a
+    ``--suffix`` chunk), the other lines: its route, the disk sort's
+    chunks, warnings)."""
     import contextlib
     import io
     from metagraph_tpu_torch.cli import main as cli_main
@@ -1012,11 +1058,15 @@ def cli_build(fa, out, k, dev, flags=()):
         elif ln.startswith("[trace] build route: ") \
                 or ln.startswith("[trace] disk sort: "):
             notes.append(ln[8:])
+        elif ln.startswith("warning: "):
+            notes.append(ln)
         elif ln.startswith("graph built: "):
             nodes = int(ln.rsplit("nodes=", 1)[1])
+        elif ln.startswith("chunk ") and ln.endswith(" k-mers"):
+            nodes = int(ln.split(": ", 1)[1].split()[0])
     if nodes is None:
-        raise AssertionError(f"build printed no 'graph built' line: "
-                             f"{err.getvalue()[-2000:]}")
+        raise AssertionError(f"build printed no 'graph built' or 'chunk' "
+                             f"line: {err.getvalue()[-2000:]}")
     return wall, phases, nodes, notes
 
 
@@ -1283,8 +1333,11 @@ def build_phase(cfg, seed, torch, dev, work, timed):
         fa = os.path.join(work, f"{name}.fa")
         timed("build inputs", write_records, fa, codes)
         base = os.path.join(work, f"{name}-k{k}")
+        # pan with its suffix-range index (--index-ranges)
+        flags = ["--index-ranges", str(SUFFIX_L)] if name == "pan" else []
         (wall, phases, nodes, _), launches = timed(
-            "build cli", run_path, lambda: cli_build(fa, base, k, dev))
+            "build cli", run_path, lambda: cli_build(fa, base, k, dev,
+                                                     flags))
         log(f"build {name}: {len(codes)} sequences, {codes.size} bp, k = "
             f"{k}: {nodes} nodes in {wall:.1f} s (" + ", ".join(
                 f"{p} {v:.3f}" for p, v in phases.items()) + ")")
@@ -1313,6 +1366,9 @@ def build_phase(cfg, seed, torch, dev, work, timed):
         log(f"build {name} oracle: {len(distinct)} valid edges = distinct "
             f"valid windows, labels A/C/G/T {labels.tolist()}; "
             f"{cfg['build_sample']} decoded edges among them")
+        if name == "pan":
+            timed("build oracle", suffix_range_oracle, g.boss, distinct, k,
+                  phases)
         del g
         if name == "pan":
             pan_distinct = distinct
@@ -1990,77 +2046,6 @@ def moved_annotation(anno, row_of: np.ndarray):
                                  has_values=anno.has_values)
 
 
-def save_kmer_graph(path, gtype, mode, chars, ids, rng):
-    """A non-succinct graph's ``.dbg.npz`` with the arrays of the JAX
-    package's ``_KmerGraphBase.save``, its rows (with their ids) in a
-    shuffled order; not deflated (``np.load`` reads either, and the
-    deflate of the three files' 400 MB is host time the script's limit
-    does not need to spend)."""
-    perm = rng.permutation(len(chars))
-    np.savez(path, graph_type=gtype, k=chars.shape[1], mode=mode,
-             kmers=chars[perm], ids=ids[perm], alphabet="DNA")
-
-
-def kmer_graph_deployments(oracle, anno, wide, work, rng):
-    """The graph-types deployments' files, then their graphs loaded
-    through ``DBGSuccinct.load``: -> {name: (graph, annotation, oracle,
-    reads)}; the bitmap one's reads are the caller's (None)."""
-    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
-    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
-    paths, out = {}, {}
-    t0 = time.perf_counter()
-    # bitmap: the basic deployment's k-mers; id = 1 + rank in
-    # left-to-right code order
-    keys = oracle["keys"]
-    paths["bitmap"] = os.path.join(work, "bitmap.dbg.npz")
-    save_kmer_graph(paths["bitmap"], "bitmap", "basic", key_chars(keys),
-                    np.arange(1, len(keys) + 1), rng)
-    out["bitmap"] = [moved_annotation(anno, rank_of(lex_keys(keys, K))),
-                     oracle, None]
-    dna, _, reads, _ = wide
-    L = len(dna)
-    labels = [f"ref{i}" for i in range(L)]
-    fwd = [window_keys(r, K)[0] for r in dna]
-    labs = np.concatenate([np.full(len(f), i, np.int64)
-                           for i, f in enumerate(fwd)])
-    rc = [rc_window_keys(r, K) for r in dna]
-    # hash canonical: each reference's windows, then its reverse
-    # complement's, inserted in that order (first occurrence: id 1, 2, ..)
-    order = np.concatenate([np.concatenate([f, r[::-1]])
-                            for f, r in zip(fwd, rc)])
-    ukeys, first = np.unique(order, return_index=True)
-    ids = np.empty(len(ukeys), np.int64)
-    ids[np.argsort(first)] = np.arange(1, len(ukeys) + 1)
-    paths["hash-canonical"] = os.path.join(work, "hash.dbg.npz")
-    save_kmer_graph(paths["hash-canonical"], "hash", "canonical",
-                    key_chars(ukeys), ids, rng)
-    fwd_all, rc_all = np.concatenate(fwd), np.concatenate(rc)
-    probed = np.where(boss_rot(fwd_all, K) <= boss_rot(rc_all, K), fwd_all,
-                      rc_all)
-    rows = ids[np.searchsorted(ukeys, probed)] - 1
-    cols = [np.unique(rows[labs == c]) for c in range(L)]
-    out["hash-canonical"] = [
-        ColumnMajorAnnotation(len(ukeys), labels, cols),
-        make_oracle(np.minimum(fwd_all, rc_all), labs, L), reads[1]]
-    # sshash basic: id = 1 + rank in left-to-right code order
-    o = make_oracle(fwd_all, labs, L)
-    paths["sshash"] = os.path.join(work, "sshash.dbg.npz")
-    save_kmer_graph(paths["sshash"], "sshash", "basic", key_chars(o["keys"]),
-                    np.arange(1, len(o["keys"]) + 1), rng)
-    out["sshash"] = [moved_annotation(annotation_of(o, labels),
-                                      rank_of(lex_keys(o["keys"], K))),
-                     o, reads[0]]
-    log(f"graph-types files written in {time.perf_counter() - t0:.1f} s")
-    for name, path in paths.items():
-        t0 = time.perf_counter()
-        graph = DBGSuccinct.load(path[:-4])
-        log(f"{name}: {os.path.getsize(path)} B file; loaded and rebuilt "
-            f"({type(graph).__name__}, {graph.max_index()} nodes) in "
-            f"{time.perf_counter() - t0:.1f} s")
-        out[name] = (graph, *out[name])
-    return out
-
-
 def graph_types_phase(cfg, deployments, seqs, codes, rng, torch, dev,
                       timed):
     """Each graph-types deployment through ``convert.from_graph``: it must
@@ -2096,6 +2081,555 @@ def graph_types_phase(cfg, deployments, seqs, codes, rng, torch, dev,
             f" [{name}]"))
         del engine, index
     return out
+
+
+# --------------------------------------------------------------------------
+# the last flags of build --device: --graph, --suffix, --index-ranges, KMC
+# --------------------------------------------------------------------------
+
+GRAPH_BUILDS = {"bitmap": ("bitmap", "basic"),
+                "hash-canonical": ("hash", "canonical"),
+                "sshash": ("sshash", "basic")}
+
+
+def suffix_range_oracle(boss, distinct, k, phases):
+    """The pan build's suffix-range index (``--index-ranges SUFFIX_L``)
+    against an independent count: each live combo's range holds as many
+    nodes as there are distinct nodes ending in its SUFFIX_L characters,
+    counted here from the sorted distinct 2-bit keys of the valid edges:
+    the (k-1)-mers that begin or end an edge, and the dummy source nodes
+    $^j P[:k-1-j] of each node P that no edge enters (j <= k-1-SUFFIX_L,
+    so that its last SUFFIX_L characters are real); a dead combo holds
+    none."""
+    L, n = SUFFIX_L, k - 1
+    t0 = time.perf_counter()
+    if boss.suffix_L != L or "index suffix ranges" not in phases:
+        raise AssertionError(f"pan: no suffix-range index of length {L} "
+                             f"(suffix_L {boss.suffix_L}, phases "
+                             f"{sorted(phases)})")
+    tail = np.uint64((1 << (2 * L)) - 1)
+
+    def combos(keys, length):
+        return ((keys >> np.uint64(2 * (length - L))) & tail).astype(
+            np.int64)
+    pre = distinct_sorted(np.sort(distinct & np.uint64((1 << (2 * n)) - 1)))[0]
+    suf = distinct_sorted(np.sort(distinct >> np.uint64(2)))[0]
+    at = np.minimum(np.searchsorted(suf, pre), len(suf) - 1)
+    shared = suf[at] == pre
+    want = np.bincount(combos(pre, n), minlength=4 ** L) \
+        + np.bincount(combos(suf, n), minlength=4 ** L) \
+        - np.bincount(combos(pre[shared], n), minlength=4 ** L)
+    src = pre[~shared]
+    for j in range(1, n - L + 1):
+        head = np.unique(src & np.uint64((1 << (2 * (n - j))) - 1))
+        want += np.bincount(combos(head, n - j), minlength=4 ** L)
+    cum = np.concatenate([[0], np.cumsum(boss.last, dtype=np.int64)])
+    width = np.where(boss.suf_ok == 1, cum[boss.suf_ru + 1]
+                     - cum[boss.suf_rl], 0)
+    if not np.array_equal(width, want):
+        bad = np.flatnonzero(width != want)
+        raise AssertionError(f"pan: {len(bad)} suffix ranges of the wrong "
+                             f"width, e.g. combo {bad[0]}: "
+                             f"{width[bad[0]]} nodes, {want[bad[0]]} wanted")
+    log(f"build pan suffix ranges: {int((boss.suf_ok == 1).sum())} of "
+        f"{4 ** L} combos of {L} characters live, every range's width the "
+        f"count of nodes with its suffix ({int(want.sum())} nodes, "
+        f"{len(src)} without an incoming edge); index "
+        f"{phases['index suffix ranges']:.3f} s, oracle "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def kmer_graph_maps(oracle, anno, wide):
+    """The graph-types deployments as computed here, independently of the
+    port: {name: (sorted distinct 2-bit keys, their node ids, annotation,
+    oracle, reads)}.  bitmap: the basic deployment's k-mers, id = 1 + rank
+    in left-to-right code order (the reads are the caller's: None);
+    hash-canonical: the wide DNA references' windows, each reference's
+    forward windows then its reverse complement's, id = rank of first
+    occurrence, labels on the strand first in BOSS order; sshash: their
+    forward windows, id = 1 + rank in left-to-right code order."""
+    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+    out = {}
+    keys = oracle["keys"]
+    rank = rank_of(lex_keys(keys, K))
+    out["bitmap"] = (keys, rank + 1, moved_annotation(anno, rank), oracle,
+                     None)
+    dna, _, reads, _ = wide
+    L = len(dna)
+    labels = [f"ref{i}" for i in range(L)]
+    fwd = [window_keys(r, K)[0] for r in dna]
+    labs = np.concatenate([np.full(len(f), i, np.int64)
+                           for i, f in enumerate(fwd)])
+    rc = [rc_window_keys(r, K) for r in dna]
+    order = np.concatenate([np.concatenate([f, r[::-1]])
+                            for f, r in zip(fwd, rc)])
+    ukeys, first = np.unique(order, return_index=True)
+    ids = np.empty(len(ukeys), np.int64)
+    ids[np.argsort(first)] = np.arange(1, len(ukeys) + 1)
+    fwd_all, rc_all = np.concatenate(fwd), np.concatenate(rc)
+    probed = np.where(boss_rot(fwd_all, K) <= boss_rot(rc_all, K), fwd_all,
+                      rc_all)
+    rows = ids[np.searchsorted(ukeys, probed)] - 1
+    cols = [np.unique(rows[labs == c]) for c in range(L)]
+    out["hash-canonical"] = (
+        ukeys, ids, ColumnMajorAnnotation(len(ukeys), labels, cols),
+        make_oracle(np.minimum(fwd_all, rc_all), labs, L), reads[1])
+    o = make_oracle(fwd_all, labs, L)
+    rank = rank_of(lex_keys(o["keys"], K))
+    out["sshash"] = (o["keys"], rank + 1,
+                     moved_annotation(annotation_of(o, labels), rank), o,
+                     reads[0])
+    return out
+
+
+def chars_keys(chars: np.ndarray) -> np.ndarray:
+    """(n, k) DNA codes 1..4 -> 2-bit keys (char i at bits 2i)."""
+    key = np.zeros(len(chars), np.uint64)
+    for i in range(chars.shape[1]):
+        key |= (chars[:, i].astype(np.uint64) - np.uint64(1)) \
+            << np.uint64(2 * i)
+    return key
+
+
+def check_kmer_file(path, gtype, mode, keys, ids):
+    """A ``build --graph`` file against the ids computed here: the JAX
+    layout's keys, its graph type and mode, every k-mer once with its
+    id."""
+    with np.load(path) as z:
+        files = sorted(z.files)
+        kmers, got = z["kmers"], z["ids"]
+        tags = (str(z["graph_type"]), int(z["k"]), str(z["mode"]),
+                str(z["alphabet"]))
+    if files != ["alphabet", "graph_type", "ids", "k", "kmers", "mode"] \
+            or tags != (gtype, K, mode, "DNA") or kmers.dtype != np.uint8 \
+            or got.dtype != np.int64:
+        raise AssertionError(f"{path}: keys {files}, tags {tags}")
+    key = chars_keys(kmers)
+    at = np.minimum(np.searchsorted(keys, key), len(keys) - 1)
+    if len(key) != len(keys) or not np.array_equal(keys[at], key) \
+            or len(np.unique(at)) != len(keys) \
+            or not np.array_equal(ids[at], got):
+        raise AssertionError(f"{path}: its k-mers and ids are not those "
+                             "computed here")
+
+
+def graph_build_phase(cfg, maps, refs, wide, work, torch, dev, timed):
+    """``build --graph`` through the port's CLI: bitmap (the basic
+    deployment's references), hash ``--mode canonical`` and sshash (the
+    wide DNA references), at k = 31, every D2 call held against its plain
+    version as the build runs (``sort_checks``: its wall includes the
+    checks).  Each file's k-mers and ids against ``kmer_graph_maps``.  ->
+    (the files, {deployment: (launches, entries)})."""
+    inputs = {"basic": (os.path.join(work, "basic.fa"), refs),
+              "wide": (os.path.join(work, "wide-dna.fa"), wide[0])}
+    for fa, codes in inputs.values():
+        timed("build inputs", write_records, fa, codes)
+    paths, out = {}, {}
+    for name, (rep, mode) in GRAPH_BUILDS.items():
+        fa, codes = inputs["basic" if name == "bitmap" else "wide"]
+        base = os.path.join(work, f"graph-{name}")
+        spy = sort_checks(torch, dev, cfg["build_reps"], f"graph {name}")
+        with spy.active():
+            wall, phases, nodes, _ = timed(
+                "graph builds", run_path, lambda: cli_build(
+                    fa, base, K, dev, ["--graph", rep, "--mode", mode]))[0]
+        log(f"build --graph {rep} --mode {mode} ({name}): {len(codes)} "
+            f"sequences, k = {K}: {nodes} nodes in {wall:.1f} s ("
+            + ", ".join(f"{p} {v:.3f}" for p, v in phases.items()) + ")")
+        if dev.type == "cuda" and not spy.path_launches():
+            raise AssertionError(f"build --graph {rep} launched no D2")
+        keys, ids = maps[name][:2]
+        timed("graph builds", check_kmer_file, base + ".dbg.npz", rep, mode,
+              keys, ids)
+        if nodes != len(keys):
+            raise AssertionError(f"{name}: {nodes} nodes, {len(keys)} "
+                                 "k-mers")
+        log(f"build --graph {rep} ({name}) oracle: {len(keys)} k-mers, "
+            "each with the id computed here")
+        paths[name] = base + ".dbg.npz"
+        out["graph_" + name.replace("-", "_")] = (
+            {"radix_sort": spy.path_launches()}, {"radix_sort": spy.entry()})
+    return paths, out
+
+
+def load_kmer_graphs(maps, paths):
+    """The graph-types deployments from the ``build --graph`` files, each
+    loaded through ``DBGSuccinct.load`` (node ids rebuilt from the file):
+    -> {name: (graph, annotation, oracle, reads)}."""
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    out = {}
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        graph = DBGSuccinct.load(path[:-4])
+        log(f"{name}: {os.path.getsize(path)} B file; loaded and rebuilt "
+            f"({type(graph).__name__}, {graph.max_index()} nodes) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out[name] = (graph, *maps[name][2:])
+    return out
+
+
+def suffix_phase(cfg, wide, work, torch, dev, timed):
+    """``build --suffix`` A, C, G, T and $ on the wide DNA references at
+    k = 31, each D2 call held against its plain version as the builds run:
+    each chunk's k-mers carry its suffix as their last node character and
+    are distinct valid windows of the input, the $ chunk is empty, and the
+    four counts sum to the distinct count (numpy 2-bit keys).  ->
+    (launches, entries)."""
+    fa = os.path.join(work, "wide-dna.fa")
+    distinct = distinct_sorted(sorted_window_keys(np.stack(wide[0]), K))[0]
+    total = 0
+    spy = sort_checks(torch, dev, cfg["build_reps"], "suffix chunks")
+    for s in "ACGT$":
+        base = os.path.join(work, "wide")
+        with spy.active():
+            wall, phases, n, _ = timed(
+                "suffix chunks", run_path, lambda: cli_build(
+                    fa, base, K, dev, ["--suffix", s]))[0]
+        with np.load(f"{base}.{s}.chunk.npz") as z:
+            kmers = z["kmers"]
+        log(f"build --suffix {s}: {n} k-mers in {wall:.1f} s (" + ", ".join(
+            f"{p} {v:.3f}" for p, v in phases.items()) + ")")
+        if len(kmers) != n or (s == "$") != (n == 0):
+            raise AssertionError(f"chunk {s}: {n} k-mers, {len(kmers)} in "
+                                 "its file")
+        if s == "$":
+            continue
+        key = chars_keys(kmers)
+        at = np.minimum(np.searchsorted(distinct, key), len(distinct) - 1)
+        if not (kmers[:, K - 2] == "ACGT".index(s) + 1).all() \
+                or not np.array_equal(distinct[at], key) \
+                or len(np.unique(key)) != n:
+            raise AssertionError(f"chunk {s}: a k-mer without its suffix, "
+                                 "twice, or no window of the input")
+        total += n
+    if total != len(distinct):
+        raise AssertionError(f"the chunks hold {total} k-mers, the input "
+                             f"{len(distinct)}")
+    log(f"build --suffix oracle: the chunks A, C, G, T hold the "
+        f"{len(distinct)} distinct k-mers, each once with its suffix; $ "
+        "empty")
+    if dev.type == "cuda" and not spy.path_launches():
+        raise AssertionError("build --suffix launched no D2")
+    return {"radix_sort": spy.path_launches()}, {"radix_sort": spy.entry()}
+
+
+def write_kmc(base: str, kmers: np.ndarray, counts: np.ndarray,
+              lut_prefix_length: int = 4, counter_size: int = 4):
+    """``base``.kmc_pre/.kmc_suf from (N, k) ACGT byte k-mers (distinct)
+    and their counts, in the KMC3 layout ``seq_io/kmc.py`` reads: the
+    records sorted by their 2-bit codes (A < C < G < T), a suffix's codes
+    4 a byte from the most significant bits, the counter little-endian,
+    the strand byte 1 (``both_strands`` False)."""
+    import struct
+    N, k = kmers.shape
+    lp = lut_prefix_length
+    code = np.full(256, 255, dtype=np.uint8)
+    code[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4, dtype=np.uint8)
+    c = code[kmers]
+    if (c == 255).any() or not 0 < lp < k:
+        raise ValueError("KMC k-mers hold A, C, G and T only, longer than "
+                         "the prefix")
+    order = np.lexsort(c.T[::-1])
+    c, counts = c[order], np.asarray(counts, dtype=np.uint64)[order]
+    prefix = np.zeros(N, dtype=np.int64)
+    for i in range(lp):
+        prefix = (prefix << 2) | c[:, i]
+    nsb = (k - lp + 3) // 4
+    rec = np.zeros((N, nsb + counter_size), dtype=np.uint8)
+    for p in range(k - lp):
+        rec[:, p // 4] |= c[:, lp + p] << np.uint8(6 - 2 * (p % 4))
+    for b in range(counter_size):
+        rec[:, nsb + b] = ((counts >> np.uint64(8 * b))
+                           & np.uint64(255)).astype(np.uint8)
+    lut = np.searchsorted(prefix, np.arange(4 ** lp)).astype("<u8")
+    header = struct.pack("<6IQ", k, 0, counter_size, lp, 1,
+                         int(counts.max()), N) + bytes([1]) + bytes(31)
+    with open(base + ".kmc_pre", "wb") as f:
+        f.write(b"KMCP" + lut.tobytes() + header
+                + struct.pack("<I", len(header)) + b"KMCP")
+    with open(base + ".kmc_suf", "wb") as f:
+        f.write(b"KMCS" + rec.tobytes() + b"KMCS")
+
+
+def kmc_phase(cfg, wide, work, torch, dev, timed, rng):
+    """A KMC database written here (``write_kmc``) of the
+    canonical 21-mers (the lesser strand in A < C < G < T order) of the
+    wide DNA references and their first stream's reads, with their counts
+    (occurrences of either strand: about 3x coverage), built with
+    ``build -k 31 --mode canonical --count-kmers``: k taken from the
+    database with the JAX warning; the valid edges are both strands'
+    distinct keys and each sampled edge's weight its count capped at 255
+    (``build_oracle``); each D2 call held against its plain version as the
+    build runs.  -> (launches, entries)."""
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    k = KMC_K
+    t0 = time.perf_counter()
+    fwd = np.concatenate([kk[ok] for kk, ok in (
+        window_keys(r, k) for r in list(wide[0]) + list(wide[2][0][1]))])
+    distinct, counts = distinct_sorted(np.sort(np.concatenate(
+        [fwd, rc_keys(fwd, k)])))
+    del fwd
+    lesser = lex_keys(distinct, k) < lex_keys(rc_keys(distinct, k), k)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    canon = distinct[lesser]
+    chars = letters[(canon[:, None] >> np.uint64(2) * np.arange(
+        k, dtype=np.uint64)) & np.uint64(3)]
+    base = os.path.join(work, "wide-k21")
+    write_kmc(base, chars, counts[lesser])
+    log(f"KMC database: {len(canon)} canonical {k}-mers, counts up to "
+        f"{int(counts.max())}, written in {time.perf_counter() - t0:.1f} s")
+    out = os.path.join(work, "kmc-k21")
+    spy = sort_checks(torch, dev, cfg["build_reps"], "KMC, k = 21")
+    with spy.active():
+        wall, phases, nodes, notes = timed(
+            "kmc build", run_path, lambda: cli_build(
+                base + ".kmc_suf", out, K, dev,
+                ["--mode", "canonical", "--count-kmers"]))[0]
+    log(f"build KMC --mode canonical --count-kmers: {nodes} nodes in "
+        f"{wall:.1f} s (" + ", ".join(f"{p} {v:.3f}"
+                                      for p, v in phases.items())
+        + "); " + "; ".join(notes))
+    if f"warning: using k={k} from KMC database" not in notes \
+            or not any(n.startswith("build route: general ") for n in notes):
+        raise AssertionError(f"KMC build: k not taken from the database or "
+                             f"not the general route: {notes}")
+    if dev.type == "cuda" and not spy.path_launches():
+        raise AssertionError("KMC build launched no D2")
+    g = DBGSuccinct.load(out + ".dbg")
+    if g.num_nodes() != nodes:
+        raise AssertionError("KMC build: nodes")
+    timed("kmc build", build_oracle, g.boss, distinct, k, rng,
+          cfg["build_sample"], counts, 255)
+    log(f"build KMC oracle: {len(distinct)} valid edges = both strands of "
+        f"the {len(canon)} canonical k-mers; {cfg['build_sample']} decoded "
+        "edges among them, each weight its count capped at 255")
+    return {"radix_sort": spy.path_launches()}, {"radix_sort": spy.entry()}
+
+
+# --------------------------------------------------------------------------
+# A10: the older epochs and the dedup epoch, on the basic deployment
+# --------------------------------------------------------------------------
+
+def profiled_ms(torch, dev, fn):
+    """Device ms of the kernels one call of ``fn`` launches: the sum of
+    their self device times under torch.profiler; None on the CPU or
+    where the profiler records no device time."""
+    if dev.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or 0
+             for e in prof.key_averages())
+    return us / 1e3 if us > 0 else None
+
+
+def oracle_counts(codes, o):
+    """A read's label counts (its windows whose k-mer carries the label)
+    and present windows, from the oracle."""
+    pos, hit = oracle_lookup(codes, o, 0)
+    urows, rmult = np.unique(pos[hit], return_counts=True)
+    lo, hi = o["csr_start"][urows], o["csr_start"][urows + 1]
+    span = hi - lo
+    idx = np.repeat(lo - np.cumsum(np.concatenate([[0], span[:-1]])),
+                    span) + np.arange(span.sum())
+    counts = np.zeros(o["L"], np.int64)
+    np.add.at(counts, o["pair_label"][idx], np.repeat(rmult, span))
+    return counts, int(hit.sum())
+
+
+def a10_graph(refs, oracle, labels, dev):
+    """The basic references' graph built by the port (``DBGSuccinct.build``,
+    k = 31) with the oracle's labels placed on its node ids: each valid
+    edge, decoded, is found among the oracle's keys."""
+    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    g = DBGSuccinct.build([letters[r].tobytes() for r in refs], K,
+                          device=dev)
+    edges = np.flatnonzero(g.boss.valid)
+    key = chars_keys(g.boss.get_edge_seq(edges))
+    keys = oracle["keys"]
+    pos = np.minimum(np.searchsorted(keys, key), len(keys) - 1)
+    if len(edges) != len(keys) or not np.array_equal(keys[pos], key):
+        raise AssertionError("a10: the graph's edges are not the oracle's "
+                             "k-mers")
+    lo, hi = oracle["csr_start"][pos], oracle["csr_start"][pos + 1]
+    span = hi - lo
+    idx = np.repeat(lo - np.cumsum(np.concatenate([[0], span[:-1]])),
+                    span) + np.arange(span.sum())
+    lab = oracle["pair_label"][idx]
+    row = np.repeat(edges - 1, span)
+    order = np.lexsort((row, lab))
+    start = np.searchsorted(lab[order], np.arange(len(labels) + 1))
+    cols = [row[order[start[c]: start[c + 1]]] for c in range(len(labels))]
+    return g, ColumnMajorAnnotation(g.max_index(), labels, cols)
+
+
+def a10_phase(cfg, refs, oracle, labels, seqs, codes, rng, torch, dev,
+              timed):
+    """The JAX package's own workload (``DeviceQueryPipeline``,
+    ``query_step``, ``query_epoch_tiled``, ``query_epoch_codes``,
+    ``query_epoch_dedup`` with ``dedup_batch``) on the basic deployment's
+    references, built by the port at k = 31 (``a10_graph``), with the
+    basic batch's reads: each epoch's counts and presence equal to
+    ``query_step``'s, a sample's to the oracle's; ``query_labels`` in the
+    labels and matches modes against the oracle's payloads; kernels A and
+    2 against their plain versions at these shapes, D2 checked as
+    ``dedup_batch``'s distinct pass runs it.  -> (launches, entries)."""
+    from metagraph_tpu_torch._u32 import to_u64
+    from metagraph_tpu_torch.query import device as qd
+    from metagraph_tpu_torch.succinct import ops
+    n = cfg["n_reads"]
+    rseqs, rcodes = seqs[:n], codes[:n]
+    S, L = n, len(labels)
+    t0 = time.perf_counter()
+    g, anno = timed("a10 graph", a10_graph, refs, oracle, labels, dev)
+    t1 = time.perf_counter()
+    pipe = timed("a10 graph", qd.DeviceQueryPipeline, g, anno, device=dev)
+    log(f"a10 graph: {g.num_nodes()} k-mers (k = {K}), {L} labels; built "
+        f"and labelled in {t1 - t0:.1f} s, DeviceQueryPipeline in "
+        f"{time.perf_counter() - t1:.1f} s (hash table "
+        f"{tuple(pipe.index.table.shape)}, bitmap "
+        f"{tuple(pipe.annotation.bitmap.shape)})")
+    table, bitmap = pipe.index.table, pipe.annotation.bitmap
+    res, secs, calls = {}, {}, {}
+    # D2 in dedup_batch's distinct pass, each call checked as it runs
+    spy = sort_checks(torch, dev, cfg["build_reps"], "a10 dedup_batch")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def epoch(name, fn, *args):
+        sync()
+        t = time.perf_counter()
+        res[name] = fn(*args)
+        sync()
+        secs[name] = time.perf_counter() - t
+        calls[name] = (fn, args)
+
+    def drive():
+        t = time.perf_counter()
+        q, sid, nk = pipe._prepare(rseqs)
+        sync()
+        secs["prepare_batch"] = time.perf_counter() - t
+        epoch("query_step", qd.query_step, table, bitmap, q, sid, S, L)
+        qh, sh = q.cpu().numpy(), sid.cpu().numpy()
+        tiles, tile_seq = qd.tile_layout(qh.view(np.uint32), sh, S)
+        tiles_t = torch.from_numpy(tiles.view(np.int32)).to(dev)
+        tile_seq_t = torch.from_numpy(tile_seq).to(dev)
+        epoch("query_epoch_tiled", qd.query_epoch_tiled, table, bitmap,
+              tiles_t, tile_seq_t, S, L)
+        ex = g.extractor
+        ct, ts, _ = qd.tile_codes_layout([ex.encode(s) for s in rseqs], K)
+        epoch("query_epoch_codes", qd.query_epoch_codes, table, bitmap,
+              torch.from_numpy(ct).to(dev), torch.from_numpy(ts).to(dev), S,
+              L, K)
+        t = time.perf_counter()
+        with spy.active():
+            dk, dt, dts, D = qd.dedup_batch(qh.view(np.uint32), sh, S,
+                                            device=dev)
+        secs["dedup_batch"] = time.perf_counter() - t
+        epoch("query_epoch_dedup", qd.query_epoch_dedup, table, bitmap,
+              torch.from_numpy(dk.view(np.int32)).to(dev),
+              torch.from_numpy(dt).to(dev), torch.from_numpy(dts).to(dev),
+              S, L)
+        for mode in ("labels", "matches"):
+            t = time.perf_counter()
+            res[mode] = pipe.query_labels(rseqs, mode)
+            secs[f"query_labels {mode}"] = time.perf_counter() - t
+        return q, sid, nk, tiles_t, tile_seq_t, D
+    (q, sid, nk, tiles_t, tile_seq_t, D), launches = timed(
+        "a10 epochs", run_path, drive)
+    # the path's own D2 launches, not the checks'
+    launches["radix_sort"] = spy.path_launches()
+    for kern in ("key_lookup", "label_counts", "radix_sort"):
+        if dev.type == "cuda" and not launches[kern]:
+            raise AssertionError(f"a10 launched no {kern}")
+    for kern in ("wire_lookup", "codes_lookup", "selection_mask"):
+        if launches[kern]:
+            raise AssertionError(f"a10 launched {kern}")
+    # each epoch once more under the profiler, outside the counted run
+    dms = {name: profiled_ms(torch, dev, lambda: fn(*args))
+           for name, (fn, args) in calls.items()}
+    windows = int(sum(nk))
+    for name in ("query_step", "query_epoch_tiled", "query_epoch_codes",
+                 "query_epoch_dedup"):
+        ms = dms[name]
+        log(f"a10 {name}: {secs[name]:.3f} s, device "
+            + ("not measured" if ms is None else f"{ms:.3f} ms")
+            + f", {windows / secs[name]:.4g} k-mers/s")
+    log(f"a10 prepare_batch {secs['prepare_batch']:.3f} s, dedup_batch "
+        f"{secs['dedup_batch']:.3f} s: {D} distinct of {len(q)} windows "
+        f"({D / len(q):.4f}); query_labels labels "
+        f"{secs['query_labels labels']:.3f} s, matches "
+        f"{secs['query_labels matches']:.3f} s")
+    counts, present = res["query_step"][:2]
+    for name in ("query_epoch_tiled", "query_epoch_codes",
+                 "query_epoch_dedup"):
+        c, p = res[name][:2]
+        if not (torch.equal(c, counts) and torch.equal(p, present)):
+            raise AssertionError(f"a10 {name}: counts differ from "
+                                 "query_step's")
+    # the tiled epoch's padding keys take the JAX probe's answer (-1 or
+    # 0), the codes epoch's invalid windows 0
+    nodes_tiled = res["query_epoch_tiled"][2]
+    if not torch.equal(res["query_epoch_codes"][2], nodes_tiled.clamp(0)):
+        raise AssertionError("a10: the codes epoch's nodes differ")
+    pick = rng.choice(S, min(cfg["sample"], S), replace=False)
+    ch, ph = counts[torch.from_numpy(pick).to(dev)].cpu().numpy(), \
+        present[torch.from_numpy(pick).to(dev)].cpu().numpy()
+    hits = 0
+    for j, i in enumerate(pick):
+        want_c, want_p = oracle_counts(rcodes[i], oracle)
+        if not (np.array_equal(ch[j], want_c) and ph[j] == want_p):
+            raise AssertionError(f"a10: read {i}'s counts differ from the "
+                                 "oracle's")
+        for mode in ("labels", "matches"):
+            want = oracle_payload(rcodes[i], mode, oracle)
+            if res[mode][i] != want:
+                raise AssertionError(f"a10: read {i}'s {mode} differ from "
+                                     f"the oracle's: {res[mode][i][:5]} "
+                                     f"{want[:5]}")
+        hits += bool(want)
+    if hits < MIN_HIT_SHARE * len(pick):
+        raise AssertionError(f"a10: only {hits} sampled reads with labels")
+    log(f"a10 oracle: {len(pick)} sampled reads' counts, presence, labels "
+        f"and matches ({hits} with labels); every epoch's counts equal")
+    entries = {}
+    # kernel A on the batch's windows (its padding rows get the JAX answer
+    # without a probe), kernel 2 on the tiled epoch's nodes
+    live = q[~(q == -1).all(dim=1)]
+    chunk = 1 << 16
+    ids = ops.key_lookup(live, table)
+    groups_bytes, _ = probe_bytes(table, (to_u64(live[lo: lo + chunk])
+                                          for lo in range(0, len(live),
+                                                          chunk)),
+                                  torch, dev)
+    add_entry(entries, torch, " [a10]", "key_lookup", [ids],
+              [ops.key_lookup_plain(live, table, chunk)],
+              device_ms(torch, dev, lambda: ops.key_lookup(live, table), 10),
+              device_ms(torch, dev, lambda: ops.key_lookup_plain(
+                  live, table, chunk), 1),
+              live.nbytes + ids.nbytes + groups_bytes)
+    _, c2 = cfg["plain_chunks"]
+    got = qd.label_counts(nodes_tiled, bitmap, tile_seq_t, S, L)
+    rows = int(torch.unique(nodes_tiled[nodes_tiled > 0]).numel())
+    add_entry(entries, torch, " [a10]", "label_counts", got,
+              qd.label_counts_plain(nodes_tiled, bitmap, tile_seq_t, S, L,
+                                    c2),
+              device_ms(torch, dev, lambda: qd.label_counts(
+                  nodes_tiled, bitmap, tile_seq_t, S, L), 10),
+              device_ms(torch, dev, lambda: qd.label_counts_plain(
+                  nodes_tiled, bitmap, tile_seq_t, S, L, c2), 1),
+              nodes_tiled.nbytes + tile_seq_t.nbytes
+              + rows * bitmap.shape[1] * 4 + got[0].nbytes + got[1].nbytes)
+    entries["radix_sort"] = spy.entry()
+    return {k: launches[k] for k in ("key_lookup", "label_counts",
+                                     "radix_sort")}, entries
 
 
 def server_phase(cfg, index, graph, seqs, codes, oracle, torch, dev):
@@ -3039,21 +3573,42 @@ def main(argv=None) -> int:
         f"{phases['basic index']:.1f} s")
     engine = timed("uploads", QueryEngine, index, device=dev)
     seqs, codes, period = timed("batches", make_batch, cfg, rng, refs)
-    launches = timed("query paths and oracle", main_path, engine, seqs,
-                     codes, period, oracle, cfg, rng, torch, dev)
-    entries = timed("kernel checks", kernel_checks, engine, seqs, cfg, torch,
-                    dev)
+    # the first path_reads reads and the long sequence (3b takes them all)
+    cut = cfg["path_reads"]
+    seqs_c, codes_c = seqs[:cut] + seqs[-1:], codes[:cut] + codes[-1:]
+    launches = timed("query paths and oracle", main_path, engine, seqs_c,
+                     codes_c, period, oracle, cfg, rng, torch, dev)
+    entries = timed("kernel checks", kernel_checks, engine, seqs_c, cfg,
+                    torch, dev)
     # -p: the same batch in par_batches batches, par_threads in flight
-    timed("parallel", parallel_phase, engine, seqs, cfg, torch, dev)
+    timed("parallel", parallel_phase, engine, seqs_c, cfg, torch, dev)
     del engine
 
-    # graphs without a BOSS, from JAX-layout files (the map route: kernels
-    # A, 2, 3): the basic k-mers as a bitmap graph, the wide DNA
-    # references as a canonical hash graph and a basic sshash graph
+    # A10: the JAX package's own workload (DeviceQueryPipeline, the older
+    # epochs and the dedup epoch: kernels A, 2 and D2) on the basic
+    # references, built by the port, and the basic batch's reads
+    a10 = a10_phase(cfg, refs, oracle, index.labels, seqs, codes,
+                    np.random.default_rng([args.seed, 10]), torch, dev,
+                    timed)
+
+    # build --graph, --suffix and a KMC input through the port's CLI; the
+    # graphs without a BOSS that it writes (the basic k-mers as a bitmap
+    # graph, the wide DNA references as a canonical hash graph and a basic
+    # sshash graph) then load through DBGSuccinct.load and take the map
+    # route (kernels A, 2, 3)
     wide = timed("batches", wide_inputs, cfg, args.seed)
     rng7 = np.random.default_rng([args.seed, 7])
-    deployments = timed("graph-types indexes", kmer_graph_deployments,
-                        oracle, index.annotation, wide, args.work, rng7)
+    maps = timed("graph-types indexes", kmer_graph_maps, oracle,
+                 index.annotation, wide)
+    paths, last_flags = graph_build_phase(cfg, maps, refs, wide, args.work,
+                                          torch, dev, timed)
+    last_flags["suffix"] = suffix_phase(cfg, wide, args.work, torch, dev,
+                                        timed)
+    last_flags["kmc"] = kmc_phase(cfg, wide, args.work, torch, dev, timed,
+                                  np.random.default_rng([args.seed, 11]))
+    deployments = timed("graph-types indexes", load_kmer_graphs, maps,
+                        paths)
+    del maps
     bitmap_graph = deployments["bitmap"][0]
     more_graphs = graph_types_phase(cfg, deployments, seqs, codes, rng7,
                                     torch, dev, timed)
@@ -3082,12 +3637,12 @@ def main(argv=None) -> int:
         f"{tuple(engine.annotation.record.shape)} = "
         f"{engine.annotation.record.nbytes} B")
     ml_launches = timed(
-        "query paths and oracle", main_path, engine, seqs, codes, period,
-        oracle_m, cfg, rng4, torch, dev, "many-labels (block-sparse)",
-        modes=("labels", "matches"),
+        "query paths and oracle", main_path, engine, seqs_c, codes_c,
+        period, oracle_m, cfg, rng4, torch, dev,
+        "many-labels (block-sparse)", modes=("labels", "matches"),
         kernels=("wire_lookup", "sparse_label_counts", "overflow_counts",
                  "selection_mask"))
-    ml_entries = timed("kernel checks", sparse_checks, engine, seqs, cfg,
+    ml_entries = timed("kernel checks", sparse_checks, engine, seqs_c, cfg,
                        torch, dev, " [many-labels]")
     del engine, sp
     for name in ("sparse_label_counts", "overflow_counts"):
@@ -3135,13 +3690,14 @@ def main(argv=None) -> int:
     # CanonicalDBG: canon 2) and the canonical graph (both strands: canon
     # 1), with traffic from both strands, from a second stream of the seed
     rng2 = np.random.default_rng([args.seed, 2])
-    seqs2, codes2, period2 = timed("batches", make_batch, cfg, rng2, refs,
-                                   rc_share=0.5, long_rc=True)
+    seqs2, codes2, period2 = timed(
+        "batches", make_batch, dict(cfg, n_reads=cfg["path_reads"]), rng2,
+        refs, rc_share=0.5, long_rc=True)
     engine = timed("uploads", QueryEngine, dataclasses.replace(
         index, canon=2), device=dev)
     # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
     more = {"many_labels": (ml_launches, ml_entries), **words_more,
-            **more_graphs, **builds}
+            **more_graphs, **builds, **last_flags, "a10": a10}
     more["primary"] = (
         timed("query paths and oracle", main_path, engine, seqs2, codes2,
               period2, oracle, cfg, rng2, torch, dev,
@@ -3175,9 +3731,9 @@ def main(argv=None) -> int:
         f"made in "
         f"{phases['k41 index']:.1f} s")
     long41 = long_sequence(cfg, refs[0], K41)
-    seqs41 = seqs[:-1] + [np.frombuffer(b"ACGTN", np.uint8)[long41]
-                          .tobytes()]
-    codes41 = codes[:-1] + [long41]
+    seqs41 = seqs[:cut] + [np.frombuffer(b"ACGTN", np.uint8)[long41]
+                           .tobytes()]
+    codes41 = codes[:cut] + [long41]
     engine = timed("uploads", QueryEngine, index41, device=dev)
     more["k41"] = (
         timed("query paths and oracle", main_path, engine, seqs41, codes41,
@@ -3203,7 +3759,8 @@ def main(argv=None) -> int:
         f"{index_p.device_anno.shape} = {index_p.device_anno.nbytes} B; "
         f"made in "
         f"{phases['protein index']:.1f} s")
-    pseqs, pcodes = timed("batches", make_protein_batch, cfg, rng3, prefs)
+    pseqs, pcodes = timed("batches", make_protein_batch,
+                          dict(cfg, n_reads=cfg["path_reads"]), rng3, prefs)
     engine = timed("uploads", QueryEngine, index_p, device=dev)
     more["protein"] = (
         timed("query paths and oracle", main_path, engine, pseqs, pcodes, 0,

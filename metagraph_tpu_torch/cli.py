@@ -13,11 +13,15 @@ the graph is built on the card, unless ``--torch-device cpu``: on the
 device route (DNA, 3 <= k <= 21, no counts, disk swap or memory cap, any
 mode) or the general route (every other alphabet, k, ``--count-kmers``,
 ``--count-width``, ``--disk-swap``, ``--mem-cap-gb``), with the arrays of
-the JAX ``build`` either way (``DBGSuccinct.build``).  Refused once the
-inputs are read, naming the ROADMAP item: ``--suffix``, ``--graph`` other
-than succinct, ``--index-ranges`` and KMC inputs (A12.3), and
-``--mesh-shards`` (A15).  ``-v`` prints the route and the build's phases
-on stderr.
+the JAX ``build`` either way (``DBGSuccinct.build``).  KMC databases
+(``.kmc_pre``/``.kmc_suf``) set k and give each k-mer a sequence (and,
+with ``--count-kmers``, its count as weight); ``--suffix`` writes the
+chunk of k-mers ending in the suffix, ``--graph`` a hash, bitmap or sshash
+graph (DNA, as the JAX CLI builds it), both with the JAX files' arrays
+(``utils/npz.py``), ``--index-ranges L`` the suffix-range index beside
+the graph.  ``--mesh-shards`` is refused once
+the inputs are read, naming ROADMAP A15.  ``-v`` prints the route and the
+build's phases on stderr.
 
 ``python -m metagraph_tpu_torch query -i G.dbg -a A.column.annodbg --device
 reads.fa`` takes the command lines of ``metagraph_tpu.cli query``
@@ -80,20 +84,71 @@ def _count_weights(f, recs, k):
     return rec_w if any(w is not None for w in rec_w) else None
 
 
+def _suffix_chunk(args, seqs, device):
+    """``--suffix``: the collector's k-mers whose node ends in the suffix
+    (JAX cmd_build, cli/main.py:146-168), written to
+    ``<out>.<suffix>.chunk.npz``; a ``$`` in the suffix gives an empty
+    chunk."""
+    from .graph.dbg_succinct import COLLECTOR
+    from .kmer.alphabets import ALPHABETS
+    from .kmer.extractor import KmerExtractor
+    from .utils.npz import savez
+    from .utils.timer import PhaseTimer
+    ex = KmerExtractor(ALPHABETS[args.alphabet])
+    with PhaseTimer("extract k-mers"):
+        kmers, _ = ex.extract(seqs, args.k, mode=COLLECTOR[args.mode],
+                              device=device)
+    if "$" in args.suffix:
+        kmers = kmers[:0]
+    else:
+        scodes = ex.encode(args.suffix)
+        L = len(scodes)
+        keep = np.all(kmers[:, args.k - 1 - L: args.k - 1]
+                      == scodes[None, :], axis=1)
+        kmers = kmers[keep]
+    with PhaseTimer("serialize"):
+        savez(f"{args.out}.{args.suffix}.chunk.npz", kmers=kmers, k=args.k,
+              mode=args.mode, alphabet=args.alphabet)
+    print(f"chunk {args.suffix}: {len(kmers)} k-mers", file=sys.stderr)
+
+
 def cmd_build(args):
     from .device import resolve_device
     from .graph.dbg_succinct import DBGSuccinct, not_ported
     from .seq_io.fasta import read_fasta
+    from .seq_io.kmc import KMCDatabase, is_kmc_file, read_kmers
     from .utils.timer import PhaseTimer
 
     device = resolve_device(args.torch_device)
     with PhaseTimer("parse input"):
-        # KMC databases (JAX's pre-pass, cli/main.py:87-98) are not ported
+        # a KMC database fixes k: the first one sets it before any input
+        # is parsed (JAX's pre-pass, cli/main.py:87-98)
         for f in args.input:
-            if f.endswith(".kmc_suf") or f.endswith(".kmc_pre"):
-                raise not_ported("a KMC input")
+            if is_kmc_file(f):
+                kmc_k = KMCDatabase(f).k
+                if kmc_k != args.k:
+                    print(f"warning: using k={kmc_k} from KMC database",
+                          file=sys.stderr)
+                    args.k = kmc_k
+                break
         seqs, weights, have_weights = [], [], False
         for f in args.input:
+            if is_kmc_file(f):
+                # each k-mer a sequence, its count the weight of its one
+                # window; both strands unless the graph is canonical
+                chars, counts, _ = read_kmers(
+                    f, both_from_canonical=args.mode != "canonical")
+                k = chars.shape[1]
+                assert k == args.k          # resolved in the pre-pass
+                flat = chars.tobytes()
+                seqs.extend(flat[i: i + k]
+                            for i in range(0, len(flat), k))
+                if args.count_kmers:
+                    have_weights = True
+                    weights.extend(counts[:, None])
+                else:
+                    weights.extend([None] * len(chars))
+                continue
             recs = read_fasta(f)
             seqs.extend(r.seq for r in recs)
             w = _count_weights(f, recs, args.k) if args.count_kmers \
@@ -104,19 +159,25 @@ def cmd_build(args):
             weights = [np.asarray(w, dtype=np.uint64) if w is not None
                        else np.ones(max(len(s) - args.k + 1, 0), np.uint64)
                        for s, w in zip(seqs, weights)]
-    # the refusals come after the inputs are read, so that a missing input
-    # is reported first, as the JAX CLI reports it
     if args.suffix is not None:
-        raise not_ported("--suffix")
+        _suffix_chunk(args, seqs, device)
+        return
     if args.graph != "succinct":
-        raise not_ported(f"--graph {args.graph}")
+        from .graph import build_graph
+        # without an alphabet, as the JAX CLI calls it: a DNA graph
+        with PhaseTimer("construct graph"):
+            g = build_graph(args.graph, seqs, args.k, mode=args.mode,
+                            device=device)
+        with PhaseTimer("serialize"):
+            g.save(args.out)
+        print(f"graph built: k={args.k} nodes={g.num_nodes()}",
+              file=sys.stderr)
+        return
     if args.mesh_shards:
         raise not_ported("--mesh-shards", "A15")
     if args.alphabet == "Protein" and args.mode != "basic":
         raise SystemExit("[error] canonical/primary modes are not "
                          "supported for the Protein alphabet")
-    if args.index_ranges:
-        raise not_ported("--index-ranges")
     with PhaseTimer("construct BOSS"):
         g = DBGSuccinct.build(
             seqs, args.k, mode=args.mode, alphabet=args.alphabet,
@@ -127,6 +188,9 @@ def cmd_build(args):
             mem_cap_bytes=None if args.mem_cap_gb is None
             else int(args.mem_cap_gb * (1 << 30)), device=device)
     g.boss.state = args.state
+    if args.index_ranges:
+        with PhaseTimer("index suffix ranges"):
+            g.boss.index_suffix_ranges(args.index_ranges)
     with PhaseTimer("serialize"):
         g.save(args.out, mmap_layout=args.mmap or args.state == "fast")
     print(f"graph built: k={args.k} nodes={g.num_nodes()}", file=sys.stderr)

@@ -47,9 +47,8 @@ DEVICE_K = (3, 21)          # the k the device construction takes
 COLLECTOR = {"basic": "basic", "canonical": "both", "primary": "basic"}
 
 
-def not_ported(what: str, item: str = "A12.3") -> NotImplementedError:
-    """The refusal of a build the port does not make yet: A12.3 is
-    ``--graph``, ``--suffix``, ``--index-ranges`` and KMC inputs, A15 the
+def not_ported(what: str, item: str = "A15") -> NotImplementedError:
+    """The refusal of a build the port does not make yet: A15 is the
     mesh."""
     return NotImplementedError(f"build: {what} is not ported yet (ROADMAP "
                                f"{item})")

@@ -1,18 +1,25 @@
-"""The minimizer-bucketed static k-mer dictionary (the SSHash-style graph),
-read from the JAX package's ``.dbg.npz`` artifacts.
+"""The minimizer-bucketed static k-mer dictionary (the SSHash-style graph):
+built from sequences, and read from the JAX package's ``.dbg.npz``
+artifacts.
 
-Own numpy copy of metagraph_tpu/graph/sshash_graph.py:24-116: ``_mix``,
+Own copy of metagraph_tpu/graph/sshash_graph.py:24-116: ``_mix``,
 ``compute_minimizers``, ``DBGSSHashGraph.build``, ``rebuild`` and
-``call_kmers``.  ``rebuild`` builds the graph again from the saved k-mers
-as DNA sequences, as the JAX one does: node id = 1 + the k-mer's rank in
-sorted order (codes compared left to right), entries bucketed by
-minimizer, which sets the order of ``node_kmers_and_ids``.  The graph
-takes DNA only.
+``call_kmers``.  ``build`` takes the JAX signature (``alphabet``, ``m``)
+and runs on ``device`` (the card unless "cpu"): the distinct k-mers of
+the collector (``KmerExtractor.extract_tensors``), their keys packed left
+to right at 4 bits a code as the JAX ``pack_codes`` default packs them,
+ranked by a stable ``packing.lexsort_rows`` (kernel D2): node id = 1 +
+that rank; the entries are then sorted stably by minimizer (D2), which
+sets the order of ``node_kmers_and_ids``, whose k-mers are the 4-bit
+keys unpacked, as the JAX ``call_kmers`` unpacks them.  The minimizers
+are the JAX numpy code.  ``rebuild`` builds the graph again on the host
+from the saved k-mers as DNA sequences, as the JAX one does.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..kmer.alphabets import DNA
 from ..kmer.extractor import KmerExtractor
@@ -48,11 +55,33 @@ class DBGSSHashGraph(_KmerGraphBase):
     GRAPH_TYPE = "sshash"
 
     @classmethod
-    def build(cls, sequences, k: int, mode: str = BASIC,
-              m: int | None = None) -> "DBGSSHashGraph":
-        return cls._bucketed(KmerExtractor(DNA).distinct_kmers(
-            sequences, k, mode="both" if mode == CANONICAL else "basic"),
-            k, mode, m)
+    def build(cls, sequences, k: int, mode: str = BASIC, alphabet=DNA,
+              m: int | None = None, device=None, **_) -> "DBGSSHashGraph":
+        """The JAX ``DBGSSHashGraph.build`` (sshash_graph.py:56-74)."""
+        from ..device import resolve_device
+        from ..kmer import packing
+        from ..kmer.alphabets import ALPHABETS
+        from ..succinct.device_build import radix_sort
+        if m is None:
+            m = max(4, min(k - 1, (k + 1) // 2))
+        name = getattr(alphabet, "name", alphabet)
+        dev = resolve_device(device)
+        chars, _ = KmerExtractor(ALPHABETS[name]).extract_tensors(
+            sequences, k, "both" if mode == CANONICAL else "basic",
+            device=dev)
+        order = np.arange(k)
+        keys = packing.pack_rows(lambda j: chars[:, j], order, 4)
+        perm = packing.lexsort_rows(keys)
+        chars = chars.index_select(0, perm)
+        keys = keys.index_select(0, perm)
+        minims = compute_minimizers(chars.cpu().numpy(), m)
+        pos = torch.arange(len(minims), dtype=torch.int64, device=dev)
+        _, bucket = radix_sort(torch.from_numpy(minims.view(np.int64))
+                               .to(dev), 64, pos)
+        ids = (bucket + 1).cpu().numpy()
+        kmers = packing.unpack_rows(keys.index_select(0, bucket), k, order,
+                                    4).cpu().numpy()
+        return cls(kmers, k, mode, name, ids=ids)
 
     @classmethod
     def _bucketed(cls, chars, k, mode, m=None) -> "DBGSSHashGraph":

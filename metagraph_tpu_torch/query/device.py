@@ -33,8 +33,21 @@ as in the JAX package):
   ``select_mask_epoch``); the values at the hits are a torch index of the
   counts, as ``gather_flat`` is outside any Pallas kernel.
 
+The older epochs and the dedup epoch (``query_step`` :24,
+``query_epoch`` :34, ``query_epoch_tiled`` :187, ``query_epoch_codes``
+:224, ``count_epoch_tiled`` :534, ``select_mask_epoch`` :557,
+``gather_flat`` :574, ``query_epoch_dedup`` :757 with the host
+``dedup_batch`` :823, the host helpers ``pad_tile_rows`` :477,
+``tile_codes_layout`` :489 and ``_rowmin_packed`` :606, and
+``DeviceQueryPipeline`` :613-754) look up every key through kernel A
+(``succinct/ops.hash_lookup``) and count through kernel 2; each takes and
+gives int32 tensors (uint32 words as their bit patterns) and returns no
+padding.  No CLI path takes them: they are the JAX package's benchmark
+and entry-point workload (``entry.py``).
+
 The TPU's fused upload buffer, chunk scan and geometric tile padding
-served its host link and its recompiles and are not copied.
+served its host link and its recompiles and are not copied, but for
+``pad_tile_rows``, kept for callers that size their batches by it.
 """
 
 from __future__ import annotations
@@ -50,7 +63,8 @@ from .._u32 import to_i32, to_u64
 from ..annotation.device_matrix import WordsOnDevice, row_words
 from ..annotation.ops import gather_anno_rows
 from ..annotation.sparse_device import SparseOnDevice, sparse_count_epoch
-from ..succinct.ops import codes_lookup, wire_lookup
+from ..succinct.ops import (EMPTY_WORD, codes_lookup, device_pack_windows,
+                            hash_lookup, wire_lookup)
 
 TILE = 256   # windows per tile
 WORDS_BYTES = 1 << 26    # label words of one chunk of words_count_epoch
@@ -449,3 +463,337 @@ def count_route(anno, rows1: torch.Tensor, tile_seq: torch.Tensor,
                                    num_labels)
     mask = selection_mask(counts, present, dsel, selmin)
     return mask, counts, present
+
+
+# --------------------------------------------------------------------------
+# the older epochs and the dedup epoch (query/device.py:24-188, 224-260,
+# 477-606, 613-839)
+# --------------------------------------------------------------------------
+
+CODES_CHUNK = 1 << 22     # windows a pass of query_epoch_codes packs
+
+
+def query_step(table: torch.Tensor, bitmap: torch.Tensor,
+               queries: torch.Tensor, seq_ids: torch.Tensor, num_seqs: int,
+               num_labels: int):
+    """(Q, W) int32 packed windows (all-EMPTY_WORD rows pad) and (Q,)
+    sequence ids -> ((S, L) int32 counts, (S,) int32 present, (Q,) int32
+    nodes): the hash lookup (kernel A, ``hash_lookup``), then
+    ``count_labels`` (kernel 2)."""
+    from ..annotation.ops import count_labels
+    nodes = hash_lookup(table, queries)
+    counts, present = count_labels(bitmap, nodes, seq_ids, num_seqs,
+                                   num_labels)
+    return counts, present, nodes
+
+
+def query_epoch(table: torch.Tensor, bitmap: torch.Tensor,
+                queries: torch.Tensor, seq_ids: torch.Tensor, num_seqs: int,
+                num_labels: int, chunk: int = 1 << 17):
+    """The whole batch, ``chunk`` windows a step: lookups, then
+    ``count_labels_matmul``, summed -> ((S, L) int32 counts, (S,) int32
+    present).  The JAX scan's sentinel padding adds nothing, so none is
+    made."""
+    from ..annotation.ops import count_labels_matmul
+    counts = torch.zeros((num_seqs, num_labels), dtype=torch.int32,
+                         device=queries.device)
+    present = torch.zeros(num_seqs, dtype=torch.int32, device=queries.device)
+    for lo in range(0, queries.shape[0], chunk):
+        c, p = count_labels_matmul(
+            bitmap, hash_lookup(table, queries[lo: lo + chunk]),
+            seq_ids[lo: lo + chunk], num_seqs, num_labels)
+        counts += c
+        present += p
+    return counts, present
+
+
+def count_epoch_tiled(bitmap: torch.Tensor, nodes: torch.Tensor,
+                      tile_seq: torch.Tensor, num_seqs: int,
+                      num_labels: int):
+    """(N, T) int32 annotation rows + 1 (0 = miss) and (N,) tile_seq ->
+    ((S, L) int32 counts, (S,) int32 present): kernel 2, after zero
+    columns widen T to a multiple of 32."""
+    pad = -nodes.shape[1] % 32
+    if pad:
+        nodes = torch.nn.functional.pad(nodes, (0, pad))
+    return label_counts(nodes.contiguous(), bitmap, tile_seq.contiguous(),
+                        num_seqs, num_labels)
+
+
+def query_epoch_tiled(table: torch.Tensor, bitmap: torch.Tensor,
+                      queries: torch.Tensor, tile_seq: torch.Tensor,
+                      num_seqs: int, num_labels: int):
+    """(N, T, W) int32 tiled windows (all-EMPTY_WORD rows pad), (N,)
+    tile_seq -> ((S, L) int32 counts, (S,) int32 present, (N, T) int32
+    nodes): kernel A, then kernel 2."""
+    N, T, W = queries.shape
+    nodes = hash_lookup(table, queries.reshape(N * T, W)).view(N, T)
+    counts, present = count_epoch_tiled(bitmap, nodes, tile_seq, num_seqs,
+                                        num_labels)
+    return counts, present, nodes
+
+
+def query_epoch_codes(table: torch.Tensor, bitmap: torch.Tensor,
+                      code_tiles: torch.Tensor, tile_seq: torch.Tensor,
+                      num_seqs: int, num_labels: int, K: int):
+    """(N, T + K - 1) uint8 code tiles (codes >= 5 invalid, 5 pads), (N,)
+    tile_seq -> ((S, L) int32 counts, (S,) int32 present, (N, T) int32
+    nodes): ``device_pack_windows`` on the device, kernel A on the packed
+    windows (an invalid window's node 0), then kernel 2."""
+    N, TK = code_tiles.shape
+    T = TK - (K - 1)
+    nodes = torch.zeros((N, T), dtype=torch.int32, device=code_tiles.device)
+    step = max(1, CODES_CHUNK // max(T, 1))
+    for lo in range(0, N, step):
+        packed, valid = device_pack_windows(code_tiles[lo: lo + step], K)
+        C = packed.shape[0]
+        found = hash_lookup(table, to_i32(packed.reshape(C * T, -1)))
+        nodes[lo: lo + C] = torch.where(valid, found.view(C, T), 0)
+    counts, present = count_epoch_tiled(bitmap, nodes, tile_seq, num_seqs,
+                                        num_labels)
+    return counts, present, nodes
+
+
+def select_mask_epoch(counts: torch.Tensor, dmin: torch.Tensor):
+    """(S, L) int32 counts, (S,) int32 thresholds -> (S, ceil(L/32))
+    int32 bit patterns of ``counts >= dmin`` (kernel 3 with every row's
+    presence passing)."""
+    zeros = torch.zeros(counts.shape[0], dtype=torch.int32,
+                        device=counts.device)
+    return selection_mask(counts, zeros, dmin.to(torch.int32).contiguous(),
+                          zeros)
+
+
+def gather_flat(counts: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """counts.reshape(-1)[idx]: the values at the hits."""
+    return counts.reshape(-1)[idx]
+
+
+def pad_tile_rows(n: int, C: int, lo: int = 4) -> int:
+    """Geometric tile-row padding: ceil(n/C) rounded up into a ~1.12x
+    bucket series, times C."""
+    nc = max(-(-n // C), 1)
+    b = lo
+    while b < nc:
+        b = max(b + 1, int(b * 9) // 8)
+    return b * C
+
+
+def tile_codes_layout(codes_list, K: int, tile: int = TILE):
+    """Per-sequence code arrays -> ((N, T+K-1) uint8 code tiles, positions
+    past a sequence's end read as the invalid code 5; (N,) int32
+    tile_seq; per-sequence window counts)."""
+    TK = tile + K - 1
+    lens = np.array([len(c) for c in codes_list], dtype=np.int64)
+    nwins_arr = np.maximum(lens - K + 1, 0)
+    nwins = nwins_arr.tolist()
+    ntiles = -(-nwins_arr // tile)
+    N = int(ntiles.sum())
+    if N == 0:
+        return (np.zeros((0, TK), np.uint8), np.zeros(0, np.int32), nwins)
+    cat = np.concatenate(codes_list)
+    seq_start = np.concatenate([[0], np.cumsum(lens)])
+    tile_seq = np.repeat(np.arange(len(codes_list), dtype=np.int32), ntiles)
+    tile_base = np.concatenate([[0], np.cumsum(ntiles)])
+    t_in_seq = np.arange(N, dtype=np.int64) - tile_base[tile_seq]
+    starts = seq_start[tile_seq] + t_in_seq * tile
+    idx = starts[:, None] + np.arange(TK, dtype=np.int64)
+    in_seq = idx < seq_start[tile_seq + 1][:, None]
+    out = np.where(in_seq, cat[np.minimum(idx, len(cat) - 1)],
+                   np.uint8(5)).astype(np.uint8)
+    return out, tile_seq, nwins
+
+
+def _rowmin_packed(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Rowwise lexicographic min of two (N, W) packed-word arrays."""
+    from ..kmer.packing import rows_lex_lt
+    return np.where(rows_lex_lt(a, b)[:, None], a, b)
+
+
+def _rowmin_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``_rowmin_packed`` of (N, W) int64 rows holding uint32 words."""
+    lt = torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
+    decided = torch.zeros_like(lt)
+    for w in range(a.shape[1]):
+        lt |= ~decided & (a[:, w] < b[:, w])
+        decided |= a[:, w] != b[:, w]
+    return torch.where(lt[:, None], a, b)
+
+
+class DeviceQueryPipeline:
+    """The annotated batch query of the JAX ``DeviceQueryPipeline``
+    (query/device.py:613-754) on ``device`` (the card unless "cpu"): the
+    hash index of the graph's valid edges, the annotation's bitmap, the
+    host packing of a batch (``prepare_batch``: the JAX bytes) and
+    ``query_labels`` through ``query_step`` (kernels A and 2)."""
+
+    def __init__(self, graph, annotation, device=None):
+        from ..annotation.ops import DeviceAnnotation
+        from ..device import resolve_device
+        from ..kmer.alphabets import ALPHABETS
+        from ..kmer.packing import bits_for_alphabet
+        from ..succinct.ops import DeviceHashIndex, pack_kmers32
+        self.device = resolve_device(device)
+        boss = graph.boss
+        valid_edges = np.flatnonzero(boss.valid)
+        self._bits = bits_for_alphabet(ALPHABETS[graph.alphabet].sigma)
+        self.index_keys = pack_kmers32(boss.get_edge_seq(valid_edges),
+                                       bits=self._bits)
+        self.index_ids = valid_edges.astype(np.uint32)
+        self.index = DeviceHashIndex.from_packed(
+            self.index_keys, self.index_ids, device=self.device)
+        self.annotation = DeviceAnnotation.from_column_annotation(
+            annotation, graph.max_index(), self.device)
+        self.graph = graph
+        self.anno = annotation
+        self.k = graph.k
+
+    def _prepare(self, seqs):
+        """-> ((Q, W) int32 keys, (Q,) int32 sequence ids) on the device
+        and the per-sequence window counts."""
+        from ..kmer.packing import boss_priority_order
+        from ..succinct.ops import key_words
+        k, dev = self.k, self.device
+        ex = self.graph.extractor
+        codes_list = [ex.encode(s) for s in seqs]
+        num_kmers = [max(len(c) - k + 1, 0) for c in codes_list]
+        W = key_words(k, self._bits)
+        Q = sum(num_kmers)
+        if Q == 0:
+            return (torch.zeros((0, W), dtype=torch.int32, device=dev),
+                    torch.zeros(0, dtype=torch.int32, device=dev), num_kmers)
+        sigma = ex.alphabet.sigma
+        cat = np.concatenate([np.append(c, np.uint8(sigma))
+                              for c in codes_list])
+        starts = np.cumsum([0] + [len(c) + 1 for c in codes_list[:-1]])
+        n = np.array(num_kmers, dtype=np.int64)
+        sid = np.repeat(np.arange(len(seqs), dtype=np.int32), n)
+        at = np.repeat(starts, n) + np.arange(Q) - np.repeat(
+            np.cumsum(n) - n, n)
+        bad = np.concatenate([[0], np.cumsum(cat >= sigma)])
+        valid = (bad[at + k] - bad[at]) == 0
+        codes_t = torch.from_numpy(cat).to(dev)
+        at_t = torch.from_numpy(at).to(dev)
+        order = boss_priority_order(k)
+        per, bits = 32 // self._bits, self._bits
+
+        def pack(col):
+            out = torch.zeros((Q, W), dtype=torch.int64, device=dev)
+            for p, j in enumerate(order):
+                w, slot = divmod(p, per)
+                out[:, w] |= col(int(j)).long() << (32 - bits - bits * slot)
+            return out
+
+        keys = pack(lambda j: codes_t[at_t + j])
+        if getattr(self.graph, "mode", None) == "canonical":
+            comp = torch.from_numpy(ex.extended_complement_table()).to(dev)
+            keys = _rowmin_rows(keys, pack(
+                lambda j: comp[codes_t[at_t + (k - 1 - j)].long()]))
+        keys[~torch.from_numpy(valid).to(dev)] = int(EMPTY_WORD)
+        return to_i32(keys), torch.from_numpy(sid).to(dev), num_kmers
+
+    def prepare_batch(self, seqs):
+        """The host packing of a batch -> ((Q, W) uint32 windows in BOSS
+        priority order, canonical graphs' as the lesser strand, invalid
+        windows all EMPTY_WORD; (Q,) int32 sequence ids; per-sequence
+        window counts): the JAX arrays."""
+        keys, sid, num_kmers = self._prepare(seqs)
+        return (keys.cpu().numpy().view(np.uint32), sid.cpu().numpy(),
+                num_kmers)
+
+    def query_labels(self, seqs, mode: str = "labels",
+                     num_top_labels: int = 2 ** 63,
+                     discovery_fraction: float = 0.7,
+                     presence_fraction: float = 0.0):
+        """LABELS or MATCHES for a batch: per sequence, its labels, or
+        (label, count) pairs by count descending, then label code."""
+        from ..annotation.annotated_dbg import get_min_count
+        queries, seq_ids, num_kmers = self._prepare(seqs)
+        S = len(seqs)
+        counts, present, _ = query_step(
+            self.index.table, self.annotation.bitmap, queries, seq_ids, S,
+            self.annotation.num_labels)
+        counts, present = counts.cpu().numpy(), present.cpu().numpy()
+        labels = self.anno.labels
+        out = []
+        for i in range(S):
+            nk = num_kmers[i]
+            min_count = get_min_count(discovery_fraction, presence_fraction,
+                                      nk, int(present[i])) if nk else 0
+            if nk == 0 or present[i] < min_count:
+                out.append([])
+                continue
+            sel = np.flatnonzero(counts[i] >= min_count)
+            if mode == "labels":
+                out.append([labels[c] for c in sel])
+                continue
+            pairs = sorted(((int(counts[i][c]), -int(c)) for c in sel),
+                           reverse=True)[: num_top_labels]
+            out.append([(labels[-negc], n) for n, negc in pairs])
+        return out
+
+
+def query_epoch_dedup(table: torch.Tensor, bitmap: torch.Tensor,
+                      dkeys: torch.Tensor, did_tiles: torch.Tensor,
+                      tile_seq: torch.Tensor, num_seqs: int,
+                      num_labels: int):
+    """The deduplicated epoch: (D + 1, W) int32 distinct keys (row 0 the
+    all-EMPTY_WORD row), (N, T) int32 distinct ids of the windows (0 =
+    invalid), (N,) tile_seq -> ((S, L) int32 counts, (S,) int32 present).
+    Stage A: kernel A on the distinct keys, their annotation rows gathered
+    once into a (D + 1, Lw) table; stage B: kernel 2 over that table, a
+    window's node id ``where(hit[did], did + 1, 0)`` (table row did)."""
+    Lw = bitmap.shape[1]
+    ld = -(-Lw // 4) * 4                  # rows 16-byte aligned
+    nodes_d = hash_lookup(table, dkeys)
+    hit_d = nodes_d > 0
+    rows = torch.where(hit_d, nodes_d - 1, 0).long()
+    words = torch.zeros((dkeys.shape[0], ld), dtype=torch.int32,
+                        device=dkeys.device)
+    words[:, :Lw] = bitmap.index_select(0, rows) * hit_d[:, None]
+    did = did_tiles.long()
+    ids = torch.where(hit_d[did], did + 1, 0).to(torch.int32)
+    return count_epoch_tiled(words[:, :Lw], ids, tile_seq, num_seqs,
+                             num_labels)
+
+
+def dedup_batch(queries: np.ndarray, seq_ids: np.ndarray, num_seqs: int,
+                tile: int = TILE, device=None):
+    """Host packed windows -> ((D + 1, W) uint32 distinct keys, row 0 the
+    all-EMPTY_WORD row, then the valid ones in row order; (N, T) int32
+    distinct-id tiles (``tile_layout``); (N,) int32 tile_seq; D): the
+    JAX ``dedup_batch``, its distinct pass (``np.unique(axis=0)``) on
+    ``device`` (the card unless "cpu"): the word pairs joined into 64-bit
+    words, which keeps the row order, sorted stably by
+    ``packing.lexsort_rows`` (kernel D2)."""
+    from ..device import resolve_device
+    from ..kmer import packing
+    queries = np.asarray(queries, dtype=np.uint32)
+    Q, W = queries.shape
+    sent = np.full((1, W), EMPTY_WORD, np.uint32)
+    dids = np.zeros(Q, np.int32)
+    uniq = queries[:0]
+    if Q:
+        wide = np.zeros((Q, -(-W // 2) * 2), np.uint64)
+        wide[:, :W] = queries
+        joined = (wide[:, 0::2] << np.uint64(32)) | wide[:, 1::2]
+        t = packing.to_device(joined, resolve_device(device))
+        perm = packing.lexsort_rows(t)
+        s = t.index_select(0, perm)
+        new = packing.new_rows(s)
+        grp = torch.empty_like(perm)
+        grp[perm] = torch.cumsum(new.long(), 0) - 1
+        u = packing.to_host(s[new])
+        uniq = np.empty((len(u), 2 * u.shape[1]), np.uint32)
+        uniq[:, 0::2] = (u >> np.uint64(32)).astype(np.uint32)
+        uniq[:, 1::2] = (u & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        uniq = uniq[:, :W]
+        # the all-EMPTY_WORD row sorts last; it is no distinct key
+        D = len(uniq) - int((uniq[-1] == EMPTY_WORD).all())
+        g = grp.cpu().numpy()
+        dids = np.where(g < D, g + 1, 0).astype(np.int32)
+        uniq = uniq[:D]
+    D = len(uniq)
+    did_tiles, tile_seq = tile_layout(dids, seq_ids, num_seqs, tile=tile,
+                                      fill=0)
+    return np.concatenate([sent, uniq]), did_tiles, tile_seq, D

@@ -4,15 +4,16 @@ artifact or its mmap layout.
 Own numpy copy of the part of metagraph_tpu/succinct/boss.py the port
 uses: the table of a ``BossArrays`` with its ``state`` tag and
 ``count_width`` (boss.py:36-53), writing (``save``, ``save_mmap``,
-:622-657: the same npz keys and dtypes; the suffix-range keys are not
-written, as the port's ``build`` refuses ``--index-ranges``), loading
-(:660-700: the npz, or the mmap layout's ``.meta.npz`` beside raw
-``.W/.last/.valid/.weights.npy`` arrays, mapped read-only with ``mmap``)
-and the navigation needed to decode
-edge k-mers (``rank_last``, ``select_W``, ``node_last_char``, ``bwd``,
-``get_node_seq``, ``get_edge_seq``; boss.py:113-300, 593-610).  Rank and
-select are plain prefix counts and position lists instead of the JAX
-package's succinct directories; the answers are the same.
+:622-657: the same npz keys and dtypes, the suffix-range index's among
+them), loading (:660-700: the npz, or the mmap layout's ``.meta.npz``
+beside raw ``.W/.last/.valid/.weights.npy`` arrays, mapped read-only with
+``mmap``), the suffix-range index (``tighten_range``, ``initial_range``,
+``index_suffix_ranges``, :319-372) and the navigation needed to decode
+edge k-mers (``rank_last``, ``select_last``, ``rank_W``, ``select_W``,
+``node_last_char``, ``bwd``, ``get_node_seq``, ``get_edge_seq``;
+boss.py:113-300, 593-610).  Rank and select are plain prefix counts and
+position lists instead of the JAX package's succinct directories; the
+answers are the same.
 
 Conventions: row 0 is the sentinel row and edge indices are 1-based; a W
 value ``c + alph_size`` marks a non-first incoming edge.
@@ -67,6 +68,9 @@ class BOSS:
         # bits a stored count takes, both kept in the artifact
         self.state = "stat"
         self.count_width = 8
+        # the suffix-range index: empty until index_suffix_ranges(L)
+        self.suffix_L = 0
+        self.suf_rl = self.suf_ru = self.suf_ok = None
         self._last = _BitIndex(self.last == 1)
         self._W = [_BitIndex(self.W == c) for c in range(alph_size)]
         self.NF = self._last.rank(self.F)            # rank_last(F[c])
@@ -77,10 +81,21 @@ class BOSS:
         return cls(arrays.k, arrays.alph_size, arrays.W, arrays.last,
                    arrays.F, arrays.valid, arrays.weights)
 
-    def save(self, path: str, **extra):
-        """The npz artifact, compressed (boss.py:622-635)."""
+    def _save_tags(self, extra: dict):
+        """The artifact's tags, and its suffix-range index where it has
+        one."""
         extra.setdefault("state", self.state)
         extra.setdefault("count_width", self.count_width)
+        if self.suffix_L:
+            extra.setdefault("suffix_L", self.suffix_L)
+            extra.setdefault("suf_rl", self.suf_rl)
+            extra.setdefault("suf_ru", self.suf_ru)
+            extra.setdefault("suf_ok", self.suf_ok)
+        return extra
+
+    def save(self, path: str, **extra):
+        """The npz artifact, compressed (boss.py:622-635)."""
+        self._save_tags(extra)
         np.savez_compressed(
             path, k=self.k, alph_size=self.alph_size, W=self.W,
             last=self.last, F=self.F, valid=self.valid,
@@ -95,8 +110,7 @@ class BOSS:
             np.save(base + f".{name}.npy", getattr(self, name))
         if self.weights is not None:
             np.save(base + ".weights.npy", self.weights)
-        extra.setdefault("state", self.state)
-        extra.setdefault("count_width", self.count_width)
+        self._save_tags(extra)
         np.savez(base + ".meta.npz", k=self.k, alph_size=self.alph_size,
                  F=self.F, **extra)
 
@@ -129,12 +143,17 @@ class BOSS:
             return boss
 
     def _tags(self, z, state: str):
-        """``state`` and ``count_width`` as the artifact records them
-        (boss.py:677-695); an older one without a state tag reads as
-        ``state``."""
+        """``state``, ``count_width`` and the suffix-range index as the
+        artifact records them (boss.py:677-700); an older one without a
+        state tag reads as ``state``."""
         self.state = str(z["state"]) if "state" in z.files else state
         if "count_width" in z.files:
             self.count_width = int(z["count_width"])
+        if "suffix_L" in z.files and int(z["suffix_L"]):
+            self.suffix_L = int(z["suffix_L"])
+            self.suf_rl = z["suf_rl"].astype(np.int64)
+            self.suf_ru = z["suf_ru"].astype(np.int64)
+            self.suf_ok = z["suf_ok"].astype(np.uint8)
 
     @property
     def num_valid(self) -> int:
@@ -147,6 +166,69 @@ class BOSS:
     def rank_last(self, i):
         """#set bits in last[1..i]."""
         return self._last.rank(i)
+
+    def select_last(self, r):
+        """Position of the r-th set bit of last; select_last(0) = 0."""
+        r = np.asarray(r, dtype=np.int64)
+        return np.where(r > 0, self._last.select(r), 0)
+
+    def rank_W(self, i, c):
+        """#occurrences of value c (< alph_size) in W[1..i] (vectorised
+        over mixed c; the sentinel W[0] = 0 is not counted)."""
+        i, c = np.broadcast_arrays(np.asarray(i, dtype=np.int64),
+                                   np.asarray(c, dtype=np.int64))
+        out = np.zeros(i.shape, dtype=np.int64)
+        for sym in np.unique(c):
+            m = c == sym
+            out[m] = self._W[sym].rank(i[m])
+        return out - (c == 0)
+
+    # -------------------------------------------------- suffix-range index
+
+    def tighten_range(self, rl, ru, s, alive):
+        """One step of the range-tightening node search (boss.py:319-329):
+        the edge range [rl, ru] of the nodes ending in a string x -> that
+        of the nodes ending in x + s, where ``alive``."""
+        rk_rl = self.rank_W(np.maximum(rl - 1, 0), s) + 1
+        rk_ru = self.rank_W(ru, s)
+        ok = alive & (rk_rl <= rk_ru)
+        nf = self.NF[s]
+        rl = np.where(ok, self.select_last(nf + rk_rl - 1) + 1, rl)
+        ru = np.where(ok, self.select_last(nf + rk_ru), ru)
+        return rl, ru, ok
+
+    def initial_range(self, s):
+        """The F-based range of the nodes ending in character s
+        (boss.py:331-338)."""
+        M = len(self.W)
+        s = np.asarray(s, dtype=np.int64)
+        rl = np.where(self.F[s] + 1 < M, self.F[s] + 1, M)
+        ru = np.concatenate([self.F, [M - 1]])[s + 1]
+        return rl, ru
+
+    def index_suffix_ranges(self, L: int):
+        """The node ranges of all (alph_size-1)^L sentinel-free strings of
+        length L (boss.py:340-372): L rounds of tightening over the cross
+        product; combo id = sum_t (c_t - 1) * (A-1)^t, position 0 the least
+        significant digit.  Dead combos get the empty range [1, 0]."""
+        A = self.alph_size
+        if L <= 0:
+            self.suffix_L = 0
+            self.suf_rl = self.suf_ru = self.suf_ok = None
+            return
+        assert L < self.k, (L, self.k)
+        chars = np.arange(1, A, dtype=np.int64)
+        rl, ru = self.initial_range(chars)
+        alive = rl <= ru
+        for _ in range(1, L):
+            n = len(rl)
+            rl, ru, alive = self.tighten_range(
+                np.tile(rl, A - 1), np.tile(ru, A - 1), np.repeat(chars, n),
+                np.tile(alive, A - 1))
+        self.suffix_L = int(L)
+        self.suf_rl = np.where(alive, rl, 1).astype(np.int64)
+        self.suf_ru = np.where(alive, ru, 0).astype(np.int64)
+        self.suf_ok = alive.astype(np.uint8)
 
     def select_W(self, c, r):
         """Position of the r-th occurrence of value c in W[1..] (vectorised

@@ -3,12 +3,17 @@
 Own copies of metagraph_tpu/succinct/ops.py: the host packers
 ``pack_codes32``/``pack_kmers32``/``pack_kmers2`` (:49-95, 4-bit and 8-bit
 codes), ``_hash_words`` (:345-360, numpy and torch), the
-``DeviceHashIndex`` builder (:389-431, byte-identical tables) and plain
+``DeviceHashIndex`` builder (:389-431, ``from_packed``: byte-identical
+tables) and its ``lookup``, and plain
 PyTorch versions of ``_funnel_shift``, ``extract_windows2``,
 ``window_valid2``, ``keys2_to_keys4``, ``_hash_lookup_flat`` and
 ``device_pack_windows`` (:98-268, :438-490), and of the canonical key ops
 ``_rev2_word``, ``rc_keys2``, ``boss_rot2`` and ``keys2_greater``
 (:112-177).
+
+``hash_lookup`` is ``DeviceHashIndex.lookup``: kernel A on every key but
+the all-EMPTY_WORD padding rows of the JAX batches, which get the JAX
+probe's answer (``sentinel_answer``).
 
 Three hand-written kernels probe the table:
 
@@ -141,12 +146,31 @@ class DeviceHashIndex:
 
     table: torch.Tensor    # (n_buckets, BUCKET * (W + 1)) int32
 
+    @property
+    def W(self) -> int:
+        """Key words."""
+        return self.table.shape[1] // BUCKET - 1
+
     @classmethod
     def from_table(cls, table: np.ndarray, device) -> "DeviceHashIndex":
         table = np.asarray(table, dtype=np.uint32)
         if table.ndim != 2 or table.shape[1] % BUCKET:
             raise ValueError(f"bad hash table shape {table.shape}")
         return cls(np_words(table).to(device))
+
+    @classmethod
+    def from_packed(cls, keys: np.ndarray, ids: np.ndarray,
+                    load: float = 0.45, device=None) -> "DeviceHashIndex":
+        """(N, W) uint32 keys + (N,) ids -> the index on ``device`` (the
+        card unless "cpu"), its table the bytes of the JAX
+        ``DeviceHashIndex.from_packed`` (ops.py:390-403)."""
+        from ..device import resolve_device
+        return cls.from_table(cls.build_table(keys, ids, load),
+                              resolve_device(device))
+
+    def lookup(self, queries: torch.Tensor) -> torch.Tensor:
+        """(Q, W) int32 keys -> (Q,) int32 ids: ``hash_lookup``."""
+        return hash_lookup(self.table, queries)
 
     @staticmethod
     def build_table(keys: np.ndarray, ids: np.ndarray,
@@ -585,6 +609,34 @@ def key_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 key_lookup.launches = 0
+
+
+def sentinel_answer(table: torch.Tensor) -> int:
+    """What the JAX probe (``_hash_lookup_flat``, ops.py:438-448) answers
+    for the all-EMPTY_WORD key that pads its batches: every empty slot of
+    that key's bucket matches it, and the max of their EMPTY_WORD ids is -1
+    as int32; a bucket without an empty slot gives 0."""
+    W = table.shape[1] // BUCKET - 1
+    key = torch.full((1, W), int(EMPTY_WORD), dtype=torch.int64,
+                     device=table.device)
+    b = int(_hash_words(key, table.shape[0], 1)[0])
+    row = table[b].view(BUCKET, W + 1)
+    return -1 if bool((row == -1).all(dim=1).any()) else 0
+
+
+def hash_lookup(table: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """``DeviceHashIndex.lookup`` / ``_hash_lookup`` (ops.py:433-452) of
+    (Q, W) int32 keys that may hold the all-EMPTY_WORD padding row ->
+    (Q,) int32 ids: kernel A (``key_lookup``) on the other keys, the JAX
+    probe's ``sentinel_answer`` on the padding rows."""
+    pad = (queries == -1).all(dim=1)
+    if not bool(pad.any()):
+        return key_lookup(queries, table)
+    out = torch.full((queries.shape[0],), sentinel_answer(table),
+                     dtype=torch.int32, device=queries.device)
+    live = torch.nonzero(~pad).squeeze(1)
+    out[live] = key_lookup(queries.index_select(0, live), table)
+    return out
 
 
 def codes_lookup(packed2: torch.Tensor, validb: torch.Tensor,

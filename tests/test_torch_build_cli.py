@@ -6,9 +6,10 @@ For K = 3, 11, 16, 17, 20 and 21, in every ``--state``, with and without
 arrays; the mmap layout's ``.meta.npz`` and ``.npy`` files), the stderr
 ``graph built:`` line and the exit code, and each package's
 ``DBGSuccinct.load`` of the other's file.  Then the error contract (a
-missing input, alone and with each flag the port does not take yet; those
-flags with a present input, which the port refuses naming its ROADMAP
-item), and the port's ``query`` on a graph it built, with a JAX-built
+missing input, alone and with each flag of ``FLAGS``; those flags with a
+present input, which the port builds as the JAX CLI does, or refuses
+naming its ROADMAP item, or answers with the JAX CLI's own error), a KMC
+input, and the port's ``query`` on a graph it built, with a JAX-built
 annotation, against the JAX ``query --device``.  The port runs with
 ``--torch-device cpu`` (the kernels' plain versions) in one subprocess
 without JAX.
@@ -23,6 +24,7 @@ from metagraph_tpu.graph import dbg_succinct as jax_dbg
 from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
 
 from test_torch_canonical import native_lib
+from test_torch_kmc import write_db
 from torch_parity import (graph_line, jax_cli, run_jax, run_port,
                           same_build_files, write_fasta)
 
@@ -32,16 +34,21 @@ VARIANTS = [(k, state, mmap, mask) for k in KS for state in STATES
             for mmap in (False, True) for mask in (False, True)]
 PLAIN = [(k, "stat", False, mask) for k in KS for mask in (False, True)]
 
-# flags the port does not take yet, each with the ROADMAP item it names
-# (None: the JAX CLI's own error, which the port prints too); the flags
-# of the host construction are parity cases in
-# tests/test_torch_build_host_cli.py
-REFUSED = {"suffix": (["--suffix", "A"], "A12.3"),
-           "graph_hash": (["--graph", "hash"], "A12.3"),
-           "index_ranges": (["--index-ranges", "3"], "A12.3"),
+# flags checked after a missing input, each with what the port does with
+# a present input: "built" (the JAX CLI's files, ``OUTPUTS``), the ROADMAP
+# item it names in its refusal, or None (the JAX CLI's own error, which
+# the port prints too); the flags of the host construction are parity
+# cases in tests/test_torch_build_host_cli.py, those of A12.3 in
+# tests/test_torch_build_{graphs,suffix}.py,
+# tests/test_torch_index_ranges.py and tests/test_torch_kmc.py
+REFUSED = {"suffix": (["--suffix", "A"], "built"),
+           "graph_hash": (["--graph", "hash"], "built"),
+           "index_ranges": (["--index-ranges", "3"], "built"),
            "mesh_shards": (["--mesh-shards", "2"], "A15"),
            "protein_canonical": (["--alphabet", "Protein", "--mode",
                                   "canonical"], None)}
+OUTPUTS = {"suffix": ".A.chunk.npz", "graph_hash": ".dbg.npz",
+           "index_ranges": ".dbg.npz"}
 
 
 def _name(k, state, mmap, mask):
@@ -108,9 +115,13 @@ def runs(tmp_path_factory):
         lines.append(["build", "-k", "11", "-o", "x-missing", "missing.fa"])
         keys.append(("missing",))
         jax_out[("missing",)] = run_jax(lines[-1], stderr=True)
+        # one 12-mer, ACGTACGTACGA
+        write_db("db", np.array([[0, 1, 2, 3] * 2 + [0, 1, 2, 0]], np.uint8),
+                 np.array([3], np.uint64), 3, 4, 1)
         lines.append(["build", "-k", "11", "-o", "y-kmc", "db.kmc_suf"])
         keys.append(("kmc",))
-        jax_out[("kmc",)] = run_jax(lines[-1], stderr=True)
+        jax_out[("kmc",)] = run_jax(["build", "-k", "11", "-o", "x-kmc",
+                                     "db.kmc_suf"], stderr=True)
         # the port's query on its own graph, with the JAX annotation
         jax_cli("annotate", "-i", "j-k11-stat.dbg", "--anno-header", "-o",
                 "anno", "in.fa")
@@ -176,8 +187,9 @@ def test_missing_input(runs):
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refusals_come_after_the_inputs(runs, name):
     """A missing input is reported first, as the JAX CLI reports it; a
-    present one is refused naming the ROADMAP item (where the JAX CLI
-    builds), or gets the JAX CLI's own error."""
+    present one is built as the JAX CLI builds it (the same stderr lines,
+    files, keys, dtypes and arrays), refused naming the ROADMAP item
+    (--mesh-shards), or gets the JAX CLI's own error."""
     item = REFUSED[name][1]
     want = runs["jax"][("refused", name, "missing.fa")]
     got = runs["port"][("refused", name, "missing.fa")]
@@ -188,21 +200,38 @@ def test_refusals_come_after_the_inputs(runs, name):
         want = runs["jax"][("refused", name, "in.fa")]
         assert got[:3] == want[:3] and str(got[1]).startswith("[error]")
         return
+    if item == "built":
+        want = runs["jax"][("refused", name, "in.fa")]
+        assert got[:3] == want[:3] == ["", 0, None], (got, want)
+        last = [ln for ln in want[3].splitlines()
+                if ln.startswith(("graph built", "chunk"))]
+        assert last and last == [ln for ln in got[3].splitlines()
+                                 if ln.startswith(("graph built", "chunk"))]
+        tmp, ext = runs["tmp"], OUTPUTS[name]
+        x, y = np.load(tmp / f"x-{name}{ext}"), np.load(tmp / f"y-{name}{ext}")
+        assert sorted(x.files) == sorted(y.files)
+        for f in x.files:
+            assert x[f].dtype == y[f].dtype and np.array_equal(x[f], y[f]), f
+        return
     assert got[1] == 1 and got[2].startswith("NotImplementedError") \
         and f"ROADMAP {item}" in got[2], got
     assert not os.path.exists(runs["tmp"] / f"y-{name}.dbg.npz")
-    if name != "mesh_shards":
-        assert runs["jax"][("refused", name, "in.fa")][1] == 0
 
 
 def test_kmc_input_refused(runs):
-    """A KMC database input is refused naming A12.3 before any input is
-    read; the JAX CLI fails on it too (its pre-pass imports a KMCReader
-    that seq_io/kmc.py does not define)."""
+    """The JAX CLI fails on a KMC database input (its pre-pass imports a
+    KMCReader that seq_io/kmc.py does not define); the port builds it as
+    the JAX ``DBGSuccinct.build`` builds ``read_kmers``' k-mers, k taken
+    from the database with the JAX warning (tests/test_torch_kmc.py holds
+    the arrays)."""
     got, want = runs["port"][("kmc",)], runs["jax"][("kmc",)]
-    assert got[1] == 1 and got[2].startswith("NotImplementedError") \
-        and "ROADMAP A12.3" in got[2], got
-    assert want[1] == 1 and want[2].startswith("ImportError"), want
+    assert want[1] == 1 and want[2].startswith("ImportError") \
+        and "KMCReader" in want[2], want
+    assert got[:3] == ["", 0, None], got
+    assert got[3].splitlines()[0] == "warning: using k=12 from KMC database"
+    want = jax_dbg.DBGSuccinct.build([b"ACGTACGTACGA"], 12, mask_dummy=False)
+    assert graph_line(got[3]) == [f"graph built: k=12 nodes="
+                                  f"{want.num_nodes()}"]
 
 
 def test_query_on_a_port_built_graph(runs):

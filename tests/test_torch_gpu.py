@@ -1945,3 +1945,163 @@ def test_dbg_build_routes_cuda_match_cpu(cuda, case, tmp_path):
     route = "device" if case in ("canonical", "primary") else "general"
     assert launches[0] == (1 if route == "device" else 0)
     assert launches[1] > 0
+
+
+# --------------------------------------------------------------------------
+# A12.3: the graph builds' sorts; A10: the older epochs and the dedup epoch
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rep", ("hash", "bitmap", "sshash"))
+@pytest.mark.parametrize("mode", ("basic", "canonical"))
+@pytest.mark.parametrize("k", (11, 31))
+def test_graph_builds_cuda_match_cpu(cuda, rep, mode, k):
+    """``build --graph``: the hash ids (first occurrences by a stable D2
+    sort, the positions sorted again by D2), the bitmap's and sshash's
+    sorted keys, on the card as on the CPU."""
+    from metagraph_tpu_torch.graph import build_graph
+    rng = np.random.default_rng([k, len(rep), len(mode)])
+    seqs = _build_seqs(rng, n_seqs=60)
+    db.radix_sort.launches = 0
+    got = build_graph(rep, seqs, k, mode=mode, device=cuda)
+    launches = db.radix_sort.launches
+    want = build_graph(rep, seqs, k, mode=mode, device="cpu")
+    for g, w in zip(got.node_kmers_and_ids(), want.node_kmers_and_ids()):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert want.num_nodes() > 1000 and launches > 0
+
+
+def _epoch_setup(dev, seed=0, n_refs=12, ref_len=900, k=21, canonical=False):
+    """A port-built graph of random references (label ``r<i>`` on
+    reference i's nodes, ``all`` on every other one's), its pipeline on
+    ``dev`` and reads cut from the references (some reverse-complemented,
+    some with N)."""
+    from metagraph_tpu_torch.query.device import DeviceQueryPipeline
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    refs = [letters[rng.integers(0, 4, ref_len)].tobytes()
+            for _ in range(n_refs)]
+    g = DBGSuccinct.build(refs, k, mode="canonical" if canonical else
+                          "basic", device="cpu")
+    edges = np.flatnonzero(g.boss.valid)
+    keys = ops.pack_kmers32(g.boss.get_edge_seq(edges))
+    node_of = {row.tobytes(): int(e) for row, e in zip(keys, edges)}
+    ex = g.extractor
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    rows = []
+    for s in refs:
+        both = [s, s.translate(comp)[::-1]] if canonical else [s]
+        ids = [node_of.get(r.tobytes(), 0) for x in both for r in
+               ops.pack_kmers32(np.lib.stride_tricks.sliding_window_view(
+                   ex.encode(x), k))]
+        rows.append(np.unique([i for i in ids if i]).astype(np.int64) - 1)
+    rows.append(np.unique(np.concatenate(rows[::2])))
+    anno = ColumnMajorAnnotation(g.max_index(), [f"r{i}" for i in
+                                                 range(n_refs)] + ["all"],
+                                 rows)
+    reads = []
+    for i in range(300):
+        s = refs[i % n_refs]
+        a = int(rng.integers(0, ref_len - 200))
+        r = s[a: a + int(rng.integers(k - 3, 200))]
+        if i % 3 == 1:
+            r = r.translate(comp)[::-1]
+        if i % 7 == 2:
+            r = r[:10] + b"NN" + r[12:]
+        reads.append(r)
+    return DeviceQueryPipeline(g, anno, device=dev), reads
+
+
+@pytest.mark.parametrize("canonical", (False, True))
+def test_epochs_cuda_match_cpu(cuda, canonical):
+    """Every A10 epoch on the card (each lookup through kernel A, each
+    count through kernel 2) against the same call on the CPU."""
+    from metagraph_tpu_torch.annotation import ops as anno_ops
+    gpu, reads = _epoch_setup(cuda, canonical=canonical)
+    cpu, _ = _epoch_setup("cpu", canonical=canonical)
+    q, sid, nk = cpu.prepare_batch(reads)
+    assert all(np.array_equal(a, b) for a, b in
+               zip(gpu.prepare_batch(reads)[:2], (q, sid)))
+    S, L = len(reads), cpu.annotation.num_labels
+
+    def both(fn, *args, host=()):
+        """fn on the card and on the CPU: the card's launches of kernels
+        A and 2, and each output equal."""
+        ops.key_lookup.launches = qd.label_counts.launches = 0
+        got = fn(*[a.to(cuda) if isinstance(a, torch.Tensor) else a
+                   for a in args])
+        torch.cuda.synchronize()
+        launched = (ops.key_lookup.launches, qd.label_counts.launches)
+        want = fn(*args)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), fn.__name__
+        return launched
+
+    tab, bm = cpu.index.table, cpu.annotation.bitmap
+    qt, st = torch.from_numpy(q.view(np.int32)), torch.from_numpy(sid)
+    assert both(qd.query_step, tab, bm, qt, st, S, L) == (1, 1)
+    assert both(qd.query_epoch, tab, bm, qt, st, S, L, 4096)[0] >= 2
+    tiles, tile_seq = qd.tile_layout(q, sid, S)
+    assert both(qd.query_epoch_tiled, tab, bm,
+                torch.from_numpy(tiles.view(np.int32)),
+                torch.from_numpy(tile_seq), S, L) == (1, 1)
+    ct, ts, _ = qd.tile_codes_layout([cpu.graph.extractor.encode(r)
+                                      for r in reads], cpu.k)
+    assert both(qd.query_epoch_codes, tab, bm, torch.from_numpy(ct),
+                torch.from_numpy(ts), S, L, cpu.k) == (1, 1)
+    dk, dt, dts, D = qd.dedup_batch(q, sid, S, device=cuda)
+    assert D < len(q)
+    assert both(qd.query_epoch_dedup, tab, bm,
+                torch.from_numpy(dk.view(np.int32)), torch.from_numpy(dt),
+                torch.from_numpy(dts), S, L) == (1, 1)
+    nodes = qd.query_step(tab, bm, qt, st, S, L)[2]
+    perm = torch.from_numpy(np.random.default_rng(1).permutation(len(q)))
+    for fn, s_ in ((anno_ops.count_labels, perm),
+                   (anno_ops.count_labels_matmul, perm),
+                   (anno_ops.count_labels_sorted, None)):
+        n_, i_ = (nodes, st) if s_ is None else (nodes[s_], st[s_])
+        assert both(fn, bm, n_, i_, S, L) == (0, 1)
+    assert gpu.query_labels(reads, "matches", 3) \
+        == cpu.query_labels(reads, "matches", 3)
+    assert sum(map(len, cpu.query_labels(reads))) > 200
+
+
+@pytest.mark.parametrize("W", (1, 2, 3, 4, 5))
+def test_dedup_batch_cuda_matches_cpu(cuda, W):
+    """``dedup_batch``'s distinct pass through D2 on joined 64-bit words:
+    rows with all-ones words, the padding row and repeats."""
+    rng = np.random.default_rng(W)
+    pool = rng.integers(0, 2 ** 32, (5000, W), dtype=np.uint64).astype(
+        np.uint32)
+    pool[::9, 0] = 0xFFFFFFFF
+    pool[::13] = 0xFFFFFFFF
+    q = pool[rng.integers(0, len(pool), 200_000)]
+    sid = np.sort(rng.integers(0, 3000, len(q))).astype(np.int32)
+    db.radix_sort.launches = 0
+    got = qd.dedup_batch(q, sid, 3000, device=cuda)
+    assert db.radix_sort.launches >= (W + 1) // 2
+    want = qd.dedup_batch(q, sid, 3000, device="cpu")
+    for g, w in zip(got[:3], want[:3]):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert got[3] == want[3] < len(pool)
+
+
+def test_hash_lookup_padding_rows_cuda(cuda):
+    """The padding rows get the JAX probe's answer, the others kernel A's,
+    on the card as on the CPU."""
+    pipe, reads = _epoch_setup("cpu", seed=3)
+    q, _, _ = pipe.prepare_batch(reads)
+    assert (q == 0xFFFFFFFF).all(axis=1).any()
+    keys = torch.from_numpy(q.view(np.int32))
+    want = ops.hash_lookup(pipe.index.table, keys)
+    got = ops.hash_lookup(pipe.index.table.to(cuda), keys.to(cuda))
+    assert torch.equal(got.cpu(), want) and (want > 0).sum() > 1000
+
+
+def test_entry_cuda_matches_cpu(cuda):
+    from metagraph_tpu_torch.entry import entry
+    fn, args = entry()
+    assert all(a.device.type == "cuda" for a in args)
+    got = fn(*args)
+    cfn, cargs = entry(device="cpu")
+    for g, w in zip(got, cfn(*cargs)):
+        assert torch.equal(g.cpu(), w)

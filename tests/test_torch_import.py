@@ -29,7 +29,9 @@ assert {"metagraph_tpu_torch.graph.canonical",
         "metagraph_tpu_torch.server.server",
         "metagraph_tpu_torch.utils.timer",
         "metagraph_tpu_torch.succinct.construct",
-        "metagraph_tpu_torch.succinct.device_build"} <= set(names), names
+        "metagraph_tpu_torch.succinct.device_build",
+        "metagraph_tpu_torch.seq_io.kmc",
+        "metagraph_tpu_torch.entry"} <= set(names), names
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
