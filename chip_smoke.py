@@ -12,9 +12,9 @@ then:
    D1-D4 of ``succinct/device_build.py``), each through the port's CLI
    (``build --device -v``, its ``main`` in this process, so that the
    launch counters show) from a FASTA file it writes from the seed's
-   stream 8: "pan", a pan-genome of 4 random base genomes of
-   4,000,000 bp with 4 strains each at 1% substitutions (20 references,
-   80,000,000 bp, 3 N runs a reference), and "reads", 100,000 reads of
+   stream 8: "pan", a pan-genome of 3 random base genomes of
+   4,000,000 bp with 4 strains each at 1% substitutions (15 references,
+   60,000,000 bp, 3 N runs a reference), and "reads", 100,000 reads of
    150 bp from the strains, half reverse-complemented, 1% substitutions,
    3% with an N run (several hundred thousand dummy sink and source
    nodes).  For each: the wall and the phases the build traced; D1-D4
@@ -194,21 +194,44 @@ then:
    two controls, also held against the plain version: sequential indices
    on the sweep's 2^17-row table (L2's rate without randomness) and random
    indices into a 2^21-row table (268 MB, random rows from device
-   memory).
+   memory);
+8. (run right after 3b, on its graph, saved in the mmap layout) aligns
+   reads through the port's CLI ``align`` (its ``main`` in this process):
+   150 bp reads of the basic references from the seed's stream 12, 5%
+   random, a quarter of the rest error-free, the others with 1%
+   substitutions and, a tenth of them, a 1-3 bp indel, half
+   reverse-complemented.  A calibration command aligns 20 reads, which
+   build the graph's lazy tables, then 200 reads, whose seconds give the
+   rate; the counted run takes 2,000 reads (a batch whose waves hold up
+   to 2,000 rows), or as many as that rate puts in 40 s where that is
+   fewer (at least 200): one ``wave_dp`` launch a wave, every wave's S,
+   E and F held whole against ``wave_dp_plain`` on the card on the same
+   inputs (the check's seconds left out of the rate), each printed
+   alignment held to an independent oracle (its score recomputed from
+   its CIGAR, the CIGAR applied to the read spelling the printed
+   sequence, that sequence's k-mers all among the references'), every
+   error-free read aligned end to end with an all-match CIGAR; the first
+   20 reads' bytes equal to a ``--torch-device cpu`` run's, the first
+   100 reads' to a ``-p 4`` run's; reads/s and the split into seeding,
+   waves, the engine's host work and output printed; ``wave_dp`` timed
+   on the run's largest wave.
 
 Depth cuts, which keep the script inside its time limit (widths are
 never cut): the basic batch is drawn at 150,000 reads, which 3b takes
 whole; the main path (2, 3, 3a) and the primary, canonical, k41, protein
 and many-labels deployments take ``path_reads`` = 40,000 reads (the
-first of the basic batch, or of their own stream) and the long sequence,
-the bitmap deployment 10,000; the pan-genome holds 4 base genomes (5
-before) and the read set 100,000 reads (400,000 before).
+first of the basic batch, or of their own stream; 150,000 before) and
+the long sequence, the coords mode and the seqs deployment
+``coords_prefix`` = 10,000 (20,000 before), the bitmap deployment 10,000;
+the pan-genome holds 3 base genomes (5, then 4 before) and the read set
+100,000 reads (400,000 before).
 
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (D1-D4 for each build,
 ``build_windows/pan`` and the like, D2 with its ``torch.sort`` ms as
-``library_ms``, ``radix_sort/reads-k31-counts`` and
+``library_ms``, ``wave_dp/align`` (phase 8's largest wave),
+``radix_sort/reads-k31-counts`` and
 ``radix_sort/protein-k20-disk`` for the general route,
 ``radix_sort/graph_bitmap``, ``.../graph_hash_canonical``,
 ``.../graph_sshash``, ``.../suffix`` and ``.../kmc`` for 3c, and
@@ -262,17 +285,20 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             read_len=200, long_windows=1 << 24, sample=2000,
             sw=(4096, 150, 300), sw_big=(1024, 1000, 1000),
             sw_long=(256, 2000, 2000), sw_oracle=12,
-            plain_chunks=(1024, 256), coords_prefix=20_000,
+            plain_chunks=(1024, 256), coords_prefix=10_000,
             protein_len=8120, protein_repeat=(1000, 1300),
             gather=(22, (16, 17), 1024), gather_big=21, ctrl_log=15,
             ctrl_rows=4096, many=(4096, 16, (48, 65)), anno_budget=2 << 30,
             words_budget=32768, words_reads=15_000, rd_max_length=100,
             seqs_headers=10, par_batches=8, par_threads=4,
             wide=(200, 8101, 20_000, 200), server_reads=2000,
-            bitmap_reads=10_000, pan=(4, 4_000_000, 4, 0.01, 3),
+            bitmap_reads=10_000, pan=(3, 4_000_000, 4, 0.01, 3),
             build_reads=(100_000, 150, 0.5, 0.01), build_k=21,
             path_reads=40_000,
-            build_sample=100_000, build_reps=3, host_k=31, disk_cap_gb=0.04)
+            build_sample=100_000, build_reps=3, host_k=31, disk_cap_gb=0.04,
+            align=dict(read_len=150, pool=20_000, warm=20, calibrate=200,
+                       budget_s=40, target=2000, least=200, cpu=20, par=100,
+                       par_procs=4))
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -286,7 +312,10 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             path_reads=200,
             pan=(2, 3000, 2, 0.01, 2), build_reads=(300, 150, 0.5, 0.01),
             build_k=21, build_sample=500, build_reps=1, host_k=31,
-            disk_cap_gb=0.00006)
+            disk_cap_gb=0.00006,
+            align=dict(read_len=150, pool=80, warm=5, calibrate=10,
+                       budget_s=0, target=30, least=30, cpu=5, par=12,
+                       par_procs=4))
 
 
 def log(msg: str):
@@ -1729,7 +1758,8 @@ def counters():
         overflow_counts, sparse_label_counts)
     from metagraph_tpu_torch.annotation.device_matrix import (
         brwt_row_words, rowdiff_row_words)
-    return {"wire_lookup": wire_lookup, "label_counts": label_counts,
+    from metagraph_tpu_torch.align.wave_extender import wave_dp
+    return {"wave_dp": wave_dp, "wire_lookup": wire_lookup, "label_counts": label_counts,
             "selection_mask": selection_mask, "sw_scores": sw_scores,
             "gather_loop": gather_loop, "gather_take": gather_take,
             "key_lookup": key_lookup, "codes_lookup": codes_lookup,
@@ -2629,7 +2659,7 @@ def a10_phase(cfg, refs, oracle, labels, seqs, codes, rng, torch, dev,
               + rows * bitmap.shape[1] * 4 + got[0].nbytes + got[1].nbytes)
     entries["radix_sort"] = spy.entry()
     return {k: launches[k] for k in ("key_lookup", "label_counts",
-                                     "radix_sort")}, entries
+                                     "radix_sort")}, entries, g
 
 
 def server_phase(cfg, index, graph, seqs, codes, oracle, torch, dev):
@@ -3473,6 +3503,262 @@ def gather_controls(cfg, torch, dev, eg, tab_d, Q, QB):
                         nbytes)
 
 
+# --------------------------------------------------------------------------
+# 8. align: the port's align command (kernel B11 wave_dp)
+# --------------------------------------------------------------------------
+
+ALIGN_GAP = (-6, -2)           # the default gap open and extension
+ALIGN_MATCH, ALIGN_MISMATCH, ALIGN_END_BONUS = 2, -3, 5
+
+
+def align_reads(rng, refs, n, m):
+    """``n`` reads of ``m`` bp from the DNA references: 5% random reads
+    that hit nothing, a quarter of the rest error-free, the others with 1%
+    substitutions and, a tenth of them, one indel of 1-3 bp; half of all
+    reverse-complemented.  -> (sequences, kinds)."""
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    seqs, kinds = [], []
+    for i in range(n):
+        u = rng.random()
+        if u < 0.05:
+            codes = rng.integers(0, 4, m).astype(np.uint8)
+            kind = "random"
+        else:
+            r = refs[int(rng.integers(0, len(refs)))]
+            a = int(rng.integers(0, len(r) - m - 3))
+            codes = r[a: a + m + 3].copy()
+            kind = "exact" if u < 0.05 + 0.95 / 4 else "errors"
+            if kind == "errors":
+                sub = rng.random(len(codes)) < 0.01
+                codes[sub] = (codes[sub] + rng.integers(1, 4, int(sub.sum()))) % 4
+                if rng.random() < 0.1:
+                    at, d = int(rng.integers(20, m - 20)), int(rng.integers(1, 4))
+                    codes = np.concatenate(
+                        [codes[:at], codes[at + d:]]) if rng.random() < 0.5 \
+                        else np.concatenate([codes[:at], rng.integers(
+                            0, 4, d).astype(np.uint8), codes[at:]])
+                    kind = "indel"
+            codes = codes[:m]
+        if rng.random() < 0.5:
+            codes = 3 - codes[::-1]
+        seqs.append(letters[codes].tobytes())
+        kinds.append(kind)
+    return seqs, kinds
+
+
+def revcomp(seq: bytes) -> bytes:
+    return seq.translate(bytes.maketrans(b"ACGT", b"TGCA"))[::-1]
+
+
+def align_cli(args):
+    """The port's ``align`` (its ``main`` in this process): -> (stdout,
+    wall s, the run's ALIGN_STATS)."""
+    import contextlib
+    import io
+    from metagraph_tpu_torch import cli
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(["align", *args])
+    return out.getvalue(), time.perf_counter() - t0, dict(cli.ALIGN_STATS)
+
+
+def oracle_alignment(query: bytes, fields, keys):
+    """Hold one printed alignment to an oracle that shares no code with
+    the port: its score recomputed from its CIGAR under the default config
+    (match 2, mismatch -3, gap -6/-2, end bonus 5 each side unclipped), the
+    CIGAR applied to the query in the alignment's orientation spelling the
+    printed sequence, and every k-mer of that sequence a k-mer of the
+    references.  -> (orientation, sequence, cigar)."""
+    import re
+    strand, seq, score, n_match, cigar, _offset = fields
+    seq = seq.encode()
+    q = revcomp(query) if strand == "-" else query
+    ops = [(int(n), op) for n, op in re.findall(r"(\d+)([=XIDSG])", cigar)]
+    qi = ri = got = matches = 0
+    go, ge = ALIGN_GAP
+    for n, op in ops:
+        if op == "S":
+            qi += n
+        elif op in "=X":
+            for _ in range(n):
+                if (q[qi] == seq[ri]) != (op == "="):
+                    raise AssertionError(f"align oracle: {cigar} does not "
+                                         f"spell {seq[:40]}")
+                got += ALIGN_MATCH if op == "=" else ALIGN_MISMATCH
+                qi, ri = qi + 1, ri + 1
+            matches += n if op == "=" else 0
+        elif op in "IDG":
+            got += go + (n - 1) * ge
+            qi += n if op == "I" else 0
+            ri += n if op == "D" else 0
+    if qi != len(q) or ri != len(seq):
+        raise AssertionError(f"align oracle: {cigar} covers {qi} of "
+                             f"{len(q)} query and {ri} of {len(seq)} "
+                             "sequence characters")
+    got += ALIGN_END_BONUS * ((ops[0][1] != "S") + (ops[-1][1] != "S"))
+    if got != int(score) or matches != int(n_match):
+        raise AssertionError(f"align oracle: score {score} ({n_match} "
+                             f"matches) of {cigar}, recomputed {got} "
+                             f"({matches})")
+    codes = np.frombuffer(seq, np.uint8)
+    codes = np.select([codes == c for c in b"ACGT"], [0, 1, 2, 3], 4)
+    wk, ok = window_keys(codes.astype(np.uint8), K)
+    pos = np.minimum(np.searchsorted(keys, wk), len(keys) - 1)
+    if not (ok.all() and np.array_equal(keys[pos], wk)):
+        raise AssertionError("align oracle: the aligned sequence has k-mers "
+                             "outside the references")
+    return strand, seq, cigar
+
+
+def align_phase(cfg, graph_path, refs, oracle, seed, torch, dev, work):
+    """Phase 8: the port's ``align`` on the 3b graph (the basic references
+    at k = 31) with reads from the seed's stream 12 (``align_reads``).  A
+    calibration command aligns ``warm`` reads, which build the graph's
+    lazy tables, then ``calibrate`` reads, whose file's seconds give the
+    rate; the counted run aligns ``target`` reads, or as many as that
+    rate puts in ``budget_s`` seconds where that is fewer, at least
+    ``least``, with the launch counters
+    read and every wave's S, E and F (read back from ``wave_dp``) held
+    whole against ``wave_dp_plain`` on the card on the same inputs, the
+    check's seconds left out of the rate; the independent oracle on every
+    printed alignment (``oracle_alignment``), every error-free read
+    aligned end to end with an all-match CIGAR; the first ``cpu`` reads'
+    bytes equal to a ``--torch-device cpu`` run's and the first ``par``
+    reads' to a ``-p par_procs`` run's; wave_dp timed on the run's
+    largest wave.  -> (launches, entries)."""
+    from metagraph_tpu_torch.align import wave_extender as wx
+    ac = cfg["align"]
+    rng = np.random.default_rng([seed, 12])
+    m = ac["read_len"]
+    seqs, kinds = align_reads(rng, refs, ac["pool"], m)
+    tdev = [] if dev.type == "cuda" else ["--torch-device", "cpu"]
+
+    def fasta(name, idx):
+        path = os.path.join(work, f"align_{name}.fa")
+        with open(path, "w") as f:
+            f.writelines(f">r{i} {kinds[i]}\n{seqs[i].decode()}\n"
+                         for i in idx)
+        return path
+
+    warm, cal = ac["warm"], ac["calibrate"]
+    tail = len(seqs) - warm - cal
+    _, wall, st = align_cli(["-i", graph_path, *tdev,
+                             fasta("warm", range(tail, tail + warm)),
+                             fasta("calibrate", range(tail + warm,
+                                                      len(seqs)))])
+    (_, warm_s), (_, cal_s) = st["files"]
+    rate = cal / cal_s
+    n = int(min(max(min(rate * ac["budget_s"], ac["target"]), ac["least"]),
+                tail))
+    log(f"align calibration: {warm} reads in {warm_s:.2f} s (the graph's "
+        f"tables built), then {cal} reads in {cal_s:.2f} s ({rate:.1f} "
+        f"reads/s; the command {wall:.2f} s with the graph's load): {n} "
+        "reads for the counted run")
+    compute_wave = wx.compute_wave
+    check = {"waves": 0, "err": 0, "seconds": 0.0, "largest": None}
+
+    def checked(*wave):
+        """The engine's compute_wave, then its wave held whole against
+        wave_dp_plain on the card on the same inputs."""
+        outputs = compute_wave(*wave)
+        t = time.perf_counter()
+        inputs = wx.wave_tensors(*wave[:9], dev)
+        want = wx.wave_dp_plain(*inputs, *wave[9:11])
+        check["err"] = max([check["err"]] + [
+            max_abs_err(torch, torch.from_numpy(g).to(dev), w)
+            for g, w in zip(outputs, want)])
+        check["waves"] += 1
+        big = check["largest"]
+        if big is None or inputs[0].numel() > big[0][0].numel():
+            check["largest"] = (inputs, wave[9:11])
+        check["seconds"] += time.perf_counter() - t
+        return outputs
+
+    main_fa = fasta("main", range(n))
+    wx.compute_wave = checked
+    try:
+        (out, wall, st), launches = run_path(lambda: align_cli(
+            ["-i", graph_path, "--device", *tdev, main_fa]))
+    finally:
+        wx.compute_wave = compute_wave
+    lines = out.splitlines()
+    if len(lines) != n:
+        raise AssertionError(f"align printed {len(lines)} lines for {n} "
+                             "reads")
+    others = sum(v for k, v in launches.items() if k != "wave_dp")
+    if dev.type == "cuda" and (launches["wave_dp"] != st["wave_waves"]
+                               or not st["wave_waves"] or others):
+        raise AssertionError(f"align: {launches['wave_dp']} wave_dp "
+                             f"launches for {st['wave_waves']} waves, "
+                             f"{others} other launches")
+    if check["waves"] != st["wave_waves"] or check["err"]:
+        raise AssertionError(f"align: {check['waves']} of "
+                             f"{st['wave_waves']} waves checked, max_abs_err "
+                             f"{check['err']} against wave_dp_plain")
+    wall_a = st["wall"] - check["seconds"]
+    host = wall_a - st["seeding"] - st["wave_seconds"] - st["output"]
+    log(f"align: {n} reads of {m} bp in {wall_a:.2f} s ({n / wall_a:.1f} "
+        f"reads/s; the command {wall:.2f} s with the graph's load and "
+        f"{check['seconds']:.2f} s of the waves' check): seeding "
+        f"{st['seeding']:.2f} s, waves {st['wave_seconds']:.2f} s "
+        f"({st['wave_waves']} waves, {st['wave_rows']} rows, "
+        f"{st['wave_cells']} cells: upload, wave_dp and read-back), the "
+        f"engine's host work {host:.2f} s, output {st['output']:.2f} s; "
+        f"every wave equal to wave_dp_plain")
+    # the independent oracle on every printed alignment
+    keys = oracle["keys"]
+    n_aln = exact_ok = 0
+    for i, ln in enumerate(lines):
+        f = ln.split("\t")
+        if f[0] != f"r{i}" or f[1].encode() != seqs[i]:
+            raise AssertionError(f"align: line {i} is not read {i}")
+        alns = [f[j: j + 6] for j in range(2, len(f), 6)] \
+            if f[2] != "*" else []
+        got = [oracle_alignment(seqs[i], a, keys) for a in alns]
+        n_aln += len(got)
+        if kinds[i] == "exact":
+            if not got or got[0][2] != f"{m}=":
+                raise AssertionError(f"align: error-free read {i} aligned "
+                                     f"as {got[:1]}")
+            exact_ok += 1
+    mapped = sum(1 for ln in lines if ln.split("\t")[2] != "*")
+    log(f"align oracle: {n_aln} alignments of {mapped} mapped reads "
+        f"({sum(k == 'random' for k in kinds[:n])} random reads) held; "
+        f"{exact_ok} error-free reads all-match end to end")
+    if mapped < 0.8 * n:
+        raise AssertionError(f"align: only {mapped} of {n} reads mapped")
+    # the plain versions on the CPU, and -p
+    nc = ac["cpu"]
+    cpu_out, cpu_wall, _ = align_cli(["-i", graph_path, "--torch-device",
+                                      "cpu", fasta("cpu", range(nc))])
+    if cpu_out.splitlines() != lines[:nc]:
+        raise AssertionError("align: the CPU run's bytes differ")
+    npar = ac["par"]
+    par_out, par_wall, _ = align_cli(["-i", graph_path, "-p",
+                                      str(ac["par_procs"]), *tdev,
+                                      fasta("par", range(npar))])
+    if par_out.splitlines() != lines[:npar]:
+        raise AssertionError("align: the -p run's bytes differ")
+    log(f"align: the first {nc} reads' bytes equal the --torch-device cpu "
+        f"run's ({cpu_wall:.1f} s), the first {npar} reads' the -p "
+        f"{ac['par_procs']} run's ({par_wall:.1f} s)")
+    # the kernel on the largest wave of the run
+    entries = {}
+    inputs, gaps = check["largest"]
+    inputs = (*inputs, *gaps)
+    N, W = inputs[0].shape
+    nbytes = 7 * N * W * 4 + N * (4 * 4 + 1)
+    add_entry(entries, torch, " [align]", "wave_dp",
+              wx.wave_dp(*inputs), wx.wave_dp_plain(*inputs),
+              device_ms(torch, dev, lambda: wx.wave_dp(*inputs), 20),
+              device_ms(torch, dev, lambda: wx.wave_dp_plain(*inputs), 3),
+              nbytes)
+    log(f"wave_dp [align]: the largest wave {N} x {W}; "
+        f"{check['waves']} waves, {launches['wave_dp']} launches")
+    return {"wave_dp": launches["wave_dp"]}, entries
+
+
 SOURCES = {
     "wire_lookup": ("metagraph_tpu_torch/csrc/wire_lookup.cu",
                     "metagraph_tpu/succinct/ops.py:439"),
@@ -3506,6 +3792,8 @@ SOURCES = {
                    "metagraph_tpu/succinct/device_build.py:195"),
     "build_emit": ("metagraph_tpu_torch/csrc/build_emit.cu",
                    "metagraph_tpu/succinct/device_build.py:253"),
+    "wave_dp": ("metagraph_tpu_torch/csrc/wave_dp.cu",
+                "metagraph_tpu/align/batch.py:91"),
 }
 
 
@@ -3587,9 +3875,16 @@ def main(argv=None) -> int:
     # A10: the JAX package's own workload (DeviceQueryPipeline, the older
     # epochs and the dedup epoch: kernels A, 2 and D2) on the basic
     # references, built by the port, and the basic batch's reads
-    a10 = a10_phase(cfg, refs, oracle, index.labels, seqs, codes,
-                    np.random.default_rng([args.seed, 10]), torch, dev,
-                    timed)
+    *a10, a10_g = a10_phase(cfg, refs, oracle, index.labels, seqs, codes,
+                            np.random.default_rng([args.seed, 10]), torch,
+                            dev, timed)
+    # 8. align: the port's align command on the 3b graph, saved in the
+    # mmap layout, with reads of the basic references from the seed
+    a10_path = os.path.join(args.work, "a10")
+    timed("align", a10_g.save, a10_path, mmap_layout=True)
+    del a10_g
+    align = timed("align", align_phase, cfg, a10_path + ".dbg.npz", refs,
+                  oracle, args.seed, torch, dev, args.work)
 
     # build --graph, --suffix and a KMC input through the port's CLI; the
     # graphs without a BOSS that it writes (the basic k-mers as a bitmap
@@ -3697,7 +3992,8 @@ def main(argv=None) -> int:
         index, canon=2), device=dev)
     # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
     more = {"many_labels": (ml_launches, ml_entries), **words_more,
-            **more_graphs, **builds, **last_flags, "a10": a10}
+            **more_graphs, **builds, **last_flags, "a10": a10,
+            "align": align}
     more["primary"] = (
         timed("query paths and oracle", main_path, engine, seqs2, codes2,
               period2, oracle, cfg, rng2, torch, dev,

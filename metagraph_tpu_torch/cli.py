@@ -1,5 +1,5 @@
-"""Command line interface of the port: ``build``, ``query`` and
-``server_query``.
+"""Command line interface of the port: ``build``, ``query``,
+``server_query`` and ``align``.
 
 ``python -m metagraph_tpu_torch build --device -k K -o OUT in.fa`` takes
 the command line of ``metagraph_tpu.cli build`` (metagraph_tpu/cli/
@@ -50,6 +50,19 @@ server_query`` (:1547-1559) and serves the JAX server's HTTP contract
 (``server/server.py``) from the same device routes, on the card unless
 ``--torch-device cpu``.  The error contract is JAX ``main``'s
 (:1675-1686).
+
+``python -m metagraph_tpu_torch align -i G.dbg reads.fa`` takes the
+command line of ``metagraph_tpu.cli align`` (:1611-1646, ``_add_common``
+and the align scoring flags) and prints the bytes of its ``cmd_align``
+(:856-1040) on succinct graphs of every alphabet and mode: the TSV or
+``--json`` lines of ``DBGAligner.align_batch`` (every flag of seeding,
+extension, scoring and ``--align-post-chain``; ``-p N`` aligns in N
+processes), and ``--map`` (``--count-kmers``, ``--query-presence``,
+``--filter-present``, ``--align-length``).  The extension waves run on
+the card (kernel B11 ``wave_dp``) with or without ``--device``, unless
+``--torch-device cpu``.  ``-a`` and ``-o *.gfa`` are refused once the
+graph and the inputs have loaded, naming ROADMAP A13.3; ``-v`` prints
+the reads a second and the seconds of seeding and of the waves.
 """
 
 from __future__ import annotations
@@ -61,6 +74,12 @@ import sys
 import time
 
 import numpy as np
+
+
+# the last align run's reads, seconds (wall, seeding, waves, output),
+# waves, rows and cells, and (reads, seconds) an input file, which -v
+# prints and chip_smoke.py reads
+ALIGN_STATS: dict = {}
 
 
 def _trace(msg: str):
@@ -220,7 +239,7 @@ def cmd_query(args):
             cth = CoordToHeader.load(base + ".seqs")
     if args.align or args.batch_align:
         raise NotImplementedError("--align and --batch-align are not ported "
-                                  "yet (ROADMAP A13)")
+                                  "yet (ROADMAP A13.3)")
     engine = QueryEngine(index, device=device, coord_to_header=cth)
     if args.verbose:
         engine.trace = _trace
@@ -260,6 +279,164 @@ def cmd_server_query(args):
     server.serve(args.host, args.port)
 
 
+def _map_records(args, g):
+    """``align --map``: each record's k-mers (or, with ``--align-length``
+    below k, its sub-k windows through BOSS suffix ranges) mapped to nodes
+    (metagraph_tpu/cli/main.py:863-900)."""
+    from .seq_io.fasta import read_fasta
+    for f in args.input:
+        for rec in read_fasta(f):
+            L = args.align_length or g.k
+            if L == g.k:
+                nodes = g.map_to_nodes(rec.seq)
+            else:
+                nodes = []
+                for i in range(len(rec.seq) - L + 1):
+                    hits, _ = \
+                        g.call_nodes_with_suffix_matching_longest_prefix(
+                            rec.seq[i: i + L], L)
+                    nodes.append(hits[0] if hits else 0)
+                nodes = np.array(nodes, dtype=np.int64)
+            matched = int((nodes > 0).sum())
+            if args.query_presence:
+                min_disc = len(nodes) - int(
+                    len(nodes) * (1 - args.align_min_kmers_fraction))
+                found = matched >= min_disc
+                if args.filter_present:
+                    if found:
+                        sys.stdout.write(f">{rec.name}\n{rec.seq.decode()}\n")
+                else:
+                    print(int(found))
+            elif args.count_kmers:
+                uniq = len(set(nodes[nodes > 0].tolist()))
+                print(f"{rec.name}\t{matched}/{len(nodes)}/{uniq}")
+            else:
+                s = rec.seq.decode()
+                for i, n in enumerate(nodes):
+                    print(f"{s[i: i + L]}: {int(n)}")
+
+
+def _alignment_json(rec, alns) -> str:
+    """One GA4GH-style JSON line an alignment (cli/main.py:1008-1037)."""
+    import json
+    if not alns:
+        return json.dumps({"name": rec.name, "read_mapped": False}) + "\n"
+    lines = []
+    for rank, a in enumerate(alns):
+        obj = {
+            "name": rec.name,
+            "sequence": rec.seq.decode(),
+            "annotation": {"ref_sequence": a.sequence.decode(),
+                           "cigar": a.cigar.to_string()},
+            "score": int(a.score),
+            "identity": a.cigar.get_num_matches()
+            / max(len(a.query_view()), 1),
+            "read_mapped": True,
+        }
+        if a.get_clipping():
+            obj["query_position"] = int(a.get_clipping())
+            obj["soft_clipped"] = True
+        if rank:
+            obj["is_secondary"] = True
+        if a.orientation:
+            obj["read_on_reverse_strand"] = True
+        lines.append(json.dumps(obj) + "\n")
+    return "".join(lines)
+
+
+def cmd_align(args):
+    from .align import aligner as _aligner
+    from .align.aligner import DBGAligner, format_alignments_tsv
+    from .align.config import AlignerConfig
+    from .align.wave_extender import STATS
+    from .convert import load_annotation_for
+    from .device import resolve_device
+    from .graph.dbg_succinct import DBGSuccinct
+    from .seq_io.fasta import read_fasta
+
+    device = resolve_device(args.torch_device)
+    g = DBGSuccinct.load(args.infile_base)
+    if not hasattr(g, "boss"):
+        raise NotImplementedError("align: graphs that are not succinct are "
+                                  "not ported yet (ROADMAP A13.3)")
+    if args.map:
+        _map_records(args, g)
+        return
+    if args.out and args.out.endswith(".gfa"):
+        for f in args.input:
+            read_fasta(f)
+        raise NotImplementedError("align -o *.gfa (query paths in GFA) is "
+                                  "not ported yet (ROADMAP A13.3)")
+    cfg = AlignerConfig(
+        min_exact_match=args.align_min_exact_match,
+        min_seed_length=args.align_min_seed_length,
+        max_seed_length=args.align_max_seed_length,
+        min_path_score=args.align_min_path_score,
+        num_alternative_paths=args.align_alternative_alignments,
+        forward_and_reverse_complement=not args.align_only_forwards,
+        post_chain_alignments=args.align_post_chain,
+        protein=g.alphabet == "Protein",
+        match_score_val=args.align_match_score,
+        transition=-args.align_mm_transition_penalty,
+        transversion=-args.align_mm_transversion_penalty,
+        gap_opening_penalty=-args.align_gap_open_penalty,
+        gap_extension_penalty=-args.align_gap_extension_penalty,
+        left_end_bonus=args.align_end_bonus,
+        right_end_bonus=args.align_end_bonus,
+        xdrop=args.align_xdrop,
+        max_nodes_per_seq_char=args.align_max_nodes_per_seq_char,
+        max_num_seeds_per_locus=args.align_max_num_seeds_per_locus,
+        max_ram_per_alignment=args.align_max_ram,
+        rel_score_cutoff=args.align_rel_score_cutoff,
+        seed_complexity_filter=not args.align_no_seed_complexity_filter,
+        edit_distance=args.align_edit_distance)
+    if args.align_chain and not args.annotation:
+        print("ERROR: Chaining only supported for seeds with coordinates. "
+              "Skipping seed chaining.", file=sys.stderr)
+        raise SystemExit(1)
+    if args.annotation:
+        load_annotation_for(args.infile_base, args.annotation)
+        for f in args.input:
+            read_fasta(f)
+        raise NotImplementedError("align -a (labeled and chained alignment) "
+                                  "is not ported yet (ROADMAP A13.3)")
+    aligner = DBGAligner(g, cfg, device=device)
+    out = sys.stdout
+    seed0, waves0 = _aligner.SEED_SECONDS[0], dict(STATS)
+    n_reads, t0 = 0, time.perf_counter()
+    t_out = 0.0
+    files = []
+    try:
+        for f in args.input:
+            t_file = time.perf_counter()
+            recs = read_fasta(f)
+            n_reads += len(recs)
+            alns = aligner.align_batch([r.seq for r in recs],
+                                       processes=max(args.parallel, 1))
+            t1 = time.perf_counter()
+            for rec, a in zip(recs, alns):
+                out.write(_alignment_json(rec, a) if args.json
+                          else format_alignments_tsv(rec.name, rec.seq, a,
+                                                     cfg.min_path_score))
+            t_out += time.perf_counter() - t1
+            files.append((len(recs), time.perf_counter() - t_file))
+    finally:
+        aligner.close_pool()
+    st = ALIGN_STATS
+    st.clear()
+    st.update(reads=n_reads, wall=time.perf_counter() - t0, files=files,
+              seeding=_aligner.SEED_SECONDS[0] - seed0, output=t_out,
+              **{f"wave_{k}": v - waves0[k] for k, v in STATS.items()})
+    if args.verbose:
+        _trace(f"align: {n_reads} reads in {st['wall']:.3f} sec "
+               f"({n_reads / max(st['wall'], 1e-9):.1f} reads/s); seeding "
+               f"{st['seeding']:.3f} sec, {st['wave_waves']} waves of "
+               f"{st['wave_rows']} rows ({st['wave_cells']} cells) "
+               f"{st['wave_seconds']:.3f} sec, output {t_out:.3f} sec "
+               f"(in this process: with -p, the workers' seeding and "
+               f"waves are not counted)")
+
+
 def _add_common(p):
     p.add_argument("-o", "--outfile-base", dest="out", default="graph")
     p.add_argument("-p", "--parallel", type=int, default=1)
@@ -275,7 +452,7 @@ def _add_torch_device(p):
 
 
 def _add_align_scoring_flags(p):
-    # accepted as metagraph_tpu's query accepts them; --align is not ported
+    # align's scoring flags; query accepts them, its --align is not ported
     for name, kind, default in (
             ("match-score", int, 2), ("mm-transition-penalty", int, 3),
             ("mm-transversion-penalty", int, 3), ("gap-open-penalty", int, 6),
@@ -360,6 +537,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the device query (the port always runs it)")
     _add_torch_device(p)
     p.set_defaults(func=cmd_server_query)
+
+    p = sub.add_parser("align")
+    _add_common(p)
+    p.add_argument("-i", "--infile-base", required=True)
+    p.add_argument("-a", "--annotation", default=None)
+    p.add_argument("--align-only-forwards", action="store_true")
+    p.add_argument("--align-min-exact-match", type=float, default=0.7)
+    p.add_argument("--align-min-seed-length", type=int, default=19)
+    p.add_argument("--align-max-seed-length", type=int, default=2 ** 63)
+    p.add_argument("--align-min-path-score", type=int, default=0)
+    p.add_argument("--align-alternative-alignments", type=int, default=1)
+    p.add_argument("--align-edit-distance", action="store_true")
+    _add_align_scoring_flags(p)
+    p.add_argument("--align-post-chain", action="store_true")
+    p.add_argument("--align-chain", action="store_true")
+    p.add_argument("--no-coord-mapping", action="store_true")
+    p.add_argument("--map", action="store_true")
+    p.add_argument("--align-length", type=int, default=None)
+    p.add_argument("--count-kmers", action="store_true")
+    p.add_argument("--query-presence", action="store_true")
+    p.add_argument("--filter-present", action="store_true")
+    p.add_argument("--align-min-kmers-fraction",
+                   "--min-kmers-fraction-label", type=float, default=0.7)
+    p.add_argument("--json", action="store_true")
+    p.add_argument("--compacted", action="store_true")
+    p.add_argument("--device", action="store_true",
+                   help="accepted as the JAX CLI accepts it: the waves run "
+                        "on the card either way")
+    _add_torch_device(p)
+    p.add_argument("input", nargs="+")
+    p.set_defaults(func=cmd_align)
     return ap
 
 

@@ -29,7 +29,18 @@ Own copy of the parts of metagraph_tpu/graph/dbg_succinct.py the port uses:
   bitmap or sshash graph that ``GRAPH_CLASSES`` names, rebuilt from its
   k-mers (``hash_graph._KmerGraphBase.load_generic``);
 * the npz BOSS, of every alphabet (``_alphabet_of``: the recorded name, or
-  the alphabet of the table's sigma) and every k.
+  the alphabet of the table's sigma) and every k;
+
+and the mapping and traversal the aligner walks (:135-600): mapping
+(``map_to_nodes_sequentially(_batch)``, ``map_to_nodes`` with its
+canonical form, ``map_kmers_batch`` over a sorted-key index), traversal
+(``call_outgoing_kmers``, ``call_outgoing_batch`` over a successor-range
+table, ``call_incoming_kmers``, ``traverse``, ``has_multiple_outgoing``,
+``has_single_incoming`` and their batch forms) and suffix matching
+(``call_nodes_with_suffix_matching_longest_prefix``,
+``nodes_in_suffix_range``, ``nodes_in_suffix_ranges_batch``,
+``get_node_sequence``).  The JAX package's native lookups are left out;
+the numpy paths they short-circuit give the same answers.
 """
 
 from __future__ import annotations
@@ -38,8 +49,9 @@ import os
 
 import numpy as np
 
+from ..kmer import packing
 from ..kmer.alphabets import ALPHABETS, DNA
-from ..kmer.extractor import KmerExtractor
+from ..kmer.extractor import KmerExtractor, _rows_greater
 from ..succinct.boss import BOSS
 
 DEFAULT_MMAP = False
@@ -79,10 +91,26 @@ class DBGSuccinct:
         self.mode = mode
         self.alphabet = alphabet        # an ALPHABETS name
         self.masked = masked            # dummy edges hidden
+        self._extractor = None
+        self._host_index = None
+        self._succ_ranges = None
+
+    def __getstate__(self):
+        """Without the caches, which a worker rebuilds at its first use."""
+        return dict(self.__dict__, _extractor=None, _host_index=None,
+                    _succ_ranges=None)
+
+    @property
+    def alph(self):
+        """The ``Alphabet`` that ``alphabet`` names."""
+        return ALPHABETS[self.alphabet]
 
     @property
     def extractor(self) -> KmerExtractor:
-        return KmerExtractor(ALPHABETS[self.alphabet])
+        ex = self._extractor
+        if ex is None or ex.alphabet.name != self.alphabet:
+            ex = self._extractor = KmerExtractor(self.alph)
+        return ex
 
     @classmethod
     def build(cls, sequences, k: int, mode: str = "basic",
@@ -153,6 +181,385 @@ class DBGSuccinct:
     def max_index(self) -> int:
         return self.boss.num_edges
 
+    # ------------------------------------------------- mapping (:135-245)
+
+    def _mask(self, edges: np.ndarray) -> np.ndarray:
+        if self.masked:
+            return np.where(self.boss.valid[edges] > 0, edges, 0)
+        return edges
+
+    def map_to_nodes_sequentially(self, sequence) -> np.ndarray:
+        """The node of every k-mer window, no canonical form."""
+        return self._mask(self.boss.map_sequence(
+            self.extractor.encode(sequence)))
+
+    def map_to_nodes_sequentially_batch(self, sequences) -> list:
+        """``map_to_nodes_sequentially`` of many sequences in one lookup:
+        joined by an invalid code, so that no window crosses two."""
+        ex = self.extractor
+        K = self.boss.k + 1
+        parts = [ex.encode(s) for s in sequences]
+        if not parts:
+            return []
+        sep = np.array([self.boss.alph_size], dtype=parts[0].dtype)
+        glue, offs, off = [], [], 0
+        for i, p in enumerate(parts):
+            if i:
+                glue.append(sep)
+                off += 1
+            offs.append(off)
+            glue.append(p)
+            off += len(p)
+        res = self._mask(self.boss.map_sequence(np.concatenate(glue)))
+        return [res[o: o + len(p) - K + 1] if len(p) >= K
+                else np.zeros(0, dtype=np.int64)
+                for p, o in zip(parts, offs)]
+
+    def map_to_nodes(self, sequence) -> np.ndarray:
+        """The node of every window; a canonical graph maps each k-mer's
+        canonical form (the lesser of it and its reverse complement in
+        packed order)."""
+        if self.mode != "canonical":
+            return self.map_to_nodes_sequentially(sequence)
+        ex = self.extractor
+        codes = ex.encode(sequence)
+        k = self.k
+        if len(codes) < k:
+            return np.zeros(0, dtype=np.int64)
+        wins = np.lib.stride_tricks.sliding_window_view(codes, k)
+        rc = ex.extended_complement_table()[codes[::-1]]
+        rcw = np.lib.stride_tricks.sliding_window_view(rc, k)[::-1]
+        order = packing.boss_priority_order(k)
+        bits = packing.bits_for_alphabet(self.alph.sigma)
+        take_rc = _rows_greater(packing.pack_codes(wins, order, bits=bits),
+                                packing.pack_codes(rcw, order, bits=bits))
+        canon = np.where(take_rc[:, None], rcw, wins)
+        return self.map_kmers_batch(np.ascontiguousarray(canon))
+
+    def _build_host_index(self):
+        """(sorted packed keys, their edges, their code rows) of the valid
+        edges."""
+        if self._host_index is None:
+            boss = self.boss
+            edges = np.flatnonzero(boss.valid).astype(np.int64)
+            kchars = boss.get_edge_seq(edges)
+            self._host_index = (packing.pack_codes(
+                kchars, packing.boss_priority_order(self.k),
+                bits=packing.bits_for_alphabet(self.alph.sigma)),
+                edges, kchars)
+        return self._host_index
+
+    def map_kmers_batch(self, chars: np.ndarray) -> np.ndarray:
+        """(N, k) code rows -> node, or 0, through the sorted-key index."""
+        keys, ids, _ = self._build_host_index()
+        if not len(keys):
+            return np.zeros(len(chars), dtype=np.int64)
+        sigma = self.alph.sigma
+        invalid = (chars >= sigma).any(axis=1) | (chars == 0).any(axis=1)
+        q = packing.pack_codes(np.where(invalid[:, None], 1, chars),
+                               packing.boss_priority_order(self.k),
+                               bits=packing.bits_for_alphabet(sigma))
+        pos = packing.searchsorted_rows(keys, q)
+        pos_c = np.minimum(pos, len(keys) - 1)
+        hit = (pos < len(keys)) & np.all(keys[pos_c] == q, axis=1) \
+            & ~invalid
+        return np.where(hit, ids[pos_c], 0)
+
+    # ----------------------------------------------- traversal (:247-470)
+
+    def _valid_node(self, e: int) -> int:
+        if e and (not self.masked or self.boss.valid[e]):
+            return e
+        return 0
+
+    def call_outgoing_kmers(self, node: int):
+        """[(next node, char)], ascending."""
+        boss = self.boss
+        w = int(boss.W[node])
+        if node > 1 and not w:
+            return []
+        last = boss.fwd_scalar(node, w % boss.alph_size)
+        first = boss.pred_last_scalar(last - 1) + 1
+        table = self.alph.decode_table
+        return [(i, chr(table[int(boss.W[i]) % boss.alph_size]))
+                for i in range(max(2, first), last + 1)
+                if self._valid_node(i)]
+
+    def _succ_table(self):
+        """The successor range [first, last] of every edge (the target
+        node's edges), built once."""
+        if self._succ_ranges is None:
+            boss = self.boss
+            e = np.arange(len(boss.W), dtype=np.int64)
+            w = boss.W.astype(np.int64)
+            has_out = (e <= 1) | (w != 0)
+            last = boss.fwd(np.where(has_out, e, 1), w % boss.alph_size)
+            first = np.maximum(
+                boss.pred_last(np.maximum(last - 1, 0)) + 1, 2)
+            ok = has_out & (last >= first)
+            self._succ_ranges = (np.where(ok, first, 1),
+                                 np.where(ok, last, 0))
+        return self._succ_ranges
+
+    def call_outgoing_batch(self, nodes: np.ndarray):
+        """``call_outgoing_kmers`` over an edge array: -> (owner, child,
+        char code), flat, in each node's ascending order; the char code is
+        ASCII, upper case unless the alphabet is DNA_CASE."""
+        boss = self.boss
+        nodes = np.asarray(nodes, dtype=np.int64)
+        sf, sl = self._succ_table()
+        first, last = sf[nodes], sl[nodes]
+        cnt = np.maximum(last - first + 1, 0)
+        owner = np.repeat(np.arange(len(nodes)), cnt)
+        offs = np.concatenate([[0], np.cumsum(cnt)])
+        child = first[owner] + (np.arange(len(owner)) - offs[owner])
+        ch = boss.W[child].astype(np.int64) % boss.alph_size
+        keep = ch != 0                      # no $ edges
+        if self.masked:
+            keep &= boss.valid[child] > 0
+        owner, child, ch = owner[keep], child[keep], ch[keep]
+        code = self.alph.decode_table[ch].astype(np.int64)
+        if self.alphabet != "DNA_CASE":
+            lower = (code >= 97) & (code <= 122)
+            code = np.where(lower, code - 32, code)
+        return owner, child, code
+
+    def _incoming_group(self, x: int, d: int):
+        """The edges of the incoming group that starts at x (W == d): x and
+        the W == d + alph_size edges before the next W == d edge."""
+        boss = self.boss
+        M = len(boss.W)
+        if not x:
+            return []
+        out = [x]
+        e = x
+        while e + 1 < M:
+            nxt = boss._next_W(e + 1, d + boss.alph_size)
+            stop = boss._next_W(e + 1, d)
+            if not nxt or (stop and stop < nxt):
+                break
+            out.append(nxt)
+            e = nxt
+        return out
+
+    def call_incoming_kmers(self, node: int):
+        """[(previous node, char)]."""
+        boss = self.boss
+        table = self.alph.decode_table
+        out = []
+        for e in self._incoming_group(boss.bwd_scalar(node),
+                                      boss.node_last_char_scalar(node)):
+            if self._valid_node(e):
+                # the first char of e's source node
+                ee = e
+                for _ in range(self.k - 2):
+                    ee = boss.bwd_scalar(ee)
+                out.append((e, chr(table[boss.node_last_char_scalar(ee)])))
+        return out
+
+    def traverse(self, node: int, c: str) -> int:
+        boss = self.boss
+        code = int(self.extractor.encode(c)[0])
+        if code >= boss.alph_size:
+            return 0
+        w = int(boss.W[node])
+        if node > 1 and not w:
+            return 0
+        last = boss.fwd_scalar(node, w % boss.alph_size)
+        return self._valid_node(boss.pick_edge_scalar(last, code))
+
+    def has_multiple_outgoing_batch(self, nodes: np.ndarray) -> np.ndarray:
+        boss = self.boss
+        nodes = np.asarray(nodes, dtype=np.int64)
+        d = boss.W[nodes].astype(np.int64) % boss.alph_size
+        last = boss.fwd(nodes, d)
+        mult = (last - boss.pred_last(np.maximum(last - 1, 0))) > 1
+        mult = np.where(d == 0, False, mult)
+        if (nodes == 1).any():
+            mult = np.where(nodes == 1, boss.succ_last_scalar(1) > 2, mult)
+        return mult
+
+    def has_single_incoming_batch(self, nodes: np.ndarray) -> np.ndarray:
+        """Whether each node has one incoming edge: the W == w + alph_size
+        edges between bwd(node) and the next W == w edge, counted by
+        rank."""
+        boss = self.boss
+        nodes = np.asarray(nodes, dtype=np.int64)
+        M = len(boss.W)
+        x = boss.bwd(nodes)
+        w = boss.node_last_char(nodes)
+        first_valid = (boss.valid[x] > 0) if self.masked \
+            else np.ones(len(nodes), dtype=bool)
+        rk = boss.rank_W(x, w)
+        total_w = boss.rank_W(np.full(len(nodes), M - 1, dtype=np.int64), w)
+        n1 = boss.select_W(w, rk + 1)
+        hi = np.where(total_w > rk, n1 - 1, M - 1)
+        walph = w + boss.alph_size
+        cnt = boss.rank_W(hi, walph) - boss.rank_W(x, walph)
+        single = np.where(first_valid, cnt == 0, cnt == 1)
+        single = np.where(x + 1 >= M, first_valid, single)
+        return np.where(nodes == 1, False, single)
+
+    def has_multiple_outgoing(self, node: int) -> bool:
+        boss = self.boss
+        if node == 1:
+            return boss.succ_last_scalar(1) > 2
+        d = int(boss.W[node]) % boss.alph_size
+        if not d:
+            return False
+        last = boss.fwd_scalar(node, d)
+        return last - boss.pred_last_scalar(last - 1) > 1
+
+    def has_single_incoming(self, node: int) -> bool:
+        boss = self.boss
+        if node == 1:
+            return False
+        x = boss.bwd_scalar(node)
+        w = boss.node_last_char_scalar(node)
+        first_valid = (not self.masked) or bool(boss.valid[x])
+        if x + 1 == len(boss.W):
+            return first_valid
+        if first_valid:
+            return _is_single_incoming(boss, x, w)
+        return len(self._incoming_group(x, w)) == 2
+
+    # -------------------------------------------- suffix matching (:472-600)
+
+    def call_nodes_with_suffix_matching_longest_prefix(
+            self, s: bytes, min_match_length: int,
+            max_num_allowed_matches: int = 2 ** 63):
+        """Nodes whose k-mer suffix matches the longest prefix of ``s``:
+        -> (nodes, match length)."""
+        boss = self.boss
+        if not max_num_allowed_matches or len(s) < min_match_length:
+            return [], 0
+        encoded = self.extractor.encode(s)
+        if (encoded >= boss.alph_size).any():
+            return [], 0
+        first, last, match_size = boss.index_range_host(
+            encoded[: min(self.k - 1, len(encoded))])
+        if len(s) == self.k and match_size + 1 == self.k:
+            edge = boss.pick_edge_scalar(last, int(encoded[-1]))
+            if edge and self._valid_node(edge):
+                return [edge], self.k
+        if match_size < min_match_length or not first:
+            return [], 0
+        nodes = self.nodes_in_suffix_range(first, last,
+                                           max_num_allowed_matches)
+        return nodes, (match_size if nodes else 0)
+
+    def nodes_in_suffix_range(self, first: int, last: int,
+                              max_num_allowed_matches: int = 2 ** 63):
+        """The valid edges incoming to each node of the BOSS range [first,
+        last]; [] past ``max_num_allowed_matches``."""
+        boss = self.boss
+        rf = boss.rank_last_scalar(first)
+        rl = boss.rank_last_scalar(last)
+        if rl < rf:
+            return []
+        if not self.masked and rl - rf + 1 > max_num_allowed_matches:
+            return []       # every group gives at least one node
+        big = max(4 * max_num_allowed_matches, 1 << 14)
+        if rl - rf + 1 > big:
+            # a masked graph: a prefix of the groups past the cap already
+            # overflows, unless most of them are dummies
+            if len(self._nodes_in_rank_range(rf, rf + big - 1)) \
+                    > max_num_allowed_matches:
+                return []
+        return self._nodes_in_rank_range(rf, rl, max_num_allowed_matches)
+
+    def _incoming_groups(self, rs: np.ndarray):
+        """The incoming groups of the nodes of last-ranks ``rs``: -> (the
+        edges, group by group, each x then its W == d + alph_size edges
+        ascending; each group's size)."""
+        boss = self.boss
+        e = boss.select_last(rs)
+        x = boss.bwd(e)                       # first incoming edge (W == d)
+        d = boss.node_last_char(e)
+        M = len(boss.W)
+        rk_d = boss.rank_W(x, d)
+        tot_d = boss.rank_W(np.full(len(x), M - 1, dtype=np.int64), d)
+        hi = np.where(tot_d > rk_d, boss.select_W(d, rk_d + 1), M) - 1
+        dm = d + boss.alph_size
+        base = boss.rank_W(x, dm)
+        cnt = boss.rank_W(hi, dm) - base
+        gs = cnt + 1
+        offs = np.concatenate([[0], np.cumsum(gs)])
+        out = np.empty(int(offs[-1]), dtype=np.int64)
+        out[offs[:-1]] = x
+        if len(out) > len(x):
+            owner = np.repeat(np.arange(len(x)), cnt)
+            ranks = base[owner] + (np.arange(len(owner))
+                                   - np.repeat(np.cumsum(cnt) - cnt, cnt)) + 1
+            mask = np.ones(len(out), dtype=bool)
+            mask[offs[:-1]] = False
+            out[mask] = boss.select_W(dm[owner], ranks)
+        return out, gs
+
+    def _nodes_in_rank_range(self, rf: int, rl: int,
+                             max_num_allowed_matches: int = 2 ** 63):
+        out, _ = self._incoming_groups(np.arange(rf, rl + 1, dtype=np.int64))
+        if self.masked:
+            out = out[self.boss.valid[out] > 0]
+        if len(out) > max_num_allowed_matches:
+            return []
+        return out.tolist()
+
+    def nodes_in_suffix_ranges_batch(self, firsts, lasts,
+                                     max_num_allowed_matches: int = 2 ** 63):
+        """``nodes_in_suffix_range`` of many ranges in one sweep: -> a node
+        list a range ([] past the cap)."""
+        firsts = np.asarray(firsts, dtype=np.int64)
+        lasts = np.asarray(lasts, dtype=np.int64)
+        results: list = [[] for _ in range(len(firsts))]
+        if not len(firsts):
+            return results
+        boss = self.boss
+        rf = boss.rank_last(firsts)
+        group_counts = boss.rank_last(lasts) - rf + 1
+        if self.masked:
+            # the groups may be all dummies: no cap on their count, but a
+            # huge range takes the per-range prefix bound
+            huge = group_counts > max(4 * max_num_allowed_matches, 1 << 14)
+            for i in np.flatnonzero(huge):
+                results[int(i)] = self.nodes_in_suffix_range(
+                    int(firsts[i]), int(lasts[i]), max_num_allowed_matches)
+            en = (group_counts > 0) & ~huge
+        else:
+            en = (group_counts > 0) \
+                & (group_counts <= max_num_allowed_matches)
+        idx = np.flatnonzero(en)
+        if not len(idx):
+            return results
+        cnts = group_counts[idx]
+        owner_grp = np.repeat(np.arange(len(idx)), cnts)
+        rs = np.repeat(rf[idx], cnts) + (
+            np.arange(int(cnts.sum()), dtype=np.int64)
+            - np.repeat(np.cumsum(cnts) - cnts, cnts))
+        out, gs = self._incoming_groups(rs)
+        range_sizes = np.zeros(len(idx), dtype=np.int64)
+        np.add.at(range_sizes, owner_grp, gs)
+        if self.masked:
+            rid = np.repeat(np.arange(len(idx)), range_sizes)
+            keep = boss.valid[out] > 0
+            out = out[keep]
+            range_sizes = np.bincount(rid[keep], minlength=len(idx))
+        bounds = np.concatenate([[0], np.cumsum(range_sizes)])
+        for t, i in enumerate(idx):
+            seg = out[bounds[t]: bounds[t + 1]]
+            if len(seg) <= max_num_allowed_matches:
+                results[int(i)] = seg.tolist()
+        return results
+
+    def get_node_sequence(self, node: int) -> bytes:
+        table = self.alph.decode_table
+        if self._host_index is not None:
+            _, ids, kchars = self._host_index
+            pos = int(np.searchsorted(ids, node))
+            if pos < len(ids) and ids[pos] == node:
+                return table[kchars[pos]].tobytes()
+        return table[self.boss.get_edge_seq(np.array([node]))[0]].tobytes()
+
     @classmethod
     def load(cls, path: str, mode: str | None = None,
              mmap: bool | None = None):
@@ -185,6 +592,20 @@ class DBGSuccinct:
             msk = bool(z["masked"]) if "masked" in z.files else True
             boss = BOSS.load(npz)
             return cls(boss, boss.k + 1, mode, _alphabet_of(z, boss), msk)
+
+
+def _is_single_incoming(boss: BOSS, i: int, w: int) -> bool:
+    """Edge i has W == w (not minus-flagged): its target has one incoming
+    edge iff no W == w + alph_size edge comes before the next W == w
+    edge (metagraph_tpu/graph/traversal.py:40)."""
+    if w > boss.alph_size:
+        return False
+    i += 1
+    if i >= len(boss.W):
+        return True
+    n1 = boss._next_W(i, w)
+    n2 = boss._next_W(i, w + boss.alph_size)
+    return not (n2 and (not n1 or n2 < n1))
 
 
 def _alphabet_of(z, boss: BOSS) -> str:

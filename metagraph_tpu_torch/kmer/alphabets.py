@@ -35,6 +35,12 @@ class Alphabet:
         return table
 
     @property
+    def decode_table(self) -> np.ndarray:
+        """(sigma + 1,) uint8: code -> byte; the invalid code -> N."""
+        return np.frombuffer((self.letters + "N").encode(),
+                             dtype=np.uint8).copy()
+
+    @property
     def complement_table(self) -> np.ndarray:
         if not self.complement:
             raise ValueError(f"alphabet {self.name} has no complement")

@@ -9,7 +9,7 @@ that the JAX package's client (``metagraph_tpu/api/client.py``) talks to
 it unchanged.  The index and the kernels are built in ``__init__``, before
 the first request; the request threads share the engine, whose per-batch
 state travels with each batch.  ``/align`` is host alignment, which is not
-ported (ROADMAP A13): it answers 500 with an error that names it.
+ported (ROADMAP A13.3): it answers 500 with an error that names it.
 """
 
 from __future__ import annotations
@@ -108,7 +108,7 @@ class MetaGraphServer:
         if payload.get("FASTA") is None:
             raise ValueError("No input sequences received from client")
         raise NotImplementedError("alignment is not ported yet "
-                                  "(ROADMAP A13)")
+                                  "(ROADMAP A13.3)")
 
     # --------------------------------------------------------------- stats
     def stats(self) -> dict:

@@ -2105,3 +2105,145 @@ def test_entry_cuda_matches_cpu(cuda):
     cfn, cargs = entry(device="cpu")
     for g, w in zip(got, cfn(*cargs)):
         assert torch.equal(g.cpu(), w)
+
+
+# --------------------------------------------------------------------------
+# A13: kernel B11 wave_dp and the align command on the card
+# --------------------------------------------------------------------------
+
+WAVE_NINF = -(2 ** 31) + 100
+
+
+def _wave(rng, N, W, big=False):
+    """A wave as the flat engine forms it (tests/test_torch_wave_dp.py's
+    shapes): parent rows masked to a hull with NINF cells, profile scores,
+    node scores, has_del, a band and a cutoff a row; ``big`` puts the
+    scores near the ends of int32, so that sums wrap."""
+    lo_v, hi_v = (-2 ** 31 + 101, 2 ** 31 - 1) if big else (-400, 600)
+
+    def mat():
+        m = rng.integers(lo_v, hi_v, (N, W), dtype=np.int64).astype(np.int32)
+        h0 = rng.integers(0, W, N)
+        h1 = np.minimum(h0 + rng.integers(0, W + 1, N), W - 1)
+        j = np.arange(W)[None, :]
+        m[(j < h0[:, None]) | (j > h1[:, None])
+          | (rng.random((N, W)) < 0.3)] = WAVE_NINF
+        return m
+
+    prof = rng.integers(-4, 12, (N, W)).astype(np.int32)
+    lo = rng.integers(0, W, N).astype(np.int32)
+    cut = rng.integers(-60, 80, N).astype(np.int32)
+    cut[rng.random(N) < 0.2] = WAVE_NINF + 1
+    return [mat(), mat(), mat(), prof,
+            rng.choice(np.array([0, 0, -6, -2], np.int32), N),
+            rng.random(N) < 0.7, lo,
+            np.minimum(lo + rng.integers(0, W, N), W - 1).astype(np.int32),
+            cut]
+
+
+@pytest.mark.parametrize("big", (False, True), ids=("scores", "wrapping"))
+@pytest.mark.parametrize("shape", ((1, 1), (1, 2), (3, 31), (5, 32),
+                                   (7, 33), (2000, 151), (64, 1025),
+                                   (9, 2049)),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_wave_dp_matches_plain(cuda, shape, big):
+    from metagraph_tpu_torch.align.wave_extender import (wave_dp,
+                                                         wave_dp_plain)
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    for go, ge in ((-6, -2), (-5, -1), (-11, -1), (-200, 3)):
+        t = [torch.from_numpy(np.ascontiguousarray(a))
+             for a in _wave(rng, *shape, big=big)]
+        before = wave_dp.launches
+        got = wave_dp(*[a.to(cuda) for a in t], go, ge)
+        torch.cuda.synchronize()
+        assert wave_dp.launches == before + 1
+        want = wave_dp_plain(*t, go, ge)
+        for name, g, w in zip("SEF", got, want):
+            assert torch.equal(g.cpu(), w), name
+
+
+def test_wave_dp_empty_wave_does_not_launch(cuda):
+    from metagraph_tpu_torch.align.wave_extender import wave_dp
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+         for a in _wave(np.random.default_rng(1), 3, 8)]
+    empty = [a[:0] for a in t]
+    before = wave_dp.launches
+    out = wave_dp(*empty, -6, -2)
+    assert wave_dp.launches == before and out[0].shape == (0, 8)
+
+
+def _align_graph(tmp_path, seed=5, k=21):
+    """A port-built graph of random references, saved, and reads from them
+    (substitutions, an indel, both strands, random reads)."""
+    rng = np.random.default_rng(seed)
+    refs = ["".join(rng.choice(list("ACGT"), 3000)) for _ in range(4)]
+    g = DBGSuccinct.build(refs, k, device="cpu")
+    g.save(str(tmp_path / "g"))
+    comp = str.maketrans("ACGT", "TGCA")
+    reads = []
+    for i in range(120):
+        r = refs[i % 4]
+        a = int(rng.integers(0, len(r) - 150))
+        s = list(r[a: a + 150])
+        for p in rng.choice(150, int(rng.integers(0, 3)), replace=False):
+            s[p] = "ACGT"[("ACGT".index(s[p]) + 1) % 4]
+        if i % 10 == 3:
+            del s[70: 72]
+        s = "".join(s)
+        reads.append(s[::-1].translate(comp) if i % 2 else s)
+    reads += ["".join(rng.choice(list("ACGT"), 150)) for _ in range(6)]
+    with open(tmp_path / "q.fa", "w") as f:
+        f.writelines(f">q{i}\n{s}\n" for i, s in enumerate(reads))
+    return tmp_path / "g.dbg.npz", tmp_path / "q.fa", reads
+
+
+def test_wave_dp_on_recorded_align_batch(cuda, tmp_path):
+    """Every wave of an align_batch run on the card, held whole against
+    the plain version on the same inputs; one launch a wave."""
+    from metagraph_tpu_torch.align import wave_extender as wx
+    from metagraph_tpu_torch.align.aligner import DBGAligner
+    gpath, _, reads = _align_graph(tmp_path)
+    g = DBGSuccinct.load(str(gpath))
+    waves = []
+    compute_wave = wx.compute_wave
+
+    def check(*wave):
+        outputs = compute_wave(*wave)
+        want = wx.wave_dp_plain(*wx.wave_tensors(*wave[:9], "cpu"),
+                                *wave[9:11])
+        waves.append(all(np.array_equal(a, b.numpy())
+                         for a, b in zip(outputs, want)))
+        return outputs
+
+    wx.compute_wave = check
+    try:
+        wx.wave_dp.launches = 0
+        got = DBGAligner(g, device=cuda).align_batch(
+            [r.encode() for r in reads])
+    finally:
+        wx.compute_wave = compute_wave
+    assert waves and all(waves) and wx.wave_dp.launches == len(waves)
+    want = DBGAligner(g, device="cpu").align_batch(
+        [r.encode() for r in reads])
+    assert [[(a.score, a.cigar.to_string(), a.nodes) for a in r]
+            for r in got] == [[(a.score, a.cigar.to_string(), a.nodes)
+                               for a in r] for r in want]
+
+
+@pytest.mark.parametrize("flags", ((), ("--json", "--device"),
+                                   ("-p", "2"),
+                                   ("--align-min-seed-length", "11")),
+                         ids=("tsv", "json", "p2", "suffix-seeds"))
+def test_align_cli_cuda_matches_cpu(cuda, tmp_path, flags):
+    import contextlib
+    import io
+    from metagraph_tpu_torch.cli import main
+    gpath, qpath, _ = _align_graph(tmp_path, seed=len(flags))
+    outs = []
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["align", "-i", str(gpath), *flags, str(qpath),
+                  "--torch-device", dev])
+        outs.append(buf.getvalue())
+    assert outs[0] == outs[1] and outs[0].count("\n") >= 126
