@@ -204,17 +204,22 @@ then:
    build the graph's lazy tables, then 200 reads, whose seconds give the
    rate; the counted run takes 2,000 reads (a batch whose waves hold up
    to 2,000 rows), or as many as that rate puts in 40 s where that is
-   fewer (at least 200): one ``wave_dp`` launch a wave, every wave's S,
-   E and F held whole against ``wave_dp_plain`` on the card on the same
-   inputs (the check's seconds left out of the rate), each printed
-   alignment held to an independent oracle (its score recomputed from
-   its CIGAR, the CIGAR applied to the read spelling the printed
-   sequence, that sequence's k-mers all among the references'), every
+   fewer (at least 200): one ``align_wave`` launch a wave over the
+   engine's column store on the card and no ``wave_dp``, every wave's
+   written store rows, statistics and read-back rows held whole against
+   ``align_wave_plain`` on the card on the same store (the check's
+   seconds left out of the rate), the bytes each wave copies over PCIe
+   printed beside those of ``compute_wave``'s four planes up and three
+   down, each printed alignment held to an independent oracle (its
+   score recomputed from its CIGAR, the CIGAR applied to the read
+   spelling the printed sequence, that sequence's k-mers all among the
+   references'), every
    error-free read aligned end to end with an all-match CIGAR; the first
    20 reads' bytes equal to a ``--torch-device cpu`` run's, the first
    100 reads' to a ``-p 4`` run's; reads/s and the split into seeding,
-   waves, the engine's host work and output printed; ``wave_dp`` timed
-   on the run's largest wave.
+   waves, the engine's host work and output printed; ``align_wave``
+   timed on the run's largest wave (events and the profiler), and
+   ``wave_dp`` on its planes through ``compute_wave``'s own entry.
 
 Depth cuts, which keep the script inside its time limit (widths are
 never cut): the basic batch is drawn at 150,000 reads, which 3b takes
@@ -230,7 +235,8 @@ Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (D1-D4 for each build,
 ``build_windows/pan`` and the like, D2 with its ``torch.sort`` ms as
-``library_ms``, ``wave_dp/align`` (phase 8's largest wave),
+``library_ms``, ``align_wave/align`` and ``wave_dp/align`` (phase 8's
+largest wave),
 ``radix_sort/reads-k31-counts`` and
 ``radix_sort/protein-k20-disk`` for the general route,
 ``radix_sort/graph_bitmap``, ``.../graph_hash_canonical``,
@@ -1758,8 +1764,9 @@ def counters():
         overflow_counts, sparse_label_counts)
     from metagraph_tpu_torch.annotation.device_matrix import (
         brwt_row_words, rowdiff_row_words)
-    from metagraph_tpu_torch.align.wave_extender import wave_dp
-    return {"wave_dp": wave_dp, "wire_lookup": wire_lookup, "label_counts": label_counts,
+    from metagraph_tpu_torch.align.wave_extender import align_wave, wave_dp
+    return {"align_wave": align_wave, "wave_dp": wave_dp,
+            "wire_lookup": wire_lookup, "label_counts": label_counts,
             "selection_mask": selection_mask, "sw_scores": sw_scores,
             "gather_loop": gather_loop, "gather_take": gather_take,
             "key_lookup": key_lookup, "codes_lookup": codes_lookup,
@@ -3504,7 +3511,7 @@ def gather_controls(cfg, torch, dev, eg, tab_d, Q, QB):
 
 
 # --------------------------------------------------------------------------
-# 8. align: the port's align command (kernel B11 wave_dp)
+# 8. align: the port's align command (kernel B11: align_wave, wave_dp)
 # --------------------------------------------------------------------------
 
 ALIGN_GAP = (-6, -2)           # the default gap open and extension
@@ -3619,14 +3626,16 @@ def align_phase(cfg, graph_path, refs, oracle, seed, torch, dev, work):
     rate; the counted run aligns ``target`` reads, or as many as that
     rate puts in ``budget_s`` seconds where that is fewer, at least
     ``least``, with the launch counters
-    read and every wave's S, E and F (read back from ``wave_dp``) held
-    whole against ``wave_dp_plain`` on the card on the same inputs, the
-    check's seconds left out of the rate; the independent oracle on every
-    printed alignment (``oracle_alignment``), every error-free read
-    aligned end to end with an all-match CIGAR; the first ``cpu`` reads'
-    bytes equal to a ``--torch-device cpu`` run's and the first ``par``
-    reads' to a ``-p par_procs`` run's; wave_dp timed on the run's
-    largest wave.  -> (launches, entries)."""
+    read (one ``align_wave`` a wave, no ``wave_dp``) and every wave's
+    written store rows and output held whole against ``align_wave_plain``
+    on the card on the same store, the check's seconds left out of the
+    rate; the bytes each wave copies (``WAVE_LOG``); the independent
+    oracle on every printed alignment (``oracle_alignment``), every
+    error-free read aligned end to end with an all-match CIGAR; the first
+    ``cpu`` reads' bytes equal to a ``--torch-device cpu`` run's and the
+    first ``par`` reads' to a ``-p par_procs`` run's; align_wave timed on
+    the run's largest wave as it ran (``time_wave``), and wave_dp on its
+    planes, through ``compute_wave`` once.  -> (launches, entries)."""
     from metagraph_tpu_torch.align import wave_extender as wx
     ac = cfg["align"]
     rng = np.random.default_rng([seed, 12])
@@ -3655,47 +3664,55 @@ def align_phase(cfg, graph_path, refs, oracle, seed, torch, dev, work):
         f"tables built), then {cal} reads in {cal_s:.2f} s ({rate:.1f} "
         f"reads/s; the command {wall:.2f} s with the graph's load): {n} "
         "reads for the counted run")
-    compute_wave = wx.compute_wave
+    run_wave = wx.run_wave
     check = {"waves": 0, "err": 0, "seconds": 0.0, "largest": None}
 
-    def checked(*wave):
-        """The engine's compute_wave, then its wave held whole against
-        wave_dp_plain on the card on the same inputs."""
-        outputs = compute_wave(*wave)
+    def checked(store, tables, pack_host, W, go, ge, out_host):
+        """The engine's wave (one align_wave), then its written store rows
+        and its output held whole against align_wave_plain on the card on
+        the same store; the largest wave kept as a wave of its own."""
+        views = run_wave(store, tables, pack_host, W, go, ge, out_host)
         t = time.perf_counter()
-        inputs = wx.wave_tensors(*wave[:9], dev)
-        want = wx.wave_dp_plain(*inputs, *wave[9:11])
-        check["err"] = max([check["err"]] + [
-            max_abs_err(torch, torch.from_numpy(g).to(dev), w)
-            for g, w in zip(outputs, want)])
+        pack = pack_host.to(dev)
+        rows = pack[:, wx.PK_ROW].long()
+        got = store[rows, :, :W].clone()
+        want = torch.empty(out_host.shape, dtype=torch.int32, device=dev)
+        wx.align_wave_plain(store, tables, pack, W, go, ge, want)
+        check["err"] = max(check["err"],
+                           max_abs_err(torch, got, store[rows, :, :W]),
+                           max_abs_err(torch, out_host.to(dev), want))
         check["waves"] += 1
         big = check["largest"]
-        if big is None or inputs[0].numel() > big[0][0].numel():
-            check["largest"] = (inputs, wave[9:11])
+        if big is None or len(pack) > big["rows"]:
+            check["largest"] = time_wave(torch, dev, wx, store, tables, pack,
+                                         W, go, ge, out_host.numel())
         check["seconds"] += time.perf_counter() - t
-        return outputs
+        return views
 
     main_fa = fasta("main", range(n))
-    wx.compute_wave = checked
+    wx.run_wave, wx.WAVE_LOG = checked, []
     try:
         (out, wall, st), launches = run_path(lambda: align_cli(
             ["-i", graph_path, "--device", *tdev, main_fa]))
+        wave_log = wx.WAVE_LOG
     finally:
-        wx.compute_wave = compute_wave
+        wx.run_wave, wx.WAVE_LOG = run_wave, None
     lines = out.splitlines()
     if len(lines) != n:
         raise AssertionError(f"align printed {len(lines)} lines for {n} "
                              "reads")
-    others = sum(v for k, v in launches.items() if k != "wave_dp")
-    if dev.type == "cuda" and (launches["wave_dp"] != st["wave_waves"]
+    others = sum(v for k, v in launches.items() if k != "align_wave")
+    if dev.type == "cuda" and (launches["align_wave"] != st["wave_waves"]
                                or not st["wave_waves"] or others):
-        raise AssertionError(f"align: {launches['wave_dp']} wave_dp "
+        raise AssertionError(f"align: {launches['align_wave']} align_wave "
                              f"launches for {st['wave_waves']} waves, "
-                             f"{others} other launches")
-    if check["waves"] != st["wave_waves"] or check["err"]:
+                             f"{others} other launches (wave_dp "
+                             f"{launches['wave_dp']})")
+    if check["waves"] != st["wave_waves"] or check["err"] \
+            or len(wave_log) != st["wave_waves"]:
         raise AssertionError(f"align: {check['waves']} of "
                              f"{st['wave_waves']} waves checked, max_abs_err "
-                             f"{check['err']} against wave_dp_plain")
+                             f"{check['err']} against align_wave_plain")
     wall_a = st["wall"] - check["seconds"]
     host = wall_a - st["seeding"] - st["wave_seconds"] - st["output"]
     log(f"align: {n} reads of {m} bp in {wall_a:.2f} s ({n / wall_a:.1f} "
@@ -3703,9 +3720,20 @@ def align_phase(cfg, graph_path, refs, oracle, seed, torch, dev, work):
         f"{check['seconds']:.2f} s of the waves' check): seeding "
         f"{st['seeding']:.2f} s, waves {st['wave_seconds']:.2f} s "
         f"({st['wave_waves']} waves, {st['wave_rows']} rows, "
-        f"{st['wave_cells']} cells: upload, wave_dp and read-back), the "
+        f"{st['wave_cells']} cells: the copies and align_wave), the "
         f"engine's host work {host:.2f} s, output {st['output']:.2f} s; "
-        f"every wave equal to wave_dp_plain")
+        f"every wave equal to align_wave_plain")
+    big = max(wave_log)
+    W = st["wave_cells"] // max(st["wave_rows"], 1)
+    log(f"align PCIe: {st['wave_bytes_up']} B up and "
+        f"{st['wave_bytes_down']} B down over {len(wave_log)} waves "
+        f"({st['wave_bytes_up'] / len(wave_log):.0f} / "
+        f"{st['wave_bytes_down'] / len(wave_log):.0f} B a wave), finished "
+        f"tables {st['wave_bytes_tables']} B down; the largest wave, "
+        f"{big[0]} rows: {big[1]} B up, {big[2]} B down "
+        f"({big[1] + big[2]} B; as four (N, W) planes up and three down, "
+        f"compute_wave's path, {big[0] * (16 * W + 17)} B up and "
+        f"{big[0] * 12 * W} B down)")
     # the independent oracle on every printed alignment
     keys = oracle["keys"]
     n_aln = exact_ok = 0
@@ -3743,20 +3771,86 @@ def align_phase(cfg, graph_path, refs, oracle, seed, torch, dev, work):
     log(f"align: the first {nc} reads' bytes equal the --torch-device cpu "
         f"run's ({cpu_wall:.1f} s), the first {npar} reads' the -p "
         f"{ac['par_procs']} run's ({par_wall:.1f} s)")
-    # the kernel on the largest wave of the run
+    # the kernels on the largest wave of the run, timed as it ran
+    big = check["largest"]
     entries = {}
-    inputs, gaps = check["largest"]
-    inputs = (*inputs, *gaps)
-    N, W = inputs[0].shape
-    nbytes = 7 * N * W * 4 + N * (4 * 4 + 1)
+    add_entry(entries, torch, " [align]", "align_wave", *big["entry"])
+    log(f"align_wave [align]: the largest wave {big['rows']} x "
+        f"{big['W']} ({big['parents']} parents, {big['slots']} branch "
+        f"slots), device ms from the profiler {big['device_ms']} (a mean "
+        f"of 10 calls); {check['waves']} waves, {launches['align_wave']} "
+        "launches")
+    # wave_dp on the same wave's planes through compute_wave's own entry
+    planes, (go, ge) = big["planes"], big["gaps"]
+    host = [a.cpu().numpy() for a in planes]
+    res, wd = run_path(lambda: wx.compute_wave(*host, go, ge, dev))
+    inputs = (*planes, go, ge)
+    want = wx.wave_dp_plain(*inputs)
+    if wd["wave_dp"] != (dev.type == "cuda") or any(
+            max_abs_err(torch, torch.from_numpy(r).to(dev), w)
+            for r, w in zip(res, want)):
+        raise AssertionError(f"compute_wave: {wd['wave_dp']} wave_dp "
+                             "launches or its output differs")
+    CH, W = planes[0].shape
+    nbytes = 7 * CH * W * 4 + CH * (4 * 4 + 1)
     add_entry(entries, torch, " [align]", "wave_dp",
-              wx.wave_dp(*inputs), wx.wave_dp_plain(*inputs),
+              wx.wave_dp(*inputs), want,
               device_ms(torch, dev, lambda: wx.wave_dp(*inputs), 20),
               device_ms(torch, dev, lambda: wx.wave_dp_plain(*inputs), 3),
               nbytes)
-    log(f"wave_dp [align]: the largest wave {N} x {W}; "
-        f"{check['waves']} waves, {launches['wave_dp']} launches")
-    return {"wave_dp": launches["wave_dp"]}, entries
+    log(f"wave_dp [align]: the largest wave's {CH} x {W} planes through "
+        f"compute_wave, {wd['wave_dp']} launch")
+    return {"align_wave": launches["align_wave"],
+            "wave_dp": wd["wave_dp"]}, entries
+
+
+def time_wave(torch, dev, wx, store, tables, pack, W, go, ge, n_out):
+    """Time one wave of the engine where it ran: align_wave again on the
+    same store (it writes the same rows; the parents' rows stay), by
+    events and by the profiler, and align_wave_plain, both outputs kept
+    for add_entry, the launch counter left as the engine's run made it;
+    the wave's planes for wave_dp.  -> dict."""
+    CH = len(pack)
+    slots = (n_out - CH * (wx.NSTAT + W)) // (2 * W)
+    rows = pack[:, wx.PK_ROW].long()
+    outs = [torch.empty(n_out, dtype=torch.int32, device=dev)
+            for _ in range(2)]
+    launches = wx.align_wave.launches     # these launches do not count
+
+    def kernel():
+        return wx.align_wave(store, tables, pack, W, go, ge, outs[0])
+
+    def plain():
+        return wx.align_wave_plain(store, tables, pack, W, go, ge, outs[1])
+
+    ms = device_ms(torch, dev, kernel, 20)
+    got = (store[rows, :, :W].clone(), outs[0].clone())
+    plain_ms = device_ms(torch, dev, plain, 3)
+    want = (store[rows, :, :W].clone(), outs[1].clone())
+    dms = None
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                kernel()
+            outs[0].add_(0)       # a PyTorch op, so that the trace closes
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0) or 0
+                 for e in prof.key_averages() if "align_wave" in e.key)
+        dms = us / 10 / 1e3 if us > 0 else None
+    kernel()                      # the store as the kernel leaves it
+    wx.align_wave.launches = launches
+    parents = int(torch.unique(pack[:, wx.PK_PARENT]).numel())
+    # each parent's S and F rows, each child's profile and partial-sum
+    # rows, its packed vectors; S, E, F and S again written, the
+    # statistics and the branch slots' rows
+    nbytes = (parents * 2 * W + CH * 2 * W + CH * wx.NPACK) * 4 \
+        + (CH * 4 * W + CH * wx.NSTAT + slots * 2 * W) * 4
+    planes, _ = wx.wave_planes(store, tables, pack, W)
+    return dict(rows=CH, W=W, parents=parents, slots=slots, device_ms=dms,
+                entry=(got, want, ms, plain_ms, nbytes), planes=planes,
+                gaps=(go, ge))
 
 
 SOURCES = {
@@ -3794,6 +3888,8 @@ SOURCES = {
                    "metagraph_tpu/succinct/device_build.py:253"),
     "wave_dp": ("metagraph_tpu_torch/csrc/wave_dp.cu",
                 "metagraph_tpu/align/batch.py:91"),
+    "align_wave": ("metagraph_tpu_torch/csrc/wave_dp.cu",
+                   "metagraph_tpu/align/batch.py:91"),
 }
 
 

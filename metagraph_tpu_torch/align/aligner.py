@@ -6,8 +6,8 @@ align_batch per query: seed -> extend (forward), then reverse-complement each
 local alignment and re-extend on the other strand (ref align_both_directions,
 dbg_aligner.cpp:534-760); results aggregated into the top
 num_alternative_paths by LocalAlignmentLess.  The aligner holds the torch
-device that its extension waves run on (kernel B11 ``wave_dp`` on the
-card, its plain version on the CPU).  Labeled alignment waits for ROADMAP
+device that its extension waves run on (kernel B11 ``align_wave`` on
+the card, its plain version on the CPU).  Labeled alignment waits for ROADMAP
 A13.3.
 """
 

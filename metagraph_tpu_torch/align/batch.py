@@ -5,9 +5,10 @@ Runs many per-read alignment generators (DBGAligner.align_gen) in lockstep
 at EXTENSION granularity: each generator yields ("extend", job) requests;
 ``drive_batch`` collects one job per active read and runs them all concurrently
 through the flat wave engine (flat.py) — one stacked column-DP call (kernel
-B11 ``wave_dp`` on the card: it takes the place of the JAX package's
-``_compute_wave_device``) and one batched graph-traversal call per global
-wave, across every read's current extension.  Per-read results are
+B11 ``align_wave`` over the engine's store on the card: it takes the place
+of the JAX package's ``_compute_wave_device`` and native ``align_wave``)
+and one batched graph-traversal call per global wave, across every read's
+current extension.  Per-read results are
 byte-identical to the sequential path: the generators encapsulate all
 per-read control flow (seed order, aggregator cutoffs, convergence-filter
 reuse across seeds).
@@ -72,7 +73,9 @@ def drive_batch(gens: List, device, max_window: int = 0) -> List:
             if not eng.active:
                 continue
             ran = True
-            for slot in eng.step():
+            done = eng.step()
+            eng.fetch_tables(done)      # one copy for the step's tables
+            for slot in done:
                 feed(owner.pop((key, slot)), eng.finalize(slot))
         if not ran:
             break

@@ -4,7 +4,7 @@ and writes (ref src/graph/alignment/aligner_extender_methods.cpp): the
 query's profiles and partial sums, the convergence filter that
 ``check_seed`` reads across seeds, and the backtrack from the candidate
 cells that the engine collects.  The column DP itself runs in the
-engine's waves (kernel B11 ``wave_dp`` on the card).
+engine's waves (kernel B11 ``align_wave`` on the card).
 
 Each DP-table column aligns a band of the query window against one graph node
 (tree of nodes rooted at the seed).  Recurrence per column j (band [begin,end)):

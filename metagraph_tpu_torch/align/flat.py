@@ -1,10 +1,18 @@
 """Flat multi-extension alignment engine with continuous job admission;
 own copy of the numpy ``FlatEngine`` of metagraph_tpu/align/flat.py
-(:202-995), whose column recurrence runs on the engine's torch device:
-each wave's rows go through ``compute_wave`` (wave_extender.py), one
-launch of kernel B11 ``wave_dp`` on the card, or its plain version on the
-CPU.  The JAX package's native engine and native wave are left out; the
-numpy paths they short-circuit give the same bytes.
+(:202-995), whose column store and waves live on the engine's torch
+device: each wave is one ``align_wave`` (wave_extender.py, kernel B11 on
+the card, its plain version on the CPU) over the store, which computes
+the parents' hulls, the recurrence, the pad and the row statistics and
+writes the children's rows into the store.  A wave copies to the card
+its packed per-child vectors (and, in one copy before it, the tables and
+root columns of the jobs admitted since the wave before; after it, in one
+copy, the branch pops' re-masked rows) and reads back the statistics, the
+children's S rows (for the convergence filter) and, for later siblings
+of a branch pop, their E rows and parents' S rows.  A finished job's
+table comes back with the others of its step in one copy
+(``fetch_tables``).  The JAX package's native engine is left out; the
+numpy path its native wave short-circuits gives the same bytes.
 
 Runs MANY seed extensions (across reads) concurrently while preserving each
 extension's EXACT best-first column order (ref per-read loop:
@@ -22,39 +30,45 @@ min-cell tracking, backtrack-candidate checks) runs as array ops over all
 single-child jobs at once, since each job contributes at most one child per
 wave and jobs are independent.
 
-Columns live in a COLUMNAR store (gS/gE/gF + per-column metadata arrays)
-shared across jobs: each wave appends its kept children with one slice
-write, parent rows re-enter the next wave through one gather, and rows are
-recycled through a free list when a job finalizes — no per-column Python
-objects during extension.  Backtracking sees the table through a lazy
-adapter that materializes Column views only for the cells a trace actually
-touches.
+Columns live in a COLUMNAR store (``G``, a (rows, 3, Wp) int32 tensor of S,
+E and F rows on the device, each row padded to Wp, a multiple of 4, so
+that it starts on 16 bytes; per-column metadata arrays on the host) shared
+across jobs: each wave writes every child into a row of its own, the rows
+of children that are not kept go back to the free list at once, parent
+rows are read where they lie, and rows are recycled through the free list
+when a job finalizes — no per-column Python objects during extension.
+Backtracking sees the table through a lazy adapter that materializes
+Column views only for the cells a trace actually touches.
 
 The engine admits new extension jobs while others are mid-flight (continuous
 batching): when a read finishes one extension, its next seed's extension
 joins the running wave pool immediately.  Value arrays are int32 — NINF
 (= INT32_MIN + 100) fits exactly and all score arithmetic stays within the
-+-100 headroom (see compute_wave's wrap-safe E clamp).  Outputs are
++-100 headroom (see wave_dp_plain's wrap-safe E clamp).  Outputs are
 bit-identical to that single-extension loop run per read.
 """
 
 from __future__ import annotations
 
 import heapq
+import time
 from typing import List
 
 import numpy as np
+import torch
 
 from .alignment import Alignment
 from .config import NINF
 from .extender import Column
+from . import wave_extender as wx
 
 _POS = np.int32(2 ** 31 - 1)
 
-def _materialize_table(eng, gcols, WS):
+def _materialize_table(eng, gcols, WS, block):
     """Bulk-construct the per-job Column list from the columnar store
     (attribute scalars come from one .tolist() pass per field; S/E/F are
-    zero-copy views into the store — valid until the rows are recycled)."""
+    views into ``block``, the job's rows as ``fetch_tables`` read them,
+    valid until the next fetch)."""
     gi = np.array(gcols, dtype=np.int64)
     nodes = eng.g_node[gi].tolist()
     parents = eng.g_parent[gi].tolist()
@@ -62,14 +76,13 @@ def _materialize_table(eng, gcols, WS):
     offs = eng.g_off[gi].tolist()
     mps = eng.g_maxpos[gi].tolist()
     scores = eng.g_score[gi].tolist()
-    gS, gE, gF = eng.gS, eng.gE, eng.gF
     table = []
     app = table.append
-    for t, g in enumerate(gcols):
+    for t in range(len(gcols)):
         col = Column.__new__(Column)
-        col.S = gS[g, :WS]
-        col.E = gE[g, :WS]
-        col.F = gF[g, :WS]
+        col.S = block[t, 0, :WS]
+        col.E = block[t, 1, :WS]
+        col.F = block[t, 2, :WS]
         col.node = nodes[t]
         col.parent = parents[t]
         col.c = cs[t]
@@ -82,14 +95,18 @@ def _materialize_table(eng, gcols, WS):
 
 
 def _group_key(ext):
+    # the score matrix too: the engine builds its jobs' profile rows on the
+    # device from one table of it
     return (id(ext.graph), ext.config.gap_opening_penalty,
-            ext.config.gap_extension_penalty, bytes(ext.profile_chars))
+            ext.config.gap_extension_penalty, bytes(ext.profile_chars),
+            id(ext.config.score_matrix))
 
 
 class _Job:
     __slots__ = ("ext", "seed", "min_path_score", "ffs", "start", "window",
                  "wsize", "WS", "seed_offset", "tips", "conv_rows", "cand",
-                 "queue", "next_nodes", "gcols", "col_max", "cur", "done")
+                 "queue", "next_nodes", "gcols", "col_max", "cur", "done",
+                 "rows")
 
     def __init__(self, ext, seed, min_path_score, ffs):
         self.ext = ext
@@ -109,6 +126,7 @@ class _Job:
         self.col_max: List[int] = []  # stored column max per table entry
         self.cur = -1
         self.done = False
+        self.rows = None      # the table's rows, read by fetch_tables
 
     def pop_next(self):
         """Next table index to process, per the reference pop discipline
@@ -158,8 +176,9 @@ class FlatEngine:
         self.k = graph.k
         self.go = config.gap_opening_penalty
         self.ge = config.gap_extension_penalty
-        self.device = device            # where the waves' DP runs
+        self.device = torch.device(device)   # where the store and waves are
         self.W = int(W)
+        self.Wp = -(-self.W // 4) * 4        # a store row's stride
         self.C = len(profile_chars)
         self.profile_chars = profile_chars
         self.char_idx = char_idx
@@ -195,16 +214,32 @@ class FlatEngine:
         self.P = np.full((cap, self.C, W), NINF, dtype=np.int32)
         self.pss = np.zeros((cap, W), dtype=np.int32)
         self.winb = np.zeros((cap, W), dtype=np.int64)  # window bytes
+        # the same profile rows and partial sums on the device, C + 1 rows
+        # of Wp a job (align_wave's tables), built in _flush before the
+        # first wave that reads them from each job's window, partial sums
+        # and root column, which go up in one copy: the profile rows from
+        # the window's characters through ``score``, the score matrix's
+        # rows of the profile characters (column 256: NINF, the cells
+        # before the query and past WS)
+        self.T = torch.empty((cap, self.C + 1, self.Wp), dtype=torch.int32,
+                             device=self.device)
+        rows = config.score_matrix[list(profile_chars)]
+        sc = np.full((self.C, 257), NINF, dtype=np.int32)
+        sc[:, : rows.shape[1]] = rows
+        self.score = torch.from_numpy(sc.T.copy()).to(self.device)
+        self.flushed = 0                 # jobs whose rows are on the device
+        self.roots: List[np.ndarray] = []   # their root columns' S, (W,)
+        self.root_rows: List[int] = []
+        self.host = {}                   # reused host buffers, by name
+        self.flush_bytes = 0             # the last step's _flush
 
         # columnar table store shared across jobs (rows recycle via `free`
-        # when a job finalizes; np.empty = virtual allocation, so a large
-        # initial cap costs address space, not RSS)
-        self.gcap = 1 << 16
+        # when a job finalizes)
+        self.gcap = 1 << 12
         self.g_n = 0
         self.free: List[int] = []
-        self.gS = np.empty((self.gcap, W), dtype=np.int32)
-        self.gE = np.empty((self.gcap, W), dtype=np.int32)
-        self.gF = np.empty((self.gcap, W), dtype=np.int32)
+        self.G = torch.empty((self.gcap, 3, self.Wp), dtype=torch.int32,
+                             device=self.device)
         self.g_node = np.empty(self.gcap, dtype=np.int64)
         self.g_parent = np.empty(self.gcap, dtype=np.int64)
         self.g_c = np.empty(self.gcap, dtype=np.int64)
@@ -242,6 +277,10 @@ class FlatEngine:
         newP = np.full((cap, self.C, self.W), NINF, dtype=np.int32)
         newP[: len(self.P)] = self.P
         self.P = newP
+        newT = torch.empty((cap,) + tuple(self.T.shape[1:]),
+                           dtype=torch.int32, device=self.device)
+        newT[: self.flushed] = self.T[: self.flushed]
+        self.T = newT
         for name in ("pss", "winb"):
             old = getattr(self, name)
             new = np.zeros((cap, self.W), dtype=old.dtype)
@@ -267,13 +306,10 @@ class FlatEngine:
         cap = self.gcap
         while cap < need:
             cap *= 2
-        newS = np.empty((cap, self.W), dtype=np.int32)
-        newS[: self.g_n] = self.gS[: self.g_n]
-        newE = np.empty((cap, self.W), dtype=np.int32)
-        newE[: self.g_n] = self.gE[: self.g_n]
-        newF = np.empty((cap, self.W), dtype=np.int32)
-        newF[: self.g_n] = self.gF[: self.g_n]
-        self.gS, self.gE, self.gF = newS, newE, newF
+        newG = torch.empty((cap, 3, self.Wp), dtype=torch.int32,
+                           device=self.device)
+        newG[: self.g_n] = self.G[: self.g_n]
+        self.G = newG
         for name in ("g_node", "g_parent", "g_c", "g_off", "g_maxpos",
                      "g_score"):
             setattr(self, name, _grow1(getattr(self, name), cap))
@@ -314,7 +350,7 @@ class FlatEngine:
         cfgj = ext.config
         cut0 = max(-cfgj.xdrop, NINF + 1)
 
-        WS = job.WS
+        WS, W = job.WS, self.W
         self.WSv[j] = WS
         self.wsizev[j] = job.wsize
         self.seed_off[j] = job.seed_offset
@@ -361,12 +397,11 @@ class FlatEngine:
             rE[1:] = np.where(ok, chain, NINF)
             rS[1:] = rE[1:]
         g = int(self._galloc(1)[0])
-        self.gS[g] = NINF
-        self.gE[g] = NINF
-        self.gF[g] = NINF
-        self.gS[g, :WS] = rS
-        self.gE[g, :WS] = rE
-        self.gF[g, :WS] = rF
+        # rE is rS but for cell 0, and rF is NINF: _flush makes both
+        root = np.full(W, NINF, dtype=np.int32)
+        root[:WS] = rS
+        self.roots.append(root)
+        self.root_rows.append(g)
         self.g_node[g] = seed.nodes[0]
         self.g_parent[g] = -1
         self.g_c[g] = 0
@@ -395,12 +430,92 @@ class FlatEngine:
         self.conv_n += n
         return rows
 
+    # ------------------------------------------------------- device copies
+    def _host(self, name: str, n: int) -> torch.Tensor:
+        """A host int32 buffer of ``n`` elements, kept by ``name`` and
+        reused (pinned where the engine runs on the card).  Every copy out
+        of it has ended before it is written again: each wave waits for
+        its read-back."""
+        buf = self.host.get(name)
+        if buf is None or buf.numel() < n:
+            size = max(n, 2 * (buf.numel() if buf is not None else 0), 4096)
+            buf = torch.empty(size, dtype=torch.int32,
+                              pin_memory=self.device.type == "cuda")
+            self.host[name] = buf
+        return buf[:n]
+
+    def _flush(self) -> int:
+        """Copy what the jobs admitted since the last wave need on the
+        device, in one copy: a job's profile characters (the query
+        character before each window cell, 256 where there is none), its
+        partial sums and its root column's S; then build their profile
+        rows and root columns there.  -> the bytes copied."""
+        j0, j1 = self.flushed, len(self.jobs)
+        if j0 == j1:
+            return 0
+        n, C, W, Wp = j1 - j0, self.C, self.W, self.Wp
+        buf = self._host("jobs", n * 3 * Wp + n)
+        a = buf.numpy()
+        blk = a[: n * 3 * Wp].reshape(n, 3, Wp)
+        blk[:, 0] = 256
+        for t, job in enumerate(self.jobs[j0:j1]):
+            s = job.start
+            if s:
+                blk[t, 0, 0] = job.ext.query[s - 1]
+            blk[t, 0, 1: job.WS] = np.frombuffer(job.window, dtype=np.uint8)
+        blk[:, 1:, W:] = NINF
+        blk[:, 1, :W] = self.pss[j0:j1]
+        blk[:, 2, :W] = self.roots
+        a[n * 3 * Wp:] = self.root_rows
+        d = buf.to(self.device, non_blocking=True)
+        dblk = d[: n * 3 * Wp].view(n, 3, Wp)
+        prof = wx.take_rows(self.score, dblk[:, 0].reshape(-1).long())
+        self.T[j0:j1, :C] = prof.view(n, Wp, C).transpose(1, 2)
+        self.T[j0:j1, C] = dblk[:, 1]
+        root = torch.full((n, 3, Wp), NINF, dtype=torch.int32,
+                          device=self.device)
+        root[:, 0] = root[:, 1] = dblk[:, 2]
+        root[:, 1, 0] = NINF
+        wx.put_rows(self.G, d[n * 3 * Wp:].long(), root)
+        self.flushed = j1
+        self.roots, self.root_rows = [], []
+        return buf.numel() * 4
+
+    def fetch_tables(self, slots: List[int]):
+        """Read the store rows of the finished jobs ``slots`` that have a
+        backtrack candidate, in one copy, for their ``finalize`` (a job
+        without one backtracks nothing and never reads its table)."""
+        jobs = [self.jobs[j] for j in slots if self.jobs[j].cand
+                and not self.jobs[j].ext.config.no_backtrack]
+        if not jobs:
+            return
+        t0 = time.perf_counter()
+        idx = np.concatenate([np.asarray(j.gcols, dtype=np.int64)
+                              for j in jobs])
+        rows = wx.take_rows(self.G, torch.from_numpy(idx).to(self.device))
+        if self.device.type == "cuda":
+            host = self._host("tables", rows.numel()).view(rows.shape)
+            host.copy_(rows, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            rows = host
+        block = rows.numpy()
+        wx.STATS["bytes_tables"] += block.nbytes
+        wx.STATS["seconds"] += time.perf_counter() - t0
+        at = 0
+        for job in jobs:
+            job.rows = block[at: at + len(job.gcols)]
+            at += len(job.gcols)
+
     # ------------------------------------------------------------- one wave
     def step(self) -> List[int]:
         """Advance every active extension by one best-first pop; returns
         newly finished job slots."""
         if not self.active_ids:
             return []
+        t0 = time.perf_counter()
+        self.flush_bytes = self._flush()
+        wx.STATS["seconds"] += time.perf_counter() - t0
+        wx.STATS["bytes_up"] += self.flush_bytes
         done: List[int] = []
         parents: List[int] = []     # job ids with a column to process
         for j in self.active_ids:
@@ -441,33 +556,21 @@ class FlatEngine:
         graph = self.graph
         k = self.k
         go, ge = self.go, self.ge
-        W = self.W
+        W, C = self.W, self.C
         jj, jj32 = self.jj, self.jj32
-        from .wave_extender import compute_wave
+        STATS = wx.STATS
 
         J = len(parents)
         pj = np.array(parents, dtype=np.int64)
-        # gather parent rows from the columnar store (rows are stored
-        # full-width with an NINF pad beyond each job's WS)
+        # the parents' store rows (read by align_wave where they lie)
         ptidx = np.empty(J, dtype=np.int64)
         g_cur = np.empty(J, dtype=np.int64)
         for t, j in enumerate(parents):
             job = jobs[j]
             ptidx[t] = job.cur
             g_cur[t] = job.gcols[job.cur]
-        S_act = self.gS[g_cur]
-        F_act = self.gF[g_cur]
         pnode = self.g_node[g_cur]
         poff = self.g_off[g_cur]
-
-        cutc = self.cutoff[pj]
-        wsize_pj = np.ascontiguousarray(self.wsizev[pj])
-        inr = S_act >= cutc[:, None]
-        # pop-time col_max >= cutoff guarantees a nonempty hull
-        first = np.argmax(inr, axis=1)
-        last = W - 1 - np.argmax(inr[:, ::-1], axis=1)
-        band_lo = first
-        band_hi = np.minimum(last + 1, wsize_pj)
 
         # ---- enumerate children (extender.py call_outgoing :168-195)
         next_off = poff + 1
@@ -520,10 +623,9 @@ class FlatEngine:
         ch_jid = pj[ch_rows]
         ch_off = next_off[ch_rows]
 
-        # ---- stacked column recurrence (pre-pop cutoff; sibling-sequential
-        # cutoff raises are corrected below)
-        blo = band_lo[ch_rows]
-        bhi = band_hi[ch_rows]
+        # ---- one align_wave over the store (pre-pop cutoff; sibling-
+        # sequential cutoff raises are corrected below)
+        CH = len(ch_rows)
         ccut = self.cutoff[ch_jid]
         diag = (ch_off - self.seed_off[ch_jid]).astype(np.int32)
         spos_c = ch_off - self.seed_off0[ch_jid]
@@ -531,46 +633,59 @@ class FlatEngine:
         ext_cut = (self.best[ch_jid] * self.rcut_v[ch_jid]
                    + self.pso_v[ch_jid]).astype(np.float64)
         P2 = self.P.reshape(-1, W)
-        prof_rows = ch_jid * self.C + self.char_idx[ch_chars]
-        hullM = (jj[None, :] >= np.maximum(first - 1, 0)[:, None]) \
-            & (jj[None, :] <= (band_hi - 1)[:, None])
-        hullF = (jj[None, :] >= first[:, None]) \
-            & (jj[None, :] <= band_hi[:, None])
-        SpM = np.where(hullM[ch_rows], S_act[ch_rows], NINF)
-        SpF = np.where(hullF[ch_rows], S_act[ch_rows], NINF)
-        Fp = np.where(hullF[ch_rows], F_act[ch_rows], NINF)
-        prof = P2[prof_rows]
-        S, E, F = compute_wave(SpM, SpF, Fp, prof, ch_score, ch_off > 1,
-                               blo, bhi, ccut, go, ge, self.device)
-        if self.WSv[ch_jid].min() < W:
-            pad = jj[None, :] >= self.WSv[ch_jid][:, None]
-            S = np.where(pad, NINF, S)
-            E = np.where(pad, NINF, E)
-            F = np.where(pad, NINF, F)
-        else:
-            pad = None
-        Smax = S.max(axis=1)
-        dist = np.abs(jj32[None, :] - diag[:, None])
-        if pad is not None:
-            dist = np.where(pad, _POS, dist)
-        mp = np.argmin(np.where(S == Smax[:, None], dist, _POS), axis=1)
-        fin = np.where(S == NINF, _POS, S)
-        col_min = fin.min(axis=1)
-        has_ext0 = in_seed_c \
-            | ((S + self.pss[ch_jid]) >= ext_cut[:, None]).any(axis=1)
-        keep0 = in_seed_c | ((Smax >= ccut) & has_ext0)
+        cidx = self.char_idx[ch_chars]
+        prof_rows = ch_jid * C + cidx
 
-        # group children per parent (ch_rows ascending after the sort)
+        # group children per parent (ch_rows ascending after the sort);
+        # later siblings of a branch pop get a read-back slot
         grp_first = np.searchsorted(ch_rows, ch_rows, side="left")
         grp_size = np.searchsorted(ch_rows, ch_rows, side="right") - grp_first
+        ar = np.arange(CH)
+        later = np.flatnonzero(grp_first != ar)
+        slot = np.full(CH, -1, dtype=np.int64)
+        slot[later] = np.arange(len(later))
+        orow = self._galloc(CH)      # every child's store row
 
-        # candidate collection inputs gathered for ALL children up front
+        pack_t = self._host("pack", CH * wx.NPACK)
+        pack = pack_t.numpy().reshape(CH, wx.NPACK)
+        pack[:, wx.PK_PARENT] = g_cur[ch_rows]
+        pack[:, wx.PK_ROW] = orow
+        pack[:, wx.PK_PROF] = ch_jid * (C + 1) + cidx
+        pack[:, wx.PK_PSS] = ch_jid * (C + 1) + C
+        pack[:, wx.PK_SCORE] = ch_score
+        pack[:, wx.PK_DEL] = ch_off > 1
+        pack[:, wx.PK_CUT] = ccut
+        pack[:, wx.PK_WS] = self.WSv[ch_jid]
+        pack[:, wx.PK_WSIZE] = self.wsizev[ch_jid]
+        pack[:, wx.PK_DIAG] = diag
+        pack[:, wx.PK_SLOT] = slot
+        pack[:, wx.PK_XCUT:] = ext_cut.view(np.int32).reshape(CH, 2)
+        out_t = self._host("out", wx.out_size(CH, W, len(later)))
+        stats, S, brows = wx.run_wave(self.G, self.T.view(-1, self.Wp),
+                                      pack_t.view(CH, wx.NPACK), W, go, ge,
+                                      out_t)
+        secs = 0.0
+        up = pack_t.numel() * 4
+        down = out_t.numel() * 4
+        STATS["waves"] += 1
+        STATS["rows"] += CH
+        STATS["cells"] += CH * W
+        Smax = stats[:, wx.ST_SMAX].copy()
+        mp = stats[:, wx.ST_MP].astype(np.int64)
+        col_min = stats[:, wx.ST_COLMIN].copy()
+        blo = stats[:, wx.ST_LO]
+        bhi = stats[:, wx.ST_HI]
+        has_ext0 = in_seed_c | (stats[:, wx.ST_HASEXT] != 0)
+        keep0 = in_seed_c | ((Smax >= ccut) & has_ext0)
+        kept = np.zeros(CH, dtype=bool)    # rows that stay in the store
+        fixes = []                         # re-masked kept rows: (row, S, E)
+
+        # candidate collection inputs, from align_wave for ALL children
         kws_all = self.wsizev[ch_jid]
-        ar = np.arange(len(ch_jid))
-        sc_mp_all = P2[prof_rows, mp].astype(np.int64)
-        p_mp_all = S_act[ch_rows, np.maximum(mp - 1, 0)]
-        s_lp_all = S[ar, kws_all]
-        p_lp_all = S_act[ch_rows, np.maximum(kws_all - 1, 0)]
+        sc_mp_all = stats[:, wx.ST_SCMP].astype(np.int64)
+        p_mp_all = stats[:, wx.ST_PMP].copy()
+        s_lp_all = stats[:, wx.ST_SLP].copy()
+        p_lp_all = stats[:, wx.ST_PLP]
         winc_mp_all = self.winb[ch_jid, np.maximum(mp - 1, 0)]
 
         single = grp_size == 1
@@ -596,10 +711,8 @@ class FlatEngine:
                 kjid = ch_jid[ki]
                 smax_k = Smax[ki]
                 tidx_k = self.TL[kjid].copy()
-                rows = self._galloc(len(ki))
-                self.gS[rows] = S[ki]
-                self.gE[rows] = E[ki]
-                self.gF[rows] = F[ki]
+                rows = orow[ki]
+                kept[ki] = True
                 self.g_node[rows] = ch_nodes[ki]
                 self.g_parent[rows] = ptidx[ch_rows[ki]]
                 self.g_c[rows] = ch_chars[ki]
@@ -688,9 +801,10 @@ class FlatEngine:
                 if cut_now > int(ccut[i]):
                     Si = np.where(S[i] < cut_now, NINF, S[i])
                     in_band = (jj >= blo[i]) & (jj <= bhi[i])
-                    Ei = np.where(in_band | (Si != NINF), E[i], NINF)
+                    Ei, Spar = brows[slot[i]]
+                    Ei = np.where(in_band | (Si != NINF), Ei, NINF)
                     S[i] = Si
-                    E[i] = Ei
+                    fixes.append((i, Si, Ei))
                     Smax_i = int(Si.max())
                     Smax[i] = Smax_i
                     dist_i = np.abs(jj32 - diag[i])
@@ -703,7 +817,7 @@ class FlatEngine:
                         else np.where(Si == NINF, _POS, Si).min()
                     # refresh candidate inputs that read S / the max pos
                     s_lp_all[i] = Si[kws_all[i]]
-                    p_mp_all[i] = S_act[ch_rows[i], max(int(mp[i]) - 1, 0)]
+                    p_mp_all[i] = Spar[max(int(mp[i]) - 1, 0)]
                     sc_mp_all[i] = int(P2[prof_rows[i], mp[i]])
                     winc_mp_all[i] = self.winb[j, max(int(mp[i]) - 1, 0)]
                 # recompute keep with the running best/cutoff
@@ -725,10 +839,8 @@ class FlatEngine:
                 continue
 
             tidx = int(self.TL[j])
-            g = int(self._galloc(1)[0])
-            self.gS[g] = S[i]
-            self.gE[g] = E[i]
-            self.gF[g] = F[i]
+            g = int(orow[i])
+            kept[i] = True
             self.g_node[g] = ch_nodes[i]
             self.g_parent[g] = ptidx[ch_rows[i]]
             self.g_c[g] = ch_chars[i]
@@ -757,6 +869,32 @@ class FlatEngine:
                 continue
             m_conv.append((i, j, int(ch_nodes[i]), tidx,
                            abs(int(mp[i]) - int(diag[i]))))
+
+        # the store keeps the rows of kept children, the re-masked ones as
+        # re-masked (one copy); the others go back to the free list
+        fixes = [f for f in fixes if kept[f[0]]]
+        if fixes:
+            t0 = time.perf_counter()
+            n = len(fixes)
+            buf = self._host("fix", n * (2 * W + 1))
+            a = buf.numpy()
+            rows_f = a[: 2 * n * W].reshape(n, 2, W)
+            for t, (i, Si, Ei) in enumerate(fixes):
+                rows_f[t, 0], rows_f[t, 1] = Si, Ei
+            a[2 * n * W:] = orow[[f[0] for f in fixes]]
+            d = buf.to(self.device, non_blocking=True)
+            idx = d[2 * n * W:].long()
+            cur = wx.take_rows(self.G, idx)
+            cur[:, :2, :W] = d[: 2 * n * W].view(n, 2, W)
+            wx.put_rows(self.G, idx, cur)
+            secs += time.perf_counter() - t0
+            up += buf.numel() * 4
+        self.free.extend(orow[~kept].tolist())
+        STATS["seconds"] += secs
+        STATS["bytes_up"] += up
+        STATS["bytes_down"] += down
+        if wx.WAVE_LOG is not None:
+            wx.WAVE_LOG.append((CH, self.flush_bytes + up, down))
 
         if m_conv:
             arr = np.array(m_conv, dtype=np.int64)
@@ -849,7 +987,8 @@ class FlatEngine:
 
     # ------------------------------------------------------------- finalize
     def finalize(self, j: int) -> List[Alignment]:
-        """Backtrack a finished job slot; returns its extensions."""
+        """Backtrack a finished job slot, after ``fetch_tables`` of its
+        step; returns its extensions."""
         job = self.jobs[j]
         ext = job.ext
         ext.min_cell_score = int(self.mcs[j])
@@ -868,7 +1007,10 @@ class FlatEngine:
         if ext.config.no_backtrack:
             self._release(job)
             return [job.seed]
-        ext.table = _materialize_table(self, job.gcols, WSj)
+        if job.cand:
+            if job.rows is None:
+                raise RuntimeError("finalize: fetch_tables first")
+            ext.table = _materialize_table(self, job.gcols, WSj, job.rows)
         # resolve tip-gated candidates and order exactly like the
         # reference's indices.sort(reverse=True) on
         # (score, -off_diag, -idx, pos)
@@ -900,3 +1042,4 @@ class FlatEngine:
         job.ext.table = None
         self.free.extend(job.gcols)
         job.gcols = []
+        job.rows = None

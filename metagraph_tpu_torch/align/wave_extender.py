@@ -1,14 +1,22 @@
-"""The wave DP, kernel B11 ``wave_dp``, and the extender that runs on it.
+"""The wave DP, kernel B11, and the extender that runs on it.
 
-``compute_wave`` scores N banded DP columns of width W in one call: the
-stacked column recurrence of metagraph_tpu/align/wave_extender.py
-(``compute_wave``, :24) that the flat engine (flat.py) runs once per global
-wave over every active extension's children, across all lockstep reads.
-On the card it uploads the wave's rows, launches ``wave_dp``
-(``csrc/wave_dp.cu``, replacing the XLA program
-metagraph_tpu/align/batch.py::_compute_wave_device, :91) once and reads S,
-E and F back; on the CPU it runs ``wave_dp_plain``, the same recurrence in
-plain PyTorch (``torch.cummax`` for E's running max).
+``align_wave`` runs one wave of the flat engine (flat.py) in one launch
+over its column store on the card: for each child row, its parent's hull
+from the parent's store rows, the hull-masked recurrence of
+metagraph_tpu/align/wave_extender.py (``compute_wave``, :24) against its
+profile row, the pad past its job's WS, its S, E and F written into the
+store row the engine gives it, and the row statistics (the numpy wave
+path of metagraph_tpu/align/flat.py, :626-651, whose native form is
+native/fastio.cpp::align_wave); ``csrc/wave_dp.cu``, replacing the XLA
+program metagraph_tpu/align/batch.py::_compute_wave_device (:91).
+``align_wave_plain`` is the same in plain PyTorch, built on
+``wave_dp_plain``.
+
+``compute_wave`` scores N banded DP columns of width W in one call, from
+the wave's four (N, W) planes on the host: it uploads them, launches
+``wave_dp`` (``csrc/wave_dp.cu``) once and reads S, E and F back; on the
+CPU it runs ``wave_dp_plain``, the same recurrence in plain PyTorch
+(``torch.cummax`` for E's running max).  The engine does not call it.
 
 Everything is int32 with ``NINF = INT32_MIN + 100``, bit-equal to the JAX
 ``compute_wave`` on int32 arrays: int32 sums wrap as numpy's do, every
@@ -28,9 +36,25 @@ import torch
 from .. import _build
 from .config import NINF
 
-# compute_wave's waves, rows, cells and seconds (upload, DP, read-back),
-# which ``align -v`` prints
-STATS = {"waves": 0, "rows": 0, "cells": 0, "seconds": 0.0}
+# the engine's waves, rows, cells and seconds on the device (its copies
+# and align_wave launches: the jobs' tables up, each wave's vectors up and
+# read-back down, branch rows up, finished tables down) and their bytes,
+# which ``align -v`` prints; compute_wave counts its own calls here too
+STATS = {"waves": 0, "rows": 0, "cells": 0, "seconds": 0.0, "bytes_up": 0,
+         "bytes_down": 0, "bytes_tables": 0}
+# where a list: the engine appends (rows, bytes up, bytes down) a wave
+WAVE_LOG = None
+
+# align_wave's per-child vectors: NPACK int32 a child, the float64
+# ext_cut in the last two (low word first)
+(PK_PARENT, PK_ROW, PK_PROF, PK_PSS, PK_SCORE, PK_DEL, PK_CUT, PK_WS,
+ PK_WSIZE, PK_DIAG, PK_SLOT, PK_XCUT) = range(12)
+NPACK = 13
+# its statistics, NSTAT int32 a child
+(ST_SMAX, ST_MP, ST_COLMIN, ST_HASEXT, ST_SLP, ST_PMP, ST_PLP, ST_SCMP,
+ ST_LO, ST_HI) = range(10)
+NSTAT = 10
+_POS = 2 ** 31 - 1
 
 
 def wave_dp_plain(SpM, SpF, Fp, prof, node_score, has_del, band_lo,
@@ -182,3 +206,186 @@ def compute_wave(SpM: np.ndarray, SpF: np.ndarray, Fp: np.ndarray,
     STATS["cells"] += N * W
     STATS["seconds"] += time.perf_counter() - t0
     return res[0], res[1], res[2]
+
+
+def out_size(CH: int, W: int, slots: int) -> int:
+    """int32 elements of ``align_wave``'s output: the statistics, S again
+    and two rows (E, the parent's S) a branch slot."""
+    return CH * (NSTAT + W) + slots * 2 * W
+
+
+def out_views(out, CH: int, W: int):
+    """-> (stats (CH, NSTAT), S (CH, W), branch rows (slots, 2, W)), views
+    of ``out`` (a tensor or an array)."""
+    a, b = CH * NSTAT, CH * (NSTAT + W)
+    return (out[:a].reshape(CH, NSTAT), out[a:b].reshape(CH, W),
+            out[b:].reshape(-1, 2, W))
+
+
+def take_rows(t, idx):
+    """Rows ``idx`` (an int64 tensor) of ``t``: ``index_select`` on the
+    card; numpy's gather on the CPU, where torch's threaded gather of a
+    few hundred rows stalls while other processes load the cores."""
+    if t.device.type == "cpu":
+        return torch.from_numpy(t.numpy()[idx.numpy()])
+    return t.index_select(0, idx)
+
+
+def put_rows(t, idx, rows):
+    """``t[idx] = rows`` in place, as ``take_rows`` reads."""
+    if t.device.type == "cpu":
+        t.numpy()[idx.numpy()] = rows.numpy()
+    else:
+        t.index_copy_(0, idx, rows)
+
+
+def wave_planes(store, tables, pack, W: int):
+    """The wave's rows as ``wave_dp`` takes them, gathered from the store
+    and the tables by the packed per-child vectors: (SpM, SpF, Fp, prof,
+    node_score, has_del, band_lo, band_hi, cutoff) and the parents' S
+    rows, each (N, W)."""
+    p = pack.long()
+    dev = store.device
+    par = take_rows(store, p[:, PK_PARENT])
+    Sp, Fq = par[:, 0, :W], par[:, 2, :W]
+    cut = pack[:, PK_CUT].contiguous()
+    jj = torch.arange(W, device=dev)
+    inr = (Sp >= cut[:, None]).to(torch.int8)
+    first = inr.argmax(dim=1)
+    last = W - 1 - inr.flip(1).argmax(dim=1)
+    band_hi = torch.minimum(last + 1, p[:, PK_WSIZE])
+    hull_m = (jj >= (first - 1).clamp(min=0)[:, None]) \
+        & (jj <= (band_hi - 1)[:, None])
+    hull_f = (jj >= first[:, None]) & (jj <= band_hi[:, None])
+    ninf = torch.tensor(NINF, dtype=torch.int32, device=dev)
+    return (torch.where(hull_m, Sp, ninf), torch.where(hull_f, Sp, ninf),
+            torch.where(hull_f, Fq, ninf),
+            take_rows(tables, p[:, PK_PROF])[:, :W].contiguous(),
+            pack[:, PK_SCORE].contiguous(), pack[:, PK_DEL] != 0,
+            first.to(torch.int32), band_hi.to(torch.int32), cut), Sp
+
+
+def align_wave_plain(store, tables, pack, W: int, gap_open: int,
+                     gap_ext: int, out):
+    """``align_wave`` in plain PyTorch: ``wave_planes``, ``wave_dp_plain``,
+    the pad, the store rows written, the statistics -> out's views."""
+    CH = pack.shape[0]
+    stats, srows, brows = out_views(out, CH, W)
+    if CH == 0:
+        return stats, srows, brows
+    dev = store.device
+    p = pack.long()
+    planes, Sp = wave_planes(store, tables, pack, W)
+    S, E, F = wave_dp_plain(*planes, gap_open, gap_ext)
+    ninf = torch.tensor(NINF, dtype=torch.int32, device=dev)
+    pos = torch.tensor(_POS, dtype=torch.int32, device=dev)
+    jj = torch.arange(W, device=dev)
+    pad = jj[None, :] >= p[:, PK_WS][:, None]
+    S, E, F = (torch.where(pad, ninf, x) for x in (S, E, F))
+    rows = take_rows(store, p[:, PK_ROW])
+    rows[:, 0, :W], rows[:, 1, :W], rows[:, 2, :W] = S, E, F
+    put_rows(store, p[:, PK_ROW], rows)
+    smax = S.amax(dim=1)
+    dist = (jj.to(torch.int32)[None, :] - pack[:, PK_DIAG][:, None]).abs()
+    dist = torch.where(pad, pos, dist)
+    mp = torch.where(S == smax[:, None], dist, pos).argmin(dim=1)
+    # S + pss in int32 two's complement, then against the float64 cut
+    tot = S.long() + take_rows(tables, p[:, PK_PSS])[:, :W].long()
+    tot = ((tot + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31
+    xcut = pack[:, PK_XCUT:PK_XCUT + 2].reshape(-1).clone() \
+        .view(torch.float64)[:, None]
+    wsize = p[:, PK_WSIZE][:, None]
+    mp = mp[:, None]
+
+    def at(x, j):
+        return x.gather(1, j)[:, 0]
+
+    stats[:, ST_SMAX] = smax
+    stats[:, ST_MP] = mp[:, 0]
+    stats[:, ST_COLMIN] = torch.where(S == NINF, pos, S).amin(dim=1)
+    stats[:, ST_HASEXT] = (tot.double() >= xcut).any(dim=1)
+    stats[:, ST_SLP] = at(S, wsize)
+    stats[:, ST_PMP] = at(Sp, (mp - 1).clamp(min=0))
+    stats[:, ST_PLP] = at(Sp, (wsize - 1).clamp(min=0))
+    stats[:, ST_SCMP] = at(planes[3], mp)
+    stats[:, ST_LO] = planes[6]
+    stats[:, ST_HI] = planes[7]
+    srows[:] = S
+    later = torch.nonzero(p[:, PK_SLOT] >= 0)[:, 0]
+    if len(later):
+        put_rows(brows, p[:, PK_SLOT].index_select(0, later),
+                 torch.stack((E.index_select(0, later),
+                              Sp.index_select(0, later)), dim=1))
+    return stats, srows, brows
+
+
+def _check_wave(store, tables, pack, W, out):
+    dev = store.device
+    for name, t, dim in (("store", store, 3), ("tables", tables, 2),
+                         ("pack", pack, 2), ("out", out, 1)):
+        if t.dtype != torch.int32 or t.dim() != dim \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dim}-D int32 "
+                             "tensor")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    CH = pack.shape[0]
+    Wp = store.shape[2]
+    rest = out.numel() - CH * (NSTAT + W)
+    if store.shape[1] != 3 or tables.shape[1] != Wp or not 0 < W <= Wp \
+            or pack.shape[1] != NPACK or rest < 0 or rest % (2 * W):
+        raise ValueError(f"align_wave: store {tuple(store.shape)}, tables "
+                         f"{tuple(tables.shape)}, pack {tuple(pack.shape)}, "
+                         f"out {out.numel()} do not fit W = {W}")
+
+
+def align_wave(store, tables, pack, W: int, gap_open: int, gap_ext: int,
+               out):
+    """One wave over the column store ``store`` ((R, 3, Wp) int32: S, E, F
+    a row), the profile and partial-sum rows ``tables`` ((Q, Wp) int32)
+    and the packed per-child vectors ``pack`` ((CH, NPACK) int32): writes
+    each child's S, E and F into its store row and fills ``out``
+    (``out_size`` int32) -> ``out_views``.  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/wave_dp.cu`` (none for an empty
+    wave) or raise."""
+    _check_wave(store, tables, pack, W, out)
+    dev = store.device
+    if dev.type == "cpu":
+        return align_wave_plain(store, tables, pack, W, int(gap_open),
+                                int(gap_ext), out)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    CH = pack.shape[0]
+    if CH:
+        P, I = ctypes.c_void_p, ctypes.c_int32
+        fn = _build.function("wave_dp", "mg_align_wave",
+                             [P, P, P, I, I, I, I, I, P, P])
+        _build.check(fn(store.data_ptr(), tables.data_ptr(),
+                        pack.data_ptr(), CH, W, store.shape[2],
+                        int(gap_open), int(gap_ext), out.data_ptr(),
+                        torch.cuda.current_stream(dev).cuda_stream),
+                     "align_wave")
+        _build.count(align_wave)
+    return out_views(out, CH, W)
+
+
+align_wave.launches = 0
+
+
+def run_wave(store, tables, pack_host, W: int, gap_open: int, gap_ext: int,
+             out_host):
+    """The engine's wave on the store's device: the packed vectors up in
+    one copy, one ``align_wave``, its output down in one copy into
+    ``out_host`` (pinned where the store is on the card) -> its views as
+    numpy arrays; its seconds go to ``STATS``."""
+    t0 = time.perf_counter()
+    dev = store.device
+    pack = pack_host.to(dev, non_blocking=True)
+    out = out_host if dev.type == "cpu" else torch.empty(
+        out_host.shape, dtype=torch.int32, device=dev)
+    align_wave(store, tables, pack, W, gap_open, gap_ext, out)
+    if out is not out_host:
+        out_host.copy_(out, non_blocking=True)
+        torch.cuda.current_stream(dev).synchronize()
+    STATS["seconds"] += time.perf_counter() - t0
+    return out_views(out_host.numpy(), pack_host.shape[0], W)

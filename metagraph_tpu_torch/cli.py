@@ -59,10 +59,11 @@ and the align scoring flags) and prints the bytes of its ``cmd_align``
 extension, scoring and ``--align-post-chain``; ``-p N`` aligns in N
 processes), and ``--map`` (``--count-kmers``, ``--query-presence``,
 ``--filter-present``, ``--align-length``).  The extension waves run on
-the card (kernel B11 ``wave_dp``) with or without ``--device``, unless
+the card (kernel B11 ``align_wave``) with or without ``--device``, unless
 ``--torch-device cpu``.  ``-a`` and ``-o *.gfa`` are refused once the
 graph and the inputs have loaded, naming ROADMAP A13.3; ``-v`` prints
-the reads a second and the seconds of seeding and of the waves.
+the reads a second, the seconds of seeding and of the waves and the
+bytes the waves copy to and from the card.
 """
 
 from __future__ import annotations
@@ -432,7 +433,9 @@ def cmd_align(args):
                f"({n_reads / max(st['wall'], 1e-9):.1f} reads/s); seeding "
                f"{st['seeding']:.3f} sec, {st['wave_waves']} waves of "
                f"{st['wave_rows']} rows ({st['wave_cells']} cells) "
-               f"{st['wave_seconds']:.3f} sec, output {t_out:.3f} sec "
+               f"{st['wave_seconds']:.3f} sec ({st['wave_bytes_up']} B up, "
+               f"{st['wave_bytes_down']} B down, finished tables "
+               f"{st['wave_bytes_tables']} B down), output {t_out:.3f} sec "
                f"(in this process: with -p, the workers' seeding and "
                f"waves are not counted)")
 

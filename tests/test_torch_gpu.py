@@ -2108,7 +2108,7 @@ def test_entry_cuda_matches_cpu(cuda):
 
 
 # --------------------------------------------------------------------------
-# A13: kernel B11 wave_dp and the align command on the card
+# A13: kernel B11 (wave_dp, align_wave) and the align command on the card
 # --------------------------------------------------------------------------
 
 WAVE_NINF = -(2 ** 31) + 100
@@ -2172,11 +2172,16 @@ def test_wave_dp_empty_wave_does_not_launch(cuda):
     assert wave_dp.launches == before and out[0].shape == (0, 8)
 
 
-def _align_graph(tmp_path, seed=5, k=21):
+def _align_graph(tmp_path, seed=5, k=21, forks=False):
     """A port-built graph of random references, saved, and reads from them
-    (substitutions, an indel, both strands, random reads)."""
+    (substitutions, an indel, both strands, random reads); with ``forks``,
+    two more references join pieces of the others, so that the graph
+    branches and so do the extensions' pops."""
     rng = np.random.default_rng(seed)
     refs = ["".join(rng.choice(list("ACGT"), 3000)) for _ in range(4)]
+    if forks:
+        refs += [refs[0][:1000] + refs[1][1500:2500],
+                 refs[2][:1200] + "ACGTTGCA" + refs[2][1200:2400]]
     g = DBGSuccinct.build(refs, k, device="cpu")
     g.save(str(tmp_path / "g"))
     comp = str.maketrans("ACGT", "TGCA")
@@ -2198,31 +2203,162 @@ def _align_graph(tmp_path, seed=5, k=21):
 
 
 def test_wave_dp_on_recorded_align_batch(cuda, tmp_path):
-    """Every wave of an align_batch run on the card, held whole against
-    the plain version on the same inputs; one launch a wave."""
+    """Every wave of an align_batch run on the card, its planes formed
+    from the engine's store on the card (``wave_planes``) and sent through
+    ``compute_wave``'s own entry: ``wave_dp`` held whole against the plain
+    version on the same inputs, one launch a wave; the engine itself
+    launches no wave_dp."""
     from metagraph_tpu_torch.align import wave_extender as wx
     from metagraph_tpu_torch.align.aligner import DBGAligner
     gpath, _, reads = _align_graph(tmp_path)
     g = DBGSuccinct.load(str(gpath))
-    waves = []
-    compute_wave = wx.compute_wave
+    planes = []
+    run_wave = wx.run_wave
 
-    def check(*wave):
-        outputs = compute_wave(*wave)
-        want = wx.wave_dp_plain(*wx.wave_tensors(*wave[:9], "cpu"),
-                                *wave[9:11])
-        waves.append(all(np.array_equal(a, b.numpy())
-                         for a, b in zip(outputs, want)))
-        return outputs
+    def record(store, tables, pack, W, go, ge, out):
+        p, _ = wx.wave_planes(store, tables, pack.to(cuda), W)
+        planes.append(([a.cpu().numpy() for a in p], go, ge))
+        return run_wave(store, tables, pack, W, go, ge, out)
 
-    wx.compute_wave = check
+    wx.run_wave = record
     try:
         wx.wave_dp.launches = 0
+        DBGAligner(g, device=cuda).align_batch([r.encode() for r in reads])
+    finally:
+        wx.run_wave = run_wave
+    assert planes and wx.wave_dp.launches == 0
+    waves = []
+    for p, go, ge in planes:
+        got = wx.compute_wave(*p, go, ge, cuda)
+        want = wx.wave_dp_plain(*wx.wave_tensors(*p, "cpu"), go, ge)
+        waves.append(all(np.array_equal(a, b.numpy())
+                         for a, b in zip(got, want)))
+    assert all(waves) and wx.wave_dp.launches == len(planes)
+
+
+def _store_wave(rng, J, W, big=False):
+    """A wave over a column store as the flat engine forms it: R x 3 x Wp
+    rows (S, E, F; NINF outside random hulls), profile and partial-sum
+    rows, and J parents with 1-4 children each (later siblings with
+    read-back slots) -> (store, tables, pack, slots)."""
+    from metagraph_tpu_torch.align import wave_extender as wx
+    lo_v, hi_v = (-2 ** 31 + 101, 2 ** 31 - 1) if big else (-400, 600)
+    Wp = -(-W // 4) * 4
+    nch = rng.integers(1, 5, J)
+    nch[0] = max(nch[0], 2)
+    CH = int(nch.sum())
+    R = J + CH + 3
+    store = rng.integers(lo_v, hi_v, (R, 3, Wp), dtype=np.int64) \
+        .astype(np.int32)
+    h0 = rng.integers(0, W, (R, 3, 1))
+    h1 = np.minimum(h0 + rng.integers(0, W + 1, (R, 3, 1)), W - 1)
+    j = np.arange(Wp)[None, None, :]
+    store[(j < h0) | (j > h1) | (rng.random(store.shape) < 0.3)] = WAVE_NINF
+    C1 = 7
+    tables = rng.integers(-4 if not big else lo_v, 12 if not big else hi_v,
+                          (J * C1, Wp), dtype=np.int64).astype(np.int32)
+    tables[C1 - 1::C1] = rng.integers(-400, 400, (J, Wp))   # partial sums
+    rows = rng.permutation(R)
+    ch_rows = np.repeat(np.arange(J), nch)
+    later = np.flatnonzero(np.r_[False, ch_rows[1:] == ch_rows[:-1]])
+    slot = np.full(CH, -1)
+    slot[later] = np.arange(len(later))
+    wsize = rng.integers(0, W, J)
+    cut = rng.integers(-60, 80, J)
+    cut[rng.random(J) < 0.2] = WAVE_NINF + 1
+    pack = np.zeros((CH, wx.NPACK), dtype=np.int32)
+    pack[:, wx.PK_PARENT] = rows[:J][ch_rows]
+    pack[:, wx.PK_ROW] = rows[J: J + CH]
+    pack[:, wx.PK_PROF] = ch_rows * C1 + rng.integers(0, C1 - 1, CH)
+    pack[:, wx.PK_PSS] = ch_rows * C1 + C1 - 1
+    pack[:, wx.PK_SCORE] = rng.choice([0, 0, -6, -2], CH)
+    pack[:, wx.PK_DEL] = rng.random(CH) < 0.7
+    pack[:, wx.PK_CUT] = cut[ch_rows]
+    pack[:, wx.PK_WSIZE] = wsize[ch_rows]
+    pack[:, wx.PK_WS] = wsize[ch_rows] + 1
+    pack[:, wx.PK_DIAG] = rng.integers(-5, W + 5, CH)
+    pack[:, wx.PK_SLOT] = slot
+    xcut = rng.uniform(-100, 700, CH).round(rng.choice([0, 3]))
+    pack[:, wx.PK_XCUT:] = xcut.view(np.int32).reshape(CH, 2)
+    return store, tables, pack, len(later)
+
+
+@pytest.mark.parametrize("big", (False, True), ids=("scores", "wrapping"))
+@pytest.mark.parametrize("shape", ((1, 1), (1, 2), (3, 31), (5, 32),
+                                   (7, 33), (500, 151), (40, 1025),
+                                   (6, 2049)),
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_align_wave_matches_plain(cuda, shape, big):
+    """align_wave against align_wave_plain: the whole store and the whole
+    output (statistics, S, the branch slots' rows) bit-equal; one launch
+    a call."""
+    from metagraph_tpu_torch.align import wave_extender as wx
+    J, W = shape
+    rng = np.random.default_rng(J * 7 + W)
+    for go, ge in ((-6, -2), (-5, -1), (-11, -1), (-200, 3)):
+        store, tables, pack, slots = _store_wave(rng, J, W, big)
+        assert slots                        # a branch pop in every wave
+        n = wx.out_size(len(pack), W, slots)
+        got_store = torch.from_numpy(store).to(cuda)
+        got = torch.full((n,), 7, dtype=torch.int32, device=cuda)
+        before = wx.align_wave.launches
+        wx.align_wave(got_store, torch.from_numpy(tables).to(cuda),
+                      torch.from_numpy(pack).to(cuda), W, go, ge, got)
+        torch.cuda.synchronize()
+        assert wx.align_wave.launches == before + 1
+        want_store = torch.from_numpy(store.copy())
+        want = torch.full((n,), 7, dtype=torch.int32)
+        wx.align_wave_plain(want_store, torch.from_numpy(tables),
+                            torch.from_numpy(pack), W, go, ge, want)
+        assert torch.equal(got_store.cpu(), want_store)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_align_wave_empty_wave_does_not_launch(cuda):
+    from metagraph_tpu_torch.align import wave_extender as wx
+    store, tables, pack, _ = _store_wave(np.random.default_rng(2), 3, 40)
+    st = torch.from_numpy(store).to(cuda)
+    before = wx.align_wave.launches
+    stats, srows, brows = wx.align_wave(
+        st, torch.from_numpy(tables).to(cuda),
+        torch.from_numpy(pack[:0]).to(cuda), 40, -6, -2,
+        torch.empty(0, dtype=torch.int32, device=cuda))
+    assert wx.align_wave.launches == before and stats.shape == (0, 10)
+    assert torch.equal(st.cpu(), torch.from_numpy(store))
+
+
+def test_align_wave_on_recorded_align_batch(cuda, tmp_path):
+    """Every wave of an align_batch run on the card through align_wave,
+    held against align_wave_plain on the card on the same store: the
+    store after it and its output bit-equal; one launch a wave, no
+    wave_dp; the alignments equal the CPU run's."""
+    from metagraph_tpu_torch.align import wave_extender as wx
+    from metagraph_tpu_torch.align.aligner import DBGAligner
+    gpath, _, reads = _align_graph(tmp_path, seed=9, forks=True)
+    g = DBGSuccinct.load(str(gpath))
+    waves = []
+    run_wave = wx.run_wave
+
+    def check(store, tables, pack, W, go, ge, out):
+        ref = store.clone()
+        views = run_wave(store, tables, pack, W, go, ge, out)
+        want = torch.empty(out.shape, dtype=torch.int32, device=cuda)
+        wx.align_wave_plain(ref, tables, pack.to(cuda), W, go, ge, want)
+        waves.append((torch.equal(store, ref)
+                      and torch.equal(out, want.cpu()),
+                      int((pack[:, wx.PK_SLOT] >= 0).sum())))
+        return views
+
+    wx.run_wave = check
+    try:
+        wx.align_wave.launches = wx.wave_dp.launches = 0
         got = DBGAligner(g, device=cuda).align_batch(
             [r.encode() for r in reads])
     finally:
-        wx.compute_wave = compute_wave
-    assert waves and all(waves) and wx.wave_dp.launches == len(waves)
+        wx.run_wave = run_wave
+    assert waves and all(ok for ok, _ in waves)
+    assert sum(n for _, n in waves) > 0          # branch pops
+    assert wx.align_wave.launches == len(waves) and not wx.wave_dp.launches
     want = DBGAligner(g, device="cpu").align_batch(
         [r.encode() for r in reads])
     assert [[(a.score, a.cigar.to_string(), a.nodes) for a in r]
