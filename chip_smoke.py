@@ -55,7 +55,7 @@ then:
    build's;
 2. drives the main path at full width: a dense-annotated k = 31 DNA index
    of over 8 M k-mers and 1,000 labels, made from ``--seed``, queried
-   through ``QueryEngine.query_records`` with one batch of 40,000 reads of
+   through ``QueryEngine.query_records`` with one batch of 20,000 reads of
    200 bp (the first of a batch of 150,000: 1% substitutions, some N
    runs) plus one sequence of more than 2^24
    windows, in the labels and counts modes, and holds the payloads of a
@@ -109,7 +109,7 @@ then:
    labels, counts-sum and coords modes (coords on a prefix of the reads),
    and a Protein graph at k = 20 (8-bit keys, 5 words: the map route,
    kernel A, then kernels 2, 3) of 1,000 random protein references, with
-   40,000 reads of 200 residues, in the labels and matches modes;
+   20,000 reads of 200 residues, in the labels and matches modes;
    payloads against the oracle, kernels A, B, 2 and 3 against their plain
    versions on each path's own inputs, and A and B again on L2-resident
    controls (2^15-bucket tables), also held against their plain versions;
@@ -202,8 +202,8 @@ then:
    substitutions and, a tenth of them, a 1-3 bp indel, half
    reverse-complemented.  A calibration command aligns 20 reads, which
    build the graph's lazy tables, then 200 reads, whose seconds give the
-   rate; the counted run takes 2,000 reads (a batch whose waves hold up
-   to 2,000 rows), or as many as that rate puts in 40 s where that is
+   rate; the counted run takes 1,000 reads (a batch whose waves hold up
+   to 1,000 rows), or as many as that rate puts in 40 s where that is
    fewer (at least 200): one ``align_wave`` launch a wave over the
    engine's column store on the card and no ``wave_dp``, every wave's
    written store rows, statistics and read-back rows held whole against
@@ -219,17 +219,47 @@ then:
    100 reads' to a ``-p 4`` run's; reads/s and the split into seeding,
    waves, the engine's host work and output printed; ``align_wave``
    timed on the run's largest wave (events and the profiler), and
-   ``wave_dp`` on its planes through ``compute_wave``'s own entry.
+   ``wave_dp`` on its planes through ``compute_wave``'s own entry;
+8b. (right after 8, on the same graph file) ``query --align`` and
+   ``--batch-align`` through ``QueryEngine.query_records`` with the
+   ``AlignerConfig`` that the CLI's parser and helper make, each result
+   written as ``--json`` writes it, over the graph's index
+   (``convert.from_graph`` with 3b's annotation): 150 bp reads of
+   ``align_reads`` from the seed's stream 13 at 37,500 bp a batch.  A
+   warm run of 20 reads builds the graph's lazy tables and a run of 200
+   gives the rate; then 1,000 reads (fewer where that rate puts fewer in
+   60 s, at least 200) on the full graph, the same reads with
+   ``--batch-align`` (k = 31: each batch graph on the general route, D2),
+   and 200 reads of the first 100 references with ``--batch-align``
+   against their k = 21 graph built by the port (the batch graph on the
+   device route, D1-D4).  Each run under the launch counters: one
+   ``align_wave`` a wave, no ``wave_dp``, kernels A, 2 and 3 on every
+   respelled batch and no wire route, D2 (or D1-D4) for every batch
+   graph and no other build kernel; every alignment held to the
+   independent oracle of 8, every respelled sequence's labels to the
+   numpy oracle, every error-free read all-match (under
+   ``--batch-align``, those whose forward k-mers the references hold: a
+   basic graph's batch graph holds the reads' forward k-mers only); the
+   first 100 reads' lines (the first batch's under ``--batch-align``)
+   equal to a run of the plain versions on the CPU; reads/s and the
+   seconds of seeding, alignment, the batch graphs and the respelled
+   query printed.  The graph then goes to the server of 4, whose
+   ``/align`` gets two requests of 100 more reads in flight together
+   (the second with two alternative alignments), each reply equal to the
+   same request's sequential reply, every alignment held to the oracle,
+   one ``align_wave`` a wave.
 
 Depth cuts, which keep the script inside its time limit (widths are
 never cut): the basic batch is drawn at 150,000 reads, which 3b takes
 whole; the main path (2, 3, 3a) and the primary, canonical, k41, protein
-and many-labels deployments take ``path_reads`` = 40,000 reads (the
-first of the basic batch, or of their own stream; 150,000 before) and
+and many-labels deployments take ``path_reads`` = 20,000 reads (the
+first of the basic batch, or of their own stream; 150,000, then 40,000
+before) and
 the long sequence, the coords mode and the seqs deployment
 ``coords_prefix`` = 10,000 (20,000 before), the bitmap deployment 10,000;
 the pan-genome holds 3 base genomes (5, then 4 before) and the read set
-100,000 reads (400,000 before).
+100,000 reads (400,000 before); phase 8 counts 1,000 reads (2,000
+before); 8b's k = 21 graph holds the first 100 of the 1,000 references.
 
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
@@ -300,11 +330,15 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             wide=(200, 8101, 20_000, 200), server_reads=2000,
             bitmap_reads=10_000, pan=(3, 4_000_000, 4, 0.01, 3),
             build_reads=(100_000, 150, 0.5, 0.01), build_k=21,
-            path_reads=40_000,
+            path_reads=20_000,
             build_sample=100_000, build_reps=3, host_k=31, disk_cap_gb=0.04,
             align=dict(read_len=150, pool=20_000, warm=20, calibrate=200,
-                       budget_s=40, target=2000, least=200, cpu=20, par=100,
-                       par_procs=4))
+                       budget_s=40, target=1000, least=200, cpu=20, par=100,
+                       par_procs=4),
+            query_align=dict(pool=1500, warm=20, calibrate=200, budget_s=60,
+                             target=1000, least=200, batch_bp=37_500,
+                             cpu=100, k21_refs=100, k21_reads=200,
+                             server_reads=100))
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -321,7 +355,10 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             disk_cap_gb=0.00006,
             align=dict(read_len=150, pool=80, warm=5, calibrate=10,
                        budget_s=0, target=30, least=30, cpu=5, par=12,
-                       par_procs=4))
+                       par_procs=4),
+            query_align=dict(pool=60, warm=5, calibrate=10, budget_s=0,
+                             target=30, least=30, batch_bp=1500, cpu=10,
+                             k21_refs=6, k21_reads=20, server_reads=5))
 
 
 def log(msg: str):
@@ -2479,19 +2516,25 @@ def oracle_counts(codes, o):
 
 def a10_graph(refs, oracle, labels, dev):
     """The basic references' graph built by the port (``DBGSuccinct.build``,
-    k = 31) with the oracle's labels placed on its node ids: each valid
-    edge, decoded, is found among the oracle's keys."""
-    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+    k = 31) with the oracle's labels placed on its node ids
+    (``graph_annotation``)."""
     from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
     letters = np.frombuffer(b"ACGTN", np.uint8)
     g = DBGSuccinct.build([letters[r].tobytes() for r in refs], K,
                           device=dev)
+    return g, graph_annotation(g, oracle, labels)
+
+
+def graph_annotation(g, oracle, labels):
+    """The oracle's labels placed on a graph's node ids (each valid edge,
+    decoded, found among the oracle's keys): a column annotation."""
+    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
     edges = np.flatnonzero(g.boss.valid)
     key = chars_keys(g.boss.get_edge_seq(edges))
     keys = oracle["keys"]
     pos = np.minimum(np.searchsorted(keys, key), len(keys) - 1)
     if len(edges) != len(keys) or not np.array_equal(keys[pos], key):
-        raise AssertionError("a10: the graph's edges are not the oracle's "
+        raise AssertionError("the graph's edges are not the oracle's "
                              "k-mers")
     lo, hi = oracle["csr_start"][pos], oracle["csr_start"][pos + 1]
     span = hi - lo
@@ -2502,7 +2545,7 @@ def a10_graph(refs, oracle, labels, dev):
     order = np.lexsort((row, lab))
     start = np.searchsorted(lab[order], np.arange(len(labels) + 1))
     cols = [row[order[start[c]: start[c + 1]]] for c in range(len(labels))]
-    return g, ColumnMajorAnnotation(g.max_index(), labels, cols)
+    return ColumnMajorAnnotation(g.max_index(), labels, cols)
 
 
 def a10_phase(cfg, refs, oracle, labels, seqs, codes, rng, torch, dev,
@@ -2515,7 +2558,8 @@ def a10_phase(cfg, refs, oracle, labels, seqs, codes, rng, torch, dev,
     ``query_step``'s, a sample's to the oracle's; ``query_labels`` in the
     labels and matches modes against the oracle's payloads; kernels A and
     2 against their plain versions at these shapes, D2 checked as
-    ``dedup_batch``'s distinct pass runs it.  -> (launches, entries)."""
+    ``dedup_batch``'s distinct pass runs it.  -> (launches, entries, the
+    graph, its annotation)."""
     from metagraph_tpu_torch._u32 import to_u64
     from metagraph_tpu_torch.query import device as qd
     from metagraph_tpu_torch.succinct import ops
@@ -2666,17 +2710,23 @@ def a10_phase(cfg, refs, oracle, labels, seqs, codes, rng, torch, dev,
               + rows * bitmap.shape[1] * 4 + got[0].nbytes + got[1].nbytes)
     entries["radix_sort"] = spy.entry()
     return {k: launches[k] for k in ("key_lookup", "label_counts",
-                                     "radix_sort")}, entries, g
+                                     "radix_sort")}, entries, g, anno
 
 
-def server_phase(cfg, index, graph, seqs, codes, oracle, torch, dev):
+def server_phase(cfg, index, graph, seqs, codes, oracle, torch, dev,
+                 aseqs, akinds):
     """The basic deployment's index served by the port's MetaGraphServer
-    on 127.0.0.1 (a port the system chooses): eight /search requests of
-    ``server_reads`` reads, two at a time from two client threads, in the
-    matches, signature and counts-sum modes; each reply equal to the
-    engine's sequential ``query_records`` output and, label and count, to
-    the oracle; then /stats, /column_labels, a malformed request and
-    /align.  -> the launches of the requests."""
+    on 127.0.0.1 (a port the system chooses) with ``graph``, the 3b graph
+    of the same k-mers: eight /search requests of ``server_reads`` reads,
+    two at a time from two client threads, in the matches, signature and
+    counts-sum modes; each reply equal to the engine's sequential
+    ``query_records`` output and, label and count, to the oracle; then
+    /stats, /column_labels, a malformed request, /align of a 4 bp read
+    (no alignment), and two /align requests in flight together (phase 8b,
+    step 4: ``aseqs`` halved, the second with two alternative alignments),
+    under the launch counters (one ``align_wave`` a wave), each reply
+    equal to the same request's sequential reply and every alignment held
+    to ``check_aligned``.  -> the launches of the /search requests."""
     import threading
     import urllib.error
     import urllib.request
@@ -2762,7 +2812,7 @@ def server_phase(cfg, index, graph, seqs, codes, oracle, torch, dev):
                                      "times for 8 requests")
         checks = [("stats", None, 200), ("column_labels", None, 200),
                   ("search", "{FASTA", 400),
-                  ("align", json.dumps({"FASTA": ">a\nACGT\n"}), 500)]
+                  ("align", json.dumps({"FASTA": ">a\nACGT\n"}), 200)]
         for path, body, status in checks:
             code, reply, secs = ask(path, body)
             log(f"server /{path}: status {code}, {secs:.3f} s: "
@@ -2772,14 +2822,74 @@ def server_phase(cfg, index, graph, seqs, codes, oracle, torch, dev):
                                      f"expected {status}")
             if path == "column_labels" and reply != index.labels:
                 raise AssertionError("server /column_labels differs")
-            if path == "align" and "A13" not in reply["error"]:
-                raise AssertionError("server /align does not name A13")
+            if path == "align" and reply != [{"seq_description": "a",
+                                              "alignments": []}]:
+                raise AssertionError("server /align of a 4 bp read aligned")
             if path == "stats" and reply["annotation"]["labels"] \
                     != len(index.labels):
                 raise AssertionError("server /stats labels differ")
+        server_align(ask, aseqs, akinds, oracle, torch, dev)
     finally:
         server.shutdown()
     return launches
+
+
+def server_align(ask, aseqs, akinds, oracle, torch, dev):
+    """Two /align requests in flight together (see ``server_phase``)."""
+    import threading
+    from metagraph_tpu_torch.align.wave_extender import STATS
+    half = len(aseqs) // 2
+    bodies = [json.dumps(dict(FASTA="".join(
+        f">a{j}\n{aseqs[j].decode()}\n" for j in range(h * half,
+                                                      (h + 1) * half)),
+        **extra)) for h, extra in enumerate(
+            ({}, {"max_alternative_alignments": 2}))]
+    replies = [None, None]
+
+    def client(h):
+        replies[h] = ask("align", bodies[h])
+
+    def drive():
+        threads = [threading.Thread(target=client, args=(h,))
+                   for h in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    waves0 = STATS["waves"]
+    _, launches = run_path(drive)
+    waves = STATS["waves"] - waves0
+    for h in range(2):
+        code, got, secs = replies[h]
+        again = ask("align", bodies[h])
+        if code != 200 or again[:2] != (200, got):
+            raise AssertionError(f"server /align {h}: status {code}, the "
+                                 "reply differs from the sequential one")
+        mapped = 0
+        for entry in got:
+            j = int(entry["seq_description"][1:])
+            for a in entry["alignments"]:
+                check_aligned(aseqs[j], a["score"], a["cigar"],
+                              a["orientation"], a["sequence"].encode(),
+                              oracle["keys"], K)
+            if akinds[j] == "exact" and \
+                    entry["alignments"][0]["cigar"] != f"{len(aseqs[j])}=":
+                raise AssertionError(f"server /align: error-free read {j}")
+            mapped += bool(entry["alignments"])
+        if mapped < 0.8 * half:
+            raise AssertionError(f"server /align {h}: {mapped} of {half} "
+                                 "reads aligned")
+        log(f"server /align {h}: {half} reads, status {code}, {secs:.3f} s "
+            f"in flight with the other ({len(got)} entries, "
+            f"{sum(len(e['alignments']) for e in got)} alignments held to "
+            f"the oracle), {again[2]:.3f} s alone; equal replies")
+    log(f"  server /align: launches {launches} for {waves} waves")
+    if dev.type == "cuda" and (launches["align_wave"] != waves or not waves
+                               or launches["wave_dp"]):
+        raise AssertionError(f"server /align: {launches['align_wave']} "
+                             f"align_wave launches for {waves} waves")
 
 
 def add_entry(entries, torch, tag, name, got, want, ms, plain_ms, nbytes):
@@ -3570,13 +3680,13 @@ def align_cli(args):
     return out.getvalue(), time.perf_counter() - t0, dict(cli.ALIGN_STATS)
 
 
-def oracle_alignment(query: bytes, fields, keys):
+def oracle_alignment(query: bytes, fields, keys, k=K):
     """Hold one printed alignment to an oracle that shares no code with
     the port: its score recomputed from its CIGAR under the default config
     (match 2, mismatch -3, gap -6/-2, end bonus 5 each side unclipped), the
     CIGAR applied to the query in the alignment's orientation spelling the
-    printed sequence, and every k-mer of that sequence a k-mer of the
-    references.  -> (orientation, sequence, cigar)."""
+    printed sequence, and every k-mer of that sequence (``k`` characters)
+    a k-mer of the references.  -> (orientation, sequence, cigar)."""
     import re
     strand, seq, score, n_match, cigar, _offset = fields
     seq = seq.encode()
@@ -3610,7 +3720,7 @@ def oracle_alignment(query: bytes, fields, keys):
                              f"({matches})")
     codes = np.frombuffer(seq, np.uint8)
     codes = np.select([codes == c for c in b"ACGT"], [0, 1, 2, 3], 4)
-    wk, ok = window_keys(codes.astype(np.uint8), K)
+    wk, ok = window_keys(codes.astype(np.uint8), k)
     pos = np.minimum(np.searchsorted(keys, wk), len(keys) - 1)
     if not (ok.all() and np.array_equal(keys[pos], wk)):
         raise AssertionError("align oracle: the aligned sequence has k-mers "
@@ -3853,6 +3963,269 @@ def time_wave(torch, dev, wx, store, tables, pack, W, go, ge, n_out):
                 gaps=(go, ge))
 
 
+# --------------------------------------------------------------------------
+# 8b. query-align: query --align and --batch-align (kernels B11, A, 2, 3,
+# and D2 or D1-D4 for the batch graphs)
+# --------------------------------------------------------------------------
+
+QA_K = 21                      # the k of the device-route batch graphs
+
+
+def seq_codes(seq: bytes) -> np.ndarray:
+    """ACGT -> 0..3, any other byte 4."""
+    a = np.frombuffer(seq, np.uint8)
+    return np.select([a == c for c in b"ACGT"], [0, 1, 2, 3],
+                     4).astype(np.uint8)
+
+
+def query_align_config():
+    """The ``AlignerConfig`` that ``query --align`` makes with its default
+    flags, through the CLI's own parser and helper."""
+    from metagraph_tpu_torch import cli
+    from metagraph_tpu_torch.align.config import AlignerConfig
+    a = cli.build_parser().parse_args(["query", "-i", "g", "-a", "a",
+                                       "--align", "q.fa"])
+    return AlignerConfig(min_exact_match=a.align_min_exact_match,
+                         protein=False, **cli._aligner_scoring_kwargs(a))
+
+
+def query_align_run(engine, seqs, acfg, batch_bp, batch_align, k):
+    """``query --align --json`` through ``QueryEngine.query_records``:
+    -> (JSON lines, the batches' summed seconds, batches, the batch
+    graphs' trace lines, wall s)."""
+    from metagraph_tpu_torch.seq_io.fasta import FastaRecord
+    recs = [FastaRecord(f"r{i}", s) for i, s in enumerate(seqs)]
+    graphs, tot, seen, nb, out = [], {}, None, 0, []
+    engine.trace = lambda m: graphs.append(m) \
+        if m.startswith("Batch graph") else None
+    t0 = time.perf_counter()
+    try:
+        for res in engine.query_records(recs, "labels",
+                                        batch_size_bp=batch_bp,
+                                        aligner_config=acfg,
+                                        batch_align=batch_align):
+            st = engine.last_batch_seconds
+            if st is not seen:
+                seen, nb = st, nb + 1
+                for key, v in st.items():
+                    tot[key] = tot.get(key, 0.0) + v
+            out.append(res.to_json(False, k))
+    finally:
+        engine.trace = None
+    return out, tot, nb, graphs, time.perf_counter() - t0
+
+
+def cigar_ops(cigar: str):
+    import re
+    return [(int(n), op) for n, op in re.findall(r"(\d+)([=XIDSG])", cigar)]
+
+
+def check_aligned(query: bytes, score, cigar, orientation, seq: bytes,
+                  keys, k):
+    """One alignment (the sequence possibly led by its first node's
+    prefix) held to ``oracle_alignment``."""
+    ops = cigar_ops(cigar)
+    ref_len = sum(n for n, op in ops if op in "=XD")
+    off = len(seq) - ref_len
+    if off < 0:
+        raise AssertionError(f"query-align: {cigar} spells more than "
+                             f"{seq[:40]}")
+    n_match = sum(n for n, op in ops if op == "=")
+    return oracle_alignment(query, ("-" if orientation else "+",
+                                    seq[off:].decode(), score, n_match,
+                                    cigar, off), keys, k)
+
+
+def check_query_align(lines, seqs, kinds, o, k, batch_align, tag):
+    """Every JSON line of a ``query --align`` run: the alignment held to
+    the independent oracle (an unaligned read clipped whole and kept as
+    it is), the respelled sequence's labels equal to the oracle's, and
+    every error-free read all-match end to end, at least 80% of the reads
+    aligned.  A basic graph's batch graph holds the reads' forward
+    k-mers only (metagraph_tpu/query/batch_graph.py), so with
+    ``batch_align`` that holds for the reads with a forward k-mer in the
+    references, and the error-free reads among them.  -> (aligned,
+    labelled, reads held to the share)."""
+    if len(lines) != len(seqs):
+        raise AssertionError(f"{tag}: {len(lines)} results for "
+                             f"{len(seqs)} reads")
+    aligned = labelled = eligible = 0
+    for i, ln in enumerate(lines):
+        r = json.loads(ln)
+        seq = r["sequence"].encode()
+        if r["seq_description"] != f"r{i}":
+            raise AssertionError(f"{tag}: result {i} is not read {i}")
+        if r["cigar"] == f"{len(seqs[i])}S":
+            if r["score"] != 0 or seq != seqs[i]:
+                raise AssertionError(f"{tag}: unaligned read {i} changed")
+        else:
+            check_aligned(seqs[i], r["score"], r["cigar"], r["orientation"],
+                          seq, o["keys"], k)
+            aligned += 1
+        _, fwd = oracle_lookup(seq_codes(seqs[i]), o, 0)
+        exact = kinds[i] == "exact" and (fwd.all() or not batch_align)
+        eligible += bool(fwd.any()) or not batch_align
+        if exact and r["cigar"] != f"{len(seqs[i])}=":
+            raise AssertionError(f"{tag}: error-free read {i} aligned as "
+                                 f"{r['cigar']}")
+        got = [x["sample"] for x in r["results"]]
+        if got != oracle_payload(seq_codes(seq), "labels", o):
+            raise AssertionError(f"{tag}: read {i}'s labels differ from "
+                                 "the oracle's")
+        labelled += bool(got)
+    if aligned < 0.8 * eligible:
+        raise AssertionError(f"{tag}: only {aligned} of {eligible} reads "
+                             "aligned")
+    return aligned, labelled, eligible
+
+
+def k21_deployment(refs, labels, dev):
+    """The first references at k = 21: the port's graph
+    (``DBGSuccinct.build``, the device route D1-D4) and its query index
+    (``convert.from_graph``, as ``query`` makes it) with the oracle's
+    labels on its node ids.  -> (index, oracle, graph)."""
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    keys_of = lambda codes: window_keys(codes, QA_K)     # noqa: E731
+    keys = [keys_of(r)[0] for r in refs]
+    labs = np.concatenate([np.full(len(kk), i, np.int64)
+                           for i, kk in enumerate(keys)])
+    o = make_oracle(np.concatenate(keys), labs, len(refs), QA_K, keys_of)
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    g = DBGSuccinct.build([letters[r].tobytes() for r in refs], QA_K,
+                          device=dev)
+    return convert.from_graph(g, graph_annotation(g, o, labels)), o, g
+
+
+def query_align_phase(cfg, graph_path, refs, anno, oracle, seed, torch,
+                      dev):
+    """Phase 8b: ``query --align`` and ``--batch-align`` on the port
+    (``QueryEngine.query_records`` with the config that the CLI makes,
+    each result written as ``--json`` writes it), on the 3b graph loaded
+    from its mmap layout and its index (``convert.from_graph``, as
+    ``query`` makes it, with 3b's annotation of the graph's node ids);
+    150 bp reads of ``align_reads`` from the seed's stream 13.  A warm run
+    builds the graph's lazy tables, a calibration run gives the rate;
+    then, each under the launch counters:
+
+    1. ``target`` reads at ``batch_bp`` a batch (fewer where the rate puts
+       fewer in ``budget_s``, at least ``least``);
+    2. the same reads with ``--batch-align`` (k = 31: every batch graph on
+       the general route, its sorts through D2);
+    3. ``k21_reads`` reads of the first ``k21_refs`` references with
+       ``--batch-align`` against their k = 21 graph (``k21_deployment``;
+       the batch graph on the device route, D1-D4).
+
+    Each: one ``align_wave`` a wave and no ``wave_dp``; kernels A, 2 and 3
+    on the respelled batches (no wire route); D2 (or D1-D4) for every
+    batch graph; every result held to the oracles (``check_query_align``);
+    the first ``cpu`` reads' lines (1) or the first batch's (2, 3) equal
+    to a run of the plain versions on the CPU.  -> (the 3b graph, the
+    reads and their kinds), for the server's /align."""
+    from metagraph_tpu_torch import convert
+    from metagraph_tpu_torch.align.wave_extender import STATS
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    from metagraph_tpu_torch.query.pipeline import QueryEngine
+    qc = cfg["query_align"]
+    m = cfg["align"]["read_len"]
+    rng = np.random.default_rng([seed, 13])
+    seqs, kinds = align_reads(rng, refs, qc["pool"], m)
+    acfg = query_align_config()
+    t0 = time.perf_counter()
+    g = DBGSuccinct.load(graph_path)
+    index = convert.from_graph(g, anno)
+    engine = QueryEngine(index, device=dev, graph=g)
+    cpu_engine = QueryEngine(index, device="cpu", graph=g)
+    warm, cal = qc["warm"], qc["calibrate"]
+    query_align_run(engine, seqs[-warm:], acfg, qc["batch_bp"], False, K)
+    *_, cal_s = query_align_run(engine, seqs[-warm - cal: -warm], acfg,
+                                qc["batch_bp"], False, K)
+    rate = cal / cal_s
+    n = int(min(max(min(rate * qc["budget_s"], qc["target"]), qc["least"]),
+                len(seqs) - warm - cal))
+    log(f"query-align: the 3b graph ({g.num_nodes()} k-mers), its index "
+        f"(convert.from_graph with 3b's annotation) and engines on the card "
+        f"and the CPU in {time.perf_counter() - t0:.1f} s; {warm} warm "
+        f"reads, then {cal} reads in {cal_s:.2f} s "
+        f"({rate:.1f} reads/s): {n} reads for the counted runs")
+    per_batch = -(-qc["batch_bp"] // m)
+
+    def step(name, eng, cpu_eng, sq, kd, o, k, batch_align, n_cpu,
+             dep_kernels):
+        waves0 = STATS["waves"]
+        (lines, st, nb, graphs, wall), launches = run_path(
+            lambda: query_align_run(eng, sq, acfg, qc["batch_bp"],
+                                    batch_align, k))
+        waves = STATS["waves"] - waves0
+        aligned, labelled, eligible = check_query_align(
+            lines, sq, kd, o, k, batch_align, f"query-align {name}")
+        query_s = st["pack"] + st["device"] + st["collect"]
+        log(f"query-align {name}: {len(sq)} reads of {m} bp in {nb} "
+            f"batches, {wall:.2f} s ({len(sq) / wall:.1f} reads/s): "
+            f"seeding {st['seeding']:.2f} s, alignment (seeding, waves and "
+            f"the engine's host work) {st['align']:.2f} s, batch graphs "
+            f"{st['batch_graph']:.2f} s ({len(graphs)}), query {query_s:.2f}"
+            f" s; {aligned} aligned ({eligible} held to 80%), {labelled} "
+            "labelled, every alignment and label set held to the oracles")
+        for ln in graphs:
+            log(f"  {ln}")
+        log(f"  launches {launches} for {waves} waves")
+        if dev.type == "cuda":
+            bad = []
+            if launches["align_wave"] != waves or not waves \
+                    or launches["wave_dp"]:
+                bad.append("align_wave a wave, no wave_dp")
+            for kname in ("key_lookup", "label_counts", "selection_mask"):
+                if launches[kname] < nb:
+                    bad.append(f"{kname} on every respelled batch")
+            if launches["wire_lookup"] or launches["codes_lookup"]:
+                bad.append("no fused route")
+            if batch_align and len(graphs) < nb:
+                bad.append(f"a batch graph a batch ({len(graphs)})")
+            for kname in dep_kernels:
+                if launches[kname] < len(graphs):
+                    bad.append(f"{kname} for every batch graph")
+            others = set(BUILD_KERNELS) - set(dep_kernels)
+            if any(launches[kname] for kname in others):
+                bad.append(f"only {dep_kernels} of the build kernels")
+            if bad:
+                raise AssertionError(f"query-align {name}: launches "
+                                     f"{launches}: expected " +
+                                     "; ".join(bad))
+        t = time.perf_counter()
+        cpu_lines, *_ = query_align_run(cpu_eng, sq[:n_cpu], acfg,
+                                        qc["batch_bp"], batch_align, k)
+        if cpu_lines != lines[:n_cpu]:
+            raise AssertionError(f"query-align {name}: the CPU run's lines "
+                                 "differ")
+        log(f"  the first {n_cpu} reads' lines equal the plain versions' on "
+            f"the CPU ({time.perf_counter() - t:.1f} s)")
+        return launches
+
+    main_seqs, main_kinds = seqs[:n], kinds[:n]
+    step("full graph", engine, cpu_engine, main_seqs, main_kinds, oracle,
+         K, False, min(qc["cpu"], n), ())
+    step("batch graph, k = 31", engine, cpu_engine, main_seqs, main_kinds,
+         oracle, K, True, min(per_batch, n), ("radix_sort",))
+    # 3. the first references at k = 21
+    t = time.perf_counter()
+    nr = qc["k21_refs"]
+    index21, o21, g21 = k21_deployment(refs[:nr], [f"ref{i}"
+                                                   for i in range(nr)], dev)
+    e21 = QueryEngine(index21, device=dev, graph=g21)
+    c21 = QueryEngine(index21, device="cpu", graph=g21)
+    rng21 = np.random.default_rng([seed, 14])
+    s21, k21 = align_reads(rng21, refs[:nr], qc["k21_reads"], m)
+    log(f"query-align k = 21: {g21.num_nodes()} k-mers of the first {nr} "
+        f"references, graph, index and engines in "
+        f"{time.perf_counter() - t:.1f} s")
+    step("batch graph, k = 21", e21, c21, s21, k21, o21, QA_K, True,
+         min(per_batch, len(s21)), BUILD_KERNELS)
+    del e21, c21, index21, g21, engine, cpu_engine, index
+    return g, seqs[n: n + 2 * qc["server_reads"]], \
+        kinds[n: n + 2 * qc["server_reads"]]
+
+
 SOURCES = {
     "wire_lookup": ("metagraph_tpu_torch/csrc/wire_lookup.cu",
                     "metagraph_tpu/succinct/ops.py:439"),
@@ -3971,9 +4344,9 @@ def main(argv=None) -> int:
     # A10: the JAX package's own workload (DeviceQueryPipeline, the older
     # epochs and the dedup epoch: kernels A, 2 and D2) on the basic
     # references, built by the port, and the basic batch's reads
-    *a10, a10_g = a10_phase(cfg, refs, oracle, index.labels, seqs, codes,
-                            np.random.default_rng([args.seed, 10]), torch,
-                            dev, timed)
+    *a10, a10_g, a10_anno = a10_phase(
+        cfg, refs, oracle, index.labels, seqs, codes,
+        np.random.default_rng([args.seed, 10]), torch, dev, timed)
     # 8. align: the port's align command on the 3b graph, saved in the
     # mmap layout, with reads of the basic references from the seed
     a10_path = os.path.join(args.work, "a10")
@@ -3981,6 +4354,12 @@ def main(argv=None) -> int:
     del a10_g
     align = timed("align", align_phase, cfg, a10_path + ".dbg.npz", refs,
                   oracle, args.seed, torch, dev, args.work)
+    # 8b. query --align and --batch-align on the same graph and its index;
+    # the graph and more reads go on to the server's /align
+    qa_graph, qa_seqs, qa_kinds = timed(
+        "query-align", query_align_phase, cfg, a10_path + ".dbg.npz", refs,
+        a10_anno, oracle, args.seed, torch, dev)
+    del a10_anno
 
     # build --graph, --suffix and a KMC input through the port's CLI; the
     # graphs without a BOSS that it writes (the basic k-mers as a bitmap
@@ -4000,15 +4379,14 @@ def main(argv=None) -> int:
     deployments = timed("graph-types indexes", load_kmer_graphs, maps,
                         paths)
     del maps
-    bitmap_graph = deployments["bitmap"][0]
     more_graphs = graph_types_phase(cfg, deployments, seqs, codes, rng7,
                                     torch, dev, timed)
     del deployments
-    # the basic index behind the port's HTTP server (the wire route),
-    # requests from two client threads
-    timed("server", server_phase, cfg, index, bitmap_graph, seqs, codes,
-          oracle, torch, dev)
-    del bitmap_graph
+    # the basic index behind the port's HTTP server (the wire route) with
+    # the 3b graph of its k-mers (/align), requests from two client threads
+    timed("server", server_phase, cfg, index, qa_graph, seqs, codes,
+          oracle, torch, dev, qa_seqs, qa_kinds)
+    del qa_graph
 
     # many-labels: the basic table and batch with a converted 4,096-label
     # annotation past the dense budget (block-sparse: kernels 1, S1, S2, 3)

@@ -7,8 +7,9 @@ local alignment and re-extend on the other strand (ref align_both_directions,
 dbg_aligner.cpp:534-760); results aggregated into the top
 num_alternative_paths by LocalAlignmentLess.  The aligner holds the torch
 device that its extension waves run on (kernel B11 ``align_wave`` on
-the card, its plain version on the CPU).  Labeled alignment waits for ROADMAP
-A13.3.
+the card, its plain version on the CPU).  On a canonical wrapper graph
+(``CanonicalDBG``) the suffix seeds walk the base graph's BOSS.  Labeled
+alignment waits for ROADMAP A13.3c.
 """
 
 from __future__ import annotations
@@ -284,7 +285,8 @@ class DBGAligner:
         .cpp:152-208 — same values, batched)."""
         cfg = self.config
         k = self.graph.k
-        dbg = base = self.graph
+        dbg = self.graph
+        base = dbg.graph if hasattr(dbg, "get_base_node") else dbg
         want_ranges = (cfg.min_seed_length < k and hasattr(base, "boss")
                        and getattr(self.seeder_class, "is_suffix_seeder",
                                    False))

@@ -7,8 +7,10 @@ SuffixSeeder (``make_suffix_seeder``): seeds shorter than k through BOSS
 suffix ranges.
 The low-complexity (sdust) filter is applied per seed window, through the
 JAX package's numpy path (its native ``dust_low_complexity`` agrees with
-it); the reverse-complement matching of a canonical wrapper graph is left
-out: the ``align`` command aligns on the graph as loaded.
+it).  On a canonical wrapper graph (``CanonicalDBG``, which ``query
+--align`` and the server's ``/align`` align on for a primary graph) the
+suffix seeder walks the base graph's BOSS and also matches the reverse
+complement of the query.
 """
 
 from __future__ import annotations
@@ -204,6 +206,10 @@ def make_suffix_seeder(base_cls):
             self._pre_ranges = precomputed_ranges
             self._generate()
 
+        def _base_graph(self):
+            g = self.graph
+            return g.graph if hasattr(g, "get_base_node") else g
+
         def _generate(self):
             cfg = self.config
             k = self.graph.k
@@ -213,7 +219,7 @@ def make_suffix_seeder(base_cls):
             if cfg.min_seed_length >= k:
                 self._seeds = base_cls.get_seeds(self)
                 return
-            dbg_succ = self.graph
+            dbg_succ = self._base_graph()
             if not hasattr(dbg_succ, "boss"):
                 self._seeds = base_cls.get_seeds(self)
                 return
@@ -290,6 +296,10 @@ def make_suffix_seeder(base_cls):
                 for alt in nodes:
                     append_suffix_seed(i, alt, seed_length)
 
+            if hasattr(self.graph, "get_base_node"):
+                self._rc_suffix_seeds(dbg_succ, n_pos, min_len,
+                                      append_suffix_seed)
+
             # aggregate (ref :316-358)
             seeds = []
             self.num_matching = 0
@@ -313,8 +323,77 @@ def make_suffix_seeder(base_cls):
                 last_end = end
             self._seeds = seeds
 
+        def _rc_suffix_seeds(self, dbg_succ, n_pos, min_len,
+                             append_suffix_seed):
+            """A canonical wrapper graph: sub-k matches of the query's
+            reverse complement, each seeded at the reverse complement of
+            every node whose k-mer prefix it is."""
+            from .alignment import revcomp
+            cfg = self.config
+            k = self.graph.k
+            query_rc = revcomp(self.query)
+            boss = dbg_succ.boss
+            for i in range(0, len(query_rc) - cfg.min_seed_length + 1):
+                max_len = min(cfg.max_seed_length, k - 1,
+                              len(self.query) - i)
+                j_min = len(query_rc) - i - max_len
+                j_max = len(query_rc) - i - cfg.min_seed_length
+                while j_min <= j_max and j_min < n_pos \
+                        and min_len[j_min] > max_len:
+                    j_min += 1
+                    max_len -= 1
+                if j_min > j_max:
+                    continue
+                enc = dbg_succ.extractor.encode(query_rc[i: i + max_len])
+                if (enc >= boss.alph_size).any():
+                    continue
+                first, last, seed_length = boss.index_range_host(enc)
+                j = len(query_rc) - i - seed_length
+                if (seed_length < cfg.min_seed_length or j >= n_pos
+                        or seed_length < min_len[j]
+                        or (cfg.seed_complexity_filter and is_low_complexity(
+                            self.query[j: j + seed_length]))):
+                    continue
+                begin = int(boss.pred_last(np.array([first - 1]))[0]) + 1
+                matches = _suffix_to_prefix(dbg_succ, begin, last,
+                                            seed_length,
+                                            cap=cfg.max_num_seeds_per_locus)
+                if matches is None:
+                    # an overloaded locus is dropped without propagating
+                    # min_len, as the forward overflow is
+                    continue
+                for match in matches:
+                    append_suffix_seed(
+                        j, int(self.graph.reverse_complement_node(match)),
+                        seed_length)
+
         def get_seeds(self):
             return self._seeds
 
     SuffixSeeder.__name__ = f"SuffixSeeder[{base_cls.__name__}]"
     return SuffixSeeder
+
+
+def _suffix_to_prefix(dbg_succ, first, last, seed_length, cap=2 ** 63):
+    """Nodes whose k-mer PREFIX equals the matched string (ref
+    aligner_seeder_methods.cpp:196-253 suffix_to_prefix); None when there
+    are more than ``cap`` (the seed budget of a locus)."""
+    boss = dbg_succ.boss
+    out = []
+    stack = [(first, last, seed_length)]
+    while stack:
+        if len(out) > cap:
+            return None
+        f, l, slen = stack.pop()
+        if slen == boss.k:
+            for e in range(f, l + 1):
+                if dbg_succ._valid_node(e):
+                    out.append(e)
+            continue
+        for s in range(1, boss.alph_size):
+            fa, la, ok = boss.tighten_range(
+                np.array([f]), np.array([l]), np.array([s]),
+                np.array([True]))
+            if ok[0]:
+                stack.append((int(fa[0]), int(la[0]), slen + 1))
+    return out

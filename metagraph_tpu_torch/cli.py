@@ -37,19 +37,28 @@ modes, with per-sequence results where a ``.seqs`` mapping sits beside the
 annotation (unless ``--no-coord-mapping``), and with up to ``-p`` batches
 in flight.  Past ``METAGRAPH_DENSE_ANNO_BUDGET`` a BRWT or row-diff
 annotation takes the block-sparse device form, cached beside it in
-``<annotation>.devsparse.npz`` as the JAX CLI caches it.  ``--device``
-is a flag, as there: the port always runs on the card, unless
-``--torch-device cpu`` asks for the CPU, which runs the plain PyTorch
-versions of the kernels.  ``-o`` is accepted and unused; ``--mmap`` reads
-a graph's mmap layout where it has one (``DEFAULT_MMAP``, as
-cli/main.py:1664-1666 sets it); ``-v`` prints progress lines on stderr.
+``<annotation>.devsparse.npz`` as the JAX CLI caches it.  ``--align``
+(:826-848) first replaces each read by its best alignment's spelling on
+a succinct graph (a primary one seen through ``CanonicalDBG``), with the
+align scoring flags; ``--batch-align`` aligns each batch to its batch
+graph (``query/batch_graph.py``, bounded by ``--max-hull-forks``,
+``--max-hull-depth`` and ``--align-max-nodes-per-seq-char``) and without
+``--align`` changes nothing, as in the JAX CLI; ``--align`` on a graph
+that is not succinct is refused once the graph and the annotation have
+loaded, naming ROADMAP A13.3e.  ``--device`` is a flag, as there: the
+port always runs on the card, unless ``--torch-device cpu`` asks for the
+CPU, which runs the plain PyTorch versions of the kernels.  ``-o`` is
+accepted and unused; ``--mmap`` reads a graph's mmap layout where it has
+one (``DEFAULT_MMAP``, as cli/main.py:1664-1666 sets it); ``-v`` prints
+progress lines on stderr, and under ``--batch-align`` each batch graph's
+size.
 
 ``python -m metagraph_tpu_torch server_query -i G.dbg -a A.annodbg
 --device --port P`` takes the command line of ``metagraph_tpu.cli
 server_query`` (:1547-1559) and serves the JAX server's HTTP contract
-(``server/server.py``) from the same device routes, on the card unless
-``--torch-device cpu``.  The error contract is JAX ``main``'s
-(:1675-1686).
+(``server/server.py``: ``/search`` from the same device routes,
+``/align`` through the aligner), on the card unless ``--torch-device
+cpu``.  The error contract is JAX ``main``'s (:1675-1686).
 
 ``python -m metagraph_tpu_torch align -i G.dbg reads.fa`` takes the
 command line of ``metagraph_tpu.cli align`` (:1611-1646, ``_add_common``
@@ -61,8 +70,8 @@ processes), and ``--map`` (``--count-kmers``, ``--query-presence``,
 ``--filter-present``, ``--align-length``).  The extension waves run on
 the card (kernel B11 ``align_wave``) with or without ``--device``, unless
 ``--torch-device cpu``.  ``-a`` and ``-o *.gfa`` are refused once the
-graph and the inputs have loaded, naming ROADMAP A13.3; ``-v`` prints
-the reads a second, the seconds of seeding and of the waves and the
+graph and the inputs have loaded, naming ROADMAP A13.3 (c and d); ``-v``
+prints the reads a second, the seconds of seeding and of the waves and the
 bytes the waves copy to and from the card.
 """
 
@@ -216,10 +225,32 @@ def cmd_build(args):
     print(f"graph built: k={args.k} nodes={g.num_nodes()}", file=sys.stderr)
 
 
+def _aligner_scoring_kwargs(args):
+    """The ``AlignerConfig`` keywords of the scoring flags that ``align``
+    and ``query --align`` share (cli/main.py:48-65)."""
+    return dict(
+        match_score_val=args.align_match_score,
+        transition=-args.align_mm_transition_penalty,
+        transversion=-args.align_mm_transversion_penalty,
+        gap_opening_penalty=-args.align_gap_open_penalty,
+        gap_extension_penalty=-args.align_gap_extension_penalty,
+        left_end_bonus=args.align_end_bonus,
+        right_end_bonus=args.align_end_bonus,
+        xdrop=args.align_xdrop,
+        max_nodes_per_seq_char=args.align_max_nodes_per_seq_char,
+        max_num_seeds_per_locus=args.align_max_num_seeds_per_locus,
+        max_ram_per_alignment=args.align_max_ram,
+        rel_score_cutoff=args.align_rel_score_cutoff,
+        seed_complexity_filter=not args.align_no_seed_complexity_filter,
+        edit_distance=getattr(args, "align_edit_distance", False))
+
+
 def cmd_query(args):
     from .annotation.coord_to_header import CoordToHeader
-    from .convert import load
+    from .convert import from_graph, load_annotation_for
     from .device import resolve_device
+    from .graph.canonical import CanonicalDBG
+    from .graph.dbg_succinct import DBGSuccinct
     from .query.pipeline import QueryEngine
     from .seq_io.fasta import read_fasta
 
@@ -227,7 +258,10 @@ def cmd_query(args):
     # the graph, the annotation and the .seqs mapping load in that order,
     # as in the JAX cmd_query (cli/main.py:799-815): a missing file is
     # reported before any refusal
-    index = load(args.infile_base, args.annotation)
+    graph = DBGSuccinct.load(args.infile_base)
+    index = from_graph(graph, load_annotation_for(args.infile_base,
+                                                  args.annotation),
+                       cache=args.annotation + ".devsparse.npz")
     cth = None
     if not args.no_coord_mapping:
         base = args.annotation
@@ -238,10 +272,23 @@ def cmd_query(args):
                 break
         if os.path.exists(base + ".seqs"):
             cth = CoordToHeader.load(base + ".seqs")
-    if args.align or args.batch_align:
-        raise NotImplementedError("--align and --batch-align are not ported "
-                                  "yet (ROADMAP A13.3)")
-    engine = QueryEngine(index, device=device, coord_to_header=cth)
+    aligner_config = None
+    if args.align:
+        if not hasattr(graph, "boss"):
+            raise NotImplementedError(
+                "query --align: graphs that are not succinct are not "
+                "ported yet (ROADMAP A13.3e)")
+        from .align.config import AlignerConfig
+        # a primary graph aligns as canonical, as the JAX cmd_query wraps
+        # it (cli/main.py:800-802)
+        if graph.mode == "primary":
+            graph = CanonicalDBG(graph)
+        aligner_config = AlignerConfig(
+            min_exact_match=args.align_min_exact_match,
+            protein=graph.alphabet == "Protein",
+            **_aligner_scoring_kwargs(args))
+    engine = QueryEngine(index, device=device, coord_to_header=cth,
+                         graph=graph if args.align else None)
     if args.verbose:
         engine.trace = _trace
     out = sys.stdout
@@ -253,7 +300,12 @@ def cmd_query(args):
                 args.min_kmers_fraction_label, args.min_kmers_fraction_graph,
                 fwd_and_reverse=args.fwd_and_reverse,
                 batch_size_bp=args.batch_size,
-                n_threads=max(args.parallel, args.parallel_each)):
+                n_threads=max(args.parallel, args.parallel_each),
+                aligner_config=aligner_config,
+                batch_align=args.batch_align,
+                max_hull_forks=args.max_hull_forks,
+                max_hull_depth=args.max_hull_depth,
+                max_nodes_per_seq_char=args.align_max_nodes_per_seq_char):
             if args.json:
                 out.write(res.to_json(args.verbose_output, index.k) + "\n")
             else:
@@ -359,7 +411,7 @@ def cmd_align(args):
     g = DBGSuccinct.load(args.infile_base)
     if not hasattr(g, "boss"):
         raise NotImplementedError("align: graphs that are not succinct are "
-                                  "not ported yet (ROADMAP A13.3)")
+                                  "not ported yet (ROADMAP A13.3e)")
     if args.map:
         _map_records(args, g)
         return
@@ -367,7 +419,7 @@ def cmd_align(args):
         for f in args.input:
             read_fasta(f)
         raise NotImplementedError("align -o *.gfa (query paths in GFA) is "
-                                  "not ported yet (ROADMAP A13.3)")
+                                  "not ported yet (ROADMAP A13.3d)")
     cfg = AlignerConfig(
         min_exact_match=args.align_min_exact_match,
         min_seed_length=args.align_min_seed_length,
@@ -377,20 +429,7 @@ def cmd_align(args):
         forward_and_reverse_complement=not args.align_only_forwards,
         post_chain_alignments=args.align_post_chain,
         protein=g.alphabet == "Protein",
-        match_score_val=args.align_match_score,
-        transition=-args.align_mm_transition_penalty,
-        transversion=-args.align_mm_transversion_penalty,
-        gap_opening_penalty=-args.align_gap_open_penalty,
-        gap_extension_penalty=-args.align_gap_extension_penalty,
-        left_end_bonus=args.align_end_bonus,
-        right_end_bonus=args.align_end_bonus,
-        xdrop=args.align_xdrop,
-        max_nodes_per_seq_char=args.align_max_nodes_per_seq_char,
-        max_num_seeds_per_locus=args.align_max_num_seeds_per_locus,
-        max_ram_per_alignment=args.align_max_ram,
-        rel_score_cutoff=args.align_rel_score_cutoff,
-        seed_complexity_filter=not args.align_no_seed_complexity_filter,
-        edit_distance=args.align_edit_distance)
+        **_aligner_scoring_kwargs(args))
     if args.align_chain and not args.annotation:
         print("ERROR: Chaining only supported for seeds with coordinates. "
               "Skipping seed chaining.", file=sys.stderr)
@@ -400,7 +439,7 @@ def cmd_align(args):
         for f in args.input:
             read_fasta(f)
         raise NotImplementedError("align -a (labeled and chained alignment) "
-                                  "is not ported yet (ROADMAP A13.3)")
+                                  "is not ported yet (ROADMAP A13.3c)")
     aligner = DBGAligner(g, cfg, device=device)
     out = sys.stdout
     seed0, waves0 = _aligner.SEED_SECONDS[0], dict(STATS)
@@ -455,7 +494,7 @@ def _add_torch_device(p):
 
 
 def _add_align_scoring_flags(p):
-    # align's scoring flags; query accepts them, its --align is not ported
+    # the scoring flags of align and query --align
     for name, kind, default in (
             ("match-score", int, 2), ("mm-transition-penalty", int, 3),
             ("mm-transversion-penalty", int, 3), ("gap-open-penalty", int, 6),

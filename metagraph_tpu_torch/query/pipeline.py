@@ -47,13 +47,27 @@ the output is the sequential run's.  Each batch's host seconds travel with
 it (``last_batch_seconds`` is set as its results are yielded), and the
 kernels build before the first batch is submitted.
 
+With an ``aligner_config`` (``query --align``, metagraph_tpu/query/
+pipeline.py:925-1027) each batch is first aligned to the succinct graph
+that the engine was given (``graph``; a primary one seen through
+``CanonicalDBG``), by ``DBGAligner.align_batch`` (seeding on the host,
+every wave one launch of kernel B11 ``align_wave``), or with
+``batch_align`` to the batch graph of ``batch_graph.py`` (mapped through
+kernel A, built through D1-D4 or D2); each read is replaced by its best
+alignment's spelling and the respelled batch goes through ``map_batch``
+and ``execute_batch`` (kernels A, 2 and 3), as the JAX package takes it.
+The engine's one aligner is shared by the ``-p`` workers behind a lock,
+since its column store lives on the card.
+
 Scope: graphs of every type, alphabet and k with a column annotation
 (either codec, or the reference format) or any annotation that
-``transform_anno`` writes, at every budget.
+``transform_anno`` writes, at every budget; ``--align`` on succinct
+graphs.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -81,7 +95,8 @@ from ..succinct.ops import (DeviceHashIndex, key_lookup, pack_codes32,
 from .device import (TILE, _thresholds, codes_epoch, count_route,
                      tile_layout, untile_nodes, wire_epoch,
                      wire_words_layout)
-from .results import KIND_FOR_MODE, QuerySequence, SeqSearchResult
+from .results import (KIND_FOR_MODE, Alignment, QuerySequence,
+                      SeqSearchResult)
 from .tile_pack import tile_pack2
 
 MODES = tuple(KIND_FOR_MODE)
@@ -115,9 +130,15 @@ def route_of(index: QueryIndex) -> str:
 
 
 class QueryEngine:
-    def __init__(self, index: QueryIndex, device=None, coord_to_header=None):
+    def __init__(self, index: QueryIndex, device=None, coord_to_header=None,
+                 graph=None):
+        """``graph``: the succinct graph that ``query --align`` aligns to
+        (a primary one through ``CanonicalDBG``), None without it."""
         self.device = resolve_device(device)
         self.index = index
+        self.graph = graph
+        self._aligner = None
+        self._aligner_lock = threading.Lock()
         self.k = index.k
         self.labels = index.labels
         # with a .seqs mapping every batch is mapped, then aggregated per
@@ -163,12 +184,13 @@ class QueryEngine:
         return out
 
     def _query_batch(self, seqs, mode, num_top_labels, discovery_fraction,
-                     presence_fraction):
-        """-> (payloads, the batch's seconds)."""
-        st = _seconds()
+                     presence_fraction, st=None, fused=True):
+        """-> (payloads, the batch's seconds); ``fused=False`` takes
+        ``map_batch`` and ``execute_batch`` whatever the index's route."""
+        st = _seconds() if st is None else st
         out = self._fused(seqs, mode, num_top_labels, discovery_fraction,
-                          presence_fraction, st)       # None: the map route
-        if out is not None:
+                          presence_fraction, st) if fused else None
+        if out is not None:                            # None: the map route
             return out, st
         nodes_list = self._map(seqs, st)
         if self.headers is None:
@@ -241,11 +263,15 @@ class QueryEngine:
         st["collect"] += time.perf_counter() - t2
         return out
 
-    def map_batch(self, seqs: List[bytes]) -> List[np.ndarray]:
+    def map_batch(self, seqs: List[bytes],
+                  seconds: dict = None) -> List[np.ndarray]:
         """Each sequence's windows -> (nwin,) int64 node ids (0 = miss),
-        in one lookup of the batch's valid windows through kernel A."""
-        self.last_batch_seconds = _seconds()
-        return self._map(seqs, self.last_batch_seconds)
+        in one lookup of the batch's valid windows through kernel A; the
+        host seconds go to ``seconds`` where given, else to
+        ``last_batch_seconds``."""
+        if seconds is None:
+            seconds = self.last_batch_seconds = _seconds()
+        return self._map(seqs, seconds)
 
     def _map(self, seqs, seconds):
         t0 = time.perf_counter()
@@ -487,6 +513,81 @@ class QueryEngine:
                     slot[pos[j]] = v
         return [(dec[c], n, by_c[c]) for c, n in selected]
 
+    # ---------------------------------------------------------- alignment
+    def _get_aligner(self, aligner_config):
+        """The engine's aligner for ``aligner_config`` (built again only
+        for another config object), on the engine's device."""
+        if self.graph is None:
+            raise ValueError("query --align needs the engine's graph")
+        if self._aligner is None \
+                or self._aligner._orig_config is not aligner_config:
+            from ..align.aligner import DBGAligner
+            aligner = DBGAligner(self.graph, aligner_config,
+                                 device=self.device)
+            aligner._orig_config = aligner_config
+            self._aligner = aligner
+        return self._aligner
+
+    def _spell_best(self, seq: bytes, alns, cfg):
+        """The query replaced by its best alignment's graph spelling (ref
+        query.cpp:1181-1209 align_sequence): -> (new sequence,
+        ``Alignment``)."""
+        max_score = cfg.match_score(seq) + cfg.left_end_bonus \
+            + cfg.right_end_bonus
+        if not alns:
+            return seq, Alignment(0, max_score, f"{len(seq)}S", False,
+                                  seq.decode())
+        m = alns[0]
+        new_seq = m.sequence
+        if m.offset:
+            new_seq = self.graph.get_node_sequence(m.nodes[0])[: m.offset] \
+                + m.sequence
+        return new_seq, Alignment(m.score, max_score, m.cigar.to_string(),
+                                  m.orientation, new_seq.decode())
+
+    def align_sequence(self, seq: bytes, aligner_config):
+        """One sequence aligned and respelled: -> (new sequence,
+        ``Alignment``)."""
+        with self._aligner_lock:
+            aligner = self._get_aligner(aligner_config)
+            return self._spell_best(seq, aligner.align(seq), aligner.config)
+
+    def _align_batch(self, batch, aligner_config, batch_align, hull, st):
+        """Each (id, name, seq) of the batch respelled by its best
+        alignment: -> (the respelled batch, its ``Alignment`` list).  The
+        batch's seconds get "batch_graph" (the batch graph's mapping and
+        build) and "align" (seeding, waves and the engine's host work)."""
+        from ..align import aligner as _aligner
+        from ..align.aligner import DBGAligner
+        with self._aligner_lock:
+            aligner = self._get_aligner(aligner_config)
+            t0 = time.perf_counter()
+            if batch_align:
+                from .batch_graph import construct_batch_graph
+                small, bstats = construct_batch_graph(
+                    self, [seq for _, _, seq in batch], seconds=st, **hull)
+                if small is not None:
+                    if self.trace is not None:
+                        self.trace(
+                            f"Batch graph: {bstats.num_query_kmers} query "
+                            f"k-mers ({bstats.num_matched_kmers} matched), "
+                            f"{bstats.num_hull_contigs} hull contigs "
+                            f"({bstats.num_hull_chars} chars)")
+                    aligner = DBGAligner(small, aligner.config,
+                                         device=self.device)
+            t1 = time.perf_counter()
+            seed0 = _aligner.SEED_SECONDS[0]
+            alns_list = aligner.align_batch([seq for _, _, seq in batch])
+            st["seeding"] = _aligner.SEED_SECONDS[0] - seed0
+            st["batch_graph"] = t1 - t0
+            st["align"] = time.perf_counter() - t1
+            new_batch, alignments = [], []
+            for (sid, name, seq), alns in zip(batch, alns_list):
+                new_seq, aln = self._spell_best(seq, alns, aligner.config)
+                new_batch.append((sid, name, new_seq))
+                alignments.append(aln)
+        return new_batch, alignments
+
     # -------------------------------------------------------------- query
     def query_records(self, records: Sequence, mode: str,
                       num_top_labels: int = 2 ** 63,
@@ -494,27 +595,45 @@ class QueryEngine:
                       presence_fraction: float = 0.0,
                       fwd_and_reverse: bool = False,
                       batch_size_bp: int = 100_000_000,
-                      n_threads: int = 1) -> Iterable[SeqSearchResult]:
+                      n_threads: int = 1, aligner_config=None,
+                      batch_align: bool = False, max_hull_forks: int = 4,
+                      max_hull_depth=None,
+                      max_nodes_per_seq_char: float = 5.0
+                      ) -> Iterable[SeqSearchResult]:
         """Query FASTA records; yields per-sequence (per-strand) results.
         With fwd_and_reverse each record is queried on both strands as two
         result lines, forward first.  With n_threads > 1 (-p) up to that
         many batches run at once on a thread pool, their results yielded
-        in submission order."""
+        in submission order.  With an ``aligner_config`` each batch is
+        aligned first and its reads replaced by their best alignments'
+        spellings (with ``batch_align``, against the batch graph that
+        ``max_hull_forks``, ``max_hull_depth`` and
+        ``max_nodes_per_seq_char`` bound)."""
         _check_mode(mode)
         kind = KIND_FOR_MODE[mode]
+        hull = dict(max_hull_forks=max_hull_forks,
+                    max_hull_depth=max_hull_depth,
+                    max_nodes_per_seq_char=max_nodes_per_seq_char)
 
         def process(batch, batch_bp):
             t0 = time.perf_counter()
+            st = _seconds()
+            alignments = [None] * len(batch)
+            if aligner_config is not None:
+                batch, alignments = self._align_batch(
+                    batch, aligner_config, batch_align, hull, st)
             payloads, st = self._query_batch(
                 [s for _, _, s in batch], mode, num_top_labels,
-                discovery_fraction, presence_fraction)
+                discovery_fraction, presence_fraction, st,
+                fused=aligner_config is None)
             if self.trace is not None:
                 dt = max(time.perf_counter() - t0, 1e-9)
                 self.trace(f"Batch of {batch_bp} bp queried in {dt:.5f} "
                            f"sec, {batch_bp / dt:.1f} bp/s")
             return [SeqSearchResult(QuerySequence(sid, name, seq.decode()),
-                                    kind, payload)
-                    for (sid, name, seq), payload in zip(batch, payloads)], st
+                                    kind, payload, alignment=aln)
+                    for (sid, name, seq), payload, aln
+                    in zip(batch, payloads, alignments)], st
 
         def batches():
             seq_id, batch, batch_bp = 0, [], 0

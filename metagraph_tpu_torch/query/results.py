@@ -1,15 +1,15 @@
 """Query result formatting, byte-identical to metagraph_tpu's.
 
 Own copy of metagraph_tpu/query/results.py:15-179 for the payload kinds
-of the six query modes (``KIND_FOR_MODE``: counts-sum prints as matches)
-and the coordinate ranges; alignment headers are not ported yet.
+of the six query modes (``KIND_FOR_MODE``: counts-sum prints as matches),
+the coordinate ranges and the alignment header of ``query --align``.
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -19,6 +19,8 @@ from ..align.kmer_presence import score_kmer_presence_mask
 KIND_FOR_MODE = {"labels": "labels", "matches": "matches",
                  "counts-sum": "matches", "counts": "counts",
                  "signature": "signature", "coords": "coords"}
+
+ALIGNED_SEQ_HEADER_FORMAT = "{name}:{seq}:{score}:{cigar}"
 
 
 def encode_presence_mask(bits: np.ndarray) -> str:
@@ -97,18 +99,35 @@ class QuerySequence:
 
 
 @dataclass
+class Alignment:
+    """A query's best alignment: it replaces the query in ``query --align``."""
+
+    score: int
+    max_score: int
+    cigar: str
+    orientation: bool
+    sequence: str = ""
+
+
+@dataclass
 class SeqSearchResult:
     """One query sequence's result; ``kind`` selects the payload format."""
 
     sequence: QuerySequence
     kind: str                 # labels | matches | counts | signature | coords
     payload: list
+    alignment: Optional[Alignment] = None
 
     def to_string(self, delimiter: str = ":", suppress_unlabeled: bool = False,
                   verbose: bool = False, k: int = 0) -> str:
         if suppress_unlabeled and not self.payload:
             return ""
-        out = f"{self.sequence.id}\t{self.sequence.name}"
+        name = self.sequence.name
+        if self.alignment is not None:
+            name = ALIGNED_SEQ_HEADER_FORMAT.format(
+                name=name, seq=self.alignment.sequence,
+                score=self.alignment.score, cigar=self.alignment.cigar)
+        out = f"{self.sequence.id}\t{name}"
         if self.kind == "labels":
             out += "\t" + delimiter.join(self.payload)
         elif self.kind == "matches":
@@ -139,6 +158,13 @@ class SeqSearchResult:
         return out
 
     def to_json(self, verbose: bool = False, k: int = 0) -> str:
+        root = {"seq_description": self.sequence.name}
+        if self.alignment is not None:
+            root["score"] = self.alignment.score
+            root["max_score"] = self.alignment.max_score
+            root["sequence"] = self.alignment.sequence
+            root["cigar"] = self.alignment.cigar
+            root["orientation"] = self.alignment.orientation
         results = []
         for item in self.payload:
             if self.kind == "labels":
@@ -156,5 +182,5 @@ class SeqSearchResult:
             elif self.kind == "coords":
                 results.append({"sample": item[0], "kmer_count": item[1],
                                 "kmer_coords": collapse_coord_ranges(item[2])})
-        return json.dumps({"seq_description": self.sequence.name,
-                           "results": results})
+        root["results"] = results
+        return json.dumps(root)

@@ -8,8 +8,13 @@ and error strings, the same JSON bodies and status codes (400 for a
 that the JAX package's client (``metagraph_tpu/api/client.py``) talks to
 it unchanged.  The index and the kernels are built in ``__init__``, before
 the first request; the request threads share the engine, whose per-batch
-state travels with each batch.  ``/align`` is host alignment, which is not
-ported (ROADMAP A13.3): it answers 500 with an error that names it.
+state travels with each batch.  ``/align`` aligns a request's reads with
+``DBGAligner.align_batch`` (seeding on the host, every wave one launch of
+kernel B11 ``align_wave``) on a succinct graph (a primary one through
+``CanonicalDBG``), one request at a time, as the aligners' column stores
+live on the card and the graph's lazy tables are built at first use.  On
+a graph that is not succinct ``/align`` answers 500 naming ROADMAP
+A13.3e.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ class MetaGraphServer:
         if self.engine.device.type == "cuda":
             _build.build_all()          # the kernels build before serving
         self._httpd: Optional[ThreadingHTTPServer] = None
+        self._align_lock = threading.Lock()     # /align, one at a time
 
     # -------------------------------------------------------------- search
     def search(self, payload: dict) -> list:
@@ -105,10 +111,39 @@ class MetaGraphServer:
 
     # --------------------------------------------------------------- align
     def align(self, payload: dict) -> list:
-        if payload.get("FASTA") is None:
+        from ..align.aligner import DBGAligner
+        from ..align.config import AlignerConfig
+        fasta = payload.get("FASTA")
+        if fasta is None:
             raise ValueError("No input sequences received from client")
-        raise NotImplementedError("alignment is not ported yet "
-                                  "(ROADMAP A13.3)")
+        g = self.graph
+        base = g.graph if hasattr(g, "get_base_node") else g
+        cfg = AlignerConfig(
+            min_exact_match=float(payload.get("min_exact_match", 0.7)),
+            num_alternative_paths=max(
+                1, int(payload.get("max_alternative_alignments", 1))),
+            max_nodes_per_seq_char=float(
+                payload.get("max_num_nodes_per_seq_char", 5.0)),
+            protein=base.alphabet == "Protein")
+        if not hasattr(base, "boss"):
+            raise NotImplementedError("/align: graphs that are not succinct "
+                                      "are not ported yet (ROADMAP A13.3e)")
+        records = _parse_fasta_string(fasta)
+        aligner = DBGAligner(g, cfg, device=self.engine.device)
+        with self._align_lock:
+            results = aligner.align_batch([s.encode() for _, s in records])
+        out = []
+        for (name, seq), paths in zip(records, results):
+            max_score = cfg.match_score(seq) + cfg.left_end_bonus \
+                + cfg.right_end_bonus
+            out.append({"seq_description": name, "alignments": [{
+                "score": int(path.score),
+                "max_score": max_score,
+                "sequence": path.sequence.decode(),
+                "cigar": path.cigar.to_string(),
+                "orientation": path.orientation,
+            } for path in paths]})
+        return out
 
     # --------------------------------------------------------------- stats
     def stats(self) -> dict:

@@ -104,13 +104,28 @@ def test_chip_smoke_rehearsal_and_refusal(tmp_path):
         assert out.returncode == 1 and out.stdout == ""
 
 
-def test_port_cli_refuses_out_of_scope(index):
+def test_port_cli_refuses_out_of_scope(index, tmp_path):
+    """``query --align`` on a hash graph: the JAX CLI aligns, the port
+    refuses once the graph and the annotation have loaded, naming ROADMAP
+    A13.3e (the hash graphs' aligner API)."""
+    from metagraph_tpu.cli.main import main as jax_main
     from metagraph_tpu_torch.cli import main
-    base = ["query", "-i", str(index / "g.dbg"), "-a",
-            str(index / "a.column.annodbg"), "--torch-device", "cpu"]
-    for extra in (["--align"], ["--batch-align"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(base + extra + [str(index / "q.fa")])
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        jax_main(["build", "--graph", "hash", "-k", "19", "-o",
+                  str(tmp_path / "h"), str(index / "refs.fa")])
+        jax_main(["annotate", "-i", str(tmp_path / "h.dbg"), "--anno-header",
+                  "-o", str(tmp_path / "ha"), str(index / "refs.fa")])
+    base = ["query", "-i", str(tmp_path / "h.dbg"), "-a",
+            str(tmp_path / "ha.column.annodbg")]
+    for extra in (["--align"], ["--align", "--batch-align"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            jax_main(base + extra + [str(index / "q.fa")])
+        assert buf.getvalue().count("\n") == 27
+        with pytest.raises(NotImplementedError, match="ROADMAP A13.3e"):
+            main(base + extra + ["--torch-device", "cpu",
+                                 str(index / "q.fa")])
 
 
 def _run_both(index, args, jax_args=None):

@@ -1,12 +1,12 @@
 """The port's ``query`` loads the graph, the annotation and a ``.seqs`` file
-beside it before it refuses what it has not ported (``--align``,
-``--batch-align``), as the JAX ``cmd_query`` loads them before it builds
-its engine (metagraph_tpu/cli/main.py:799-815): a missing graph or
-annotation prints the JAX CLI's ``[error] File not found: ...`` line and
-exits 1 whatever else the command line asks (``-p``, ``--align``, a
+beside it before anything else, as the JAX ``cmd_query`` loads them before
+it builds its engine (metagraph_tpu/cli/main.py:799-815): a missing graph
+or annotation prints the JAX CLI's ``[error] File not found: ...`` line
+and exits 1 whatever else the command line asks (``-p``, ``--align``, a
 ``.seqs`` file); with its inputs present, ``-p``/``--parallel-each`` above
-1 and a ``.seqs`` file that is no mapping give the JAX CLI's bytes and
-exit code.
+1, ``--align``, ``--batch-align`` (a plain query without ``--align``) and
+a ``.seqs`` file that is no mapping give the JAX CLI's bytes and exit
+code.
 
 The JAX CLI builds and annotates a small random-ACGT index in tmp_path and
 runs in this process; the port runs in a subprocess without JAX.
@@ -113,11 +113,10 @@ def _in_process(main, args):
 @pytest.mark.parametrize("unported", ("-p 2", "--parallel-each 3",
                                       "--align", "--batch-align", ".seqs"))
 def test_present_inputs_then_refusal(index, tmp_path, unported):
-    """With the graph and the annotation present, the port loads them and
-    then refuses what it has not ported (--align, --batch-align), naming
-    the ROADMAP item; -p 2, --parallel-each 3 and a .seqs file that holds
-    no mapping (a text file) give the JAX CLI's stdout and exit code (the
-    last: its ValueError from np.load, exit 1)."""
+    """With the graph and the annotation present, -p 2, --parallel-each 3,
+    --align, --batch-align and a .seqs file that holds no mapping (a text
+    file) give the JAX CLI's stdout and exit code (the last: its
+    ValueError from np.load, exit 1)."""
     from metagraph_tpu.cli.main import main as jax_main
     from metagraph_tpu_torch.cli import main
     anno = tmp_path / "a.column.annodbg"
@@ -129,10 +128,6 @@ def test_present_inputs_then_refusal(index, tmp_path, unported):
         extra = unported.split()
     args = ["query", "-i", str(index / "g.dbg"), "-a", str(anno), *extra,
             str(index / "q.fa")]
-    if unported in ("--align", "--batch-align"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(args + ["--torch-device", "cpu"])
-        return
     want = _in_process(jax_main, args[:-1] + ["--device", args[-1]])
     got = _in_process(main, args + ["--torch-device", "cpu"])
     assert got == want
@@ -140,3 +135,7 @@ def test_present_inputs_then_refusal(index, tmp_path, unported):
         assert want[1] == 1 and want[2].startswith("ValueError")
     else:
         assert want[1] == 0 and want[0].count("\n") == 4
+    if unported == "--align":
+        # every query's header carries its alignment
+        assert all(ln.split("\t")[1].count(":") == 3
+                   for ln in want[0].splitlines())

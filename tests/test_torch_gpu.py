@@ -1361,8 +1361,8 @@ def test_kmer_graph_map_route_cuda_matches_cpu(cuda, gtype, gmode, K, mode):
 
 def test_server_cuda_matches_cpu(cuda):
     """The port's MetaGraphServer on the card answers /search in every
-    mode the annotation allows, /stats and /column_labels as the one on
-    the CPU, and refuses /align naming A13."""
+    mode the annotation allows, /stats, /column_labels and /align (on this
+    bitmap graph: 500 naming ROADMAP A13.3e) as the one on the CPU."""
     import json
     import urllib.error
     import urllib.request
@@ -1401,8 +1401,10 @@ def test_server_cuda_matches_cpu(cuda):
         for s in stats:
             del s["process"]
         assert stats[0] == stats[1]
-        code, body = ask(servers[1].port, "align", {"FASTA": fasta})
-        assert code == 500 and "A13" in body["error"]
+        want, got = (ask(s.port, "align", {"FASTA": fasta})
+                     for s in servers)
+        assert got == want
+        assert got[0] == 500 and "A13.3e" in got[1]["error"]
     finally:
         for s in servers:
             s.shutdown()
@@ -2383,3 +2385,130 @@ def test_align_cli_cuda_matches_cpu(cuda, tmp_path, flags):
                   "--torch-device", dev])
         outs.append(buf.getvalue())
     assert outs[0] == outs[1] and outs[0].count("\n") >= 126
+
+
+# --------------------------------------------------------------------------
+# query --align, --batch-align and the server's /align
+# --------------------------------------------------------------------------
+
+def _align_index(tmp_path, k):
+    """``_align_graph``'s graph at k and a column annotation beside it
+    (one label over every node, one over every other node), written as
+    the JAX ``annotate`` writes it.  -> (graph path, annotation path,
+    reads path, graph, reads)."""
+    gpath, qpath, reads = _align_graph(tmp_path, seed=k, k=k, forks=True)
+    g = DBGSuccinct.load(str(gpath))
+    rows = np.flatnonzero(g.boss.valid).astype(np.int64) - 1
+    cols = [rows, rows[::2]]
+    arrays = {"labels": np.array(["all", "half"]),
+              "num_rows": g.max_index(), "has_values": False,
+              "has_coords": False}
+    for c, r in enumerate(cols):
+        arrays[f"rows_{c}"] = r
+        arrays[f"vals_{c}"] = np.zeros(0, np.int64)
+        arrays[f"coords_{c}"] = np.zeros((0, 2), np.int64)
+    np.savez(tmp_path / "a.column.annodbg.npz", **arrays)
+    return gpath, tmp_path / "a.column.annodbg", qpath, g, reads
+
+
+def _launches():
+    from metagraph_tpu_torch.align import wave_extender as wx
+    fns = {"align_wave": wx.align_wave, "wave_dp": wx.wave_dp,
+           "wire_lookup": ops.wire_lookup, "key_lookup": ops.key_lookup,
+           "label_counts": qd.label_counts,
+           "selection_mask": qd.selection_mask,
+           **{n: getattr(db, n) for n in ("build_windows", "radix_sort",
+                                          "build_join", "build_emit")}}
+    return {n: f.launches for n, f in fns.items()}
+
+
+@pytest.mark.parametrize("k", (21, 31))
+@pytest.mark.parametrize("flags", (("--align",),
+                                   ("--align", "--batch-align"),
+                                   ("--align", "--batch-align", "--json",
+                                    "-p", "2", "--batch-size", "6000")),
+                         ids=("align", "batch-align", "batch-align-json-p2"))
+def test_query_align_cli_cuda_matches_cpu(cuda, tmp_path, flags, k):
+    """``query --align`` (and ``--batch-align``) on the card prints the
+    bytes of the plain versions on the CPU; one align_wave a wave, no
+    wave_dp; kernels A, 2 and 3 on the respelled batches (no wire
+    route); every batch graph through D1-D4 at k = 21, through D2 alone
+    at k = 31."""
+    import contextlib
+    import io
+    from metagraph_tpu_torch.align.wave_extender import STATS
+    from metagraph_tpu_torch.cli import main
+    gpath, apath, qpath, *_ = _align_index(tmp_path, k)
+    outs = []
+    for dev in (cuda.type, "cpu"):
+        buf = io.StringIO()
+        before, waves0 = _launches(), STATS["waves"]
+        with contextlib.redirect_stdout(buf):
+            main(["query", "-i", str(gpath), "-a", str(apath), *flags,
+                  str(qpath), "--torch-device", dev])
+        outs.append(buf.getvalue())
+        if len(outs) == 1:
+            got = {n: v - before[n] for n, v in _launches().items()}
+            waves = STATS["waves"] - waves0
+    assert outs[0] == outs[1] and outs[0].count("\n") == 126
+    assert got["align_wave"] == waves > 0 and not got["wave_dp"]
+    assert not got["wire_lookup"]
+    assert min(got["key_lookup"], got["label_counts"],
+               got["selection_mask"]) >= 1
+    if "--batch-align" in flags:
+        assert got["radix_sort"] >= 1
+        device_route = ("build_windows", "build_join", "build_emit")
+        assert all((got[n] >= 1) == (k == 21) for n in device_route)
+    else:
+        assert not any(got[n] for n in ("build_windows", "radix_sort",
+                                        "build_join", "build_emit"))
+
+
+def test_server_align_cuda_matches_cpu(cuda, tmp_path):
+    """/align on a succinct graph: the server on the card answers one
+    request as the one on the CPU, and two requests in flight together
+    as it answers each alone; one align_wave a wave."""
+    import json
+    import threading
+    import urllib.request
+    from metagraph_tpu_torch.align.wave_extender import STATS
+    from metagraph_tpu_torch.annotation.matrix import load_annotation
+    from metagraph_tpu_torch.server.server import MetaGraphServer
+    _, apath, _, g, reads = _align_index(tmp_path, 31)
+    servers = [MetaGraphServer(g, load_annotation(str(apath)), device=d)
+               for d in ("cpu", cuda)]
+    for s in servers:
+        s.serve("127.0.0.1", 0, background=True)
+    bodies = [{"FASTA": "".join(f">r{i}\n{r}\n"
+                                for i, r in enumerate(reads[h::2]))}
+              for h in range(2)]
+    bodies[1]["max_alternative_alignments"] = 2
+
+    def ask(port, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/align",
+            data=json.dumps(body).encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=300) as f:
+            return f.status, json.loads(f.read())
+    try:
+        want = [ask(servers[0].port, b) for b in bodies]
+        assert all(w[0] == 200 for w in want)
+        assert sum(bool(e["alignments"]) for e in want[0][1]) >= 55
+        got = [None, None]
+        before, waves = _launches(), STATS["waves"]
+
+        def client(h):
+            got[h] = ask(servers[1].port, bodies[h])
+        threads = [threading.Thread(target=client, args=(h,))
+                   for h in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        launched = _launches()["align_wave"] - before["align_wave"]
+        assert launched == STATS["waves"] - waves > 0
+        assert got == want
+        assert [ask(servers[1].port, b) for b in bodies] == want
+    finally:
+        for s in servers:
+            s.shutdown()

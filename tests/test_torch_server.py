@@ -10,10 +10,9 @@ a primary graph wrapped in ``CanonicalDBG`` as ``server_query`` wraps it.
 Both get the same requests: ``/search`` in every mode the annotation
 allows, with ``discovery_fraction`` and ``top_labels``, the error cases,
 ``/stats`` (without its RSS values), ``/column_labels``, unknown
-endpoints, requests in flight together, and the port's ``server_query``
-started as a subprocess.  Bodies and status codes must be equal; the
-port's ``/align`` answers 500 naming ROADMAP A13 (host alignment is not
-ported).
+endpoints, requests in flight together, ``/align`` (one request, and
+two in flight together), and the port's ``server_query`` started as a
+subprocess.  Bodies and status codes must be equal.
 """
 
 import json
@@ -161,11 +160,29 @@ def test_stats_match_jax(servers):
 
 
 def test_align_refused_naming_roadmap(servers, data):
-    """Host alignment is not ported: 500 with an error naming A13."""
+    """/align: the JAX server's reply to one request, and to two requests
+    in flight together (each with its own aligner config)."""
     _, fasta = data
-    _, pp, _ = servers
-    code, body = _request(pp, "align", _search(fasta))
-    assert code == 500 and "A13" in body["error"]
+    jp, pp, _ = servers
+    bodies = [_search(fasta),
+              _search(fasta, min_exact_match=0.3,
+                      max_alternative_alignments=2,
+                      max_num_nodes_per_seq_char=3.0)]
+    want = [_request(jp, "align", b) for b in bodies]
+    assert want[0][0] == 200 and want[0] != want[1]
+    assert sum(bool(r["alignments"]) for r in want[0][1]) >= 10
+    assert _request(pp, "align", bodies[0]) == want[0]
+    got = [None] * len(bodies)
+
+    def worker(i):
+        got[i] = _request(pp, "align", bodies[i])
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    assert got == want
 
 
 def test_concurrent_requests(servers, data):

@@ -145,3 +145,39 @@ def same_build_files(tmp, a, b, mmap_layout):
         for f in x:
             assert x[f].dtype == y[f].dtype and x[f].shape == y[f].shape \
                 and np.array_equal(x[f], y[f]), (pa, f)
+
+
+def detour_references_and_reads(rng, n_refs=4, length=700, n_reads=24,
+                                read_len=150, letters="ACGT"):
+    """References for alignment: random ones and a copy of the first with
+    a substitution every 97 characters (a detour of the graph at each);
+    reads of ``read_len`` cut from them with 0-3 substitutions (and, for
+    DNA, every third one reverse-complemented), one with a deletion, one
+    random read that nothing matches, one with an N run.  -> (refs,
+    reads)."""
+    refs = ["".join(rng.choice(list(letters), size=length))
+            for _ in range(n_refs)]
+    var = list(refs[0])
+    for p in range(100, length, 97):
+        var[p] = letters[(letters.index(var[p]) + 1) % len(letters)]
+    refs.append("".join(var))
+    comp = str.maketrans("ACGT", "TGCA")
+    reads = []
+    for i in range(n_reads):
+        s = refs[i % len(refs)]
+        a = int(rng.integers(0, len(s) - read_len))
+        r = list(s[a: a + read_len])
+        for p in rng.choice(read_len, int(rng.integers(0, 4)),
+                            replace=False):
+            r[p] = letters[(letters.index(r[p]) + 1
+                            + int(rng.integers(len(letters) - 1)))
+                           % len(letters)]
+        r = "".join(r)
+        if letters == "ACGT" and i % 3 == 1:
+            r = r[::-1].translate(comp)
+        reads.append(r)
+    reads.append(refs[2][:70] + refs[2][73: read_len + 3])
+    reads.append("".join(rng.choice(list(letters), size=read_len)))
+    unknown = "N" if letters == "ACGT" else "X"
+    reads.append(refs[1][:60] + unknown * 4 + refs[1][64: read_len])
+    return refs, reads
