@@ -248,6 +248,38 @@ then:
    (the second with two alternative alignments), each reply equal to the
    same request's sequential reply, every alignment held to the oracle,
    one ``align_wave`` a wave.
+8c. (right after 8b, on the same graph file) ``align -a``,
+   ``--align-chain`` and ``-o *.gfa`` through the port's CLI, 150 bp reads
+   of ``align_reads`` from the seed's stream 15: ``-a`` with 3b's
+   1,000-label annotation (written as ``annotate`` writes it): 20 warm
+   reads, 200 for the rate, then 500 reads (fewer where that rate puts
+   fewer in 40 s, at least 200); ``-a`` on a segment annotation (each
+   reference's base and its appended repeat two labels, 2,000 in all) on
+   200 reads across that junction with a substitution just before it
+   (stream 17), whose extensions lose their labels at the junction, so
+   label pruning must drop children; ``-a`` on a coordinate annotation of
+   the same references on the same node ids (10 references a label, k-mer
+   coordinates numbered as ``annotate --coordinates`` numbers them) with
+   its ``.seqs`` index, and with ``--no-coord-mapping``, 200 reads each;
+   ``--align-chain`` on it, 200 reads; ``-o x.gfa`` with and without
+   ``--compacted`` on 8b's k = 21 graph of the first 100 references
+   (built again here), 200 reads of them.  Each run under the launch
+   counters: one ``align_wave`` a wave, no other kernel (none at all for
+   the GFA runs); every alignment held to 8's oracle (a chain's runs of
+   matches and mismatches, its sequence jumps at its splices); each label
+   set equal to the labels of every reference (every segment) that holds
+   all the path's k-mers; every coordinate range spelling the alignment
+   in its reference, through the headers and through the label's own
+   coordinates; each chain's label a label of its first k-mer; each
+   P-line's nodes the graph's nodes of the read's k-mers (0 where none),
+   ``(k-1)M`` between them, a compacted line's among them; the first 50
+   reads' bytes of every run and both ``.path.gfa`` files equal to a
+   ``--torch-device cpu`` run's; reads/s and the seconds of seeding,
+   waves, the engine's host work, label fetches and output printed, with
+   the children that label pruning dropped; ``align_wave`` timed on the
+   largest wave of the 1,000-label run.  The commands share the graph
+   object that the first loads, so 8c's walls leave out its load and its
+   lazy tables' build.
 
 Depth cuts, which keep the script inside its time limit (widths are
 never cut): the basic batch is drawn at 150,000 reads, which 3b takes
@@ -259,14 +291,15 @@ the long sequence, the coords mode and the seqs deployment
 ``coords_prefix`` = 10,000 (20,000 before), the bitmap deployment 10,000;
 the pan-genome holds 3 base genomes (5, then 4 before) and the read set
 100,000 reads (400,000 before); phase 8 counts 1,000 reads (2,000
-before); 8b's k = 21 graph holds the first 100 of the 1,000 references.
+before); 8b's k = 21 graph holds the first 100 of the 1,000 references;
+8c counts 500 reads with 3b's annotation and 200 in each other run.
 
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
 stdout is a JSON object with every kernel's numbers (D1-D4 for each build,
 ``build_windows/pan`` and the like, D2 with its ``torch.sort`` ms as
 ``library_ms``, ``align_wave/align`` and ``wave_dp/align`` (phase 8's
-largest wave),
+largest wave), ``align_wave/align-labeled`` (8c's),
 ``radix_sort/reads-k31-counts`` and
 ``radix_sort/protein-k20-disk`` for the general route,
 ``radix_sort/graph_bitmap``, ``.../graph_hash_canonical``,
@@ -338,7 +371,10 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             query_align=dict(pool=1500, warm=20, calibrate=200, budget_s=60,
                              target=1000, least=200, batch_bp=37_500,
                              cpu=100, k21_refs=100, k21_reads=200,
-                             server_reads=100))
+                             server_reads=100),
+            labeled=dict(pool=800, warm=20, calibrate=200, budget_s=40,
+                         target=500, least=200, cpu=50, coords=200,
+                         segments=200, chain=200, gfa=200, per_label=10))
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -358,7 +394,10 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
                        par_procs=4),
             query_align=dict(pool=60, warm=5, calibrate=10, budget_s=0,
                              target=30, least=30, batch_bp=1500, cpu=10,
-                             k21_refs=6, k21_reads=20, server_reads=5))
+                             k21_refs=6, k21_reads=20, server_reads=5),
+            labeled=dict(pool=60, warm=5, calibrate=10, budget_s=0,
+                         target=30, least=30, cpu=5, coords=15,
+                         segments=15, chain=15, gfa=12, per_label=10))
 
 
 def log(msg: str):
@@ -451,10 +490,18 @@ def as_void(words: np.ndarray) -> np.ndarray:
     return be.view(f"V{8 * words.shape[1]}").ravel()
 
 
+# byte -> its four 2-bit fields, lowest first; and with their order reversed
+CHARS2 = ((np.arange(256)[:, None] >> (2 * np.arange(4))) & 3).astype(np.uint8)
+REV2 = (CHARS2[:, ::-1] << (2 * np.arange(4))).sum(axis=1).astype(np.uint8)
+
+
 def void_chars(keys: np.ndarray, k: int, bits: int) -> np.ndarray:
     """wide_window_keys' keys -> (n, k) codes."""
     per = 64 // bits
     words = np.frombuffer(keys.tobytes(), ">u8").reshape(len(keys), -1)
+    if bits == 2:
+        le = words.astype("<u8").view(np.uint8).reshape(len(keys), -1)
+        return CHARS2[le].reshape(len(keys), -1)[:, :k].copy()
     chars = np.empty((len(keys), k), np.uint8)
     for i in range(k):
         chars[:, i] = (words[:, i // per] >> np.uint64(bits * (i % per))) \
@@ -485,10 +532,9 @@ def make_oracle(keys: np.ndarray, labs: np.ndarray, L: int, k: int = K,
 
 
 def key_chars(keys: np.ndarray) -> np.ndarray:
-    chars = np.empty((len(keys), K), np.uint8)
-    for i in range(K):
-        chars[:, i] = ((keys >> np.uint64(2 * i)) & np.uint64(3)) + 1
-    return chars
+    """2-bit keys -> (n, K) codes 1..4, char i from bits 2i."""
+    le = np.ascontiguousarray(keys, dtype="<u8").view(np.uint8)
+    return CHARS2[le.reshape(len(keys), 8)].reshape(len(keys), 32)[:, :K] + 1
 
 
 def make_index(cfg, rng):
@@ -1304,12 +1350,14 @@ def distinct_sorted(keys: np.ndarray):
 
 
 def rc_keys(keys: np.ndarray, k: int) -> np.ndarray:
-    """2-bit keys of k characters -> their reverse complements' keys."""
-    out = np.zeros_like(keys)
-    for i in range(k):
-        out |= (np.uint64(3) - ((keys >> np.uint64(2 * i)) & np.uint64(3))) \
-            << np.uint64(2 * (k - 1 - i))
-    return out
+    """2-bit keys of k characters -> their reverse complements' keys: the
+    k characters complemented, all 32 reversed (bytes and the fields in
+    each byte), then shifted down past the 32 - k that were not key."""
+    comp = np.ascontiguousarray(keys ^ np.uint64((1 << (2 * k)) - 1),
+                                dtype="<u8").view(np.uint8)
+    rev = REV2[comp.reshape(len(keys), 8)[:, ::-1]]
+    return np.ascontiguousarray(rev).view("<u8").ravel() \
+        >> np.uint64(2 * (32 - k))
 
 
 def build_oracle(boss, distinct, k, rng, sample, counts=None, cap=255):
@@ -2522,12 +2570,13 @@ def a10_graph(refs, oracle, labels, dev):
     letters = np.frombuffer(b"ACGTN", np.uint8)
     g = DBGSuccinct.build([letters[r].tobytes() for r in refs], K,
                           device=dev)
-    return g, graph_annotation(g, oracle, labels)
+    return (g, *graph_annotation(g, oracle, labels))
 
 
 def graph_annotation(g, oracle, labels):
     """The oracle's labels placed on a graph's node ids (each valid edge,
-    decoded, found among the oracle's keys): a column annotation."""
+    decoded, found among the oracle's keys): -> (a column annotation, the
+    node id of each of the oracle's keys)."""
     from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
     edges = np.flatnonzero(g.boss.valid)
     key = chars_keys(g.boss.get_edge_seq(edges))
@@ -2545,7 +2594,9 @@ def graph_annotation(g, oracle, labels):
     order = np.lexsort((row, lab))
     start = np.searchsorted(lab[order], np.arange(len(labels) + 1))
     cols = [row[order[start[c]: start[c + 1]]] for c in range(len(labels))]
-    return ColumnMajorAnnotation(g.max_index(), labels, cols)
+    node_of_key = np.empty(len(keys), np.int64)
+    node_of_key[pos] = edges
+    return ColumnMajorAnnotation(g.max_index(), labels, cols), node_of_key
 
 
 def a10_phase(cfg, refs, oracle, labels, seqs, codes, rng, torch, dev,
@@ -2559,7 +2610,7 @@ def a10_phase(cfg, refs, oracle, labels, seqs, codes, rng, torch, dev,
     labels and matches modes against the oracle's payloads; kernels A and
     2 against their plain versions at these shapes, D2 checked as
     ``dedup_batch``'s distinct pass runs it.  -> (launches, entries, the
-    graph, its annotation)."""
+    graph, its annotation, the node id of each of the oracle's keys)."""
     from metagraph_tpu_torch._u32 import to_u64
     from metagraph_tpu_torch.query import device as qd
     from metagraph_tpu_torch.succinct import ops
@@ -2567,7 +2618,8 @@ def a10_phase(cfg, refs, oracle, labels, seqs, codes, rng, torch, dev,
     rseqs, rcodes = seqs[:n], codes[:n]
     S, L = n, len(labels)
     t0 = time.perf_counter()
-    g, anno = timed("a10 graph", a10_graph, refs, oracle, labels, dev)
+    g, anno, node_of_key = timed("a10 graph", a10_graph, refs, oracle,
+                                 labels, dev)
     t1 = time.perf_counter()
     pipe = timed("a10 graph", qd.DeviceQueryPipeline, g, anno, device=dev)
     log(f"a10 graph: {g.num_nodes()} k-mers (k = {K}), {L} labels; built "
@@ -2710,7 +2762,8 @@ def a10_phase(cfg, refs, oracle, labels, seqs, codes, rng, torch, dev,
               + rows * bitmap.shape[1] * 4 + got[0].nbytes + got[1].nbytes)
     entries["radix_sort"] = spy.entry()
     return {k: launches[k] for k in ("key_lookup", "label_counts",
-                                     "radix_sort")}, entries, g, anno
+                                     "radix_sort")}, entries, g, anno, \
+        node_of_key
 
 
 def server_phase(cfg, index, graph, seqs, codes, oracle, torch, dev,
@@ -3680,13 +3733,15 @@ def align_cli(args):
     return out.getvalue(), time.perf_counter() - t0, dict(cli.ALIGN_STATS)
 
 
-def oracle_alignment(query: bytes, fields, keys, k=K):
+def oracle_alignment(query: bytes, fields, keys, k=K, spliced=False):
     """Hold one printed alignment to an oracle that shares no code with
     the port: its score recomputed from its CIGAR under the default config
     (match 2, mismatch -3, gap -6/-2, end bonus 5 each side unclipped), the
     CIGAR applied to the query in the alignment's orientation spelling the
     printed sequence, and every k-mer of that sequence (``k`` characters)
-    a k-mer of the references.  -> (orientation, sequence, cigar)."""
+    a k-mer of the references; ``spliced`` (a chain of seeds, whose
+    sequence jumps where its CIGAR inserts nodes): every k-mer inside a run
+    of matches and mismatches.  -> (orientation, sequence, cigar)."""
     import re
     strand, seq, score, n_match, cigar, _offset = fields
     seq = seq.encode()
@@ -3694,7 +3749,13 @@ def oracle_alignment(query: bytes, fields, keys, k=K):
     ops = [(int(n), op) for n, op in re.findall(r"(\d+)([=XIDSG])", cigar)]
     qi = ri = got = matches = 0
     go, ge = ALIGN_GAP
+    runs = []                   # reference spans of the =/X runs
     for n, op in ops:
+        if op in "=X":
+            if not runs or runs[-1][1] != ri or last not in "=X":
+                runs.append([ri, ri])
+            runs[-1][1] = ri + n
+        last = op
         if op == "S":
             qi += n
         elif op in "=X":
@@ -3718,13 +3779,14 @@ def oracle_alignment(query: bytes, fields, keys, k=K):
         raise AssertionError(f"align oracle: score {score} ({n_match} "
                              f"matches) of {cigar}, recomputed {got} "
                              f"({matches})")
-    codes = np.frombuffer(seq, np.uint8)
-    codes = np.select([codes == c for c in b"ACGT"], [0, 1, 2, 3], 4)
-    wk, ok = window_keys(codes.astype(np.uint8), k)
-    pos = np.minimum(np.searchsorted(keys, wk), len(keys) - 1)
-    if not (ok.all() and np.array_equal(keys[pos], wk)):
-        raise AssertionError("align oracle: the aligned sequence has k-mers "
-                             "outside the references")
+    for a, b in (runs if spliced else [(0, len(seq))]):
+        codes = np.frombuffer(seq[a:b], np.uint8)
+        codes = np.select([codes == c for c in b"ACGT"], [0, 1, 2, 3], 4)
+        wk, ok = window_keys(codes.astype(np.uint8), k)
+        pos = np.minimum(np.searchsorted(keys, wk), len(keys) - 1)
+        if not (ok.all() and np.array_equal(keys[pos], wk)):
+            raise AssertionError("align oracle: the aligned sequence has "
+                                 "k-mers outside the references")
     return strand, seq, cigar
 
 
@@ -4079,12 +4141,11 @@ def check_query_align(lines, seqs, kinds, o, k, batch_align, tag):
     return aligned, labelled, eligible
 
 
-def k21_deployment(refs, labels, dev):
+def k21_graph(refs, labels, dev):
     """The first references at k = 21: the port's graph
-    (``DBGSuccinct.build``, the device route D1-D4) and its query index
-    (``convert.from_graph``, as ``query`` makes it) with the oracle's
-    labels on its node ids.  -> (index, oracle, graph)."""
-    from metagraph_tpu_torch import convert
+    (``DBGSuccinct.build``, the device route D1-D4) with the oracle's
+    labels on its node ids.  -> (graph, oracle, annotation, node of each
+    oracle key)."""
     from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
     keys_of = lambda codes: window_keys(codes, QA_K)     # noqa: E731
     keys = [keys_of(r)[0] for r in refs]
@@ -4094,7 +4155,15 @@ def k21_deployment(refs, labels, dev):
     letters = np.frombuffer(b"ACGTN", np.uint8)
     g = DBGSuccinct.build([letters[r].tobytes() for r in refs], QA_K,
                           device=dev)
-    return convert.from_graph(g, graph_annotation(g, o, labels)), o, g
+    return (g, o, *graph_annotation(g, o, labels))
+
+
+def k21_deployment(refs, labels, dev):
+    """``k21_graph`` and its query index (``convert.from_graph``, as
+    ``query`` makes it).  -> (index, oracle, graph)."""
+    from metagraph_tpu_torch import convert
+    g, o, anno, _ = k21_graph(refs, labels, dev)
+    return convert.from_graph(g, anno), o, g
 
 
 def query_align_phase(cfg, graph_path, refs, anno, oracle, seed, torch,
@@ -4226,6 +4295,539 @@ def query_align_phase(cfg, graph_path, refs, anno, oracle, seed, torch,
         kinds[n: n + 2 * qc["server_reads"]]
 
 
+# --------------------------------------------------------------------------
+# 8c. align -a, --align-chain and -o *.gfa (kernel B11, the label pruning
+# inside the flat engine)
+# --------------------------------------------------------------------------
+
+def save_column_annotation(path, num_rows, labels, rows, coords=None):
+    """A column annotation file with the keys the JAX ``annotate`` writes
+    (``ColumnMajorAnnotation.load`` reads them)."""
+    arrays = {"labels": np.array(labels), "num_rows": num_rows,
+              "has_values": False, "has_coords": coords is not None}
+    for c, r in enumerate(rows):
+        arrays[f"rows_{c}"] = r
+        arrays[f"vals_{c}"] = np.zeros(0, np.int64)
+        arrays[f"coords_{c}"] = coords[c] if coords is not None \
+            else np.zeros((0, 2), np.int64)
+    np.savez(path, **arrays)
+
+
+def reference_nodes(refs, oracle, node_of_key):
+    """The graph's node id of each k-mer of each reference, in order."""
+    keys = oracle["keys"]
+    return [node_of_key[np.searchsorted(keys, window_keys(r, K)[0])]
+            for r in refs]
+
+
+def coordinate_annotation(path, ref_nodes, num_rows, per):
+    """A coordinate annotation of the references on the graph's node ids
+    and its ``.seqs`` index beside it: label c holds references per*c ..
+    per*(c+1)-1 (headers ``ref<i>``), a k-mer's coordinate its position in
+    the concatenation of the label's references' k-mers, as ``annotate
+    --coordinates --index-header-coords`` numbers them.  -> (labels, the
+    first coordinate of each reference in its label)."""
+    from metagraph_tpu_torch.annotation.coord_to_header import CoordToHeader
+    n_refs = len(ref_nodes)
+    labels, rows, coords, headers, counts = [], [], [], [], []
+    first = np.zeros(n_refs, np.int64)
+    for c in range(-(-n_refs // per)):
+        own = range(per * c, min(per * (c + 1), n_refs))
+        node, crd, off = [], [], 0
+        for i in own:
+            node.append(ref_nodes[i])
+            crd.append(off + np.arange(len(ref_nodes[i])))
+            first[i] = off
+            off += len(ref_nodes[i])
+        pairs = np.stack([np.concatenate(node) - 1, np.concatenate(crd)], 1)
+        pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+        labels.append(f"grp{c}")
+        rows.append(np.unique(pairs[:, 0]))
+        coords.append(pairs)
+        headers.append([f"ref{i}" for i in own])
+        counts.append([len(ref_nodes[i]) for i in own])
+    save_column_annotation(path + ".column.annodbg.npz", num_rows, labels,
+                           rows, coords)
+    CoordToHeader(headers, counts).save(path + ".seqs")
+    return labels, first
+
+
+def segment_annotation(path, ref_nodes, num_rows, base_len):
+    """An annotation that splits each reference in two on the graph's node
+    ids: label 2i (``seg<2i>``) holds the k-mers of reference i's random
+    base, label 2i+1 those that reach into the repeat appended to it, so
+    the repeated k-mers carry both and the k-mers across the junction only
+    the second.  -> each label's sorted rows."""
+    labels, rows = [], []
+    for i, nodes in enumerate(ref_nodes):
+        tail = np.arange(len(nodes)) > base_len - K
+        for c, sel in ((2 * i, ~tail), (2 * i + 1, tail)):
+            labels.append(f"seg{c}")
+            rows.append(np.unique(nodes[sel] - 1))
+    save_column_annotation(path + ".column.annodbg.npz", num_rows, labels,
+                           rows)
+    return rows
+
+
+def junction_reads(rng, refs, n, m, base_len):
+    """``n`` reads of ``m`` bp across the junction of a reference's base and
+    its appended repeat (at least 2K + 10 bp before it, 10 after), each
+    with one substitution in the last K - 1 bases before the junction, so
+    that a seed ends in the base and its extension reaches the junction;
+    half reverse-complemented.  -> (sequences, kinds)."""
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    seqs = []
+    for _ in range(n):
+        r = refs[int(rng.integers(0, len(refs)))]
+        a = int(rng.integers(base_len + 10 - m,
+                             min(base_len - 2 * K - 10, len(r) - m) + 1))
+        codes = r[a: a + m].copy()
+        at = base_len - 1 - int(rng.integers(0, K - 1)) - a
+        codes[at] = (codes[at] + rng.integers(1, 4)) % 4
+        if rng.random() < 0.5:
+            codes = 3 - codes[::-1]
+        seqs.append(letters[codes].tobytes())
+    return seqs, ["junction"] * n
+
+
+def segment_labels(seq: bytes, o, seg_rows, node_of_key) -> set:
+    """The segments (``segment_annotation``) that hold every k-mer of
+    ``seq``: those of the references that hold them all whose rows hold
+    each of their nodes."""
+    codes = np.frombuffer(seq, np.uint8)
+    codes = np.select([codes == c for c in b"ACGT"], [0, 1, 2, 3], 4)
+    wk, _ = window_keys(codes.astype(np.uint8), o["k"])
+    rows = node_of_key[np.searchsorted(o["keys"], wk)] - 1
+    out = set()
+    for c in (2 * r + h for r in path_labels(seq, o) for h in (0, 1)):
+        col = seg_rows[c]
+        if len(col) and (col[np.minimum(np.searchsorted(col, rows),
+                                        len(col) - 1)] == rows).all():
+            out.add(c)
+    return out
+
+
+def labeled_fields(line: str, i: int, seq: bytes):
+    """A labeled TSV line -> its alignments' 6 fields and label field each
+    (None where an alignment has no label field, as a chain extended
+    through the graph; ``*`` lines none)."""
+    f = line.split("\t")
+    if f[0] != f"r{i}" or f[1].encode() != seq:
+        raise AssertionError(f"align -a: line {i} is not read {i}")
+    if f[2] == "*":
+        return []
+    out, j = [], 2
+    while j < len(f):
+        if f[j] not in "+-" or j + 6 > len(f):
+            raise AssertionError(f"align -a: line {i}: {line[:120]}")
+        lab = f[j + 6] if j + 6 < len(f) and f[j + 6] not in "+-" else None
+        out.append((f[j: j + 6], lab))
+        j += 6 + (lab is not None)
+    return out
+
+
+def path_labels(seq: bytes, o) -> set:
+    """The labels of every reference that holds all k-mers of ``seq``."""
+    codes = np.frombuffer(seq, np.uint8)
+    codes = np.select([codes == c for c in b"ACGT"], [0, 1, 2, 3], 4)
+    wk, _ = window_keys(codes.astype(np.uint8), o["k"])
+    out = None
+    for ki in np.searchsorted(o["keys"], wk).tolist():
+        here = set(o["pair_label"][o["csr_start"][ki]:
+                                   o["csr_start"][ki + 1]].tolist())
+        out = here if out is None else out & here
+    return out or set()
+
+
+def check_ranges(label_field: str, seq: bytes, refs, resolve):
+    """Every ``name:start-end`` range of a coordinate label field spells
+    ``seq`` in its reference; ``resolve(name, start)`` -> (reference,
+    0-based position).  -> the ranges checked."""
+    letters = np.frombuffer(b"ACGTN", np.uint8)
+    n = 0
+    for item in label_field.split(";"):
+        name, *spans = item.split(":")
+        for span in spans:
+            a, b = (int(x) for x in span.split("-"))
+            r, at = resolve(name, a - 1)
+            if b - a + 1 != len(seq) or letters[
+                    refs[r][at: at + len(seq)]].tobytes() != seq:
+                raise AssertionError(f"align -a: {name}:{a}-{b} does not "
+                                     f"spell the alignment {seq[:40]}")
+            n += 1
+    return n
+
+
+def labeled_align_phase(*args):
+    """Phase 8c (``labeled_align_runs``) with each graph file loaded once:
+    its commands, the ``--torch-device cpu`` comparisons among them, share
+    the ``DBGSuccinct`` that the first one loads (and the lazy tables its
+    alignments build), as a server holds its graph; each command still
+    loads its annotation.  So 8c's walls and rates leave out the graph's
+    load and its tables' build, which phases 8 and 8b pay in each
+    command."""
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    load = DBGSuccinct.__dict__["load"]
+    graphs = {}
+
+    def once(cls, path, *a, **kw):
+        if path not in graphs:
+            graphs[path] = load.__func__(cls, path, *a, **kw)
+        return graphs[path]
+
+    DBGSuccinct.load = classmethod(once)
+    try:
+        return labeled_align_runs(*args)
+    finally:
+        DBGSuccinct.load = load
+
+
+def labeled_align_runs(cfg, graph_path, refs, anno, oracle, node_of_key,
+                       seed, torch, dev, work):
+    """Phase 8c: ``align -a``, ``--align-chain`` and ``-o *.gfa`` through
+    the port's CLI (``align_cli``) on the 3b graph file (mmap layout), 150
+    bp reads of ``align_reads`` from the seed's stream 15:
+
+    1. ``-a`` with 3b's annotation (a label a reference, the graph's node
+       ids): ``warm`` reads, then ``calibrate`` reads for the rate, then
+       ``target`` reads (fewer where the rate puts fewer in ``budget_s``,
+       at least ``least``) under the launch counters;
+    2. ``-a`` on a segment annotation of the same references
+       (``segment_annotation``: each reference's base and its appended
+       repeat two labels, the repeated k-mers in both) on ``segments``
+       reads across the junction (``junction_reads``), whose extensions
+       lose their labels there: the run fails if label pruning drops no
+       child;
+    3. ``-a`` on a coordinate annotation of the same references on the
+       same node ids (``coordinate_annotation``: ``per`` references a
+       label) with its ``.seqs`` index, and again with
+       ``--no-coord-mapping``, ``coords`` reads each;
+    4. ``--align-chain`` on that annotation, ``chain`` reads;
+    5. ``-o x.gfa`` with and without ``--compacted`` on 8b's k = 21 graph
+       of the first ``k21_refs`` references (built here again), ``gfa``
+       reads of them.
+
+    Checks: one ``align_wave`` a wave, no ``wave_dp`` and no build kernel;
+    every alignment held to phase 8's oracle (``oracle_alignment``); each
+    label set of 1 equal to the labels of every reference that holds all
+    the path's k-mers (``path_labels``; a one-node alignment with an offset
+    only within them), and of 2 equal to the segments that hold them all
+    (``segment_labels``); every coordinate range of 3 spelling the
+    alignment in its reference; each chain's label a label of its path's
+    first k-mer; each P-line's nodes the graph's nodes of the read's
+    k-mers (0 where none), ``(k-1)M`` between them, the compacted line's
+    nodes among them; the first ``cpu`` reads' bytes of 1-4 and both
+    ``.path.gfa`` files equal to a ``--torch-device cpu`` run's.
+    ``align_wave`` timed on the largest wave of 1.  -> (launches,
+    entries)."""
+    from metagraph_tpu_torch.align import wave_extender as wx
+    lc = cfg["labeled"]
+    m = cfg["align"]["read_len"]
+    rng = np.random.default_rng([seed, 15])
+    seqs, kinds = align_reads(rng, refs, lc["pool"], m)
+    tdev = [] if dev.type == "cuda" else ["--torch-device", "cpu"]
+    base = os.path.join(work, "labeled")
+    t0 = time.perf_counter()
+    save_column_annotation(base + "_labels.column.annodbg.npz",
+                           anno.num_rows, anno.labels,
+                           [anno.column_rows(c)
+                            for c in range(anno.num_labels)])
+    ref_nodes = reference_nodes(refs, oracle, node_of_key)
+    glabels, first = coordinate_annotation(
+        base + "_coords", ref_nodes, anno.num_rows, lc["per_label"])
+    seg_rows = segment_annotation(base + "_segments", ref_nodes,
+                                  anno.num_rows, cfg["base_len"])
+    del ref_nodes
+    labels_a = base + "_labels.column.annodbg"
+    coords_a = base + "_coords.column.annodbg"
+    segments_a = base + "_segments.column.annodbg"
+    log(f"align -a: the 3b annotation ({anno.num_labels} labels), a "
+        f"coordinate annotation ({len(glabels)} labels of "
+        f"{lc['per_label']} references, with its .seqs) and a segment "
+        f"annotation ({len(seg_rows)} labels) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def fasta(name, idx, pool=seqs, kd=kinds):
+        path = os.path.join(work, f"labeled_{name}.fa")
+        with open(path, "w") as f:
+            f.writelines(f">r{j} {kd[i]}\n{pool[i].decode()}\n"
+                         for j, i in enumerate(idx))
+        return path
+
+    warm, cal = lc["warm"], lc["calibrate"]
+    tail = len(seqs) - warm - cal
+    _, wall, st = align_cli(["-i", graph_path, "-a", labels_a, *tdev,
+                             fasta("warm", range(tail, tail + warm)),
+                             fasta("calibrate", range(tail + warm,
+                                                      len(seqs)))])
+    (_, warm_s), (_, cal_s) = st["files"]
+    rate = cal / cal_s
+    n = int(min(max(min(rate * lc["budget_s"], lc["target"]), lc["least"]),
+                tail))
+    log(f"align -a calibration: {warm} reads in {warm_s:.2f} s, then {cal} "
+        f"reads in {cal_s:.2f} s ({rate:.1f} reads/s; the command "
+        f"{wall:.2f} s with the graph's and the annotation's load): {n} "
+        "reads for the counted run")
+    run_wave = wx.run_wave
+    check = {"seconds": 0.0, "largest": None}
+
+    def timed_largest(store, tables, pack_host, W, go, ge, out_host):
+        views = run_wave(store, tables, pack_host, W, go, ge, out_host)
+        big = check["largest"]
+        if big is None or len(pack_host) > big["rows"]:
+            t = time.perf_counter()
+            check["largest"] = time_wave(torch, dev, wx, store, tables,
+                                         pack_host.to(dev), W, go, ge,
+                                         out_host.numel())
+            check["seconds"] += time.perf_counter() - t
+        return views
+
+    def counted(args, name):
+        """One run under the launch counters: one align_wave a wave, no
+        other kernel.  -> (lines, the run's ALIGN_STATS)."""
+        (out, wall, st), launches = run_path(lambda: align_cli(
+            ["-i", *args, *tdev]))
+        others = {k: v for k, v in launches.items()
+                  if k != "align_wave" and v}
+        if dev.type == "cuda" and (launches["align_wave"] != st["wave_waves"]
+                                   or not st["wave_waves"] or others):
+            raise AssertionError(f"{name}: {launches['align_wave']} "
+                                 f"align_wave launches for "
+                                 f"{st['wave_waves']} waves, others "
+                                 f"{others}")
+        return out.splitlines(), st, launches
+
+    def split(st, wall_cut=0.0):
+        w = st["wall"] - wall_cut
+        host = w - st["seeding"] - st["wave_seconds"] - st["output"] \
+            - st["labels"]
+        return (f"{st['reads']} reads in {w:.2f} s ({st['reads'] / w:.1f} "
+                f"reads/s): seeding {st['seeding']:.2f} s, waves "
+                f"{st['wave_seconds']:.2f} s ({st['wave_waves']} waves, "
+                f"{st['wave_rows']} rows, {st['wave_pruned']} children "
+                f"pruned), the engine's host work {host:.2f} s, label "
+                f"fetches {st['labels']:.2f} s, output {st['output']:.2f} s")
+
+    def cpu_equal(args, name, lines, nc, pool=seqs, kd=kinds):
+        t = time.perf_counter()
+        out, *_ = align_cli(["-i", *args[:-1], "--torch-device", "cpu",
+                             fasta(f"{name}_cpu", range(nc), pool, kd)])
+        if out.splitlines() != lines[:nc]:
+            raise AssertionError(f"{name}: the CPU run's bytes differ")
+        return time.perf_counter() - t
+
+    # 1. align -a on the 3b annotation
+    keys = oracle["keys"]
+    wx.run_wave = timed_largest
+    try:
+        lines, st, launches = counted(
+            [graph_path, "-a", labels_a, fasta("main", range(n))],
+            "align -a")
+    finally:
+        wx.run_wave = run_wave
+    n_aln = n_lab = offsets = 0
+    for i, ln in enumerate(lines):
+        for f6, lab in labeled_fields(ln, i, seqs[i]):
+            _strand, seq, _cigar = oracle_alignment(seqs[i], f6, keys)
+            if lab is None:
+                raise AssertionError(f"align -a: read {i} without labels")
+            got = {int(x[3:]) for x in lab.split(";")}
+            if int(f6[5]):
+                offsets += 1
+                continue
+            if got != path_labels(seq, oracle):
+                raise AssertionError(f"align -a: read {i} labelled {got}, "
+                                     f"its path's labels "
+                                     f"{path_labels(seq, oracle)}")
+            n_aln += 1
+            n_lab += len(got)
+    mapped = sum(ln.split("\t")[2] != "*" for ln in lines)
+    if mapped < 0.8 * n or len(lines) != n:
+        raise AssertionError(f"align -a: {mapped} of {n} reads mapped")
+    nc = min(lc["cpu"], n)
+    cpu_s = cpu_equal([graph_path, "-a", labels_a, None], "labels", lines,
+                      nc)
+    log(f"align -a: {split(st, check['seconds'])}; the command "
+        f"{st['wall']:.2f} s with {check['seconds']:.2f} s of the largest "
+        f"wave's timing; {n_aln} alignments' label sets ({n_lab} labels) "
+        f"equal to the numpy oracle's, {offsets} one-node alignments with "
+        f"an offset held to the alignment oracle; every alignment held to "
+        f"phase 8's oracle; the first {nc} reads' bytes equal the CPU "
+        f"run's ({cpu_s:.1f} s)")
+    # 2. the segment annotation on reads across the references' junctions:
+    # extensions that reach a junction lose their labels there
+    sj, kj = junction_reads(np.random.default_rng([seed, 17]), refs,
+                            lc["segments"], m, cfg["base_len"])
+    lines_s, st_s, _ = counted([graph_path, "-a", segments_a,
+                                fasta("segments", range(len(sj)), sj, kj)],
+                               "align -a segments")
+    n_seg = 0
+    for i, ln in enumerate(lines_s):
+        for f6, lab in labeled_fields(ln, i, sj[i]):
+            _s, seq, _c = oracle_alignment(sj[i], f6, keys)
+            if lab is None:
+                raise AssertionError(f"align -a segments: read {i} without "
+                                     "labels")
+            got = {int(x[3:]) for x in lab.split(";")}
+            if int(f6[5]):
+                continue
+            want = segment_labels(seq, oracle, seg_rows, node_of_key)
+            if got != want:
+                raise AssertionError(f"align -a segments: read {i} "
+                                     f"labelled {got}, its path's "
+                                     f"segments {want}")
+            n_seg += 1
+    if not st_s["wave_pruned"] or n_seg < 0.5 * len(sj):
+        raise AssertionError(f"align -a segments: {st_s['wave_pruned']} "
+                             f"children pruned, {n_seg} label sets held for "
+                             f"{len(sj)} reads")
+    ns = min(lc["cpu"], len(sj))
+    cs = cpu_equal([graph_path, "-a", segments_a, None], "segments",
+                   lines_s, ns, sj, kj)
+    log(f"align -a segments: {split(st_s)}; {n_seg} alignments' label sets "
+        f"equal to the numpy oracle's; the first {ns} reads' bytes equal "
+        f"the CPU run's ({cs:.1f} s)")
+    del seg_rows
+    # 3. the coordinate annotation, through the .seqs index and without
+    nco = min(lc["coords"], n)
+    coords_fa = fasta("coords", range(nco))
+    per = lc["per_label"]
+
+    def by_header(name, at):
+        return int(name[3:]), at
+
+    def by_label(name, at):
+        c = int(name[3:])
+        own = np.arange(per * c, min(per * (c + 1), len(refs)))
+        r = own[np.searchsorted(first[own], at, side="right") - 1]
+        return int(r), at - int(first[r])
+
+    for flags, resolve, name in ((), by_header, "coords"), \
+            (("--no-coord-mapping",), by_label, "coords-no-mapping"):
+        lines_c, st_c, _ = counted([graph_path, "-a", coords_a, *flags,
+                                    coords_fa], f"align -a {name}")
+        ranges = 0
+        for i, ln in enumerate(lines_c):
+            for f6, lab in labeled_fields(ln, i, seqs[i]):
+                _s, seq, _c = oracle_alignment(seqs[i], f6, keys)
+                if lab is None:
+                    raise AssertionError(f"align -a {name}: read {i} "
+                                         "without coordinates")
+                ranges += check_ranges(lab, seq, refs, resolve)
+        if ranges < 0.8 * nco:
+            raise AssertionError(f"align -a {name}: {ranges} ranges")
+        cs = cpu_equal([graph_path, "-a", coords_a, *flags, None], name,
+                       lines_c, min(lc["cpu"], nco))
+        log(f"align -a {name}: {split(st_c)}; {ranges} coordinate ranges "
+            f"each spelling its alignment in its reference; the first "
+            f"{min(lc['cpu'], nco)} reads' bytes equal the CPU run's "
+            f"({cs:.1f} s)")
+    # 4. --align-chain on the coordinate annotation
+    nch = min(lc["chain"], n)
+    lines_ch, st_ch, _ = counted([graph_path, "-a", coords_a,
+                                  "--align-chain", fasta("chain",
+                                                         range(nch))],
+                                 "align --align-chain")
+    chained = extended = 0
+    for i, ln in enumerate(lines_ch):
+        for f6, lab in labeled_fields(ln, i, seqs[i]):
+            _s, seq, _c = oracle_alignment(seqs[i], f6, keys, spliced=True)
+            if lab is None:
+                # its end extended through the graph: JAX prints such an
+                # alignment without its chain's label
+                extended += 1
+                continue
+            codes = np.select([np.frombuffer(seq, np.uint8) == c
+                               for c in b"ACGT"], [0, 1, 2, 3], 4)
+            wk, _ = window_keys(codes.astype(np.uint8), K)
+            if not len(wk):
+                continue
+            ki = int(np.searchsorted(keys, wk[0]))
+            refs_of = oracle["pair_label"][oracle["csr_start"][ki]:
+                                           oracle["csr_start"][ki + 1]]
+            if int(lab[3:]) not in set((refs_of // per).tolist()):
+                raise AssertionError(f"--align-chain: read {i} chained on "
+                                     f"{lab}, its first k-mer in "
+                                     f"references {refs_of}")
+            chained += 1
+    if chained + extended < 0.5 * nch:
+        raise AssertionError(f"--align-chain: {chained} + {extended} "
+                             f"alignments of {nch} reads")
+    cs = cpu_equal([graph_path, "-a", coords_a, "--align-chain", None],
+                   "chain", lines_ch, min(lc["cpu"], nch))
+    log(f"align --align-chain: {split(st_ch)}; {chained} labelled chains "
+        f"and {extended} chains extended through the graph held to the "
+        f"oracles; the first {min(lc['cpu'], nch)} reads' bytes equal the "
+        f"CPU run's ({cs:.1f} s)")
+    # 5. -o x.gfa on the k = 21 graph of the first references
+    t = time.perf_counter()
+    nr = cfg["query_align"]["k21_refs"]
+    g21, o21, _, nodes21 = k21_graph(refs[:nr], [f"ref{i}"
+                                                 for i in range(nr)], dev)
+    g21.save(base + "_k21")
+    s21, k21 = align_reads(np.random.default_rng([seed, 16]), refs[:nr],
+                           lc["gfa"], m)
+    gfa_fa = fasta("gfa", range(len(s21)), s21, k21)
+    log(f"align -o x.gfa: the k = 21 graph of the first {nr} references "
+        f"({g21.num_nodes()} k-mers) built and saved in "
+        f"{time.perf_counter() - t:.1f} s")
+    del g21
+    for compacted in ((), ("--compacted",)):
+        files = []
+        for side, where in (("dev", tdev), ("cpu", ["--torch-device", "cpu"])):
+            path = os.path.join(work, f"labeled_{side}{len(compacted)}.gfa")
+            (out, wall, _st), gl = run_path(lambda: align_cli(
+                ["-i", base + "_k21.dbg", *compacted, "-o", path, *where,
+                 gfa_fa]))
+            if out or any(gl.values()):
+                raise AssertionError(f"align -o x.gfa: stdout {out[:80]!r},"
+                                     f" launches {gl}")
+            with open(path[:-4] + ".path.gfa", "rb") as f:
+                files.append((f.read(), wall))
+        if files[0][0] != files[1][0]:
+            raise AssertionError("align -o x.gfa: the CPU run's file "
+                                 "differs")
+        plines = files[0][0].decode().splitlines()
+        if len(plines) != len(s21):
+            raise AssertionError(f"align -o x.gfa: {len(plines)} P-lines "
+                                 f"for {len(s21)} reads")
+        for i, ln in enumerate(plines):
+            tag, num, parts, cigs = (ln.split("\t") + [""])[:4]
+            codes = np.select([np.frombuffer(s21[i], np.uint8) == c
+                               for c in b"ACGT"], [0, 1, 2, 3], 4)
+            wk, ok = window_keys(codes.astype(np.uint8), QA_K)
+            ki = np.minimum(np.searchsorted(o21["keys"], wk),
+                            len(o21["keys"]) - 1)
+            want = np.where(ok & (o21["keys"][ki] == wk), nodes21[ki], 0)
+            got = [int(x[:-1]) for x in parts.split(",")]
+            if tag != "P" or num != str(i + 1) or any(
+                    x[-1] != "+" for x in parts.split(",")) or (
+                    cigs.split(",") if cigs else []) != \
+                    [f"{QA_K - 1}M"] * (len(got) - 1):
+                raise AssertionError(f"align -o x.gfa: line {i} {ln[:80]}")
+            if not compacted and got != want.tolist():
+                raise AssertionError(f"align -o x.gfa: read {i}'s nodes "
+                                     f"{got[:5]} ... are not its k-mers'")
+            if compacted and not set(got[:-1]) <= set(want.tolist()):
+                raise AssertionError(f"align -o x.gfa --compacted: read "
+                                     f"{i}'s nodes are not among its "
+                                     "k-mers'")
+        log(f"align -o x.gfa{' --compacted' if compacted else ''}: "
+            f"{len(plines)} P-lines in {files[0][1]:.2f} s (the CPU run "
+            f"{files[1][1]:.2f} s, the same bytes), each held to the numpy "
+            "mapping of its read's k-mers")
+    # the kernel on the largest wave of 1, timed as it ran
+    big = check["largest"]
+    entries = {}
+    add_entry(entries, torch, " [align-labeled]", "align_wave",
+              *big["entry"])
+    log(f"align_wave [align-labeled]: the largest wave {big['rows']} x "
+        f"{big['W']} ({big['parents']} parents, {big['slots']} branch "
+        f"slots), device ms from the profiler {big['device_ms']}; "
+        f"{st['wave_waves']} waves, {launches['align_wave']} launches")
+    return {"align_wave": launches["align_wave"]}, entries
+
+
 SOURCES = {
     "wire_lookup": ("metagraph_tpu_torch/csrc/wire_lookup.cu",
                     "metagraph_tpu/succinct/ops.py:439"),
@@ -4344,7 +4946,7 @@ def main(argv=None) -> int:
     # A10: the JAX package's own workload (DeviceQueryPipeline, the older
     # epochs and the dedup epoch: kernels A, 2 and D2) on the basic
     # references, built by the port, and the basic batch's reads
-    *a10, a10_g, a10_anno = a10_phase(
+    *a10, a10_g, a10_anno, a10_nodes = a10_phase(
         cfg, refs, oracle, index.labels, seqs, codes,
         np.random.default_rng([args.seed, 10]), torch, dev, timed)
     # 8. align: the port's align command on the 3b graph, saved in the
@@ -4359,7 +4961,11 @@ def main(argv=None) -> int:
     qa_graph, qa_seqs, qa_kinds = timed(
         "query-align", query_align_phase, cfg, a10_path + ".dbg.npz", refs,
         a10_anno, oracle, args.seed, torch, dev)
-    del a10_anno
+    # 8c. align -a, --align-chain and -o *.gfa on the same graph file
+    labeled = timed("align-labeled", labeled_align_phase, cfg,
+                    a10_path + ".dbg.npz", refs, a10_anno, oracle, a10_nodes,
+                    args.seed, torch, dev, args.work)
+    del a10_anno, a10_nodes
 
     # build --graph, --suffix and a KMC input through the port's CLI; the
     # graphs without a BOSS that it writes (the basic k-mers as a bitmap
@@ -4467,7 +5073,7 @@ def main(argv=None) -> int:
     # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
     more = {"many_labels": (ml_launches, ml_entries), **words_more,
             **more_graphs, **builds, **last_flags, "a10": a10,
-            "align": align}
+            "align": align, "align-labeled": labeled}
     more["primary"] = (
         timed("query paths and oracle", main_path, engine, seqs2, codes2,
               period2, oracle, cfg, rng2, torch, dev,

@@ -1,6 +1,7 @@
 """The aligner; own copy of metagraph_tpu/align/aligner.py
-(``AlignmentAggregator``, ``DBGAligner``, ``format_alignments_tsv``; ref
-src/graph/alignment/dbg_aligner.{hpp,cpp}).
+(``AlignmentAggregator``, ``DBGAligner``, ``format_alignments_tsv``,
+``LabeledAligner`` and ``format_labeled_alignments_tsv``; ref
+src/graph/alignment/dbg_aligner.{hpp,cpp}, aligner_labeled.{hpp,cpp}).
 
 align_batch per query: seed -> extend (forward), then reverse-complement each
 local alignment and re-extend on the other strand (ref align_both_directions,
@@ -8,8 +9,9 @@ dbg_aligner.cpp:534-760); results aggregated into the top
 num_alternative_paths by LocalAlignmentLess.  The aligner holds the torch
 device that its extension waves run on (kernel B11 ``align_wave`` on
 the card, its plain version on the CPU).  On a canonical wrapper graph
-(``CanonicalDBG``) the suffix seeds walk the base graph's BOSS.  Labeled
-alignment waits for ROADMAP A13.3c.
+(``CanonicalDBG``) the suffix seeds walk the base graph's BOSS.  A
+labeled aligner's extensions run in the same shared waves, their label
+pruning inside the flat engine (labeled.py).
 """
 
 from __future__ import annotations
@@ -177,6 +179,9 @@ class DBGAligner:
                                      precomputed_ranges=pre["ranges"])
         return self.seeder_class(self.graph, query, orientation, nodes,
                                  self.config)
+
+    def _make_extender(self, query: bytes):
+        return DefaultColumnExtender(self.graph, self.config, query)
 
     def align(self, query: bytes) -> List[Alignment]:
         """One read: a batch of one, its waves on ``self.device``."""
@@ -358,7 +363,7 @@ class DBGAligner:
 
         fwd_seeder = self._make_seeder(query, False,
                                        pre.get(False) if pre else None)
-        fwd_extender = DefaultColumnExtender(self.graph, self.config, query)
+        fwd_extender = self._make_extender(query)
 
         if not self.config.forward_and_reverse_complement:
             yield from self._align_core(fwd_seeder, fwd_extender,
@@ -368,8 +373,7 @@ class DBGAligner:
             query_rc = revcomp(query)
             rc_seeder = self._make_seeder(query_rc, True,
                                           pre.get(True) if pre else None)
-            rc_extender = DefaultColumnExtender(self.graph, self.config,
-                                                query_rc)
+            rc_extender = self._make_extender(query_rc)
             yield from self._align_both(query, query_rc, fwd_seeder,
                                         rc_seeder, fwd_extender, rc_extender,
                                         add_alignment, get_min_path_score)
@@ -395,10 +399,15 @@ class DBGAligner:
     @staticmethod
     def _get_extensions_gen(extender, seed, min_path_score, force_fixed_seed):
         """Yield one extension job, which drive_batch runs in the flat
-        engine's waves across reads; receive its extensions."""
+        engine's waves across reads; receive its extensions.  A labeled
+        extender takes the seed's labels first (none: no job, no
+        extensions) and labels the extensions after."""
+        labeled = getattr(extender, "buffer", None) is not None
+        if labeled and not seed.empty() and not extender.seed_labels(seed):
+            return []
         exts = yield ("extend", (extender, seed, min_path_score,
                                  force_fixed_seed))
-        return exts
+        return extender.label_extensions(exts) if labeled else exts
 
     def _align_core(self, seeder, extender, callback, get_min_path_score,
                     force_fixed_seed):
@@ -501,5 +510,100 @@ def format_alignments_tsv(header: str, query: bytes,
     else:
         for a in alignments:
             out += "\t" + a.format_tsv()
+        out += "\n"
+    return out
+
+
+class LabeledAligner(DBGAligner):
+    """Annotation-aware alignment (ref aligner_labeled.hpp:120): extension
+    prunes branches whose label intersection with the seed becomes empty
+    (``LabeledExtender``, the pruning inside the flat engine's waves), so
+    alignments never cross label boundaries; each alignment carries the
+    path's label-set intersection and, on a coordinate annotation, its
+    path-consistent coordinates.  One process: ``processes`` is ignored,
+    as the JAX CLI ignores ``-p`` with ``-a``."""
+
+    def __init__(self, anno_graph, config: Optional[AlignerConfig] = None,
+                 device=None):
+        super().__init__(anno_graph.graph, config, device=device)
+        self.anno_graph = anno_graph
+        from .labeled import AnnotationBuffer
+        self.buffer = AnnotationBuffer(anno_graph)
+
+    def _make_extender(self, query: bytes):
+        from .labeled import LabeledExtender
+        return LabeledExtender(self.graph, self.config, query, self.buffer)
+
+    def _postprocess(self, alignments: List[Alignment]) -> List[Alignment]:
+        for a in alignments:
+            if not a.label_columns:
+                a.label_columns = self.buffer.columns_of_path(a.nodes)
+        if getattr(self.anno_graph.annotator, "has_coords", False):
+            self._attach_coordinates(alignments)
+        return alignments
+
+    def align_batch(self, queries: List[bytes],
+                    processes: int = 1) -> List[List[Alignment]]:
+        return [self._postprocess(alns)
+                for alns in super().align_batch(queries)]
+
+    def _attach_coordinates(self, alignments: List[Alignment]):
+        """Each alignment's start coordinates a label from the coordinate
+        annotation: a coordinate survives only if it is path-consistent,
+        every node j of the path carrying coord + j (on a canonical
+        wrapper, nodes above its offset walk the reverse strand, whose
+        coordinates decrease along the path); shifted to the alignment's
+        first character."""
+        from ..annotation.annotated_dbg import row_triples
+        ag = self.anno_graph
+        rc_off = getattr(ag.graph, "offset", None)
+        for a in alignments:
+            if not a.label_columns:
+                continue
+            nodes = np.asarray(a.nodes, dtype=np.int64)
+            at = np.flatnonzero(nodes)
+            if not len(at):
+                continue
+            real = nodes[at]
+            sign = np.where(real > rc_off, -1, 1) if rc_off is not None \
+                else np.ones(len(real), dtype=np.int64)
+            owner, lab, crd = row_triples(ag.annotator,
+                                          ag.graph_to_anno_index(real))
+            # each coordinate moved back to the path's first real node
+            start = crd - sign[owner] * (at[owner] - at[0])
+            shift = int(sign[0]) * (int(at[0]) - a.offset)
+            cols, coords = [], []
+            for c in a.label_columns:
+                sel = lab == c
+                pairs = np.unique(np.stack([owner[sel], start[sel]]), axis=1)
+                vals, cnt = np.unique(pairs[1], return_counts=True)
+                cands = vals[cnt == len(real)]
+                if len(cands):
+                    cols.append(c)
+                    coords.append(sorted((cands - shift).tolist()))
+            if cols:
+                a.label_columns = cols
+                a.label_coordinates = coords
+
+
+def format_labeled_alignments_tsv(header: str, query: bytes, alignments,
+                                  encoder, min_path_score: int = 0,
+                                  k: int = 0, cth=None) -> str:
+    """ref cli/align.cpp:254-290, the labeled branch: labels joined by
+    ';'; a coordinate-annotated alignment appends its label:start-end
+    ranges, resolved to sequence headers where a CoordToHeader is
+    given."""
+    from ..annotation.coord_to_header import format_alignment_coords
+    out = f"{header}\t{query.decode()}"
+    if not alignments:
+        out += f"\t*\t*\t{min_path_score}\t*\t*\t*\n"
+    else:
+        for a in alignments:
+            out += "\t" + a.format_tsv()
+            if a.label_coordinates:
+                out += "\t" + format_alignment_coords(a, encoder, k, cth)
+            elif a.label_columns:
+                out += "\t" + ";".join(encoder.decode(c)
+                                        for c in a.label_columns)
         out += "\n"
     return out

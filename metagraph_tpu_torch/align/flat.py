@@ -14,6 +14,14 @@ table comes back with the others of its step in one copy
 (``fetch_tables``).  The JAX package's native engine is left out; the
 numpy path its native wave short-circuits gives the same bytes.
 
+A labeled job (its extender carries an ``AnnotationBuffer``, labeled.py)
+prunes its children before the wave, as the JAX ``LabeledExtender``
+prunes inside its per-read column DP: each store row of the job keeps
+label words (its root row the seed's), a child's are its parent's ANDed
+with its node's, and a child left without labels never reaches the wave,
+the store, the convergence filter or the branch loop; a parent that loses
+every child is a tip.  Jobs without a buffer run exactly as before.
+
 Runs MANY seed extensions (across reads) concurrently while preserving each
 extension's EXACT best-first column order (ref per-read loop:
 aligner_extender_methods.cpp:412-700; the single-extension reference
@@ -196,6 +204,7 @@ class FlatEngine:
         self.seed_len = np.empty(cap, dtype=np.int64)
         self.seed_node0 = np.empty(cap, dtype=np.int64)
         self.ffs_v = np.zeros(cap, dtype=bool)
+        self.lab_v = np.zeros(cap, dtype=bool)           # labeled job
         self.pso_v = np.empty(cap, dtype=np.int64)
         self.max_nodes_cap = np.empty(cap, dtype=np.float64)
         self.xdrop_v = np.empty(cap, dtype=np.int32)
@@ -246,6 +255,11 @@ class FlatEngine:
         self.g_off = np.empty(self.gcap, dtype=np.int64)
         self.g_maxpos = np.empty(self.gcap, dtype=np.int64)
         self.g_score = np.empty(self.gcap, dtype=np.int64)
+        # the labeled jobs' AnnotationBuffer (labeled.py) and each of their
+        # store rows' label words: a root row the seed's, a child's its
+        # parent's ANDed with its node's
+        self.labels = None
+        self.g_lab = None
 
         # convergence-filter store: rows of width W-1 (np.empty = virtual
         # allocation; pages commit only on write)
@@ -266,6 +280,7 @@ class FlatEngine:
                      "rcut_v", "cutoff", "msc_v", "reb_v", "sdist_v"):
             setattr(self, name, _grow1(getattr(self, name), cap))
         self.ffs_v = _grow1(self.ffs_v, cap, fill=False)
+        self.lab_v = _grow1(self.lab_v, cap, fill=False)
         self.best = _grow1(self.best, cap, fill=0)
         self.TL = _grow1(self.TL, cap, fill=1)
         self.mcs = _grow1(self.mcs, cap, fill=0)
@@ -313,6 +328,10 @@ class FlatEngine:
         for name in ("g_node", "g_parent", "g_c", "g_off", "g_maxpos",
                      "g_score"):
             setattr(self, name, _grow1(getattr(self, name), cap))
+        if self.g_lab is not None:
+            lab = np.zeros((cap, self.g_lab.shape[1]), dtype=np.uint64)
+            lab[: self.g_n] = self.g_lab[: self.g_n]
+            self.g_lab = lab
         self.gcap = cap
 
     def _galloc(self, n):
@@ -358,6 +377,14 @@ class FlatEngine:
         self.seed_len[j] = len(seed.sequence)
         self.seed_node0[j] = seed.nodes[0]
         self.ffs_v[j] = job.ffs
+        buf = getattr(ext, "buffer", None)
+        self.lab_v[j] = buf is not None
+        if buf is not None and self.labels is not buf:
+            if self.labels is not None:
+                raise ValueError("the labeled jobs of one engine share one "
+                                 "annotation buffer")
+            self.labels = buf
+            self.g_lab = np.zeros((self.gcap, buf.n_words), dtype=np.uint64)
         self.pso_v[j] = int(ext.partial_sums[job.start + job.wsize])
         self.max_nodes_cap[j] = cfgj.max_nodes_per_seq_char
         self.xdrop_v[j] = cfgj.xdrop
@@ -408,6 +435,8 @@ class FlatEngine:
         self.g_off[g] = job.seed_offset
         self.g_maxpos[g] = 0
         self.g_score[g] = 0
+        if buf is not None:
+            self.g_lab[g] = ext.seed_words
         job.gcols = [g]
         ext.prev_starts = set()
         ext.min_cell_score = 0
@@ -620,6 +649,16 @@ class FlatEngine:
         ch_nodes = ch_nodes[corder]
         ch_chars = ch_chars[corder]
         ch_score = ch_score[corder]
+        ch_lab = None
+        if self.labels is not None and self.lab_v[pj].any():
+            alive, ch_lab = self._prune_labels(pj, ptidx, g_cur, ch_rows,
+                                               ch_nodes)
+            if not alive.all():
+                ch_rows, ch_nodes, ch_chars, ch_score, ch_lab = (
+                    ch_rows[alive], ch_nodes[alive], ch_chars[alive],
+                    ch_score[alive], ch_lab[alive])
+                if len(ch_rows) == 0:
+                    return
         ch_jid = pj[ch_rows]
         ch_off = next_off[ch_rows]
 
@@ -890,6 +929,9 @@ class FlatEngine:
             secs += time.perf_counter() - t0
             up += buf.numel() * 4
         self.free.extend(orow[~kept].tolist())
+        if ch_lab is not None:
+            li = np.flatnonzero(kept & self.lab_v[ch_jid])
+            self.g_lab[orow[li]] = ch_lab[li]
         STATS["seconds"] += secs
         STATS["bytes_up"] += up
         STATS["bytes_down"] += down
@@ -908,6 +950,29 @@ class FlatEngine:
                     np.concatenate([p[t] for p in conv_parts])
                     for t in range(5))
             self._conv_flush(ci, cj, cnode, ctidx, coffd, S)
+
+    def _prune_labels(self, pj, ptidx, g_cur, ch_rows, ch_nodes):
+        """The label pruning of a wave's children (metagraph_tpu/align/
+        labeled.py:93-113, ``LabeledExtender.call_outgoing``): a labeled
+        job's child keeps its parent's label words ANDed with its node's,
+        or its parent's where the node is 0 (a dummy), and is dropped when
+        none is left; a parent that loses every child is a tip.  ->
+        (children kept, (CH, n_words) label words, 0 where unlabeled)."""
+        lab = self.lab_v[pj[ch_rows]]
+        li = np.flatnonzero(lab)
+        words = np.zeros((len(ch_rows), self.g_lab.shape[1]),
+                         dtype=np.uint64)
+        nodes = ch_nodes[li]
+        nw = self.labels.node_words(nodes)
+        nw[nodes == 0] = ~np.uint64(0)
+        words[li] = self.g_lab[g_cur[ch_rows[li]]] & nw
+        alive = ~lab | words.any(axis=1)
+        wx.STATS["pruned"] += int(len(alive) - alive.sum())
+        if not alive.all():
+            lost = np.setdiff1d(ch_rows, ch_rows[alive])
+            for r in lost.tolist():
+                self.jobs[int(pj[r])].tips.append(int(ptidx[r]))
+        return alive, words
 
     def _conv_flush(self, ci, cj, cnode, ctidx, coffd, S):
         """Batched update_seed_filter over this wave's kept children, then

@@ -39,9 +39,10 @@ from .config import NINF
 # the engine's waves, rows, cells and seconds on the device (its copies
 # and align_wave launches: the jobs' tables up, each wave's vectors up and
 # read-back down, branch rows up, finished tables down) and their bytes,
-# which ``align -v`` prints; compute_wave counts its own calls here too
+# which ``align -v`` prints, and the children that label pruning dropped
+# before a wave; compute_wave counts its own calls here too
 STATS = {"waves": 0, "rows": 0, "cells": 0, "seconds": 0.0, "bytes_up": 0,
-         "bytes_down": 0, "bytes_tables": 0}
+         "bytes_down": 0, "bytes_tables": 0, "pruned": 0}
 # where a list: the engine appends (rows, bytes up, bytes down) a wave
 WAVE_LOG = None
 

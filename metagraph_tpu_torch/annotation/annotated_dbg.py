@@ -6,7 +6,9 @@ seen through ``CanonicalDBG`` fold back to their base node), the min-count
 rule of the reference, the top-label order (count descending, label code
 ascending) and the row multiset of a sequence; and of ``_cth_aggregate``
 (:126-200), the per-sequence results of a ``.seqs`` mapping
-(``cth_aggregate``), computed for a whole batch in numpy.
+(``cth_aggregate``), computed for a whole batch in numpy; and a small
+``AnnotatedDBG`` (the graph, its annotation and their row mapping) for
+the labeled aligner.
 """
 
 from __future__ import annotations
@@ -180,3 +182,20 @@ def cth_aggregate(annotation, headers: HeaderIndex,
                 result.append((name, n, co))
         out[s] = result
     return out
+
+
+class AnnotatedDBG:
+    """A graph and its annotation, as the labeled aligner reads them (own
+    copy of the parts of metagraph_tpu/annotation/annotated_dbg.py:35-63
+    that it needs)."""
+
+    def __init__(self, graph, annotator):
+        self.graph = graph
+        self.annotator = annotator
+
+    def graph_to_anno_index(self, node):
+        """row = base node - 1; a canonical wrapper's reverse-complement
+        ids fold to their base node first."""
+        off = self.graph.offset if hasattr(self.graph, "get_base_node") \
+            else 0
+        return graph_to_anno_index(np.asarray(node), off)

@@ -7,8 +7,9 @@ for both codecs ("sorted": one sorted array of set rows per label;
 optional per-entry k-mer counts (``vals_c``) and coordinates
 (``coords_c``: (row, coordinate) pairs sorted by row, then coordinate),
 and of its row queries ``get_rows_mask``, ``get_row_values`` and
-``get_row_tuples`` (:232-291).  ``LabelEncoder`` (:21) is the label table
-that converted
+``get_row_tuples`` (:232-291); ``row_labels`` gives the labels of many
+rows from a row-major index, for the labeled aligner's buffer.
+``LabelEncoder`` (:21) is the label table that converted
 (``StaticAnnotation``) files hold.
 """
 
@@ -34,6 +35,29 @@ class LabelEncoder:
         return self._labels
 
 
+def _row_major(label_rows, num_rows):
+    """A row-major index of per-label row arrays: -> (ptr (num_rows + 1,),
+    labels, order); row r's entries are [ptr[r], ptr[r + 1]), labels
+    ascending, each label's entries in their stored order, and ``order``
+    maps them to positions in the labels' concatenation."""
+    n = [len(r) for r in label_rows]
+    row = (np.concatenate(label_rows).astype(np.int64) if sum(n)
+           else np.zeros(0, np.int64))
+    order = np.argsort(row, kind="stable")
+    lab = np.repeat(np.arange(len(n), dtype=np.int64), n)[order]
+    return np.searchsorted(row[order], np.arange(num_rows + 1)), lab, order
+
+
+def _gather(ptr, rows):
+    """The entries of ``rows`` in a row-major index: -> (owner, positions),
+    owner i for rows[i]."""
+    rows = np.asarray(rows, dtype=np.int64)
+    lo = ptr[rows]
+    n = ptr[rows + 1] - lo
+    at = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(int(n.sum()))
+    return np.repeat(np.arange(len(rows)), n), at
+
+
 class ColumnMajorAnnotation:
     def __init__(self, num_rows: int, labels: Sequence[str],
                  rows: Sequence[np.ndarray],
@@ -51,6 +75,7 @@ class ColumnMajorAnnotation:
         self.has_values = has_values
         self.has_coords = has_coords
         self._row_index = None
+        self._label_index = None
         self.column_codecs = None
 
     @property
@@ -84,6 +109,18 @@ class ColumnMajorAnnotation:
                 pos = np.minimum(np.searchsorted(col, rows), len(col) - 1)
                 out[:, c] = col[pos] == rows
         return out
+
+    def row_labels(self, rows: np.ndarray):
+        """The labels of each row: -> (owner, label) int64 arrays, owner i
+        for rows[i], from a row-major index of the columns built at the
+        first call (O(labels found), where ``get_rows_mask`` is O(rows x
+        labels))."""
+        if self._label_index is None:
+            ptr, lab, _ = _row_major(self._rows, self.num_rows)
+            self._label_index = (ptr, lab)
+        ptr, lab = self._label_index
+        owner, at = _gather(ptr, rows)
+        return owner, lab[at]
 
     def get_row_values(self, rows: np.ndarray):
         """Per row: [(label code, value)] in code order; the value of a
@@ -122,15 +159,10 @@ class ColumnMajorAnnotation:
         first)."""
         if self._row_index is None:
             coords = self._coords or []
-            n = [len(c) for c in coords]
-            if sum(n):
-                rc = np.concatenate(coords)
-                lab = np.repeat(np.arange(len(coords), dtype=np.int64), n)
-                order = np.lexsort((lab, rc[:, 0]))       # stable
-                row, lab, crd = rc[order, 0], lab[order], rc[order, 1]
-            else:
-                row = lab = crd = np.zeros(0, np.int64)
-            ptr = np.searchsorted(row, np.arange(self.num_rows + 1))
+            ptr, lab, order = _row_major([c[:, 0] for c in coords],
+                                         self.num_rows)
+            crd = (np.concatenate([c[:, 1] for c in coords])[order]
+                   if len(order) else np.zeros(0, np.int64))
             self._row_index = (ptr, lab, crd)
         return self._row_index
 
@@ -138,12 +170,9 @@ class ColumnMajorAnnotation:
         """``get_row_tuples(rows)`` flattened: -> (owner, label,
         coordinate) arrays, owner i for rows[i], in the order of its
         tuples and their coordinates."""
-        rows = np.asarray(rows, dtype=np.int64)
         ptr, lab, crd = self.row_index()
-        lo = ptr[rows]
-        n = ptr[rows + 1] - lo
-        at = np.repeat(lo - np.cumsum(n) + n, n) + np.arange(int(n.sum()))
-        return np.repeat(np.arange(len(rows)), n), lab[at], crd[at]
+        owner, at = _gather(ptr, rows)
+        return owner, lab[at], crd[at]
 
     def coord_spans(self, rows: np.ndarray, code: int):
         """(lo, hi): label ``code``'s coordinates of row i are

@@ -64,3 +64,51 @@ class CoordToHeader:
         obj.headers = [[str(x) for x in z[f"h{c}"]] for c in range(n)]
         obj.offsets = [z[f"o{c}"].astype(np.int64) for c in range(n)]
         return obj
+
+
+def format_alignment_coords(alignment, encoder, k: int,
+                            cth: CoordToHeader | None = None) -> str:
+    """An alignment's coordinates (metagraph_tpu/annotation/
+    coord_to_header.py:69-126; ref Alignment::format_coords): without the
+    index, ``label:coord+1-coord+len`` per coordinate; with it, the range
+    split across sequence boundaries into 1-based inclusive
+    ``header:start-end`` local ranges, ';'-joined."""
+    if not getattr(alignment, "label_coordinates", None):
+        return ""
+    L = len(alignment.sequence)
+    parts = []
+    if cth is None:
+        for col, coords in zip(alignment.label_columns,
+                               alignment.label_coordinates):
+            s = encoder.decode(col)
+            for coord in coords:
+                s += f":{coord + 1}-{coord + L}"
+            parts.append(s)
+        return ";".join(parts)
+    seq_ranges = {}
+    order = []
+    for col, coords in zip(alignment.label_columns,
+                           alignment.label_coordinates):
+        n_seqs = cth.num_sequences(col)
+        for coord in coords:
+            cur_seq, cur_local = cth.map_single_coord(col, coord)
+            remaining = L
+            while remaining and cur_seq < n_seqs:
+                nt_len = cth.num_kmers_in_sequence(col, cur_seq) + k - 1
+                span = min(remaining, nt_len - cur_local)
+                if span > 0:
+                    # an empty sequence spans nothing (no 'header:1-0')
+                    key = (col, cur_seq)
+                    if key not in seq_ranges:
+                        seq_ranges[key] = []
+                        order.append(key)
+                    seq_ranges[key].append((cur_local, cur_local + span - 1))
+                    remaining -= span
+                cur_seq += 1
+                cur_local = 0
+    for col, seq_id in order:
+        s = cth.get_headers(col)[seq_id]
+        for start, end in seq_ranges[(col, seq_id)]:
+            s += f":{start + 1}-{end + 1}"
+        parts.append(s)
+    return ";".join(parts)

@@ -74,19 +74,29 @@ class DeviceBlockSparseAnno:
         R = Rm if R is None else R
         Lw = max(-(-L // 32), 1)
         chunk = int(min(chunk, max((256 << 20) // (Lw * 4), 1024)))
+        w0 = np.zeros((0, Lw), np.uint32)
         if tau is None:
             w0 = rows_words(matrix, np.arange(min(Rm, 1 << 14)), Lw)
             nl0 = _popcount_rows(w0)
             tau = int(np.clip(np.percentile(nl0, 90) if len(nl0) else 8,
                               4, 16))
+            # the sample's own overflow patterns may already pass the
+            # budget: then so do all the rows' (they only add patterns)
+            if max_dense_bytes is not None and R >= Rm and len(np.unique(
+                    w0[nl0 > tau], axis=0)) * L > max_dense_bytes:
+                return None
         ids = np.full((R + 1, tau), L, np.uint32)
         dmap = np.zeros(R + 1, np.int32)
         dense_rows = []                      # distinct overflow patterns
         dense_pat = {}                       # pattern bytes -> slot
         bitpos = np.arange(32, dtype=np.uint32)
         for lo in range(0, min(R, Rm), chunk):
-            rows = np.arange(lo, min(lo + chunk, Rm))
-            words = rows_words(matrix, rows, Lw)
+            hi = min(lo + chunk, Rm)
+            n0 = max(min(hi, len(w0)), lo)   # the sample's rows, not
+            words = w0[lo:n0]                # decoded again
+            if n0 < hi:
+                rest = rows_words(matrix, np.arange(n0, hi), Lw)
+                words = np.concatenate([words, rest]) if n0 > lo else rest
             nl = _popcount_rows(words)
             sparse = nl <= tau
             si = np.flatnonzero(sparse & (nl > 0))

@@ -69,8 +69,14 @@ extension, scoring and ``--align-post-chain``; ``-p N`` aligns in N
 processes), and ``--map`` (``--count-kmers``, ``--query-presence``,
 ``--filter-present``, ``--align-length``).  The extension waves run on
 the card (kernel B11 ``align_wave``) with or without ``--device``, unless
-``--torch-device cpu``.  ``-a`` and ``-o *.gfa`` are refused once the
-graph and the inputs have loaded, naming ROADMAP A13.3 (c and d); ``-v``
+``--torch-device cpu``.  ``-a`` aligns with ``LabeledAligner`` (the
+labels, or with a coordinate annotation the coordinates, resolved to
+sequence headers through a ``.seqs`` file beside it unless
+``--no-coord-mapping``), ``--align-chain`` chains the seeds of a
+coordinate annotation, both with their extensions in the same waves;
+``-o x.gfa`` writes each read's nodes as a P-line of ``x.path.gfa``
+(``--compacted``: the unitigs' ends).  A graph that is not succinct is
+refused once the inputs have loaded, naming ROADMAP A13.3e.  ``-v``
 prints the reads a second, the seconds of seeding and of the waves and the
 bytes the waves copy to and from the card.
 """
@@ -263,15 +269,9 @@ def cmd_query(args):
                                                   args.annotation),
                        cache=args.annotation + ".devsparse.npz")
     cth = None
-    if not args.no_coord_mapping:
-        base = args.annotation
-        for ext in (".column.annodbg.npz", ".column.annodbg",
-                    ".annodbg.npz", ".annodbg"):
-            if base.endswith(ext):
-                base = base[: -len(ext)]
-                break
-        if os.path.exists(base + ".seqs"):
-            cth = CoordToHeader.load(base + ".seqs")
+    if not args.no_coord_mapping and os.path.exists(
+            _seqs_beside(args.annotation)):
+        cth = CoordToHeader.load(_seqs_beside(args.annotation))
     aligner_config = None
     if args.align:
         if not hasattr(graph, "boss"):
@@ -369,6 +369,129 @@ def _map_records(args, g):
                     print(f"{s[i: i + L]}: {int(n)}")
 
 
+def _gfa_paths(args, g):
+    """``align -o x.gfa``: a P-line a read, its k-mers' nodes joined by
+    ``(k-1)M`` overlaps, into ``x.path.gfa`` (metagraph_tpu/cli/main.py
+    :902-934; ref cli/align.cpp:181-252).  With ``--compacted`` only the
+    nodes that end a unitig stay, and the last node walks on to its
+    unitig's end; as in the JAX CLI, the unitigs' last BOSS edges are
+    compared with node ids."""
+    from .graph import traversal
+    from .seq_io.fasta import read_fasta
+    is_end = ({path[-1] for path, _seq in traversal.call_paths(g.boss)}
+              if args.compacted else set())
+    out_path = args.out[:-4] + ".path.gfa"
+    with open(out_path, "w") as f:
+        for fi in args.input:
+            for i, rec in enumerate(read_fasta(fi)):
+                nodes = [int(x) for x in g.map_to_nodes_sequentially(rec.seq)]
+                if not nodes:
+                    continue
+                parts, cigs = [], []
+                ov = g.k - 1
+                for n in nodes[:-1]:
+                    if args.compacted and n not in is_end:
+                        continue
+                    parts.append(f"{n}+")
+                    cigs.append(f"{ov}M")
+                last = nodes[-1]
+                while args.compacted and last not in is_end:
+                    nxt = [nn for nn, _ in g.call_outgoing_kmers(last)]
+                    if not nxt:
+                        break
+                    last = nxt[-1]
+                parts.append(f"{last}+")
+                f.write(f"P\t{i + 1}\t{','.join(parts)}\t"
+                        f"{','.join(cigs)}\n")
+    print(f"wrote {out_path}", file=sys.stderr)
+
+
+def _seqs_beside(anno_path: str) -> str:
+    """The ``.seqs`` file that ``annotate --index-header-coords`` writes
+    beside an annotation."""
+    for ext in (".column.annodbg.npz", ".column.annodbg", ".annodbg.npz",
+                ".annodbg"):
+        if anno_path.endswith(ext):
+            return anno_path[: -len(ext)] + ".seqs"
+    return anno_path + ".seqs"
+
+
+def _align_labeled(args, g, cfg, device):
+    """``align -a``: labeled alignment (``LabeledAligner``), or with
+    ``--align-chain`` seed chaining on a coordinate annotation
+    (metagraph_tpu/cli/main.py:952-995).  TSV whatever ``--json`` says,
+    one process whatever ``-p`` says, as in the JAX CLI; the reads of a
+    file share the flat engine's waves.  ``-v`` prints reads/s and the
+    seconds of seeding, waves, label fetches and output."""
+    from .align import aligner as _aligner
+    from .align.aligner import (DBGAligner, LabeledAligner,
+                                format_labeled_alignments_tsv)
+    from .align.batch import drive_batch
+    from .align.seed_chainer import align_chained_seeds_gen
+    from .align.wave_extender import STATS
+    from .annotation.annotated_dbg import AnnotatedDBG
+    from .annotation.column import LabelEncoder
+    from .convert import load_annotation_for
+    from .seq_io.fasta import read_fasta
+
+    anno = load_annotation_for(args.infile_base, args.annotation)
+    ag = AnnotatedDBG(g, anno)
+    encoder = getattr(anno, "encoder", None) or LabelEncoder(anno.labels)
+    cth = None
+    if args.align_chain:
+        # chaining needs coordinates (ref dbg_aligner.cpp:546-550)
+        coords = getattr(anno, "_coords", None)
+        if not coords or not any(len(c) for c in coords):
+            print("ERROR: Chaining only supported for seeds with "
+                  "coordinates. Skipping seed chaining.", file=sys.stderr)
+            raise SystemExit(1)
+        aligner = DBGAligner(g, cfg, device=device)
+    else:
+        # the CoordToHeader index (ref cli/align.cpp:462) resolves
+        # coordinates to sequence headers unless --no-coord-mapping
+        if not args.no_coord_mapping and os.path.exists(
+                _seqs_beside(args.annotation)):
+            from .annotation.coord_to_header import CoordToHeader
+            cth = CoordToHeader.load(_seqs_beside(args.annotation))
+        aligner = LabeledAligner(ag, cfg, device=device)
+    out = sys.stdout
+    seed0, waves0 = _aligner.SEED_SECONDS[0], dict(STATS)
+    buf = getattr(aligner, "buffer", None)
+    labels0 = buf.seconds if buf is not None else 0.0
+    n_reads, t0, t_out, files = 0, time.perf_counter(), 0.0, []
+    for f in args.input:
+        t_file = time.perf_counter()
+        recs = read_fasta(f)
+        n_reads += len(recs)
+        if args.align_chain:
+            alns = drive_batch(
+                [align_chained_seeds_gen(aligner, ag, r.seq) for r in recs],
+                device, max_window=max((len(r.seq) + 1 for r in recs),
+                                       default=1))
+        else:
+            alns = aligner.align_batch([r.seq for r in recs])
+        t1 = time.perf_counter()
+        for rec, a in zip(recs, alns):
+            out.write(format_labeled_alignments_tsv(
+                rec.name, rec.seq, a, encoder, cfg.min_path_score, k=g.k,
+                cth=cth))
+        t_out += time.perf_counter() - t1
+        files.append((len(recs), time.perf_counter() - t_file))
+    st = ALIGN_STATS
+    st.clear()
+    st.update(reads=n_reads, wall=time.perf_counter() - t0, files=files,
+              seeding=_aligner.SEED_SECONDS[0] - seed0, output=t_out,
+              labels=(buf.seconds if buf is not None else 0.0) - labels0,
+              **{f"wave_{k}": v - waves0[k] for k, v in STATS.items()})
+    if args.verbose:
+        _trace(f"align -a: {n_reads} reads in {st['wall']:.3f} sec "
+               f"({n_reads / max(st['wall'], 1e-9):.1f} reads/s); seeding "
+               f"{st['seeding']:.3f} sec, {st['wave_waves']} waves of "
+               f"{st['wave_rows']} rows {st['wave_seconds']:.3f} sec, "
+               f"label fetches {st['labels']:.3f} sec, output "
+               f"{t_out:.3f} sec")
+
+
 def _alignment_json(rec, alns) -> str:
     """One GA4GH-style JSON line an alignment (cli/main.py:1008-1037)."""
     import json
@@ -410,16 +533,18 @@ def cmd_align(args):
     device = resolve_device(args.torch_device)
     g = DBGSuccinct.load(args.infile_base)
     if not hasattr(g, "boss"):
+        if args.annotation:
+            load_annotation_for(args.infile_base, args.annotation)
+        for f in args.input:
+            read_fasta(f)
         raise NotImplementedError("align: graphs that are not succinct are "
                                   "not ported yet (ROADMAP A13.3e)")
     if args.map:
         _map_records(args, g)
         return
     if args.out and args.out.endswith(".gfa"):
-        for f in args.input:
-            read_fasta(f)
-        raise NotImplementedError("align -o *.gfa (query paths in GFA) is "
-                                  "not ported yet (ROADMAP A13.3d)")
+        _gfa_paths(args, g)
+        return
     cfg = AlignerConfig(
         min_exact_match=args.align_min_exact_match,
         min_seed_length=args.align_min_seed_length,
@@ -435,11 +560,8 @@ def cmd_align(args):
               "Skipping seed chaining.", file=sys.stderr)
         raise SystemExit(1)
     if args.annotation:
-        load_annotation_for(args.infile_base, args.annotation)
-        for f in args.input:
-            read_fasta(f)
-        raise NotImplementedError("align -a (labeled and chained alignment) "
-                                  "is not ported yet (ROADMAP A13.3c)")
+        _align_labeled(args, g, cfg, device)
+        return
     aligner = DBGAligner(g, cfg, device=device)
     out = sys.stdout
     seed0, waves0 = _aligner.SEED_SECONDS[0], dict(STATS)

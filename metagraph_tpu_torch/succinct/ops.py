@@ -78,15 +78,25 @@ def pack_codes32(chars: np.ndarray, order: np.ndarray | None = None,
     if chars.ndim == 1:
         chars = chars[None, :]
     if order is not None:
-        chars = chars[:, order]
+        chars = np.take(chars, order, axis=1)    # faster than chars[:, order]
     N, K = chars.shape
     per = 32 // bits
-    out = np.zeros((N, key_words(K, bits)), dtype=np.uint32)
-    for j in range(K):
-        w, slot = divmod(j, per)
-        out[:, w] |= chars[:, j].astype(np.uint32) \
-            << np.uint32(32 - bits - bits * slot)
-    return out
+    W = key_words(K, bits)
+    if N and (int(chars.min()) < 0 or int(chars.max()) >= 1 << bits):
+        # a code wider than its slot spills into the next, as the OR does
+        out = np.zeros((N, W), dtype=np.uint32)
+        for j in range(K):
+            w, slot = divmod(j, per)
+            out[:, w] |= chars[:, j].astype(np.uint32) \
+                << np.uint32(32 - bits - bits * slot)
+        return out
+    # every code fits its slot: the words are the codes' bytes (two
+    # nibbles a byte at 4 bits) read big-endian
+    codes = np.zeros((N, W * per), dtype=np.uint8)
+    codes[:, :K] = chars
+    if bits == 4:
+        codes = (codes[:, 0::2] << 4) | codes[:, 1::2]
+    return codes.reshape(N, W, 4).view(">u4")[:, :, 0].astype(np.uint32)
 
 
 def pack_kmers32(chars: np.ndarray, bits: int = 4) -> np.ndarray:

@@ -13,9 +13,11 @@ extension and scoring flags, ``--align-edit-distance``,
 ``--align-alternative-alignments``, ``--align-post-chain``, ``-p 2`` and
 ``--map`` (``--count-kmers``, ``--query-presence``, ``--filter-present``,
 ``--align-length`` below k).  ``--align-chain`` without ``-a`` gives the
-JAX error line and exit 1.  ``-a`` and ``-o *.gfa`` are refused naming
-ROADMAP A13.3, only after the graph, the annotation and the reads load: a
+JAX error line and exit 1.  ``-a`` on a hash graph is refused naming
+ROADMAP A13.3e, only after the graph, the annotation and the reads load: a
 missing read file gives the JAX CLI's ``[error] File not found`` instead.
+``-a``, ``--align-chain`` and ``-o *.gfa`` have files of their own
+(tests/test_torch_align_labeled_cli.py, tests/test_torch_traversal_gfa.py).
 """
 
 import numpy as np
@@ -83,8 +85,9 @@ CASES = {
     "protein-map": ("protein", ["--map", "--count-kmers"]),
 }
 
-# refusal -> flags; the port raises NotImplementedError naming A13.3
-REFUSALS = {"annotation": ["-a", "{anno}"], "gfa": ["-o", "{tmp}/x.gfa"]}
+# refusal -> (graph, flags); the port raises NotImplementedError naming
+# A13.3e
+REFUSALS = {"hash-annotation": ("hash", ["-a", "{anno}"])}
 
 
 def reads_of(rng, refs, letters, dna):
@@ -127,15 +130,16 @@ def runs(tmp_path_factory):
         files[name] = (tmp / f"{name}.dbg", tmp / f"{name}.q.fa")
     jax_cli("annotate", "-i", files["dna"][0], "--anno-header", "-o",
             tmp / "anno", tmp / "dna.fa")
+    jax_cli("build", "--graph", "hash", "-k", "15", "-o", tmp / "hash",
+            tmp / "dna.fa")
     lines = {}
     for case, (graph, flags) in CASES.items():
         g, q = files[graph]
         for dev in ((), ("--device",)):
             lines[(case, bool(dev))] = ["align", "-i", g, *flags, *dev, q]
-    for case, flags in REFUSALS.items():
-        g, q = files["dna"]
-        flags = [f.format(anno=tmp / "anno.column.annodbg", tmp=tmp)
-                 for f in flags]
+    for case, (graph, flags) in REFUSALS.items():
+        g, q = tmp / f"{graph}.dbg", files["dna"][1]
+        flags = [f.format(anno=tmp / "anno.column.annodbg") for f in flags]
         lines[(case, True)] = ["align", "-i", g, *flags, q]
         lines[(case, False)] = ["align", "-i", g, *flags, tmp / "none.fa"]
     keys = list(lines)
@@ -158,11 +162,11 @@ def test_align_bytes_equal_jax(runs, case, device):
 
 @pytest.mark.parametrize("case", sorted(REFUSALS))
 def test_refusals_after_inputs_load(runs, case):
-    """With every input present the port refuses naming A13.3; with the
+    """With every input present the port refuses naming A13.3e; with the
     read file missing it reports that file first, as the JAX CLI does."""
     out, code, err, _ = runs["got"][(case, True)]
     assert code == 1 and out == ""
-    assert err.startswith("NotImplementedError") and "A13.3" in err
+    assert err.startswith("NotImplementedError") and "A13.3e" in err
     line = [str(a) for a in runs["lines"][(case, False)]]
     want = run_jax(line, stderr=True)
     got = runs["got"][(case, False)]

@@ -2512,3 +2512,123 @@ def test_server_align_cuda_matches_cpu(cuda, tmp_path):
     finally:
         for s in servers:
             s.shutdown()
+
+
+# --------------------------------------------------------------------------
+# align -a, --align-chain and -o *.gfa
+# --------------------------------------------------------------------------
+
+def _labeled_index(tmp_path, seed=6):
+    """``_align_graph``'s forked graph with an annotation of one label a
+    reference on the nodes of its four random references, and their
+    coordinates (each k-mer's positions in its reference), written as the
+    JAX ``annotate --coordinates`` writes it.  The k-mers where the two
+    joined references leave the others carry no label, so an extension
+    that branches into them is pruned; reads cross those junctions.
+    -> (graph path, annotation path, reads path, graph, reads)."""
+    gpath, qpath, reads = _align_graph(tmp_path, seed=seed, forks=True)
+    g = DBGSuccinct.load(str(gpath))
+    rng = np.random.default_rng(seed)
+    refs = ["".join(rng.choice(list("ACGT"), 3000)) for _ in range(4)]
+    arrays = {"labels": np.array([f"ref{i}" for i in range(len(refs))]),
+              "num_rows": g.max_index(), "has_values": False,
+              "has_coords": True}
+    for c, r in enumerate(refs):
+        nodes = g.map_to_nodes(r.encode()).astype(np.int64)
+        pos = np.flatnonzero(nodes)
+        pairs = np.stack([nodes[pos] - 1, pos], 1)
+        pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+        arrays[f"rows_{c}"] = np.unique(pairs[:, 0])
+        arrays[f"vals_{c}"] = np.zeros(0, np.int64)
+        arrays[f"coords_{c}"] = pairs
+    np.savez(tmp_path / "c.column.annodbg.npz", **arrays)
+    # reads across the junctions, where a branch leads into other labels
+    comp = str.maketrans("ACGT", "TGCA")
+    for r, at in ((0, 1000), (2, 1200)):
+        for a in (at - 140, at - 100, at - 60):
+            s = refs[r][a: a + 150]
+            reads += [s, s[::-1].translate(comp)]
+    with open(qpath, "w") as f:
+        f.writelines(f">q{i}\n{s}\n" for i, s in enumerate(reads))
+    return gpath, tmp_path / "c.column.annodbg", qpath, g, reads
+
+
+def test_labeled_align_cuda_matches_cpu(cuda, tmp_path):
+    """A LabeledAligner batch on the card: every wave one align_wave launch
+    over only the children that label pruning kept (none of the pruned
+    ones reaches the kernel or the store), each wave's store and output
+    equal to align_wave_plain's on the card, no wave_dp; the alignments,
+    labels and coordinates equal to the CPU run's."""
+    from metagraph_tpu_torch.align import flat
+    from metagraph_tpu_torch.align import wave_extender as wx
+    from metagraph_tpu_torch.align.aligner import LabeledAligner
+    from metagraph_tpu_torch.annotation.annotated_dbg import AnnotatedDBG
+    from metagraph_tpu_torch.annotation.matrix import load_annotation
+    _, apath, _, g, reads = _labeled_index(tmp_path)
+    ag = AnnotatedDBG(g, load_annotation(str(apath)))
+    waves, kept = [], []
+    run_wave, prune = wx.run_wave, flat.FlatEngine._prune_labels
+
+    def check(store, tables, pack, W, go, ge, out):
+        ref = store.clone()
+        views = run_wave(store, tables, pack, W, go, ge, out)
+        want = torch.empty(out.shape, dtype=torch.int32, device=cuda)
+        wx.align_wave_plain(ref, tables, pack.to(cuda), W, go, ge, want)
+        waves.append((len(pack), torch.equal(store, ref)
+                      and torch.equal(out, want.cpu())))
+        return views
+
+    def record(self, *args):
+        alive, words = prune(self, *args)
+        kept.append(int(alive.sum()))
+        return alive, words
+
+    wx.run_wave, flat.FlatEngine._prune_labels = check, record
+    pruned = wx.STATS["pruned"]
+    try:
+        wx.align_wave.launches = wx.wave_dp.launches = 0
+        got = LabeledAligner(ag, device=cuda).align_batch(
+            [r.encode() for r in reads])
+    finally:
+        wx.run_wave, flat.FlatEngine._prune_labels = run_wave, prune
+    assert waves and all(ok for _, ok in waves)
+    assert wx.align_wave.launches == len(waves) and not wx.wave_dp.launches
+    assert wx.STATS["pruned"] > pruned
+    # every wave that launched holds exactly the children pruning kept
+    assert [n for n, _ in waves] == [n for n in kept if n]
+    want = LabeledAligner(ag, device="cpu").align_batch(
+        [r.encode() for r in reads])
+
+    def fields(res):
+        return [[(a.format_tsv(), a.nodes, a.label_columns,
+                  a.label_coordinates) for a in r] for r in res]
+    assert fields(got) == fields(want)
+    assert sum(bool(r and r[0].label_coordinates) for r in want) >= 55
+
+
+@pytest.mark.parametrize("flags", (("-a", "{anno}"),
+                                   ("-a", "{anno}", "--align-chain"),
+                                   ("-o", "{tmp}/x.gfa"),
+                                   ("-o", "{tmp}/x.gfa", "--compacted")),
+                         ids=("labeled", "chain", "gfa", "gfa-compacted"))
+def test_align_labeled_cli_cuda_matches_cpu(cuda, tmp_path, flags):
+    """align -a, --align-chain and -o *.gfa through the port's CLI on the
+    card and on the CPU: the same stdout and .path.gfa bytes."""
+    import contextlib
+    import io
+    from metagraph_tpu_torch.cli import main
+    gpath, apath, qpath, _, _ = _labeled_index(tmp_path)
+    outs = []
+    for dev in ("cuda", "cpu"):
+        args = [f.format(anno=apath, tmp=tmp_path / dev) for f in flags]
+        (tmp_path / dev).mkdir()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["align", "-i", str(gpath), *args, str(qpath),
+                  "--torch-device", dev])
+        gfa = tmp_path / dev / "x.path.gfa"
+        outs.append((buf.getvalue(), gfa.read_bytes() if gfa.exists()
+                     else None))
+    assert outs[0] == outs[1]
+    text = outs[0][0] or outs[0][1].decode()
+    assert text.count("\n") >= 126

@@ -100,6 +100,32 @@ def test_from_matrix_matches_jax(kind, tau):
             jm, tau=4, max_dense_bytes=Rd * L - 1) is None
 
 
+@pytest.mark.parametrize("kind", ("brwt", "row_diff", "flat"))
+def test_from_matrix_budget_matches_jax(kind):
+    """tau from the first rows' sample, which is also the first chunk (not
+    decoded again) and whose own overflow patterns may already pass the
+    budget: None one byte under the patterns' bytes, as in JAX, and the
+    JAX arrays at the budget itself, over several chunks."""
+    from metagraph_tpu.annotation.sparse_device import \
+        DeviceBlockSparseAnno as JaxSparse
+    rng = np.random.default_rng(12)
+    R, L = 1500, 45
+    cols = random_columns(rng, R, L, n_patterns=5, pattern_rows=120)
+    jm = jax_matrix(kind, cols, R, L, rng)
+    pm = port_copy(jm, L, kind)
+    full = sd.DeviceBlockSparseAnno.from_matrix(pm, chunk=256)
+    Rd = full.dense8.shape[0] - 1
+    assert Rd > 1
+    for budget in (Rd * L - 1, (Rd - 1) * L):
+        assert sd.DeviceBlockSparseAnno.from_matrix(
+            pm, chunk=256, max_dense_bytes=budget) is None
+        assert JaxSparse.from_matrix(
+            jm, chunk=256, max_dense_bytes=budget) is None
+    same_arrays(sd.DeviceBlockSparseAnno.from_matrix(
+        pm, chunk=256, max_dense_bytes=Rd * L),
+        JaxSparse.from_matrix(jm, chunk=256, max_dense_bytes=Rd * L))
+
+
 @pytest.mark.parametrize("tau", (None, 4, 16))
 def test_from_columns_matches_jax(tau):
     from metagraph_tpu.annotation.sparse_device import \

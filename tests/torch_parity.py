@@ -10,6 +10,8 @@ import os
 import subprocess
 import sys
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # runs each command line through the port's CLI in this one process: ->
@@ -181,3 +183,41 @@ def detour_references_and_reads(rng, n_refs=4, length=700, n_reads=24,
     unknown = "N" if letters == "ACGT" else "X"
     reads.append(refs[1][:60] + unknown * 4 + refs[1][64: read_len])
     return refs, reads
+
+
+def mosaic_references(rng, n_refs=70, n_blocks=24, block=(40, 70),
+                      per_ref=4, mutate=0.0):
+    """References that are mosaics of shared random blocks, so that paths
+    branch at block boundaries into blocks that other references (labels)
+    hold; ``mutate`` substitutes that share of each reference's
+    characters.  -> list of str."""
+    blocks = ["".join(rng.choice(list("ACGT"), int(rng.integers(*block))))
+              for _ in range(n_blocks)]
+    refs = []
+    for _ in range(n_refs):
+        s = list("".join(blocks[int(b)] for b in
+                         rng.choice(n_blocks, per_ref, replace=False)))
+        for p in np.flatnonzero(rng.random(len(s)) < mutate):
+            s[p] = "ACGT"[("ACGT".index(s[p]) + 1) % 4]
+        refs.append("".join(s))
+    return refs
+
+
+def reads_from(rng, refs, n, length=(50, 90), complement=True):
+    """Reads cut from the references: substitutions, a 2 bp deletion in
+    every fifth, every third reverse-complemented."""
+    comp = str.maketrans("ACGT", "TGCA")
+    out = []
+    for i in range(n):
+        r = refs[int(rng.integers(0, len(refs)))]
+        a = int(rng.integers(0, max(len(r) - length[1], 1)))
+        s = list(r[a: a + int(rng.integers(*length))])
+        for p in rng.choice(len(s), int(rng.integers(0, 3)), replace=False):
+            s[p] = "ACGT"[("ACGT".index(s[p]) + 1) % 4]
+        if i % 5 == 4:
+            del s[20: 22]
+        s = "".join(s)
+        if complement and i % 3 == 1:
+            s = s[::-1].translate(comp)
+        out.append(s)
+    return out
