@@ -182,8 +182,7 @@ then:
    counts-sum modes, each reply equal to the engine's own sequential
    ``query_records`` output and, label for label and count for count, to
    the oracle; then ``/stats``, ``/column_labels``, a malformed request
-   (400) and ``/align`` (500, naming ROADMAP A13); each request's latency
-   printed;
+   (400) and ``/align`` (8b's requests); each request's latency printed;
 6. runs ``batch_local_align_scores`` (kernel 4) on 4,096 pairs of 150 x
    300 and holds it against its plain version and, on a sample, the numpy
    oracle; then on 1,024 pairs of 1,000 x 1,000 and 256 pairs of 2,000 x
@@ -202,9 +201,9 @@ then:
    substitutions and, a tenth of them, a 1-3 bp indel, half
    reverse-complemented.  A calibration command aligns 20 reads, which
    build the graph's lazy tables, then 200 reads, whose seconds give the
-   rate; the counted run takes 1,000 reads (a batch whose waves hold up
-   to 1,000 rows), or as many as that rate puts in 40 s where that is
-   fewer (at least 200): one ``align_wave`` launch a wave over the
+   rate; the counted run takes 600 reads (a batch whose waves hold up to
+   600 rows), or as many as that rate puts in 40 s where that is fewer
+   (at least 200): one ``align_wave`` launch a wave over the
    engine's column store on the card and no ``wave_dp``, every wave's
    written store rows, statistics and read-back rows held whole against
    ``align_wave_plain`` on the card on the same store (the check's
@@ -216,7 +215,7 @@ then:
    references'), every
    error-free read aligned end to end with an all-match CIGAR; the first
    20 reads' bytes equal to a ``--torch-device cpu`` run's, the first
-   100 reads' to a ``-p 4`` run's; reads/s and the split into seeding,
+   40 reads' to a ``-p 4`` run's; reads/s and the split into seeding,
    waves, the engine's host work and output printed; ``align_wave``
    timed on the run's largest wave (events and the profiler), and
    ``wave_dp`` on its planes through ``compute_wave``'s own entry;
@@ -227,10 +226,10 @@ then:
    (``convert.from_graph`` with 3b's annotation): 150 bp reads of
    ``align_reads`` from the seed's stream 13 at 37,500 bp a batch.  A
    warm run of 20 reads builds the graph's lazy tables and a run of 200
-   gives the rate; then 1,000 reads (fewer where that rate puts fewer in
+   gives the rate; then 500 reads (fewer where that rate puts fewer in
    60 s, at least 200) on the full graph, the same reads with
    ``--batch-align`` (k = 31: each batch graph on the general route, D2),
-   and 200 reads of the first 100 references with ``--batch-align``
+   and 150 reads of the first 100 references with ``--batch-align``
    against their k = 21 graph built by the port (the batch graph on the
    device route, D1-D4).  Each run under the launch counters: one
    ``align_wave`` a wave, no ``wave_dp``, kernels A, 2 and 3 on every
@@ -252,18 +251,18 @@ then:
    ``--align-chain`` and ``-o *.gfa`` through the port's CLI, 150 bp reads
    of ``align_reads`` from the seed's stream 15: ``-a`` with 3b's
    1,000-label annotation (written as ``annotate`` writes it): 20 warm
-   reads, 200 for the rate, then 500 reads (fewer where that rate puts
+   reads, 200 for the rate, then 300 reads (fewer where that rate puts
    fewer in 40 s, at least 200); ``-a`` on a segment annotation (each
    reference's base and its appended repeat two labels, 2,000 in all) on
-   200 reads across that junction with a substitution just before it
+   120 reads across that junction with a substitution just before it
    (stream 17), whose extensions lose their labels at the junction, so
    label pruning must drop children; ``-a`` on a coordinate annotation of
    the same references on the same node ids (10 references a label, k-mer
    coordinates numbered as ``annotate --coordinates`` numbers them) with
-   its ``.seqs`` index, and with ``--no-coord-mapping``, 200 reads each;
-   ``--align-chain`` on it, 200 reads; ``-o x.gfa`` with and without
+   its ``.seqs`` index, and with ``--no-coord-mapping``, 120 reads each;
+   ``--align-chain`` on it, 120 reads; ``-o x.gfa`` with and without
    ``--compacted`` on 8b's k = 21 graph of the first 100 references
-   (built again here), 200 reads of them.  Each run under the launch
+   (built again here), 120 reads of them.  Each run under the launch
    counters: one ``align_wave`` a wave, no other kernel (none at all for
    the GFA runs); every alignment held to 8's oracle (a chain's runs of
    matches and mismatches, its sequence jumps at its splices); each label
@@ -272,7 +271,7 @@ then:
    in its reference, through the headers and through the label's own
    coordinates; each chain's label a label of its first k-mer; each
    P-line's nodes the graph's nodes of the read's k-mers (0 where none),
-   ``(k-1)M`` between them, a compacted line's among them; the first 50
+   ``(k-1)M`` between them, a compacted line's among them; the first 30
    reads' bytes of every run and both ``.path.gfa`` files equal to a
    ``--torch-device cpu`` run's; reads/s and the seconds of seeding,
    waves, the engine's host work, label fetches and output printed, with
@@ -280,6 +279,33 @@ then:
    largest wave of the 1,000-label run.  The commands share the graph
    object that the first loads, so 8c's walls leave out its load and its
    lazy tables' build.
+8d. (right after 5e, on its three graph objects: 3c's ``--graph`` files,
+   loaded once) alignment on graphs that are not succinct, 150 bp reads
+   of ``align_reads``, of the basic references for "bitmap" (stream 18),
+   of the wide DNA references for "hash-canonical" and "sshash" (stream
+   19): ``query --align`` through ``QueryEngine.query_records`` on the
+   bitmap graph and 5e's index (the basic annotation moved to the
+   bitmap's ids), whose engine lends the graph its kernel A table, 300
+   reads; ``align`` through the CLI on each graph, after a warm run (the
+   other two graphs build their tables at their first lookup on the
+   card) and on bitmap a calibration run, 200-1,000 reads on bitmap and
+   100-400 on each other graph (as many as the rate puts in 6 s, a third
+   of that on each other graph); ``align --map --count-kmers`` on each
+   graph's reads; ``align -a`` with the moved annotation on 200 reads.
+   Each run under the launch counters: one ``align_wave`` a wave, no
+   ``wave_dp``, every wave held whole against ``align_wave_plain`` on the
+   card; each ``call_outgoing_batch`` call of the waves one kernel A
+   launch; the mapping one launch a file; every alignment held to 8's
+   oracle over the graph's k-mers (both strands on the canonical graph),
+   every error-free read all-match end to end at the full score; the
+   ``--map`` lines equal to a ``searchsorted`` of the graph's keys and the
+   node ids computed here; ``-a``'s label sets and the query's labels
+   equal to the oracle's; the first 50 reads' bytes of every run equal to
+   a ``--torch-device cpu`` run's; reads/s and the seconds of seeding,
+   waves and the engine's host work, kernel A's launches printed; kernel
+   A on the bitmap run's largest wave's candidate keys against its plain
+   version, an L2 control and the children computed here, timed; and
+   ``align_wave`` on that run's largest wave.
 
 Depth cuts, which keep the script inside its time limit (widths are
 never cut): the basic batch is drawn at 150,000 reads, which 3b takes
@@ -290,9 +316,13 @@ before) and
 the long sequence, the coords mode and the seqs deployment
 ``coords_prefix`` = 10,000 (20,000 before), the bitmap deployment 10,000;
 the pan-genome holds 3 base genomes (5, then 4 before) and the read set
-100,000 reads (400,000 before); phase 8 counts 1,000 reads (2,000
-before); 8b's k = 21 graph holds the first 100 of the 1,000 references;
-8c counts 500 reads with 3b's annotation and 200 in each other run.
+100,000 reads (400,000 before); phase 8 counts 600 reads (2,000, then
+1,000 before) and its ``-p 4`` run 40 (100); 8b 500 (1,000) and on its
+k = 21 graph, which holds the first 100 of the 1,000 references, 150
+(200); 8c 300 reads with 3b's annotation (500) and 120 in each other
+run (200), 30 of them against the CPU (50); 8d 200-1,000 reads on
+bitmap, 100-400 on each other graph, 200 for ``-a`` and 300 for ``query
+--align``.
 
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
@@ -300,6 +330,7 @@ stdout is a JSON object with every kernel's numbers (D1-D4 for each build,
 ``build_windows/pan`` and the like, D2 with its ``torch.sort`` ms as
 ``library_ms``, ``align_wave/align`` and ``wave_dp/align`` (phase 8's
 largest wave), ``align_wave/align-labeled`` (8c's),
+``key_lookup/hash-align`` and ``align_wave/hash-align`` (8d's),
 ``radix_sort/reads-k31-counts`` and
 ``radix_sort/protein-k20-disk`` for the general route,
 ``radix_sort/graph_bitmap``, ``.../graph_hash_canonical``,
@@ -366,15 +397,18 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
             path_reads=20_000,
             build_sample=100_000, build_reps=3, host_k=31, disk_cap_gb=0.04,
             align=dict(read_len=150, pool=20_000, warm=20, calibrate=200,
-                       budget_s=40, target=1000, least=200, cpu=20, par=100,
+                       budget_s=40, target=600, least=200, cpu=20, par=40,
                        par_procs=4),
             query_align=dict(pool=1500, warm=20, calibrate=200, budget_s=60,
-                             target=1000, least=200, batch_bp=37_500,
-                             cpu=100, k21_refs=100, k21_reads=200,
+                             target=500, least=200, batch_bp=37_500,
+                             cpu=100, k21_refs=100, k21_reads=150,
                              server_reads=100),
             labeled=dict(pool=800, warm=20, calibrate=200, budget_s=40,
-                         target=500, least=200, cpu=50, coords=200,
-                         segments=200, chain=200, gfa=200, per_label=10))
+                         target=300, least=200, cpu=30, coords=120,
+                         segments=120, chain=120, gfa=120, per_label=10),
+            hash_align=dict(pool=1200, warm=20, calibrate=100, budget_s=6,
+                            target=(1000, 400), least=(200, 100), cpu=50,
+                            query=300, labeled=200))
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -397,7 +431,10 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
                              k21_refs=6, k21_reads=20, server_reads=5),
             labeled=dict(pool=60, warm=5, calibrate=10, budget_s=0,
                          target=30, least=30, cpu=5, coords=15,
-                         segments=15, chain=15, gfa=12, per_label=10))
+                         segments=15, chain=15, gfa=12, per_label=10),
+            hash_align=dict(pool=60, warm=5, calibrate=10, budget_s=0,
+                            target=(30, 20), least=(30, 20), cpu=5,
+                            query=15, labeled=15))
 
 
 def log(msg: str):
@@ -2169,12 +2206,13 @@ def moved_annotation(anno, row_of: np.ndarray):
 
 
 def graph_types_phase(cfg, deployments, seqs, codes, rng, torch, dev,
-                      timed):
+                      timed, keep):
     """Each graph-types deployment through ``convert.from_graph``: it must
     take the map route; the labels mode (and the counts mode on bitmap, on
     the basic batch's first ``bitmap_reads`` reads) against the oracle,
     then kernels A (with an L2 control), 2 and 3 against their plain
-    versions.  -> {deployment: (launches, entries)}."""
+    versions.  Each index goes to ``keep`` for phase 8d.  -> {deployment:
+    (launches, entries)}."""
     from metagraph_tpu_torch import convert
     from metagraph_tpu_torch.query.pipeline import QueryEngine
     out = {}
@@ -2201,7 +2239,8 @@ def graph_types_phase(cfg, deployments, seqs, codes, rng, torch, dev,
         out[name.replace("-", "_")] = (launches, timed(
             "kernel checks", key_checks, engine, s, cfg, torch, dev,
             f" [{name}]"))
-        del engine, index
+        keep[name] = index
+        del engine
     return out
 
 
@@ -4828,6 +4867,416 @@ def labeled_align_runs(cfg, graph_path, refs, anno, oracle, node_of_key,
     return {"align_wave": launches["align_wave"]}, entries
 
 
+# --------------------------------------------------------------------------
+# 8d. alignment on graphs that are not succinct (kernel A for every
+# lookup, kernel B11 for the waves)
+# --------------------------------------------------------------------------
+
+def hash_align_phase(cfg, graphs, *args):
+    """Phase 8d (``hash_align_runs``) on the graphs that 5e loaded:
+    ``graphs`` maps each deployment to (its ``build --graph`` file, the
+    graph loaded from it); each command the phase runs through the port's
+    CLI gets that graph object from ``DBGSuccinct.load`` (as 8c shares
+    its graph), so the phase leaves out the files' load and rebuild."""
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    load = DBGSuccinct.__dict__["load"]
+    by_path = {path[:-4]: g for path, g in graphs.values()}
+
+    def once(cls, path, *a, **kw):
+        if path in by_path:
+            return by_path[path]
+        return load.__func__(cls, path, *a, **kw)
+
+    DBGSuccinct.load = classmethod(once)
+    try:
+        return hash_align_runs(cfg, graphs, *args)
+    finally:
+        DBGSuccinct.load = load
+
+
+def map_counts(seqs, names, keys, ids, canonical):
+    """``align --map --count-kmers`` computed here: each read's windows
+    looked up in the graph's sorted 2-bit keys by ``searchsorted`` (a
+    canonical graph holds both strands, so a window and its reverse
+    complement hit together and the forward one's id is reported) ->
+    ``name<TAB>matched/windows/distinct ids`` lines."""
+    out = []
+    for name, s in zip(names, seqs):
+        wk, ok = window_keys(seq_codes(s), K)
+        at = np.minimum(np.searchsorted(keys, wk), len(keys) - 1)
+        hit = ok & (keys[at] == wk)
+        if canonical:
+            rc = rc_window_keys(seq_codes(s), K)
+            at_r = np.minimum(np.searchsorted(keys, rc), len(keys) - 1)
+            if not np.array_equal(hit, ok & (keys[at_r] == rc)):
+                raise AssertionError("map oracle: a canonical graph lacks "
+                                     "a strand")
+        nodes = ids[at[hit]]
+        out.append(f"{name}\t{len(nodes)}/{len(wk)}/{len(set(nodes))}")
+    return out
+
+
+def hash_align_runs(cfg, graphs, kid, indexes, refs, wide_dna, oracle, seed,
+                    torch, dev, work):
+    """Phase 8d: alignment on the graphs that 3c built and 5e loaded,
+    through the port's CLI (``align_cli``) and ``QueryEngine``, 150 bp
+    reads of ``align_reads`` (half reverse-complemented): of the basic
+    references for "bitmap" (stream 18), of the wide DNA references for
+    "hash-canonical" and "sshash" (stream 19).
+
+    1. ``query --align`` on the bitmap graph and its index (5e's, with the
+       basic annotation moved to the bitmap's ids), whose engine lends the
+       graph its kernel A table: ``warm`` reads, then ``query`` reads;
+    2. ``align`` on the bitmap graph: ``warm`` reads, then ``calibrate``
+       for the rate, then as many reads as the rate puts in ``budget_s``
+       (between ``least`` and ``target``; the first of each pair for
+       bitmap, the second for each other graph, whose share of the
+       budget is a third); the other two graphs build their own tables at
+       their first lookup on the card (their warm runs);
+    3. ``align --map --count-kmers`` on each graph's reads;
+    4. ``align -a`` on the bitmap graph with the moved annotation,
+       ``labeled`` reads.
+
+    Checks: each alignment run one ``align_wave`` a wave, no ``wave_dp``,
+    every wave's written store rows and output held whole against
+    ``align_wave_plain`` on the card (its seconds left out of the rates),
+    the waves' children one kernel A launch a call of
+    ``call_outgoing_batch`` (one a wave that has children to find), the
+    mapping one launch a file, no other kernel but kernels 2 and 3 for
+    the respelled query; every alignment held to phase 8's oracle over
+    the graph's k-mers (both strands for the canonical graph), every
+    error-free read all-match end to end; the ``--map`` lines equal to
+    ``map_counts``; ``-a``'s label sets and the query's labels equal to
+    the oracle's; the first ``cpu`` reads' bytes of every run equal to a
+    ``--torch-device cpu`` run's (on the same tables, lent by the index
+    on the host).  Kernel A on the largest wave's candidate keys (each
+    parent's last k - 1 codes and one code) against its plain version,
+    an L2 control and the children computed here; ``align_wave`` timed on
+    the bitmap run's largest wave.  -> (launches, entries)."""
+    from metagraph_tpu_torch._u32 import np_words, to_u64
+    from metagraph_tpu_torch.align import wave_extender as wx
+    from metagraph_tpu_torch.query.pipeline import QueryEngine
+    from metagraph_tpu_torch.succinct import ops
+    hc = cfg["hash_align"]
+    m = cfg["align"]["read_len"]
+    tdev = [] if dev.type == "cuda" else ["--torch-device", "cpu"]
+    pools = {"bitmap": align_reads(np.random.default_rng([seed, 18]), refs,
+                                   hc["pool"], m)}
+    pools["hash-canonical"] = pools["sshash"] = align_reads(
+        np.random.default_rng([seed, 19]), wide_dna, hc["pool"], m)
+    # the --torch-device cpu comparisons look up in the index's host table,
+    # which is the one a graph builds (so the CPU need not build it again)
+    for name, (_path, g) in graphs.items():
+        g.share_index(ops.DeviceHashIndex.from_table(indexes[name].table,
+                                                     "cpu").table)
+
+    def fasta(name, idx, pool):
+        seqs, kinds = pools[pool]
+        path = os.path.join(work, f"hash_{name}.fa")
+        with open(path, "w") as f:
+            f.writelines(f">r{j} {kinds[i]}\n{seqs[i].decode()}\n"
+                         for j, i in enumerate(idx))
+        return path
+
+    # 1. query --align on the bitmap graph: the engine lends its table
+    t0 = time.perf_counter()
+    gb = graphs["bitmap"][1]
+    engine = QueryEngine(indexes["bitmap"], device=dev, graph=gb)
+    if dev.type == "cuda" and gb._table() is not engine.hash_index.table:
+        raise AssertionError("query --align: the engine did not lend the "
+                             "bitmap graph its table")
+    acfg = query_align_config()
+    bseqs, bkinds = pools["bitmap"]
+    nq = hc["query"]
+    query_align_run(engine, bseqs[-hc["warm"]:], acfg, 37_500, False, K)
+    (lines, tot, nb, _g, wall), ql = run_path(lambda: query_align_run(
+        engine, bseqs[:nq], acfg, 37_500, False, K))
+    aligned, labelled, _ = check_query_align(
+        lines, bseqs[:nq], bkinds[:nq], oracle, K, False,
+        "query --align [bitmap]")
+    others = {k: v for k, v in ql.items() if v and k not in (
+        "align_wave", "key_lookup", "label_counts", "selection_mask")}
+    if dev.type == "cuda" and (not ql["align_wave"] or not ql["key_lookup"]
+                               or not ql["label_counts"] or others):
+        raise AssertionError(f"query --align [bitmap]: launches {ql}")
+    del engine
+    cpu_engine = QueryEngine(indexes["bitmap"], device="cpu", graph=gb)
+    nc = hc["cpu"]
+    cpu_lines = query_align_run(cpu_engine, bseqs[:nc], acfg, 37_500, False,
+                                K)[0]
+    del cpu_engine
+    if cpu_lines != lines[:nc]:
+        raise AssertionError("query --align [bitmap]: the CPU run's lines "
+                             "differ")
+    gb.use_device(dev)
+    log(f"query --align [bitmap]: {nq} reads in {wall:.2f} s "
+        f"({nq / wall:.1f} reads/s; {nb} batches: seeding "
+        f"{tot.get('seeding', 0.0):.2f} s, alignment "
+        f"{tot.get('align', 0.0):.2f} s); {aligned} aligned, {labelled} "
+        f"labelled, each held to the oracles; launches {ql}; the first "
+        f"{nc} reads' lines equal the CPU run's; the phase so far "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # 2. align on each graph, after a warm run (a graph's first lookups
+    # build its table on the card) and, on bitmap, a calibration run
+    warm, cal = hc["warm"], hc["calibrate"]
+    tail = hc["pool"] - warm - cal
+    _, wall, st = align_cli(["-i", graphs["bitmap"][0][:-4], *tdev,
+                             fasta("warm", range(tail, tail + warm),
+                                   "bitmap"),
+                             fasta("calibrate", range(tail + warm,
+                                                      hc["pool"]),
+                                   "bitmap")])
+    (_, warm_s), (_, cal_s) = st["files"]
+    rate = cal / cal_s
+    counts = {}
+    for name in graphs:
+        j = 0 if name == "bitmap" else 1
+        share = hc["budget_s"] * (1 if j == 0 else 1 / 3)
+        counts[name] = int(min(max(min(rate * share, hc["target"][j]),
+                                   hc["least"][j]), tail))
+    log(f"align calibration [bitmap]: {warm} reads in {warm_s:.2f} s, then "
+        f"{cal} reads in {cal_s:.2f} s ({rate:.1f} reads/s): "
+        + ", ".join(f"{n} {c} reads" for n, c in counts.items()))
+    run_wave = wx.run_wave
+    check = {"waves": 0, "err": 0, "seconds": 0.0, "largest": None}
+
+    def checked(store, tables, pack_host, W, go, ge, out_host):
+        """The engine's wave, then its store rows and output held against
+        align_wave_plain on the card; the largest wave timed."""
+        views = run_wave(store, tables, pack_host, W, go, ge, out_host)
+        t = time.perf_counter()
+        pack = pack_host.to(dev)
+        rows = pack[:, wx.PK_ROW].long()
+        got = store[rows, :, :W].clone()
+        want = torch.empty(out_host.shape, dtype=torch.int32, device=dev)
+        wx.align_wave_plain(store, tables, pack, W, go, ge, want)
+        check["err"] = max(check["err"],
+                           max_abs_err(torch, got, store[rows, :, :W]),
+                           max_abs_err(torch, out_host.to(dev), want))
+        check["waves"] += 1
+        big = check["largest"]
+        if check["timing"] and (big is None or len(pack) > big["rows"]):
+            check["largest"] = time_wave(torch, dev, wx, store, tables, pack,
+                                         W, go, ge, out_host.numel())
+        check["seconds"] += time.perf_counter() - t
+        return views
+
+    def counted(name, g, args, timing=False):
+        """One command under the launch counters, its waves checked and
+        its ``call_outgoing_batch`` calls counted: -> (lines, the run's
+        ALIGN_STATS, launches, per-call launches, the largest call's
+        nodes)."""
+        inner, calls = g.call_outgoing_batch, []
+
+        def outgoing(nodes):
+            n0 = ops.key_lookup.launches
+            out = inner(nodes)
+            calls.append((len(nodes), ops.key_lookup.launches - n0, nodes))
+            return out
+        g.call_outgoing_batch = outgoing
+        wx.run_wave, check["timing"] = checked, timing
+        check.update(waves=0, err=0, seconds=0.0)
+        try:
+            (out, wall, st), launches = run_path(lambda: align_cli(
+                ["-i", *args, *tdev]))
+        finally:
+            wx.run_wave = run_wave
+            del g.call_outgoing_batch
+        waves = st["wave_waves"]
+        others = {k: v for k, v in launches.items()
+                  if v and k not in ("align_wave", "key_lookup")}
+        per_call = [c[1] for c in calls]
+        if check["waves"] != waves or check["err"]:
+            raise AssertionError(f"{name}: {check['waves']} of {waves} "
+                                 f"waves checked, max_abs_err "
+                                 f"{check['err']} against align_wave_plain")
+        if dev.type == "cuda" and (
+                launches["align_wave"] != waves or not waves or others
+                or set(per_call) != {1}):
+            raise AssertionError(
+                f"{name}: {launches['align_wave']} align_wave launches for "
+                f"{waves} waves, others {others}; kernel A launches a "
+                f"call_outgoing_batch call {sorted(set(per_call))} over "
+                f"{len(calls)} calls")
+        big = max(calls, key=lambda c: c[0])[2] if calls else None
+        return out.splitlines(), st, launches, len(calls), big
+
+    def cpu_equal(name, g, args, lines, nc):
+        t = time.perf_counter()
+        out, *_ = align_cli(["-i", *args, "--torch-device", "cpu"])
+        g.use_device(dev)
+        if out.splitlines() != lines[:nc]:
+            raise AssertionError(f"{name}: the CPU run's bytes differ")
+        return time.perf_counter() - t
+
+    launches_b, big_nodes = None, None
+    for name, (path, g) in graphs.items():
+        keys, ids = kid[name]
+        seqs, kinds = pools[name]
+        n = counts[name]
+        if name != "bitmap":
+            t = time.perf_counter()
+            align_cli(["-i", path[:-4], *tdev,
+                       fasta(f"{name}_warm", range(tail, tail + warm),
+                             name)])
+            log(f"align warm [{name}]: {warm} reads in "
+                f"{time.perf_counter() - t:.2f} s, the graph's kernel A "
+                "table built at its first lookup")
+        lines, st, launches, ncalls, big = counted(
+            f"align [{name}]", g, [path[:-4], fasta(name, range(n), name)],
+            timing=name == "bitmap")
+        if name == "bitmap":
+            launches_b, big_nodes = launches, big
+        if len(lines) != n:
+            raise AssertionError(f"align [{name}]: {len(lines)} lines for "
+                                 f"{n} reads")
+        n_aln = exact_ok = 0
+        for i, ln in enumerate(lines):
+            f = ln.split("\t")
+            if f[0] != f"r{i}" or f[1].encode() != seqs[i]:
+                raise AssertionError(f"align [{name}]: line {i} is not read "
+                                     f"{i}")
+            alns = [f[j: j + 6] for j in range(2, len(f), 6)] \
+                if f[2] != "*" else []
+            got = [oracle_alignment(seqs[i], a, keys) for a in alns]
+            n_aln += len(got)
+            if kinds[i] == "exact":
+                if not got or got[0][2] != f"{m}=" \
+                        or int(alns[0][2]) != 2 * m + 2 * ALIGN_END_BONUS:
+                    raise AssertionError(f"align [{name}]: error-free read "
+                                         f"{i} aligned as {alns[:1]}")
+                exact_ok += 1
+        mapped = sum(ln.split("\t")[2] != "*" for ln in lines)
+        if mapped < 0.8 * n:
+            raise AssertionError(f"align [{name}]: {mapped} of {n} reads "
+                                 "mapped")
+        nc = min(hc["cpu"], n)
+        cs = cpu_equal(f"align [{name}]", g,
+                       [path[:-4], fasta(f"{name}_cpu", range(nc), name)],
+                       lines, nc)
+        w = st["wall"] - check["seconds"]
+        host = w - st["seeding"] - st["wave_seconds"] - st["output"]
+        log(f"align [{name}]: {n} reads of {m} bp in {w:.2f} s ({n / w:.1f} "
+            f"reads/s): seeding {st['seeding']:.2f} s, waves "
+            f"{st['wave_seconds']:.2f} s ({st['wave_waves']} waves, "
+            f"{st['wave_rows']} rows), the engine's host work {host:.2f} s, "
+            f"output {st['output']:.2f} s; kernel A {launches['key_lookup']} "
+            f"launches ({ncalls} for the waves' children, one a call), "
+            f"align_wave {launches['align_wave']}; every wave equal to "
+            f"align_wave_plain ({check['seconds']:.2f} s of checks); "
+            f"{n_aln} alignments of {mapped} mapped reads held to the "
+            f"oracle, {exact_ok} error-free reads all-match end to end; the "
+            f"first {nc} reads' bytes equal the CPU run's ({cs:.1f} s)")
+
+    # 3. align --map --count-kmers: one kernel A launch a file
+    for name, (path, g) in graphs.items():
+        keys, ids = kid[name]
+        seqs, _ = pools[name]
+        n = counts[name]
+        (out, wall, _st), ml = run_path(lambda: align_cli(
+            ["-i", path[:-4], "--map", "--count-kmers", *tdev,
+             fasta(f"{name}_map", range(n), name)]))
+        lines = out.splitlines()
+        want = map_counts(seqs[:n], [f"r{i}" for i in range(n)], keys, ids,
+                          name == "hash-canonical")
+        others = {k: v for k, v in ml.items() if v and k != "key_lookup"}
+        if lines != want or (dev.type == "cuda" and (ml["key_lookup"] != 1
+                                                     or others)):
+            raise AssertionError(f"align --map [{name}]: lines differ from "
+                                 f"the searchsorted oracle's or launches "
+                                 f"{ml}")
+        nc = min(hc["cpu"], n)
+        cs = cpu_equal(f"align --map [{name}]", g,
+                       [path[:-4], "--map", "--count-kmers",
+                        fasta(f"{name}_map_cpu", range(nc), name)],
+                       lines, nc)
+        hits = sum(int(x.split("\t")[1].split("/")[0]) for x in lines)
+        log(f"align --map --count-kmers [{name}]: {n} reads in {wall:.2f} s, "
+            f"{hits} k-mers matched, {ml['key_lookup']} kernel A launch; "
+            f"every line equal to the searchsorted oracle's, the first {nc} "
+            f"equal to the CPU run's ({cs:.1f} s)")
+
+    # 4. align -a on the bitmap graph with the moved annotation
+    path, g = graphs["bitmap"]
+    anno = indexes["bitmap"].annotation
+    labels_a = os.path.join(work, "hash_labels")
+    save_column_annotation(labels_a + ".column.annodbg.npz", anno.num_rows,
+                           anno.labels, [anno.column_rows(c)
+                                         for c in range(anno.num_labels)])
+    na = min(hc["labeled"], counts["bitmap"])
+    lines, st, la, _nc, _b = counted(
+        "align -a [bitmap]", g, [path[:-4], "-a",
+                                 labels_a + ".column.annodbg",
+                                 fasta("labeled", range(na), "bitmap")])
+    n_lab = 0
+    for i, ln in enumerate(lines):
+        for f6, lab in labeled_fields(ln, i, bseqs[i]):
+            _s, seq, _c = oracle_alignment(bseqs[i], f6, kid["bitmap"][0])
+            if lab is None:
+                raise AssertionError(f"align -a [bitmap]: read {i} without "
+                                     "labels")
+            got = {int(x[3:]) for x in lab.split(";")}
+            if not int(f6[5]) and got != path_labels(seq, oracle):
+                raise AssertionError(f"align -a [bitmap]: read {i} labelled "
+                                     f"{got}, its path's labels "
+                                     f"{path_labels(seq, oracle)}")
+            n_lab += 1
+    if n_lab < 0.8 * na:
+        raise AssertionError(f"align -a [bitmap]: {n_lab} labelled "
+                             f"alignments of {na} reads")
+    nc = min(hc["cpu"], na)
+    cs = cpu_equal("align -a [bitmap]", g,
+                   [path[:-4], "-a", labels_a + ".column.annodbg",
+                    fasta("labeled_cpu", range(nc), "bitmap")], lines, nc)
+    w = st["wall"] - check["seconds"]
+    log(f"align -a [bitmap]: {na} reads in {w:.2f} s ({na / w:.1f} reads/s:"
+        f" seeding {st['seeding']:.2f} s, waves {st['wave_seconds']:.2f} s, "
+        f"label fetches {st['labels']:.2f} s); kernel A {la['key_lookup']} "
+        f"launches, align_wave {la['align_wave']}; {n_lab} alignments' label "
+        f"sets equal to the oracle's; the first {nc} reads' bytes equal the "
+        f"CPU run's ({cs:.1f} s)")
+
+    # kernel A on the largest wave's candidate keys, held against its plain
+    # version and the children computed here, and align_wave timed on the
+    # bitmap run's largest wave
+    keys, ids = kid["bitmap"]
+    key_of = np.zeros(len(keys) + 1, np.uint64)
+    key_of[ids] = keys
+    par = key_of[np.asarray(big_nodes, np.int64)]
+    cand = (np.repeat(par >> np.uint64(2), 4)
+            | (np.tile(np.arange(4, dtype=np.uint64), len(par))
+               << np.uint64(2 * (K - 1))))
+    at = np.minimum(np.searchsorted(keys, cand), len(keys) - 1)
+    want_ids = np.where(keys[at] == cand, ids[at], 0)
+    table = g._table()
+    q = np_words(ops.pack_kmers32(key_chars(cand), 4)).to(dev)
+    got = ops.key_lookup(q, table)
+    plain = ops.key_lookup_plain(q, table)
+    if not np.array_equal(got.cpu().numpy(), want_ids):
+        raise AssertionError("key_lookup [hash-align]: the largest wave's "
+                             "children differ from those computed here")
+    groups_bytes, _ = probe_bytes(table, [to_u64(q)], torch, dev)
+    entries = {}
+    add_entry(entries, torch, " [hash-align]", "key_lookup", [got], [plain],
+              device_ms(torch, dev, lambda: ops.key_lookup(q, table), 20),
+              device_ms(torch, dev, lambda: ops.key_lookup_plain(q, table),
+                        3),
+              q.nbytes + got.nbytes + groups_bytes)
+    l2_control("key_lookup", " [hash-align]", indexes["bitmap"].table,
+               lambda t: ops.key_lookup(q, t),
+               lambda t: ops.key_lookup_plain(q, t), cfg, torch, dev)
+    log(f"key_lookup [hash-align]: the largest wave's {len(par)} parents, "
+        f"{len(cand)} candidate keys, {int((want_ids > 0).sum())} children, "
+        "equal to the searchsorted children")
+    big = check["largest"]
+    add_entry(entries, torch, " [hash-align]", "align_wave", *big["entry"])
+    log(f"align_wave [hash-align]: the largest wave {big['rows']} x "
+        f"{big['W']}, device ms from the profiler {big['device_ms']}")
+    return {"key_lookup": launches_b["key_lookup"],
+            "align_wave": launches_b["align_wave"]}, entries
+
+
 SOURCES = {
     "wire_lookup": ("metagraph_tpu_torch/csrc/wire_lookup.cu",
                     "metagraph_tpu/succinct/ops.py:439"),
@@ -4984,10 +5433,18 @@ def main(argv=None) -> int:
                                   np.random.default_rng([args.seed, 11]))
     deployments = timed("graph-types indexes", load_kmer_graphs, maps,
                         paths)
+    kid = {name: maps[name][:2] for name in maps}
     del maps
+    kept = {}
     more_graphs = graph_types_phase(cfg, deployments, seqs, codes, rng7,
-                                    torch, dev, timed)
-    del deployments
+                                    torch, dev, timed, kept)
+    # 8d. align, --map, -a and query --align on the same graph objects
+    # (kernel A for their lookups, B11 for the waves)
+    hash_align = timed(
+        "hash-align", hash_align_phase, cfg,
+        {n: (paths[n], deployments[n][0]) for n in paths}, kid, kept, refs,
+        wide[0], oracle, args.seed, torch, dev, args.work)
+    del deployments, kept, kid
     # the basic index behind the port's HTTP server (the wire route) with
     # the 3b graph of its k-mers (/align), requests from two client threads
     timed("server", server_phase, cfg, index, qa_graph, seqs, codes,
@@ -5073,7 +5530,8 @@ def main(argv=None) -> int:
     # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
     more = {"many_labels": (ml_launches, ml_entries), **words_more,
             **more_graphs, **builds, **last_flags, "a10": a10,
-            "align": align, "align-labeled": labeled}
+            "align": align, "align-labeled": labeled,
+            "hash-align": hash_align}
     more["primary"] = (
         timed("query paths and oracle", main_path, engine, seqs2, codes2,
               period2, oracle, cfg, rng2, torch, dev,

@@ -9,9 +9,12 @@ dbg_aligner.cpp:534-760); results aggregated into the top
 num_alternative_paths by LocalAlignmentLess.  The aligner holds the torch
 device that its extension waves run on (kernel B11 ``align_wave`` on
 the card, its plain version on the CPU).  On a canonical wrapper graph
-(``CanonicalDBG``) the suffix seeds walk the base graph's BOSS.  A
-labeled aligner's extensions run in the same shared waves, their label
-pruning inside the flat engine (labeled.py).
+(``CanonicalDBG``) the suffix seeds walk the base graph's BOSS.  A graph
+without a BOSS (hash, bitmap, sshash) gets the base seeds (seeder.py), and
+its node mapping, junction tests and children run through kernel A on
+the aligner's device, a batch a launch.  A labeled aligner's extensions
+run in the same shared waves, their label pruning inside the flat engine
+(labeled.py).
 """
 
 from __future__ import annotations
@@ -143,6 +146,10 @@ class DBGAligner:
         self.graph = graph
         # where the extension waves run: the card unless "cpu"
         self.device = resolve_device(device)
+        base = graph.graph if hasattr(graph, "get_base_node") else graph
+        if hasattr(base, "use_device"):
+            # a hash, bitmap or sshash graph: its lookups (kernel A) too
+            base.use_device(self.device)
         from dataclasses import replace as _dc_replace
         # private copy: clamp_to_k and the DNA_CASE override below must not
         # mutate a config object the caller may reuse for other graphs
@@ -225,7 +232,7 @@ class DBGAligner:
         import multiprocessing as mp
         if self.device.type == "cuda":
             from .. import _build
-            _build.build_all(("wave_dp",))
+            _build.build_all(("wave_dp", "key_lookup"))
         ctx = mp.get_context("forkserver")
         # the server imports the aligner (and torch) once; each worker
         # forks from it instead of importing them anew

@@ -39,19 +39,17 @@ in flight.  Past ``METAGRAPH_DENSE_ANNO_BUDGET`` a BRWT or row-diff
 annotation takes the block-sparse device form, cached beside it in
 ``<annotation>.devsparse.npz`` as the JAX CLI caches it.  ``--align``
 (:826-848) first replaces each read by its best alignment's spelling on
-a succinct graph (a primary one seen through ``CanonicalDBG``), with the
-align scoring flags; ``--batch-align`` aligns each batch to its batch
-graph (``query/batch_graph.py``, bounded by ``--max-hull-forks``,
+the graph, of any type (a primary one seen through ``CanonicalDBG``),
+with the align scoring flags; ``--batch-align`` aligns each batch to its
+batch graph (``query/batch_graph.py``, bounded by ``--max-hull-forks``,
 ``--max-hull-depth`` and ``--align-max-nodes-per-seq-char``) and without
-``--align`` changes nothing, as in the JAX CLI; ``--align`` on a graph
-that is not succinct is refused once the graph and the annotation have
-loaded, naming ROADMAP A13.3e.  ``--device`` is a flag, as there: the
-port always runs on the card, unless ``--torch-device cpu`` asks for the
-CPU, which runs the plain PyTorch versions of the kernels.  ``-o`` is
-accepted and unused; ``--mmap`` reads a graph's mmap layout where it has
-one (``DEFAULT_MMAP``, as cli/main.py:1664-1666 sets it); ``-v`` prints
-progress lines on stderr, and under ``--batch-align`` each batch graph's
-size.
+``--align`` changes nothing, as in the JAX CLI.  ``--device`` is a flag,
+as there: the port always runs on the card, unless ``--torch-device cpu``
+asks for the CPU, which runs the plain PyTorch versions of the kernels.
+``-o`` is accepted and unused; ``--mmap`` reads a graph's mmap layout
+where it has one (``DEFAULT_MMAP``, as cli/main.py:1664-1666 sets it);
+``-v`` prints progress lines on stderr, and under ``--batch-align`` each
+batch graph's size.
 
 ``python -m metagraph_tpu_torch server_query -i G.dbg -a A.annodbg
 --device --port P`` takes the command line of ``metagraph_tpu.cli
@@ -63,7 +61,7 @@ cpu``.  The error contract is JAX ``main``'s (:1675-1686).
 ``python -m metagraph_tpu_torch align -i G.dbg reads.fa`` takes the
 command line of ``metagraph_tpu.cli align`` (:1611-1646, ``_add_common``
 and the align scoring flags) and prints the bytes of its ``cmd_align``
-(:856-1040) on succinct graphs of every alphabet and mode: the TSV or
+(:856-1040) on graphs of every type, alphabet and mode: the TSV or
 ``--json`` lines of ``DBGAligner.align_batch`` (every flag of seeding,
 extension, scoring and ``--align-post-chain``; ``-p N`` aligns in N
 processes), and ``--map`` (``--count-kmers``, ``--query-presence``,
@@ -75,10 +73,13 @@ sequence headers through a ``.seqs`` file beside it unless
 ``--no-coord-mapping``), ``--align-chain`` chains the seeds of a
 coordinate annotation, both with their extensions in the same waves;
 ``-o x.gfa`` writes each read's nodes as a P-line of ``x.path.gfa``
-(``--compacted``: the unitigs' ends).  A graph that is not succinct is
-refused once the inputs have loaded, naming ROADMAP A13.3e.  ``-v``
-prints the reads a second, the seconds of seeding and of the waves and the
-bytes the waves copy to and from the card.
+(``--compacted``: the unitigs' ends).  On a hash, bitmap or sshash graph
+the k-mer lookups of mapping, seeding and the waves' children run
+through kernel A, a batch a launch; ``-o x.gfa`` and ``--map
+--align-length`` other than k raise the JAX CLI's AttributeError where
+it does (such a graph has no BOSS).  ``-v`` prints the reads a second,
+the seconds of seeding and of the waves and the bytes the waves copy to
+and from the card.
 """
 
 from __future__ import annotations
@@ -274,10 +275,6 @@ def cmd_query(args):
         cth = CoordToHeader.load(_seqs_beside(args.annotation))
     aligner_config = None
     if args.align:
-        if not hasattr(graph, "boss"):
-            raise NotImplementedError(
-                "query --align: graphs that are not succinct are not "
-                "ported yet (ROADMAP A13.3e)")
         from .align.config import AlignerConfig
         # a primary graph aligns as canonical, as the JAX cmd_query wraps
         # it (cli/main.py:800-802)
@@ -334,13 +331,19 @@ def cmd_server_query(args):
 
 def _map_records(args, g):
     """``align --map``: each record's k-mers (or, with ``--align-length``
-    below k, its sub-k windows through BOSS suffix ranges) mapped to nodes
-    (metagraph_tpu/cli/main.py:863-900)."""
+    other than k, its sub-k windows through BOSS suffix ranges) mapped to
+    nodes (metagraph_tpu/cli/main.py:863-900).  A graph with a batch form
+    (hash, bitmap, sshash) maps a file's records in one lookup."""
     from .seq_io.fasta import read_fasta
+    L = args.align_length or g.k
     for f in args.input:
-        for rec in read_fasta(f):
-            L = args.align_length or g.k
-            if L == g.k:
+        recs = read_fasta(f)
+        batch = g.map_to_nodes_batch([r.seq for r in recs]) \
+            if L == g.k and hasattr(g, "map_to_nodes_batch") else None
+        for j, rec in enumerate(recs):
+            if batch is not None:
+                nodes = batch[j]
+            elif L == g.k:
                 nodes = g.map_to_nodes(rec.seq)
             else:
                 nodes = []
@@ -378,7 +381,10 @@ def _gfa_paths(args, g):
     compared with node ids."""
     from .graph import traversal
     from .seq_io.fasta import read_fasta
-    is_end = ({path[-1] for path, _seq in traversal.call_paths(g.boss)}
+    # the BOSS is read first, as the JAX CLI walks it before it opens the
+    # file: a graph without one raises AttributeError here
+    boss = g.boss
+    is_end = ({path[-1] for path, _seq in traversal.call_paths(boss)}
               if args.compacted else set())
     out_path = args.out[:-4] + ".path.gfa"
     with open(out_path, "w") as f:
@@ -525,20 +531,14 @@ def cmd_align(args):
     from .align.aligner import DBGAligner, format_alignments_tsv
     from .align.config import AlignerConfig
     from .align.wave_extender import STATS
-    from .convert import load_annotation_for
     from .device import resolve_device
     from .graph.dbg_succinct import DBGSuccinct
     from .seq_io.fasta import read_fasta
 
     device = resolve_device(args.torch_device)
     g = DBGSuccinct.load(args.infile_base)
-    if not hasattr(g, "boss"):
-        if args.annotation:
-            load_annotation_for(args.infile_base, args.annotation)
-        for f in args.input:
-            read_fasta(f)
-        raise NotImplementedError("align: graphs that are not succinct are "
-                                  "not ported yet (ROADMAP A13.3e)")
+    if hasattr(g, "use_device"):
+        g.use_device(device)        # a hash, bitmap or sshash graph's lookups
     if args.map:
         _map_records(args, g)
         return

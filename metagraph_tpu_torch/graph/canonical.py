@@ -7,7 +7,14 @@ graph's ``max_index()``.  The query maps through the id arithmetic; the
 aligner of ``query --align`` and the server's ``/align`` walk the graph
 through the traversal calls (each k-mer looked up forward, else as its
 reverse complement), and the batch graph of ``--batch-align`` expands its
-hull through ``call_outgoing_kmers``.
+hull through ``call_outgoing_kmers``.  The base graph is succinct or not
+(hash, bitmap, sshash: JAX's per-k-mer fallback of :80-97 gives the same
+ids as the base's ``map_kmers_batch``).  The batch forms the aligner
+calls (``map_to_nodes_sequentially_batch``, ``call_outgoing_batch`` and
+the junction tests of the MEM seeder) look up every node they have not
+seen in one ``map_kmers_batch`` of both strands, which on a hash, bitmap
+or sshash base is one launch of kernel A; each gives the values of the
+per-node calls.
 """
 
 from __future__ import annotations
@@ -68,6 +75,16 @@ class CanonicalDBG:
             fwd = np.where(missing & (rc > 0), rc + self.offset, fwd)
         return fwd
 
+    def map_to_nodes_sequentially_batch(self, sequences) -> list:
+        """``map_to_nodes_sequentially`` of each sequence, both strands in
+        one call of the base graph's batch form."""
+        seqs = [s.encode() if isinstance(s, str) else s for s in sequences]
+        got = self.graph.map_to_nodes_sequentially_batch(
+            seqs + [revcomp(s) for s in seqs])
+        n = len(seqs)
+        return [np.where((f == 0) & (r[::-1] > 0), r[::-1] + self.offset, f)
+                for f, r in zip(got[:n], got[n:])]
+
     # ------------------------------------------------------------ traversal
     def get_node_sequence(self, node: int) -> bytes:
         hit = self._seq_cache.get(node)
@@ -81,41 +98,49 @@ class CanonicalDBG:
 
     def _lookup_batch(self, kmers: list) -> list:
         """Each k-mer's forward id, else its reverse complement's + offset,
-        else 0."""
+        else 0: both strands in one ``map_kmers_batch``."""
         chars = np.stack([self.extractor.encode(km) for km in kmers])
-        fwd = self.graph.map_kmers_batch(chars)
         comp = self.graph.alph.complement_table
-        bwd = self.graph.map_kmers_batch(comp[chars[:, ::-1]])
+        both = self.graph.map_kmers_batch(
+            np.concatenate([chars, comp[chars[:, ::-1]]]))
+        fwd, bwd = both[: len(chars)], both[len(chars):]
         return np.where(fwd > 0, fwd,
                         np.where(bwd > 0, bwd + self.offset, 0)).tolist()
 
-    def _neighbours(self, node: int, cache: dict, outgoing: bool):
-        hit = cache.get(node)
-        if hit is not None:
-            return hit
-        seq = self.get_node_sequence(node)
-        chars = self.graph.alph.letters[1:]
-        cands = [seq[1:] + ch.encode() if outgoing else ch.encode() + seq[:-1]
-                 for ch in chars]
-        out = [(nid, ch) for nid, ch in zip(self._lookup_batch(cands), chars)
-               if nid]
-        cache[node] = out
-        return out
+    def _neighbours(self, nodes, outgoing: bool) -> list:
+        """Each node's [(neighbour, char)] in the alphabet's order; the
+        nodes not cached yet are looked up together."""
+        cache = self._out_cache if outgoing else self._in_cache
+        nodes = [int(n) for n in nodes]
+        todo = list(dict.fromkeys(n for n in nodes if n not in cache))
+        if todo:
+            chars = self.graph.alph.letters[1:]
+            cands = []
+            for n in todo:
+                seq = self.get_node_sequence(n)
+                cands += [seq[1:] + ch.encode() if outgoing
+                          else ch.encode() + seq[:-1] for ch in chars]
+            ids = self._lookup_batch(cands)
+            m = len(chars)
+            for i, n in enumerate(todo):
+                cache[n] = [(nid, ch) for nid, ch in
+                            zip(ids[i * m: (i + 1) * m], chars) if nid]
+        return [cache[n] for n in nodes]
 
     def call_outgoing_kmers(self, node: int):
         """[(next node, char)] in the alphabet's order."""
-        return self._neighbours(node, self._out_cache, True)
+        return self._neighbours([node], True)[0]
 
     def call_incoming_kmers(self, node: int):
-        return self._neighbours(node, self._in_cache, False)
+        return self._neighbours([node], False)[0]
 
     def call_outgoing_batch(self, nodes: np.ndarray):
         """``call_outgoing_kmers`` over a node array: -> (owner, child,
         upper-case char code), the flat engine's form of the JAX engine's
         per-node loop (metagraph_tpu/align/flat.py:125-138)."""
         owner, child, code = [], [], []
-        for i, n in enumerate(nodes):
-            for nxt, ch in self.call_outgoing_kmers(int(n)):
+        for i, out in enumerate(self._neighbours(nodes, True)):
+            for nxt, ch in out:
                 if ch != "$":
                     owner.append(i)
                     child.append(nxt)
@@ -129,3 +154,12 @@ class CanonicalDBG:
 
     def has_single_incoming(self, node: int) -> bool:
         return len(self.call_incoming_kmers(node)) == 1
+
+    def has_multiple_outgoing_batch(self, nodes) -> np.ndarray:
+        return np.array([len(o) > 1 for o in self._neighbours(nodes, True)],
+                        dtype=bool)
+
+    def has_single_incoming_batch(self, nodes) -> np.ndarray:
+        return np.array([len(o) == 1
+                         for o in self._neighbours(nodes, False)],
+                        dtype=bool)

@@ -1,8 +1,9 @@
 """Hash- and bitmap-backed de Bruijn graphs: built from sequences, written
-to and read from the JAX package's ``.dbg.npz`` artifacts.
+to and read from the JAX package's ``.dbg.npz`` artifacts, mapped and
+traversed as the aligner walks them.
 
-Own copy of the part of metagraph_tpu/graph/hash_graph.py the port uses:
-``_KmerGraphBase`` (``node_kmers_and_ids``, ``save``, ``load_generic``,
+Own copy of metagraph_tpu/graph/hash_graph.py: ``_KmerGraphBase`` (the
+graph API of :45-108, ``node_kmers_and_ids``, ``save``, ``load_generic``,
 :110-140), ``DBGHashGraph`` (also ``hashfast`` and ``hashstr``; :142-200)
 and ``DBGBitmapGraph`` (:203-270), each with ``build``, ``rebuild``,
 ``call_kmers``, ``num_nodes`` and ``max_index``.
@@ -20,7 +21,18 @@ Loading does not read node ids from the file: each type's ``rebuild``
 makes them as the JAX one does, a hash graph by inserting the saved
 k-mers in the order of their saved ids (first occurrence wins), a bitmap
 graph by sorting.  A graph holds its k-mers as (N, k) codes in node-id
-order; the query never walks it, so traversal is not copied.
+order (an sshash graph in its bucket order, with their ids).
+
+Mapping and traversal give the values of the JAX graph's per-k-mer
+``_kmer_id`` (a dict, a binary search or a minimizer bucket there), with
+batch forms for the aligner: every lookup packs its k-mers as the query
+index packs them (``pack_kmers32``, BOSS order) and probes a hash table
+of the graph's own ``node_kmers_and_ids`` through kernel A
+(``succinct/ops.py::key_lookup``), one launch a batch and none for an
+empty one, on the device that ``use_device`` names (the card unless
+"cpu", where the plain version runs).  The table is built at the first
+lookup on a device, or taken from a ``QueryEngine`` that holds the same
+one (``share_index``); a pickled graph leaves it behind.
 """
 
 from __future__ import annotations
@@ -30,6 +42,10 @@ import torch
 
 from ..kmer import packing
 from ..kmer.alphabets import ALPHABETS, DNA
+
+# the JAX package's reverse complement of a read for a canonical graph's
+# mapping (hash_graph.py:271-273): lower case comes back upper, U as A
+_REVCOMP = bytes.maketrans(b"ACGTacgtUu", b"TGCATGCAAA")
 
 BASIC = "basic"
 CANONICAL = "canonical"
@@ -83,6 +99,14 @@ def _stream_windows(sequences, k: int, alphabet: str, canonical: bool,
     return packing.pack_rows(lambda j: codes_t[at_t + j], order, ex.bits)
 
 
+def _device_key(dev) -> str:
+    """A device's name with its index ("cuda" is the current card)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
 def _rows(kmers: np.ndarray) -> np.ndarray:
     """(N, k) uint8 codes -> (N,) opaque keys that compare as the rows do,
     code by code from the left."""
@@ -101,6 +125,27 @@ class _KmerGraphBase:
         self._kmers = kmers               # (N, k) uint8
         # node id of each row; None: row i is id i + 1
         self._ids = ids
+        self.device = None                # where lookups run: use_device
+        self._tables = {}                 # device -> kernel A's table
+        self._row_of = None               # node id -> row, where _ids is set
+        self._extractor = None
+
+    def __getstate__(self):
+        """Without the lookup tables and caches, which a worker builds on
+        its own device at its first lookup."""
+        return dict(self.__dict__, _tables={}, _row_of=None, _extractor=None)
+
+    @property
+    def alph(self):
+        """The ``Alphabet`` that ``alphabet`` names."""
+        return ALPHABETS[self.alphabet]
+
+    @property
+    def extractor(self):
+        from ..kmer.extractor import KmerExtractor
+        if self._extractor is None:
+            self._extractor = KmerExtractor(self.alph)
+        return self._extractor
 
     def node_kmers_and_ids(self):
         """-> ((N, k) uint8 codes, (N,) int64 node ids), in the order of
@@ -120,6 +165,196 @@ class _KmerGraphBase:
     def num_nodes(self) -> int:
         return len(self._kmers)
 
+    # ------------------------------------------------------------ lookups
+    def use_device(self, device):
+        """Run this graph's lookups on ``device`` (the card unless
+        "cpu"); -> the graph."""
+        from ..device import resolve_device
+        self.device = resolve_device(device)
+        return self
+
+    def share_index(self, table: torch.Tensor):
+        """Take ``table``, kernel A's table of this graph's
+        ``node_kmers_and_ids`` packed by ``pack_kmers32`` (a
+        ``QueryEngine``'s over the same graph), as the lookup table on its
+        device, so that it is not built and uploaded again."""
+        self._tables[_device_key(table.device)] = table
+
+    def _table(self) -> torch.Tensor:
+        from ..device import resolve_device
+        from ..succinct.ops import DeviceHashIndex, pack_kmers32
+        dev = resolve_device(self.device)
+        table = self._tables.get(_device_key(dev))
+        if table is None:
+            chars, ids = self.node_kmers_and_ids()
+            table = DeviceHashIndex.from_packed(
+                pack_kmers32(chars, self._bits), ids.astype(np.uint32),
+                device=dev).table
+            self._tables[_device_key(dev)] = table
+        return table
+
+    @property
+    def _bits(self) -> int:
+        return packing.bits_for_alphabet(self.alph.sigma)
+
+    def _valid_rows(self, chars: np.ndarray) -> np.ndarray:
+        """The rows the JAX ``_kmer_id`` may find: every code a real
+        character (below sigma)."""
+        return (chars < self.alph.sigma).all(axis=1)
+
+    def map_kmers_batch(self, chars: np.ndarray) -> np.ndarray:
+        """(n, k) code rows -> (n,) int64 node ids (0: not in the graph),
+        the JAX ``_kmer_id`` of each: one kernel A launch over the valid
+        rows, none when there is none."""
+        from .._u32 import np_words
+        from ..succinct.ops import key_lookup, pack_kmers32
+        chars = np.asarray(chars, dtype=np.uint8).reshape(-1, self.k)
+        out = np.zeros(len(chars), dtype=np.int64)
+        ok = self._valid_rows(chars)
+        if not ok.any() or not len(self._kmers):
+            return out
+        table = self._table()
+        keys = np_words(pack_kmers32(chars[ok], self._bits))
+        out[ok] = key_lookup(keys.to(table.device), table).cpu().numpy()
+        return out
+
+    def _node_rows(self, nodes) -> np.ndarray:
+        """Node ids -> rows of ``_kmers``; as the JAX graph indexes its
+        k-mers by ``node - 1``, node 0 reads the last row (and a row past
+        the end raises IndexError there too)."""
+        nodes = np.asarray(nodes, dtype=np.int64)
+        if self._ids is None:
+            return nodes - 1
+        if self._row_of is None:
+            self._row_of = np.full(int(self._ids.max(initial=0)) + 1, -1,
+                                   dtype=np.int64)
+            self._row_of[self._ids] = np.arange(len(self._ids))
+        rows = np.full(len(nodes), -1, dtype=np.int64)
+        inside = (nodes >= 0) & (nodes < len(self._row_of))
+        rows[inside] = self._row_of[nodes[inside]]
+        if (rows < 0).any():
+            raise IndexError("node id not in the graph")
+        return rows
+
+    def _node_chars(self, node: int) -> np.ndarray:
+        return self._kmers[self._node_rows([node])[0]]
+
+    # ------------------------------------------------------------ mapping
+    def map_to_nodes_sequentially_batch(self, sequences) -> list:
+        """``map_to_nodes_sequentially`` of each sequence, in one lookup:
+        the sequences joined by an invalid code, so that no window crosses
+        two."""
+        ex, k = self.extractor, self.k
+        parts = [ex.encode(s) for s in sequences]
+        if not parts:
+            return []
+        sep = np.array([ex.invalid], dtype=np.uint8)
+        cat = np.concatenate([x for p in parts for x in (p, sep)])
+        nodes = np.zeros(max(len(cat) - k + 1, 0), dtype=np.int64)
+        if len(nodes):
+            wins = np.lib.stride_tricks.sliding_window_view(cat, k)
+            bad = np.concatenate([[0], np.cumsum(cat >= self.alph.sigma)])
+            valid = (bad[k:] - bad[:-k]) == 0
+            if valid.any():
+                nodes[valid] = self.map_kmers_batch(wins[valid])
+        out, at = [], 0
+        for p in parts:
+            out.append(nodes[at: at + max(len(p) - k + 1, 0)])
+            at += len(p) + 1
+        return out
+
+    def map_to_nodes_sequentially(self, sequence) -> np.ndarray:
+        """The node of every k-mer window as it is, 0 where none."""
+        return self.map_to_nodes_sequentially_batch([sequence])[0]
+
+    def map_to_nodes_batch(self, sequences) -> list:
+        """``map_to_nodes`` of each sequence, in one lookup."""
+        seqs = [s.encode() if isinstance(s, str) else s for s in sequences]
+        if self.mode != CANONICAL:
+            return self.map_to_nodes_sequentially_batch(seqs)
+        got = self.map_to_nodes_sequentially_batch(
+            seqs + [bytes(s).translate(_REVCOMP)[::-1] for s in seqs])
+        n = len(seqs)
+        return [np.where(f > 0, f, b[::-1]) for f, b in zip(got[:n],
+                                                            got[n:])]
+
+    def map_to_nodes(self, sequence) -> np.ndarray:
+        """The node of every window; in canonical mode a forward miss
+        takes the reverse complement's hit (hash_graph.py:55-63)."""
+        return self.map_to_nodes_batch([sequence])[0]
+
+    # ---------------------------------------------------------- traversal
+    def get_node_sequence(self, node: int) -> bytes:
+        return self.alph.decode_table[self._node_chars(node)].tobytes()
+
+    def _neighbours(self, nodes, outgoing: bool) -> np.ndarray:
+        """(n,) nodes -> (n, sigma - 1) ids of each node's successors (or
+        predecessors) by codes 1 .. sigma - 1, 0 where none: one lookup."""
+        rows = self._node_rows(nodes)
+        sig, k = self.alph.sigma, self.k
+        cand = np.empty((len(rows), sig - 1, k), dtype=np.uint8)
+        par = self._kmers[rows][:, None, :]
+        if outgoing:
+            cand[:, :, :-1] = par[:, :, 1:]
+            cand[:, :, -1] = np.arange(1, sig)
+        else:
+            cand[:, :, 1:] = par[:, :, :-1]
+            cand[:, :, 0] = np.arange(1, sig)
+        return self.map_kmers_batch(cand.reshape(-1, k)).reshape(
+            len(rows), sig - 1)
+
+    def _listed(self, ids: np.ndarray):
+        table = self.alph.decode_table
+        return [(int(n), chr(table[c + 1])) for c, n in enumerate(ids) if n]
+
+    def call_outgoing_kmers(self, node: int):
+        """[(next node, char)] by codes 1 .. sigma - 1."""
+        return self._listed(self._neighbours([node], True)[0])
+
+    def call_incoming_kmers(self, node: int):
+        """[(previous node, char)] by codes 1 .. sigma - 1."""
+        return self._listed(self._neighbours([node], False)[0])
+
+    def traverse(self, node: int, ch: str) -> int:
+        c = int(self.extractor.encode(ch)[0])
+        if c >= self.alph.sigma:
+            return 0
+        chars = self._node_chars(node)
+        return int(self.map_kmers_batch(
+            np.concatenate([chars[1:], [c]]).astype(np.uint8))[0])
+
+    def outdegree(self, node: int) -> int:
+        return len(self.call_outgoing_kmers(node))
+
+    def indegree(self, node: int) -> int:
+        return len(self.call_incoming_kmers(node))
+
+    def has_multiple_outgoing(self, node: int) -> bool:
+        return self.outdegree(node) > 1
+
+    def has_single_incoming(self, node: int) -> bool:
+        return self.indegree(node) == 1
+
+    # -------------------------------------------------- batch traversal
+    def call_outgoing_batch(self, nodes):
+        """``call_outgoing_kmers`` of a node array in one lookup: ->
+        (owner, child, char code), flat, each node's children by code, the
+        code ``ord`` of the upper-cased character, as the JAX flat
+        engine's per-node loop gives them (align/flat.py:125-138)."""
+        ids = self._neighbours(nodes, True)
+        owner, c = np.nonzero(ids)
+        upper = np.array([ord(chr(b).upper()) for b in
+                          self.alph.decode_table[1: self.alph.sigma]],
+                         dtype=np.int64)
+        return owner.astype(np.int64), ids[owner, c], upper[c]
+
+    def has_multiple_outgoing_batch(self, nodes) -> np.ndarray:
+        return (self._neighbours(nodes, True) > 0).sum(axis=1) > 1
+
+    def has_single_incoming_batch(self, nodes) -> np.ndarray:
+        return (self._neighbours(nodes, False) > 0).sum(axis=1) == 1
+
+    # ------------------------------------------------------------ storage
     def save(self, path: str):
         """``<path>.dbg.npz`` (or ``path`` if it ends in .npz) with the JAX
         graph's keys, dtypes and arrays (hash_graph.py:122-128)."""

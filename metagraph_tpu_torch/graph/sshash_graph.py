@@ -13,7 +13,14 @@ that rank; the entries are then sorted stably by minimizer (D2), which
 sets the order of ``node_kmers_and_ids``, whose k-mers are the 4-bit
 keys unpacked, as the JAX ``call_kmers`` unpacks them.  The minimizers
 are the JAX numpy code.  ``rebuild`` builds the graph again on the host
-from the saved k-mers as DNA sequences, as the JAX one does.
+from the saved k-mers as DNA sequences, as the JAX one does (DNA
+whatever the file says, sshash_graph.py:104-110).
+
+Mapping and traversal are ``_KmerGraphBase``'s (kernel A over the
+graph's own k-mers and ids), with the JAX ``_kmer_id``'s extra rule
+(:77-78): a k-mer holding code 0 or a code >= sigma is in no bucket.  A
+node id finds its row through an inverse map, where the JAX graph
+searches its id array.
 """
 
 from __future__ import annotations
@@ -53,6 +60,9 @@ def compute_minimizers(kmers: np.ndarray, m: int) -> np.ndarray:
 
 class DBGSSHashGraph(_KmerGraphBase):
     GRAPH_TYPE = "sshash"
+
+    def _valid_rows(self, chars: np.ndarray) -> np.ndarray:
+        return ((chars > 0) & (chars < self.alph.sigma)).all(axis=1)
 
     @classmethod
     def build(cls, sequences, k: int, mode: str = BASIC, alphabet=DNA,

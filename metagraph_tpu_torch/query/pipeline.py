@@ -48,8 +48,8 @@ it (``last_batch_seconds`` is set as its results are yielded), and the
 kernels build before the first batch is submitted.
 
 With an ``aligner_config`` (``query --align``, metagraph_tpu/query/
-pipeline.py:925-1027) each batch is first aligned to the succinct graph
-that the engine was given (``graph``; a primary one seen through
+pipeline.py:925-1027) each batch is first aligned to the graph that the
+engine was given (``graph``, of any type; a primary one seen through
 ``CanonicalDBG``), by ``DBGAligner.align_batch`` (seeding on the host,
 every wave one launch of kernel B11 ``align_wave``), or with
 ``batch_align`` to the batch graph of ``batch_graph.py`` (mapped through
@@ -61,8 +61,7 @@ since its column store lives on the card.
 
 Scope: graphs of every type, alphabet and k with a column annotation
 (either codec, or the reference format) or any annotation that
-``transform_anno`` writes, at every budget; ``--align`` on succinct
-graphs.
+``transform_anno`` writes, at every budget, with or without ``--align``.
 """
 
 from __future__ import annotations
@@ -132,8 +131,10 @@ def route_of(index: QueryIndex) -> str:
 class QueryEngine:
     def __init__(self, index: QueryIndex, device=None, coord_to_header=None,
                  graph=None):
-        """``graph``: the succinct graph that ``query --align`` aligns to
-        (a primary one through ``CanonicalDBG``), None without it."""
+        """``graph``: the graph that ``index`` was built from, which
+        ``query --align`` aligns to (a primary one through
+        ``CanonicalDBG``), None without it.  A hash, bitmap or sshash
+        graph takes the engine's kernel A table for its own lookups."""
         self.device = resolve_device(device)
         self.index = index
         self.graph = graph
@@ -151,6 +152,10 @@ class QueryEngine:
         self.route = "map" if self.headers is not None else route_of(index)
         self.extractor = KmerExtractor(ALPHABETS[index.alphabet])
         self.hash_index = DeviceHashIndex.from_table(index.table, self.device)
+        base = graph.graph if hasattr(graph, "get_base_node") else graph
+        if hasattr(base, "share_index"):
+            base.use_device(self.device)
+            base.share_index(self.hash_index.table)
         # the device annotation the epochs count on: the (R, Lw) bitmap
         # tensor, the block-sparse tensors, or a BRWT's or row-diff's
         dev_anno = index.device_anno

@@ -12,9 +12,9 @@ state travels with each batch.  ``/align`` aligns a request's reads with
 ``DBGAligner.align_batch`` (seeding on the host, every wave one launch of
 kernel B11 ``align_wave``) on a succinct graph (a primary one through
 ``CanonicalDBG``), one request at a time, as the aligners' column stores
-live on the card and the graph's lazy tables are built at first use.  On
-a graph that is not succinct ``/align`` answers 500 naming ROADMAP
-A13.3e.
+live on the card and the graph's lazy tables are built at first use; a
+hash, bitmap or sshash graph looks its k-mers up in the engine's kernel A
+table.
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ class MetaGraphServer:
         self.name = name
         self.engine = QueryEngine(
             from_graph(graph, annotation) if index is None else index,
-            device=device)
+            device=device, graph=graph)
         if self.engine.device.type == "cuda":
             _build.build_all()          # the kernels build before serving
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -125,9 +125,6 @@ class MetaGraphServer:
             max_nodes_per_seq_char=float(
                 payload.get("max_num_nodes_per_seq_char", 5.0)),
             protein=base.alphabet == "Protein")
-        if not hasattr(base, "boss"):
-            raise NotImplementedError("/align: graphs that are not succinct "
-                                      "are not ported yet (ROADMAP A13.3e)")
         records = _parse_fasta_string(fasta)
         aligner = DBGAligner(g, cfg, device=self.engine.device)
         with self._align_lock:
