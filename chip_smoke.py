@@ -73,7 +73,7 @@ then:
 3b. runs the JAX package's own workload (its ``bench.py`` and
    ``__graft_entry__``'s epochs, ROADMAP A10) on the basic references,
    built by the port's ``DBGSuccinct.build`` at k = 31 with their 1,000
-   labels placed on its node ids, and the basic batch's 150,000 reads:
+   labels placed on its node ids, and the basic batch's 50,000 reads:
    ``DeviceQueryPipeline.query_labels`` (labels, matches),
    ``query_step``, ``query_epoch_tiled``, ``query_epoch_codes`` and
    ``query_epoch_dedup`` after ``dedup_batch`` (kernels A and 2, D2 in
@@ -306,11 +306,48 @@ then:
    A on the bitmap run's largest wave's candidate keys against its plain
    version, an L2 control and the children computed here, timed; and
    ``align_wave`` on that run's largest wave.
+9. (after the protein deployment) ``annotate`` and ``transform_anno``
+   through the port's CLI on the 3b graph file (k = 31, the basic
+   references' 8.1 M k-mers) and 3c's ``basic.fa`` (1,000 records, one
+   label each): ``--anno-header`` under the launch counters (one kernel A
+   launch a batch of records, D2 in ``freeze``), each column's rows the
+   oracle's rows of its reference (``node_of_key``); ``--coordinates
+   --index-header-coords`` (one column, the file's: every window's
+   global position, and the ``.seqs`` headers and offsets);
+   ``--count-kmers`` (the k-mers' multiplicities); ``--separately -p 4``
+   over the references in four files, ``--anno-codec smallest`` and
+   ``--disk-swap`` with a cap that spills, each file's columns equal to
+   the first run's; kernel A on the batch's keys against its plain
+   version, with an L2 control, and every D2 call of the smallest run's
+   ``freeze`` against ``radix_sort_plain`` beside ``torch.sort``.  Then
+   ``transform_anno``: ``row_diff_brwt`` unstaged and staged (0, 1, 2:
+   the same inner matrix, side files the routing), ``devsparse`` (the
+   file beside the row_diff_brwt), and on the first ``small`` references
+   (with counts and coordinates) ``brwt``, ``int_brwt`` and
+   ``row_diff_coord``; ``build_routing``'s seconds on the card.  Then
+   ``query`` through the CLI on the first ``path_reads`` reads of the
+   basic batch with the column annotation, the row_diff_brwt through its
+   devsparse file (a budget of 0 bytes) and each small conversion: the
+   labels' bytes equal to the query with the oracle's annotation (its
+   first ``small`` labels for the small ones).  The first ``cpu``
+   references of each annotate run, and an int_brwt conversion,
+   against a ``--torch-device cpu`` run: equal files (the conversion
+``int_brwt`` of the counts run's).  Last, at small
+   depth (``small`` references), ``--anno-header`` on a primary graph
+   built here (half the records reverse-complemented: ``CanonicalDBG``),
+   a protein graph built here (k = 20, 8-bit keys) and 3c's bitmap graph,
+   each column against the graph's decoded edges (the bitmap's ids), one
+   kernel A launch a run.  The commands share the graph object that the
+   first loads and its kernel A table (the queries the table of the
+   first one's index), so the walls leave out its load and the table's
+   build.
 
 Depth cuts, which keep the script inside its time limit (widths are
-never cut): the basic batch is drawn at 150,000 reads, which 3b takes
+never cut): the basic batch is drawn at 50,000 reads (150,000 before),
+which 3b takes
 whole; the main path (2, 3, 3a) and the primary, canonical, k41, protein
-and many-labels deployments take ``path_reads`` = 20,000 reads (the
+and many-labels deployments take ``path_reads`` = 8,000 reads (20,000
+before phase 9; the
 first of the basic batch, or of their own stream; 150,000, then 40,000
 before) and
 the long sequence, the coords mode and the seqs deployment
@@ -322,7 +359,23 @@ k = 21 graph, which holds the first 100 of the 1,000 references, 150
 (200); 8c 300 reads with 3b's annotation (500) and 120 in each other
 run (200), 30 of them against the CPU (50); 8d 200-1,000 reads on
 bitmap, 100-400 on each other graph, 200 for ``-a`` and 300 for ``query
---align``.
+--align``; the build oracles decode 50,000 edges a build (100,000
+before).  Runs on slow hosts passed the limit with phase 9, so the
+script also cut the basic batch to 50,000 reads (which 3b takes
+whole; 150,000), ``coords_prefix`` to 5,000 (10,000), the oracle
+``sample`` to 500 sequences (2,000), the pan-genome to 1 base genome
+(3), the read set to 40,000 reads (100,000), the words deployments to
+8,000 reads (15,000), the build phases' D2 timing to 2 runs (3), phase
+8 to 100-150 reads, 8b to 100-120, 8c to 60-80 with 3b's annotation and
+30 in each other run (15 against the CPU), 8d to 250 / 100 reads, each
+calibration to 100 reads (200), and phase 9's CPU comparisons to the
+first 20 references.  Phase 9 annotates and converts at full width (1,000
+references); ``brwt``, ``int_brwt`` and ``row_diff_coord`` take the
+columns of the first ``small`` = 100 references, the small graphs 100
+records, the CPU comparisons the first ``cpu`` = 20 references;
+``row_diff_coord`` is held on 20,000 of its rows rather than queried
+(decoding every row on the host for the query's bitmap takes minutes, as
+does a row_diff_brwt's without its devsparse file).
 
 Launch counters are set to 0 just before each driven path and read just
 after; comparison launches do not count.  The second-to-last line of
@@ -334,7 +387,8 @@ largest wave), ``align_wave/align-labeled`` (8c's),
 ``radix_sort/reads-k31-counts`` and
 ``radix_sort/protein-k20-disk`` for the general route,
 ``radix_sort/graph_bitmap``, ``.../graph_hash_canonical``,
-``.../graph_sshash``, ``.../suffix`` and ``.../kmc`` for 3c, and
+``.../graph_sshash``, ``.../suffix`` and ``.../kmc`` for 3c,
+``key_lookup/annotate`` and ``radix_sort/annotate`` for phase 9, and
 ``key_lookup/a10``, ``label_counts/a10`` and ``radix_sort/a10`` for 3b;
 kernels 1-3 once more
 for each of the primary and canonical deployments, kernels B, 2, 3 for
@@ -381,34 +435,36 @@ KP = 20                        # the protein deployment (map route)
 MIN_HIT_SHARE = 0.25
 AMINO = "ACDEFGHIKLMNPQRSTVWY"  # protein references; code 20 = outside
 
-FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=150_000,
-            read_len=200, long_windows=1 << 24, sample=2000,
+FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=50_000,
+            read_len=200, long_windows=1 << 24, sample=500,
             sw=(4096, 150, 300), sw_big=(1024, 1000, 1000),
             sw_long=(256, 2000, 2000), sw_oracle=12,
-            plain_chunks=(1024, 256), coords_prefix=10_000,
+            plain_chunks=(1024, 256), coords_prefix=5_000,
             protein_len=8120, protein_repeat=(1000, 1300),
             gather=(22, (16, 17), 1024), gather_big=21, ctrl_log=15,
             ctrl_rows=4096, many=(4096, 16, (48, 65)), anno_budget=2 << 30,
-            words_budget=32768, words_reads=15_000, rd_max_length=100,
+            words_budget=32768, words_reads=8_000, rd_max_length=100,
             seqs_headers=10, par_batches=8, par_threads=4,
             wide=(200, 8101, 20_000, 200), server_reads=2000,
-            bitmap_reads=10_000, pan=(3, 4_000_000, 4, 0.01, 3),
-            build_reads=(100_000, 150, 0.5, 0.01), build_k=21,
-            path_reads=20_000,
-            build_sample=100_000, build_reps=3, host_k=31, disk_cap_gb=0.04,
-            align=dict(read_len=150, pool=20_000, warm=20, calibrate=200,
-                       budget_s=40, target=600, least=200, cpu=20, par=40,
+            bitmap_reads=10_000, pan=(1, 4_000_000, 4, 0.01, 3),
+            build_reads=(40_000, 150, 0.5, 0.01), build_k=21,
+            path_reads=8_000,
+            build_sample=50_000, build_reps=2, host_k=31, disk_cap_gb=0.04,
+            align=dict(read_len=150, pool=20_000, warm=20, calibrate=100,
+                       budget_s=15, target=150, least=100, cpu=20, par=40,
                        par_procs=4),
-            query_align=dict(pool=1500, warm=20, calibrate=200, budget_s=60,
-                             target=500, least=200, batch_bp=37_500,
+            query_align=dict(pool=1500, warm=20, calibrate=100, budget_s=20,
+                             target=120, least=100, batch_bp=37_500,
                              cpu=100, k21_refs=100, k21_reads=150,
                              server_reads=100),
-            labeled=dict(pool=800, warm=20, calibrate=200, budget_s=40,
-                         target=300, least=200, cpu=30, coords=120,
-                         segments=120, chain=120, gfa=120, per_label=10),
+            labeled=dict(pool=800, warm=20, calibrate=100, budget_s=20,
+                         target=80, least=60, cpu=15, coords=30,
+                         segments=30, chain=30, gfa=30, per_label=10),
             hash_align=dict(pool=1200, warm=20, calibrate=100, budget_s=6,
-                            target=(1000, 400), least=(200, 100), cpu=50,
-                            query=300, labeled=200))
+                            target=(250, 100), least=(150, 80), cpu=50,
+                            query=300, labeled=200),
+            annotate=dict(small=100, cpu=20, cap_gb=0.01,
+                          coord_rows=20_000))
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -434,7 +490,8 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
                          segments=15, chain=15, gfa=12, per_label=10),
             hash_align=dict(pool=60, warm=5, calibrate=10, budget_s=0,
                             target=(30, 20), least=(30, 20), cpu=5,
-                            query=15, labeled=15))
+                            query=15, labeled=15),
+            annotate=dict(small=6, cpu=5, cap_gb=0.00002, coord_rows=50))
 
 
 def log(msg: str):
@@ -4244,6 +4301,7 @@ def query_align_phase(cfg, graph_path, refs, anno, oracle, seed, torch,
     index = convert.from_graph(g, anno)
     engine = QueryEngine(index, device=dev, graph=g)
     cpu_engine = QueryEngine(index, device="cpu", graph=g)
+    g.set_key_table(engine.hash_index.table)      # for phase 9
     warm, cal = qc["warm"], qc["calibrate"]
     query_align_run(engine, seqs[-warm:], acfg, qc["batch_bp"], False, K)
     *_, cal_s = query_align_run(engine, seqs[-warm - cal: -warm], acfg,
@@ -5277,6 +5335,581 @@ def hash_align_runs(cfg, graphs, kid, indexes, refs, wide_dna, oracle, seed,
             "align_wave": launches_b["align_wave"]}, entries
 
 
+# --------------------------------------------------------------------------
+# phase 9: annotate and transform_anno through the port's CLI
+# --------------------------------------------------------------------------
+
+def anno_cli(args, dev, stdout=False):
+    """The port's ``annotate``, ``transform_anno`` or ``query`` (its
+    ``main`` in this process; ``--torch-device cpu`` where ``dev`` is the
+    CPU): -> (stdout or stderr text, wall s)."""
+    import contextlib
+    import io
+    from metagraph_tpu_torch import cli
+    from metagraph_tpu_torch.utils.timer import set_trace
+    buf = io.StringIO()
+    args = [str(a) for a in args] + (["--torch-device", "cpu"]
+                                     if dev.type == "cpu" else [])
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf) if stdout \
+                else contextlib.redirect_stderr(buf):
+            cli.main(args)
+    except SystemExit as e:
+        raise AssertionError(f"{' '.join(args)}: exit {e.code}: "
+                             f"{buf.getvalue()[-2000:]}") from e
+    finally:
+        set_trace(False)
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def edge_index(g):
+    """The graph's valid edges, decoded (``BOSS.get_edge_seq``) to letter
+    rows and sorted here: -> (sorted rows as void keys, their edges)."""
+    edges = np.flatnonzero(g.boss.valid)
+    ev = as_void(g.alph.decode_table[g.boss.get_edge_seq(edges)])
+    order = np.argsort(ev)
+    return ev[order], edges[order]
+
+
+def edge_ids(index, letter_rows: np.ndarray) -> np.ndarray:
+    """Each (n, k) letter row's node id in ``edge_index``; 0 where
+    none."""
+    ev, edges = index
+    qv = as_void(np.ascontiguousarray(letter_rows))
+    pos = np.minimum(np.searchsorted(ev, qv), len(ev) - 1)
+    return np.where(ev[pos] == qv, edges[pos], 0)
+
+
+def letter_windows(seq: bytes, k: int) -> np.ndarray:
+    s = np.frombuffer(seq, np.uint8)
+    return np.lib.stride_tricks.sliding_window_view(s, k) \
+        if len(s) >= k else np.zeros((0, k), np.uint8)
+
+
+def frozen_columns(path):
+    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+    return ColumnMajorAnnotation.load(path + ".column.annodbg.npz")
+
+
+def same_columns(a, b, what, rows_only=False):
+    """Two column annotations with the same labels, rows (and values,
+    coordinates)."""
+    if a.labels != b.labels:
+        raise AssertionError(f"{what}: labels differ")
+    for c in range(a.num_labels):
+        pairs = [(a._rows[c], b._rows[c])]
+        if not rows_only:
+            pairs += [(a._values[c], b._values[c]),
+                      (a._coords[c], b._coords[c])]
+        if not all(np.array_equal(x, y) for x, y in pairs):
+            raise AssertionError(f"{what}: column {c} differs")
+
+
+def same_npz(pa, pb, what):
+    with np.load(pa, allow_pickle=True) as x, np.load(pb, allow_pickle=True) \
+            as y:
+        if x.files != y.files or not all(
+                x[m].dtype == y[m].dtype and np.array_equal(x[m], y[m])
+                for m in x.files):
+            raise AssertionError(f"{what}: {pa} and {pb} differ")
+
+
+def matrix_arrays(obj, pre=""):
+    """Every array and scalar a converted matrix holds, by attribute
+    path."""
+    if isinstance(obj, np.ndarray):
+        return {pre: obj}
+    if isinstance(obj, (list, tuple, dict)):
+        items = obj.items() if isinstance(obj, dict) else enumerate(obj)
+        out = {}
+        for k, v in items:
+            out.update(matrix_arrays(v, f"{pre}.{k}"))
+        return out
+    if hasattr(obj, "__dict__") or hasattr(type(obj), "__slots__"):
+        d = dict(getattr(obj, "__dict__", {}))
+        for s in getattr(type(obj), "__slots__", ()):
+            d[s] = getattr(obj, s)
+        d.pop("path_base", None)
+        return matrix_arrays(d, pre)
+    return {pre: obj}
+
+
+def same_matrix(pa, pb, what):
+    from metagraph_tpu_torch.annotation.matrix import load_annotation
+    x = matrix_arrays(load_annotation(pa).matrix)
+    y = matrix_arrays(load_annotation(pb).matrix)
+    if x.keys() != y.keys() or not all(
+            np.array_equal(x[k], y[k]) if isinstance(x[k], np.ndarray)
+            else x[k] == y[k] for k in x):
+        raise AssertionError(f"{what}: {pa} and {pb} differ")
+
+
+def reference_oracle(refs, oracle, node_of_key, n):
+    """Rows, counts and window rows of the first ``n`` references, from
+    the oracle's keys and the graph's node ids (``graph_annotation``)."""
+    kk, ok = window_keys(np.concatenate([np.append(r, 4) for r in refs[:n]])
+                         .astype(np.uint8), K)    # no window spans two
+    wrows = node_of_key[np.searchsorted(oracle["keys"], kk[ok])] - 1
+    out = []
+    for w in np.split(wrows, np.cumsum([len(r) - K + 1
+                                        for r in refs[:n]])[:-1]):
+        rows, mult = np.unique(w, return_counts=True)
+        out.append((rows, mult, w))
+    return out
+
+
+def check_header_columns(anno, ref_o, what, counts=False):
+    """Column i (label s<i>) holds reference i's rows (and with
+    ``counts`` its k-mers' multiplicities)."""
+    if anno.labels != [f"s{i}" for i in range(len(ref_o))]:
+        raise AssertionError(f"{what}: labels are not the records'")
+    for c, (rows, mult, _) in enumerate(ref_o):
+        if not np.array_equal(anno._rows[c], rows) or counts and \
+                not np.array_equal(anno._values[c], mult):
+            raise AssertionError(f"{what}: column {c} is not the oracle's")
+
+
+def shared_tables():
+    """Patch ``convert.from_graph`` so that phase 9's queries on one
+    graph object share one kernel A table (as a server holds its index):
+    the graph's ``key_table``, which annotate built (the same table), or
+    else the first query's; each query still converts its own annotation.
+    -> restore."""
+    from metagraph_tpu_torch import convert
+    real = convert.from_graph
+    indexes = {}
+
+    def from_graph(graph, annotation, cache=None):
+        dev_anno = convert.device_annotation(annotation, graph.max_index(),
+                                             cache)
+        base = indexes.get(id(graph))
+        if base is None and graph.mode == "basic" \
+                and getattr(graph, "_tables", None):
+            table = next(iter(graph._tables.values())).cpu().numpy()
+            base = convert.QueryIndex(graph.k, table.view(np.uint32),
+                                      dev_anno, list(annotation.labels),
+                                      annotation, 0, graph.alphabet)
+        elif base is None:
+            base = real(graph, annotation, cache)
+        indexes[id(graph)] = base
+        return dataclasses.replace(base, device_anno=dev_anno,
+                                   labels=list(annotation.labels),
+                                   annotation=annotation)
+
+    convert.from_graph = from_graph
+
+    def restore():
+        convert.from_graph = real
+    return restore
+
+
+def annotate_phase(*args, graph=None):
+    """Phase 9 (``annotate_runs``) with each graph file loaded once: the
+    commands share the ``DBGSuccinct`` that the first one loads (or
+    ``graph``, the 3b graph object of 8b, which keeps its index's kernel
+    A table), and its kernel A tables (the card's, and the CPU's
+    copy of it), as a server holds its graph; so the walls leave out the
+    graph's load and its table's build."""
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    load = DBGSuccinct.__dict__["load"]
+    graphs = {} if graph is None else {args[1] + ".dbg.npz": graph}
+
+    def once(cls, path, *a, **kw):
+        if path not in graphs:
+            graphs[path] = load.__func__(cls, path, *a, **kw)
+        return graphs[path]
+
+    DBGSuccinct.load = classmethod(once)
+    restore = shared_tables()
+    try:
+        return annotate_runs(*args)
+    finally:
+        DBGSuccinct.load = load
+        restore()
+
+
+def annotate_runs(cfg, a10_path, refs, oracle, anno, node_of_key, seqs,
+                  bitmap, prefs, work, torch, dev, timed):
+    """``annotate`` and ``transform_anno`` through the port's CLI on the
+    3b graph (k = 31, 1,000 references): the runs, conversions, queries,
+    oracles and CPU comparisons of the docstring's phase 9; kernel A on
+    the largest batch's keys and D2 on ``freeze``'s sort against their
+    plain versions.  -> (launches, entries)."""
+    from metagraph_tpu_torch import anno_cli as ac
+    from metagraph_tpu_torch._u32 import np_words, to_u64
+    from metagraph_tpu_torch.annotation.column import ColumnMajorAnnotation
+    from metagraph_tpu_torch.annotation.coord_to_header import CoordToHeader
+    from metagraph_tpu_torch.annotation.matrix import RowDiff
+    from metagraph_tpu_torch.succinct import ops
+    c9 = cfg["annotate"]
+    marks = [time.perf_counter()]
+
+    def mark(name):
+        """Log the seconds since the last mark (the phase's parts)."""
+        now = time.perf_counter()
+        log(f"annotate phase: {name} {now - marks[0]:.1f} s")
+        marks[0] = now
+
+    d = os.path.join(work, "annotate")
+    os.makedirs(d, exist_ok=True)
+    cpu = torch.device("cpu")
+    gpath = a10_path + ".dbg.npz"
+    n_all = len(refs)
+    fa = os.path.join(work, "basic.fa")
+    n_small = min(c9["small"], n_all)
+    n_cpu = min(c9["cpu"], n_all)
+    inputs = {"basic": fa}
+    for name, sel in (("small", range(n_small)), ("cpu", range(n_cpu))):
+        inputs[name] = os.path.join(d, f"basic-{name}.fa")
+        write_records(inputs[name], [refs[i] for i in sel])
+    parts = {}
+    for name, n in (("all", n_all), ("cpu", n_cpu)):
+        cuts = np.linspace(0, n, 5).astype(int)
+        parts[name] = [os.path.join(d, f"part-{name}{j}.fa")
+                       for j in range(4)]
+        for j in range(4):
+            with open(parts[name][j], "wb") as f:
+                for i in range(cuts[j], cuts[j + 1]):
+                    f.write(b">s%d\n" % i + np.frombuffer(
+                        b"ACGTN", np.uint8)[refs[i]].tobytes() + b"\n")
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    g = DBGSuccinct.load(gpath)
+    t0 = time.perf_counter()
+    g.use_device(dev)
+    table = g.key_table()
+    log(f"annotate: kernel A's table of the graph's {g.boss.num_valid} "
+        f"valid edges {tuple(table.shape)} built in "
+        f"{time.perf_counter() - t0:.1f} s (once for the phase)")
+    g.set_key_table(table.cpu())
+    ref_o = timed("annotate oracle", reference_oracle, refs, oracle,
+                  node_of_key, n_all)
+    mark("inputs, table and oracle")
+
+    # the runs: (name, flags, inputs); A first, counted
+    runs = [("header", ["--anno-header"], [fa]),
+            ("coords", ["--coordinates", "--index-header-coords"], [fa]),
+            ("counts", ["--anno-header", "--count-kmers"], [fa]),
+            ("separately", ["--separately", "-p", "4", "--anno-header"],
+             parts["all"]),
+            ("smallest", ["--anno-header", "--anno-codec", "smallest"],
+             [fa]),
+            ("disk-swap", ["--anno-header", "--disk-swap", d,
+                           "--mem-cap-gb", str(c9["cap_gb"])], [fa])]
+    launches, entries, stats = {}, {}, {}
+    d2 = sort_checks(torch, dev, cfg["build_reps"], "annotate freeze")
+    for name, flags, files in runs:
+        out = os.path.join(d, name)
+        line = ["annotate", "-v", "-i", gpath, *flags, "-o", out, *files]
+        if name == "header":
+            (text, wall), launches = run_path(lambda: anno_cli(line, dev))
+        elif name == "smallest":
+            with d2.active():
+                text, wall = anno_cli(line, dev)
+        else:
+            text, wall = anno_cli(line, dev)
+        st = stats[name] = dict(ac.ANNOTATE_STATS)
+        log(f"annotate {name}: {st['records']} records, {st['kmers']} "
+            f"k-mers in {st['batches']} batches, {wall:.2f} s wall "
+            f"({st['kmers'] / wall:.3g} k-mers/s; " + ", ".join(
+                f"{p} {st[p]:.2f}" for p in ("read", "map", "add",
+                                             "freeze", "save"))
+            + f" s{'; ' + str(st['spills']) + ' spills' if st['spills'] else ''})")
+    for kern in ("key_lookup", "radix_sort"):
+        if dev.type == "cuda" and not launches.get(kern):
+            raise AssertionError(f"annotate launched no {kern}")
+    log(f"annotate header: launches key_lookup {launches['key_lookup']}, "
+        f"radix_sort {launches['radix_sort']} (one kernel A a batch)")
+    if dev.type == "cuda" and launches["key_lookup"] != \
+            stats["header"]["batches"]:
+        raise AssertionError("annotate: not one kernel A launch a batch")
+    if not stats["disk-swap"]["spills"]:
+        raise AssertionError("annotate --disk-swap did not spill")
+    mark("annotate runs")
+
+    # the oracles
+    a = frozen_columns(os.path.join(d, "header"))
+    check_header_columns(a, ref_o, "annotate --anno-header")
+    check_header_columns(frozen_columns(os.path.join(d, "counts")), ref_o,
+                         "annotate --count-kmers", counts=True)
+    for name in ("smallest", "disk-swap"):
+        same_columns(a, frozen_columns(os.path.join(d, name)),
+                     f"annotate {name}", rows_only=name == "smallest")
+    at = 0
+    for j, f in enumerate(parts["all"]):
+        part = frozen_columns(os.path.join(d, "separately",
+                                           os.path.basename(f)))
+        n = part.num_labels
+        sub = ColumnMajorAnnotation(a.num_rows, a.labels[at: at + n],
+                                    a._rows[at: at + n])
+        same_columns(sub, part, f"annotate --separately {j}",
+                     rows_only=True)
+        at += n
+    if at != n_all:
+        raise AssertionError("annotate --separately: columns missing")
+    crd = frozen_columns(os.path.join(d, "coords"))
+    nwin = np.array([len(w) for _, _, w in ref_o])
+    off = np.concatenate([[0], np.cumsum(nwin)])
+    want_r = np.concatenate([w for _, _, w in ref_o])
+    want_c = np.concatenate([off[i] + np.arange(n)
+                             for i, n in enumerate(nwin)])
+    order = np.lexsort((want_c, want_r))
+    if crd.labels != [fa] or not np.array_equal(
+            crd._coords[0], np.stack([want_r[order], want_c[order]], 1)):
+        raise AssertionError("annotate --coordinates: not the windows' "
+                             "positions")
+    cth = CoordToHeader.load(os.path.join(d, "coords.seqs"))
+    if cth.get_headers(0) != [f"s{i}" for i in range(n_all)] \
+            or not np.array_equal(cth.offsets[0], off):
+        raise AssertionError("annotate --index-header-coords: .seqs")
+    log(f"annotate oracles: {n_all} columns' rows, counts, "
+        f"{len(want_r)} coordinates and their .seqs, --separately, "
+        f"--anno-codec smallest and --disk-swap equal")
+    mark("oracles")
+
+    # kernel A on the largest batch's keys, D2 on freeze's sort
+    recs = [np.frombuffer(b"ACGTN", np.uint8)[r].tobytes()
+            for r in refs]
+    _, _, keys = g.batch_keys(recs)
+    keys = np_words(keys).to(dev)
+    if len(keys) != stats["header"]["largest_batch"]:
+        raise AssertionError("annotate: the largest batch's keys differ")
+    ids = ops.key_lookup(keys, table)
+    chunk = 1 << 16
+    ids_p = ops.key_lookup_plain(keys, table, chunk)
+    gb, rb = probe_bytes(table, (to_u64(keys[lo: lo + chunk]) for lo in
+                                 range(0, len(keys), chunk)), torch, dev)
+    log(f"  key_lookup [annotate]: {len(keys)} keys of {keys.shape[1]} "
+        f"words; bound counts {gb} B of slot groups (whole rows {rb} B)")
+    add_entry(entries, torch, " [annotate]", "key_lookup", [ids], [ids_p],
+              device_ms(torch, dev, lambda: ops.key_lookup(keys, table), 10),
+              device_ms(torch, dev, lambda: ops.key_lookup_plain(
+                  keys, table, chunk), 1),
+              keys.nbytes + ids.nbytes + gb)
+    entries["key_lookup"]["library_ms"] = None
+    l2_control("key_lookup", " [annotate]", np.asarray(
+        to_u64(table).cpu().numpy(), np.uint32),
+        lambda t: ops.key_lookup(keys, t),
+        lambda t: ops.key_lookup_plain(keys, t, chunk), cfg, torch, dev)
+    del keys, ids, ids_p
+    entries["radix_sort"] = d2.entry()
+    mark("kernel checks")
+
+    # transform_anno: row_diff_brwt unstaged and staged, devsparse at full
+    # width; brwt, int_brwt and row_diff_coord on the first n_small
+    # references' columns (with counts and coordinates)
+    col = os.path.join(d, "header.column.annodbg")
+    walls = {}
+
+    def convert(tag, flags, out, src):
+        _, walls[tag] = anno_cli(["transform_anno", "-i", gpath, *flags,
+                                  "-o", out, src], dev)
+        log(f"transform_anno {tag}: {walls[tag]:.2f} s")
+
+    convert("row_diff_brwt", ["--anno-type", "row_diff_brwt"],
+            os.path.join(d, "rd"), col)
+    for s in (0, 1, 2):
+        _, w = anno_cli(["transform_anno", "--anno-type", "row_diff_brwt",
+                         "--row-diff-stage", s, "-i", gpath, "-o",
+                         os.path.join(d, "rds"), col], dev)
+        walls[f"stage {s}"] = w
+    log("transform_anno staged: " + ", ".join(
+        f"{s} {walls[f'stage {s}']:.2f} s" for s in (0, 1, 2)))
+    convert("devsparse", ["--anno-type", "devsparse"],
+            os.path.join(d, "rd.row_diff_brwt.annodbg.devsparse"), col)
+    small_line = ["annotate", "-i", gpath, "--anno-header", "--count-kmers",
+                  "--coordinates", "-o", os.path.join(d, "small"),
+                  inputs["small"]]
+    anno_cli(small_line, dev)
+    small = os.path.join(d, "small.column.annodbg")
+    check_header_columns(frozen_columns(os.path.join(d, "small")),
+                         ref_o[:n_small], "annotate (small)", counts=True)
+    for t in ("brwt", "int_brwt", "row_diff_coord"):
+        convert(t, ["--anno-type", t], os.path.join(d, "small"), small)
+
+    mark("conversions")
+    # staged equal to unstaged: the same inner matrix, sidecars the
+    # routing, which build_routing gives again on the card
+    from metagraph_tpu_torch.annotation.matrix import load_annotation
+    un = load_annotation(os.path.join(d, "rd.row_diff_brwt.annodbg"))
+    st_ = load_annotation(os.path.join(d, "rds.row_diff_brwt.annodbg"))
+    xa, xb = matrix_arrays(un.matrix.inner), matrix_arrays(st_.matrix.inner)
+    succ = np.load(gpath + ".rd_succ")["succ"]
+    anchors = np.load(gpath + ".anchors")["anchors"]
+    if xa.keys() != xb.keys() or not all(
+            np.array_equal(xa[k], xb[k]) for k in xa) \
+            or not np.array_equal(succ, un.matrix.succ) \
+            or not np.array_equal(anchors, un.matrix.anchors):
+        raise AssertionError("row_diff_brwt: staged and unstaged differ")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    RowDiff.build_routing(g, 100, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"build_routing on the card: {time.perf_counter() - t:.2f} s "
+        f"({g.boss.num_edges} edges, {int(anchors.sum())} anchors)")
+    mark("staged against unstaged, build_routing")
+
+    # the queries: each output's labels bytes equal the oracle's
+    nq = min(cfg["path_reads"], len(seqs))
+    reads = os.path.join(d, "reads.fa")
+    with open(reads, "wb") as f:
+        for i in range(nq):
+            f.write(b">r%d\n" % i + seqs[i] + b"\n")
+    # the oracle's columns under the records' names (s<i>)
+    ref_anno = os.path.join(d, "oracle")
+    names = [f"s{i}" for i in range(n_all)]
+    ColumnMajorAnnotation(anno.num_rows, names, anno._rows).save(
+        ref_anno + ".column.annodbg")
+    small_oracle = os.path.join(d, "oracle-small")
+    ColumnMajorAnnotation(anno.num_rows, names[:n_small],
+                          anno._rows[:n_small]).save(
+        small_oracle + ".column.annodbg")
+
+    def query(path, budget=None):
+        if budget is not None:
+            os.environ["METAGRAPH_DENSE_ANNO_BUDGET"] = str(budget)
+        try:
+            return anno_cli(["query", "-i", gpath, "-a", path, reads], dev,
+                            stdout=True)
+        finally:
+            if budget is not None:
+                del os.environ["METAGRAPH_DENSE_ANNO_BUDGET"]
+
+    want, qwall = query(ref_anno + ".column.annodbg")
+    want_small = query(small_oracle + ".column.annodbg")[0]
+    if want.count("\t") < nq or not any(
+            ln.split("\t")[2] for ln in want.splitlines() if ln):
+        raise AssertionError("annotate queries: no labels")
+    # (a row_diff_brwt queries through its devsparse file: decoding all its
+    # rows on the host for the dense bitmap takes minutes)
+    for tag, path, budget, ref in (
+            ("column", col, None, want),
+            ("row_diff_brwt + devsparse",
+             os.path.join(d, "rd.row_diff_brwt.annodbg"), 0, want),
+            ("brwt", os.path.join(d, "small.brwt.annodbg"), None,
+             want_small),
+            ("int_brwt", os.path.join(d, "small.int_brwt.annodbg"), None,
+             want_small)):
+        got, w = query(path, budget)
+        if got != ref:
+            raise AssertionError(f"query on the {tag} annotation: labels "
+                                 "differ from the oracle's")
+        log(f"query -a {tag}: {nq} reads, {w:.2f} s, labels equal to the "
+            f"oracle's")
+    if not os.path.exists(os.path.join(d, "rd.row_diff_brwt.annodbg"
+                                          ".devsparse.npz")):
+        raise AssertionError("devsparse: no file beside the row_diff_brwt")
+    # row_diff_coord: the coordinates of rows of its references, rebuilt
+    # along the row-diff chains, equal to its source's
+    from metagraph_tpu_torch.annotation.matrix import load_annotation
+    src = frozen_columns(os.path.join(d, "small"))
+    rdc = load_annotation(os.path.join(d, "small.row_diff_coord.annodbg"))
+    rows = np.unique(np.concatenate([w for _, _, w in ref_o[:n_small]]))
+    rows = rows[np.random.default_rng(9).permutation(len(rows))[
+        : c9["coord_rows"]]]
+    if rdc.get_row_tuples(rows) != src.get_row_tuples(rows):
+        raise AssertionError("row_diff_coord: coordinates differ")
+    log(f"row_diff_coord: {len(rows)} rows' coordinates equal to its "
+        f"source's")
+    mark("queries")
+
+    # against the CPU: the first n_cpu references of each run, one
+    # conversion
+    os.makedirs(os.path.join(d, "cmp"), exist_ok=True)
+    for name, flags, files in runs:
+        files = parts["cpu"] if name == "separately" else [inputs["cpu"]]
+        outs = {}
+        for side in (dev, cpu):
+            tag = f"{name}-{side.type}"
+            anno_cli(["annotate", "-i", gpath, *flags, "-o",
+                      os.path.join(d, "cmp", tag), *files], side)
+            outs[side.type] = os.path.join(d, "cmp", tag)
+        if name == "separately":
+            for p in parts["cpu"]:
+                b = os.path.basename(p) + ".column.annodbg.npz"
+                same_npz(os.path.join(outs[dev.type], b),
+                         os.path.join(outs["cpu"], b), f"annotate {name}")
+        else:
+            same_npz(outs[dev.type] + ".column.annodbg.npz",
+                     outs["cpu"] + ".column.annodbg.npz", f"annotate {name}")
+            if name == "coords":
+                same_npz(outs[dev.type] + ".seqs", outs["cpu"] + ".seqs",
+                         "annotate .seqs")
+    cmp_col = os.path.join(d, "cmp", f"counts-{dev.type}.column.annodbg")
+    for side in (dev, cpu):
+        anno_cli(["transform_anno", "-i", gpath, "--anno-type",
+                  "int_brwt", "-o",
+                  os.path.join(d, "cmp", f"ib-{side.type}"), cmp_col], side)
+    same_matrix(os.path.join(d, "cmp", f"ib-{dev.type}.int_brwt.annodbg"),
+                os.path.join(d, "cmp", "ib-cpu.int_brwt.annodbg"),
+                "int_brwt on the CPU")
+    log(f"annotate against --torch-device cpu: the first {n_cpu} "
+        f"references of each run and an int_brwt conversion equal")
+    mark("against the CPU")
+
+    # small depth: a primary graph (CanonicalDBG), a protein graph (8-bit
+    # keys) and 3c's bitmap graph
+    small_graphs(cfg, refs, prefs, bitmap, d, torch, dev)
+    mark("small graphs")
+    return launches, entries
+
+
+def small_graphs(cfg, refs, prefs, bitmap, d, torch, dev):
+    """annotate --anno-header on the first ``small`` references of a
+    primary graph (k = 31, half the records reverse-complemented, so that
+    they map through CanonicalDBG's reverse-complement probe), a protein
+    graph (k = 20) and 3c's bitmap graph: each column the rows of its
+    record's windows, found among the graph's decoded edges here (or the
+    bitmap graph's ids)."""
+    from metagraph_tpu_torch.graph.dbg_succinct import DBGSuccinct
+    n = min(cfg["annotate"]["small"], len(refs))
+    dna = np.frombuffer(b"ACGTN", np.uint8)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    fwd = [dna[r].tobytes() for r in refs[:n]]
+    recs = [s if i % 2 == 0 else s.translate(comp)[::-1]
+            for i, s in enumerate(fwd)]
+    amino = np.frombuffer(AMINO.encode(), np.uint8)
+    prot = [amino[p].tobytes() for p in prefs[:n]]
+    cases = {}
+    gp = DBGSuccinct.build(fwd, K, mode="primary", device=dev)
+    gp.save(os.path.join(d, "primary"))
+    cases["primary"] = (os.path.join(d, "primary.dbg.npz"), recs, gp, K)
+    gq = DBGSuccinct.build(prot, KP, alphabet="Protein", device=dev)
+    gq.save(os.path.join(d, "protein"))
+    cases["protein"] = (os.path.join(d, "protein.dbg.npz"), prot, gq, KP)
+    cases["bitmap"] = (bitmap[0], fwd, None, K)
+    for name, (path, seqs_, g, k) in cases.items():
+        fa = os.path.join(d, f"{name}.fa")
+        with open(fa, "wb") as f:
+            for i, s in enumerate(seqs_):
+                f.write(b">s%d\n" % i + s + b"\n")
+        (_, wall), launches = run_path(lambda: anno_cli(
+            ["annotate", "-i", path, "--anno-header", "-o",
+             os.path.join(d, f"small-{name}"), fa], dev))
+        got = frozen_columns(os.path.join(d, f"small-{name}"))
+        index = edge_index(g) if g is not None else None
+        for i, s in enumerate(seqs_):
+            if name == "bitmap":
+                kk, _ = window_keys(refs[i], K)
+                keys, ids = bitmap[1]
+                ids_ = ids[np.searchsorted(keys, kk)]
+            else:
+                ids_ = edge_ids(index, letter_windows(
+                    fwd[i] if name == "primary" else s, k))
+            if (ids_ <= 0).any() or not np.array_equal(
+                    got._rows[i], np.unique(ids_ - 1)):
+                raise AssertionError(f"annotate {name}: column {i} is not "
+                                     "the oracle's")
+        if dev.type == "cuda" and launches["key_lookup"] != 1:
+            raise AssertionError(f"annotate {name}: not one kernel A "
+                                 "launch")
+        log(f"annotate {name}: {n} records in {wall:.2f} s, kernel A "
+            f"launches {launches['key_lookup']}, every column the "
+            f"oracle's")
+
+
 SOURCES = {
     "wire_lookup": ("metagraph_tpu_torch/csrc/wire_lookup.cu",
                     "metagraph_tpu/succinct/ops.py:439"),
@@ -5414,7 +6047,6 @@ def main(argv=None) -> int:
     labeled = timed("align-labeled", labeled_align_phase, cfg,
                     a10_path + ".dbg.npz", refs, a10_anno, oracle, a10_nodes,
                     args.seed, torch, dev, args.work)
-    del a10_anno, a10_nodes
 
     # build --graph, --suffix and a KMC input through the port's CLI; the
     # graphs without a BOSS that it writes (the basic k-mers as a bitmap
@@ -5444,12 +6076,12 @@ def main(argv=None) -> int:
         "hash-align", hash_align_phase, cfg,
         {n: (paths[n], deployments[n][0]) for n in paths}, kid, kept, refs,
         wide[0], oracle, args.seed, torch, dev, args.work)
+    bitmap = (paths["bitmap"], kid["bitmap"])    # for phase 9
     del deployments, kept, kid
     # the basic index behind the port's HTTP server (the wire route) with
     # the 3b graph of its k-mers (/align), requests from two client threads
     timed("server", server_phase, cfg, index, qa_graph, seqs, codes,
           oracle, torch, dev, qa_seqs, qa_kinds)
-    del qa_graph
 
     # many-labels: the basic table and batch with a converted 4,096-label
     # annotation past the dense budget (block-sparse: kernels 1, S1, S2, 3)
@@ -5604,6 +6236,16 @@ def main(argv=None) -> int:
         timed("kernel checks", key_checks, engine, pseqs, cfg, torch, dev,
               " [protein]"))
     del engine, index_p, oracle_p
+
+    # 9. annotate and transform_anno through the port's CLI on the 3b
+    # graph and 3c's basic.fa (kernel A a batch, D2 in freeze), the
+    # chain's queries, the CPU's files; primary, protein and bitmap graphs
+    # at small depth
+    more["annotate"] = timed("annotate", annotate_phase, cfg, a10_path,
+                             refs, oracle, a10_anno, a10_nodes, seqs,
+                             bitmap, prefs, args.work, torch, dev, timed,
+                             graph=qa_graph)
+    del a10_anno, a10_nodes, bitmap, qa_graph
 
     # keys wider than 8 words: DNA k = 70 (codes and map routes), Protein
     # k = 40 and 80 (the second past kernel A's block form)

@@ -6,9 +6,9 @@ seen through ``CanonicalDBG`` fold back to their base node), the min-count
 rule of the reference, the top-label order (count descending, label code
 ascending) and the row multiset of a sequence; and of ``_cth_aggregate``
 (:126-200), the per-sequence results of a ``.seqs`` mapping
-(``cth_aggregate``), computed for a whole batch in numpy; and a small
+(``cth_aggregate``), computed for a whole batch in numpy; and
 ``AnnotatedDBG`` (the graph, its annotation and their row mapping) for
-the labeled aligner.
+the labeled aligner and ``annotate`` (:56-100, with a batch form).
 """
 
 from __future__ import annotations
@@ -185,9 +185,12 @@ def cth_aggregate(annotation, headers: HeaderIndex,
 
 
 class AnnotatedDBG:
-    """A graph and its annotation, as the labeled aligner reads them (own
-    copy of the parts of metagraph_tpu/annotation/annotated_dbg.py:35-63
-    that it needs)."""
+    """A graph and its annotation: the row mapping the labeled aligner
+    reads, and the annotate methods (own copy of metagraph_tpu/annotation/
+    annotated_dbg.py:35-100) with their batch form, which maps every
+    record of a batch in one ``map_to_nodes_batch`` (one launch of kernel
+    A) and adds each record's rows in record order, so that the frozen
+    columns are the record-at-a-time ones."""
 
     def __init__(self, graph, annotator):
         self.graph = graph
@@ -199,3 +202,50 @@ class AnnotatedDBG:
         off = self.graph.offset if hasattr(self.graph, "get_base_node") \
             else 0
         return graph_to_anno_index(np.asarray(node), off)
+
+    def annotate_batch(self, sequences, labels, starts=None,
+                       abundances=None):
+        """Annotate each ``sequences[i]`` with ``labels[i]``: its mapped
+        rows (``annotate_sequence``), or with ``starts`` its coordinates
+        from ``starts[i]`` (``annotate_kmer_coords``); then, with
+        ``abundances``, its k-mer counts times ``abundances[i]``
+        (``annotate_kmer_counts``)."""
+        self.add_batch(self.graph.map_to_nodes_batch(sequences), labels,
+                       starts, abundances)
+
+    def add_batch(self, nodes_list, labels, starts=None, abundances=None):
+        """``annotate_batch`` of sequences already mapped to
+        ``nodes_list``."""
+        anno = self.annotator
+        for i, (nodes, labs) in enumerate(zip(nodes_list, labels)):
+            pos = np.flatnonzero(nodes > 0)
+            if not len(pos):
+                # no k-mer mapped: no column is made
+                continue
+            rows = self.graph_to_anno_index(nodes[pos])
+            if starts is not None:
+                anno.add_label_coords(rows, starts[i] + pos, labs)
+            anno.add_labels(rows, labs)
+            if abundances is not None:
+                uniq, counts = np.unique(rows, return_counts=True)
+                anno.add_label_counts(uniq, counts * int(abundances[i]),
+                                      labs)
+
+    def annotate_sequence(self, sequence, labels: Sequence[str]):
+        self.annotate_batch([sequence], [labels])
+
+    def annotate_kmer_counts(self, sequence, labels: Sequence[str],
+                             abundance: int = 1):
+        """The k-mer multiplicities within the sequence, times its
+        abundance, added to its rows' counts."""
+        nodes = self.graph.map_to_nodes_batch([sequence])[0]
+        hit = nodes[nodes > 0]
+        if len(hit):
+            uniq, counts = np.unique(self.graph_to_anno_index(hit),
+                                     return_counts=True)
+            self.annotator.add_label_counts(uniq, counts * int(abundance),
+                                            labels)
+
+    def annotate_kmer_coords(self, sequence, labels: Sequence[str],
+                             start_coord: int = 0):
+        self.annotate_batch([sequence], [labels], starts=[start_coord])

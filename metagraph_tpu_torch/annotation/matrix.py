@@ -1,19 +1,22 @@
 """Converted (static) annotations: the matrices that ``transform_anno``
-writes, read and queried on the host.
+writes, built, read and queried.
 
-Own copy of the reading and querying part of
-metagraph_tpu/annotation/matrix.py: the binary matrices ``RowFlat`` (:66),
-``RowSparse`` (:87), ``UniqueRowBinmat``/``Rainbowfish`` (:259, :285),
-``Rainbow`` (:289), ``BinRelWT`` (:324), ``RowDisk`` (:364), ``BRWT``
-(:408) and ``RowDiff`` (:617); the value and coordinate matrices
-``CSRIntMatrix`` (:909), ``IntRowDiff`` (:960), ``TupleCSCMatrix``
-(:1066) and ``TupleRowDiff`` (:1157); ``MATRIX_TYPES`` (:1274),
-``StaticAnnotation`` (:1287) and ``load_annotation`` (:1337).  Of the
-converters ``BRWT.from_columns`` (:547, with ``greedy_linkage``) and
-``RowDiff.from_annotation`` (:649-682, with its routing given) are
-copied, so that a BRWT or a row-diff BRWT can be built where the JAX
-package is not installed; ``build_routing`` and the other converters wait
-for ROADMAP A8.4.
+Own copy of metagraph_tpu/annotation/matrix.py: the binary matrices
+``RowFlat`` (:66), ``RowSparse`` (:87), ``UniqueRowBinmat``/
+``Rainbowfish`` (:259, :285), ``Rainbow`` (:289), ``BinRelWT`` (:324),
+``RowDisk`` (:364), ``BRWT`` (:408) and ``RowDiff`` (:617); the value and
+coordinate matrices ``CSRIntMatrix`` (:909), ``IntRowDiff`` (:960),
+``TupleCSCMatrix`` (:1066) and ``TupleRowDiff`` (:1157); ``MATRIX_TYPES``
+(:1274), ``StaticAnnotation`` (:1287) and ``load_annotation`` (:1337);
+and the converters that build each from columns (``from_columns``,
+``from_pairs``, ``from_triples``, ``from_annotation``; ``_dedup_csr_rows``
+:210, ``_row_diff_inner`` :1259, ``convert_annotation`` :1354), with the
+JAX arrays.  ``RowDiff.build_routing`` (:685-908) takes each valid edge's
+successor through ``boss.fwd`` on the host, then places the anchors by
+pointer doubling (and resolves the cycle basins) as int64 tensor ops on
+its device: the card unless "cpu".  ``IntRowDiff.from_annotation``
+computes the JAX deltas column by column instead of through a dense
+(rows x labels) matrix.
 
 A ``StaticAnnotation`` file is a pickle of the JAX package's classes.  It
 is read through ``_AnnotationUnpickler``, whose ``find_class`` maps those
@@ -32,9 +35,64 @@ import sys
 from typing import List
 
 import numpy as np
+import torch
 
 from ..succinct.bitrank import BitRank
 from .column import ColumnMajorAnnotation, LabelEncoder
+
+
+def _csr_from_columns(columns, num_rows: int):
+    """Per-label sorted row arrays -> (indptr, indices), row-major CSR."""
+    pairs_r = np.concatenate(columns) if columns \
+        and sum(map(len, columns)) else np.zeros(0, dtype=np.int64)
+    pairs_c = np.concatenate(
+        [np.full(len(col), c, dtype=np.int64)
+         for c, col in enumerate(columns)]) if columns and len(pairs_r) \
+        else np.zeros(0, dtype=np.int64)
+    order = np.lexsort((pairs_c, pairs_r))
+    r, c = pairs_r[order], pairs_c[order]
+    indptr = np.zeros(num_rows + 1, dtype=np.int64)
+    np.add.at(indptr, r + 1, 1)
+    return np.cumsum(indptr), c
+
+
+def _csr_mask(indptr, indices, rows, num_labels: int) -> np.ndarray:
+    """(Q, L) bool membership of CSR rows ``rows``, in one gather."""
+    rows = np.asarray(rows, dtype=np.int64)
+    out = np.zeros((len(rows), num_labels), dtype=bool)
+    lo = np.asarray(indptr[rows], dtype=np.int64)
+    lens = np.asarray(indptr[rows + 1], dtype=np.int64) - lo
+    at = _ragged_gather(lo, lens)
+    out[np.repeat(np.arange(len(rows)), lens),
+        np.asarray(indices[at], dtype=np.int64)] = True
+    return out
+
+
+def _predecessors(succ, anchors, num_rows: int):
+    """The rows that take each row as their row-diff successor (anchors
+    left out): -> (ptr, rows), row r's at rows[ptr[r]:ptr[r + 1]]."""
+    src = np.flatnonzero((succ >= 0) & ~anchors)
+    ptr = np.zeros(num_rows + 1, np.int64)
+    np.add.at(ptr, succ[src] + 1, 1)
+    return np.cumsum(ptr), src[np.argsort(succ[src], kind="stable")]
+
+
+def _preds_of(pred, rows):
+    """Every predecessor of ``rows``, with the count of each row's."""
+    ptr, idx = pred
+    cnt = ptr[rows + 1] - ptr[rows]
+    return idx[_ragged_gather(ptr[rows], cnt)], cnt
+
+
+def _sum_rows(matrix, row_counts, min_count: int):
+    """[(row, multiplicity)] -> [(label code, total >= min_count)]."""
+    rows = np.array([r for r, _ in row_counts], dtype=np.int64)
+    mult = np.array([m for _, m in row_counts], dtype=np.int64)
+    if not len(rows):
+        return []
+    totals = matrix.get_rows_mask(rows).astype(np.int64).T @ mult
+    return [(c, int(totals[c])) for c in range(matrix.num_labels)
+            if totals[c] >= min_count]
 
 
 class RowFlat:
@@ -48,11 +106,12 @@ class RowFlat:
         self.num_rows = len(indptr) - 1
         self.num_labels = num_labels
 
+    @classmethod
+    def from_columns(cls, columns, num_rows, num_labels):
+        return cls(*_csr_from_columns(columns, num_rows), num_labels)
+
     def get_rows_mask(self, rows):
-        out = np.zeros((len(rows), self.num_labels), dtype=bool)
-        for i, r in enumerate(rows):
-            out[i, self.indices[self.indptr[r]: self.indptr[r + 1]]] = True
-        return out
+        return _csr_mask(self.indptr, self.indices, rows, self.num_labels)
 
 
 class RowSparse:
@@ -72,6 +131,50 @@ class RowSparse:
         self.nnz = nnz
         self._boff = np.zeros(len(widths) + 1, dtype=np.int64)
         np.cumsum(widths.astype(np.int64) * self.BLOCK, out=self._boff[1:])
+
+    @classmethod
+    def from_columns(cls, columns, num_rows, num_labels):
+        """The rows' column ids delta-coded (each row's first absolute),
+        packed 64 values a block at the block's width, and a terminator
+        bit after each row's deltas."""
+        indptr, indices = _csr_from_columns(columns, num_rows)
+        nnz = len(indices)
+        deltas = indices.astype(np.uint64).copy()
+        if nnz > 1:
+            deltas[1:] = (indices[1:] - indices[:-1]).astype(np.uint64)
+        firsts = indptr[:-1][indptr[:-1] < indptr[1:]]
+        deltas[firsts] = indices[firsts].astype(np.uint64)
+        boundary = np.zeros(nnz + num_rows, dtype=bool)
+        boundary[indptr[1:] + np.arange(num_rows)] = True
+        B = cls.BLOCK
+        nblk = (nnz + B - 1) // B if nnz else 0
+        pad = np.zeros(nblk * B, dtype=np.uint64)
+        pad[:nnz] = deltas
+        if nblk:
+            mx = pad.reshape(nblk, B).max(axis=1)
+            widths = np.maximum(
+                np.ceil(np.log2(mx.astype(np.float64) + 1)), 1
+            ).astype(np.uint8)
+            # exact width for powers of two (float log2 can round down)
+            widths = np.maximum(widths, np.where(
+                mx >> widths.astype(np.uint64) != 0, widths + 1, widths
+            ).astype(np.uint8))
+        else:
+            widths = np.zeros(0, dtype=np.uint8)
+        boff = np.zeros(nblk + 1, dtype=np.int64)
+        np.cumsum(widths.astype(np.int64) * B, out=boff[1:])
+        words = np.zeros(int(boff[-1]) // 64 + 2, dtype=np.uint64)
+        if nnz:
+            j = np.arange(nnz, dtype=np.int64)
+            blk = j // B
+            off = boff[blk] + (j - blk * B) * widths[blk].astype(np.int64)
+            wi = off >> 6
+            sh = (off & 63).astype(np.uint64)
+            np.bitwise_or.at(words, wi, deltas << sh)
+            spill = sh > 0
+            np.bitwise_or.at(words, wi[spill] + 1,
+                             deltas[spill] >> (np.uint64(64) - sh[spill]))
+        return cls(words, widths, boundary, num_rows, num_labels, nnz)
 
     def _decode(self, pos: np.ndarray) -> np.ndarray:
         """Vectorized random access into the packed delta stream."""
@@ -117,6 +220,51 @@ class RowSparse:
         return out
 
 
+def _dedup_csr_rows(indptr, indices):
+    """Deduplicate CSR rows, codes in first-occurrence order: rows grouped
+    by length, each group deduped with ``np.unique(axis=0)``, the groups
+    merged by each distinct row's first row.  -> (codes, distinct indptr,
+    distinct indices)."""
+    num_rows = len(indptr) - 1
+    lens = np.diff(indptr)
+    codes = np.zeros(num_rows, dtype=np.int64)
+    firsts, inv_list, base = [], [], 0
+    for ln in np.unique(lens):
+        rsel = np.flatnonzero(lens == ln)
+        if ln == 0:
+            firsts.append((np.array([rsel[0]]),
+                           np.zeros((1, 0), dtype=indices.dtype)))
+            inv_list.append((rsel, np.zeros(len(rsel), dtype=np.int64),
+                             base))
+            base += 1
+            continue
+        mat = indices[indptr[rsel][:, None] + np.arange(ln)]
+        uniq, first_i, inv = np.unique(mat, axis=0, return_index=True,
+                                       return_inverse=True)
+        firsts.append((rsel[first_i], uniq))
+        inv_list.append((rsel, inv.reshape(-1), base))
+        base += len(uniq)
+    first_rows = np.concatenate([f for f, _ in firsts]) if firsts \
+        else np.zeros(0, dtype=np.int64)
+    order = np.argsort(first_rows, kind="stable")
+    rank = np.empty(len(order), dtype=np.int64)
+    rank[order] = np.arange(len(order))
+    for rsel, inv, b in inv_list:
+        codes[rsel] = rank[b + inv]
+    contents = [None] * len(order)
+    pos = 0
+    for f, uniq in firsts:
+        for t in range(len(f)):
+            contents[rank[pos + t]] = uniq[t]
+        pos += len(f)
+    d_indptr = np.zeros(len(order) + 1, dtype=np.int64)
+    if contents:
+        d_indptr[1:] = np.cumsum([len(c) for c in contents])
+    d_indices = np.concatenate(contents).astype(np.int64) if contents \
+        else np.zeros(0, dtype=np.int64)
+    return codes, d_indptr, d_indices
+
+
 class UniqueRowBinmat:
     """Distinct rows in CSR + a code a row."""
 
@@ -129,13 +277,15 @@ class UniqueRowBinmat:
         self.num_rows = len(codes)
         self.num_labels = num_labels
 
+    @classmethod
+    def from_columns(cls, columns, num_rows, num_labels):
+        return cls(*_dedup_csr_rows(*_csr_from_columns(columns, num_rows)),
+                   num_labels)
+
     def get_rows_mask(self, rows):
-        out = np.zeros((len(rows), self.num_labels), dtype=bool)
-        for i, r in enumerate(rows):
-            code = self.codes[r]
-            out[i, self.indices[self.indptr[code]:
-                                self.indptr[code + 1]]] = True
-        return out
+        return _csr_mask(self.indptr, self.indices,
+                         self.codes[np.asarray(rows, dtype=np.int64)],
+                         self.num_labels)
 
 
 class Rainbowfish(UniqueRowBinmat):
@@ -153,13 +303,32 @@ class Rainbow:
         self.num_rows = len(codes)
         self.num_labels = num_labels
 
+    @classmethod
+    def from_columns(cls, columns, num_rows, num_labels, inner_type=None):
+        """The distinct rows (``_dedup_csr_rows``) as columns of an inner
+        matrix (a BRWT unless ``inner_type``)."""
+        inner_type = inner_type or BRWT
+        codes, d_indptr, d_indices = _dedup_csr_rows(
+            *_csr_from_columns(columns, num_rows))
+        ndist = len(d_indptr) - 1
+        d_rows = np.repeat(np.arange(ndist, dtype=np.int64),
+                           np.diff(d_indptr))
+        order = np.lexsort((d_rows, d_indices))
+        lab_sorted, row_sorted = d_indices[order], d_rows[order]
+        starts = np.searchsorted(lab_sorted, np.arange(num_labels + 1))
+        inner = inner_type.from_columns(
+            [row_sorted[starts[c]: starts[c + 1]]
+             for c in range(num_labels)], ndist, num_labels)
+        return cls(codes, inner, num_labels)
+
     def get_rows_mask(self, rows):
         rows = np.asarray(rows, dtype=np.int64)
         return self.inner.get_rows_mask(self.codes[rows])
 
 
 class BinRelWT:
-    """The concatenated label sequence with row boundaries."""
+    """The concatenated label sequence with row boundaries, and each
+    label's positions in it (the wavelet tree's select)."""
 
     NAME = "bin_rel_wt"
 
@@ -168,13 +337,22 @@ class BinRelWT:
         self.indices = indices
         self.num_rows = len(indptr) - 1
         self.num_labels = num_labels
+        self._post = np.argsort(indices, kind="stable")
+        self._post_off = np.zeros(num_labels + 1, dtype=np.int64)
+        np.add.at(self._post_off, indices + 1, 1)
+        self._post_off = np.cumsum(self._post_off)
+
+    @classmethod
+    def from_columns(cls, columns, num_rows, num_labels):
+        return cls(*_csr_from_columns(columns, num_rows), num_labels)
+
+    def get_column(self, c):
+        """The rows holding label c, through its positions."""
+        pos = self._post[self._post_off[c]: self._post_off[c + 1]]
+        return np.unique(np.searchsorted(self.indptr, pos, side="right") - 1)
 
     def get_rows_mask(self, rows):
-        rows = np.asarray(rows, dtype=np.int64)
-        out = np.zeros((len(rows), self.num_labels), dtype=bool)
-        for i, r in enumerate(rows):
-            out[i, self.indices[self.indptr[r]: self.indptr[r + 1]]] = True
-        return out
+        return _csr_mask(self.indptr, self.indices, rows, self.num_labels)
 
 
 class RowDisk:
@@ -191,12 +369,24 @@ class RowDisk:
         self.indices = np.load(path_base + ".indices.npy", mmap_mode="r")
 
     def get_rows_mask(self, rows):
-        out = np.zeros((len(rows), self.num_labels), dtype=bool)
-        for i, r in enumerate(np.asarray(rows, dtype=np.int64)):
-            lo, hi = int(self.indptr[r]), int(self.indptr[r + 1])
-            if hi > lo:
-                out[i, np.asarray(self.indices[lo:hi])] = True
-        return out
+        return _csr_mask(self.indptr, self.indices, rows, self.num_labels)
+
+    @classmethod
+    def from_columns(cls, columns, num_rows, num_labels, path_base=None):
+        """The CSR rows saved to ``<path_base>.indptr.npy`` and
+        ``.indices.npy`` (a temporary directory's without a base)."""
+        if path_base is None:
+            import tempfile
+            path_base = os.path.join(tempfile.mkdtemp(prefix="rowdisk_"),
+                                     "rows")
+        indptr, indices = _csr_from_columns(columns, num_rows)
+        np.save(path_base + ".indptr.npy", indptr)
+        np.save(path_base + ".indices.npy", indices)
+        return cls(path_base, num_rows, num_labels)
+
+    def __getstate__(self):
+        return {"path_base": self.path_base, "num_rows": self.num_rows,
+                "num_labels": self.num_labels}
 
     def __setstate__(self, state):
         self.__init__(state["path_base"], state["num_rows"],
@@ -449,34 +639,136 @@ class RowDiff:
         self.needs_sidecars = False
 
     @classmethod
-    def from_annotation(cls, columns, num_rows, num_labels, routing,
-                        inner_type: type = BRWT) -> "RowDiff":
-        """Per-label sorted row arrays and the routing ``(succ, anchors)``
-        -> RowDiff whose inner matrix (``inner_type.from_columns``) holds
-        the diff columns: diff[r] = col[r] ^ col[succ[r]] where r is no
-        anchor, as the predecessor image of each column.  Building the
-        routing from a graph (``build_routing``) is not ported (ROADMAP
-        A8.4), so the routing is given."""
-        succ, anchors = routing
-        has = succ >= 0
-        src = np.flatnonzero(has)
-        order = np.argsort(succ[src], kind="stable")
-        pred_idx = src[order]
-        pred_ptr = np.zeros(num_rows + 1, np.int64)
-        np.add.at(pred_ptr, succ[src] + 1, 1)
-        pred_ptr = np.cumsum(pred_ptr)
+    def from_annotation(cls, columns, num_rows, num_labels, routing=None,
+                        inner_type: type = None, graph=None,
+                        max_length: int = 100, external_routing=False,
+                        device=None) -> "RowDiff":
+        """Per-label sorted row arrays -> RowDiff whose inner matrix
+        (``inner_type.from_columns``, RowFlat by default) holds the diff
+        columns: diff[r] = col[r] ^ col[succ[r]] where r is no anchor, as
+        the predecessor image of each column.  The routing ``(succ,
+        anchors)`` is given or built from ``graph`` (``build_routing`` on
+        ``device``); with ``external_routing`` the matrix keeps none (the
+        staged build's sidecars hold it)."""
+        inner_type = inner_type or RowFlat
+        succ, anchors = routing if routing is not None \
+            else cls.build_routing(graph, max_length, device)
+        pred = _predecessors(succ, anchors, num_rows)
         diff_cols = []
         for col in columns:
             col = np.asarray(col, dtype=np.int64)
-            cnt = pred_ptr[col + 1] - pred_ptr[col]
-            starts = pred_ptr[col]
-            flat = np.repeat(starts - np.cumsum(cnt) + cnt, cnt) \
-                + np.arange(int(cnt.sum()))
-            shifted = pred_idx[flat]
-            shifted = shifted[~anchors[shifted]]
-            diff_cols.append(np.setxor1d(col, shifted))
+            diff_cols.append(np.setxor1d(col, _preds_of(pred, col)[0]))
         inner = inner_type.from_columns(diff_cols, num_rows, num_labels)
+        if external_routing:
+            return cls(inner, None, None, num_labels)
         return cls(inner, succ, anchors, num_labels)
+
+    @staticmethod
+    def build_routing(graph, max_length: int = 100, device=None):
+        """-> (succ, anchors) over the graph's ``max_index()`` rows: each
+        valid edge's successor is the target node's last edge
+        (``boss.fwd``, on the host), -1 at sinks; paths are cut by an
+        anchor every ``max_length`` rows.  The anchors come from pointer
+        doubling over the successors (a node that reaches a terminal sits
+        at its depth mod ``max_length``) and, in cycle basins, from
+        ``_resolve_cycle_basins``: int64 tensor ops on ``device``."""
+        from ..device import resolve_device
+        dev = resolve_device(device)
+        boss = graph.boss
+        M = len(boss.W)
+        valid = np.asarray(boss.valid).astype(bool)
+        idx = np.flatnonzero(valid)
+        labels = np.asarray(boss.W[idx]) % boss.alph_size
+        non_sink = labels > 0
+        tgt = np.zeros(len(idx), dtype=np.int64)
+        if non_sink.any():
+            tgt[non_sink] = boss.fwd(idx[non_sink])
+        ok = non_sink & (tgt > 0) & valid[np.clip(tgt, 0, M - 1)]
+        succ_rows = np.full(len(idx), -1, dtype=np.int64)
+        succ_rows[ok] = tgt[ok] - 1            # annotation row = node - 1
+        succ_full = np.full(M, -1, dtype=np.int64)
+        succ_full[idx] = np.where(succ_rows >= 0, succ_rows + 1, -1)
+
+        sf = torch.from_numpy(succ_full).to(dev)
+        valid_t = torch.from_numpy(valid).to(dev)
+        ar = torch.arange(M, dtype=torch.int64, device=dev)
+        jump = torch.where(sf > 0, sf, ar)
+        w = (sf > 0).long()
+        for _ in range(max(M - 1, 1).bit_length()):
+            w = w + w[jump]
+            jump = jump[jump]
+        dist = torch.full((M,), -1, dtype=torch.int64, device=dev)
+        anchors = torch.zeros(M, dtype=torch.bool, device=dev)
+        resolved = valid_t & (sf[jump] <= 0)
+        dist[resolved] = w[resolved] % max_length
+        anchors[resolved] = dist[resolved] == 0
+        unresolved = torch.nonzero(valid_t & (dist == -1)).squeeze(1)
+        if len(unresolved):
+            RowDiff._resolve_cycle_basins(sf, unresolved, dist, anchors,
+                                          max_length)
+        anchors = anchors.cpu().numpy()
+        succ_row = np.full(graph.max_index(), -1, dtype=np.int64)
+        anchor_row = np.zeros(graph.max_index(), dtype=bool)
+        rows_of = idx - 1
+        succ_row[rows_of] = np.where(anchors[idx], -1,
+                                     np.where(succ_rows >= 0, succ_rows, -1))
+        anchor_row[rows_of] = anchors[idx] | (succ_rows < 0)
+        return succ_row, anchor_row
+
+    @staticmethod
+    def _resolve_cycle_basins(succ_full, unresolved, dist, anchors,
+                              max_length):
+        """The anchors of the cycle basins that doubling leaves (tensors,
+        in place): once each cycle's one entry anchor is fixed (the
+        basin's least node walks into its cycle at an entry and anchors
+        the entry's cycle predecessor), every basin node sits at its steps
+        to that anchor mod ``max_length``.  Landing spots, cycle minima,
+        min-plus distances and jumps by per-node step counts all come from
+        doubling tables over the closed unresolved subgraph."""
+        dev = succ_full.device
+        U = len(unresolved)
+        compact = torch.full((len(succ_full),), -1, dtype=torch.int64,
+                             device=dev)
+        ar = torch.arange(U, dtype=torch.int64, device=dev)
+        compact[unresolved] = ar
+        succ_c = compact[succ_full[unresolved]]
+        assert bool((succ_c >= 0).all())
+        L = max(int(np.ceil(np.log2(max(2 * U, 2)))) + 1, 1)
+        jumps = [succ_c]                   # jumps[k][n] = advance(n, 2^k)
+        for _ in range(L - 1):
+            jumps.append(jumps[-1][jumps[-1]])
+        land = jumps[-1][jumps[-1]]        # on the basin's cycle
+        mn = unresolved.clone()
+        for k in range(L):
+            mn = torch.minimum(mn, mn[jumps[k]])
+        comp = mn[land]                    # the cycle's least original id
+        cmin_c = compact[comp]
+
+        def dist_to(target):
+            r = torch.where(target, 0, 1 << 60)
+            for k in range(L):
+                r = torch.minimum(r, (1 << k) + r[jumps[k]])
+            return r
+
+        def advance(start, count):
+            cur = start.clone()
+            for k in range(L):
+                cur = torch.where(((count >> k) & 1) == 1, jumps[k][cur],
+                                  cur)
+            return cur
+
+        cyclen = dist_to(ar == cmin_c)[succ_c[cmin_c]] + 1
+        on_cycle = advance(ar, cyclen) == ar
+        ukeys, inv = torch.unique(comp, return_inverse=True)
+        emin = torch.full((len(ukeys),), torch.iinfo(torch.int64).max,
+                          dtype=torch.int64, device=dev)
+        emin.scatter_reduce_(0, inv, unresolved, "amin")
+        emin_c = compact[emin]
+        c_entry = advance(emin_c, dist_to(on_cycle)[emin_c])
+        a_c = advance(c_entry, cyclen[emin_c] - 1)
+        d = dist_to(ar == a_c[inv]) % max_length
+        dist[unresolved] = d
+        anchors[unresolved] = d == 0
 
     def get_rows_words(self, rows):
         """Packed (n, ceil(L/32)) uint32 row words (little-endian bits)."""
@@ -529,11 +821,29 @@ class CSRIntMatrix:
         self.num_rows = len(indptr) - 1
         self.num_labels = num_labels
 
+    @classmethod
+    def from_pairs(cls, cols, vals, num_rows, num_labels):
+        """Per-label sorted row arrays and their values -> CSR."""
+        pairs_r = np.concatenate(cols) if cols else np.zeros(0, np.int64)
+        pairs_c = np.concatenate(
+            [np.full(len(c), i, np.int64) for i, c in enumerate(cols)]) \
+            if cols else np.zeros(0, np.int64)
+        pairs_v = np.concatenate(vals) if vals else np.zeros(0, np.int64)
+        order = np.lexsort((pairs_c, pairs_r))
+        r, c, v = pairs_r[order], pairs_c[order], pairs_v[order]
+        indptr = np.zeros(num_rows + 1, dtype=np.int64)
+        np.add.at(indptr, r + 1, 1)
+        return cls(np.cumsum(indptr), c, v.astype(np.int64), num_labels)
+
+    @classmethod
+    def from_annotation_values(cls, anno):
+        return cls.from_pairs(
+            [anno.column_rows(c) for c in range(anno.num_labels)],
+            [_values_of(anno, c) for c in range(anno.num_labels)],
+            anno.num_rows, anno.num_labels)
+
     def get_rows_mask(self, rows):
-        out = np.zeros((len(rows), self.num_labels), dtype=bool)
-        for i, r in enumerate(rows):
-            out[i, self.indices[self.indptr[r]: self.indptr[r + 1]]] = True
-        return out
+        return _csr_mask(self.indptr, self.indices, rows, self.num_labels)
 
     def get_row_values(self, rows):
         out = []
@@ -556,6 +866,32 @@ class IntRowDiff:
         self.anchors = anchors
         self.num_rows = deltas.num_rows
         self.num_labels = num_labels
+
+    @classmethod
+    def from_annotation(cls, anno, graph, max_length: int = 100,
+                        device=None):
+        """Each row's delta with its successor's values (anchors against
+        zero), kept where not zero: the JAX dense computation, column by
+        column over each column's rows and their predecessors."""
+        succ, anchors = RowDiff.build_routing(graph, max_length, device)
+        num_rows, num_labels = anno.num_rows, anno.num_labels
+        pred = _predecessors(succ, anchors, num_rows)
+        cols, vals = [], []
+        for c in range(num_labels):
+            rows = np.asarray(anno.column_rows(c), dtype=np.int64)
+            v = _values_of(anno, c)
+            rows, v = rows[v != 0], v[v != 0]
+            preds, cnt = _preds_of(pred, rows)
+            r = np.concatenate([rows, preds])
+            d = np.concatenate([v, -np.repeat(v, cnt)])
+            u, inv = np.unique(r, return_inverse=True)
+            total = np.zeros(len(u), np.int64)
+            np.add.at(total, inv.reshape(-1), d)
+            keep = total != 0
+            cols.append(u[keep])
+            vals.append(total[keep])
+        deltas = CSRIntMatrix.from_pairs(cols, vals, num_rows, num_labels)
+        return cls(deltas, succ, anchors, num_labels)
 
     def _reconstruct_batch(self, rows):
         """(Q, L) values: the chain walk, then one scatter-add of the
@@ -621,6 +957,46 @@ class TupleCSCMatrix:
         self.num_rows = num_rows
         self.num_labels = num_labels
 
+    @classmethod
+    def from_triples(cls, rows, labs, crd, num_rows, num_labels):
+        """(row, label, coordinate) triples sorted in that order."""
+        if len(rows):
+            new = np.empty(len(rows), dtype=bool)
+            new[0] = True
+            new[1:] = (rows[1:] != rows[:-1]) | (labs[1:] != labs[:-1])
+            starts = np.flatnonzero(new).astype(np.int64)
+            labels = labs[starts]
+            pair_rows = rows[starts]
+            coord_indptr = np.concatenate([starts, [len(rows)]])
+        else:
+            labels = np.zeros(0, dtype=np.int64)
+            pair_rows = np.zeros(0, dtype=np.int64)
+            coord_indptr = np.zeros(1, dtype=np.int64)
+        lab_indptr = np.searchsorted(
+            pair_rows, np.arange(num_rows + 1, dtype=np.int64))
+        return cls(lab_indptr, labels, coord_indptr,
+                   np.ascontiguousarray(crd, dtype=np.int64),
+                   num_rows, num_labels)
+
+    @classmethod
+    def from_annotation(cls, anno):
+        return cls.from_triples(*anno.coords_triples(), anno.num_rows,
+                                anno.num_labels)
+
+    def row_triples(self, rows, owners=None):
+        """(owner, label, coordinate) triples of ``rows`` in order;
+        ``owners`` renames each row (its position by default)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if owners is None:
+            owners = np.arange(len(rows), dtype=np.int64)
+        p_lens = self.lab_indptr[rows + 1] - self.lab_indptr[rows]
+        pair_idx = _ragged_gather(self.lab_indptr[rows], p_lens)
+        c_lens = self.coord_indptr[pair_idx + 1] - self.coord_indptr[pair_idx]
+        tri_idx = _ragged_gather(self.coord_indptr[pair_idx], c_lens)
+        return (np.repeat(np.repeat(owners, p_lens), c_lens),
+                np.repeat(self.labels[pair_idx], c_lens),
+                self.coords[tri_idx])
+
     def get_rows_mask(self, rows):
         rows = np.asarray(rows, dtype=np.int64)
         out = np.zeros((len(rows), self.num_labels), dtype=bool)
@@ -654,6 +1030,31 @@ class TupleRowDiff:
         self.anchors = anchors
         self.num_rows = diffs.num_rows
         self.num_labels = num_labels
+
+    @classmethod
+    def from_annotation(cls, anno, graph, max_length: int = 100,
+                        device=None):
+        """diff(r) = coords(r) XOR (coords(succ(r)) - 1) for rows that are
+        no anchor, the whole coordinate set at anchors."""
+        succ, anchors = RowDiff.build_routing(graph, max_length, device)
+        num_rows, num_labels = anno.num_rows, anno.num_labels
+        full = TupleCSCMatrix.from_annotation(anno)
+        R, L, C = full.row_triples(np.arange(num_rows))
+        if len(R):
+            keep = np.empty(len(R), dtype=bool)
+            keep[0] = True
+            keep[1:] = ((R[1:] != R[:-1]) | (L[1:] != L[:-1])
+                        | (C[1:] != C[:-1]))
+            R, L, C = R[keep], L[keep], C[keep]
+        full = TupleCSCMatrix.from_triples(R, L, C, num_rows, num_labels)
+        src = np.flatnonzero(~anchors & (succ >= 0))
+        sR, sL, sC = full.row_triples(succ[src], owners=src)
+        dR, dL, dC = _parity_triples(np.concatenate([R, sR]),
+                                     np.concatenate([L, sL]),
+                                     np.concatenate([C, sC - 1]))
+        return cls(TupleCSCMatrix.from_triples(dR, dL, dC, num_rows,
+                                               num_labels),
+                   succ, anchors, num_labels)
 
     def _reconstruct_triples(self, rows):
         """(owner, label, coord) sorted: the XOR over the chain nodes n_i at
@@ -703,6 +1104,62 @@ MATRIX_TYPES = {
 }
 
 
+def _values_of(anno, c: int) -> np.ndarray:
+    """Column c's values (zeros where the annotation holds none)."""
+    vals = getattr(anno, "_values", None)
+    return np.zeros(len(anno.column_rows(c)), np.int64) if vals is None \
+        else np.asarray(vals[c], dtype=np.int64)
+
+
+def _row_diff_inner(target: str):
+    """The inner matrix class of a row_diff_<inner> target; SystemExit
+    with the JAX text on an unknown inner name."""
+    inner_name = target[len("row_diff"):].lstrip("_") or "flat"
+    inner_name = {"sparse": "row_sparse", "disk": "row_disk"}.get(
+        inner_name, inner_name)
+    inner = MATRIX_TYPES.get(inner_name)
+    if inner is None:
+        raise SystemExit(f"ERROR: unknown row_diff inner representation "
+                         f"'{inner_name}' (available: "
+                         f"{', '.join(sorted(MATRIX_TYPES))})")
+    return inner
+
+
+def convert_annotation(anno, target: str, graph=None,
+                       out_base: str | None = None,
+                       max_path_length: int = 100, device=None):
+    """A frozen column annotation -> the ``target`` matrix (the JAX
+    ``convert_annotation``; ``max_path_length`` spaces the anchors of the
+    binary row-diff targets, the int and coordinate ones keep 100, as
+    there); the routing of a row-diff target on ``device``."""
+    if target == "int_brwt":
+        return CSRIntMatrix.from_annotation_values(anno)
+    if target == "row_diff_int_brwt":
+        assert graph is not None, "row_diff requires the graph"
+        return IntRowDiff.from_annotation(anno, graph, device=device)
+    if target == "brwt_coord":
+        return TupleCSCMatrix.from_annotation(anno)
+    if target in ("row_diff_coord", "row_diff_brwt_coord"):
+        assert graph is not None, "row_diff requires the graph"
+        return TupleRowDiff.from_annotation(anno, graph, device=device)
+    columns = [anno.column_rows(c) for c in range(anno.num_labels)]
+    if target.startswith("row_diff"):
+        assert graph is not None, "row_diff requires the graph"
+        return RowDiff.from_annotation(
+            columns, anno.num_rows, anno.num_labels, graph=graph,
+            max_length=max_path_length, inner_type=_row_diff_inner(target),
+            device=device)
+    m = MATRIX_TYPES.get(target)
+    if m is None:
+        raise SystemExit(f"ERROR: unknown annotation representation "
+                         f"'{target}' (available: "
+                         f"{', '.join(sorted(MATRIX_TYPES))}, row_diff*)")
+    if m is RowDisk:
+        return m.from_columns(columns, anno.num_rows, anno.num_labels,
+                              path_base=out_base)
+    return m.from_columns(columns, anno.num_rows, anno.num_labels)
+
+
 class StaticAnnotation:
     """A converted annotation: matrix + label encoder."""
 
@@ -725,6 +1182,9 @@ class StaticAnnotation:
 
     def get_rows_mask(self, rows):
         return self.matrix.get_rows_mask(rows)
+
+    def sum_rows(self, row_counts, min_count):
+        return _sum_rows(self.matrix, row_counts, min_count)
 
     def get_row_values(self, rows):
         if self.has_values:

@@ -1,5 +1,6 @@
 """Command line interface of the port: ``build``, ``query``,
-``server_query`` and ``align``.
+``server_query``, ``align``, and ``annotate`` and ``transform_anno``
+(``anno_cli.py``).
 
 ``python -m metagraph_tpu_torch build --device -k K -o OUT in.fa`` takes
 the command line of ``metagraph_tpu.cli build`` (metagraph_tpu/cli/
@@ -332,14 +333,15 @@ def cmd_server_query(args):
 def _map_records(args, g):
     """``align --map``: each record's k-mers (or, with ``--align-length``
     other than k, its sub-k windows through BOSS suffix ranges) mapped to
-    nodes (metagraph_tpu/cli/main.py:863-900).  A graph with a batch form
-    (hash, bitmap, sshash) maps a file's records in one lookup."""
+    nodes (metagraph_tpu/cli/main.py:863-900).  A graph without a BOSS
+    (hash, bitmap, sshash) maps a file's records in one kernel A lookup;
+    a succinct one walks its BOSS, which needs no table of its edges."""
     from .seq_io.fasta import read_fasta
     L = args.align_length or g.k
     for f in args.input:
         recs = read_fasta(f)
         batch = g.map_to_nodes_batch([r.seq for r in recs]) \
-            if L == g.k and hasattr(g, "map_to_nodes_batch") else None
+            if L == g.k and getattr(g, "boss", None) is None else None
         for j, rec in enumerate(recs):
             if batch is not None:
                 nodes = batch[j]
@@ -732,6 +734,10 @@ def build_parser() -> argparse.ArgumentParser:
     _add_torch_device(p)
     p.add_argument("input", nargs="+")
     p.set_defaults(func=cmd_align)
+
+    from .anno_cli import add_annotate_parser, add_transform_anno_parser
+    add_annotate_parser(sub, _add_common, _add_torch_device)
+    add_transform_anno_parser(sub, _add_common, _add_torch_device)
     return ap
 
 

@@ -316,14 +316,8 @@ def from_graph(graph, annotation, cache: str | None = None) -> QueryIndex:
         if canon is None:
             raise ValueError(f"unknown graph mode {graph.mode!r}")
     bits = bits_for_alphabet(ALPHABETS[graph.alphabet].sigma)
-    boss = getattr(graph, "boss", None)
-    if boss is None:
-        kchars, ids = graph.node_kmers_and_ids()
-        gtype = graph.GRAPH_TYPE
-    else:
-        ids = np.flatnonzero(boss.valid)
-        kchars = boss.get_edge_seq(ids)
-        gtype = "succinct"
+    kchars, ids = graph.node_kmers_and_ids()
+    gtype = getattr(graph, "GRAPH_TYPE", "succinct")
     return from_annotation(pack_kmers32(kchars, bits), ids.astype(np.uint32),
                            annotation, graph.k, graph.max_index(), canon,
                            graph.alphabet, cache, gtype)

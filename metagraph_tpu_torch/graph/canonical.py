@@ -85,6 +85,18 @@ class CanonicalDBG:
         return [np.where((f == 0) & (r[::-1] > 0), r[::-1] + self.offset, f)
                 for f, r in zip(got[:n], got[n:])]
 
+    def map_to_nodes_batch(self, sequences) -> list:
+        """``map_to_nodes`` of each sequence (JAX ``map_to_nodes_
+        sequentially``: a forward hit, else the reverse complement's id +
+        offset), both strands of every sequence in one call of the base
+        graph's ``map_to_nodes_batch``: one launch of kernel A."""
+        seqs = [s.encode() if isinstance(s, str) else s for s in sequences]
+        got = self.graph.map_to_nodes_batch(
+            seqs + [revcomp(s) for s in seqs], sequentially=True)
+        n = len(seqs)
+        return [np.where((f == 0) & (r[::-1] > 0), r[::-1] + self.offset, f)
+                for f, r in zip(got[:n], got[n:])]
+
     # ------------------------------------------------------------ traversal
     def get_node_sequence(self, node: int) -> bytes:
         hit = self._seq_cache.get(node)

@@ -33,7 +33,10 @@ Own copy of the parts of metagraph_tpu/graph/dbg_succinct.py the port uses:
 
 and the mapping and traversal the aligner walks (:135-600): mapping
 (``map_to_nodes_sequentially(_batch)``, ``map_to_nodes`` with its
-canonical form, ``map_kmers_batch`` over a sorted-key index), traversal
+canonical form, ``map_kmers_batch`` over a sorted-key index; and
+``map_to_nodes_batch``, ``annotate``'s, all windows of a batch in one
+launch of kernel A over ``key_table``, the valid edges' hash table on
+``use_device``'s device), traversal
 (``call_outgoing_kmers``, ``call_outgoing_batch`` over a successor-range
 table, ``call_incoming_kmers``, ``traverse``, ``has_multiple_outgoing``,
 ``has_single_incoming`` and their batch forms) and suffix matching
@@ -94,11 +97,13 @@ class DBGSuccinct:
         self._extractor = None
         self._host_index = None
         self._succ_ranges = None
+        self.device = None              # where map_to_nodes_batch runs
+        self._tables = {}               # device -> kernel A's table
 
     def __getstate__(self):
         """Without the caches, which a worker rebuilds at its first use."""
         return dict(self.__dict__, _extractor=None, _host_index=None,
-                    _succ_ranges=None)
+                    _succ_ranges=None, _tables={})
 
     @property
     def alph(self):
@@ -221,20 +226,24 @@ class DBGSuccinct:
         packed order)."""
         if self.mode != "canonical":
             return self.map_to_nodes_sequentially(sequence)
-        ex = self.extractor
-        codes = ex.encode(sequence)
-        k = self.k
-        if len(codes) < k:
+        codes = self.extractor.encode(sequence)
+        if len(codes) < self.k:
             return np.zeros(0, dtype=np.int64)
-        wins = np.lib.stride_tricks.sliding_window_view(codes, k)
-        rc = ex.extended_complement_table()[codes[::-1]]
-        rcw = np.lib.stride_tricks.sliding_window_view(rc, k)[::-1]
+        return self.map_kmers_batch(self._canonical(codes))
+
+    def _canonical(self, codes: np.ndarray, valid=slice(None)):
+        """The ``valid`` windows of ``codes``, each as the strand first in
+        BOSS order (of it and its reverse complement)."""
+        k = self.k
+        wins = np.lib.stride_tricks.sliding_window_view(codes, k)[valid]
+        rc = np.lib.stride_tricks.sliding_window_view(
+            self.extractor.extended_complement_table()[codes[::-1]],
+            k)[::-1][valid]
         order = packing.boss_priority_order(k)
         bits = packing.bits_for_alphabet(self.alph.sigma)
         take_rc = _rows_greater(packing.pack_codes(wins, order, bits=bits),
-                                packing.pack_codes(rcw, order, bits=bits))
-        canon = np.where(take_rc[:, None], rcw, wins)
-        return self.map_kmers_batch(np.ascontiguousarray(canon))
+                                packing.pack_codes(rc, order, bits=bits))
+        return np.ascontiguousarray(np.where(take_rc[:, None], rc, wins))
 
     def _build_host_index(self):
         """(sorted packed keys, their edges, their code rows) of the valid
@@ -264,6 +273,84 @@ class DBGSuccinct:
         hit = (pos < len(keys)) & np.all(keys[pos_c] == q, axis=1) \
             & ~invalid
         return np.where(hit, ids[pos_c], 0)
+
+    # ----------------------------------- mapping on the card (kernel A)
+
+    def use_device(self, device):
+        """Run ``map_to_nodes_batch`` on ``device`` (the card unless
+        "cpu"); -> the graph."""
+        from ..device import resolve_device
+        self.device = resolve_device(device)
+        return self
+
+    def node_kmers_and_ids(self):
+        """The valid edges' k-mers (code rows) and their node ids: what
+        kernel A's table holds."""
+        ids = np.flatnonzero(self.boss.valid)
+        return self.boss.get_edge_seq(ids), ids
+
+    def set_key_table(self, table):
+        """Take ``table`` (kernel A's table of ``node_kmers_and_ids``
+        packed by ``pack_kmers32``: the table of a ``QueryEngine`` whose
+        index ``convert.from_graph`` built from this graph) as
+        ``key_table`` on its device."""
+        from .hash_graph import _device_key
+        self._tables[_device_key(table.device)] = table
+
+    def key_table(self):
+        """Kernel A's table of the valid edges on ``device``, built at the
+        first call (callers that share the graph between threads call it
+        first)."""
+        from .hash_graph import key_table
+        return key_table(self)
+
+    def batch_keys(self, sequences, sequentially: bool = False):
+        """The keys that ``map_to_nodes_batch`` looks up: -> (each
+        sequence's length in codes, the valid mask over the windows of the
+        sequences joined by an invalid code, (n, W) uint32 keys of the
+        valid windows, ``pack_kmers32``), the canonical strand chosen in
+        canonical mode unless ``sequentially``."""
+        from ..succinct.ops import pack_kmers32
+        ex, k, sigma = self.extractor, self.k, self.alph.sigma
+        parts = [ex.encode(s) for s in sequences]
+        lens = [len(p) for p in parts]
+        sep = np.array([ex.invalid], dtype=np.uint8)
+        cat = np.concatenate([x for p in parts for x in (p, sep)]) \
+            if parts else sep[:0]
+        valid = np.zeros(max(len(cat) - k + 1, 0), dtype=bool)
+        bits = packing.bits_for_alphabet(sigma)
+        if not len(valid):
+            return lens, valid, pack_kmers32(
+                np.zeros((0, k), np.uint8), bits)
+        bad = np.concatenate([[0], np.cumsum((cat >= sigma) | (cat == 0))])
+        valid = (bad[k:] - bad[:-k]) == 0
+        if self.mode == "canonical" and not sequentially:
+            sub = self._canonical(cat, valid)
+        else:
+            sub = np.lib.stride_tricks.sliding_window_view(cat, k)[valid]
+        return lens, valid, pack_kmers32(np.ascontiguousarray(sub), bits)
+
+    def map_to_nodes_batch(self, sequences, sequentially: bool = False
+                           ) -> list:
+        """``map_to_nodes`` (or, ``sequentially``,
+        ``map_to_nodes_sequentially``) of each sequence, all windows in one
+        launch of kernel A over ``key_table`` (``batch_keys``: the
+        sequences joined by an invalid code, so that no window crosses
+        two; in canonical mode each window takes the strand first in BOSS
+        order)."""
+        from .._u32 import np_words
+        from ..succinct.ops import key_lookup
+        lens, valid, keys = self.batch_keys(sequences, sequentially)
+        nodes = np.zeros(len(valid), dtype=np.int64)
+        if len(keys) and self.boss.num_valid:
+            table = self.key_table()
+            nodes[valid] = key_lookup(np_words(keys).to(table.device),
+                                      table).cpu().numpy()
+        out, at = [], 0
+        for n in lens:
+            out.append(nodes[at: at + max(n - self.k + 1, 0)])
+            at += n + 1
+        return out
 
     # ----------------------------------------------- traversal (:247-470)
 

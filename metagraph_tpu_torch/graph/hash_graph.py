@@ -107,6 +107,23 @@ def _device_key(dev) -> str:
     return str(dev)
 
 
+def key_table(graph) -> torch.Tensor:
+    """Kernel A's table of ``graph.node_kmers_and_ids()`` (``pack_kmers32``
+    keys, node ids) on ``graph.device``, built at the first call on that
+    device and kept in ``graph._tables``."""
+    from ..device import resolve_device
+    from ..succinct.ops import DeviceHashIndex, pack_kmers32
+    dev = resolve_device(graph.device)
+    table = graph._tables.get(_device_key(dev))
+    if table is None:
+        chars, ids = graph.node_kmers_and_ids()
+        table = DeviceHashIndex.from_packed(
+            pack_kmers32(chars, packing.bits_for_alphabet(graph.alph.sigma)),
+            ids.astype(np.uint32), device=dev).table
+        graph._tables[_device_key(dev)] = table
+    return table
+
+
 def _rows(kmers: np.ndarray) -> np.ndarray:
     """(N, k) uint8 codes -> (N,) opaque keys that compare as the rows do,
     code by code from the left."""
@@ -181,17 +198,7 @@ class _KmerGraphBase:
         self._tables[_device_key(table.device)] = table
 
     def _table(self) -> torch.Tensor:
-        from ..device import resolve_device
-        from ..succinct.ops import DeviceHashIndex, pack_kmers32
-        dev = resolve_device(self.device)
-        table = self._tables.get(_device_key(dev))
-        if table is None:
-            chars, ids = self.node_kmers_and_ids()
-            table = DeviceHashIndex.from_packed(
-                pack_kmers32(chars, self._bits), ids.astype(np.uint32),
-                device=dev).table
-            self._tables[_device_key(dev)] = table
-        return table
+        return key_table(self)
 
     @property
     def _bits(self) -> int:
@@ -267,10 +274,12 @@ class _KmerGraphBase:
         """The node of every k-mer window as it is, 0 where none."""
         return self.map_to_nodes_sequentially_batch([sequence])[0]
 
-    def map_to_nodes_batch(self, sequences) -> list:
-        """``map_to_nodes`` of each sequence, in one lookup."""
+    def map_to_nodes_batch(self, sequences, sequentially: bool = False
+                           ) -> list:
+        """``map_to_nodes`` (or, ``sequentially``,
+        ``map_to_nodes_sequentially``) of each sequence, in one lookup."""
         seqs = [s.encode() if isinstance(s, str) else s for s in sequences]
-        if self.mode != CANONICAL:
+        if self.mode != CANONICAL or sequentially:
             return self.map_to_nodes_sequentially_batch(seqs)
         got = self.map_to_nodes_sequentially_batch(
             seqs + [bytes(s).translate(_REVCOMP)[::-1] for s in seqs])

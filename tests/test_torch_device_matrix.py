@@ -276,7 +276,7 @@ def test_cyclic_routing_raises_in_both():
 def test_rowdiff_from_annotation_matches_jax(inner):
     """The port's RowDiff.from_annotation, given the JAX one's routing,
     holds the same diff columns: equal inner rows and equal rows (the
-    port's inner is a BRWT; it has no RowFlat.from_columns)."""
+    port's inner a BRWT, as the call asks)."""
     from metagraph_tpu_torch.annotation.matrix import RowDiff
     rng = np.random.default_rng(3)
     R, L = 250, 12
@@ -285,7 +285,8 @@ def test_rowdiff_from_annotation_matches_jax(inner):
     jrd = JRowDiff.from_annotation(cols, R, L, None,
                                    inner_type=JBRWT if inner == "brwt"
                                    else JRowFlat, routing=(succ, anchors))
-    prd = RowDiff.from_annotation(cols, R, L, (succ, anchors))
+    prd = RowDiff.from_annotation(cols, R, L, (succ, anchors),
+                                  inner_type=BRWT)
     assert isinstance(prd.inner, BRWT)
     rows = np.arange(R)
     assert np.array_equal(prd.inner.get_rows_mask(rows),

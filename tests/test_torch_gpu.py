@@ -1024,7 +1024,7 @@ def test_rowdiff_row_words_matches_plain(cuda, L, inner, canon):
     rng = np.random.default_rng(L * 3 + canon + (inner == "brwt"))
     R = 2500
     rd = RowDiff.from_annotation(_words_columns(rng, R, L), R, L,
-                                 _chain_routing(R, 37))
+                                 _chain_routing(R, 37), inner_type=BRWT)
     inner_f = dm.FlatBRWT.from_brwt(rd.inner) if inner == "brwt" else \
         convert.pack_matrix_bitmap(rd.inner, R)
     flat = dm.FlatRowDiff.from_row_diff(rd, inner_f)
@@ -1053,7 +1053,8 @@ def test_words_count_epoch_cuda_matches_cpu(cuda, inner, monkeypatch):
         flat = dm.FlatBRWT.from_brwt(BRWT.from_columns(cols, R, L,
                                                        linkage=False))
     else:
-        rd = RowDiff.from_annotation(cols, R, L, _chain_routing(R, 20))
+        rd = RowDiff.from_annotation(cols, R, L, _chain_routing(R, 20),
+                                     inner_type=BRWT)
         flat = dm.FlatRowDiff.from_row_diff(
             rd, dm.FlatBRWT.from_brwt(rd.inner) if inner == "brwt"
             else convert.pack_matrix_bitmap(rd.inner, R))
@@ -1096,7 +1097,7 @@ def _read_ids(rng, R, Q, offset=0, backward=0.2):
 
 def _rowdiff_anno(rng, R, L, inner, length, dev):
     rd = RowDiff.from_annotation(_words_columns(rng, R, L), R, L,
-                                 _chain_routing(R, length))
+                                 _chain_routing(R, length), inner_type=BRWT)
     inner_f = dm.FlatBRWT.from_brwt(rd.inner) if inner == "brwt" else \
         convert.pack_matrix_bitmap(rd.inner, R)
     return dm.RowDiffOnDevice.from_host(
@@ -2756,3 +2757,130 @@ def test_align_hash_graph_cuda_matches_cpu(cuda, tmp_path, gtype, mode):
     assert [[(a.score, a.cigar.to_string(), a.nodes) for a in r]
             for r in got] == [[(a.score, a.cigar.to_string(), a.nodes)
                                for a in r] for r in want]
+
+
+# --------------------------------------------------------------------------
+# annotate and transform_anno (kernel A a batch, D2 in freeze)
+# --------------------------------------------------------------------------
+
+def _annotate_inputs(tmp_path, mode, k=31, n_refs=12):
+    rng = np.random.default_rng(len(mode) + k)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    refs = [letters[rng.integers(0, 4, int(rng.integers(200, 900)))]
+            .tobytes() for _ in range(n_refs)]
+    g = DBGSuccinct.build(refs + [refs[0] + refs[1][:40]], k, mode=mode,
+                          device="cpu")
+    g.save(str(tmp_path / "g"))
+    fa = tmp_path / "r.fa"
+    recs = refs + [refs[2][:50] + b"N" * 5 + refs[2][55:300],
+                   refs[3][: k - 1], b""]
+    fa.write_text("".join(f">r{i} ka:f:{i % 3 + 1}\n{s.decode()}\n"
+                          for i, s in enumerate(recs)))
+    return str(tmp_path / "g.dbg"), str(fa), recs
+
+
+def _npz_equal(a, b):
+    with np.load(a, allow_pickle=True) as x, \
+            np.load(b, allow_pickle=True) as y:
+        assert x.files == y.files
+        for m in x.files:
+            assert x[m].dtype == y[m].dtype and np.array_equal(x[m], y[m]), m
+
+
+@pytest.mark.parametrize("mode", ("basic", "canonical", "primary"))
+@pytest.mark.parametrize("flags", (("--anno-header",),
+                                   ("--count-kmers", "--coordinates",
+                                    "--index-header-coords"),
+                                   ("--anno-header", "--anno-codec",
+                                    "smallest", "--disk-swap", ".",
+                                    "--mem-cap-gb", "0.00001")))
+def test_annotate_cuda_matches_cpu(cuda, tmp_path, monkeypatch, mode, flags):
+    """``annotate`` on the card writes the CPU's files, with one kernel A
+    launch a batch and D2 launched in ``freeze``."""
+    from metagraph_tpu_torch.cli import main
+    monkeypatch.chdir(tmp_path)
+    graph, fa, _ = _annotate_inputs(tmp_path, mode)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        a0, d0 = ops.key_lookup.launches, db.radix_sort.launches
+        main(["annotate", "-i", graph, *flags, "-o",
+              str(tmp_path / dev), fa, "--torch-device", dev])
+        outs[dev] = (ops.key_lookup.launches - a0,
+                     db.radix_sort.launches - d0)
+    assert outs["cuda"][0] == 1 and outs["cuda"][1] > 0
+    assert outs["cpu"] == (0, 0)
+    for ext in (".column.annodbg.npz",) + (
+            (".seqs",) if "--index-header-coords" in flags else ()):
+        _npz_equal(str(tmp_path / "cuda") + ext, str(tmp_path / "cpu") + ext)
+
+
+@pytest.mark.parametrize("target", ("row_diff_brwt", "row_diff_coord",
+                                    "int_brwt"))
+def test_transform_anno_cuda_matches_cpu(cuda, tmp_path, target):
+    """A conversion on the card (the row-diff routing's doubling as tensor
+    ops there) writes the CPU's matrix."""
+    from metagraph_tpu_torch.annotation.matrix import RowDiff, load_annotation
+    from metagraph_tpu_torch.cli import main
+    graph, fa, _ = _annotate_inputs(tmp_path, "basic", k=15)
+    main(["annotate", "-i", graph, "--anno-header", "--count-kmers",
+          "--coordinates", "-o", str(tmp_path / "a"), fa,
+          "--torch-device", "cpu"])
+    mats = {}
+    for dev in ("cuda", "cpu"):
+        main(["transform_anno", "-i", graph, "--anno-type", target,
+              "--max-path-length", "7", "-o", str(tmp_path / dev),
+              str(tmp_path / "a.column.annodbg"), "--torch-device", dev])
+        mats[dev] = load_annotation(str(tmp_path / f"{dev}.{target}"
+                                        ".annodbg")).matrix
+    for name in ("succ", "anchors"):
+        if hasattr(mats["cpu"], name):
+            assert np.array_equal(getattr(mats["cuda"], name),
+                                  getattr(mats["cpu"], name))
+    rows = np.arange(mats["cpu"].num_rows)
+    assert np.array_equal(mats["cuda"].get_rows_mask(rows),
+                          mats["cpu"].get_rows_mask(rows))
+    g = DBGSuccinct.load(graph)
+    for length in (1, 3, 100):
+        a = RowDiff.build_routing(g, length, cuda)
+        b = RowDiff.build_routing(g, length, "cpu")
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("mode", ("basic", "canonical"))
+def test_annotate_kernels_match_plain(cuda, tmp_path, mode):
+    """Kernel A on an annotate batch's keys and D2 on ``freeze``'s (label,
+    row) keys with the counts as payload, against their plain versions."""
+    from metagraph_tpu_torch.annotation.column import ColumnBuilder
+    graph, _, recs = _annotate_inputs(tmp_path, mode)
+    g = DBGSuccinct.load(graph).use_device(cuda)
+    _, valid, keys = g.batch_keys(recs)
+    keys = np_words(keys).to(cuda)
+    table = g.key_table()
+    got = ops.key_lookup(keys, table)
+    assert torch.equal(got, ops.key_lookup_plain(keys, table))
+    assert int((got > 0).sum()) > len(keys) // 2
+    nodes = g.map_to_nodes_batch(recs)
+    b = ColumnBuilder(g.max_index(), cuda)
+    rng = np.random.default_rng(1)
+    for i, n in enumerate(nodes):
+        hit = n[n > 0] - 1
+        b.add_labels(hit, [f"r{i % 4}"])
+        b.add_label_counts(hit, rng.integers(1, 5, len(hit)), [f"r{i % 4}"])
+    calls = []
+    real = db.radix_sort
+
+    def spy(k, bits, payload=None, **kw):
+        calls.append((k.clone(), bits, None if payload is None
+                      else payload.clone()))
+        return real(k, bits, payload, **kw)
+    spy.launches = 0
+    db.radix_sort = spy
+    try:
+        f = b.freeze()
+    finally:
+        db.radix_sort = real
+    assert calls and sum(len(r) for r in f._rows) > 0
+    for k, bits, payload in calls:
+        out = real(k, bits, payload)
+        want = db.radix_sort_plain(k, bits, payload)
+        assert all(torch.equal(x, y) for x, y in zip(out, want))
