@@ -342,12 +342,40 @@ then:
    first one's index), so the walls leave out its load and the table's
    build.
 
+10. (right after 5b, on 8b's graph object, the basic deployment and
+   5b's columns) device ops and the sharded query: ``DeviceBOSS`` of the
+   3b graph (k = 31, 8.1 M edges) maps ``queries`` = 2^20 of the basic
+   reads' 31-mers through K3 ``boss_map`` (``map_kmers``: one launch),
+   exactly against its plain version on the card and, on a sample of
+   50,000, the host ``BOSS.map_to_edges_batch``; K2 ``boss_rank_select``
+   runs each of its four operations on 2^20 random positions, values and
+   ranks (some past the last entry); ``DeviceKmerIndex`` over the graph's
+   valid edges (4 words a key) and over the distinct 16-mers of the
+   references (k = 15: a key fits one int64) look up 2^20 queries each,
+   half hits, through K1 ``kmer_lookup``, the second beside
+   ``torch.searchsorted``; each launch count is the counter's change
+   around its own call.  Then ``parallel/launch.launch`` starts four
+   ranks on the card (a 2 x 2 "data" x "model" mesh over gloo, which
+   stages CUDA tensors through the host) running
+   ``programs.sharded_query`` on the basic deployment's hash table and
+   bitmap and its first 8,000 reads (kernel A on each shard's window,
+   one pmax, kernel 2), the sharded lookup of the same 2^20 queries (K1,
+   one pmax) and the compressed step on the words columns (4,096 labels,
+   a BRWT a 2,048-label range by greedy linkage, W1 then kernel 2; and
+   with row-diff along the references, W2): counts, present and ids
+   equal to the single-device port's (``query_step``; W1 over the whole
+   words BRWT), one all-reduce a step on every rank, every kernel of a
+   step launched.  Once the ranks have exited, this process holds kernel
+   A on each rank's window (the ranks return its rows) against the plain
+   version and times rank 0's, with nothing else on the card.  Last, a
+   1 x 1 mesh over NCCL runs the dense step and the lookup, equal again.
+
 Depth cuts, which keep the script inside its time limit (widths are
 never cut): the basic batch is drawn at 50,000 reads (150,000 before),
 which 3b takes
 whole; the main path (2, 3, 3a) and the primary, canonical, k41, protein
-and many-labels deployments take ``path_reads`` = 8,000 reads (20,000
-before phase 9; the
+and many-labels deployments take ``path_reads`` = 6,000 reads (8,000
+before phase 10, 20,000 before phase 9; the
 first of the basic batch, or of their own stream; 150,000, then 40,000
 before) and
 the long sequence, the coords mode and the seqs deployment
@@ -388,7 +416,12 @@ largest wave), ``align_wave/align-labeled`` (8c's),
 ``radix_sort/protein-k20-disk`` for the general route,
 ``radix_sort/graph_bitmap``, ``.../graph_hash_canonical``,
 ``.../graph_sshash``, ``.../suffix`` and ``.../kmc`` for 3c,
-``key_lookup/annotate`` and ``radix_sort/annotate`` for phase 9, and
+``key_lookup/annotate`` and ``radix_sort/annotate`` for phase 9,
+``kmer_lookup``, ``boss_rank_select`` (rank_W), ``boss_map``,
+``boss_rank_select/rank_last``, ``.../select_last``, ``.../select_W``,
+``kmer_lookup/k15`` (``library_ms``: ``torch.searchsorted``) and
+``key_lookup/sharded`` (rank 0's window; launches summed over the
+ranks) for phase 10, and
 ``key_lookup/a10``, ``label_counts/a10`` and ``radix_sort/a10`` for 3b;
 kernels 1-3 once more
 for each of the primary and canonical deployments, kernels B, 2, 3 for
@@ -448,7 +481,7 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=50_000,
             wide=(200, 8101, 20_000, 200), server_reads=2000,
             bitmap_reads=10_000, pan=(1, 4_000_000, 4, 0.01, 3),
             build_reads=(40_000, 150, 0.5, 0.01), build_k=21,
-            path_reads=8_000,
+            path_reads=6_000,
             build_sample=50_000, build_reps=2, host_k=31, disk_cap_gb=0.04,
             align=dict(read_len=150, pool=20_000, warm=20, calibrate=100,
                        budget_s=15, target=150, least=100, cpu=20, par=40,
@@ -464,7 +497,9 @@ FULL = dict(n_refs=1000, base_len=8101, repeat=(1000, 1300), n_reads=50_000,
                             target=(250, 100), least=(150, 80), cpu=50,
                             query=300, labeled=200),
             annotate=dict(small=100, cpu=20, cap_gb=0.01,
-                          coord_rows=20_000))
+                          coord_rows=20_000),
+            device_ops=dict(seed=25, queries=1 << 20, host_sample=50_000,
+                            k16_refs=1000, reads=8_000, timeout=600))
 TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             read_len=120, long_windows=5000, sample=60,
             sw=(40, 37, 60), sw_big=(8, 70, 90), sw_long=(3, 1030, 1040),
@@ -491,7 +526,9 @@ TINY = dict(n_refs=24, base_len=501, repeat=(100, 160), n_reads=300,
             hash_align=dict(pool=60, warm=5, calibrate=10, budget_s=0,
                             target=(30, 20), least=(30, 20), cpu=5,
                             query=15, labeled=15),
-            annotate=dict(small=6, cpu=5, cap_gb=0.00002, coord_rows=50))
+            annotate=dict(small=6, cpu=5, cap_gb=0.00002, coord_rows=50),
+            device_ops=dict(seed=25, queries=2000, host_sample=500,
+                            k16_refs=24, reads=200, timeout=300))
 
 
 def log(msg: str):
@@ -1022,6 +1059,16 @@ def reference_routing(refs, oracle, max_length=100):
     return succ, anchors
 
 
+class DiffColumns(list):
+    """RowDiff.from_annotation's inner type that keeps the diff columns."""
+
+    @classmethod
+    def from_columns(cls, columns, num_rows, num_labels):
+        out = cls(columns)
+        out.num_rows = num_rows
+        return out
+
+
 def make_words(cfg, refs, oracle_m, index_m, cols, work):
     """The words deployments' indexes over the many-labels columns, past
     ``words_budget`` bytes, which the 16 overflow patterns pass (so
@@ -1032,7 +1079,8 @@ def make_words(cfg, refs, oracle_m, index_m, cols, work):
     load_annotation and given its device annotation by
     convert.device_annotation (the many-labels index's table is kept);
     each must take the words form and write no cache -> ({name:
-    QueryIndex}, seconds by step)."""
+    QueryIndex}, seconds by step, (the row-diff's diff columns, succ,
+    anchors) for phase 10)."""
     import shutil
     from metagraph_tpu_torch import convert
     from metagraph_tpu_torch.annotation.column import LabelEncoder
@@ -1049,7 +1097,10 @@ def make_words(cfg, refs, oracle_m, index_m, cols, work):
                     brwt_path)
     t0 = time.perf_counter()
     succ, anchors = reference_routing(refs, oracle_m, cfg["rd_max_length"])
-    rd = RowDiff.from_annotation(cols, R, L, (succ, anchors), Arity2BRWT)
+    # RowDiff.from_annotation with Arity2BRWT, its diff columns kept
+    diff = RowDiff.from_annotation(cols, R, L, (succ, anchors),
+                                   DiffColumns).inner
+    rd = RowDiff(Arity2BRWT.from_columns(diff, R, L), succ, anchors, L)
     rd_path = os.path.join(work, "words.row_diff_brwt.annodbg")
     StaticAnnotation(rd, LabelEncoder(index_m.labels),
                      "row_diff_brwt").save(rd_path)
@@ -1071,7 +1122,7 @@ def make_words(cfg, refs, oracle_m, index_m, cols, work):
         out[name] = dataclasses.replace(index_m, device_anno=dev,
                                         annotation=anno)
         secs[name] = time.perf_counter() - t0
-    return out, secs
+    return out, secs, (diff, succ, anchors)
 
 
 def oracle_lookup(codes, o, canon):
@@ -1944,7 +1995,11 @@ def counters():
     from metagraph_tpu_torch.annotation.device_matrix import (
         brwt_row_words, rowdiff_row_words)
     from metagraph_tpu_torch.align.wave_extender import align_wave, wave_dp
+    from metagraph_tpu_torch.succinct.ops import (boss_map, boss_rank_select,
+                                                  kmer_lookup)
     return {"align_wave": align_wave, "wave_dp": wave_dp,
+            "kmer_lookup": kmer_lookup, "boss_map": boss_map,
+            "boss_rank_select": boss_rank_select,
             "wire_lookup": wire_lookup, "label_counts": label_counts,
             "selection_mask": selection_mask, "sw_scores": sw_scores,
             "gather_loop": gather_loop, "gather_take": gather_take,
@@ -5910,6 +5965,373 @@ def small_graphs(cfg, refs, prefs, bitmap, d, torch, dev):
             f"oracle's")
 
 
+# --------------------------------------------------------------------------
+# 10. device ops and the sharded query (ROADMAP A14, A15a)
+# --------------------------------------------------------------------------
+
+def read_windows(codes_list, k1: int, n: int) -> np.ndarray:
+    """The first ``n`` k1-windows of the reads in BOSS codes (1..4; N is 5,
+    outside the DNA alphabet) -> (n, k1) int32."""
+    parts, total = [], 0
+    for c in codes_list:
+        w = np.lib.stride_tricks.sliding_window_view(c, k1)
+        parts.append(w)
+        total += len(w)
+        if total >= n:
+            break
+    return (np.concatenate(parts)[:n].astype(np.int32) + 1)
+
+
+def read_queries(codes_list, data: int):
+    """Reads of one length -> (their windows' keys, BOSS-order 4-bit words,
+    invalid windows all ones; (Q,) int32 sequence ids local to each of
+    ``data`` equal blocks of reads)."""
+    from metagraph_tpu_torch.succinct.ops import pack_kmers32
+    kk, ok = zip(*(window_keys(c, K) for c in codes_list))
+    n = np.array([len(x) for x in kk])
+    if len(codes_list) % data or len(set(n.tolist())) != 1:
+        raise AssertionError("the sharded batch needs equal reads that "
+                             "split over the data axis")
+    keys = pack_kmers32(key_chars(np.concatenate(kk)))
+    keys[~np.concatenate(ok)] = np.uint32(0xFFFFFFFF)
+    per = len(codes_list) // data
+    sid = np.repeat(np.arange(len(codes_list), dtype=np.int32) % per, n)
+    return keys, sid
+
+
+def k16_index(refs, torch, dev):
+    """The distinct 16-mers of the references as a DeviceKmerIndex (BOSS
+    k = 15: 2 key words, one int64), ids 1..N -> (index, their chars)."""
+    from metagraph_tpu_torch.succinct.ops import DeviceKmerIndex
+    keys = np.unique(np.concatenate([window_keys(r, 16)[0] for r in refs]))
+    chars = ((keys[:, None] >> (2 * np.arange(16, dtype=np.uint64)))
+             & np.uint64(3)).astype(np.uint8) + 1
+    return DeviceKmerIndex.from_host(chars, np.arange(1, len(keys) + 1),
+                                     device=dev), chars
+
+
+def as_int64(words, torch):
+    """(N, 2) int32 key words -> (N,) int64 that sort as the rows (the top
+    code stays below 8, so the sign bit is 0)."""
+    w = words.long() & 0xFFFFFFFF
+    return (w[:, 0] << 32) | w[:, 1]
+
+
+def boss_table_bytes(db, op=None) -> int:
+    """Bytes of the DeviceBOSS arrays that K2's ``op`` reads (its blocks
+    and their counts), or with no ``op`` all that K3 reads."""
+    arrays = {None: (db.W_blocks, db.last_blocks, db.cum_W, db.cum_last,
+                     db.F, db.NF),
+              "rank_last": (db.last_blocks, db.cum_last),
+              "select_last": (db.last_blocks, db.cum_last),
+              "rank_W": (db.W_blocks, db.cum_W),
+              "select_W": (db.W_blocks, db.cum_W)}[op]
+    return sum(t.numel() * t.element_size() for t in arrays)
+
+
+def window_checks(out, queries, table, reps, torch, dev):
+    """Kernel A on each rank's shard window (``out[r]["window"]``) with
+    that rank's data block of ``queries``, held against its plain version
+    here after the ranks have exited; rank 0's timed -> its kernels-line
+    entry (bound: keys, answers, a slot group a probe in the window)."""
+    from metagraph_tpu_torch._u32 import np_words, to_u64
+    from metagraph_tpu_torch.succinct import ops
+    data = max(o["coords"]["data"] for o in out) + 1
+    per = len(queries) // data
+    entry = None
+    for o in sorted(out, key=lambda o: o["rank"]):
+        w, d = o["window"], o["coords"]["data"]
+        q = np_words(queries[d * per: (d + 1) * per]).to(dev)
+        rows = np.full((w["rows"], table.shape[1]), 0xFFFFFFFF, np.uint32)
+        part = table[w["row0"]: w["row0"] + w["rows"]]
+        rows[: len(part)] = part          # pad_rows' all-ones rows past it
+        shard = np_words(rows).to(dev)
+
+        def kernel():
+            return ops.key_lookup(q, shard, n_hash=w["n_hash"],
+                                  row0=w["row0"])
+
+        def plain():
+            return ops.key_lookup_plain(q, shard, n_hash=w["n_hash"],
+                                        row0=w["row0"])
+        got, want = kernel(), plain()
+        err = int((got.long() - want.long()).abs().max()) if len(got) else 0
+        if err:
+            raise AssertionError(f"kernel A's window of rank {o['rank']} "
+                                 "disagrees with its plain version")
+        if o["rank"]:
+            continue
+        b = ops._hash_words(to_u64(q), w["n_hash"], 1) - w["row0"]
+        in_window = int(((b >= 0) & (b < w["rows"])).sum())
+        W = q.shape[1]
+        nbytes = q.shape[0] * 4 * (W + 1) + in_window * 16 * (W + 1)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        entry = dict(max_abs_err=err, ms=device_ms(torch, dev, kernel, reps),
+                     plain_ms=device_ms(torch, dev, plain, 1),
+                     bound_ms=bound, bound_by="bytes")
+        log(f"kernel key_lookup [sharded, rank 0]: {entry['ms']:.4f} ms "
+            f"(plain {entry['plain_ms']:.2f} ms, bound {bound:.4f} ms from "
+            f"{nbytes} bytes; {in_window} of {q.shape[0]} keys in its "
+            f"window, {int((got > 0).sum())} hits), max_abs_err {err}")
+    log(f"kernel A on the {len(out)} ranks' windows: equal to the plain "
+        "version")
+    return {"key_lookup": entry}
+
+
+def sharded_phase(cfg, graph, index, oracle, node_of_key, words, cols,
+                  row_diff, refs, codes, torch, dev, work):
+    """Phase 10 (see the docstring): K1-K3 on the 3b graph and its
+    dictionary, then the sharded query on a 2 x 2 mesh of four ranks on
+    the card and a 1 x 1 mesh over NCCL -> (launches, entries, {deployment:
+    (launches, entries)}).  ``words`` are the words deployments' indexes,
+    ``cols`` their columns, ``row_diff`` (diff columns, succ, anchors)
+    the words-rowdiff deployment's."""
+    from metagraph_tpu_torch._u32 import np_words
+    from metagraph_tpu_torch.annotation import device_matrix as dm
+    from metagraph_tpu_torch.annotation.ops import count_labels
+    from metagraph_tpu_torch.parallel.launch import launch
+    from metagraph_tpu_torch.query.device import query_step
+    from metagraph_tpu_torch.succinct import ops
+    do = cfg["device_ops"]
+    rng = np.random.default_rng(do["seed"])
+    secs = {}
+    t0 = time.perf_counter()
+    db = ops.DeviceBOSS.from_host(graph.boss, device=dev)
+    kidx = ops.DeviceKmerIndex.from_host(key_chars(oracle["keys"]),
+                                         node_of_key, device=dev)
+    k16, chars16 = k16_index(refs[: do["k16_refs"]], torch, dev)
+    secs["tables"] = time.perf_counter() - t0
+    M, A2 = db.M, 2 * db.alph
+    n = do["queries"]
+    rows = read_windows(codes, graph.boss.k + 1, n)
+    if len(rows) < n:
+        raise AssertionError(f"{len(rows)} windows, fewer than {n}")
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    rows_t = up(rows)
+    i_t, c_t = up(rng.integers(0, M, n)), up(rng.integers(0, A2, n))
+    r_t = up(rng.integers(-2, M + 300, n))
+    half = n // 2
+    pick = rng.integers(0, kidx.n, half)
+    q_t = torch.cat([kidx.keys[torch.from_numpy(pick).to(dev)],
+                     np_words(ops.pack_kmers32(rng.integers(
+                         1, 5, (n - half, K)).astype(np.uint8))).to(dev)])
+    pick16 = rng.integers(0, k16.n, half)
+    q16 = torch.cat([k16.keys[torch.from_numpy(pick16).to(dev)],
+                     np_words(ops.pack_kmers32(rng.integers(
+                         1, 5, (n - half, 16)).astype(np.uint8))).to(dev)])
+    ops_args = {"rank_last": (i_t,), "rank_W": (i_t, c_t),
+                "select_last": (r_t,), "select_W": (c_t, r_t)}
+
+    calls = [("map", ops.boss_map, lambda: db.map_kmers(rows_t)),
+             ("lookup", ops.kmer_lookup, lambda: kidx.lookup(q_t)),
+             ("lookup16", ops.kmer_lookup, lambda: k16.lookup(q16))]
+    calls += [(op, ops.boss_rank_select,
+               lambda op=op, a=a: ops.boss_rank_select(db, op, *a))
+              for op, a in ops_args.items()]
+
+    def drive():
+        """Each call once -> (its result, its own launches: the counter's
+        change around it) by key."""
+        res, own = {}, {}
+        for key, wrapper, fn in calls:
+            before = wrapper.launches
+            res[key] = fn()
+            own[key] = wrapper.launches - before
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return res, own
+    t0 = time.perf_counter()
+    (res, own), total = run_path(drive)
+    secs["kernels driven"] = time.perf_counter() - t0
+    if dev.type == "cuda":
+        for key, n_own in own.items():
+            if n_own < 1:
+                raise AssertionError(f"phase 10 launched no kernel for {key}")
+        if sum(own.values()) != sum(total[name] for name in (
+                "boss_map", "boss_rank_select", "kmer_lookup")):
+            raise AssertionError(f"phase 10 launches {own} against {total}")
+    launches = {"boss_map": own["map"], "kmer_lookup": own["lookup"],
+                "boss_rank_select": own["rank_W"]}
+    entries, more = {}, {}
+    reps = 10 if dev.type == "cuda" else 1
+    t0 = time.perf_counter()
+    # K3 against its plain version and, on a sample, the host BOSS
+    want = ops.boss_map_plain(db, "map_kmers", rows_t)
+    add_entry(entries, torch, " [device ops]", "boss_map", [res["map"]],
+              [want], device_ms(torch, dev, lambda: db.map_kmers(rows_t),
+                                reps),
+              device_ms(torch, dev, lambda: ops.boss_map_plain(
+                  db, "map_kmers", rows_t), 1),
+              rows.nbytes + 4 * n + boss_table_bytes(db))
+    sample = rng.choice(n, min(do["host_sample"], n), replace=False)
+    host = graph.boss.map_to_edges_batch(rows[sample])
+    got = res["map"].cpu().numpy()
+    if not np.array_equal(got[sample], host):
+        raise AssertionError("boss_map disagrees with the host BOSS")
+    log(f"phase 10 boss_map: {n} read windows, {int((got > 0).sum())} "
+        f"mapped; {len(sample)} equal to BOSS.map_to_edges_batch")
+    # K2, an entry an operation (rank_W under its own name)
+    for op, a in ops_args.items():
+        name = "boss_rank_select"
+        sink = entries if op == "rank_W" else {}
+        add_entry(sink, torch, f" [{op}]", name, [res[op]],
+                  [ops.boss_rank_select_plain(db, op, *a)],
+                  device_ms(torch, dev, lambda: ops.boss_rank_select(
+                      db, op, *a), reps),
+                  device_ms(torch, dev, lambda: ops.boss_rank_select_plain(
+                      db, op, *a), 1),
+                  4 * n * (len(a) + 1) + boss_table_bytes(db, op))
+        if op != "rank_W":
+            more[op] = ({name: own[op]}, sink)
+    # K1 on the graph's dictionary (4 words: no int64 search applies)
+    want = ops.kmer_lookup_plain(kidx.keys, kidx.ids, q_t)
+    hits = res["lookup"][:half].cpu().numpy()
+    if not np.array_equal(hits, kidx.ids.cpu().numpy()[pick]) \
+            or bool((res["lookup"][half:] > 0).float().mean() > 0.01):
+        raise AssertionError("kmer_lookup: hits are not their edges")
+    add_entry(entries, torch, " [device ops]", "kmer_lookup",
+              [res["lookup"]], [want],
+              device_ms(torch, dev, lambda: kidx.lookup(q_t), reps),
+              device_ms(torch, dev, lambda: ops.kmer_lookup_plain(
+                  kidx.keys, kidx.ids, q_t), 1),
+              kidx.keys.nbytes + kidx.ids.nbytes + q_t.nbytes + 4 * n)
+    log("phase 10 kmer_lookup library: null (keys of 4 words fit no int64 "
+        "for torch.searchsorted)")
+    # K1 on the k = 15 dictionary beside torch.searchsorted of int64 keys
+    e16 = {}
+    add_entry(e16, torch, " [k15]", "kmer_lookup", [res["lookup16"]],
+              [ops.kmer_lookup_plain(k16.keys, k16.ids, q16)],
+              device_ms(torch, dev, lambda: k16.lookup(q16), reps),
+              device_ms(torch, dev, lambda: ops.kmer_lookup_plain(
+                  k16.keys, k16.ids, q16), 1),
+              k16.keys.nbytes + k16.ids.nbytes + q16.nbytes + 4 * n)
+    keys64, q64 = as_int64(k16.keys, torch), as_int64(q16, torch)
+    pos = torch.searchsorted(keys64, q64).clamp(max=k16.n - 1)
+    lib = torch.where(keys64[pos] == q64, k16.ids[pos], 0)
+    if not torch.equal(lib, res["lookup16"]):
+        raise AssertionError("kmer_lookup k15 disagrees with searchsorted")
+    e16["kmer_lookup"]["library_ms"] = device_ms(
+        torch, dev, lambda: torch.searchsorted(keys64, q64), reps)
+    log(f"phase 10 kmer_lookup k15: {k16.n} keys, searchsorted "
+        f"{e16['kmer_lookup']['library_ms']:.4f} ms")
+    more["k15"] = ({"kmer_lookup": own["lookup16"]}, e16)
+    secs["kernel checks"] = time.perf_counter() - t0
+
+    # the sharded query: the basic table and bitmap, the first reads
+    t0 = time.perf_counter()
+    S = do["reads"]
+    queries, sid = read_queries(codes[:S], 2)
+    L = index.device_anno.shape[1] * 32
+    sid_global = np.repeat(np.arange(S, dtype=np.int32), len(sid) // S)
+    qt, st = np_words(queries).to(dev), up(sid_global)
+    table_t = np_words(index.table).to(dev)
+    bitmap_t = np_words(index.device_anno).to(dev)
+    counts1, present1, nodes1 = query_step(table_t, bitmap_t, qt, st, S,
+                                           len(index.labels))
+    tree = dm.BRWTOnDevice.from_host(words["words-brwt"].device_anno, dev)
+    Lc = tree.num_labels
+    Lwc = -(-Lc // 32)
+    buf = torch.zeros((len(queries), -(-Lwc // 4) * 4), dtype=torch.int32,
+                      device=dev)
+    dm.brwt_row_words(tree, nodes1, out=buf[:, :Lwc])
+    place = torch.arange(1, len(queries) + 1, dtype=torch.int32, device=dev)
+    ccounts1, _ = count_labels(buf[:, :Lwc], torch.where(nodes1 > 0, place,
+                                                          0), st, S, Lc)
+    del buf, table_t, bitmap_t
+    lq = q_t.cpu().numpy().view(np.uint32)
+    single_lookup = res["lookup"].cpu().numpy()
+
+    R = tree.num_rows
+    diff, succ, anchors = row_diff
+    rd_depth = words["words-rowdiff"].device_anno.max_depth
+
+    def csr(cs):
+        ptr = np.concatenate([[0], np.cumsum([len(c) for c in cs])])
+        return ptr.astype(np.int64), np.concatenate(cs).astype(np.int64)
+    cp, cr = csr(cols)
+    dp, dr = csr(diff)
+    secs["sharded inputs"] = time.perf_counter() - t0
+    backend = "gloo"
+    device = "cuda" if dev.type == "cuda" else "cpu"
+    inputs = dict(queries=queries, seq_ids=sid, num_seqs=S,
+                  table=index.table, bitmap=index.device_anno,
+                  keys=kidx.keys.cpu().numpy().view(np.uint32),
+                  ids=kidx.ids.cpu().numpy(), lookup_queries=lq,
+                  col_ptr=cp, col_rows=cr, diff_ptr=dp, diff_rows=dr,
+                  succ=succ.astype(np.int32), anchors=anchors,
+                  rd_max_depth=rd_depth, num_labels=Lc, num_rows=R)
+    t0 = time.perf_counter()
+    out = launch("metagraph_tpu_torch.parallel.programs:sharded_query",
+                 {"data": 2, "model": 2}, inputs, backend=backend,
+                 device=device, timeout=do["timeout"], tmp_dir=work)
+    secs["mesh 2x2"] = time.perf_counter() - t0
+    r0 = out[0]
+    c1, p1 = counts1.cpu().numpy(), present1.cpu().numpy()
+    cc1 = ccounts1.cpu().numpy()
+    L0 = len(index.labels)
+    for name, want_c in (("dense", c1), ("brwt", cc1), ("row_diff", cc1)):
+        got_c, got_p = r0[name]
+        if not (np.array_equal(got_c[:, : want_c.shape[1]], want_c)
+                and not got_c[:, want_c.shape[1]:].any()
+                and np.array_equal(got_p, p1)):
+            raise AssertionError(f"sharded {name} counts differ from the "
+                                 "single-device port's")
+    if not np.array_equal(r0["lookup"], single_lookup):
+        raise AssertionError("sharded lookup differs from kmer_lookup")
+    for o in out:
+        for step, c in o["collectives"].items():
+            if c["all-reduce"] != 1 or sum(c.values()) != 1:
+                raise AssertionError(f"rank {o['rank']} {step}: {c}")
+    total = {step: {} for step in r0["launches"]}
+    for o in out:
+        for step, ln in o["launches"].items():
+            for k_, v in ln.items():
+                total[step][k_] = total[step].get(k_, 0) + v
+    need = {"dense": ("key_lookup", "label_counts"), "lookup":
+            ("kmer_lookup",), "brwt": ("key_lookup", "brwt_row_words",
+                                       "label_counts"),
+            "row_diff": ("key_lookup", "rowdiff_row_words", "label_counts")}
+    for step, names in need.items():
+        for name in names:
+            if dev.type == "cuda" and not total[step].get(name):
+                raise AssertionError(f"sharded {step} launched no {name}")
+    for step in ("dense", "lookup", "brwt", "row_diff"):
+        log(f"phase 10 mesh 2x2 {step}: pmax "
+            f"{r0['collective_bytes'][step]} B a rank, launches "
+            f"{total[step]}")
+    log(f"phase 10 mesh 2x2: {S} reads, {len(queries)} windows, "
+        f"{int(p1.sum())} hits; counts of {L0} labels, {Lc} compressed "
+        f"(row-diff walk {rd_depth} steps); BRWT builds (greedy linkage) "
+        + ", ".join(f"{o['seconds']['brwt_build']:.1f}/"
+                    f"{o['seconds']['row_diff_build']:.1f} s" for o in out)
+        + "; equal to the single-device port")
+    sharded = window_checks(out, queries, index.table, reps, torch, dev)
+    more["sharded"] = ({"key_lookup": total["dense"].get("key_lookup", 0)},
+                       sharded)
+    # a 1 x 1 mesh over NCCL (gloo on the CPU)
+    t0 = time.perf_counter()
+    one = launch("metagraph_tpu_torch.parallel.programs:sharded_query",
+                 {"data": 1, "model": 1},
+                 dict(queries=queries, seq_ids=sid_global, num_seqs=S,
+                      table=index.table, bitmap=index.device_anno,
+                      keys=inputs["keys"], ids=inputs["ids"],
+                      lookup_queries=lq),
+                 backend="nccl" if device == "cuda" else "gloo",
+                 device=device, timeout=do["timeout"], tmp_dir=work)[0]
+    secs["mesh 1x1"] = time.perf_counter() - t0
+    if not (np.array_equal(one["dense"][0][:, :L0], c1)
+            and np.array_equal(one["dense"][1], p1)
+            and np.array_equal(one["lookup"], single_lookup)):
+        raise AssertionError("the 1 x 1 mesh differs from the single-device "
+                             "port")
+    log(f"phase 10 mesh 1x1 ({'nccl' if device == 'cuda' else 'gloo'}): "
+        "dense step and lookup equal")
+    log("phase 10: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return launches, entries, more
+
+
 SOURCES = {
     "wire_lookup": ("metagraph_tpu_torch/csrc/wire_lookup.cu",
                     "metagraph_tpu/succinct/ops.py:439"),
@@ -5947,6 +6369,12 @@ SOURCES = {
                 "metagraph_tpu/align/batch.py:91"),
     "align_wave": ("metagraph_tpu_torch/csrc/wave_dp.cu",
                    "metagraph_tpu/align/batch.py:91"),
+    "kmer_lookup": ("metagraph_tpu_torch/csrc/kmer_lookup.cu",
+                    "metagraph_tpu/succinct/ops.py:313"),
+    "boss_rank_select": ("metagraph_tpu_torch/csrc/boss_walk.cu",
+                         "metagraph_tpu/succinct/ops.py:558"),
+    "boss_map": ("metagraph_tpu_torch/csrc/boss_walk.cu",
+                 "metagraph_tpu/succinct/ops.py:656"),
 }
 
 
@@ -5978,6 +6406,8 @@ def main(argv=None) -> int:
         # waits on its slowest member stalls when other processes load
         # the CPU (the test suite runs this beside its own workers)
         torch.set_num_threads(1)
+        # and the mesh's ranks (phase 10), which start from this environment
+        os.environ["OMP_NUM_THREADS"] = "1"
     dev = torch.device("cpu" if args.rehearse else "cuda")
     os.makedirs(args.out, exist_ok=True)
     os.makedirs(args.work, exist_ok=True)
@@ -6116,9 +6546,9 @@ def main(argv=None) -> int:
     # that the overflow patterns pass (the words route: kernels 1, W1 or
     # W2, 2, 3), on the first words_reads reads and reference 0 once
     os.environ["METAGRAPH_DENSE_ANNO_BUDGET"] = str(cfg["words_budget"])
-    words_idx, wsecs = timed("words indexes", make_words, cfg, refs,
-                             oracle_m, index_m, cols_m, args.work)
-    del cols_m
+    words_idx, wsecs, row_diff = timed("words indexes", make_words, cfg,
+                                       refs, oracle_m, index_m, cols_m,
+                                       args.work)
     log("words indexes: " + ", ".join(f"{k} {v:.1f} s"
                                       for k, v in wsecs.items()))
     nw = cfg["words_reads"]
@@ -6148,7 +6578,17 @@ def main(argv=None) -> int:
         launches[kern], entries[kern] = wl[kern], we.pop(kern)
         words_more[name.replace("-", "_")] = (wl, we)
         del engine
-    del words_idx, index_m, oracle_m
+
+    # 10. device ops and the sharded query: K1-K3 on the 3b graph and its
+    # dictionary, the basic deployment's table and bitmap and the words
+    # columns on a 2 x 2 mesh of ranks on the card, a 1 x 1 mesh over NCCL
+    sl, se, sharded_more = timed(
+        "device ops and sharded query", sharded_phase, cfg, qa_graph, index,
+        oracle, a10_nodes, words_idx, cols_m, row_diff, refs, codes, torch,
+        dev, args.work)
+    for name in ("kmer_lookup", "boss_rank_select", "boss_map"):
+        launches[name], entries[name] = sl[name], se[name]
+    del words_idx, index_m, oracle_m, cols_m, row_diff
 
     # the primary graph (the basic index's k-mers queried through
     # CanonicalDBG: canon 2) and the canonical graph (both strands: canon
@@ -6161,7 +6601,8 @@ def main(argv=None) -> int:
         index, canon=2), device=dev)
     # kernels 1-3 once more for each deployment, under "<kernel>/<name>"
     more = {"many_labels": (ml_launches, ml_entries), **words_more,
-            **more_graphs, **builds, **last_flags, "a10": a10,
+            **more_graphs, **builds, **last_flags, **sharded_more,
+            "a10": a10,
             "align": align, "align-labeled": labeled,
             "hash-align": hash_align}
     more["primary"] = (

@@ -32,7 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 KERNELS = ("wire_lookup", "label_counts", "selection_mask", "sw_scores",
            "gather_rows", "key_lookup", "codes_lookup", "sparse_counts",
            "row_words", "build_windows", "radix_sort", "build_join",
-           "build_emit", "wave_dp")
+           "build_emit", "wave_dp", "kmer_lookup", "boss_walk")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 VARIANTS = {"row_words_split": ("row_words", ["-DMG_ROW_WORDS_SPLIT"])}

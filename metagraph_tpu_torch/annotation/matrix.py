@@ -438,21 +438,25 @@ class BRWT:
     @staticmethod
     def _agglomerate(mats, trees):
         """Greedy pairing of the most correlated clusters, round by round,
-        until one tree is left."""
+        until one tree is left.  The pairs are the JAX loop's (the same
+        order, the same stop once every cluster is used), walked as Python
+        ints over the upper triangle only."""
         while len(trees) > 1:
             f = mats.astype(np.float32)
             sim = (f @ f.T).astype(np.int64)
             np.fill_diagonal(sim, -1)
-            order = np.dstack(np.unravel_index(
-                np.argsort(sim, axis=None)[::-1], sim.shape))[0]
+            first, second = np.unravel_index(
+                np.argsort(sim, axis=None)[::-1], sim.shape)
+            upper = first < second
             used = np.zeros(len(trees), dtype=bool)
-            pairs = []
-            for a, b in order:
-                if a < b and not used[a] and not used[b]:
+            pairs, n_used = [], 0
+            for a, b in zip(first[upper].tolist(), second[upper].tolist()):
+                if not used[a] and not used[b]:
                     used[a] = used[b] = True
-                    pairs.append((int(a), int(b)))
-                if used.all():
-                    break
+                    pairs.append((a, b))
+                    n_used += 2
+                    if n_used == len(trees):
+                        break
             new_trees, new_rows = [], []
             for a, b in pairs:
                 new_trees.append((trees[a], trees[b]))

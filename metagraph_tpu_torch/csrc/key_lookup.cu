@@ -26,6 +26,13 @@
 // device memory when they need them, where L1 keeps its few lines, so no
 // array grows with W and any W runs.
 //
+// A shard window serves parallel/sharding.py's query steps (:91, :177,
+// :409), whose table is one shard's range of bucket rows: a key hashes
+// modulo the index's true bucket count n_hash, and only a bucket in
+// [row0, row0 + n_buckets) is probed, at row bucket - row0; any other key
+// answers 0 (the step's ``in_range``).  The whole table is the window
+// n_hash = n_buckets, row0 = 0.
+//
 // Built with nvcc for sm_90a into a plain C library (see _build.py).
 
 #include "hash_probe.cuh"
@@ -38,7 +45,8 @@ template <int W>
 __global__ void __launch_bounds__(THREADS)
 key_lookup_kernel(const uint32_t *__restrict__ keys,
                   const uint32_t *__restrict__ table,
-                  int32_t *__restrict__ out, int64_t Q, uint32_t n_buckets) {
+                  int32_t *__restrict__ out, int64_t Q, uint32_t n_hash,
+                  uint32_t row0, uint32_t n_buckets) {
     __shared__ uint32_t s_keys[THREADS * W];
     const int64_t base = (int64_t)blockIdx.x * THREADS;
     const int n = (int)min((int64_t)THREADS, Q - base);
@@ -52,7 +60,8 @@ key_lookup_kernel(const uint32_t *__restrict__ keys,
 #pragma unroll
         for (int w = 0; w < W; ++w)
             key[w] = s_keys[threadIdx.x * W + w];
-        bucket = (int32_t)hash_probe::bucket_of<W>(key, n_buckets);
+        const uint32_t b = hash_probe::bucket_of<W>(key, n_hash) - row0;
+        bucket = b < n_buckets ? (int32_t)b : -1;   // outside the window
     }
     const uint32_t id = hash_probe::probe_block<W>(table, key, bucket);
     if (threadIdx.x < n)
@@ -72,20 +81,23 @@ __global__ void __launch_bounds__(THREADS)
 key_lookup_wide_kernel(const uint32_t *__restrict__ keys,
                        const uint32_t *__restrict__ table,
                        int32_t *__restrict__ out, int64_t Q, int W,
-                       uint32_t n_buckets) {
+                       uint32_t n_hash, uint32_t row0, uint32_t n_buckets) {
     const int lane = threadIdx.x & 31;
     const int64_t q0 = ((int64_t)blockIdx.x * WARPS + (threadIdx.x >> 5))
         * 32;
     if (q0 >= Q)
         return;                                 // the whole warp
     const int n = (int)min((int64_t)32, Q - q0);
+    // a bucket outside the window wraps past n_buckets: no probe
     const uint32_t bucket = lane < n ? hash_probe::bucket_of_words(
-        KeyRow{keys + (q0 + lane) * W}, W, n_buckets) : 0u;
+        KeyRow{keys + (q0 + lane) * W}, W, n_hash) - row0 : 0u;
     uint32_t mine = 0;
     for (int j = 0; j < n; ++j) {
+        const uint32_t b = __shfl_sync(0xFFFFFFFFu, bucket, j);
+        if (b >= n_buckets)
+            continue;                           // the whole warp
         const uint32_t id = hash_probe::probe_warp(
-            table, __shfl_sync(0xFFFFFFFFu, bucket, j), W,
-            KeyRow{keys + (q0 + j) * W});
+            table, b, W, KeyRow{keys + (q0 + j) * W});
         if (lane == j)
             mine = id;
     }
@@ -95,42 +107,44 @@ key_lookup_wide_kernel(const uint32_t *__restrict__ keys,
 
 template <int W>
 int launch(const void *keys, const void *table, void *out, int64_t Q,
-           uint32_t nb, cudaStream_t st) {
+           uint32_t nh, uint32_t r0, uint32_t nb, cudaStream_t st) {
     const unsigned blocks = (unsigned)((Q + THREADS - 1) / THREADS);
     key_lookup_kernel<W><<<blocks, THREADS, 0, st>>>(
         (const uint32_t *)keys, (const uint32_t *)table, (int32_t *)out, Q,
-        nb);
+        nh, r0, nb);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // keys (Q, W) uint32, table (n_buckets, 16 * (W + 1)) uint32 -> out (Q,)
-// int32.  The wrapper checks W >= 1, Q >= 1, a 16-byte aligned table and
-// n_buckets < 2^31.
+// int32; keys hash modulo n_hash and probe row bucket - row0 where that
+// lies in the table (the window above).  The wrapper checks W >= 1, Q >= 1,
+// a 16-byte aligned table, n_buckets and n_hash < 2^31 and 0 <= row0.
 extern "C" int mg_key_lookup(const void *keys, const void *table, void *out,
                              int64_t Q, int32_t W, int64_t n_buckets,
-                             void *stream) {
-    const uint32_t nb = (uint32_t)n_buckets;
+                             int64_t n_hash, int64_t row0, void *stream) {
+    const uint32_t nb = (uint32_t)n_buckets, nh = (uint32_t)n_hash,
+                   r0 = (uint32_t)row0;
     cudaStream_t st = (cudaStream_t)stream;
     switch (W) {
-    case 1: return launch<1>(keys, table, out, Q, nb, st);
-    case 2: return launch<2>(keys, table, out, Q, nb, st);
-    case 3: return launch<3>(keys, table, out, Q, nb, st);
-    case 4: return launch<4>(keys, table, out, Q, nb, st);
-    case 5: return launch<5>(keys, table, out, Q, nb, st);
-    case 6: return launch<6>(keys, table, out, Q, nb, st);
-    case 7: return launch<7>(keys, table, out, Q, nb, st);
-    case 8: return launch<8>(keys, table, out, Q, nb, st);
-    case 9: return launch<9>(keys, table, out, Q, nb, st);
-    case 10: return launch<10>(keys, table, out, Q, nb, st);
-    case 11: return launch<11>(keys, table, out, Q, nb, st);
-    case 12: return launch<12>(keys, table, out, Q, nb, st);
-    case 13: return launch<13>(keys, table, out, Q, nb, st);
-    case 14: return launch<14>(keys, table, out, Q, nb, st);
-    case 15: return launch<15>(keys, table, out, Q, nb, st);
-    case 16: return launch<16>(keys, table, out, Q, nb, st);
-    case 17: return launch<17>(keys, table, out, Q, nb, st);
+    case 1: return launch<1>(keys, table, out, Q, nh, r0, nb, st);
+    case 2: return launch<2>(keys, table, out, Q, nh, r0, nb, st);
+    case 3: return launch<3>(keys, table, out, Q, nh, r0, nb, st);
+    case 4: return launch<4>(keys, table, out, Q, nh, r0, nb, st);
+    case 5: return launch<5>(keys, table, out, Q, nh, r0, nb, st);
+    case 6: return launch<6>(keys, table, out, Q, nh, r0, nb, st);
+    case 7: return launch<7>(keys, table, out, Q, nh, r0, nb, st);
+    case 8: return launch<8>(keys, table, out, Q, nh, r0, nb, st);
+    case 9: return launch<9>(keys, table, out, Q, nh, r0, nb, st);
+    case 10: return launch<10>(keys, table, out, Q, nh, r0, nb, st);
+    case 11: return launch<11>(keys, table, out, Q, nh, r0, nb, st);
+    case 12: return launch<12>(keys, table, out, Q, nh, r0, nb, st);
+    case 13: return launch<13>(keys, table, out, Q, nh, r0, nb, st);
+    case 14: return launch<14>(keys, table, out, Q, nh, r0, nb, st);
+    case 15: return launch<15>(keys, table, out, Q, nh, r0, nb, st);
+    case 16: return launch<16>(keys, table, out, Q, nh, r0, nb, st);
+    case 17: return launch<17>(keys, table, out, Q, nh, r0, nb, st);
     default:
         if (W < 18)
             return (int)cudaErrorInvalidValue;
@@ -138,7 +152,8 @@ extern "C" int mg_key_lookup(const void *keys, const void *table, void *out,
                                             / (32 * WARPS)), THREADS,
                                  0, st>>>((const uint32_t *)keys,
                                           (const uint32_t *)table,
-                                          (int32_t *)out, Q, W, nb);
+                                          (int32_t *)out, Q, W, nh, r0,
+                                          nb);
         return (int)cudaGetLastError();
     }
 }

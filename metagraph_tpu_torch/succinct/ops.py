@@ -1,4 +1,5 @@
-"""The k-mer hash index and its probe kernels.
+"""The k-mer hash index and its probe kernels; the sorted k-mer dictionary
+and the blocked BOSS table on the device.
 
 Own copies of metagraph_tpu/succinct/ops.py: the host packers
 ``pack_codes32``/``pack_kmers32``/``pack_kmers2`` (:49-95, 4-bit and 8-bit
@@ -29,6 +30,18 @@ Three hand-written kernels probe the table:
   ``query/device.py::query_epoch_codes2``: 2-bit code tiles ->
   ``device_pack_windows`` -> ``_hash_lookup_flat``, for any K (a thread a
   window up to K = 136, a warp a window past it).
+
+``DeviceKmerIndex`` (JAX :275-332) and ``DeviceBOSS`` (:497-662), the
+rest of the JAX module, run on three more kernels:
+
+* ``kmer_lookup`` K1 (``csrc/kmer_lookup.cu``) replaces ``_kmer_lookup``:
+  the binary search of sorted multiword keys, a thread a query;
+* ``boss_rank_select`` K2 and ``boss_map`` K3 (``csrc/boss_walk.cu``)
+  replace ``DeviceBOSS``'s rank and select primitives and its ``index``,
+  ``pick_edge`` and ``map_kmers``: a fused walk a query.
+
+Kernel A also takes a shard's window of bucket rows (``key_lookup``'s
+``n_hash`` and ``row0``) for parallel/sharding.py.
 
 The plain versions carry uint32 words as int64 masked to 32 bits (see
 ``_u32``).
@@ -342,15 +355,21 @@ def keys2_greater(a: torch.Tensor, b: torch.Tensor, K: int) -> torch.Tensor:
 
 
 def _hash_lookup_flat(table: torch.Tensor, queries: torch.Tensor,
-                      W: int) -> torch.Tensor:
+                      W: int, n_hash: int | None = None,
+                      row0: int = 0) -> torch.Tensor:
     """(n_buckets, BUCKET*(W+1)) int32 table, (Q, W) keys -> (Q,) int32 ids
-    (0 = miss): one bucket row per query, the id of the matching slot."""
-    Q = queries.shape[0]
-    b = _hash_words(queries, table.shape[0], 1)
-    rows = to_u64(table[b]).reshape(Q, BUCKET, W + 1)
+    (0 = miss): one bucket row per query, the id of the matching slot.
+
+    With ``n_hash`` the table is a shard's window of bucket rows from
+    ``row0`` (parallel/sharding.py's steps, :120-131): a key hashes modulo
+    ``n_hash`` and a bucket outside the window answers 0."""
+    Q, R = queries.shape[0], table.shape[0]
+    b = _hash_words(queries, R if n_hash is None else n_hash, 1) - row0
+    in_range = (b >= 0) & (b < R)
+    rows = to_u64(table[b.clamp(0, R - 1)]).reshape(Q, BUCKET, W + 1)
     eq = torch.all(rows[:, :, :W] == queries[:, None, :], dim=-1)
     ids = torch.where(eq, rows[:, :, W], 0).amax(dim=-1)
-    return torch.where(eq.any(dim=-1), ids, 0).to(torch.int32)
+    return torch.where(eq.any(dim=-1) & in_range, ids, 0).to(torch.int32)
 
 
 def check_slot_fill(table: np.ndarray, chunk: int = 1 << 20):
@@ -423,11 +442,14 @@ def wire_lookup_plain(words: torch.Tensor, vwords: torch.Tensor,
 
 
 def key_lookup_plain(keys: torch.Tensor, table: torch.Tensor,
-                     chunk: int = 1 << 16) -> torch.Tensor:
+                     chunk: int = 1 << 16, n_hash: int | None = None,
+                     row0: int = 0) -> torch.Tensor:
     """Plain version of kernel A: (Q, W) int32 key words -> (Q,) int32 ids
-    (0 = miss), ``chunk`` keys at a time."""
+    (0 = miss), ``chunk`` keys at a time; ``n_hash`` and ``row0`` as in
+    ``_hash_lookup_flat``."""
     W = keys.shape[1]
-    out = [_hash_lookup_flat(table, to_u64(keys[lo: lo + chunk]), W)
+    out = [_hash_lookup_flat(table, to_u64(keys[lo: lo + chunk]), W,
+                             n_hash, row0)
            for lo in range(0, keys.shape[0], chunk)]
     return torch.cat(out) if out else \
         torch.zeros(0, dtype=torch.int32, device=keys.device)
@@ -581,11 +603,15 @@ def _check_table(table: torch.Tensor):
                          "than 2^31 buckets")
 
 
-def key_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+def key_lookup(keys: torch.Tensor, table: torch.Tensor,
+               n_hash: int | None = None, row0: int = 0) -> torch.Tensor:
     """(Q, W) packed keys (int32 bit patterns of the uint32 words, 4 or 8
     bits a code), (n_buckets, BUCKET * (W + 1)) table -> (Q,) int32 ids
     (0 = miss): ``DeviceHashIndex.lookup``.  A key is never all EMPTY_WORD,
-    so callers pass no padding.
+    so callers pass no padding.  ``n_hash`` (the index's bucket count) and
+    ``row0`` make ``table`` a shard's window of bucket rows, as the sharded
+    query steps hold it: a key hashes modulo ``n_hash`` and answers 0
+    unless its bucket lies in [row0, row0 + n_buckets).
 
     A CPU tensor takes the plain version; a CUDA tensor launches
     ``csrc/key_lookup.cu`` or raises.  The kernel stops each probe at the
@@ -598,8 +624,13 @@ def key_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if table.shape[1] != BUCKET * (W + 1):
         raise ValueError(f"table shape {tuple(table.shape)} does not fit "
                          f"keys of {W} words")
+    n_whole = n_hash is None
+    n_hash = table.shape[0] if n_whole else int(n_hash)
+    if not (0 <= row0 < 2 ** 31 and 1 <= n_hash < 2 ** 31) \
+            or (n_whole and row0):
+        raise ValueError(f"bad shard window: n_hash {n_hash}, row0 {row0}")
     if dev.type == "cpu":
-        return key_lookup_plain(keys, table)
+        return key_lookup_plain(keys, table, n_hash=n_hash, row0=row0)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(Q, dtype=torch.int32, device=dev)
@@ -609,9 +640,9 @@ def key_lookup(keys: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         raise ValueError("keys need at least one word")
     _check_table(table)
     fn = _build.function("key_lookup", "mg_key_lookup",
-                         [_P, _P, _P, _L, _I, _L, _P])
+                         [_P, _P, _P, _L, _I, _L, _L, _L, _P])
     _build.check(fn(keys.data_ptr(), table.data_ptr(), out.data_ptr(), Q, W,
-                    table.shape[0],
+                    table.shape[0], n_hash, row0,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "key_lookup")
     _build.count(key_lookup)
@@ -702,3 +733,461 @@ def codes_lookup(packed2: torch.Tensor, validb: torch.Tensor,
 
 
 codes_lookup.launches = 0
+
+
+# --------------------------------------------------------------------------
+# DeviceKmerIndex: the sorted multiword dictionary (kernel K1)
+# --------------------------------------------------------------------------
+
+def _ceil_log2(n: int) -> int:
+    """max(1, ceil(log2(max(n, 2)))): the halvings of a binary search over
+    n - 1 entries (ops.py:39)."""
+    return max(1, (max(n, 2) - 1).bit_length())
+
+
+def _rows_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lexicographic a < b over the last axis (``packing.rows_lex_lt``) of
+    int64 words holding uint32 values."""
+    lt = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    decided = torch.zeros_like(lt)
+    for w in range(a.shape[-1]):
+        aw, bw = a[..., w], b[..., w]
+        lt |= ~decided & (aw < bw)
+        decided |= aw != bw
+    return lt
+
+
+@dataclass
+class DeviceKmerIndex:
+    """Sorted packed k-mers and their ids (``DeviceKmerIndex``, JAX
+    ops.py:275-304); ``lookup`` is kernel K1."""
+
+    keys: torch.Tensor     # (N, W32) int32 bit patterns, rows sorted as
+    #                        unsigned words
+    ids: torch.Tensor      # (N,) int32 payload (BOSS edge index)
+
+    @classmethod
+    def from_host(cls, kmers_chars: np.ndarray, ids: np.ndarray,
+                  device=None, bits: int = 4) -> "DeviceKmerIndex":
+        """(N, K) edge codes and their ids -> the index on ``device`` (the
+        card unless "cpu"): keys packed in BOSS order, rows in the stable
+        lexicographic order of the JAX ``from_host``'s ``np.lexsort``,
+        sorted where they go (``packing.lexsort_rows``: kernel D2 on the
+        card) as pairs of words, one 64-bit digit a pair."""
+        from ..device import resolve_device
+        from ..kmer.packing import lexsort_rows
+        keys = pack_kmers32(np.asarray(kmers_chars), bits)
+        dev = resolve_device(device)
+        N, W = keys.shape
+        pairs = np.zeros((N, -(-W // 2) * 2), np.uint64)
+        pairs[:, :W] = keys
+        order = lexsort_rows((pairs[:, 0::2] << np.uint64(32))
+                             | pairs[:, 1::2], dev)
+        return cls(np_words(keys[order]).to(dev),
+                   torch.from_numpy(np.asarray(ids)[order].astype(np.int32))
+                   .to(dev))
+
+    @property
+    def n(self) -> int:
+        return self.keys.shape[0]
+
+    def lookup(self, queries: torch.Tensor) -> torch.Tensor:
+        """(Q, W32) int32 packed queries -> (Q,) int32 ids; 0 where
+        absent."""
+        return kmer_lookup(self.keys, self.ids, queries)
+
+
+def kmer_lookup_plain(keys: torch.Tensor, ids: torch.Tensor,
+                      queries: torch.Tensor,
+                      chunk: int = 1 << 16) -> torch.Tensor:
+    """Plain version of K1, the JAX ``_kmer_lookup`` (ops.py:312-332)
+    ``chunk`` queries at a time: ``_ceil_log2(N + 1)`` halvings with mid
+    clipped to [0, N - 1], then the equality test at the clipped lower
+    bound."""
+    N, Q = keys.shape[0], queries.shape[0]
+    out = torch.zeros(Q, dtype=torch.int32, device=queries.device)
+    if N == 0:
+        return out
+    k64 = to_u64(keys)
+    for lo0 in range(0, Q, chunk):
+        q = to_u64(queries[lo0: lo0 + chunk])
+        lo = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+        hi = torch.full_like(lo, N)
+        for _ in range(_ceil_log2(N + 1)):
+            mid = (lo + hi) >> 1
+            less = _rows_less(k64[mid.clamp(0, N - 1)], q)
+            lo = torch.where(less, mid + 1, lo)
+            hi = torch.where(less, hi, mid)
+        pos = lo.clamp(0, N - 1)
+        found = (lo < N) & torch.all(k64[pos] == q, dim=-1)
+        out[lo0: lo0 + chunk] = torch.where(found, ids[pos], 0)
+    return out
+
+
+def kmer_lookup(keys: torch.Tensor, ids: torch.Tensor,
+                queries: torch.Tensor) -> torch.Tensor:
+    """K1: (N, W) int32 sorted keys, (N,) int32 ids, (Q, W) int32 queries
+    -> (Q,) int32 ids (0 = absent).  An empty index answers 0 everywhere
+    (JAX's gather refuses an empty table; 0 is its found test's answer).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/kmer_lookup.cu`` or raises."""
+    dev = queries.device
+    for name, t in (("keys", keys), ("queries", queries)):
+        _check_words(name, t, dev)
+    N, W = keys.shape
+    if ids.dtype != torch.int32 or ids.shape != (N,) or ids.device != dev \
+            or not ids.is_contiguous():
+        raise ValueError(f"ids must be a contiguous ({N},) int32 tensor on "
+                         f"{dev}")
+    if queries.shape[1] != W or W < 1:
+        raise ValueError(f"queries of {queries.shape[1]} words against keys "
+                         f"of {W}")
+    Q = queries.shape[0]
+    if dev.type == "cpu":
+        return kmer_lookup_plain(keys, ids, queries)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.zeros(Q, dtype=torch.int32, device=dev)
+    if Q == 0 or N == 0:
+        return out
+    if N >= 2 ** 31:
+        raise ValueError(f"{N} keys: the index takes fewer than 2^31")
+    fn = _build.function("kmer_lookup", "mg_kmer_lookup",
+                         [_P, _P, _P, _P, _L, _L, _I, _I, _P])
+    _build.check(fn(keys.data_ptr(), ids.data_ptr(), queries.data_ptr(),
+                    out.data_ptr(), N, Q, W, _ceil_log2(N + 1),
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "kmer_lookup")
+    _build.count(kmer_lookup)
+    return out
+
+
+kmer_lookup.launches = 0
+
+
+# --------------------------------------------------------------------------
+# DeviceBOSS: blocked rank/select navigation (kernels K2 and K3)
+# --------------------------------------------------------------------------
+
+BLOCK = 128      # entries of a rank/select block
+
+
+@dataclass
+class DeviceBOSS:
+    """The BOSS table with 128-wide blocked rank/select directories
+    (``DeviceBOSS``, JAX ops.py:497-662), in the JAX layout.  Its rank and
+    select primitives are kernel K2 (``boss_rank_select``); ``index``,
+    ``pick_edge`` and ``map_kmers`` kernel K3 (``boss_map``).  Ranks take
+    i >= 0 and node codes are non-negative (a negative code counts as
+    outside the alphabet)."""
+
+    W_blocks: torch.Tensor     # (nb, 128) int8: W padded with -1
+    cum_W: torch.Tensor        # (nb + 1, 2 alph) int32 counts before a block
+    last_blocks: torch.Tensor  # (nb, 128) int8
+    cum_last: torch.Tensor     # (nb + 1,) int32
+    F: torch.Tensor            # (alph,) int32
+    NF: torch.Tensor           # (alph,) int32
+    valid: torch.Tensor        # (M,) int8
+    M: int                     # table size (num_edges + 1)
+    alph: int
+    k: int
+
+    @classmethod
+    def from_host(cls, boss, device=None) -> "DeviceBOSS":
+        """A host BOSS -> its directories on ``device`` (the card unless
+        "cpu"): the arrays of the JAX ``from_host``."""
+        from ..device import resolve_device
+        dev = resolve_device(device)
+        M, a = len(boss.W), boss.alph_size
+        nb = _ceil_div(M, BLOCK)
+        Wp = np.full(nb * BLOCK, -1, dtype=np.int8)
+        Wp[:M] = boss.W.astype(np.int8)
+        lp = np.zeros(nb * BLOCK, dtype=np.int8)
+        lp[:M] = boss.last.astype(np.int8)
+        # counts of each value a block, by one bincount over (block, value)
+        per_block = np.bincount(
+            np.arange(M, dtype=np.int64) // BLOCK * (2 * a)
+            + boss.W.astype(np.int64), minlength=nb * 2 * a
+        ).reshape(nb, 2 * a)
+        cum_W = np.zeros((nb + 1, 2 * a), dtype=np.int32)
+        cum_W[1:] = np.cumsum(per_block, axis=0)
+        cum_last = np.zeros(nb + 1, dtype=np.int32)
+        cum_last[1:] = np.cumsum(lp.reshape(nb, BLOCK).sum(axis=1,
+                                                           dtype=np.int64))
+
+        def up(x, dtype):
+            return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)) \
+                .to(dev)
+        return cls(up(Wp.reshape(nb, BLOCK), np.int8), up(cum_W, np.int32),
+                   up(lp.reshape(nb, BLOCK), np.int8),
+                   up(cum_last, np.int32), up(boss.F, np.int32),
+                   up(boss.NF, np.int32), up(boss.valid, np.int8), M, a,
+                   boss.k)
+
+    @property
+    def nb(self) -> int:
+        return self.W_blocks.shape[0]
+
+    # -- the kernels' entry points -----------------------------------------
+    def rank_last(self, i: torch.Tensor) -> torch.Tensor:
+        """(Q,) int32 -> set bits of last[0..i]."""
+        return boss_rank_select(self, "rank_last", i)
+
+    def rank_W(self, i: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """Count of raw value c in W[1..i] (matches BOSS::rank_W)."""
+        return boss_rank_select(self, "rank_W", i, c)
+
+    def select_last(self, r: torch.Tensor) -> torch.Tensor:
+        """Position of the r-th set bit of last; 0 for r <= 0."""
+        return boss_rank_select(self, "select_last", r)
+
+    def select_W(self, c: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        """Position of the r-th occurrence of raw value c in W[1..]."""
+        return boss_rank_select(self, "select_W", c, r)
+
+    def index(self, nodes: torch.Tensor) -> torch.Tensor:
+        """(Q, k) int32 node codes -> last-edge index a node (0 =
+        absent)."""
+        return boss_map(self, "index", nodes)
+
+    def pick_edge(self, edge: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """Edge with label c (or c + alph) out of the node ending at
+        ``edge``; 0 if none."""
+        return boss_map(self, "pick_edge", edge, c)
+
+    def map_kmers(self, kmers: torch.Tensor) -> torch.Tensor:
+        """(Q, k + 1) int32 edge strings -> BOSS edge ids (0 = absent)."""
+        return boss_map(self, "map_kmers", kmers)
+
+    # -- plain PyTorch versions: the JAX bodies, gathers clipped as XLA's --
+    def _rank_last_plain(self, i):
+        i = i.long().clamp(min=0)
+        blk = i >> 7
+        row = self.last_blocks[blk.clamp(max=self.nb - 1)].long()
+        j = torch.arange(BLOCK, device=i.device)
+        cnt = torch.where(j <= (i & 127)[:, None], row, 0).sum(dim=-1)
+        return self.cum_last[blk.clamp(max=self.nb)].long() + cnt
+
+    def _rank_W_plain(self, i, c):
+        i, c = i.long().clamp(min=0), c.long()
+        blk = i >> 7
+        row = self.W_blocks[blk.clamp(max=self.nb - 1)]
+        j = torch.arange(BLOCK, device=i.device)
+        eq = (row == c.to(torch.int8)[:, None]) & (j <= (i & 127)[:, None])
+        base = self.cum_W[blk.clamp(max=self.nb),
+                          c.clamp(0, 2 * self.alph - 1)].long()
+        return base + eq.sum(dim=-1) - (c == 0).long()
+
+    def _select_block(self, cum_col_gather, r):
+        """Binary search: the first block with cum[blk + 1] >= r (the read
+        clipped to nb); ``cum_col_gather`` reads a cum column."""
+        nb = self.nb
+        lo = torch.zeros_like(r)
+        hi = torch.full_like(r, nb)
+        for _ in range(_ceil_log2(nb + 1)):
+            mid = (lo + hi) >> 1
+            ge = cum_col_gather((mid + 1).clamp(max=nb)) >= r
+            hi = torch.where(ge, mid, hi)
+            lo = torch.where(ge, lo, mid + 1)
+        return lo
+
+    def _select_last_plain(self, r):
+        r = r.long()
+        blk = self._select_block(lambda b: self.cum_last[b].long(), r)
+        row = self.last_blocks[blk.clamp(0, self.nb - 1)].long()
+        base = self.cum_last[blk.clamp(max=self.nb)].long()
+        cs = torch.cumsum(row, dim=-1)
+        hit = (cs == (r - base)[:, None]) & (row > 0)
+        j = hit.to(torch.int8).argmax(dim=-1)
+        return torch.where(r > 0, blk * BLOCK + j, 0)
+
+    def _select_W_plain(self, c, r):
+        c = c.long()
+        r = r.long() + (c == 0).long()            # W[0] = 0 sentinel
+        col = c.clamp(0, 2 * self.alph - 1)
+        blk = self._select_block(lambda b: self.cum_W[b, col].long(), r)
+        row = self.W_blocks[blk.clamp(0, self.nb - 1)]
+        eq = row == c.to(torch.int8)[:, None]
+        cs = torch.cumsum(eq.long(), dim=-1)
+        base = self.cum_W[blk.clamp(max=self.nb), col].long()
+        hit = (cs == (r - base)[:, None]) & eq
+        return blk * BLOCK + hit.to(torch.int8).argmax(dim=-1)
+
+    def _index_plain(self, nodes):
+        nodes = nodes.long()
+        k, M = nodes.shape[1], self.M
+        alive = torch.all((nodes >= 0) & (nodes < self.alph), dim=1)
+        s0 = torch.where(alive, nodes[:, 0], 0)
+        F = self.F.long()
+        F_ext = torch.cat([F, F.new_tensor([M - 1])])
+        rl = torch.clamp(F[s0] + 1, max=M)
+        ru = F_ext[s0 + 1]
+        alive = alive & (rl <= ru)
+        for pos in range(1, k):
+            s = torch.where(alive, nodes[:, pos], 0)
+            rk_rl = self._rank_W_plain(torch.clamp(rl - 1, min=0), s) + 1
+            rk_ru = self._rank_W_plain(ru, s)
+            ok = alive & (rk_rl <= rk_ru)
+            nf = self.NF[s].long()
+            new_rl = self._select_last_plain(nf + rk_rl - 1) + 1
+            new_ru = self._select_last_plain(nf + rk_ru)
+            rl = torch.where(ok, new_rl, rl)
+            ru = torch.where(ok, new_ru, ru)
+            alive = ok
+        return torch.where(alive, ru, 0)
+
+    def _pick_edge_plain(self, edge, c):
+        edge, c = edge.long(), c.long()
+        r_last = self._rank_last_plain(torch.clamp(edge - 1, min=0))
+        begin = self._select_last_plain(r_last) + 1
+        res = torch.zeros_like(edge)
+        for base in (0, self.alph):
+            cand = c + base
+            lo = self._rank_W_plain(torch.clamp(begin - 1, min=0), cand)
+            hi = self._rank_W_plain(edge, cand)
+            pos = self._select_W_plain(cand, lo + 1)
+            res = torch.where((hi > lo) & (res == 0), pos, res)
+        return res
+
+    def _map_kmers_plain(self, kmers):
+        node_edge = self._index_plain(kmers[:, :-1])
+        label = kmers[:, -1].long()
+        picked = self._pick_edge_plain(node_edge, label)
+        ok = (node_edge > 0) & (label < self.alph) & (label > 0)
+        return torch.where(ok, picked, 0)
+
+
+# K2's operations and K3's modes, by the C entry points' codes
+RANK_SELECT_OPS = {"rank_last": 0, "rank_W": 1, "select_last": 2,
+                   "select_W": 3}
+MAP_MODES = {"index": 0, "pick_edge": 1, "map_kmers": 2}
+# queries a step of the plain versions (each holds (chunk, 128) rows)
+_PLAIN_CHUNK = {"cpu": 1 << 15, "cuda": 1 << 18}
+
+
+def _boss_inputs(t: DeviceBOSS, a: torch.Tensor, x, ndim: int):
+    """Check K2's or K3's inputs: int32, contiguous, on the table's device,
+    ``a`` of ``ndim`` dimensions and ``x`` (if given) of a's length."""
+    dev = t.W_blocks.device
+    for name, v in (("a", a), ("x", x)):
+        if v is None:
+            continue
+        if v.dtype != torch.int32 or not v.is_contiguous() \
+                or v.device != dev:
+            raise ValueError(f"{name} must be a contiguous int32 tensor on "
+                             f"{dev}")
+    if a.dim() != ndim or (x is not None and x.shape != (a.shape[0],)):
+        raise ValueError(f"bad shapes {tuple(a.shape)} / "
+                         f"{None if x is None else tuple(x.shape)}")
+    return dev
+
+
+def _plain_chunks(fn, Q: int, *args) -> torch.Tensor:
+    step = _PLAIN_CHUNK[args[0].device.type]
+    parts = [fn(*(v[lo: lo + step] for v in args))
+             for lo in range(0, Q, step)]
+    if not parts:
+        return torch.zeros(0, dtype=torch.int32, device=args[0].device)
+    return torch.cat(parts).to(torch.int32)
+
+
+def _boss_args(t: DeviceBOSS):
+    if t.W_blocks.data_ptr() % 16 or t.last_blocks.data_ptr() % 16 \
+            or t.M >= 2 ** 31 - BLOCK:
+        raise ValueError("K2/K3 need 16-byte aligned blocks and fewer than "
+                         "2^31 - 128 entries")
+    return [t.W_blocks.data_ptr(), t.last_blocks.data_ptr(),
+            t.cum_W.data_ptr(), t.cum_last.data_ptr(), t.F.data_ptr(),
+            t.NF.data_ptr(), t.nb, t.cum_W.shape[1], t.alph, t.M,
+            _ceil_log2(t.nb + 1)]
+
+
+_BOSS_ARGTYPES = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                  _L]
+
+
+def boss_rank_select_plain(t: DeviceBOSS, op: str, a: torch.Tensor,
+                           x: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K2 (the JAX bodies) on any device, a chunk of
+    queries at a time -> (Q,) int32."""
+    plain = (t._rank_last_plain, t._rank_W_plain, t._select_last_plain,
+             t._select_W_plain)[RANK_SELECT_OPS[op]]
+    return _plain_chunks(plain, a.shape[0], *([a] if x is None else [a, x]))
+
+
+def boss_map_plain(t: DeviceBOSS, mode: str, a: torch.Tensor,
+                   x: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K3 (the JAX bodies) on any device -> (Q,) int32."""
+    plain = (t._index_plain, t._pick_edge_plain,
+             t._map_kmers_plain)[MAP_MODES[mode]]
+    return _plain_chunks(plain, a.shape[0], *([a] if x is None else [a, x]))
+
+
+def boss_rank_select(t: DeviceBOSS, op: str, a: torch.Tensor,
+                     x: torch.Tensor | None = None) -> torch.Tensor:
+    """K2: one of ``RANK_SELECT_OPS`` over (Q,) int32 inputs -> (Q,) int32:
+    rank_last(i = a), rank_W(i = a, c = x), select_last(r = a),
+    select_W(c = a, r = x).
+
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/boss_walk.cu`` or raises."""
+    code = RANK_SELECT_OPS[op]
+    if (x is None) != (code in (0, 2)):
+        raise ValueError(f"{op} takes {1 if code in (0, 2) else 2} inputs")
+    dev = _boss_inputs(t, a, x, 1)
+    Q = a.shape[0]
+    if dev.type == "cpu":
+        return boss_rank_select_plain(t, op, a, x)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty(Q, dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out
+    fn = _build.function("boss_walk", "mg_boss_rank_select", _BOSS_ARGTYPES
+                         + [_P])
+    _build.check(fn(*_boss_args(t), code, a.data_ptr(),
+                    None if x is None else x.data_ptr(), out.data_ptr(), Q,
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "boss_rank_select")
+    _build.count(boss_rank_select)
+    return out
+
+
+boss_rank_select.launches = 0
+
+
+def boss_map(t: DeviceBOSS, mode: str, a: torch.Tensor,
+             x: torch.Tensor | None = None) -> torch.Tensor:
+    """K3: ``index`` of (Q, k) int32 node codes, ``pick_edge`` of (Q,)
+    edges ``a`` and labels ``x``, or ``map_kmers`` of (Q, k + 1) int32 edge
+    strings -> (Q,) int32 edge ids (0 = absent), one fused walk a query.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches
+    ``csrc/boss_walk.cu`` or raises."""
+    code = MAP_MODES[mode]
+    if (x is None) != (code != 1):
+        raise ValueError(f"{mode} takes {2 if code == 1 else 1} inputs")
+    dev = _boss_inputs(t, a, x, 1 if code == 1 else 2)
+    Q = a.shape[0]
+    width = a.shape[1] if code != 1 else 1
+    if width < (2 if code == 2 else 1):
+        raise ValueError(f"{mode} of rows of {width} codes")
+    if dev.type == "cpu":
+        return boss_map_plain(t, mode, a, x)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty(Q, dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out
+    fn = _build.function("boss_walk", "mg_boss_map", _BOSS_ARGTYPES
+                         + [_I, _P])
+    _build.check(fn(*_boss_args(t), code, a.data_ptr(),
+                    None if x is None else x.data_ptr(), out.data_ptr(), Q,
+                    width, torch.cuda.current_stream(dev).cuda_stream),
+                 "boss_map")
+    _build.count(boss_map)
+    return out
+
+
+boss_map.launches = 0

@@ -2884,3 +2884,154 @@ def test_annotate_kernels_match_plain(cuda, tmp_path, mode):
         out = real(k, bits, payload)
         want = db.radix_sort_plain(k, bits, payload)
         assert all(torch.equal(x, y) for x, y in zip(out, want))
+
+
+# --------------------------------------------------------------------------
+# K1-K3 (succinct/ops.py: DeviceKmerIndex, DeviceBOSS) and kernel A's shard
+# window
+# --------------------------------------------------------------------------
+
+def _boss_graph(k, seed, alphabet="DNA", n=6, length=900):
+    rng = np.random.default_rng(seed)
+    letters = "ACGT" if alphabet == "DNA" else "ACDEFGHIKLMNPQRSTVWY"
+    seqs = ["".join(rng.choice(list(letters), size=length)).encode()
+            for _ in range(n)]
+    return DBGSuccinct.build(seqs, k, alphabet=alphabet, device="cpu"), seqs
+
+
+@pytest.mark.parametrize("W", [1, 2, 4, 8, 9, 12])
+def test_kmer_lookup_kernel_matches_plain(cuda, W):
+    """K1 against its plain version: sorted keys with duplicates and the
+    all-ones key, hits, near misses, all-ones and all-zero queries; an
+    index of one key and an empty one."""
+    rng = np.random.default_rng(700 + W)
+    N = 5000
+    keys = rng.integers(0, 6, (N, W)).astype(np.uint32) << np.uint32(29)
+    keys[:, -1] |= rng.integers(0, 2 ** 32, N, dtype=np.uint64).astype(
+        np.uint32)
+    keys[-1] = np.uint32(0xFFFFFFFF)
+    keys = keys[np.lexsort(tuple(keys[:, w] for w in range(W - 1, -1, -1)))]
+    ids = torch.from_numpy(rng.integers(1, 2 ** 31 - 1, N).astype(np.int32))
+    near = keys[rng.integers(0, N, 3000)].copy()
+    near[:, -1] += np.uint32(1)
+    q = np.concatenate([keys[rng.integers(0, N, 3000)], near,
+                        np.full((1, W), 0xFFFFFFFF, np.uint32),
+                        np.zeros((1, W), np.uint32)])
+    kt, qt = np_words(keys), np_words(q)
+    for n in (N, 1, 0):
+        want = ops.kmer_lookup(kt[:n].contiguous(), ids[:n].contiguous(), qt)
+        before = ops.kmer_lookup.launches
+        got = ops.kmer_lookup(kt[:n].contiguous().to(cuda),
+                              ids[:n].contiguous().to(cuda), qt.to(cuda))
+        assert torch.equal(got.cpu(), want), n
+        assert ops.kmer_lookup.launches == before + (n > 0)
+
+
+def test_kmer_index_on_the_card(cuda):
+    g, seqs = _boss_graph(31, 71)
+    boss = g.boss
+    ve = np.flatnonzero(boss.valid)
+    chars = boss.get_edge_seq(ve)
+    idx = ops.DeviceKmerIndex.from_host(chars, ve, device=cuda)
+    cpu = ops.DeviceKmerIndex.from_host(chars, ve, device="cpu")
+    q = ops.pack_kmers32(np.concatenate([chars[::3], np.random.default_rng(
+        1).integers(1, 5, (2000, chars.shape[1])).astype(np.uint8)]))
+    got = idx.lookup(np_words(q).to(cuda)).cpu()
+    assert torch.equal(got, cpu.lookup(np_words(q)))
+    assert torch.equal(got[: len(chars[::3])],
+                       torch.from_numpy(ve[::3].astype(np.int32)))
+
+
+@pytest.mark.parametrize("k,alphabet", [(2, "DNA"), (15, "DNA"), (31, "DNA"),
+                                        (8, "Protein")])
+def test_boss_rank_select_kernel_matches_plain(cuda, k, alphabet):
+    """K2's four operations against their plain versions: block edges,
+    random places and values, ranks <= 0 and past the last entry."""
+    g, _ = _boss_graph(k, 72 + k, alphabet)
+    cpu = ops.DeviceBOSS.from_host(g.boss, device="cpu")
+    dev = ops.DeviceBOSS.from_host(g.boss, device=cuda)
+    rng = np.random.default_rng(k)
+    M, A2 = cpu.M, 2 * cpu.alph
+    i = np.concatenate([[0, M - 1, 127, 128], rng.integers(0, M, 20000)])
+    c = rng.integers(0, A2, len(i))
+    r = np.concatenate([[-2, 0, 1], rng.integers(1, M + 300, len(i) - 3)])
+    it, ct, rt = (torch.from_numpy(x.astype(np.int32)) for x in (i, c, r))
+    for op, args in (("rank_last", (it,)), ("rank_W", (it, ct)),
+                     ("select_last", (rt,)), ("select_W", (ct, rt))):
+        want = ops.boss_rank_select(cpu, op, *args)
+        before = ops.boss_rank_select.launches
+        got = ops.boss_rank_select(dev, op, *(a.to(cuda) for a in args))
+        assert torch.equal(got.cpu(), want), op
+        assert ops.boss_rank_select.launches == before + 1
+
+
+@pytest.mark.parametrize("k,alphabet", [(2, "DNA"), (15, "DNA"), (31, "DNA"),
+                                        (8, "Protein")])
+def test_boss_map_kernel_matches_plain(cuda, k, alphabet):
+    """K3's index, pick_edge and map_kmers against their plain versions and
+    the host BOSS: the graph's own windows, random strings, codes outside
+    the alphabet, labels 0 and >= alph."""
+    g, seqs = _boss_graph(k, 72 + k, alphabet)
+    boss = g.boss
+    cpu = ops.DeviceBOSS.from_host(boss, device="cpu")
+    dev = ops.DeviceBOSS.from_host(boss, device=cuda)
+    rng = np.random.default_rng(k + 1)
+    A, K1 = boss.alph_size, boss.k + 1
+    ve = np.flatnonzero(boss.valid)
+    rows = np.concatenate([
+        boss.get_edge_seq(ve[rng.integers(0, len(ve), 4000)]),
+        rng.integers(1, A, (4000, K1)), rng.integers(0, A + 3, (2000, K1))
+    ]).astype(np.int32)
+    rt = torch.from_numpy(rows)
+    want = ops.boss_map(cpu, "map_kmers", rt)
+    before = ops.boss_map.launches
+    got = ops.boss_map(dev, "map_kmers", rt.to(cuda))
+    assert ops.boss_map.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    # the host BOSS also maps a last code of 0; the first 8,000 rows hold
+    # codes 1 .. alph - 1 only
+    np.testing.assert_array_equal(got[:8000].cpu().numpy(),
+                                  boss.map_to_edges_batch(rows[:8000]))
+    assert (got[:4000] > 0).all()
+    nodes = rt[:, :-1].contiguous()
+    edges = ops.boss_map(cpu, "index", nodes)
+    assert torch.equal(ops.boss_map(dev, "index", nodes.to(cuda)).cpu(),
+                       edges)
+    lab = torch.from_numpy(rng.integers(0, A + 2, len(rows)).astype(np.int32))
+    assert torch.equal(
+        ops.boss_map(dev, "pick_edge", edges.to(cuda), lab.to(cuda)).cpu(),
+        ops.boss_map(cpu, "pick_edge", edges, lab))
+
+
+@pytest.mark.parametrize("model,W", [(1, 4), (2, 4), (3, 2), (4, 20)])
+def test_key_lookup_shard_window_matches_plain(cuda, model, W):
+    """Kernel A on each shard's window of bucket rows (the sharded query's
+    probe) against its plain version: the shards' answers are disjoint and
+    their max is the whole table's lookup."""
+    rng = np.random.default_rng(90 + model)
+    keys = np.unique(rng.integers(0, 15, (3000, 8 * W)).astype(np.uint8),
+                     axis=0)
+    packed = ops.pack_codes32(keys)
+    table = ops.DeviceHashIndex.build_table(packed, np.arange(
+        1, len(packed) + 1, dtype=np.uint32))
+    nb = table.shape[0]
+    per = -(-nb // model)
+    full = np.full((per * model, table.shape[1]), 0xFFFFFFFF, np.uint32)
+    full[:nb] = table
+    q = np.concatenate([packed[::2], ops.pack_codes32(
+        rng.integers(0, 15, (500, 8 * W)).astype(np.uint8))])
+    qt = np_words(q)
+    whole = ops.key_lookup(qt.to(cuda), np_words(table).to(cuda)).cpu()
+    best = torch.zeros_like(whole)
+    for i in range(model):
+        shard = np_words(full[i * per: (i + 1) * per])
+        want = ops.key_lookup(qt, shard, n_hash=nb, row0=i * per)
+        before = ops.key_lookup.launches
+        got = ops.key_lookup(qt.to(cuda), shard.to(cuda), n_hash=nb,
+                             row0=i * per).cpu()
+        assert ops.key_lookup.launches == before + 1
+        assert torch.equal(got, want), i
+        assert not bool(((got > 0) & (best > 0)).any())
+        best = torch.maximum(best, got)
+    assert torch.equal(best, whole)
+    assert (whole[: len(packed[::2])] > 0).all()
